@@ -1,0 +1,5 @@
+from .config import PianoBartConfig, tiny_config
+from .pianobart import PianoBart, PianoBartLM, attention_mask_from_bars
+
+__all__ = ["PianoBartConfig", "tiny_config", "PianoBart", "PianoBartLM",
+           "attention_mask_from_bars"]

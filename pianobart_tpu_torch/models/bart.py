@@ -1,0 +1,226 @@
+"""BART encoder-decoder trunk (``pianobart_tpu/models/bart.py``).
+
+HF-Bart numerics: learned positional embeddings with offset 2,
+``layernorm_embedding`` after input+pos, post-LN residual blocks, exact-erf
+GELU FFN, q scaled by ``head_dim**-0.5``, additive padding/causal masks.
+Activations run in ``cfg.dtype``; LayerNorm statistics and parameters are
+f32.  The decoder takes an explicit KV cache for incremental decoding.
+
+Only the deterministic (eval) forward is here; dropout comes with the
+training path.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .config import PianoBartConfig
+from ..ops.attention import dot_product_attention
+
+KVCache = Dict[str, Any]
+
+LN_EPS = 1e-5
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` semantics: f32 statistics with the fast
+    variance ``E[x^2] - mean^2`` clamped at 0 (a negative round-off variance
+    would give NaN), ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast
+    to ``dtype``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + LN_EPS) * weight.float()
+    return ((xf - mean) * mul + bias.float()).to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 parameters (the reference casts them to f32)."""
+
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.weight = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.bias = nn.Parameter(torch.zeros(cfg.d_model, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.dtype)
+
+
+class ResidualDropoutLN(LayerNorm):
+    """``LayerNorm(residual + dropout(h))``, the tail of every sublayer;
+    deterministic path (no dropout)."""
+
+    def forward(self, residual: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return layer_norm(residual + h, self.weight, self.bias, self.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """HF-Bart-compatible MHA with an optional explicit KV cache."""
+
+    def __init__(self, cfg: PianoBartConfig, causal: bool = False, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.causal = causal
+        D = cfg.d_model
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, nn.Linear(D, D, dtype=cfg.dtype, device=device))
+
+    def forward(
+        self,
+        x_q: torch.Tensor,                        # (B, Sq, D)
+        x_kv: torch.Tensor,                       # (B, Skv, D)
+        kv_mask: Optional[torch.Tensor] = None,   # (B, Skv) 1=attend
+        cache: Optional[KVCache] = None,
+        cache_index: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        cfg = self.cfg
+        B, Sq, D = x_q.shape
+        H, Dh = cfg.num_heads, cfg.head_dim
+
+        def heads(x):
+            return x.view(x.shape[0], x.shape[1], H, Dh)
+
+        q = heads(self.q_proj(x_q)) * (Dh ** -0.5)
+        use_cached_kv = cache is not None and "k" in cache and cache_index is None
+        if use_cached_kv:
+            # cross-attention during decode: keys/values precomputed
+            k, v = cache["k"], cache["v"]
+        else:
+            k = heads(self.k_proj(x_kv))
+            v = heads(self.v_proj(x_kv))
+
+        new_cache: Optional[KVCache] = None
+        if cache is not None and not use_cached_kv and cache_index is None:
+            # cache build pass (cross-attention prefill): encoder K/V are
+            # computed once and reused every decode step
+            new_cache = {"k": k, "v": v}
+        if cache_index is not None:
+            # incremental decode: write this step's K/V at cache_index.  The
+            # write goes IN PLACE into the preallocated cache (the reference
+            # returns an updated copy); callers hand the same dict back.
+            cache["k"][:, cache_index:cache_index + Sq] = k
+            cache["v"][:, cache_index:cache_index + Sq] = v
+            k, v = cache["k"], cache["v"]
+            new_cache = cache
+            pos = torch.arange(k.shape[1], device=k.device)
+            step_mask = (pos <= cache_index)[None, :]  # causal via cache index
+            kv_mask = step_mask if kv_mask is None else kv_mask * step_mask
+        elif use_cached_kv:
+            new_cache = cache
+
+        out = dot_product_attention(
+            q, k, v, kv_mask=kv_mask,
+            causal=self.causal and cache_index is None,
+            use_flash=cfg.use_flash_attention)
+        return self.out_proj(out.reshape(B, Sq, D)), new_cache
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.d_model, cfg.ffn_dim, dtype=cfg.dtype, device=device)
+        self.fc2 = nn.Linear(cfg.ffn_dim, cfg.d_model, dtype=cfg.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(cfg, device=device)
+        self.self_attn_layer_norm = ResidualDropoutLN(cfg, device)
+        self.ffn = FeedForward(cfg, device)
+        self.final_layer_norm = ResidualDropoutLN(cfg, device)
+
+    def forward(self, x, pad_mask):
+        h, _ = self.self_attn(x, x, kv_mask=pad_mask)
+        x = self.self_attn_layer_norm(x, h)
+        return self.final_layer_norm(x, self.ffn(x))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(cfg, causal=True, device=device)
+        self.self_attn_layer_norm = ResidualDropoutLN(cfg, device)
+        self.cross_attn = MultiHeadAttention(cfg, device=device)
+        self.cross_attn_layer_norm = ResidualDropoutLN(cfg, device)
+        self.ffn = FeedForward(cfg, device)
+        self.final_layer_norm = ResidualDropoutLN(cfg, device)
+
+    def forward(self, x, enc_out, self_mask, enc_mask, cache=None,
+                cache_index=None):
+        h, new_self = self.self_attn(
+            x, x, kv_mask=self_mask,
+            cache=None if cache is None else cache.get("self"),
+            cache_index=cache_index)
+        x = self.self_attn_layer_norm(x, h)
+        h, new_cross = self.cross_attn(
+            x, enc_out, kv_mask=enc_mask,
+            cache=None if cache is None else cache.get("cross"))
+        x = self.cross_attn_layer_norm(x, h)
+        x = self.final_layer_norm(x, self.ffn(x))
+        new_cache = None
+        if new_self is not None or new_cross is not None:
+            new_cache = {"self": new_self, "cross": new_cross}
+        return x, new_cache
+
+
+class PositionalEmbedding(nn.Module):
+    """HF BartLearnedPositionalEmbedding: table row = position + offset."""
+
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.offset = cfg.pos_offset
+        # held in the compute dtype: the reference casts the slice to it
+        self.embedding = nn.Parameter(torch.empty(
+            cfg.max_len + cfg.pos_offset, cfg.d_model, dtype=cfg.dtype,
+            device=device))
+
+    def forward(self, seq_len: int, start: int = 0) -> torch.Tensor:
+        return self.embedding[self.offset + start:self.offset + start + seq_len]
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.embed_positions = PositionalEmbedding(cfg, device)
+        self.layernorm_embedding = LayerNorm(cfg, device)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, device)
+                                    for _ in range(cfg.encoder_layers))
+
+    def forward(self, inputs_embeds, pad_mask=None):
+        x = inputs_embeds + self.embed_positions(inputs_embeds.shape[1])
+        x = self.layernorm_embedding(x)
+        for layer in self.layers:
+            x = layer(x, pad_mask)
+        return x
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.embed_positions = PositionalEmbedding(cfg, device)
+        self.layernorm_embedding = LayerNorm(cfg, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+                                    for _ in range(cfg.decoder_layers))
+
+    def forward(self, inputs_embeds, enc_out, self_mask=None, enc_mask=None,
+                cache=None, cache_index=None):
+        start = 0 if cache_index is None else cache_index
+        x = inputs_embeds + self.embed_positions(inputs_embeds.shape[1], start)
+        x = self.layernorm_embedding(x)
+        new_cache = {}
+        for i, layer in enumerate(self.layers):
+            x, lc = layer(x, enc_out, self_mask, enc_mask,
+                          None if cache is None else cache.get(f"layers_{i}"),
+                          cache_index)
+            if lc is not None:
+                new_cache[f"layers_{i}"] = lc
+        return x, (new_cache or None)

@@ -1,0 +1,62 @@
+"""Model configuration: the dataclass of ``pianobart_tpu/models/config.py``
+with ``torch.dtype`` fields.  The dropout rates, the ring/TP fields and remat
+come with the training and parallelism paths that use them.
+
+Defaults are the published PianoBART shape: d_model 1024, 8+8 layers, ffn
+2048, 8 heads, seq 1024, Octuple vocab 1280.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from .. import vocab as V
+
+
+@dataclasses.dataclass(frozen=True)
+class PianoBartConfig:
+    field_sizes: Tuple[int, ...] = V.FIELD_SIZES
+    emb_size: int = 256                    # per-field embedding width
+    d_model: int = 1024
+    encoder_layers: int = 8
+    decoder_layers: int = 8
+    ffn_dim: int = 2048
+    num_heads: int = 8
+    max_len: int = V.MAX_WINDOW
+    pos_offset: int = 2                    # HF Bart learned-pos-embedding offset
+    dtype: torch.dtype = torch.float32     # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32
+    use_flash_attention: bool = True       # flash kernel where eligible
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.field_sizes)
+
+    @property
+    def total_vocab(self) -> int:
+        return int(sum(self.field_sizes))
+
+    @property
+    def field_offsets(self) -> Tuple[int, ...]:
+        off, acc = [], 0
+        for s in self.field_sizes:
+            off.append(acc)
+            acc += s
+        return tuple(off)
+
+    def replace(self, **kw) -> "PianoBartConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def tiny_config(**kw) -> PianoBartConfig:
+    """Small config for tests (same as the JAX package's ``tiny_config``)."""
+    base = dict(d_model=64, emb_size=16, encoder_layers=2, decoder_layers=2,
+                ffn_dim=128, num_heads=4, max_len=32, use_flash_attention=False)
+    base.update(kw)
+    return PianoBartConfig(**base)

@@ -1,0 +1,93 @@
+"""PianoBart trunk and LM (``pianobart_tpu/models/pianobart.py``).
+
+* :class:`PianoBart` — fused octuple embeddings + BART encoder-decoder.
+* :class:`PianoBartLM` — trunk + fused LM head, with the decode-loop entry
+  points ``encode``, ``decode_step`` and ``build_cache``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .. import vocab as V
+from .bart import Decoder, Encoder
+from .config import PianoBartConfig
+from .embedding import OctupleEmbedding
+from .heads import OctupleLMHead
+
+
+def attention_mask_from_bars(ids: torch.Tensor) -> torch.Tensor:
+    """1.0 where the octuple is not padding (Bar field != Bar <PAD>)."""
+    return (ids[..., 0] != V.PAD[0]).float()
+
+
+class PianoBart(nn.Module):
+    """Encoder-decoder trunk over octuple ids."""
+
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = OctupleEmbedding(cfg, device)
+        self.encoder = Encoder(cfg, device)
+        self.decoder = Decoder(cfg, device)
+
+    def forward(self, encoder_ids, decoder_ids=None, encoder_mask=None,
+                decoder_mask=None):
+        enc_out = self.encode(encoder_ids, encoder_mask)
+        if decoder_ids is None:
+            return enc_out  # encoder-only path
+        dec_out, _ = self.decoder(self.embed(decoder_ids), enc_out,
+                                  self_mask=decoder_mask, enc_mask=encoder_mask)
+        return dec_out
+
+    def encode(self, encoder_ids, encoder_mask=None):
+        return self.encoder(self.embed(encoder_ids), encoder_mask)
+
+    def decode_step(self, decoder_ids_step, enc_out, encoder_mask, cache,
+                    cache_index):
+        """One incremental step: ids (B, 1, 8) + cache -> hidden, cache."""
+        return self.decoder(self.embed(decoder_ids_step), enc_out,
+                            self_mask=None, enc_mask=encoder_mask,
+                            cache=cache, cache_index=cache_index)
+
+    def build_cache(self, enc_out, batch: int, length: int):
+        """Zeroed self-attention K/V + empty cross slots (cross K/V are
+        filled on the first decode step and reused)."""
+        cfg = self.cfg
+        shape = (batch, length, cfg.num_heads, cfg.head_dim)
+
+        def zeros():
+            return {"k": torch.zeros(shape, dtype=cfg.dtype, device=enc_out.device),
+                    "v": torch.zeros(shape, dtype=cfg.dtype, device=enc_out.device)}
+        return {f"layers_{i}": {"self": zeros(), "cross": {}}
+                for i in range(cfg.decoder_layers)}
+
+
+class PianoBartLM(nn.Module):
+    """Trunk + fused octuple LM head (pretrain / generation model)."""
+
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.pianobart = PianoBart(cfg, device)
+        self.lm_head = OctupleLMHead(cfg, device)
+
+    def forward(self, encoder_ids, decoder_ids=None, encoder_mask=None,
+                decoder_mask=None):
+        hidden = self.pianobart(encoder_ids, decoder_ids, encoder_mask,
+                                decoder_mask)
+        return self.lm_head(hidden)  # fused logits (B, S, 1280)
+
+    def encode(self, encoder_ids, encoder_mask: Optional[torch.Tensor] = None):
+        return self.pianobart.encode(encoder_ids, encoder_mask)
+
+    def decode_step(self, decoder_ids_step, enc_out, encoder_mask, cache,
+                    cache_index):
+        hidden, new_cache = self.pianobart.decode_step(
+            decoder_ids_step, enc_out, encoder_mask, cache, cache_index)
+        return self.lm_head(hidden), new_cache
+
+    def build_cache(self, enc_out, batch, length):
+        return self.pianobart.build_cache(enc_out, batch, length)
