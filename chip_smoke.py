@@ -7,14 +7,24 @@ Phases, each printing its own lines; any failure exits non-zero with no
 result line:
 
 1. device report (name, count, ``nvidia-smi`` name and power limit);
-2. build the flash-forward kernel (K1) with ``nvcc`` from the repo's source;
-3. K1 against its plain PyTorch version at the serving shapes, with times of
-   the kernel, the plain version, the bound and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
-4. the serving slice at full flagship width (bf16, random weights from a
-   seed): ``GenerationService`` warmup over buckets {1, 2, 4, 8}, concurrent
-   requests from threads, output checks, timed batch-1 and batch-8
-   fixed-length continuations, and K1's launch count per decode batch.
+2. build the flash-forward (K1) and flash-backward (K2) kernels with
+   ``nvcc`` from the repo's sources, one process per source, with ptxas's
+   registers and spills;
+3. ``[flash]``: K1 against its plain PyTorch version at the serving and
+   training shapes, with times of the kernel, the plain version, the bound
+   and ``scaled_dot_product_attention`` (a yardstick the port never calls);
+4. ``[flash_bwd]``: K2 against its plain version at the flagship training
+   shape (B=32, S=1024, bf16, causal and not) and in f32, with the same
+   times (the yardstick is SDPA's backward);
+5. ``[serve]``: the serving slice at full flagship width (bf16, random
+   weights from a seed): ``GenerationService`` warmup over buckets
+   {1, 2, 4, 8}, concurrent requests from threads, output checks, timed
+   batch-1 and batch-8 fixed-length continuations, K1's launch count per
+   decode batch, and a profiled window of decode steps;
+6. ``[train]``: the flagship pretrain step: gradients through K1+K2 against
+   the plain attention path at B=4, then ``pretrain_step`` at B=32, S=1024
+   (bf16 compute, f32 parameters, dropout 0.1) with ms/step, tokens/s, MFU,
+   peak memory, K1/K2 launches per step (24 each) and a profiled window.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -31,10 +41,20 @@ import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
-PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SEED = 0
+
+
+def _reset_counts():
+    """Every kernel wrapper's launch count to 0 (just before a main path)."""
+    from pianobart_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def _read_counts():
+    from pianobart_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -67,15 +87,19 @@ def phase_device(state):
 
 
 def phase_build(state):
+    """K1 and K2 built together (one nvcc per source, started at once)."""
     from pianobart_tpu_torch.ops import flash
     t0 = time.perf_counter()
-    lib = flash.build_kernel()
-    print(f"[build] flash_fwd built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"({os.path.relpath(lib.path)})")
-    with open(lib.path + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or line.startswith("nvcc"):
-                print(f"[build]   {line.rstrip()}")
+    libs = flash.build_kernels()
+    print(f"[build] {', '.join(libs)} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, lib in libs.items():
+        print(f"[build] {name}: {os.path.relpath(lib.path)}")
+        with open(lib.path + ".log") as f:
+            for line in f:
+                if ("registers" in line or "spill" in line or "Compiling" in line
+                        or line.startswith("nvcc")):
+                    print(f"[build]   {line.strip()}")
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -91,20 +115,24 @@ def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
     return q.to(dtype), k.to(dtype), v.to(dtype), mask
 
 
-def _flash_bound_ms(q, mask, causal):
-    """Least time for the work these inputs need: 4*D*H FLOPs per kept
-    (row, key) pair, and q/k/v/o/mask/lse bytes moved once."""
+def _attn_bound_ms(q, mask, causal, products, arrays, row_vectors):
+    """Least time for attention work on these inputs: ``products`` products
+    of 2*D FLOPs per kept (row, key) pair per head, and ``arrays`` (B, S, H,
+    D) arrays, ``row_vectors`` (B, H, S) f32 vectors and the mask moved
+    once."""
     import torch
+    from pianobart_tpu_torch.utils.flops import (PEAK_BF16_H100, PEAK_F32_H100,
+                                                 roofline_ms)
     B, S, H, D = q.shape
     if causal:   # key c is kept by the rows r >= c
         pairs = (mask * (S - torch.arange(S, device=mask.device))).sum()
     else:
         pairs = mask.sum() * S
-    flops = 4.0 * D * H * float(pairs)
-    nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + B * H * S * 4
-    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
-    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES), (
-        "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes")
+    flops = products * 2.0 * D * H * float(pairs)
+    nbytes = (arrays * q.numel() * q.element_size() + mask.numel() * 4
+              + row_vectors * B * H * S * 4)
+    return roofline_ms(flops, nbytes, PEAK_BF16_H100 if q.dtype == torch.bfloat16
+                       else PEAK_F32_H100)
 
 
 def phase_flash(state):
@@ -120,6 +148,7 @@ def phase_flash(state):
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
     cases = [(1, False, torch.bfloat16), (8, False, torch.bfloat16),
              (1, True, torch.bfloat16), (8, True, torch.bfloat16),
+             (32, False, torch.bfloat16), (32, True, torch.bfloat16),
              (2, False, torch.float32)]
     for B, causal, dtype in cases:
         q, k, v, mask = _flash_case(B, causal, dtype)
@@ -141,7 +170,7 @@ def phase_flash(state):
                                      device="cuda").tril()
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=keep, scale=1.0))
-        bound_ms, bound_by = _flash_bound_ms(q, mask, causal)
+        bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 2, 4, 1)
         name = f"B={B} S=1024 H=8 D=128 {str(dtype)[6:]} causal={causal}"
         print(f"[flash] {name}: max|dO|={err_o:.3e} (tol {atol:g} + {rtol:g}|O|) "
               f"max|dlse|={err_l:.3e} (tol {tol_l:g}) kernel {ms:.4f} ms, "
@@ -149,10 +178,87 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if (B, causal, dtype) == (8, False, torch.bfloat16):  # the serving shape
+        if (B, causal, dtype) == (32, False, torch.bfloat16):  # the train shape
             state["k1"] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms)
+
+
+def phase_flash_bwd(state):
+    """K2 against flash_attention_bwd_reference at the flagship train shape."""
+    import torch
+    import torch.nn.functional as F
+    from pianobart_tpu_torch.ops.flash import (flash_attention_bwd,
+                                               flash_attention_bwd_reference,
+                                               flash_attention_fwd)
+    # Per element |d| <= atol*max|ref| + rtol*|ref|, and per output ||d|| <=
+    # ntol*||ref||.  bf16: the kernel rounds P and dS to bf16 as product
+    # operands and dQ/dK/dV to bf16 at the end (2^-9 relative each) where the
+    # plain version keeps f32; dQ = dS K sums terms of both signs (each row of
+    # dS sums to zero), so an entry can be far smaller than the terms whose
+    # rounding it carries, hence the part that scales with the tensor's
+    # largest entry.  That part is loose for the bulk of the rows (the largest
+    # entries sit in rows that see few keys), so the norm check holds the
+    # whole tensor: a lost kv tile or a coarser dS moves it far past 1e-2.
+    # f32: summation order and expf only.
+    tol = {torch.bfloat16: (1e-2, 1e-2, 1e-2), torch.float32: (1e-5, 1e-5, 1e-5)}
+    cases = [(32, False, torch.bfloat16), (32, True, torch.bfloat16),
+             (2, False, torch.float32)]
+    for B, causal, dtype in cases:
+        q, k, v, mask = _flash_case(B, causal, dtype)
+        mask[0, 1024 - 300:] = 0.0      # a second pad tail
+        out, lse = flash_attention_fwd(q, k, v, mask, causal)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+        got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_reference(q, k, v, mask, causal, out, lse, dout)
+        atol, rtol, ntol = tol[dtype]
+        errs, rels, ok = [], [], True
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            d = (a - b).abs()
+            errs.append(d.max().item())
+            rels.append((d.norm() / b.norm()).item())
+            ok = ok and bool((d <= atol * b.abs().max() + rtol * b.abs()).all())
+            ok = ok and rels[-1] <= ntol and bool(torch.isfinite(a).all())
+        del want
+        ms = _time_ms(lambda: flash_attention_bwd(q, k, v, mask, causal, out,
+                                                  lse, dout), iters=10)
+        plain_ms = _time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, mask, causal, out, lse, dout), iters=3, warmup=1)
+        # yardstick: SDPA forward+backward minus its forward (never used by the port)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        keep = (mask != 0)[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(1024, 1024, dtype=torch.bool,
+                                     device="cuda").tril()
+        dot = dout.transpose(1, 2)
+
+        def sdpa_fb():
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        def sdpa_f():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
+        lib_ms = _time_ms(sdpa_fb, iters=5) - _time_ms(sdpa_f, iters=5)
+        # S, dP, dV, dQ, dK; q, k, v, dO read and dQ, dK, dV written; lse, delta
+        bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 5, 7, 2)
+        name = f"B={B} S=1024 H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        print(f"[flash_bwd] {name}: max|d| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+              f"dv {errs[2]:.3e} (tol {atol:g}*max|ref| + {rtol:g}|ref|), "
+              f"||d||/||ref|| dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} "
+              f"(tol {ntol:g}), kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version: {name}")
+        if (B, causal, dtype) == (32, False, torch.bfloat16):  # the train shape
+            state["k2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms)
+        del q, k, v, out, lse, dout, got, qt, kt, vt
+        torch.cuda.empty_cache()
 
 
 def _intros(n, S, rng):
@@ -195,7 +301,10 @@ def phase_serve(state):
     from pianobart_tpu_torch.ops.flash import flash_attention_fwd
     from pianobart_tpu_torch.serve.app import GenerationService
 
-    cfg = PianoBartConfig(dtype=torch.bfloat16)
+    # serving holds bf16 weights, as GenerationService's default does
+    cfg = PianoBartConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()   # the kernel checks before are larger
     t0 = time.perf_counter()
     model = init_lm(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -208,7 +317,7 @@ def phase_serve(state):
     S = cfg.max_len
 
     # encoder through K1 vs the same weights on the plain attention path
-    plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda")
+    plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda").eval()
     plain.load_state_dict(model.state_dict())
     ids = torch.as_tensor(np.stack(_intros(2, S, rng)), device="cuda")
     mask = attention_mask_from_bars(ids)
@@ -247,15 +356,15 @@ def phase_serve(state):
 
     threads = [threading.Thread(target=client, args=(i,)) for i in range(len(intros))]
     served0 = len(svc.batch_sizes_served)
-    flash_attention_fwd.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
+    state.setdefault("launches", {})["serve"] = _read_counts()
     launches = flash_attention_fwd.launches
-    state["k1_launches"] = launches
     if any(t.is_alive() for t in threads) or any(r is None for r in results):
         raise AssertionError("a request was not served")
     batches = svc.batch_sizes_served[served0:]
@@ -297,8 +406,6 @@ def _where_time_goes(model, x, S, steps=64):
     by CUDA events, and a profiled window of decode steps for the device's
     busy share and its heaviest kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from pianobart_tpu_torch.decode import generate
     from pianobart_tpu_torch.models.pianobart import attention_mask_from_bars
     mask = attention_mask_from_bars(x)
@@ -308,11 +415,21 @@ def _where_time_goes(model, x, S, steps=64):
           f"(8 K1 launches inside)")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     generate(model, x, generator=gen, force_full=True, max_steps=8, device="cuda")
+    _profile_window("where", f"{steps} decode steps (encoder included) at B={x.shape[0]}",
+                    lambda: generate(model, x, generator=gen, force_full=True,
+                                     max_steps=steps, device="cuda"), steps)
+
+
+def _profile_window(tag, what, fn, steps):
+    """Run ``fn`` (``steps`` steps) under torch.profiler: the device's busy
+    share of the wall time, device ops per step, the heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(model, x, generator=gen, force_full=True, max_steps=steps,
-                 device="cuda")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_name, busy_us = {}, 0.0
@@ -323,16 +440,160 @@ def _where_time_goes(model, x, S, steps=64):
             n, t = per_name.get(e.name, (0, 0.0))
             per_name[e.name] = (n + 1, t + us)
     if not per_name:
-        print("[where] profiler saw no device events: busy share not measured")
-        return
+        print(f"[{tag}] profiler saw no device events: busy share not measured")
+        return None
     n_kernels = sum(n for n, _ in per_name.values())
-    print(f"[where] profiled {steps} decode steps (encoder included) at "
-          f"B={x.shape[0]}: wall {wall:.3f} s, device busy {busy_us / 1e6:.4f} s "
-          f"({100 * busy_us / 1e6 / wall:.1f}%, idle {100 - 100 * busy_us / 1e6 / wall:.1f}%), "
+    busy = busy_us / 1e6 / wall
+    print(f"[{tag}] profiled {what}: wall {wall:.3f} s, device busy "
+          f"{busy_us / 1e6:.4f} s ({100 * busy:.1f}%, idle {100 - 100 * busy:.1f}%), "
           f"{n_kernels} device ops = {n_kernels / steps:.0f} per step; "
           f"wall per step {1e3 * wall / steps:.2f} ms under the profiler")
-    for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"[where]   {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
+    for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
+    return busy
+
+
+def _pretrain_batch(B, S, rng):
+    """Clean pretrain windows: random content ids per field, bars ascending,
+    EOS last; every fourth window is a song's last, with a pad tail of S/8 to
+    3S/8 rows."""
+    import numpy as np
+    from pianobart_tpu_torch import vocab as V
+    x = np.zeros((B, S, 8), dtype=np.int64)
+    for f in range(8):
+        x[..., f] = rng.integers(0, V.TOKEN_BOUNDARY[f], (B, S))
+    x[..., 0] = np.sort(x[..., 0], axis=1)
+    for i in range(B):
+        end = S - ((S // 8) * (1 + (i // 4) % 3) if i % 4 == 3 else 0)
+        x[i, end - 1] = V.EOS
+        x[i, end:] = V.PAD
+    return x
+
+
+def _grad_groups(name):
+    """Parameter group of a parameter name, for the gradient check."""
+    parts = name.split(".")
+    if parts[1] in ("encoder", "decoder") and parts[2] == "layers":
+        sub = parts[4]
+        kind = ("norm" if "norm" in sub else "ffn" if sub == "ffn" else sub)
+        return f"{parts[1]}.{kind}"
+    if parts[0] == "lm_head":
+        return "lm_head"
+    return f"{parts[1]}.{parts[2]}"
+
+
+def _train_grad_check(cfg, rng, gen, B=4):
+    """Gradients of the flagship model through K1+K2 against the same
+    weights on the plain attention path, same corrupted batch, dropout off.
+    Relative error ||g - g_plain|| / ||g_plain|| per parameter group."""
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartLM
+    from pianobart_tpu_torch.ops.noise import corrupt_batch
+    from pianobart_tpu_torch.train.pretrain import _forward_loss
+    model = init_lm(cfg, seed=SEED, device="cuda", train=True)
+    plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    plain.train()
+    batch = torch.as_tensor(_pretrain_batch(B, cfg.max_len, rng), device="cuda")
+    corrupted, loss_mask = corrupt_batch(batch, gen)
+    losses, counts = [], []
+    for m in (model, plain):
+        _reset_counts()
+        total, _ = _forward_loss(m, batch, corrupted, loss_mask)
+        total.backward()
+        torch.cuda.synchronize()
+        losses.append(total.item())
+        counts.append(tuple(_read_counts().values()))
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    if counts != [(n_attn, n_attn), (0, 0)]:
+        raise AssertionError(f"K1/K2 launches (flash path, plain path): {counts}")
+    groups = {}
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        d, r = groups.setdefault(_grad_groups(name), [0.0, 0.0])
+        groups[_grad_groups(name)] = [d + (p.grad - q.grad).float().square().sum().item(),
+                                      r + q.grad.float().square().sum().item()]
+    # Both paths compute in bf16 and round at different places: K2 rounds P
+    # and dS to bf16 as operands, the plain path rounds the probabilities
+    # and the gradient that flows back through them; these differences
+    # compound over 8+8 layers.
+    tol = 5e-2
+    rels = {g: (d / r) ** 0.5 for g, (d, r) in groups.items()}
+    print(f"[train] grads via K1+K2 vs plain attention, B={B}, dropout off: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f}; |dg|/|g| per group (tol {tol:g}):")
+    for g, rel in sorted(rels.items()):
+        print(f"[train]   {g:24s} {rel:.3e}")
+    if not (max(rels.values()) <= tol and abs(losses[0] - losses[1]) <= 1e-2
+            * abs(losses[1])):
+        raise AssertionError("gradients through K1+K2 disagree with the plain path")
+    return n_attn
+
+
+def phase_train(state):
+    """The flagship pretrain step at B=32, S=1024: bf16 compute, f32
+    parameters, dropout 0.1, every attention through K1 and K2."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.ops.noise import corrupt_batch
+    from pianobart_tpu_torch.train.pretrain import pretrain_step
+    from pianobart_tpu_torch.train.state import create_train_state
+    from pianobart_tpu_torch.utils.flops import PEAK_BF16_H100, pretrain_step_flops
+
+    cfg = PianoBartConfig(dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_attn = _train_grad_check(cfg.replace(dropout=0.0), rng, gen)
+    torch.cuda.empty_cache()
+
+    B, S, warmup, steps = 32, cfg.max_len, 3, 10
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=SEED, device="cuda", train=True)
+    st = create_train_state(model)
+    batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
+    print(f"[train] flagship B={B} S={S} bf16 compute, f32 params, dropout "
+          f"{cfg.dropout}, AdamW lr 2e-5; init {time.perf_counter() - t0:.1f} s")
+    c_ms = _time_ms(lambda: corrupt_batch(batch, gen), iters=10)
+    print(f"[train] corrupt_batch B={B}: {c_ms:.3f} ms (CUDA events)")
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmup):
+        pretrain_step(st, batch, gen)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    per_step, metrics = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        before = _read_counts()
+        _, m = pretrain_step(st, batch, gen)
+        after = _read_counts()
+        per_step.append(tuple(after[k] - before[k] for k in after))
+        metrics.append((m["loss"], m["grad_norm"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state.setdefault("launches", {})["train"] = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [l.item() for l, _ in metrics]
+    norms = [g.item() for _, g in metrics]
+    model_flops, hw_flops = pretrain_step_flops(model.state_dict(), cfg, B, S)
+    step_s = wall / steps
+    print(f"[train] {steps} timed steps after {warmup} warm-up: {1e3 * step_s:.1f} ms/step, "
+          f"{B * S / step_s:.0f} tokens/s, model-FLOP MFU "
+          f"{100 * model_flops / step_s / PEAK_BF16_H100:.2f}% "
+          f"({model_flops / 1e12:.2f} TFLOP/step; hardware FLOPs "
+          f"{hw_flops / 1e12:.2f}) against {PEAK_BF16_H100 / 1e12:.0f} TFLOP/s; "
+          f"peak device memory {peak:.2f} GiB")
+    print(f"[train] loss per step {[round(x, 5) for x in losses]}")
+    print(f"[train] grad_norm per step {[round(x, 5) for x in norms]}")
+    print(f"[train] K1, K2 launches per step {per_step}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError("non-finite loss or grad_norm")
+    if any(k != (n_attn, n_attn) for k in per_step):
+        raise AssertionError(f"K1/K2 did not launch {n_attn} times each per step")
+    state["train"] = dict(ms=1e3 * step_s, peak_gib=peak)
+    _profile_window("train", f"2 pretrain steps at B={B}",
+                    lambda: [pretrain_step(st, batch, gen) for _ in range(2)], 2)
 
 
 def main() -> int:
@@ -350,8 +611,7 @@ def main() -> int:
         print("FAIL: pianobart_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
         return 1
     state = {}
-    for name, phase in (("device", phase_device), ("build", phase_build),
-                        ("flash", phase_flash), ("serve", phase_serve)):
+    for name, phase in PHASES:
         t0 = time.perf_counter()
         try:
             phase(state)
@@ -360,17 +620,32 @@ def main() -> int:
             print(f"FAIL: phase {name}", file=sys.stderr)
             return 1
         print(f"[{name}] phase ok in {time.perf_counter() - t0:.1f} s")
-    k1 = state["k1"]
     print(state["smi"])
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "pianobart_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "pianobart_tpu/ops/flash.py:173",
-        "launches": state["k1_launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        _kernel_record("flash_fwd", "pianobart_tpu/ops/flash.py:173", state["k1"],
+                       state["launches"], "flash_attention_fwd"),
+        _kernel_record("flash_bwd", "pianobart_tpu/ops/flash.py:351", state["k2"],
+                       state["launches"], "flash_attention_bwd")]}))
     print(json.dumps({"ok": True, "device": state["device"]}))
     return 0
+
+
+def _kernel_record(name, replaces, rec, launches, counter):
+    """One entry of the kernels line.  ``launches`` is the count on the
+    training path (this slice's main path); ``launches_by_path`` gives the
+    count of every main path, each read after its own run from 0."""
+    by_path = {path: counts[counter] for path, counts in launches.items()}
+    return {"name": name, "route": "cuda",
+            "source": f"pianobart_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": by_path["train"], "launches_by_path": by_path,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
+PHASES = (("device", phase_device), ("build", phase_build),
+          ("flash", phase_flash), ("flash_bwd", phase_flash_bwd),
+          ("serve", phase_serve), ("train", phase_train))
 
 
 if __name__ == "__main__":

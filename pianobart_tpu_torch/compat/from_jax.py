@@ -29,7 +29,7 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
         leaf = leaf.unbox()
     arr = np.asarray(leaf)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
-        arr = arr.astype(np.float32)    # load_state_dict casts to the model's dtype
+        arr = arr.astype(np.float32)    # load_state_dict casts to param_dtype
     return torch.tensor(arr)
 
 
@@ -60,12 +60,14 @@ def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
     return sd
 
 
-def init_lm(cfg: PianoBartConfig, seed: int = 0,
-            device: DeviceLike = None) -> PianoBartLM:
+def init_lm(cfg: PianoBartConfig, seed: int = 0, device: DeviceLike = None,
+            train: bool = False) -> PianoBartLM:
     """A ``PianoBartLM`` with random weights drawn as the flax initialisers
     draw them: normal(0.02) for dense kernels and positions, normal(1.0) for
     the embedding table, zero biases, unit LayerNorm scales.  The draw is
-    made on the CPU from ``seed``, so every device gets the same weights."""
+    made on the CPU in f32 from ``seed`` and cast to ``cfg.param_dtype``, so
+    every device gets the same weights.  Returned in eval mode, or in train
+    mode (dropout on) when ``train``."""
     model = PianoBartLM(cfg, device=resolve_device(device))
     gen = torch.Generator().manual_seed(seed)
 
@@ -84,4 +86,4 @@ def init_lm(cfg: PianoBartConfig, seed: int = 0,
                 normal_(mod.table, 1.0)
             elif isinstance(mod, PositionalEmbedding):
                 normal_(mod.embedding, 0.02)
-    return model.eval()
+    return model.train(train)

@@ -1,0 +1,96 @@
+// Pieces shared by the flash forward (flash_fwd.cu) and backward
+// (flash_bwd.cu) kernels: constants, bf16 packing, the mma.sync m16n8k16
+// product and the 16-byte tile load into padded shared memory.
+//
+// mma.sync.m16n8k16 fragment layout (g = lane / 4, t = lane % 4):
+//   A 16x16 row-major: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
+//                      a3 = A[g+8][2t+8..]
+//   B 16x8 col-major:  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
+//   C 16x8:            c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pbt {
+
+constexpr int HEAD_DIM = 128;
+constexpr float NEG_INF = -1e30f;
+constexpr int LDS = HEAD_DIM + 8;   // smem row pitch (bf16): no bank conflicts
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of a row-major smem tile T (pitch LDS); p = &T[row0 + g][k0 + 2t]
+__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* p) {
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
+}
+
+// A fragment from f32 accumulators c[2kk], c[2kk+1] (a 16x16 slab of C),
+// rounded to bf16: the product C . X with C kept in registers.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
+                                         const float hi[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// B = T^T for a row-major smem tile T whose rows are B's columns (n) and
+// whose columns are B's k: p = &T[n0 + g][k0 + 2t]
+__device__ __forceinline__ void mma_bt(float c[4], const uint32_t a[4],
+                                       const __nv_bfloat16* p) {
+  mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(p),
+           *reinterpret_cast<const uint32_t*>(p + 8));
+}
+
+// B = T for a row-major smem tile T whose rows are B's k and whose columns
+// are B's n: p = &T[k0 + 2t][n0 + g] (scalar gathers down two rows)
+__device__ __forceinline__ void mma_b(float c[4], const uint32_t a[4],
+                                      const __nv_bfloat16* p) {
+  mma_bf16(c, a, pack_pair(p[0], p[LDS]), pack_pair(p[8 * LDS], p[9 * LDS]));
+}
+
+// rows x 128 bf16 tile from (row stride ss) global memory into smem, 16 B a thread
+template <int THREADS>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long ss, int rows) {
+  constexpr int CHUNKS = HEAD_DIM / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
+    int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    *reinterpret_cast<uint4*>(dst + r * LDS + c) =
+        *reinterpret_cast<const uint4*>(src + r * ss + c);
+  }
+}
+
+// rows x 128 f32 tile into smem at row pitch `pitch`
+template <int THREADS>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long ss, int rows, int pitch) {
+  for (int i = threadIdx.x; i < rows * HEAD_DIM; i += THREADS) {
+    int r = i / HEAD_DIM, c = i % HEAD_DIM;
+    dst[r * pitch + c] = src[r * ss + c];
+  }
+}
+
+}  // namespace pbt

@@ -27,53 +27,18 @@
 // tensor-core rate), a cp.async/TMA pipeline that overlaps the next tile's
 // loads with this tile's math, ldmatrix for the fragments, and a persistent
 // schedule; loads here are synchronous and the CTA waits on each tile.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int HEAD_DIM = 128;
-constexpr float NEG_INF = -1e30f;
+using namespace pbt;
 
 // ---------------------------------------------------------------- bf16 / mma
 constexpr int BM = 64;              // q rows per CTA (16 per warp)
 constexpr int BN = 64;              // kv rows per tile
 constexpr int THREADS = 128;
-constexpr int LDS = HEAD_DIM + 8;   // smem row pitch (bf16): no bank conflicts
 constexpr size_t MMA_SMEM =
     3 * BM * LDS * sizeof(__nv_bfloat16) + BN * sizeof(int);
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows x 128 bf16 tile from (row stride ss) global memory into smem, 16 B a thread
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long ss, int rows) {
-  constexpr int CHUNKS = HEAD_DIM / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) =
-        *reinterpret_cast<const uint4*>(src + r * ss + c);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -96,7 +61,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
   const int wr = warp * 16;               // this warp's first row in the tile
 
-  load_tile_bf16(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, BM);
+  load_tile_bf16<THREADS>(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, BM);
 
   float m_i[2] = {NEG_INF, NEG_INF};  // rows g and g + 8
   float l_i[2] = {0.f, 0.f};          // this thread's partial row sums
@@ -111,8 +76,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BN;
     __syncthreads();  // previous tile fully consumed
-    load_tile_bf16(Ks, k + b * ksb + (long long)kv0 * kss + h * ksh, kss, BN);
-    load_tile_bf16(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, BN);
+    load_tile_bf16<THREADS>(Ks, k + b * ksb + (long long)kv0 * kss + h * ksh, kss, BN);
+    load_tile_bf16<THREADS>(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, BN);
     for (int i = threadIdx.x; i < BN; i += THREADS)
       Ms[i] = mask[(long long)b * Skv + kv0 + i];
     __syncthreads();

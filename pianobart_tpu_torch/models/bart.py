@@ -3,11 +3,15 @@
 HF-Bart numerics: learned positional embeddings with offset 2,
 ``layernorm_embedding`` after input+pos, post-LN residual blocks, exact-erf
 GELU FFN, q scaled by ``head_dim**-0.5``, additive padding/causal masks.
-Activations run in ``cfg.dtype``; LayerNorm statistics and parameters are
-f32.  The decoder takes an explicit KV cache for incremental decoding.
+Activations run in ``cfg.dtype``; parameters live in ``cfg.param_dtype`` and
+are cast to ``cfg.dtype`` where they are used; LayerNorm statistics are f32.
+The decoder takes an explicit KV cache for incremental decoding.
 
-Only the deterministic (eval) forward is here; dropout comes with the
-training path.
+Dropout follows the reference's unfused composition (``ResidualDropoutLN``,
+after the FFN's GELU, after ``layernorm_embedding``; the fused K4 path is off
+by default there).  It applies when the module is in training mode
+(``self.training``); its bits come from the ``generator`` passed down the
+forward.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from torch.nn import functional as F
 
 from .config import PianoBartConfig
 from ..ops.attention import dot_product_attention
+from ..ops.dropout import dropout
 
 KVCache = Dict[str, Any]
+Generator = Optional[torch.Generator]
 
 LN_EPS = 1e-5
 
@@ -30,32 +36,54 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """flax ``nn.LayerNorm`` semantics: f32 statistics with the fast
     variance ``E[x^2] - mean^2`` clamped at 0 (a negative round-off variance
     would give NaN), ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast
-    to ``dtype``."""
+    to ``dtype``.  The parameters join the f32 arithmetic by type promotion,
+    so bf16 parameters cost no separate cast."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + LN_EPS) * weight.float()
-    return ((xf - mean) * mul + bias.float()).to(dtype)
+    mul = torch.rsqrt(var + LN_EPS) * weight
+    return ((xf - mean) * mul + bias).to(dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with weights in ``param_dtype``, computing in ``dtype``
+    (flax ``Dense(dtype, param_dtype)``): input, weight and bias are cast to
+    ``dtype`` at use; a cast to the dtype a tensor already has is free."""
+
+    def __init__(self, d_in: int, d_out: int, cfg: PianoBartConfig, device=None):
+        super().__init__(d_in, d_out, dtype=cfg.param_dtype, device=device)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with f32 parameters (the reference casts them to f32)."""
+    """LayerNorm with ``param_dtype`` parameters and f32 statistics."""
 
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
         self.dtype = cfg.dtype
-        self.weight = nn.Parameter(torch.ones(cfg.d_model, device=device))
-        self.bias = nn.Parameter(torch.zeros(cfg.d_model, device=device))
+        self.weight = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.param_dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(cfg.d_model, dtype=cfg.param_dtype,
+                                             device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.dtype)
 
 
 class ResidualDropoutLN(LayerNorm):
-    """``LayerNorm(residual + dropout(h))``, the tail of every sublayer;
-    deterministic path (no dropout)."""
+    """``LayerNorm(residual + dropout(h))``, the tail of every sublayer."""
 
-    def forward(self, residual: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__(cfg, device)
+        self.rate = cfg.dropout
+
+    def forward(self, residual: torch.Tensor, h: torch.Tensor,
+                generator: Generator = None) -> torch.Tensor:
+        h = dropout(h, self.rate, generator, not self.training)
         return layer_norm(residual + h, self.weight, self.bias, self.dtype)
 
 
@@ -68,7 +96,7 @@ class MultiHeadAttention(nn.Module):
         self.causal = causal
         D = cfg.d_model
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, nn.Linear(D, D, dtype=cfg.dtype, device=device))
+            setattr(self, name, Dense(D, D, cfg, device))
 
     def forward(
         self,
@@ -77,6 +105,7 @@ class MultiHeadAttention(nn.Module):
         kv_mask: Optional[torch.Tensor] = None,   # (B, Skv) 1=attend
         cache: Optional[KVCache] = None,
         cache_index: Optional[int] = None,
+        generator: Generator = None,
     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         cfg = self.cfg
         B, Sq, D = x_q.shape
@@ -116,18 +145,21 @@ class MultiHeadAttention(nn.Module):
         out = dot_product_attention(
             q, k, v, kv_mask=kv_mask,
             causal=self.causal and cache_index is None,
-            use_flash=cfg.use_flash_attention)
+            dropout_rate=cfg.attention_dropout, deterministic=not self.training,
+            generator=generator, use_flash=cfg.use_flash_attention)
         return self.out_proj(out.reshape(B, Sq, D)), new_cache
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.d_model, cfg.ffn_dim, dtype=cfg.dtype, device=device)
-        self.fc2 = nn.Linear(cfg.ffn_dim, cfg.d_model, dtype=cfg.dtype, device=device)
+        self.rate = cfg.activation_dropout
+        self.fc1 = Dense(cfg.d_model, cfg.ffn_dim, cfg, device)
+        self.fc2 = Dense(cfg.ffn_dim, cfg.d_model, cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+    def forward(self, x: torch.Tensor, generator: Generator = None) -> torch.Tensor:
+        h = F.gelu(self.fc1(x), approximate="none")
+        return self.fc2(dropout(h, self.rate, generator, not self.training))
 
 
 class EncoderLayer(nn.Module):
@@ -138,10 +170,10 @@ class EncoderLayer(nn.Module):
         self.ffn = FeedForward(cfg, device)
         self.final_layer_norm = ResidualDropoutLN(cfg, device)
 
-    def forward(self, x, pad_mask):
-        h, _ = self.self_attn(x, x, kv_mask=pad_mask)
-        x = self.self_attn_layer_norm(x, h)
-        return self.final_layer_norm(x, self.ffn(x))
+    def forward(self, x, pad_mask, generator: Generator = None):
+        h, _ = self.self_attn(x, x, kv_mask=pad_mask, generator=generator)
+        x = self.self_attn_layer_norm(x, h, generator)
+        return self.final_layer_norm(x, self.ffn(x, generator), generator)
 
 
 class DecoderLayer(nn.Module):
@@ -155,17 +187,18 @@ class DecoderLayer(nn.Module):
         self.final_layer_norm = ResidualDropoutLN(cfg, device)
 
     def forward(self, x, enc_out, self_mask, enc_mask, cache=None,
-                cache_index=None):
+                cache_index=None, generator: Generator = None):
         h, new_self = self.self_attn(
             x, x, kv_mask=self_mask,
             cache=None if cache is None else cache.get("self"),
-            cache_index=cache_index)
-        x = self.self_attn_layer_norm(x, h)
+            cache_index=cache_index, generator=generator)
+        x = self.self_attn_layer_norm(x, h, generator)
         h, new_cross = self.cross_attn(
             x, enc_out, kv_mask=enc_mask,
-            cache=None if cache is None else cache.get("cross"))
-        x = self.cross_attn_layer_norm(x, h)
-        x = self.final_layer_norm(x, self.ffn(x))
+            cache=None if cache is None else cache.get("cross"),
+            generator=generator)
+        x = self.cross_attn_layer_norm(x, h, generator)
+        x = self.final_layer_norm(x, self.ffn(x, generator), generator)
         new_cache = None
         if new_self is not None or new_cross is not None:
             new_cache = {"self": new_self, "cross": new_cross}
@@ -178,49 +211,54 @@ class PositionalEmbedding(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
         self.offset = cfg.pos_offset
-        # held in the compute dtype: the reference casts the slice to it
+        self.dtype = cfg.dtype
         self.embedding = nn.Parameter(torch.empty(
-            cfg.max_len + cfg.pos_offset, cfg.d_model, dtype=cfg.dtype,
+            cfg.max_len + cfg.pos_offset, cfg.d_model, dtype=cfg.param_dtype,
             device=device))
 
     def forward(self, seq_len: int, start: int = 0) -> torch.Tensor:
-        return self.embedding[self.offset + start:self.offset + start + seq_len]
+        rows = self.embedding[self.offset + start:self.offset + start + seq_len]
+        return rows.to(self.dtype)
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
+        self.rate = cfg.dropout
         self.embed_positions = PositionalEmbedding(cfg, device)
         self.layernorm_embedding = LayerNorm(cfg, device)
         self.layers = nn.ModuleList(EncoderLayer(cfg, device)
                                     for _ in range(cfg.encoder_layers))
 
-    def forward(self, inputs_embeds, pad_mask=None):
+    def forward(self, inputs_embeds, pad_mask=None, generator: Generator = None):
         x = inputs_embeds + self.embed_positions(inputs_embeds.shape[1])
         x = self.layernorm_embedding(x)
+        x = dropout(x, self.rate, generator, not self.training)
         for layer in self.layers:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, generator)
         return x
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
+        self.rate = cfg.dropout
         self.embed_positions = PositionalEmbedding(cfg, device)
         self.layernorm_embedding = LayerNorm(cfg, device)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
                                     for _ in range(cfg.decoder_layers))
 
     def forward(self, inputs_embeds, enc_out, self_mask=None, enc_mask=None,
-                cache=None, cache_index=None):
+                cache=None, cache_index=None, generator: Generator = None):
         start = 0 if cache_index is None else cache_index
         x = inputs_embeds + self.embed_positions(inputs_embeds.shape[1], start)
         x = self.layernorm_embedding(x)
+        x = dropout(x, self.rate, generator, not self.training)
         new_cache = {}
         for i, layer in enumerate(self.layers):
             x, lc = layer(x, enc_out, self_mask, enc_mask,
                           None if cache is None else cache.get(f"layers_{i}"),
-                          cache_index)
+                          cache_index, generator)
             if lc is not None:
                 new_cache[f"layers_{i}"] = lc
         return x, (new_cache or None)

@@ -1,6 +1,11 @@
 """Model configuration: the dataclass of ``pianobart_tpu/models/config.py``
-with ``torch.dtype`` fields.  The dropout rates, the ring/TP fields and remat
-come with the training and parallelism paths that use them.
+with ``torch.dtype`` fields.  The ring/TP fields, remat and the label
+decoder come with the parallelism and finetune paths that use them.
+
+Parameters are held in ``param_dtype`` and cast to ``dtype`` where they are
+used, as flax's ``Dense(dtype, param_dtype)`` does: f32 weights under bf16
+compute for training (a bf16 weight of magnitude 0.02 would round away an
+AdamW step of 2e-5), bf16 weights for serving.
 
 Defaults are the published PianoBART shape: d_model 1024, 8+8 layers, ffn
 2048, 8 heads, seq 1024, Octuple vocab 1280.
@@ -25,6 +30,9 @@ class PianoBartConfig:
     ffn_dim: int = 2048
     num_heads: int = 8
     max_len: int = V.MAX_WINDOW
+    dropout: float = 0.1
+    attention_dropout: float = 0.0
+    activation_dropout: float = 0.0
     pos_offset: int = 2                    # HF Bart learned-pos-embedding offset
     dtype: torch.dtype = torch.float32     # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
@@ -57,6 +65,7 @@ class PianoBartConfig:
 def tiny_config(**kw) -> PianoBartConfig:
     """Small config for tests (same as the JAX package's ``tiny_config``)."""
     base = dict(d_model=64, emb_size=16, encoder_layers=2, decoder_layers=2,
-                ffn_dim=128, num_heads=4, max_len=32, use_flash_attention=False)
+                ffn_dim=128, num_heads=4, max_len=32, dropout=0.0,
+                use_flash_attention=False)
     base.update(kw)
     return PianoBartConfig(**base)

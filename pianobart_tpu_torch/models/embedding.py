@@ -2,7 +2,9 @@
 
 The 8 per-field tables are one ``(1280, emb_size)`` table indexed by
 ``ids + field_offset``: one gather, then the √emb_size scale and the
-``fusion`` projection to d_model.
+``fusion`` projection to d_model.  The gather's gradient is PyTorch's own
+``index`` backward (the reference's one-hot backward is an XLA product, not
+a Pallas kernel).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from .bart import Dense
 from .config import PianoBartConfig
 
 
@@ -23,8 +26,7 @@ class OctupleEmbedding(nn.Module):
         # the table stays in the param dtype; rows are cast after the gather
         self.table = nn.Parameter(torch.empty(
             cfg.total_vocab, cfg.emb_size, dtype=cfg.param_dtype, device=device))
-        self.fusion = nn.Linear(cfg.n_fields * cfg.emb_size, cfg.d_model,
-                                dtype=cfg.dtype, device=device)
+        self.fusion = Dense(cfg.n_fields * cfg.emb_size, cfg.d_model, cfg, device)
         self.register_buffer(
             "offsets", torch.tensor(cfg.field_offsets, device=device),
             persistent=False)

@@ -6,6 +6,7 @@ from typing import List
 import torch
 from torch import nn
 
+from .bart import Dense
 from .config import PianoBartConfig
 
 
@@ -19,8 +20,7 @@ class OctupleLMHead(nn.Module):
 
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
-        self.proj = nn.Linear(cfg.d_model, cfg.total_vocab, dtype=cfg.dtype,
-                              device=device)
+        self.proj = Dense(cfg.d_model, cfg.total_vocab, cfg, device)
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.proj(hidden)  # fused (B, S, total_vocab)

@@ -3,6 +3,9 @@
 * :class:`PianoBart` — fused octuple embeddings + BART encoder-decoder.
 * :class:`PianoBartLM` — trunk + fused LM head, with the decode-loop entry
   points ``encode``, ``decode_step`` and ``build_cache``.
+
+The training forward is ``model.train()`` then ``model(..., generator=g)``:
+dropout draws its bits from ``g``.  In eval mode no generator is needed.
 """
 from __future__ import annotations
 
@@ -34,16 +37,18 @@ class PianoBart(nn.Module):
         self.decoder = Decoder(cfg, device)
 
     def forward(self, encoder_ids, decoder_ids=None, encoder_mask=None,
-                decoder_mask=None):
-        enc_out = self.encode(encoder_ids, encoder_mask)
+                decoder_mask=None, generator: Optional[torch.Generator] = None):
+        enc_out = self.encode(encoder_ids, encoder_mask, generator)
         if decoder_ids is None:
             return enc_out  # encoder-only path
         dec_out, _ = self.decoder(self.embed(decoder_ids), enc_out,
-                                  self_mask=decoder_mask, enc_mask=encoder_mask)
+                                  self_mask=decoder_mask, enc_mask=encoder_mask,
+                                  generator=generator)
         return dec_out
 
-    def encode(self, encoder_ids, encoder_mask=None):
-        return self.encoder(self.embed(encoder_ids), encoder_mask)
+    def encode(self, encoder_ids, encoder_mask=None,
+               generator: Optional[torch.Generator] = None):
+        return self.encoder(self.embed(encoder_ids), encoder_mask, generator)
 
     def decode_step(self, decoder_ids_step, enc_out, encoder_mask, cache,
                     cache_index):
@@ -75,9 +80,9 @@ class PianoBartLM(nn.Module):
         self.lm_head = OctupleLMHead(cfg, device)
 
     def forward(self, encoder_ids, decoder_ids=None, encoder_mask=None,
-                decoder_mask=None):
+                decoder_mask=None, generator: Optional[torch.Generator] = None):
         hidden = self.pianobart(encoder_ids, decoder_ids, encoder_mask,
-                                decoder_mask)
+                                decoder_mask, generator)
         return self.lm_head(hidden)  # fused logits (B, S, 1280)
 
     def encode(self, encoder_ids, encoder_mask: Optional[torch.Tensor] = None):

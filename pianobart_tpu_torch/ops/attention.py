@@ -4,14 +4,13 @@ One entry point for every attention module (encoder self, decoder causal
 self, cross), layout ``(B, S, H, Dh)``:
 
 * **flash** — :func:`~pianobart_tpu_torch.ops.flash.flash_attention` where
-  the shape is one the kernel takes (see :func:`_flash_eligible`).  On CUDA
-  tensors that is the hand-written Hopper kernel; on CPU tensors its wrapper
-  runs the plain version, so the CPU tests go through the same dispatch.
+  the shape is one the kernels take (see :func:`_flash_eligible`) and no
+  attention dropout applies.  On CUDA tensors that is the hand-written
+  Hopper forward (K1) and, under autograd, backward (K2); on CPU tensors the
+  wrappers run the plain versions, so the CPU tests go through the same
+  dispatch.
 * **plain** — einsum + softmax with an additive -1e9 bias (decode steps
-  with Sq=1, odd shapes).
-
-Only the deterministic (eval) forward exists in this package so far:
-attention dropout comes with the training path.
+  with Sq=1, odd shapes, attention dropout).
 """
 from __future__ import annotations
 
@@ -37,18 +36,29 @@ def _build_bias(kv_mask, causal, Sq, Skv, device):
     return bias
 
 
-def _plain_attention(q, k, v, kv_mask, causal, bias):
-    # q is pre-scaled by the caller.  The scores are taken in f32 as in the
-    # reference (preferred_element_type=f32); for bf16 inputs the product
-    # itself is rounded to bf16 first, a difference only bf16 runs see.
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+def _plain_logits(q, k, kv_mask, causal, bias):
+    """f32 scores plus masks, as the reference's
+    ``einsum(..., preferred_element_type=f32)``: the operands are widened to
+    f32 first, so bf16 products are exact and summed in f32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     b = _build_bias(kv_mask, causal, q.shape[1], k.shape[1], q.device)
     if b is not None:
         logits = logits + b
     if bias is not None:
         logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return logits
+
+
+def _plain_attention(q, k, v, kv_mask, causal, bias, dropout_rate=0.0,
+                     deterministic=True, generator=None):
+    # q is pre-scaled by the caller
+    probs = torch.softmax(_plain_logits(q, k, kv_mask, causal, bias), dim=-1)
+    if dropout_rate > 0.0 and not deterministic:
+        # Bernoulli keep mask on the probabilities, as _xla_attention does
+        keep = torch.rand(probs.shape, device=probs.device,
+                          generator=generator) < 1.0 - dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def _flash_eligible(q, k, bias) -> bool:
@@ -67,9 +77,16 @@ def dot_product_attention(
     kv_mask: Optional[torch.Tensor] = None,   # (B, Skv), 1 = attend
     causal: bool = False,
     bias: Optional[torch.Tensor] = None,      # extra additive (B,H,Sq,Skv)
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
     use_flash: bool = True,
 ) -> torch.Tensor:
     """Scaled dot-product attention over ``(B, S, H, Dh)`` tensors."""
-    if use_flash and _flash_eligible(q, k, bias):
+    # deterministic (eval) passes never apply dropout, so a nonzero rate must
+    # not knock them off the flash path (the reference's round-3 rule)
+    if (use_flash and (dropout_rate == 0.0 or deterministic)
+            and _flash_eligible(q, k, bias)):
         return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal)
-    return _plain_attention(q, k, v, kv_mask, causal, bias)
+    return _plain_attention(q, k, v, kv_mask, causal, bias, dropout_rate,
+                            deterministic, generator)

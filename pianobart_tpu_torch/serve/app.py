@@ -75,7 +75,9 @@ class GenerationService:
                 return
             from ..compat.from_jax import init_lm
             from ..models.config import PianoBartConfig
-            self.cfg = self._cfg_arg or PianoBartConfig(dtype=torch.bfloat16)
+            # serving holds bf16 weights: the decode step then casts nothing
+            self.cfg = self._cfg_arg or PianoBartConfig(
+                dtype=torch.bfloat16, param_dtype=torch.bfloat16)
             self.model = init_lm(self.cfg, self.seed, self.device)
             self._ready = True
 

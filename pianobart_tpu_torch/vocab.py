@@ -1,4 +1,4 @@
-"""Octuple vocabulary constants the serving path needs.
+"""Octuple vocabulary constants the serving and pretrain paths need.
 
 A copy of the field layout of ``pianobart_tpu/vocab.py`` (the port imports
 nothing from the JAX package).  Eight per-field token spaces, each ending
@@ -17,9 +17,13 @@ MAX_WINDOW = 1024          # model sequence window
 #: Largest *content* id per field.
 TOKEN_BOUNDARY: Tuple[int, ...] = (255, 127, 128, 255, 127, 31, 253, 48)
 
+#: Per-field id of each special token.
 PAD = tuple(b + 1 for b in TOKEN_BOUNDARY)
+MASK = tuple(b + 2 for b in TOKEN_BOUNDARY)
 SOS = tuple(b + 3 for b in TOKEN_BOUNDARY)
 EOS = tuple(b + 4 for b in TOKEN_BOUNDARY)
+CLS = tuple(b + 5 for b in TOKEN_BOUNDARY)
+SEP = tuple(b + 6 for b in TOKEN_BOUNDARY)
 
 #: Per-field vocabulary sizes (content + 6 specials).
 FIELD_SIZES: Tuple[int, ...] = tuple(b + 7 for b in TOKEN_BOUNDARY)

@@ -1,14 +1,21 @@
-"""The port's flash forward (plain version + CPU dispatch) against the JAX
-package's Pallas kernel run in interpret mode, as tests/test_flash.py runs it.
+"""The port's flash attention (plain versions + CPU dispatch, forward and
+backward) against the JAX package's Pallas kernels run in interpret mode, as
+tests/test_flash.py runs them, and the plain attention path against
+``_xla_attention``.
 
-Tolerance 2e-5 (rtol and atol), f32: both sides compute in f32 and differ
-only in summation order.
+Tolerance 2e-5 (rtol and atol) in f32: both sides compute in f32 and differ
+only in summation order.  The bf16 test states its own.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pianobart_tpu.ops.attention import _build_bias as jax_build_bias
+from pianobart_tpu.ops.attention import _xla_attention
+from pianobart_tpu.ops.flash import _bwd_fused_call as jax_bwd_fused_call
+from pianobart_tpu.ops.flash import _delta as jax_delta
 from pianobart_tpu.ops.flash import _fwd as jax_fwd
 from pianobart_tpu.ops.flash import flash_attention as jax_flash_attention
 from pianobart_tpu_torch.ops import attention as port_attention
@@ -70,10 +77,66 @@ def test_cpu_dispatch_matches_jax_flash(causal, use_mask, monkeypatch):
     assert port_flash.flash_attention_fwd.launches == launches
 
 
-def test_fwd_refuses_requires_grad():
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_flash_grad_matches_jax_vjp(causal, use_mask):
+    """The gradient of the port's flash_attention (autograd Function; on CPU
+    its backward runs flash_attention_bwd_reference) equals jax.vjp of the
+    JAX flash_attention, whose backward is the fused Pallas kernel K2 in
+    interpret mode.  f32, tolerance 2e-5: summation order only."""
+    q, k, v, mask = _inputs(seed=3)
+    m = mask if use_mask else None
+    dout = np.random.default_rng(4).standard_normal((B, S, H, D)).astype(np.float32)
+    out, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash_attention(
+            q_, k_, v_, None if m is None else jnp.asarray(m), causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    before = port_flash.flash_attention_bwd.launches
+    got_out = port_flash.flash_attention(
+        tq, tk, tv, None if m is None else torch.from_numpy(m), causal)
+    got_out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out), **TOL)
+    for name, a, b in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=f"d{name}",
+                                   **TOL)
+    # the plain version is not a kernel launch
+    assert port_flash.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_bwd_reference_matches_jax_kernel(causal, use_mask):
+    """flash_attention_bwd_reference == the Pallas _bwd_fused_call (K2) on
+    the same q, k, v, O, lse and dO.  f32, tolerance 2e-5."""
+    q, k, v, mask = _inputs(seed=5)
+    m = mask if use_mask else None
+    dout = np.random.default_rng(6).standard_normal((B, S, H, D)).astype(np.float32)
+    out, lse, (qf, kf, vf, maskf) = jax_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if m is None else jnp.asarray(m), causal, None, None)
+    dof = jnp.asarray(dout).reshape(B, S, H * D)
+    want = jax_bwd_fused_call(qf, kf, vf, maskf, dof, lse,
+                              jax_delta(dof, out, H), causal, None, None, H)
+    got = port_flash.flash_attention_bwd_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        None if m is None else torch.from_numpy(m), causal,
+        torch.from_numpy(np.array(out)).reshape(B, S, H, D),
+        torch.from_numpy(np.array(lse)), torch.from_numpy(dout))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy().reshape(B, S, H * D), np.asarray(b),
+                                   err_msg=f"d{name}", **TOL)
+
+
+def test_flash_attention_differentiates_through_the_function():
+    """With grad on, flash_attention goes through the autograd Function (K1
+    forward, K2 backward); under no_grad it runs the forward alone."""
     q, k, v, mask = (torch.from_numpy(x) for x in _inputs())
-    with pytest.raises(RuntimeError, match="forward-only"):
-        port_flash.flash_attention_fwd(q.requires_grad_(), k, v, mask)
+    out = port_flash.flash_attention(q.requires_grad_(), k, v, mask)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    with torch.no_grad():
+        assert port_flash.flash_attention(q, k, v, mask).grad_fn is None
 
 
 @pytest.mark.parametrize("shape,bias,eligible", [
@@ -100,3 +163,34 @@ def test_plain_attention_matches_reference_on_ineligible_shape():
         out = port_attention.dot_product_attention(q, k, v, mask, causal)
         ref, _ = port_flash.flash_attention_reference(q, k, v, mask, causal)
         np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+
+
+def test_plain_attention_bf16_decode_matches_xla_attention():
+    """A decode-shaped bf16 call (Sq=1, Skv=512, pad tail) of the plain path
+    against ``_xla_attention``.  The scores are f32 products of the bf16
+    operands on both sides (``preferred_element_type=f32``), so the logits
+    agree to f32 summation order (1e-5); the bf16 outputs then agree within
+    one bf16 step of each element.  (With the product rounded to bf16
+    before the softmax, some outputs differ by more than one step.)"""
+    rng = np.random.default_rng(7)
+    Bd, Skv, Hd = 2, 512, 8
+    q = (rng.standard_normal((Bd, 1, Hd, D)) * D ** -0.5).astype(np.float32)
+    k = rng.standard_normal((Bd, Skv, Hd, D)).astype(np.float32)
+    v = rng.standard_normal((Bd, Skv, Hd, D)).astype(np.float32)
+    mask = np.ones((Bd, Skv), np.float32)
+    mask[1, Skv - 100:] = 0.0
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    want = np.asarray(_xla_attention(jq, jk, jv, jnp.asarray(mask), False, None,
+                                     0.0, True, None)).astype(np.float32)
+    got = port_attention.dot_product_attention(
+        tq, tk, tv, kv_mask=torch.from_numpy(mask)).float().numpy()
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got - want) <= step).all(), np.abs(got - want).max()
+    want_logits = (jnp.einsum("bqhd,bkhd->bhqk", jq, jk,
+                              preferred_element_type=jnp.float32)
+                   + jax_build_bias(jnp.asarray(mask), False, 1, Skv, jnp.float32))
+    got_logits = port_attention._plain_logits(tq, tk, torch.from_numpy(mask),
+                                              False, None)
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               rtol=1e-6, atol=1e-5)

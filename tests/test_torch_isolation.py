@@ -1,6 +1,6 @@
-"""The port stands alone: no file of pianobart_tpu_torch/, nor chip_smoke.py,
-imports jax, flax, optax or the JAX package, and the package imports with
-those blocked."""
+"""The port stands alone: no file of pianobart_tpu_torch/, nor chip_smoke.py
+or kernel_bounds.py, imports jax, flax, optax or the JAX package, and the
+package imports with those blocked."""
 import ast
 import pathlib
 import subprocess
@@ -10,7 +10,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pianobart_tpu")
-FILES = sorted((ROOT / "pianobart_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "pianobart_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_bounds.py"]
 
 
 def _imported_roots(path):

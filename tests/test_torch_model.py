@@ -42,14 +42,51 @@ def tiny():
 
 
 def test_state_dict_covers_every_parameter(tiny):
+    """The carried state dict names every parameter, and every parameter
+    lives in ``param_dtype`` whatever the compute dtype, as flax's
+    ``Dense(dtype, param_dtype)`` and ``LayerNorm`` keep them."""
     jcfg, cfg, params, model = tiny
     sd = lm_state_dict_from_jax(params, jcfg)
     assert set(sd) == set(model.state_dict())
-    # LayerNorm parameters stay f32 whatever the compute dtype
     bf = PianoBartLM(cfg.replace(dtype=torch.bfloat16), device="cpu")
+    bf.load_state_dict(sd)
+    assert {p.dtype for p in bf.parameters()} == {torch.float32}
     assert bf.pianobart.encoder.layers[0].final_layer_norm.weight.dtype == torch.float32
     assert bf.pianobart.embed.table.dtype == torch.float32
-    assert bf.lm_head.proj.weight.dtype == torch.bfloat16
+    assert bf.lm_head.proj.weight.dtype == torch.float32
+    assert bf.pianobart.decoder.embed_positions.embedding.dtype == torch.float32
+
+
+def test_bf16_compute_keeps_f32_weights_and_computes_in_bf16(tiny):
+    """f32 weights under bf16 compute: activations come out bf16, the
+    gradients land on the f32 weights, and an AdamW-sized step of 2e-5 on a
+    0.02-sized weight survives (it would round away in a bf16 weight)."""
+    jcfg, cfg, params, _ = tiny
+    bf = PianoBartLM(cfg.replace(dtype=torch.bfloat16), device="cpu")
+    bf.load_state_dict(lm_state_dict_from_jax(params, jcfg))
+    ids = torch.from_numpy(_ids(np.random.default_rng(4), 2, cfg.max_len))
+    logits = bf(ids, ids)
+    assert logits.dtype == torch.bfloat16
+    logits.float().square().mean().backward()
+    w = bf.lm_head.proj.weight
+    assert w.grad is not None and w.grad.dtype == torch.float32
+    assert (torch.tensor(0.02) + 2e-5) != 0.02
+    assert (torch.tensor(0.02, dtype=torch.bfloat16) + 2e-5).item() == \
+        torch.tensor(0.02, dtype=torch.bfloat16).item()
+
+
+def test_serving_config_keeps_bf16_weights(monkeypatch):
+    """The serving default is bf16 weights under bf16 compute, so the decode
+    step casts nothing; a bf16-param model holds every parameter in bf16."""
+    from pianobart_tpu_torch.compat import from_jax
+    from pianobart_tpu_torch.serve.app import GenerationService
+    seen = []
+    monkeypatch.setattr(from_jax, "init_lm", lambda cfg, *a, **k: seen.append(cfg))
+    GenerationService(device="cpu")._ensure()
+    assert (seen[0].dtype, seen[0].param_dtype) == (torch.bfloat16, torch.bfloat16)
+    serve = PianoBartLM(tiny_config(dtype=torch.bfloat16,
+                                    param_dtype=torch.bfloat16), device="cpu")
+    assert {p.dtype for p in serve.parameters()} == {torch.bfloat16}
 
 
 def test_tiny_logits_match_jax(tiny):
