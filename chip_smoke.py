@@ -7,26 +7,41 @@ Phases, each printing its own lines; any failure exits non-zero with no
 result line:
 
 1. device report (name, count, ``nvidia-smi`` name and power limit);
-2. build the flash-forward (K1) and flash-backward (K2) kernels with
-   ``nvcc`` from the repo's sources, one process per source, with ptxas's
-   registers and spills;
+2. build the three kernel sources with ``nvcc`` (flash forward K1, flash
+   backward K2/K3a/K3b, fused dropout+residual+LayerNorm K4a/K4b), one
+   process per source, with ptxas's registers and spills;
 3. ``[flash]``: K1 against its plain PyTorch version at the serving and
    training shapes, with times of the kernel, the plain version, the bound
    and ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[flash_bwd]``: K2 against its plain version at the flagship training
-   shape (B=32, S=1024, bf16, causal and not) and in f32, with the same
-   times (the yardstick is SDPA's backward);
-5. ``[serve]``: the serving slice at full flagship width (bf16, random
+   shape (B=32, S=1024, bf16, causal and not) and in f32, and K3a and K3b
+   at the long-context shape (B=16, S=2048, bf16, causal and not), with the
+   same times (the yardstick is SDPA's backward);
+5. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
+   Philox bits, at the flagship's N=32768 rows of D=1024 in bf16 and at a
+   small N in f32 (no single PyTorch call computes this: no yardstick);
+6. ``[serve]``: the serving slice at full flagship width (bf16, random
    weights from a seed): ``GenerationService`` warmup over buckets
    {1, 2, 4, 8}, concurrent requests from threads, output checks, timed
    batch-1 and batch-8 fixed-length continuations, K1's launch count per
    decode batch, and a profiled window of decode steps;
-6. ``[train]``: the flagship pretrain step: gradients through K1+K2 against
+7. ``[train]``: the flagship pretrain step: gradients through K1+K2 against
    the plain attention path at B=4, then ``pretrain_step`` at B=32, S=1024
    (bf16 compute, f32 parameters, dropout 0.1) with ms/step, tokens/s, MFU,
-   peak memory, K1/K2 launches per step (24 each) and a profiled window.
+   peak memory, launches per step (K1 and K2 24 each, K3 and K4 none) and
+   a profiled window;
+8. ``[train_long]``: the long-context step (``max_len=2048``, B=16, the
+   flagship's tokens per batch): gradients through K1+K3 against plain
+   attention at B=2, then the same timed steps (K1, K3a, K3b 24 each, K2
+   none);
+9. ``[train_fused]``: the flagship step with ``fused_dropout_ln`` (K4 at
+   all 40 sublayer tails): the fused step against the unfused one at
+   dropout 1e-9 at B=4, then the timed steps at B=32 (K4a, K4b 40 each, K1,
+   K2 24 each), printed beside ``[train]``'s numbers of this run.
 
-The second-to-last line is the kernels' JSON record; the last line is
+Each main path (serve, train, train_long, train_fused) is driven with every
+kernel's launch count set to 0 just before it and read just after.  The
+second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -44,17 +59,30 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 SEED = 0
 
 
+def _counters():
+    """Every kernel wrapper, by the name of its launch count."""
+    from pianobart_tpu_torch.ops import flash, fused_ln
+    return {"flash_attention_fwd": flash.flash_attention_fwd,
+            "flash_attention_bwd": flash.flash_attention_bwd,
+            "flash_attention_dq": flash.flash_attention_dq,
+            "flash_attention_dkv": flash.flash_attention_dkv,
+            "dropout_add_ln_fwd": fused_ln.dropout_add_ln_fwd,
+            "dropout_add_ln_bwd": fused_ln.dropout_add_ln_bwd}
+
+
 def _reset_counts():
     """Every kernel wrapper's launch count to 0 (just before a main path)."""
-    from pianobart_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches = 0
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def _read_counts():
-    from pianobart_tpu_torch.ops.flash import flash_attention_bwd, flash_attention_fwd
-    return {"flash_attention_fwd": flash_attention_fwd.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _counts(k1=0, k2=0, k3=0, k4=0):
+    """Expected counts in ``_read_counts`` order: K1, K2, K3a, K3b, K4a, K4b."""
+    return (k1, k2, k3, k3, k4, k4)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -87,10 +115,10 @@ def phase_device(state):
 
 
 def phase_build(state):
-    """K1 and K2 built together (one nvcc per source, started at once)."""
-    from pianobart_tpu_torch.ops import flash
+    """All sources built together (one nvcc per source, started at once)."""
+    from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
-    libs = flash.build_kernels()
+    libs = build_kernels()
     print(f"[build] {', '.join(libs)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, lib in libs.items():
@@ -184,13 +212,52 @@ def phase_flash(state):
                                library_ms=lib_ms)
 
 
-def phase_flash_bwd(state):
-    """K2 against flash_attention_bwd_reference at the flagship train shape."""
+def _bwd_errors(got, want, tol):
+    """Per output max |d| and ||d||/||ref||, and whether every output holds
+    |d| <= atol*max|ref| + rtol*|ref|, ||d|| <= ntol*||ref|| and is finite."""
+    import torch
+    atol, rtol, ntol = tol
+    errs, rels, ok = [], [], True
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        errs.append(d.max().item())
+        rels.append((d.norm() / b.norm()).item())
+        ok = ok and bool((d <= atol * b.abs().max() + rtol * b.abs()).all())
+        ok = ok and rels[-1] <= ntol and bool(torch.isfinite(a).all())
+    return errs, rels, ok
+
+
+def _sdpa_bwd_ms(q, k, v, mask, causal, dout):
+    """Yardstick, never used by the port: SDPA's forward+backward minus its
+    forward, with the same mask."""
     import torch
     import torch.nn.functional as F
-    from pianobart_tpu_torch.ops.flash import (flash_attention_bwd,
-                                               flash_attention_bwd_reference,
-                                               flash_attention_fwd)
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    keep = (mask != 0)[:, None, None, :]
+    if causal:
+        keep = keep & torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fb():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    def sdpa_f():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
+    return _time_ms(sdpa_fb, iters=5) - _time_ms(sdpa_f, iters=5)
+
+
+def phase_flash_bwd(state):
+    """K2 against flash_attention_bwd_reference at the flagship train shape,
+    K3a and K3b against their plain versions at the long-context shape."""
+    import torch
+    from pianobart_tpu_torch.ops.flash import (
+        _delta, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+        flash_attention_dq_reference, flash_attention_fwd)
     # Per element |d| <= atol*max|ref| + rtol*|ref|, and per output ||d|| <=
     # ntol*||ref||.  bf16: the kernel rounds P and dS to bf16 as product
     # operands and dQ/dK/dV to bf16 at the end (2^-9 relative each) where the
@@ -200,64 +267,152 @@ def phase_flash_bwd(state):
     # largest entry.  That part is loose for the bulk of the rows (the largest
     # entries sit in rows that see few keys), so the norm check holds the
     # whole tensor: a lost kv tile or a coarser dS moves it far past 1e-2.
-    # f32: summation order and expf only.
+    # f32: summation order and expf only.  K3a and K3b are the same CUDA
+    # kernels as K2 behind their own entries: the same tolerances.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-2), torch.float32: (1e-5, 1e-5, 1e-5)}
-    cases = [(32, False, torch.bfloat16), (32, True, torch.bfloat16),
-             (2, False, torch.float32)]
-    for B, causal, dtype in cases:
-        q, k, v, mask = _flash_case(B, causal, dtype)
-        mask[0, 1024 - 300:] = 0.0      # a second pad tail
+    cases = [("K2", 32, 1024, False, torch.bfloat16),
+             ("K2", 32, 1024, True, torch.bfloat16),
+             ("K2", 2, 1024, False, torch.float32),
+             ("K3", 16, 2048, False, torch.bfloat16),
+             ("K3", 16, 2048, True, torch.bfloat16)]
+    for kid, B, S, causal, dtype in cases:
+        q, k, v, mask = _flash_case(B, causal, dtype, S=S)
+        mask[0, S - 300:] = 0.0      # a second pad tail
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-        got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_reference(q, k, v, mask, causal, out, lse, dout)
+        name = f"{kid} B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        if kid == "K2":
+            got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, mask, causal, out, lse, dout)
+            errs, rels, ok = _bwd_errors(got, want, tol[dtype])
+            del want
+            ms = [_time_ms(lambda: flash_attention_bwd(q, k, v, mask, causal, out,
+                                                       lse, dout), iters=10)]
+            plain_ms = [_time_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, mask, causal, out, lse, dout), iters=3, warmup=1)]
+            # S, dP, dV, dQ, dK; q, k, v, dO read and dQ, dK, dV written; lse, delta
+            bounds = [_attn_bound_ms(q, mask, causal, 5, 7, 2)]
+        else:
+            delta = _delta(dout, out)
+            args = (q, k, v, mask, causal, lse, delta, dout)
+            got = (flash_attention_dq(*args), *flash_attention_dkv(*args))
+            torch.cuda.synchronize()
+            want = (flash_attention_dq_reference(*args),
+                    *flash_attention_dkv_reference(*args))
+            errs, rels, ok = _bwd_errors(got, want, tol[dtype])
+            del want
+            ms = [_time_ms(lambda: flash_attention_dq(*args), iters=10),
+                  _time_ms(lambda: flash_attention_dkv(*args), iters=10)]
+            plain_ms = [_time_ms(lambda: flash_attention_dq_reference(*args),
+                                 iters=3, warmup=1),
+                        _time_ms(lambda: flash_attention_dkv_reference(*args),
+                                 iters=3, warmup=1)]
+            # K3a: S, dP, dQ; q, k, v, dO read, dQ written.  K3b: S, dP, dV,
+            # dK; q, k, v, dO read, dK, dV written.  Both read lse and delta.
+            bounds = [_attn_bound_ms(q, mask, causal, 3, 5, 2),
+                      _attn_bound_ms(q, mask, causal, 4, 6, 2)]
+        lib_ms = _sdpa_bwd_ms(q, k, v, mask, causal, dout)
         atol, rtol, ntol = tol[dtype]
-        errs, rels, ok = [], [], True
-        for a, b in zip(got, want):
-            a, b = a.float(), b.float()
-            d = (a - b).abs()
-            errs.append(d.max().item())
-            rels.append((d.norm() / b.norm()).item())
-            ok = ok and bool((d <= atol * b.abs().max() + rtol * b.abs()).all())
-            ok = ok and rels[-1] <= ntol and bool(torch.isfinite(a).all())
-        del want
-        ms = _time_ms(lambda: flash_attention_bwd(q, k, v, mask, causal, out,
-                                                  lse, dout), iters=10)
-        plain_ms = _time_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, mask, causal, out, lse, dout), iters=3, warmup=1)
-        # yardstick: SDPA forward+backward minus its forward (never used by the port)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        keep = (mask != 0)[:, None, None, :]
-        if causal:
-            keep = keep & torch.ones(1024, 1024, dtype=torch.bool,
-                                     device="cuda").tril()
-        dot = dout.transpose(1, 2)
-
-        def sdpa_fb():
-            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
-            torch.autograd.grad(o, (qt, kt, vt), dot)
-
-        def sdpa_f():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
-        lib_ms = _time_ms(sdpa_fb, iters=5) - _time_ms(sdpa_f, iters=5)
-        # S, dP, dV, dQ, dK; q, k, v, dO read and dQ, dK, dV written; lse, delta
-        bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 5, 7, 2)
-        name = f"B={B} S=1024 H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        times = ", ".join(
+            f"{part}kernel {t:.4f} ms, bound {bm:.4f} ms ({bb}), plain {p:.4f} ms"
+            for part, t, (bm, bb), p in zip(
+                ["", ""] if kid == "K2" else ["K3a ", "K3b "], ms, bounds, plain_ms))
         print(f"[flash_bwd] {name}: max|d| dq {errs[0]:.3e} dk {errs[1]:.3e} "
               f"dv {errs[2]:.3e} (tol {atol:g}*max|ref| + {rtol:g}|ref|), "
               f"||d||/||ref|| dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} "
-              f"(tol {ntol:g}), kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms")
+              f"(tol {ntol:g}), {times}, sdpa bwd {lib_ms:.4f} ms")
         if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version: {name}")
-        if (B, causal, dtype) == (32, False, torch.bfloat16):  # the train shape
-            state["k2"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms)
-        del q, k, v, out, lse, dout, got, qt, kt, vt
+            raise AssertionError(f"{kid} disagrees with its plain version: {name}")
+        if (B, causal, dtype) in ((32, False, torch.bfloat16),
+                                  (16, False, torch.bfloat16)):  # the train shapes
+            keys = ["k2"] if kid == "K2" else ["k3a", "k3b"]
+            err_of = [max(errs)] if kid == "K2" else [errs[0], max(errs[1:])]
+            for key, e, t, (bm, bb), p in zip(keys, err_of, ms, bounds, plain_ms):
+                state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
+                                  bound_by=bb, library_ms=lib_ms)
+        del q, k, v, out, lse, dout, got
+        torch.cuda.empty_cache()
+
+
+def _ln_bound_ms(N, D, itemsize, backward):
+    """Least time for K4a (or K4b) on N rows of D: each input read once and
+    each output written once, about 10 (20) f32 operations per element."""
+    from pianobart_tpu_torch.utils.flops import PEAK_F32_H100, roofline_ms
+    rows = N * D * itemsize
+    if backward:   # h, residual, dout in, dh, dres out; gamma, mean, rstd in;
+        #            dgamma, dbeta out; the seed
+        return roofline_ms(20.0 * N * D, 5 * rows + 3 * D * 4 + 2 * N * 4 + 8,
+                           PEAK_F32_H100)
+    # h, residual in, out out; gamma, beta in; mean, rstd out; the seed
+    return roofline_ms(10.0 * N * D, 3 * rows + 2 * D * 4 + 2 * N * 4 + 8,
+                       PEAK_F32_H100)
+
+
+def phase_fused_ln(state):
+    """K4a and K4b against their plain versions fed the same Philox bits."""
+    import torch
+    from pianobart_tpu_torch.ops import fused_ln as FL
+    # The keep decisions must agree exactly: the kernel's are dh != 0, the
+    # plain version's the bits of philox_bits (dy is never exactly 0 here).
+    # Then per element |d| <= atol*max|ref| + rtol*|ref| and per output
+    # ||d|| <= ntol*||ref||.  bf16: out, dh and dres round to bf16 on both
+    # sides and round apart by one step (2^-8 relative) where the f32 values
+    # differ by an ulp (rsqrtf, summation order); dgamma and dbeta are f32
+    # sums over the rows in another order (8 rows per warp, 8 warps, then
+    # one partial per 64 rows).  f32: rsqrtf and summation order only.
+    tol = {torch.bfloat16: (1e-2, 1e-2, 5e-3), torch.float32: (1e-4, 1e-4, 1e-5)}
+    rate = 0.1
+    for N, D, dtype in ((32768, 1024, torch.bfloat16), (256, 1024, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        h, res, dout = (torch.randn(N, D, device="cuda", generator=g).to(dtype)
+                        for _ in range(3))
+        gamma = 1.0 + 0.1 * torch.randn(D, device="cuda", generator=g)
+        beta = 0.1 * torch.randn(D, device="cuda", generator=g)
+        seed = torch.randint(0, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                             device="cuda", generator=g)
+        out, mean, rstd = FL.dropout_add_ln_fwd(h, res, gamma, beta, seed, rate)
+        grads = FL.dropout_add_ln_bwd(h, res, gamma, mean, rstd, dout, seed, rate)
+        torch.cuda.synchronize()
+        bits = FL.philox_bits(seed, N, D)
+        keep_diff = int(((grads[0] != 0) != (bits >= FL.threshold(rate))).sum())
+        r_out, r_mean, r_rstd = FL.dropout_add_ln_reference(h, res, gamma, beta,
+                                                            seed, rate, bits=bits)
+        r_grads = FL.dropout_add_ln_bwd_reference(h, res, gamma, r_mean, r_rstd,
+                                                  dout, seed, rate, bits=bits)
+        errs, rels, ok = _bwd_errors((out, *grads), (r_out, *r_grads), tol[dtype])
+        ok = ok and keep_diff == 0
+        del bits, r_out, r_grads
+        ms = [_time_ms(lambda: FL.dropout_add_ln_fwd(h, res, gamma, beta, seed, rate)),
+              _time_ms(lambda: FL.dropout_add_ln_bwd(h, res, gamma, mean, rstd, dout,
+                                                     seed, rate))]
+        plain_ms = [
+            _time_ms(lambda: FL.dropout_add_ln_reference(h, res, gamma, beta, seed,
+                                                         rate), iters=5),
+            _time_ms(lambda: FL.dropout_add_ln_bwd_reference(
+                h, res, gamma, mean, rstd, dout, seed, rate), iters=5)]
+        bounds = [_ln_bound_ms(N, D, h.element_size(), b) for b in (False, True)]
+        atol, rtol, ntol = tol[dtype]
+        name = f"N={N} D={D} {str(dtype)[6:]} rate={rate}"
+        outs = ("out", "dh", "dres", "dgamma", "dbeta")
+        print(f"[fused_ln] {name}: keep decisions differing {keep_diff} (tol 0); "
+              f"max|d| " + " ".join(f"{o} {e:.3e}" for o, e in zip(outs, errs))
+              + f" (tol {atol:g}*max|ref| + {rtol:g}|ref|); ||d||/||ref|| "
+              + " ".join(f"{o} {r:.3e}" for o, r in zip(outs, rels))
+              + f" (tol {ntol:g})")
+        for kid, t, (bm, bb), p in zip(("K4a", "K4b"), ms, bounds, plain_ms):
+            print(f"[fused_ln] {name}: {kid} kernel {t:.4f} ms, bound {bm:.4f} ms "
+                  f"({bb}), plain {p:.4f} ms, library: none (no single PyTorch "
+                  f"call computes it)")
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version: {name}")
+        if dtype == torch.bfloat16:   # the flagship train shape
+            for key, e, t, (bm, bb), p in zip(("k4a", "k4b"), (errs[0], max(errs[1:])),
+                                              ms, bounds, plain_ms):
+                state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
+                                  bound_by=bb, library_ms=None)
+        del h, res, dout, out, grads
         torch.cuda.empty_cache()
 
 
@@ -482,80 +637,84 @@ def _grad_groups(name):
     return f"{parts[1]}.{parts[2]}"
 
 
-def _train_grad_check(cfg, rng, gen, B=4):
-    """Gradients of the flagship model through K1+K2 against the same
-    weights on the plain attention path, same corrupted batch, dropout off.
-    Relative error ||g - g_plain|| / ||g_plain|| per parameter group."""
+def _grad_check(tag, models, batch, gen, expects, what):
+    """Gradients of two models with the same weights on the same corrupted
+    batch (each forward's dropout from its own generator, seeded alike):
+    the losses and ||g_a - g_b|| / ||g_b|| per parameter group, with each
+    model's launch counts as ``expects`` says."""
+    import torch
+    from pianobart_tpu_torch.ops.noise import corrupt_batch
+    from pianobart_tpu_torch.train.pretrain import _forward_loss
+    corrupted, loss_mask = corrupt_batch(batch, gen)
+    losses = []
+    for m, expect in zip(models, expects):
+        _reset_counts()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        total, _ = _forward_loss(m, batch, corrupted, loss_mask, g)
+        total.backward()
+        torch.cuda.synchronize()
+        losses.append(total.item())
+        if tuple(_read_counts().values()) != expect:
+            raise AssertionError(f"{what}: launches {_read_counts()}, expected "
+                                 f"{expect} (K1, K2, K3a, K3b, K4a, K4b)")
+    groups = {}
+    for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        d, r = groups.setdefault(_grad_groups(name), [0.0, 0.0])
+        groups[_grad_groups(name)] = [d + (p.grad - q.grad).float().square().sum().item(),
+                                      r + q.grad.float().square().sum().item()]
+    # Both paths compute in bf16 and round at different places (K2 and K3
+    # round P and dS to bf16 as operands where the plain attention rounds the
+    # probabilities; K4 adds the residual in f32 where the unfused tail adds
+    # in bf16); these differences compound over 8+8 layers.
+    tol = 5e-2
+    rels = {g: (d / r) ** 0.5 for g, (d, r) in groups.items()}
+    print(f"[{tag}] grads {what}, B={batch.shape[0]}: loss {losses[0]:.6f} vs "
+          f"{losses[1]:.6f}; |dg|/|g| per group (tol {tol:g}):")
+    for g, rel in sorted(rels.items()):
+        print(f"[{tag}]   {g:24s} {rel:.3e}")
+    if not (max(rels.values()) <= tol and abs(losses[0] - losses[1]) <= 1e-2
+            * abs(losses[1])):
+        raise AssertionError(f"gradients {what} disagree")
+
+
+def _flash_vs_plain(tag, cfg, rng, gen, B, expect):
+    """The flagship model's gradients through the flash kernels against the
+    same weights on the plain attention path, dropout off."""
     import torch
     from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.models import PianoBartLM
-    from pianobart_tpu_torch.ops.noise import corrupt_batch
-    from pianobart_tpu_torch.train.pretrain import _forward_loss
     model = init_lm(cfg, seed=SEED, device="cuda", train=True)
     plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda")
     plain.load_state_dict(model.state_dict())
     plain.train()
     batch = torch.as_tensor(_pretrain_batch(B, cfg.max_len, rng), device="cuda")
-    corrupted, loss_mask = corrupt_batch(batch, gen)
-    losses, counts = [], []
-    for m in (model, plain):
-        _reset_counts()
-        total, _ = _forward_loss(m, batch, corrupted, loss_mask)
-        total.backward()
-        torch.cuda.synchronize()
-        losses.append(total.item())
-        counts.append(tuple(_read_counts().values()))
-    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
-    if counts != [(n_attn, n_attn), (0, 0)]:
-        raise AssertionError(f"K1/K2 launches (flash path, plain path): {counts}")
-    groups = {}
-    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
-        d, r = groups.setdefault(_grad_groups(name), [0.0, 0.0])
-        groups[_grad_groups(name)] = [d + (p.grad - q.grad).float().square().sum().item(),
-                                      r + q.grad.float().square().sum().item()]
-    # Both paths compute in bf16 and round at different places: K2 rounds P
-    # and dS to bf16 as operands, the plain path rounds the probabilities
-    # and the gradient that flows back through them; these differences
-    # compound over 8+8 layers.
-    tol = 5e-2
-    rels = {g: (d / r) ** 0.5 for g, (d, r) in groups.items()}
-    print(f"[train] grads via K1+K2 vs plain attention, B={B}, dropout off: loss "
-          f"{losses[0]:.6f} vs {losses[1]:.6f}; |dg|/|g| per group (tol {tol:g}):")
-    for g, rel in sorted(rels.items()):
-        print(f"[train]   {g:24s} {rel:.3e}")
-    if not (max(rels.values()) <= tol and abs(losses[0] - losses[1]) <= 1e-2
-            * abs(losses[1])):
-        raise AssertionError("gradients through K1+K2 disagree with the plain path")
-    return n_attn
+    kernels = "K1+K2" if expect[1] else "K1+K3"
+    _grad_check(tag, (model, plain), batch, gen, (expect, _counts()),
+                f"via {kernels} vs plain attention, dropout off")
 
 
-def phase_train(state):
-    """The flagship pretrain step at B=32, S=1024: bf16 compute, f32
-    parameters, dropout 0.1, every attention through K1 and K2."""
+def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10):
+    """``pretrain_step`` at batch B: warm-up, then timed steps with the
+    launches of every kernel per step (each as ``expect`` says), ms/step,
+    tokens/s, model-FLOP MFU, peak device memory, and a profiled window."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import init_lm
-    from pianobart_tpu_torch.models import PianoBartConfig
     from pianobart_tpu_torch.ops.noise import corrupt_batch
     from pianobart_tpu_torch.train.pretrain import pretrain_step
     from pianobart_tpu_torch.train.state import create_train_state
     from pianobart_tpu_torch.utils.flops import PEAK_BF16_H100, pretrain_step_flops
 
-    cfg = PianoBartConfig(dtype=torch.bfloat16)
-    rng = np.random.default_rng(SEED)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    n_attn = _train_grad_check(cfg.replace(dropout=0.0), rng, gen)
-    torch.cuda.empty_cache()
-
-    B, S, warmup, steps = 32, cfg.max_len, 3, 10
+    S = cfg.max_len
     t0 = time.perf_counter()
     model = init_lm(cfg, seed=SEED, device="cuda", train=True)
     st = create_train_state(model)
     batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
-    print(f"[train] flagship B={B} S={S} bf16 compute, f32 params, dropout "
-          f"{cfg.dropout}, AdamW lr 2e-5; init {time.perf_counter() - t0:.1f} s")
+    print(f"[{tag}] flagship width B={B} S={S} bf16 compute, f32 params, dropout "
+          f"{cfg.dropout}, fused_dropout_ln={cfg.fused_dropout_ln}, AdamW lr 2e-5; "
+          f"init {time.perf_counter() - t0:.1f} s")
     c_ms = _time_ms(lambda: corrupt_batch(batch, gen), iters=10)
-    print(f"[train] corrupt_batch B={B}: {c_ms:.3f} ms (CUDA events)")
+    print(f"[{tag}] corrupt_batch B={B}: {c_ms:.3f} ms (CUDA events)")
     torch.cuda.reset_peak_memory_stats()
     for _ in range(warmup):
         pretrain_step(st, batch, gen)
@@ -572,28 +731,107 @@ def phase_train(state):
         metrics.append((m["loss"], m["grad_norm"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    state.setdefault("launches", {})["train"] = _read_counts()
+    state_launches = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [l.item() for l, _ in metrics]
     norms = [g.item() for _, g in metrics]
     model_flops, hw_flops = pretrain_step_flops(model.state_dict(), cfg, B, S)
     step_s = wall / steps
-    print(f"[train] {steps} timed steps after {warmup} warm-up: {1e3 * step_s:.1f} ms/step, "
-          f"{B * S / step_s:.0f} tokens/s, model-FLOP MFU "
-          f"{100 * model_flops / step_s / PEAK_BF16_H100:.2f}% "
+    mfu = 100 * model_flops / step_s / PEAK_BF16_H100
+    print(f"[{tag}] {steps} timed steps after {warmup} warm-up: {1e3 * step_s:.1f} "
+          f"ms/step, {B * S / step_s:.0f} tokens/s, model-FLOP MFU {mfu:.2f}% "
           f"({model_flops / 1e12:.2f} TFLOP/step; hardware FLOPs "
           f"{hw_flops / 1e12:.2f}) against {PEAK_BF16_H100 / 1e12:.0f} TFLOP/s; "
           f"peak device memory {peak:.2f} GiB")
-    print(f"[train] loss per step {[round(x, 5) for x in losses]}")
-    print(f"[train] grad_norm per step {[round(x, 5) for x in norms]}")
-    print(f"[train] K1, K2 launches per step {per_step}")
+    print(f"[{tag}] loss per step {[round(x, 5) for x in losses]}")
+    print(f"[{tag}] grad_norm per step {[round(x, 5) for x in norms]}")
+    print(f"[{tag}] launches per step (K1, K2, K3a, K3b, K4a, K4b) {per_step}")
     if not all(np.isfinite(losses + norms)):
         raise AssertionError("non-finite loss or grad_norm")
-    if any(k != (n_attn, n_attn) for k in per_step):
-        raise AssertionError(f"K1/K2 did not launch {n_attn} times each per step")
-    state["train"] = dict(ms=1e3 * step_s, peak_gib=peak)
-    _profile_window("train", f"2 pretrain steps at B={B}",
+    if any(k != expect for k in per_step):
+        raise AssertionError(f"launches per step {per_step}, expected {expect}")
+    _profile_window(tag, f"2 pretrain steps at B={B}",
                     lambda: [pretrain_step(st, batch, gen) for _ in range(2)], 2)
+    return state_launches, dict(ms=1e3 * step_s, peak_gib=peak, mfu=mfu,
+                                tokens_s=B * S / step_s)
+
+
+def phase_train(state):
+    """The flagship pretrain step at B=32, S=1024: bf16 compute, f32
+    parameters, dropout 0.1, every attention through K1 and K2."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartConfig
+
+    cfg = PianoBartConfig(dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    _flash_vs_plain("train", cfg.replace(dropout=0.0), rng, gen, 4,
+                    _counts(k1=n_attn, k2=n_attn))
+    torch.cuda.empty_cache()
+    launches, state["train"] = _train_steps("train", cfg, 32, rng, gen,
+                                            _counts(k1=n_attn, k2=n_attn))
+    state.setdefault("launches", {})["train"] = launches
+
+
+def phase_train_long(state):
+    """The long-context pretrain step: max_len 2048 at B=16 (the flagship's
+    tokens per batch), where every attention backward takes K3a and K3b."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartConfig
+
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, max_len=2048)
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k3=n_attn)
+    _flash_vs_plain("train_long", cfg.replace(dropout=0.0), rng, gen, 2, expect)
+    torch.cuda.empty_cache()
+    launches, state["train_long"] = _train_steps("train_long", cfg, 16, rng, gen,
+                                                 expect)
+    state["launches"]["train_long"] = launches
+
+
+def phase_train_fused(state):
+    """The flagship step with the fused sublayer tail (K4 at 2 sites per
+    encoder layer and 3 per decoder layer), beside [train] of this run."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, fused_dropout_ln=True)
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    n_tail = 2 * cfg.encoder_layers + 3 * cfg.decoder_layers
+    # At dropout 1e-9 the uint8 dropout keeps everything and K4 drops each
+    # element with probability 4/2^32 (~0.16 of 168 M tail elements per
+    # forward at B=4): the two steps then differ by bf16 rounding only.
+    tiny = cfg.replace(dropout=1e-9)
+    fused = init_lm(tiny, seed=SEED, device="cuda", train=True)
+    unfused = init_lm(tiny.replace(fused_dropout_ln=False), seed=SEED,
+                      device="cuda", train=True)
+    batch = torch.as_tensor(_pretrain_batch(4, cfg.max_len, rng), device="cuda")
+    _grad_check("train_fused", (fused, unfused), batch, gen,
+                (_counts(k1=n_attn, k2=n_attn, k4=n_tail),
+                 _counts(k1=n_attn, k2=n_attn)),
+                "of the fused tail vs the unfused, dropout 1e-9")
+    del fused, unfused
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_fused", cfg, 32, rng, gen,
+                                 _counts(k1=n_attn, k2=n_attn, k4=n_tail))
+    state["launches"]["train_fused"] = launches
+    state["train_fused"] = res
+    base = state["train"]
+    print(f"[train_fused] beside [train] of this run: {res['ms']:.1f} vs "
+          f"{base['ms']:.1f} ms/step ({100 * (res['ms'] / base['ms'] - 1):+.1f}%), "
+          f"{res['tokens_s']:.0f} vs {base['tokens_s']:.0f} tokens/s, peak "
+          f"{res['peak_gib']:.2f} vs {base['peak_gib']:.2f} GiB")
 
 
 def main() -> int:
@@ -622,22 +860,38 @@ def main() -> int:
         print(f"[{name}] phase ok in {time.perf_counter() - t0:.1f} s")
     print(state["smi"])
     print(json.dumps({"kernels": [
-        _kernel_record("flash_fwd", "pianobart_tpu/ops/flash.py:173", state["k1"],
-                       state["launches"], "flash_attention_fwd"),
-        _kernel_record("flash_bwd", "pianobart_tpu/ops/flash.py:351", state["k2"],
-                       state["launches"], "flash_attention_bwd")]}))
+        _kernel_record(*rec, state) for rec in KERNEL_RECORDS]}))
     print(json.dumps({"ok": True, "device": state["device"]}))
     return 0
 
 
-def _kernel_record(name, replaces, rec, launches, counter):
+# name, state key, source, the TPU kernel it replaces, launch counter, the
+# main path it belongs to
+KERNEL_RECORDS = (
+    ("flash_fwd", "k1", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train"),
+    ("flash_bwd", "k2", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train"),
+    ("flash_dq", "k3a", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:276",
+     "flash_attention_dq", "train_long"),
+    ("flash_dkv", "k3b", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
+     "flash_attention_dkv", "train_long"),
+    ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
+     "dropout_add_ln_fwd", "train_fused"),
+    ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",
+     "dropout_add_ln_bwd", "train_fused"),
+)
+
+
+def _kernel_record(name, key, source, replaces, counter, home, state):
     """One entry of the kernels line.  ``launches`` is the count on the
-    training path (this slice's main path); ``launches_by_path`` gives the
-    count of every main path, each read after its own run from 0."""
-    by_path = {path: counts[counter] for path, counts in launches.items()}
+    kernel's own main path (``home``); ``launches_by_path`` gives the count
+    of every main path, each read after its own run from 0."""
+    rec = state[key]
+    by_path = {path: counts[counter] for path, counts in state["launches"].items()}
     return {"name": name, "route": "cuda",
-            "source": f"pianobart_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": by_path["train"], "launches_by_path": by_path,
+            "source": f"pianobart_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": by_path[home], "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
@@ -645,7 +899,9 @@ def _kernel_record(name, replaces, rec, launches, counter):
 
 PHASES = (("device", phase_device), ("build", phase_build),
           ("flash", phase_flash), ("flash_bwd", phase_flash_bwd),
-          ("serve", phase_serve), ("train", phase_train))
+          ("fused_ln", phase_fused_ln), ("serve", phase_serve),
+          ("train", phase_train), ("train_long", phase_train_long),
+          ("train_fused", phase_train_fused))
 
 
 if __name__ == "__main__":

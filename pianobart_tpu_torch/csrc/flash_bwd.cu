@@ -1,13 +1,18 @@
 // Flash attention backward for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
-// Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:351
-// _bwd_fused_kernel (launched by _bwd_fused_call, from _bwd_impl).  Same
-// contract:
+// Replaces three Pallas TPU kernels of pianobart_tpu/ops/flash.py, one C
+// entry each, all running the two CUDA kernels below:
+//   pbt_flash_bwd  K2, :351 _bwd_fused_kernel (launched by _bwd_fused_call
+//                  where S <= 1024): the dK/dV kernel, then the dQ kernel;
+//   pbt_flash_dq   K3a, :276 _dq_kernel (launched by _dq_call where S > 1024
+//                  and by the ring backward): the dQ kernel;
+//   pbt_flash_dkv  K3b, :312 _dkv_kernel (_dkv_call): the dK/dV kernel.
+// Same contract as the Pallas calls:
 //   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides; q is
 //                already scaled by D**-0.5 by the caller.
 //   kv_mask      (B, Skv) int32, nonzero = attend.  causal: keep row >= col.
-//   lse, delta   (B, H, Sq) f32: the forward's row logsumexp and
-//                delta = rowsum(dO * O), computed by the caller.
+//   lse, delta   (B, H, Sq) f32: the forward's row logsumexp (or a merged
+//                one) and delta = rowsum(dO * O), computed by the caller.
 //   dq, dk, dv   (B, S, H, D) contiguous, input dtype.
 // P = exp(s - lse) with masked scores at the finite -1e30 of the forward, so
 // P is the forward's softmax exactly; dS = P * (dP - delta), dP = dO V^T;
@@ -17,7 +22,9 @@
 // 10*S^2*D FLOPs per (b, h) when no key is masked (five S x S x D products),
 // 3.44e11 FLOP per call = 0.347 ms at 989 TFLOP/s, about half that causal;
 // the seven (B, S, H, D) arrays (64 MiB each) take about 0.14 ms at
-// 3.35 TB/s, so the kernel is bound by operations.
+// 3.35 TB/s, so the kernel is bound by operations.  At the long-context
+// shape (B=16, S=2048) K3a does 3 of those products (0.417 ms) and K3b 4
+// (0.556 ms), both bound by operations.
 //
 // Design (simple first).  The TPU kernel held one (b, h)'s whole 1024 x 1024
 // block in VMEM and computed S, P, dP and dS once; a CTA has 227 KB, so here
@@ -433,54 +440,97 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     dq[(((long long)b * Sq + q0 + r) * H + h) * HEAD_DIM + tid] = acc[r];
 }
 
-}  // namespace
+typedef long long ll;
+#define PBT_STRIDES ll qsb, ll qss, ll qsh, ll ksb, ll kss, ll ksh, \
+                    ll vsb, ll vss, ll vsh, ll osb, ll oss, ll osh
+#define PBT_STRIDE_ARGS qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// (B, S, H) axes of q, k, v and dO; the D axis must be contiguous.  Launches
-// the dK/dV kernel, then the dQ kernel, on `stream`.  Returns the first
-// cudaGetLastError() that is not cudaSuccess.
-extern "C" int pbt_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const void* mask, const void* lse,
-                             const void* delta, void* dq, void* dk, void* dv,
-                             int B, int Sq, int Skv, int H, int dtype, int causal,
-                             long long qsb, long long qss, long long qsh,
-                             long long ksb, long long kss, long long ksh,
-                             long long vsb, long long vss, long long vsh,
-                             long long osb, long long oss, long long osh,
-                             void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int rc;
+// The dK/dV kernel on `st`; returns its cudaGetLastError().
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* mask, const void* lse, const void* delta, void* dk,
+               void* dv, int B, int Sq, int Skv, int H, int dtype, int causal,
+               PBT_STRIDES, cudaStream_t st) {
   if (dtype == 1) {
     typedef const __nv_bfloat16* cbf;
     cudaFuncSetAttribute(flash_dkv_bf16_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
-    cudaFuncSetAttribute(flash_dq_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
     flash_dkv_bf16_kernel<<<dim3(Skv / BN, H, B), THREADS, MMA_SMEM, st>>>(
         (cbf)q, (cbf)k, (cbf)v, (cbf)dout, (const int*)mask, (const float*)lse,
         (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, Sq, Skv, H,
-        causal, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
-    flash_dq_bf16_kernel<<<dim3(Sq / BM, H, B), THREADS, MMA_SMEM, st>>>(
-        (cbf)q, (cbf)k, (cbf)v, (cbf)dout, (const int*)mask, (const float*)lse,
-        (const float*)delta, (__nv_bfloat16*)dq, Sq, Skv, H, causal,
-        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh);
+        causal, PBT_STRIDE_ARGS);
   } else {
     cudaFuncSetAttribute(flash_dkv_f32_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-    cudaFuncSetAttribute(flash_dq_f32_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
     flash_dkv_f32_kernel<<<dim3(Skv / FR, H, B), THREADS, F32_SMEM, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const int*)mask, (const float*)lse, (const float*)delta, (float*)dk,
-        (float*)dv, Sq, Skv, H, causal,
-        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh);
-    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+        (float*)dv, Sq, Skv, H, causal, PBT_STRIDE_ARGS);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The dQ kernel on `st`; returns its cudaGetLastError().
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* mask, const void* lse, const void* delta, void* dq,
+              int B, int Sq, int Skv, int H, int dtype, int causal, PBT_STRIDES,
+              cudaStream_t st) {
+  if (dtype == 1) {
+    typedef const __nv_bfloat16* cbf;
+    cudaFuncSetAttribute(flash_dq_bf16_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
+    flash_dq_bf16_kernel<<<dim3(Sq / BM, H, B), THREADS, MMA_SMEM, st>>>(
+        (cbf)q, (cbf)k, (cbf)v, (cbf)dout, (const int*)mask, (const float*)lse,
+        (const float*)delta, (__nv_bfloat16*)dq, Sq, Skv, H, causal,
+        PBT_STRIDE_ARGS);
+  } else {
+    cudaFuncSetAttribute(flash_dq_f32_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
     flash_dq_f32_kernel<<<dim3(Sq / FR, H, B), THREADS, F32_SMEM, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
         (const int*)mask, (const float*)lse, (const float*)delta, (float*)dq,
-        Sq, Skv, H, causal,
-        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh);
+        Sq, Skv, H, causal, PBT_STRIDE_ARGS);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
+// (B, S, H) axes of q, k, v and dO; the D axis must be contiguous.  Each
+// entry launches on `stream` and returns the first cudaGetLastError() that
+// is not cudaSuccess.
+
+// K2: the dK/dV kernel, then the dQ kernel.
+extern "C" int pbt_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* dout, const void* mask, const void* lse,
+                             const void* delta, void* dq, void* dk, void* dv,
+                             int B, int Sq, int Skv, int H, int dtype, int causal,
+                             PBT_STRIDES, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  int rc = launch_dkv(q, k, v, dout, mask, lse, delta, dk, dv, B, Sq, Skv, H,
+                      dtype, causal, PBT_STRIDE_ARGS, st);
+  if (rc != 0) return rc;
+  return launch_dq(q, k, v, dout, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
+                   causal, PBT_STRIDE_ARGS, st);
+}
+
+// K3a: dQ alone.
+extern "C" int pbt_flash_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* mask, const void* lse,
+                            const void* delta, void* dq, int B, int Sq, int Skv,
+                            int H, int dtype, int causal, PBT_STRIDES,
+                            void* stream) {
+  return launch_dq(q, k, v, dout, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
+                   causal, PBT_STRIDE_ARGS, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K3b: dK and dV alone.
+extern "C" int pbt_flash_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* mask, const void* lse,
+                             const void* delta, void* dk, void* dv, int B, int Sq,
+                             int Skv, int H, int dtype, int causal, PBT_STRIDES,
+                             void* stream) {
+  return launch_dkv(q, k, v, dout, mask, lse, delta, dk, dv, B, Sq, Skv, H,
+                    dtype, causal, PBT_STRIDE_ARGS,
+                    reinterpret_cast<cudaStream_t>(stream));
 }

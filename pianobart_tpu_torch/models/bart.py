@@ -7,11 +7,12 @@ Activations run in ``cfg.dtype``; parameters live in ``cfg.param_dtype`` and
 are cast to ``cfg.dtype`` where they are used; LayerNorm statistics are f32.
 The decoder takes an explicit KV cache for incremental decoding.
 
-Dropout follows the reference's unfused composition (``ResidualDropoutLN``,
-after the FFN's GELU, after ``layernorm_embedding``; the fused K4 path is off
-by default there).  It applies when the module is in training mode
-(``self.training``); its bits come from the ``generator`` passed down the
-forward.
+Dropout follows the reference's composition (``ResidualDropoutLN``, after
+the FFN's GELU, after ``layernorm_embedding``).  It applies when the module
+is in training mode (``self.training``); its bits come from the
+``generator`` passed down the forward.  With ``cfg.fused_dropout_ln`` the
+sublayer tails run as the fused K4 kernels (``ops/fused_ln.py``), as the
+reference's ``PBX_FUSED_DROPLN=1`` does; off by default, as there.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from torch.nn import functional as F
 from .config import PianoBartConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import dropout
+from ..ops.fused_ln import dropout_add_ln, fused_eligible
 
 KVCache = Dict[str, Any]
 Generator = Optional[torch.Generator]
@@ -75,14 +77,31 @@ class LayerNorm(nn.Module):
 
 
 class ResidualDropoutLN(LayerNorm):
-    """``LayerNorm(residual + dropout(h))``, the tail of every sublayer."""
+    """``LayerNorm(residual + dropout(h))``, the tail of every sublayer.
+
+    With ``cfg.fused_dropout_ln``, in training, at a nonzero rate and on a
+    shape :func:`fused_eligible` takes (the reference's gate without its TPU
+    test), the tail is one :func:`dropout_add_ln` call: the residual add in
+    f32 and the bits from a seed drawn on the device from ``generator`` per
+    call site (the role of the reference's per-site ``make_rng``), with no
+    host sync.  Otherwise the unfused composition, adding in ``cfg.dtype``.
+    """
 
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__(cfg, device)
         self.rate = cfg.dropout
+        self.fused = cfg.fused_dropout_ln
 
     def forward(self, residual: torch.Tensor, h: torch.Tensor,
                 generator: Generator = None) -> torch.Tensor:
+        if (self.fused and self.training and self.rate > 0.0
+                and fused_eligible(h.shape)):
+            if generator is None:
+                raise ValueError("dropout needs an explicit torch.Generator")
+            seed = torch.randint(0, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                                 device=h.device, generator=generator)
+            return dropout_add_ln(h, residual, self.weight, self.bias, seed,
+                                  self.rate, LN_EPS)
         h = dropout(h, self.rate, generator, not self.training)
         return layer_norm(residual + h, self.weight, self.bias, self.dtype)
 

@@ -1,6 +1,8 @@
 """Model configuration: the dataclass of ``pianobart_tpu/models/config.py``
 with ``torch.dtype`` fields.  The ring/TP fields, remat and the label
-decoder come with the parallelism and finetune paths that use them.
+decoder come with the parallelism and finetune paths that use them;
+``fused_dropout_ln`` stands in for the reference's ``PBX_FUSED_DROPLN``
+environment switch.
 
 Parameters are held in ``param_dtype`` and cast to ``dtype`` where they are
 used, as flax's ``Dense(dtype, param_dtype)`` does: f32 weights under bf16
@@ -37,6 +39,11 @@ class PianoBartConfig:
     dtype: torch.dtype = torch.float32     # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     use_flash_attention: bool = True       # flash kernel where eligible
+    # Every sublayer tail LayerNorm(residual + dropout(h)) as the fused K4
+    # kernels (ops/fused_ln.py) when training with dropout on eligible
+    # shapes: the counterpart of the reference's PBX_FUSED_DROPLN=1, which
+    # is off by default there.  Read from the config, never the environment.
+    fused_dropout_ln: bool = False
 
     @property
     def head_dim(self) -> int:

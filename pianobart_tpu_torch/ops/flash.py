@@ -1,5 +1,5 @@
 """Flash attention: the Hopper kernels ``csrc/flash_fwd.cu`` (K1) and
-``csrc/flash_bwd.cu`` (K2), their plain PyTorch versions, and the
+``csrc/flash_bwd.cu`` (K2, K3a, K3b), their plain PyTorch versions, and the
 ``torch.autograd.Function`` that joins them.
 
 K1 replaces the Pallas TPU kernel ``pianobart_tpu/ops/flash.py:_fwd_kernel``
@@ -12,60 +12,52 @@ logsumexp ``lse (B, H, Sq)`` in f32.  Masked scores are the finite
 ``-1e30``, so fully masked rows stay finite; their values are undefined
 (they depend on which kv tiles ran) and every loss mask excludes them.
 
-K2 replaces ``pianobart_tpu/ops/flash.py:_bwd_fused_kernel`` (launched by
-``_bwd_fused_call``): from q, k, v, the mask, dO, the forward's lse and
+The backward picks its kernels as the reference's ``_bwd_impl`` does, after
 ``delta = rowsum(dO * O)`` (computed here in plain PyTorch, as JAX's
-``_delta`` is outside Pallas) it returns dQ, dK, dV in the input dtype.
+``_delta`` is outside Pallas):
 
-Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), both by operations: K1 at
+* K2 replaces ``_bwd_fused_kernel`` (launched by ``_bwd_fused_call``) where
+  Sq and Skv fit the reference's single 1024-row block
+  (:func:`_fused_eligible`): one C call returns dQ, dK, dV.
+* K3a replaces ``_dq_kernel`` (``_dq_call``) and K3b ``_dkv_kernel``
+  (``_dkv_call``) elsewhere (S > 1024): dQ, then dK and dV, each from the
+  caller's lse and delta, so a caller with a merged lse (the ring backward)
+  can use them alone.
+
+K2's entry runs the same two CUDA kernels as K3b then K3a: a 1024 x 1024
+block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
+the start.  K2 and K3 differ in entry point and contract, not in algorithm.
+
+Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
 (B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs, about 4.3 us x B; K2 at the
 flagship train shape (32, 1024, 8, 128) bf16 ``10*B*H*S^2*D`` FLOPs, 0.347 ms
-per call unmasked, about half causal.  Both kernels are the simple first
-design described in their sources: ``mma.sync`` tensor-core products,
-synchronous tile loads, no wgmma/TMA pipeline.
+per call unmasked, about half causal; K3a (3 products) and K3b (4) at the
+long-context shape (16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.  All are
+the simple first design described in their sources: ``mma.sync``
+tensor-core products, synchronous tile loads, no wgmma/TMA pipeline.
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
-tensors they launch the kernel or raise.  The kernels are built with
-``nvcc`` from the repo's sources at first use (never at import) into
-``build/``, one library per source, all sources compiled at once.
+tensors they launch the kernel or raise.  The kernels are built by
+:mod:`.build` at first use, never at import.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from .build import build_kernel, use_kernel
+
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "build_kernel", "build_kernels", "HEAD_DIM"]
+           "flash_attention_dq_reference", "flash_attention_dkv_reference",
+           "HEAD_DIM"]
 
 NEG_INF = -1e30
 HEAD_DIM = 128     # the one head width the kernels take
 TILE = 64          # the kernels' q/kv tile rows: Sq and Skv must divide by it
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
-_HEADERS = ("flash_common.cuh",)
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pianobart_tpu_torch")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {   # C entry point, argtypes
-    "flash_fwd": ("pbt_flash_fwd", [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P]),
-    "flash_bwd": ("pbt_flash_bwd", [_P] * 10 + [_I] * 6 + [_L] * 12 + [_P]),
-}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
+FUSED_BWD_MAX = 1024   # the reference's single-block backward cap (_BWD_BLOCK)
 
 
 def _mask_and_scores(q, k, kv_mask, causal):
@@ -100,76 +92,44 @@ def _delta(dout, out):
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _probs_and_ds(q, k, v, kv_mask, causal, lse, delta, dout):
+    """The backward's f32 P = exp(s - lse) from the forward's lse and
+    dS = P * (dP - delta) with dP = dO V^T, both (B, H, Sq, Skv)."""
+    p = torch.exp(_mask_and_scores(q, k, kv_mask, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_dq_reference(q, k, v, kv_mask, causal, lse, delta, dout):
+    """Plain version of K3a in f32: dQ = dS K.  Returns dq in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, kv_mask, causal, lse, delta, dout)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_dkv_reference(q, k, v, kv_mask, causal, lse, delta, dout):
+    """Plain version of K3b in f32: dK = dS^T Q, dV = P^T dO.  Returns
+    ``(dk, dv)`` in the input dtypes."""
+    p, ds = _probs_and_ds(q, k, v, kv_mask, causal, lse, delta, dout)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_reference(q, k, v, kv_mask, causal, out, lse, dout):
     """Plain version of K2's arithmetic in f32: P from the forward's lse,
     dP = dO V^T, dS = P * (dP - delta), then dV = P^T dO, dQ = dS K,
     dK = dS^T Q.  Returns ``(dq, dk, dv)`` in the input dtypes."""
-    p = torch.exp(_mask_and_scores(q, k, kv_mask, causal) - lse[..., None])
-    dof = dout.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    ds = p * (dp - _delta(dout, out)[..., None])
+    p, ds = _probs_and_ds(q, k, v, kv_mask, causal, lse, _delta(dout, out), dout)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _so_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for f in (_SOURCES[name],) + _HEADERS:
-        with open(os.path.join(_CSRC, f), "rb") as fh:
-            h.update(fh.read())
-    return os.path.join(_BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
-
-
-def build_kernels(names: Iterable[str] = tuple(_SOURCES)) -> Dict[str, ctypes.CDLL]:
-    """Compile the named ``csrc`` sources for sm_90a (once per source
-    version), one ``nvcc`` process per source, all started together, and
-    load them.  Each ptxas report lands beside its library as ``.log``."""
-    names = list(names)
-    with _lib_lock:
-        todo = {n: _so_path(n) for n in names if n not in _libs}
-        missing = {n: so for n, so in todo.items() if not os.path.exists(so)}
-        if missing:
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the flash kernels need the "
-                                   "CUDA toolkit to build")
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            procs = {}
-            for n, so in missing.items():
-                src = os.path.join(_CSRC, _SOURCES[n])
-                tmp = f"{so}.{os.getpid()}.tmp"
-                procs[n] = (subprocess.Popen(
-                    [nvcc, *_NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
-                    stderr=subprocess.PIPE, text=True), tmp, src)
-            failed = []
-            for n, (proc, tmp, src) in procs.items():
-                _, err = proc.communicate()
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed on {src}:\n{err}")
-                    continue
-                so = missing[n]
-                with open(so + ".log", "w") as f:
-                    f.write(f"nvcc {time.perf_counter() - t0:.1f} s\n{err}")
-                os.replace(tmp, so)
-            if failed:
-                raise RuntimeError("\n".join(failed))
-        for n, so in todo.items():
-            lib = ctypes.CDLL(so)
-            fn_name, argtypes = _SIGNATURES[n]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = _I
-            lib.path = so
-            _libs[n] = lib
-        return {n: _libs[n] for n in names}
-
-
-def build_kernel(name: str = "flash_fwd") -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library."""
-    return build_kernels([name])[name]
+def _fused_eligible(Sq: int, Skv: int) -> bool:
+    """True where the reference's ``_fused_eligible(Sq, Skv, None, None)``
+    is: both lengths fit its single 1024-row backward block."""
+    return Sq <= FUSED_BWD_MAX and Skv <= FUSED_BWD_MAX
 
 
 def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
@@ -206,14 +166,6 @@ def _int_mask(kv_mask, B, Skv, device):
     return kv_mask.to(torch.int32).contiguous()
 
 
-def _on_cuda(q) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (take the plain version); raises for any other device."""
-    if q.device.type in ("cuda", "cpu"):
-        return q.device.type == "cuda"
-    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-
-
 def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,7 +175,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     CPU tensors take :func:`flash_attention_reference`; CUDA tensors launch
     the kernel (counted in ``flash_attention_fwd.launches``) or raise.
     """
-    if not _on_cuda(q):
+    if not use_kernel(q, "flash attention"):
         return flash_attention_reference(q, k, v, kv_mask, causal)
     _check_cuda_inputs(q, k, v, kv_mask)
     B, Sq, H, D = q.shape
@@ -248,40 +200,107 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2, the flash backward: ``(dq, dk, dv)`` in the input dtype from the
-    forward's inputs, its ``out`` and ``lse``, and ``dout``.
+def _check_bwd_rows(q, lse, delta=None):
+    B, Sq, H, _ = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x is not None and (x.shape != (B, H, Sq) or x.dtype != torch.float32
+                              or x.device != q.device):
+            raise ValueError(f"{name} must be f32 {(B, H, Sq)} on {q.device}")
 
-    CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors
-    launch the kernel (counted in ``flash_attention_bwd.launches``) or raise.
-    """
-    if not _on_cuda(q):
-        return flash_attention_bwd_reference(q, k, v, kv_mask, causal, out,
-                                             lse, dout)
-    _check_cuda_inputs(q, k, v, kv_mask, dout)
-    B, Sq, H, D = q.shape
+
+def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
+    """Launch one backward C entry of ``flash_bwd.cu`` on the current
+    stream; ``outs`` are its output tensors in the entry's order."""
+    B, Sq, H, _ = q.shape
     Skv = k.shape[1]
-    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be f32 {(B, H, Sq)}")
     mask = _int_mask(kv_mask, B, Skv, q.device)
-    lse = lse.contiguous()
-    delta = _delta(dout, out)
-    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Skv, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Skv, H, D), dtype=q.dtype, device=q.device)
+    lse, delta = lse.contiguous(), delta.contiguous()
     lib = build_kernel("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.pbt_flash_bwd(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            mask.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
+            mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(o.data_ptr() for o in outs), B, Sq, Skv, H,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+def flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout
+                       ) -> torch.Tensor:
+    """K3a: dQ from the forward's inputs, the caller's ``lse`` and ``delta``
+    (both ``(B, H, Sq)`` f32) and ``dout``.
+
+    CPU tensors take :func:`flash_attention_dq_reference`; CUDA tensors
+    launch the kernel (counted in ``flash_attention_dq.launches``) or raise.
+    """
+    if not use_kernel(q, "flash attention"):
+        return flash_attention_dq_reference(q, k, v, kv_mask, causal, lse,
+                                            delta, dout)
+    _check_cuda_inputs(q, k, v, kv_mask, dout)
+    _check_bwd_rows(q, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("pbt_flash_dq", q, k, v, kv_mask, causal, lse, delta, dout, [dq])
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, kv_mask, causal, lse, delta, dout
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b: ``(dk, dv)`` from the forward's inputs, the caller's ``lse`` and
+    ``delta`` and ``dout``.
+
+    CPU tensors take :func:`flash_attention_dkv_reference`; CUDA tensors
+    launch the kernel (counted in ``flash_attention_dkv.launches``) or raise.
+    """
+    if not use_kernel(q, "flash attention"):
+        return flash_attention_dkv_reference(q, k, v, kv_mask, causal, lse,
+                                             delta, dout)
+    _check_cuda_inputs(q, k, v, kv_mask, dout)
+    _check_bwd_rows(q, lse, delta)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("pbt_flash_dkv", q, k, v, kv_mask, causal, lse, delta, dout,
+                [dk, dv])
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The flash backward: ``(dq, dk, dv)`` in the input dtype from the
+    forward's inputs, its ``out`` and ``lse``, and ``dout``.
+
+    As the reference's ``_bwd_impl``: where :func:`_fused_eligible` holds,
+    K2 (counted in ``flash_attention_bwd.launches``); elsewhere delta once,
+    then K3a (:func:`flash_attention_dq`) and K3b
+    (:func:`flash_attention_dkv`), each counted on its own.  CPU tensors
+    take the plain versions; CUDA tensors launch the kernels or raise.
+    """
+    if not _fused_eligible(q.shape[1], k.shape[1]):
+        delta = _delta(dout, out)
+        dq = flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout)
+        dk, dv = flash_attention_dkv(q, k, v, kv_mask, causal, lse, delta, dout)
+        return dq, dk, dv
+    if not use_kernel(q, "flash attention"):
+        return flash_attention_bwd_reference(q, k, v, kv_mask, causal, out,
+                                             lse, dout)
+    _check_cuda_inputs(q, k, v, kv_mask, dout)
+    _check_bwd_rows(q, lse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("pbt_flash_bwd", q, k, v, kv_mask, causal, lse,
+                _delta(dout, out), dout, [dq, dk, dv])
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -290,7 +309,7 @@ flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward (saving O and lse), K2 backward."""
+    """K1 forward (saving O and lse); K2, or K3a and K3b, backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal):
@@ -309,7 +328,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, kv_mask=None, causal: bool = False):
     """Flash attention over ``(B, S, H, D)``; q pre-scaled by the caller.
-    Differentiable in q, k and v through K2."""
+    Differentiable in q, k and v through K2 (S <= 1024) or K3a + K3b."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, kv_mask, causal)

@@ -12,8 +12,11 @@ The step updates ``state.model`` in place (the role of JAX's
 step calls ``.item()`` or otherwise waits on the device.  Corruption and
 dropout draw from one ``torch.Generator`` on the batch's device, which the
 caller seeds once; JAX's per-step ``fold_in`` becomes the generator's own
-advance.  In the flagship configuration every attention runs K1 forward and
-K2 backward: 24 launches of each per step.
+advance.  Kernel launches per step at flagship width: 24 attentions, each
+K1 forward and, at S <= 1024, K2 backward (24 each); at ``max_len=2048``
+the backward is K3a then K3b (24 each, K2 none), as the reference's
+``_bwd_impl`` picks.  With ``fused_dropout_ln`` the 40 sublayer tails (2 per
+encoder layer, 3 per decoder layer) add K4a and K4b (40 each).
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ table, and the roofline bound of a kernel's work on one H100.
 * attention, two conventions: **model FLOPs** count 2 forward and 4
   backward S x S x d_model products per attention module; **hardware FLOPs**
   count 2 forward and 5 backward, as a flash backward recomputes the scores
-  (the port's K2 computes them twice more: its dK/dV and dQ passes each
-  take S and dP, so it executes 7 backward products).
+  (the port's K2, and K3a + K3b at S > 1024, compute them twice more: the
+  dK/dV and dQ passes each take S and dP, so they execute 7 backward
+  products).
 
 MFU is model FLOPs per second over the peak.
 """

@@ -10,9 +10,14 @@ Imports nothing of JAX, so they run where only PyTorch is installed.
 import pytest
 import torch
 
-from pianobart_tpu_torch.ops.flash import (flash_attention,
+from pianobart_tpu_torch.ops import fused_ln as F
+from pianobart_tpu_torch.ops.flash import (_delta, flash_attention,
                                            flash_attention_bwd,
                                            flash_attention_bwd_reference,
+                                           flash_attention_dkv,
+                                           flash_attention_dkv_reference,
+                                           flash_attention_dq,
+                                           flash_attention_dq_reference,
                                            flash_attention_fwd,
                                            flash_attention_reference)
 
@@ -148,3 +153,117 @@ def test_flash_autograd_runs_both_kernels(cuda):
     torch.cuda.synchronize()
     assert (flash_attention_fwd.launches - f0, flash_attention_bwd.launches - b0) == (1, 1)
     assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_k3_kernels_match_reference(cuda, dtype, causal, use_mask):
+    """K3a and K3b at S=2048 (B=2, H=2) against their plain versions, from
+    the forward's lse and the delta the backward computes."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, use_mask, S=2048)
+    delta = _delta(dout, out)
+    q0, k0 = flash_attention_dq.launches, flash_attention_dkv.launches
+    dq = flash_attention_dq(q, k, v, m, causal, lse, delta, dout)
+    dk, dv = flash_attention_dkv(q, k, v, m, causal, lse, delta, dout)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches - q0, flash_attention_dkv.launches - k0) == (1, 1)
+    want = (flash_attention_dq_reference(q, k, v, m, causal, lse, delta, dout),
+            *flash_attention_dkv_reference(q, k, v, m, causal, lse, delta, dout))
+    assert_bwd_close((dq, dk, dv), want, dtype)
+
+
+@pytest.mark.parametrize("S,counts", [(1024, (1, 0, 0)), (2048, (0, 1, 1))])
+def test_backward_picks_k2_or_k3(cuda, S, counts):
+    """flash_attention's gradient moves only K2's count at S=1024 and only
+    K3a's and K3b's at S=2048, as the reference's _bwd_impl picks."""
+    q, k, v, mask = (x.requires_grad_() if x.dim() == 4 else x
+                     for x in _inputs(cuda, torch.bfloat16, S=S))
+    before = (flash_attention_bwd.launches, flash_attention_dq.launches,
+              flash_attention_dkv.launches)
+    flash_attention(q, k, v, mask, True).float().square().sum().backward()
+    torch.cuda.synchronize()
+    after = (flash_attention_bwd.launches, flash_attention_dq.launches,
+             flash_attention_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == counts
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+def test_k3_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, S=2048, D=64)
+    rows = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_dq(q, k, v, None, False, rows, rows, q)
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, S=2048)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_dkv(q, k, v, None, False, rows, rows[:, :, :64], q)
+
+
+def _ln_case(dev, dtype, N=256, D=1024, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(N, D, device=dev, generator=g).to(dtype)
+    res = torch.randn(N, D, device=dev, generator=g).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
+    beta = 0.1 * torch.randn(D, device=dev, generator=g)
+    dout = torch.randn(N, D, device=dev, generator=g).to(dtype)
+    seed_t = torch.tensor([2 ** 40 + 3], dtype=torch.int64, device=dev)
+    return h, res, gamma, beta, dout, seed_t
+
+
+# K4 against its plain version fed the same Philox bits.  f32: rsqrtf and
+# summation order only.  bf16: the outputs round to bf16 on both sides and
+# can round apart by one step (2^-8 relative); dgamma/dbeta are f32 sums of
+# the same products in another order.
+LN_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [256, 1024])
+def test_fused_ln_kernels_match_reference(cuda, dtype, D):
+    h, res, gamma, beta, dout, seed = _ln_case(cuda, dtype, D=D)
+    f0, b0 = F.dropout_add_ln_fwd.launches, F.dropout_add_ln_bwd.launches
+    out, mean, rstd = F.dropout_add_ln_fwd(h, res, gamma, beta, seed, 0.1)
+    grads = F.dropout_add_ln_bwd(h, res, gamma, mean, rstd, dout, seed, 0.1)
+    torch.cuda.synchronize()
+    assert (F.dropout_add_ln_fwd.launches - f0, F.dropout_add_ln_bwd.launches - b0) == (1, 1)
+    bits = F.philox_bits(seed, *h.shape)
+    keep = bits >= F.threshold(0.1)
+    assert torch.equal(grads[0] != 0, keep), "keep decisions differ"
+    r_out, r_mean, r_rstd = F.dropout_add_ln_reference(h, res, gamma, beta, seed,
+                                                       0.1, bits=bits)
+    r_grads = F.dropout_add_ln_bwd_reference(h, res, gamma, r_mean, r_rstd, dout,
+                                             seed, 0.1, bits=bits)
+    atol, rtol = LN_TOL[dtype]
+    torch.testing.assert_close(mean, r_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, r_rstd, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=atol, rtol=rtol)
+    for name, a, b in zip(("dh", "dres", "dgamma", "dbeta"), grads, r_grads):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
+                                   msg=name)
+
+
+def test_fused_ln_autograd_runs_both_kernels(cuda):
+    h, res, gamma, beta, dout, seed = _ln_case(cuda, torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (h, res, gamma, beta)]
+    f0, b0 = F.dropout_add_ln_fwd.launches, F.dropout_add_ln_bwd.launches
+    F.dropout_add_ln(*leaves, seed, 0.1).backward(dout)
+    torch.cuda.synchronize()
+    assert (F.dropout_add_ln_fwd.launches - f0, F.dropout_add_ln_bwd.launches - b0) == (1, 1)
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+def test_fused_ln_kernels_refuse_what_they_do_not_take(cuda):
+    h, res, gamma, beta, dout, seed = _ln_case(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="rows"):
+        F.dropout_add_ln_fwd(h[:100], res[:100], gamma, beta, seed, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        F.dropout_add_ln_fwd(h.t(), res.t(), gamma[:256], beta[:256], seed, 0.1)
+    with pytest.raises(ValueError, match="seed"):
+        F.dropout_add_ln_fwd(h, res, gamma, beta, seed.cpu(), 0.1)
+    with pytest.raises(ValueError, match="gamma"):
+        F.dropout_add_ln_fwd(h, res, gamma.half(), beta, seed, 0.1)
+    with pytest.raises(TypeError):
+        F.dropout_add_ln_fwd(h.half(), res.half(), gamma, beta, seed, 0.1)
+    with pytest.raises(ValueError, match="rate"):
+        F.dropout_add_ln_fwd(h, res, gamma, beta, seed, 1.0)

@@ -16,6 +16,9 @@ from pianobart_tpu.ops.attention import _build_bias as jax_build_bias
 from pianobart_tpu.ops.attention import _xla_attention
 from pianobart_tpu.ops.flash import _bwd_fused_call as jax_bwd_fused_call
 from pianobart_tpu.ops.flash import _delta as jax_delta
+from pianobart_tpu.ops.flash import _dkv_call as jax_dkv_call
+from pianobart_tpu.ops.flash import _dq_call as jax_dq_call
+from pianobart_tpu.ops.flash import _fused_eligible as jax_fused_eligible
 from pianobart_tpu.ops.flash import _fwd as jax_fwd
 from pianobart_tpu.ops.flash import flash_attention as jax_flash_attention
 from pianobart_tpu_torch.ops import attention as port_attention
@@ -127,6 +130,90 @@ def test_bwd_reference_matches_jax_kernel(causal, use_mask):
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy().reshape(B, S, H * D), np.asarray(b),
                                    err_msg=f"d{name}", **TOL)
+
+
+def _k3_case(causal, use_mask, Sl=128, blk=32):
+    """Multi-block inputs for the two-kernel backward: JAX's forward at
+    blocks of ``blk`` gives O and lse, and ``_delta`` the external delta."""
+    rng = np.random.default_rng(8)
+    q, k, v = ((rng.standard_normal((B, Sl, H, D)) * s).astype(np.float32)
+               for s in (0.3, 0.3, 1.0))
+    mask = np.ones((B, Sl), np.float32)
+    mask[1, Sl - 24:] = 0.0
+    m = mask if use_mask else None
+    dout = rng.standard_normal((B, Sl, H, D)).astype(np.float32)
+    out, lse, (qf, kf, vf, maskf) = jax_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if m is None else jnp.asarray(m), causal, blk, blk)
+    dof = jnp.asarray(dout).reshape(B, Sl, H * D)
+    delta = jax_delta(dof, out, H)
+    jax_args = (qf, kf, vf, maskf, dof, lse, delta, causal, blk, blk, H)
+    port_args = (*(torch.from_numpy(x) for x in (q, k, v)),
+                 None if m is None else torch.from_numpy(m), causal,
+                 torch.from_numpy(np.array(lse)), torch.from_numpy(np.array(delta)),
+                 torch.from_numpy(dout))
+    return jax_args, port_args, Sl
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_dq_reference_matches_jax_kernel(causal, use_mask):
+    """flash_attention_dq (CPU: its plain version, K3a's) == the Pallas
+    _dq_call in interpret mode over a 4 x 4 grid of 32-row blocks, from the
+    same external lse and delta.  f32, tolerance 2e-5; no launch counted."""
+    jax_args, port_args, Sl = _k3_case(causal, use_mask)
+    want = jax_dq_call(*jax_args)
+    before = port_flash.flash_attention_dq.launches
+    got = port_flash.flash_attention_dq(*port_args)
+    np.testing.assert_allclose(got.numpy().reshape(B, Sl, H * D), np.asarray(want),
+                               **TOL)
+    assert port_flash.flash_attention_dq.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_dkv_reference_matches_jax_kernel(causal, use_mask):
+    """flash_attention_dkv (CPU: K3b's plain version) == the Pallas
+    _dkv_call in interpret mode, as above."""
+    jax_args, port_args, Sl = _k3_case(causal, use_mask)
+    want = jax_dkv_call(*jax_args)
+    before = port_flash.flash_attention_dkv.launches
+    got = port_flash.flash_attention_dkv(*port_args)
+    for name, a, b in zip(("dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy().reshape(B, Sl, H * D), np.asarray(b),
+                                   err_msg=name, **TOL)
+    assert port_flash.flash_attention_dkv.launches == before
+
+
+@pytest.mark.parametrize("sq", [256, 1024, 1152, 2048])
+@pytest.mark.parametrize("skv", [256, 1024, 1152, 2048])
+def test_fused_eligible_matches_jax(sq, skv):
+    """The backward picks K2 exactly where the reference's _bwd_impl picks
+    its single-block kernel."""
+    assert port_flash._fused_eligible(sq, skv) == jax_fused_eligible(sq, skv,
+                                                                     None, None)
+
+
+def test_long_backward_takes_the_two_kernels(monkeypatch):
+    """At S=2048 flash_attention_bwd runs K3a's then K3b's plain versions
+    (not K2's) on CPU tensors, and their sum is K2's plain backward."""
+    rng = np.random.default_rng(9)
+    Sl = 2048
+    q, k, v, dout = (torch.from_numpy((rng.standard_normal((1, Sl, 1, D)) * 0.3)
+                                      .astype(np.float32)) for _ in range(4))
+    out, lse = port_flash.flash_attention_reference(q, k, v, None, True)
+    calls = []
+    for name in ("flash_attention_dq_reference", "flash_attention_dkv_reference",
+                 "flash_attention_bwd_reference"):
+        real = getattr(port_flash, name)
+        monkeypatch.setattr(port_flash, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    got = port_flash.flash_attention_bwd(q, k, v, None, True, out, lse, dout)
+    assert calls == ["flash_attention_dq_reference", "flash_attention_dkv_reference"]
+    want = port_flash.flash_attention_bwd_reference(q, k, v, None, True, out, lse,
+                                                    dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_flash_attention_differentiates_through_the_function():

@@ -30,6 +30,7 @@ from pianobart_tpu.utils.flops import pretrain_step_flops as jax_flops
 from pianobart_tpu_torch import vocab as V
 from pianobart_tpu_torch.compat.from_jax import init_lm, lm_state_dict_from_jax
 from pianobart_tpu_torch.models import PianoBartLM, tiny_config
+from pianobart_tpu_torch.ops import flash as port_flash
 from pianobart_tpu_torch.train import objective as obj
 from pianobart_tpu_torch.train.pretrain import (_forward_loss, _update,
                                                 batch_iterator,
@@ -143,16 +144,73 @@ def test_flops_match_jax():
 
 def test_roofline_bound_takes_the_slower_side():
     """The bound is the larger of operations over the peak and bytes over
-    HBM's rate, and says which; K4a's 192 MiB take ~0.06 ms."""
+    HBM's rate, and says which.  Of the TPU kernels only L1 and L2 are left
+    to port; each is K1's forward at B=32, S=1024: 2 products of 2*S*S*D
+    FLOPs per (b, h), bound by operations (~0.139 ms)."""
     assert roofline_ms(PEAK_BF16_H100 * 1e-3, 1.0) == (1.0, "operations")
     ms, by = roofline_ms(1.0, 3.35e12 * 2e-3)
     assert by == "bytes" and abs(ms - 2.0) < 1e-12
     bounds = _unported_kernel_bounds()
-    assert set(bounds) == {"K3a", "K3b", "K4a", "K4b", "L1", "L2"}
-    assert bounds["K4a"][2] == "bytes"
-    assert abs(bounds["K4a"][1] - 1e3 * (192 * 2**20 + 8 * 2**10 + 2**18)
-               / 3.35e12) < 1e-9
-    assert bounds["K3b"][1] > bounds["K3a"][1]
+    assert set(bounds) == {"L1", "L2"}
+    assert bounds["L1"] == bounds["L2"] and bounds["L1"][2] == "operations"
+    assert abs(bounds["L1"][1] - 1e3 * 4 * 1024**2 * 128 * 32 * 8
+               / PEAK_BF16_H100) < 1e-9
+
+
+def _two_steps_vs_jax(monkeypatch, B=2, S=256, dropout=0.0, **port_kw):
+    """Two steps of JAX's ``pretrain_step`` and the port's, from the same
+    weights, each fed JAX's corruption of the step (see
+    :func:`test_pretrain_steps_match_jax` for what is checked).  ``port_kw``
+    goes to the port's config only; the port's dropout draws from an
+    explicit CPU generator."""
+    monkeypatch.setenv("PBX_FLASH_INTERPRET", "1")
+    kw = dict(d_model=256, num_heads=2, max_len=S, encoder_layers=1,
+              decoder_layers=1, ffn_dim=256, use_flash_attention=True,
+              dropout=dropout)
+    jcfg, cfg = jax_tiny_config(**kw), tiny_config(**kw, **port_kw)
+    batch = make_batch(np.random.default_rng(0), B, S)
+    ids, ones = jnp.zeros((B, S, 8), jnp.int32), jnp.ones((B, S))
+    jstate = jax_create_train_state(JaxLM(jcfg), jcfg, jax.random.PRNGKey(0),
+                                    (ids, ids, ones, ones), learning_rate=LR)
+    model = PianoBartLM(cfg, device="cpu")
+    model.load_state_dict(lm_state_dict_from_jax(jstate.params, jcfg))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    jbefore = lm_state_dict_from_jax(jstate.params, jcfg)
+    state = create_train_state(model, LR)
+    gen = torch.Generator().manual_seed(3)
+    key = jax.random.PRNGKey(7)
+    grad_fn = jax.jit(lambda p, c, m: jax.value_and_grad(
+        jax_forward_loss, has_aux=True)(p, jstate.apply_fn, jnp.asarray(batch), c,
+                                        m, jcfg, jax.random.PRNGKey(1), False))
+    xb = torch.from_numpy(batch.astype(np.int64))
+    for t in range(2):
+        rng_corrupt, _ = jax.random.split(jax.random.fold_in(key, t))
+        corrupted, loss_mask = jax_corrupt_batch(rng_corrupt, jnp.asarray(batch), 0.15)
+        _, jgrads = grad_fn(jstate.params, corrupted, loss_mask)
+        jstate, jm = jax_pretrain_step(jstate, jnp.asarray(batch), key, jcfg, 0.15)
+        pc = torch.from_numpy(np.asarray(corrupted).astype(np.int64))
+        pm = torch.from_numpy(np.array(loss_mask))
+        state.optimizer.zero_grad(set_to_none=True)
+        total, _ = _forward_loss(model, xb, pc, pm, gen)
+        total.backward()
+        for name, g in lm_state_dict_from_jax(jgrads, jcfg).items():
+            np.testing.assert_allclose(dict(model.named_parameters())[name].grad,
+                                       g, rtol=1e-4, atol=1e-7, err_msg=name)
+        m = _update(state, xb, pc, pm, gen)
+        assert set(m) == {"loss", "field_loss", "field_acc", "weighted_acc",
+                          "grad_norm", "tokens"}
+        np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(m["field_loss"].numpy(),
+                                   np.asarray(jm["field_loss"]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(m["field_acc"].numpy(), np.asarray(jm["field_acc"]))
+    assert state.step == 2 and int(jstate.step) == 2
+    after, jafter = model.state_dict(), lm_state_dict_from_jax(jstate.params, jcfg)
+    for name in after:
+        np.testing.assert_allclose(after[name] - before[name],
+                                   jafter[name] - jbefore[name], rtol=0,
+                                   atol=0.1 * LR, err_msg=name)
 
 
 def test_pretrain_steps_match_jax(monkeypatch):
@@ -169,53 +227,47 @@ def test_pretrain_steps_match_jax(monkeypatch):
     parameter's update agrees to 0.1 lr: Adam scales each element's step to
     about lr, and for gradients that are round-off, g/(|g| + eps) depends on
     that round-off."""
-    monkeypatch.setenv("PBX_FLASH_INTERPRET", "1")
-    kw = dict(d_model=256, num_heads=2, max_len=256, encoder_layers=1,
-              decoder_layers=1, ffn_dim=256, use_flash_attention=True, dropout=0.0)
-    jcfg, cfg = jax_tiny_config(**kw), tiny_config(**kw)
-    B, S = 2, 256
-    batch = make_batch(np.random.default_rng(0), B, S)
-    ids, ones = jnp.zeros((B, S, 8), jnp.int32), jnp.ones((B, S))
-    jstate = jax_create_train_state(JaxLM(jcfg), jcfg, jax.random.PRNGKey(0),
-                                    (ids, ids, ones, ones), learning_rate=LR)
-    model = PianoBartLM(cfg, device="cpu")
-    model.load_state_dict(lm_state_dict_from_jax(jstate.params, jcfg))
-    before = {k: v.clone() for k, v in model.state_dict().items()}
-    jbefore = lm_state_dict_from_jax(jstate.params, jcfg)
-    state = create_train_state(model, LR)
-    key = jax.random.PRNGKey(7)
-    grad_fn = jax.jit(lambda p, c, m: jax.value_and_grad(
-        jax_forward_loss, has_aux=True)(p, jstate.apply_fn, jnp.asarray(batch), c,
-                                        m, jcfg, jax.random.PRNGKey(1), False))
-    xb = torch.from_numpy(batch.astype(np.int64))
-    for t in range(2):
-        rng_corrupt, _ = jax.random.split(jax.random.fold_in(key, t))
-        corrupted, loss_mask = jax_corrupt_batch(rng_corrupt, jnp.asarray(batch), 0.15)
-        _, jgrads = grad_fn(jstate.params, corrupted, loss_mask)
-        jstate, jm = jax_pretrain_step(jstate, jnp.asarray(batch), key, jcfg, 0.15)
-        pc = torch.from_numpy(np.asarray(corrupted).astype(np.int64))
-        pm = torch.from_numpy(np.array(loss_mask))
-        state.optimizer.zero_grad(set_to_none=True)
-        total, _ = _forward_loss(model, xb, pc, pm)
-        total.backward()
-        for name, g in lm_state_dict_from_jax(jgrads, jcfg).items():
-            np.testing.assert_allclose(dict(model.named_parameters())[name].grad,
-                                       g, rtol=1e-4, atol=1e-7, err_msg=name)
-        m = _update(state, xb, pc, pm, None)
-        assert set(m) == {"loss", "field_loss", "field_acc", "weighted_acc",
-                          "grad_norm", "tokens"}
-        np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=1e-5)
-        np.testing.assert_allclose(m["field_loss"].numpy(),
-                                   np.asarray(jm["field_loss"]), rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
-                                   rtol=1e-5)
-        np.testing.assert_allclose(m["field_acc"].numpy(), np.asarray(jm["field_acc"]))
-    assert state.step == 2 and int(jstate.step) == 2
-    after, jafter = model.state_dict(), lm_state_dict_from_jax(jstate.params, jcfg)
-    for name in after:
-        np.testing.assert_allclose(after[name] - before[name],
-                                   jafter[name] - jbefore[name], rtol=0,
-                                   atol=0.1 * LR, err_msg=name)
+    _two_steps_vs_jax(monkeypatch)
+
+
+def test_fused_tail_steps_match_jax(monkeypatch):
+    """The fused-tail path: the same two steps with ``fused_dropout_ln`` on
+    the port, so every sublayer tail (2 in the encoder layer, 3 in the
+    decoder layer) runs the autograd Function of K4 (its plain versions on
+    the CPU), against JAX's unfused tail (its fused gate needs a TPU).
+
+    Both sides train at dropout 1e-9.  The uint8 dropouts of both packages
+    then keep every element (threshold round(1e-9 * 256) = 0, scale 1), and
+    K4 drops an element with probability 4 / 2^32 (threshold round(1e-9 *
+    2^32) = 4; its keep scale rounds to 1.0 in f32).  The tails see 5 sites
+    x 2 * 256 * 256 elements per forward, four forwards in all (the
+    gradient check and the update of each of two steps, 2,621,440
+    elements): a drop somewhere has probability 2.4e-3, and with these fixed
+    seeds no element drops.  Same tolerances as the unfused test."""
+    import pianobart_tpu_torch.models.bart as bart
+    calls = []
+    real = bart.dropout_add_ln
+    monkeypatch.setattr(bart, "dropout_add_ln",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    _two_steps_vs_jax(monkeypatch, dropout=1e-9, fused_dropout_ln=True)
+    assert len(calls) == 5 * 4   # 5 tails per forward, 4 forwards
+
+
+def test_long_context_steps_match_jax(monkeypatch):
+    """The long-context path: the same two steps at S=2048, B=1 (the
+    positions table is (2050, 256)).  There JAX's ``_bwd_impl`` takes the
+    two-kernel backward ``_dq_call`` + ``_dkv_call`` (interpret mode) and the
+    port's backward its K3a and K3b plain versions.  Same tolerances."""
+    calls = []
+    for name in ("flash_attention_dq", "flash_attention_dkv",
+                 "flash_attention_bwd_reference"):
+        real = getattr(port_flash, name)
+        monkeypatch.setattr(port_flash, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    _two_steps_vs_jax(monkeypatch, B=1, S=2048)
+    # 3 attentions per backward, 4 backwards (gradient check + update, x2)
+    assert calls.count("flash_attention_dq") == calls.count("flash_attention_dkv") == 12
+    assert "flash_attention_bwd_reference" not in calls
 
 
 @pytest.fixture
