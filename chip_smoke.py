@@ -128,8 +128,28 @@ def phase_device(state):
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
 
 
+def _cuobjdump():
+    """The toolkit's cuobjdump, or the copy in Triton's package; None if
+    neither is there."""
+    import importlib.util
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    spec = importlib.util.find_spec("triton")
+    dirs = ["/usr/local/cuda/bin"] + [
+        os.path.join(d, "backends", "nvidia", "bin")
+        for d in (spec.submodule_search_locations or [] if spec else [])]
+    for d in dirs:
+        if os.path.exists(os.path.join(d, "cuobjdump")):
+            return os.path.join(d, "cuobjdump")
+    return None
+
+
 def phase_build(state):
-    """All sources built together (one nvcc per source, started at once)."""
+    """All sources built together (one nvcc per source, started at once),
+    then what K1's bf16 kernel compiled to: Hopper's products (HGMMA) and
+    tensor loads (UTMALDG) in its SASS."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -140,8 +160,20 @@ def phase_build(state):
         with open(lib.path + ".log") as f:
             for line in f:
                 if ("registers" in line or "spill" in line or "Compiling" in line
-                        or line.startswith("nvcc")):
+                        or "warning" in line or line.startswith("nvcc")):
                     print(f"[build]   {line.strip()}")
+    tool = _cuobjdump()
+    if tool is None:
+        print("[build] cuobjdump not found: SASS not inspected")
+        return
+    sass = subprocess.run([tool, "-sass", libs["flash_fwd"].path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    for kernel in sass.split("Function : ")[1:]:
+        name = kernel.split("\n", 1)[0].strip()
+        if "wgmma" in name:
+            counts = ", ".join(f"{op} {kernel.count(op)}" for op in ("HGMMA", "UTMALDG",
+                                                                     "HMMA."))
+            print(f"[build] flash_fwd SASS of {name[:70]}...: {counts}")
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -157,6 +189,17 @@ def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
     return q.to(dtype), k.to(dtype), v.to(dtype), mask
 
 
+def _attn_flops(q, mask, causal, products):
+    """``products`` products of 2*D FLOPs per kept (row, key) pair per head."""
+    import torch
+    B, S, H, D = q.shape
+    if causal:   # key c is kept by the rows r >= c
+        pairs = (mask * (S - torch.arange(S, device=mask.device))).sum()
+    else:
+        pairs = mask.sum() * S
+    return products * 2.0 * D * H * float(pairs)
+
+
 def _attn_bound_ms(q, mask, causal, products, arrays, row_vectors):
     """Least time for attention work on these inputs: ``products`` products
     of 2*D FLOPs per kept (row, key) pair per head, and ``arrays`` (B, S, H,
@@ -166,11 +209,7 @@ def _attn_bound_ms(q, mask, causal, products, arrays, row_vectors):
     from pianobart_tpu_torch.utils.flops import (PEAK_BF16_H100, PEAK_F32_H100,
                                                  roofline_ms)
     B, S, H, D = q.shape
-    if causal:   # key c is kept by the rows r >= c
-        pairs = (mask * (S - torch.arange(S, device=mask.device))).sum()
-    else:
-        pairs = mask.sum() * S
-    flops = products * 2.0 * D * H * float(pairs)
+    flops = _attn_flops(q, mask, causal, products)
     nbytes = (arrays * q.numel() * q.element_size() + mask.numel() * 4
               + row_vectors * B * H * S * 4)
     return roofline_ms(flops, nbytes, PEAK_BF16_H100 if q.dtype == torch.bfloat16
@@ -207,9 +246,11 @@ def phase_flash(state):
                             iters=5)
         lib_ms = _sdpa_ms(q, k, v, mask, causal)
         bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 2, 4, 1)
+        tflops = _attn_flops(q, mask, causal, 2) / ms / 1e9
         name = f"B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
         print(f"[flash] {name}: max|dO|={err_o:.3e} (tol {atol:g} + {rtol:g}|O|) "
-              f"max|dlse|={err_l:.3e} (tol {tol_l:g}) kernel {ms:.4f} ms, "
+              f"max|dlse|={err_l:.3e} (tol {tol_l:g}) kernel {ms:.4f} ms "
+              f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound), "
               f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):

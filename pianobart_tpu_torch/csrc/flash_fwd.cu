@@ -6,177 +6,296 @@
 //             already scaled by D**-0.5 by the caller.
 //   kv_mask   (B, Skv) int32, nonzero = attend.  causal: keep row >= col.
 //   o         (B, Sq, H, D) contiguous, input dtype.
-//   lse       (B, H, Sq) f32 row logsumexp.
+//   lse       (B, H, Sq) f32 row logsumexp (natural log).
 // Online softmax with f32 running max m, sum l and accumulator.  Masked
 // scores are the finite -1e30 (not -inf) so fully masked rows stay finite;
 // l == 0 is guarded as in the reference (l_safe).
 //
-// Bound at the serving shape (S=1024, H=8, D=128, bf16): 4*B*H*S^2*D FLOPs
-// = 4.29 GFLOP per unit of B, about 4.3 us x B at 989 TFLOP/s bf16; the
-// q/k/v/o bytes (8.4 MB x B) take about 2.5 us x B at 3.35 TB/s, so the
-// kernel is bound by operations.
+// Bound: 4*B*H*Sq*Skv*D FLOPs over the kept (row, key) pairs against
+// 989 TFLOP/s bf16 (0.1381 ms at B=32, S=1024, H=8 with the smoke run's pad
+// tail); the q/k/v/o bytes take a fifth of that at 3.35 TB/s, so the kernel
+// is bound by operations, i.e. by how fully it keeps the tensor cores busy.
 //
-// Design (simple first): one CTA per (64-row q tile, head, batch), four
-// warps of 16 q rows each, looping over 64-row kv tiles held in shared
-// memory.  The bf16 kernel runs both products on the tensor cores with
-// mma.sync m16n8k16 (f32 accumulation); P is rounded to bf16 before P.V,
-// as FlashAttention does, which is why the bf16 result differs from the
-// all-f32 reference by about 1e-2 relative.  The f32 kernel does the same
-// algorithm with FMAs on the CUDA cores, for checks where the point is the
-// algorithm.  Left on the table: wgmma and TMA (the only route to the full
-// tensor-core rate), a cp.async/TMA pipeline that overlaps the next tile's
-// loads with this tile's math, ldmatrix for the fragments, and a persistent
-// schedule; loads here are synchronous and the CTA waits on each tile.
+// bf16 design (Hopper): one CTA per (128-row q tile, head, batch) with two
+// consumer warpgroups of 64 q rows each and one producer warpgroup.  One producer
+// thread loads Q once and K, V and the kv mask tile by tile with TMA
+// (cp.async.bulk.tensor over 4-D maps of (D, H, S, B) with the caller's
+// strides, 128-byte swizzle, each 128-wide row as two 64-column boxes) into a
+// ring of 3 stages of 128 kv rows (225 KB of shared memory with Q); per
+// stage one mbarrier reports K and the mask, one V, and one collects the
+// consumer warps' release.  The consumers run S = Q K^T as wgmma m64n128k16
+// with both operands in shared memory (K lands K-major: no transpose, no
+// ldmatrix), mask with selects (the causal mask only on tiles the diagonal
+// crosses) and update the online softmax in registers (exp2 by FFMA + ex2,
+// the max kept in the score domain so the -1e30 sentinel cancels exactly),
+// round P to bf16 and run O += P V as wgmma m64n128k16 with P from registers
+// and V from shared memory through the transpose bit.  Inside a warpgroup,
+// S of tile j is issued before O += P V of tile j-1, so tile j's softmax runs
+// under that product.  setmaxnreg moves registers from the producer (24) to
+// the consumers (240).  Keys past Skv in a ragged last tile arrive as TMA's
+// zeros and take p = 0; rows past Sq are not stored.  No atomics: the same
+// inputs give the same bits.  Left on the table: ping-pong scheduling of the
+// two consumer warpgroups (one's softmax under the other's products), a
+// persistent schedule (each CTA loads Q and stores O with nothing to overlap
+// them), a TMA store of O, clusters with TMA multicast of K and V.
+//
+// The f32 kernel does the same algorithm with FMAs on the CUDA cores, for
+// checks where the point is the algorithm; it is on no main path.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace pbt;
 
-// ---------------------------------------------------------------- bf16 / mma
-constexpr int BM = 64;              // q rows per CTA (16 per warp)
-constexpr int BN = 64;              // kv rows per tile
-constexpr int THREADS = 128;
-constexpr size_t MMA_SMEM =
-    3 * BM * LDS * sizeof(__nv_bfloat16) + BN * sizeof(int);
+// ------------------------------------------------------------ bf16 / wgmma
+constexpr int K1_WG = 2;                // consumer warpgroups, 64 q rows each
+constexpr int K1_BM = 64 * K1_WG;
+constexpr int K1_BN = 128;              // kv rows per stage
+constexpr int K1_STAGES = 3;
+constexpr int BOX = 64;                 // bf16 columns per 128-byte TMA box
+constexpr float LOG2E = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const int* __restrict__ mask,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int Sq, int Skv, int H, int causal,
-                      long long qsb, long long qss, long long qsh,
-                      long long ksb, long long kss, long long ksh,
-                      long long vsb, long long vss, long long vsh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * LDS;
-  __nv_bfloat16* Vs = Ks + BN * LDS;
-  int* Ms = reinterpret_cast<int*>(Vs + BN * LDS);
+// Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
+struct K1Smem {
+  static constexpr int BM = K1_BM;
+  static constexpr int Q = 0;                                   // 2 boxes of BM rows
+  static constexpr int K = Q + BM * 2 * HEAD_DIM;               // per stage 2 boxes of BN rows
+  static constexpr int V = K + K1_STAGES * K1_BN * 2 * HEAD_DIM;
+  static constexpr int MASK = V + K1_STAGES * K1_BN * 2 * HEAD_DIM;  // per stage BN int32
+  static constexpr int BAR = MASK + K1_STAGES * K1_BN * 4;      // Q, K[S], V[S], free[S]
+  static constexpr int ALLOC = BAR + (1 + 3 * K1_STAGES) * 8 + 1024;
+};
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
-  const int wr = warp * 16;               // this warp's first row in the tile
+constexpr int ROW = 2 * BOX;            // bytes per row of a box
 
-  load_tile_bf16<THREADS>(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, BM);
+// S = Q K^T for one kv tile: 8 k16 steps over the head dim, 4 in each
+// 64-column box; issued and committed, not waited for
+__device__ __forceinline__ void issue_qk(float (&sc)[K1_BN / 2], uint64_t dq,
+                                         const unsigned char* kt) {
+  const uint64_t dk = smem_desc_sw128(kt, 16);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+    wgmma_ss_n128(sc, dq + ((kk / 4) * K1_BM * ROW + (kk % 4) * 32) / 16,
+                  dk + ((kk / 4) * K1_BN * ROW + (kk % 4) * 32) / 16, kk > 0);
+  wgmma_commit();
+}
 
-  float m_i[2] = {NEG_INF, NEG_INF};  // rows g and g + 8
-  float l_i[2] = {0.f, 0.f};          // this thread's partial row sums
-  float acc[HEAD_DIM / 8][4];
+// O += P V for one kv tile; V's tile is MN-major for this product (d along
+// its rows); issued and committed, not waited for
+__device__ __forceinline__ void issue_pv(float (&acc)[HEAD_DIM / 2],
+                                         const uint32_t (&pa)[K1_BN / 16][4],
+                                         const unsigned char* vt) {
+  const uint64_t dv = smem_desc_sw128(vt, K1_BN * ROW);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < HEAD_DIM / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int kk = 0; kk < K1_BN / 16; ++kk) wgmma_rs_n128_tb(acc, pa[kk], dv + kk * 16 * ROW / 16);
+  wgmma_commit();
+}
 
-  int n_tiles = Skv / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();  // previous tile fully consumed
-    load_tile_bf16<THREADS>(Ks, k + b * ksb + (long long)kv0 * kss + h * ksh, kss, BN);
-    load_tile_bf16<THREADS>(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, BN);
-    for (int i = threadIdx.x; i < BN; i += THREADS)
-      Ms[i] = mask[(long long)b * Skv + kv0 + i];
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float s[BN / 8][4];
+// Masks (the causal one, DIAG, only where the diagonal crosses the
+// warpgroup's rows; selects, no branches), then the online-softmax update
+// of rows `row` and `row + 8`: sc becomes p, and corr the factor for the O
+// accumulated so far.
+template <bool DIAG>
+__device__ __forceinline__ void softmax_tile(float (&sc)[K1_BN / 2], const int* mk,
+                                             float (&m_i)[2], float (&l_i)[2],
+                                             float (&corr)[2], int row, int kv0, int Skv,
+                                             int t) {
+  constexpr int BN = K1_BN;
+  const bool ragged = kv0 + BN > Skv;               // keys past Skv: TMA's zeros
+  float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    const int2 keep = *reinterpret_cast<const int2*>(mk + c);
 #pragma unroll
-    for (int kk = 0; kk < HEAD_DIM; kk += 16) {
-      uint32_t a[4];
-      const __nv_bfloat16* qa = Qs + (wr + g) * LDS + kk + 2 * t;
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LDS + 8);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kb = Ks + (nt * 8 + g) * LDS + kk + 2 * t;
-        mma_bf16(s[nt], a, *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-      }
-    }
-
-    // masks, then the online-softmax update
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int row = q0 + wr + g + (e >= 2 ? 8 : 0);
-        const bool keep = Ms[col] != 0 && (!causal || row >= kv0 + col);
-        if (!keep) s[nt][e] = NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      corr[r] = __expf(m_i[r] - m_new);
-      m_i[r] = m_new;
-      l_i[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = __expf(s[nt][e] - m_i[e >> 1]);
-        l_i[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
-      acc[dt][0] *= corr[0]; acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1]; acc[dt][3] *= corr[1];
-    }
-
-    // acc += P V: the S accumulators are reused as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vb = Vs + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
-        const __nv_bfloat16* p = vb + dt * 8;
-        mma_bf16(acc[dt], a, pack_pair(p[0], p[LDS]),
-                 pack_pair(p[8 * LDS], p[9 * LDS]));
-      }
+    for (int e = 0; e < 4; ++e) {
+      bool kp = ((e & 1) ? keep.y : keep.x) != 0;
+      if (DIAG) kp &= row + (e >= 2 ? 8 : 0) - (kv0 + c + (e & 1)) >= 0;
+      sc[4 * nt + e] = kp ? sc[4 * nt + e] : NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * nt + e]);
     }
   }
-
-  // epilogue: full row sums, normalise, store O and lse
+  float cl[2], ml[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_i[r], mx[r]);
+    corr[r] = exp2_approx((m_i[r] - m_new) * LOG2E);
+    // p = 2^(s*c - m*c): with no kept key so far (m_new the sentinel)
+    // c = 0 gives p = 1 exactly, as exp(s - m) does in the reference
+    cl[r] = m_new == NEG_INF ? 0.f : LOG2E;
+    ml[r] = m_new * cl[r];
+    m_i[r] = m_new;
+    l_i[r] *= corr[r];
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    __nv_bfloat16* orow = o + (((long long)b * Sq + row) * H + h) * HEAD_DIM;
-    const float inv = 1.f / l_i[r];
+  for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
-    for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    if (t == 0)
-      lse[((long long)b * H + h) * Sq + row] = m_i[r] + logf(l_i[r]);
+    for (int e = 0; e < 4; ++e) {
+      float& x = sc[4 * nt + e];
+      x = exp2_approx(fmaf(x, cl[e >> 1], -ml[e >> 1]));
+      if (ragged && kv0 + nt * 8 + 2 * t + (e & 1) >= Skv) x = 0.f;
+      l_i[e >> 1] += x;
+    }
   }
 }
+
+// p rounded to bf16 as the A fragments of O += P V
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[K1_BN / 16][4],
+                                       const float (&sc)[K1_BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < K1_BN / 16; ++kk) acc_to_a(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+}
+
+__global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tm,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int Sq, int Skv, int H, int causal) {
+  using L = K1Smem;
+  constexpr int NWG = K1_WG;
+  constexpr int BM = L::BM, BN = K1_BN, NS = K1_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* bar_k = bar_q + 1;          // K tile and mask of stage s landed
+  uint64_t* bar_v = bar_k + NS;         // V tile of stage s landed
+  uint64_t* bar_free = bar_v + NS;      // stage s read by every consumer warp
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128;
+  int n_tiles = (Skv + BN - 1) / BN;
+  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_k + s, 1);
+      mbar_init(bar_v + s, 1);
+      mbar_init(bar_free + s, 4 * NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_arrive_expect_tx(bar_q, BM * 2 * HEAD_DIM);
+      tma_load_4d(sm + L::Q, &tq, bar_q, 0, h, q0, b);
+      tma_load_4d(sm + L::Q + BM * ROW, &tq, bar_q, BOX, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS, kv0 = j * BN;
+        mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
+        unsigned char* kt = sm + L::K + s * BN * 2 * HEAD_DIM;
+        unsigned char* vt = sm + L::V + s * BN * 2 * HEAD_DIM;
+        mbar_arrive_expect_tx(bar_k + s, BN * 2 * HEAD_DIM + BN * 4);
+        tma_load_4d(kt, &tk, bar_k + s, 0, h, kv0, b);
+        tma_load_4d(kt + BN * ROW, &tk, bar_k + s, BOX, h, kv0, b);
+        tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_k + s, kv0, b);
+        mbar_arrive_expect_tx(bar_v + s, BN * 2 * HEAD_DIM);
+        tma_load_4d(vt, &tv, bar_v + s, 0, h, kv0, b);
+        tma_load_4d(vt + BN * ROW, &tv, bar_v + s, BOX, h, kv0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: q rows q0 + 64*wg .. +63.  S of tile j is
+    // issued before O += P V of tile j-1, so tile j's softmax runs while
+    // the tensor cores do tile j-1's second product.
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int wrow0 = q0 + wg * 64;
+    const int row = wrow0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
+    const uint64_t dq = smem_desc_sw128(sm + L::Q + wg * 64 * ROW, 16);
+    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * HEAD_DIM; };
+    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * HEAD_DIM; };
+    auto m_tile = [&](int s) { return reinterpret_cast<const int*>(sm + L::MASK + s * BN * 4); };
+
+    float acc[HEAD_DIM / 2];                         // O, 64 rows x 128 per warpgroup
+#pragma unroll
+    for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {NEG_INF, NEG_INF};               // score domain
+    float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
+    float sc[BN / 2], corr[2];
+    uint32_t pa[BN / 16][4];                         // P in bf16 as A fragments
+
+    mbar_wait(bar_q, 0);
+    mbar_wait(bar_k, 0);
+    issue_qk(sc, dq, k_tile(0));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // the causal mask where the diagonal crosses this warpgroup's rows
+    auto softmax = [&](int s, int kv0) {
+      if (causal && kv0 + BN - 1 > wrow0)
+        softmax_tile<true>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t);
+      else
+        softmax_tile<false>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t);
+    };
+    softmax(0, 0);
+    pack_p(pa, sc);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % NS, sp = (j - 1) % NS;
+      mbar_wait(bar_k + s, (j / NS) & 1);
+      issue_qk(sc, dq, k_tile(s));
+      mbar_wait(bar_v + sp, ((j - 1) / NS) & 1);
+      fence_regs(acc);
+      issue_pv(acc, pa, v_tile(sp));
+      wgmma_wait<1>();                               // S of tile j is in
+      fence_regs(sc);
+      softmax(s, j * BN);
+      fence_regs(sc);                                // p computed before the wait
+      wgmma_wait<0>();                               // O of tile j-1 is in
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(bar_free + sp);     // stage j-1 may be refilled
+#pragma unroll
+      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
+        acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
+        acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
+      }
+      pack_p(pa, sc);
+    }
+    const int last = (n_tiles - 1) % NS;
+    mbar_wait(bar_v + last, ((n_tiles - 1) / NS) & 1);
+    fence_regs(acc);
+    issue_pv(acc, pa, v_tile(last));
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue: full row sums, normalise, store O and lse for rows < Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      if (rr >= Sq) continue;
+      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * HEAD_DIM;
+      const float inv = 1.f / l_i[r];
+#pragma unroll
+      for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
+            pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+      if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+    }
+  }
+}
+
+// The f32 kernel's tile and block (it stays the simple design)
+constexpr int BN = 64;
+constexpr int THREADS = 128;
 
 // ------------------------------------------------------------------ f32 / FMA
 constexpr int FM = 16;                    // q rows per CTA
@@ -274,10 +393,65 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ host: TMA maps
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in the driver (libcuda); the runtime hands
+// out its address, so the library links nothing beyond the runtime.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, H, 128) bf16 at element strides (sb, ss, sh) as a 4-D map over
+// (D, H, S, B); a box is 64 columns of `rows` rows of one head, swizzled.
+CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int S, int H,
+                 long long sb, long long ss, long long sh, int rows) {
+  if (H == 1) sh = HEAD_DIM;   // an axis of size 1 is addressed by no stride:
+  if (B == 1) sb = ss * S;     // give it the packed one
+  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// the (B, Skv) int32 mask as a 2-D map; a box is K1_BN keys of one sample
+CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv) {
+  const cuuint64_t dims[2] = {(cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t strides[1] = {(cuuint64_t)Skv * 4};
+  const cuuint32_t box[2] = {K1_BN, 1};
+  const cuuint32_t one[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int TMAP_ERROR = 1000;
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// (B, S, H) axes; the D axis must be contiguous.  Returns cudaGetLastError().
+// (B, S, H) axes; the D axis must be contiguous.  Returns cudaGetLastError(),
+// or 1000 + the CUresult of a tensor map the driver refused (1000 alone
+// where the driver offers no encoder).
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int dtype, int causal,
@@ -287,13 +461,19 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    cudaFuncSetAttribute(flash_fwd_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MMA_SMEM);
-    dim3 grid(Sq / BM, H, B);
-    flash_fwd_bf16_kernel<<<grid, THREADS, MMA_SMEM, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const int*)mask, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal,
-        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
+    const EncodeTiled enc = tensor_map_encoder();
+    if (!enc) return TMAP_ERROR;
+    CUtensorMap tq, tk, tv, tm;
+    CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
+    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv);
+    if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
+    cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         K1Smem::ALLOC);
+    dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
+    flash_fwd_wgmma_kernel<<<grid, 128 * (K1_WG + 1), K1Smem::ALLOC, st>>>(
+        tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal);
   } else {
     cudaFuncSetAttribute(flash_fwd_f32_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FMA_SMEM);

@@ -29,12 +29,21 @@ block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
 the start.  K2 and K3 differ in entry point and contract, not in algorithm.
 
 Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
-(B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs, about 4.3 us x B; K2 at the
-flagship train shape (32, 1024, 8, 128) bf16 ``10*B*H*S^2*D`` FLOPs, 0.347 ms
-per call unmasked, about half causal; K3a (3 products) and K3b (4) at the
-long-context shape (16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.  All are
-the simple first design described in their sources: ``mma.sync``
-tensor-core products, synchronous tile loads, no wgmma/TMA pipeline.
+(B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs over the kept pairs, 0.1381 ms
+at B=32 with ``chip_smoke.py``'s pad tail; K2 at the flagship train shape
+(32, 1024, 8, 128) bf16 ``10*B*H*S^2*D`` FLOPs, 0.347 ms per call unmasked,
+about half causal; K3a (3 products) and K3b (4) at the long-context shape
+(16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.
+
+K1's bf16 kernel is designed for Hopper (its source has the details): a
+producer warpgroup loads Q once and K, V and the mask by TMA into a ring of
+stages signalled by mbarriers; two consumer warpgroups of 64 q rows each
+run both products as ``wgmma`` (S = Q K^T from shared memory, O += P V with
+P in registers), the softmax in registers between them, S of the next tile
+under P V of this one.  Left for later: ping-pong scheduling of the two consumer warpgroups,
+a persistent schedule, TMA multicast across a cluster.  K2, K3a and K3b are
+still the simple first design: ``mma.sync`` products, synchronous tile
+loads.
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -181,6 +190,8 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     mask = _int_mask(kv_mask, B, Skv, q.device)
+    if mask.data_ptr() % 16:    # the bf16 kernel reads it by TMA
+        mask = mask.clone()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = build_kernel("flash_fwd")
@@ -191,6 +202,9 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+    if rc >= 1000:
+        raise RuntimeError(f"flash_fwd: the driver refused a TMA tensor map "
+                           f"(CUresult {rc - 1000}; 0 = no encoder)")
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
     flash_attention_fwd.launches += 1

@@ -8,7 +8,7 @@
 #
 # Run from the root of the changed checkout.  Each run's whole output goes
 # to <out_dir>/ab_<i>_<parent|change>.log (default out_dir: build/ab);
-# the lines that compare the trees (K1 at the flagship shape, the lab's
+# the lines that compare the trees (K1 at every [flash] shape, the lab's
 # variants, decode, ms/step, [train]'s losses) are printed.  Exits non-zero
 # if any run did.
 set -u
@@ -25,7 +25,7 @@ for who in parent change change parent; do
   rc=$?
   [ $rc -eq 0 ] || status=1
   echo "run $i $who rc=$rc"
-  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[flash\] B=32 S=1024 H=8 D=128 bfloat16 causal=False\|loss per step" "$log" \
-    | grep -v "^\[train_long\] loss\|^\[train_fused\] loss" | cut -c1-200
+  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[flash\] B=\|loss per step" "$log" \
+    | grep -v "^\[train_long\] loss\|^\[train_fused\] loss" | cut -c1-260
 done
 exit $status

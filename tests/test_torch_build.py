@@ -49,3 +49,35 @@ def test_argtypes_match_the_c_entry(lib, entry):
     source, headers, entries = KERNELS[lib]
     assert all((CSRC / f).exists() for f in (source,) + headers)
     assert entries[entry] == _c_params(source, entry)
+
+
+def _wgmma_wrappers():
+    """(name, asm body) of each function in hopper.cuh that issues a
+    ``wgmma.mma_async``."""
+    text = (CSRC / "hopper.cuh").read_text()
+    found = re.finditer(r"void (\w+)\([^{;]*\)\s*\{\s*asm volatile\((.*?)\);\n\}", text, re.S)
+    return [(m.group(1), m.group(2)) for m in found if "wgmma.mma_async" in m.group(2)]
+
+
+WGMMA = _wgmma_wrappers()
+
+
+@pytest.mark.parametrize("name,body", WGMMA, ids=[n for n, _ in WGMMA])
+def test_wgmma_operands_are_numbered_in_order(name, body):
+    """An inline-asm operand numbered wrong compiles and computes garbage:
+    the accumulators are %0.. in order, one per f32 of the m64nN tile, and
+    the template reads every input after them in order, the predicate's
+    last."""
+    template, outs, ins = re.split(r"\n\s*:", body)
+    template = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
+    acc = [int(i) for i in re.findall(r'"\+f"\(d\[(\d+)\]\)', outs)]
+    n_in = len(re.findall(r'"[rl]"\(', ins))
+    n = int(re.search(r"\.m64n(\d+)k16\.", template).group(1))
+    assert acc == list(range(n // 2))
+    braces = re.search(r"bf16 \{([^}]*)\}", template)
+    assert [int(i) for i in re.findall(r"%(\d+)", braces.group(1))] == acc
+    rest = [int(i) for i in re.findall(r"%(\d+)", template[braces.end():])]
+    assert rest == sorted(rest), name    # A, B, ... in the order they are bound
+    used = {int(i) for i in re.findall(r"%(\d+)", template)}
+    assert used == set(range(len(acc) + n_in)), name
+    assert re.search(r"setp\.ne\.b32 p, %(\d+)", template).group(1) == str(len(acc) + n_in - 1)

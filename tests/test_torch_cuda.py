@@ -35,13 +35,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, dtype, B=2, S=256, H=2, D=128, seed=0):
+def _inputs(dev, dtype, B=2, S=256, H=2, D=128, seed=0, Skv=None):
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, D, device=dev, generator=g) * D ** -0.5
-    k = torch.randn(B, S, H, D, device=dev, generator=g)
-    v = torch.randn(B, S, H, D, device=dev, generator=g)
-    mask = torch.ones(B, S, device=dev)
-    mask[1, S - 40:] = 0.0
+    k = torch.randn(B, Skv, H, D, device=dev, generator=g)
+    v = torch.randn(B, Skv, H, D, device=dev, generator=g)
+    mask = torch.ones(B, Skv, device=dev)
+    mask[B - 1, Skv - 40:] = 0.0
     return q.to(dtype), k.to(dtype), v.to(dtype), mask
 
 
@@ -64,6 +65,62 @@ def test_flash_kernel_matches_reference(cuda, dtype, causal, use_mask):
     atol, rtol, ltol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+# (B, H) = (2, 2): a few CTAs; (12, 8): more CTAs than the card has SMs
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 192, 320, False), (2, 2, 192, 320, True), (12, 8, 192, 320, False),
+    (12, 8, 192, 320, True), (1, 2, 2048, 2048, True), (1, 2, 256, 256, False)],
+    ids=["192x320", "192x320-causal", "192x320-wide", "192x320-causal-wide",
+         "2048-causal", "B1"])
+def test_flash_kernel_matches_reference_at_more_shapes(cuda, B, H, Sq, Skv, causal):
+    """Lengths that are multiples of 64 but not of the kernel's 128-row
+    tiles (a ragged last q tile and kv tile), the long context, one sample."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, B=B, H=H, S=Sq, Skv=Skv)
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[torch.bfloat16]
+    assert out.shape == q.shape and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+@pytest.mark.parametrize("B,H", [(2, 2), (12, 8)], ids=["small", "wide"])
+@pytest.mark.parametrize("Skv", [256, 320])
+def test_flash_kernel_fully_masked_sample(cuda, Skv, B, H):
+    """Sample 0 with every key masked, non-causal: as in the plain version,
+    O is the mean of v over the Skv keys (a zero-filled key past Skv in a
+    ragged tile takes no part) and lse is the -1e30 sentinel plus log Skv."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, B=B, H=H, S=Skv)
+    mask[0] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, False)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, False)
+    atol, rtol, ltol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+    mean_v = v[0].float().mean(0).expand_as(out[0])
+    torch.testing.assert_close(out[0].float(), mean_v, atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=1024)
+    a = flash_attention_fwd(q, k, v, mask, False)
+    b = flash_attention_fwd(q, k, v, mask, False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_flash_kernel_takes_an_unaligned_int_mask(cuda):
+    """An int32 mask that starts off a 16-byte boundary (the kernel loads it
+    by TMA) gives what the same mask aligned gives."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16)
+    B, S = mask.shape
+    shifted = torch.zeros(B * S + 1, dtype=torch.int32, device=cuda)[1:].view(B, S)
+    shifted.copy_(mask)
+    assert shifted.data_ptr() % 16
+    got = flash_attention_fwd(q, k, v, shifted, True)
+    want = flash_attention_fwd(q, k, v, mask, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_flash_kernel_reads_strided_inputs(cuda):
