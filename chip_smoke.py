@@ -10,7 +10,7 @@ result line:
 2. build the four kernel sources with ``nvcc`` (flash forward K1, flash
    backward K2/K3a/K3b, fused dropout+residual+LayerNorm K4a/K4b, the
    kernel lab's L1/L2), one process per source, with ptxas's registers and
-   spills;
+   spills and the HGMMA/UTMALDG/HMMA counts of the wgmma kernels' SASS;
 3. ``[flash]``: K1 against its plain PyTorch version at the serving and
    training shapes and at the long-context shape (B=16, S=2048), with times
    of the kernel, the plain version, the bound and
@@ -23,8 +23,11 @@ result line:
    sweeps) as this phase's main path;
 5. ``[flash_bwd]``: K2 against its plain version at the flagship training
    shape (B=32, S=1024, bf16, causal and not) and in f32, and K3a and K3b
-   at the long-context shape (B=16, S=2048, bf16, causal and not), with the
-   same times (the yardstick is SDPA's backward);
+   at the long-context shape (B=16, S=2048, bf16, causal and not), each
+   also at B=2, S=320 (half a CTA past S) and with a fully masked sample,
+   with the same times (the yardstick is SDPA's backward); at each case the
+   delta kernel (rowsum(dO * O), which both run after) against its plain
+   version, with its times;
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
    Philox bits, at the flagship's N=32768 rows of D=1024 in bf16 and at a
    small N in f32 (no single PyTorch call computes this: no yardstick);
@@ -56,6 +59,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -75,6 +79,7 @@ def _counters():
             "flash_attention_bwd": flash.flash_attention_bwd,
             "flash_attention_dq": flash.flash_attention_dq,
             "flash_attention_dkv": flash.flash_attention_dkv,
+            "flash_attention_delta": flash.flash_attention_delta,
             "dropout_add_ln_fwd": fused_ln.dropout_add_ln_fwd,
             "dropout_add_ln_bwd": fused_ln.dropout_add_ln_bwd,
             "kt_fwd": kernel_lab.kt_fwd, "hl_fwd": kernel_lab.hl_fwd}
@@ -90,13 +95,14 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-COUNT_NAMES = "K1, K2, K3a, K3b, K4a, K4b, L1, L2"
+COUNT_NAMES = "K1, K2, K3a, K3b, delta, K4a, K4b, L1, L2"
 
 
 def _counts(k1=0, k2=0, k3=0, k4=0):
-    """Expected counts in ``_read_counts`` order (``COUNT_NAMES``); the
-    training paths launch no lab kernel."""
-    return (k1, k2, k3, k3, k4, k4, 0, 0)
+    """Expected counts in ``_read_counts`` order (``COUNT_NAMES``): one delta
+    before each backward (K2, or K3a and K3b); the training paths launch no
+    lab kernel."""
+    return (k1, k2, k3, k3, k2 + k3, k4, k4, 0, 0)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -148,8 +154,9 @@ def _cuobjdump():
 
 def phase_build(state):
     """All sources built together (one nvcc per source, started at once),
-    then what K1's bf16 kernel compiled to: Hopper's products (HGMMA) and
-    tensor loads (UTMALDG) in its SASS."""
+    then what the wgmma kernels (K1's bf16 kernel, K2/K3's dK/dV and dQ
+    kernels) compiled to: Hopper's products (HGMMA), tensor loads (UTMALDG)
+    and any older tensor-core product (HMMA.) in their SASS."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -166,14 +173,18 @@ def phase_build(state):
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
-    sass = subprocess.run([tool, "-sass", libs["flash_fwd"].path], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    for kernel in sass.split("Function : ")[1:]:
-        name = kernel.split("\n", 1)[0].strip()
-        if "wgmma" in name:
-            counts = ", ".join(f"{op} {kernel.count(op)}" for op in ("HGMMA", "UTMALDG",
-                                                                     "HMMA."))
-            print(f"[build] flash_fwd SASS of {name[:70]}...: {counts}")
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        for kernel in sass.split("Function : ")[1:]:
+            name = kernel.split("\n", 1)[0].strip()
+            if "wgmma" in name:
+                counts = ", ".join(f"{op} {kernel.count(op)}"
+                                   for op in ("HGMMA", "UTMALDG", "HMMA."))
+                label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
+                label += {"ILb1E": "<true> (dK/dV)", "ILb0E": "<false> (dQ)"}.get(
+                    name[name.index(label) + len(label):][:5], "")
+                print(f"[build] {lib} SASS of {label}: {counts}")
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -418,12 +429,14 @@ def _sdpa_bwd_ms(q, k, v, mask, causal, dout):
 
 def phase_flash_bwd(state):
     """K2 against flash_attention_bwd_reference at the flagship train shape,
-    K3a and K3b against their plain versions at the long-context shape."""
+    K3a and K3b against their plain versions at the long-context shape, and
+    at each case the delta kernel against its plain version."""
     import torch
     from pianobart_tpu_torch.ops.flash import (
         _delta, flash_attention_bwd, flash_attention_bwd_reference,
-        flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
-        flash_attention_dq_reference, flash_attention_fwd)
+        flash_attention_delta, flash_attention_dkv, flash_attention_dkv_reference,
+        flash_attention_dq, flash_attention_dq_reference, flash_attention_fwd)
+    from pianobart_tpu_torch.utils.flops import PEAK_F32_H100, roofline_ms
     # Per element |d| <= atol*max|ref| + rtol*|ref|, and per output ||d|| <=
     # ntol*||ref||.  bf16: the kernel rounds P and dS to bf16 as product
     # operands and dQ/dK/dV to bf16 at the end (2^-9 relative each) where the
@@ -436,18 +449,47 @@ def phase_flash_bwd(state):
     # f32: summation order and expf only.  K3a and K3b are the same CUDA
     # kernels as K2 behind their own entries: the same tolerances.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-2), torch.float32: (1e-5, 1e-5, 1e-5)}
-    cases = [("K2", 32, 1024, False, torch.bfloat16),
-             ("K2", 32, 1024, True, torch.bfloat16),
-             ("K2", 2, 1024, False, torch.float32),
-             ("K3", 16, 2048, False, torch.bfloat16),
-             ("K3", 16, 2048, True, torch.bfloat16)]
-    for kid, B, S, causal, dtype in cases:
+    # the last field masks every key of sample 0 (its lse is the -1e30
+    # sentinel, so P is 1 on every key); S=320 leaves the last 128-row CTA
+    # of each kernel half past S
+    bf16 = torch.bfloat16
+    cases = [("K2", 32, 1024, False, bf16, False), ("K2", 32, 1024, True, bf16, False),
+             ("K2", 2, 1024, False, torch.float32, False),
+             ("K2", 2, 320, False, bf16, False), ("K2", 2, 320, True, bf16, False),
+             ("K2", 2, 320, False, bf16, True),
+             ("K3", 16, 2048, False, bf16, False), ("K3", 16, 2048, True, bf16, False),
+             ("K3", 2, 320, False, bf16, False), ("K3", 2, 320, True, bf16, False),
+             ("K3", 2, 320, False, bf16, True)]
+    for kid, B, S, causal, dtype, masked in cases:
         q, k, v, mask = _flash_case(B, causal, dtype, S=S)
         mask[0, S - 300:] = 0.0      # a second pad tail
+        if masked:
+            mask[0] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-        name = f"{kid} B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        name = (f"{kid} B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
+                + (", sample 0 fully masked" if masked else ""))
+        # delta: both sides sum exact f32 products, in another order
+        got_d, want_d = flash_attention_delta(dout, out), _delta(dout, out)
+        torch.cuda.synchronize()
+        err_d = (got_d - want_d).abs().max().item()
+        ok_d = bool(torch.isclose(got_d, want_d, atol=1e-4, rtol=1e-5).all())
+        d_ms = _time_ms(lambda: flash_attention_delta(dout, out))
+        d_plain = _time_ms(lambda: _delta(dout, out))
+        # dO and O read once, delta written; a multiply-add per element
+        d_bound = roofline_ms(2.0 * dout.numel(), 2 * dout.numel() * dout.element_size()
+                              + want_d.numel() * 4, PEAK_F32_H100)
+        print(f"[flash_bwd] delta {name}: max|d| {err_d:.3e} (tol 1e-4 + 1e-5|ref|), "
+              f"kernel {d_ms:.4f} ms, bound {d_bound[0]:.4f} ms ({d_bound[1]}), "
+              f"plain {d_plain:.4f} ms")
+        if not ok_d:
+            raise AssertionError(f"the delta kernel disagrees with its plain version: {name}")
+        if (B, causal, dtype, masked) == (32, False, bf16, False):
+            state["delta"] = dict(max_abs_err=err_d, ms=d_ms, plain_ms=d_plain,
+                                  bound_ms=d_bound[0], bound_by=d_bound[1],
+                                  library_ms=None)
+        del got_d, want_d
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
             torch.cuda.synchronize()
@@ -491,8 +533,8 @@ def phase_flash_bwd(state):
               f"(tol {ntol:g}), {times}, sdpa bwd {lib_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
-        if (B, causal, dtype) in ((32, False, torch.bfloat16),
-                                  (16, False, torch.bfloat16)):  # the train shapes
+        if (B, causal, dtype, masked) in ((32, False, bf16, False),
+                                          (16, False, bf16, False)):  # train shapes
             keys = ["k2"] if kid == "K2" else ["k3a", "k3b"]
             err_of = [max(errs)] if kid == "K2" else [errs[0], max(errs[1:])]
             for key, e, t, (bm, bb), p in zip(keys, err_of, ms, bounds, plain_ms):
@@ -1042,6 +1084,9 @@ KERNEL_RECORDS = (
      "flash_attention_dq", "train_long"),
     ("flash_dkv", "k3b", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
      "flash_attention_dkv", "train_long"),
+    # no Pallas kernel: the reference's _delta, which XLA fuses
+    ("flash_delta", "delta", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
+     "flash_attention_delta", "train"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",

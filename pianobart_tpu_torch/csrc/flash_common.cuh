@@ -1,7 +1,8 @@
 // Pieces shared by the flash forward (flash_fwd.cu), backward (flash_bwd.cu)
-// and lab (flash_lab.cu) kernels: constants, bf16 packing, the mma.sync
-// m16n8k16 product, the 16-byte tile load into padded shared memory, and
-// the lab's transposed fragment load and exp2.
+// and lab (flash_lab.cu) kernels: constants, bf16 packing, accumulators as
+// A fragments, exp2, the f32 tile load, and the lab's mma.sync m16n8k16
+// product, 16-byte tile load into padded shared memory and transposed
+// fragment load.
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
@@ -62,13 +63,6 @@ __device__ __forceinline__ void mma_bt(float c[4], const uint32_t a[4],
                                        const __nv_bfloat16* p) {
   mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(p),
            *reinterpret_cast<const uint32_t*>(p + 8));
-}
-
-// B = T for a row-major smem tile T whose rows are B's k and whose columns
-// are B's n: p = &T[k0 + 2t][n0 + g] (scalar gathers down two rows)
-__device__ __forceinline__ void mma_b(float c[4], const uint32_t a[4],
-                                      const __nv_bfloat16* p) {
-  mma_bf16(c, a, pack_pair(p[0], p[LDS]), pack_pair(p[8 * LDS], p[9 * LDS]));
 }
 
 // Four 8x8 bf16 matrices from shared memory, each transposed on the way:

@@ -41,7 +41,6 @@
 //
 // The f32 kernel does the same algorithm with FMAs on the CUDA cores, for
 // checks where the point is the algorithm; it is on no main path.
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -54,7 +53,6 @@ constexpr int K1_WG = 2;                // consumer warpgroups, 64 q rows each
 constexpr int K1_BM = 64 * K1_WG;
 constexpr int K1_BN = 128;              // kv rows per stage
 constexpr int K1_STAGES = 3;
-constexpr int BOX = 64;                 // bf16 columns per 128-byte TMA box
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
@@ -67,8 +65,6 @@ struct K1Smem {
   static constexpr int BAR = MASK + K1_STAGES * K1_BN * 4;      // Q, K[S], V[S], free[S]
   static constexpr int ALLOC = BAR + (1 + 3 * K1_STAGES) * 8 + 1024;
 };
-
-constexpr int ROW = 2 * BOX;            // bytes per row of a box
 
 // S = Q K^T for one kv tile: 8 k16 steps over the head dim, 4 in each
 // 64-column box; issued and committed, not waited for
@@ -393,59 +389,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------ host: TMA maps
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in the driver (libcuda); the runtime hands
-// out its address, so the library links nothing beyond the runtime.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, S, H, 128) bf16 at element strides (sb, ss, sh) as a 4-D map over
-// (D, H, S, B); a box is 64 columns of `rows` rows of one head, swizzled.
-CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int S, int H,
-                 long long sb, long long ss, long long sh, int rows) {
-  if (H == 1) sh = HEAD_DIM;   // an axis of size 1 is addressed by no stride:
-  if (B == 1) sb = ss * S;     // give it the packed one
-  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// the (B, Skv) int32 mask as a 2-D map; a box is K1_BN keys of one sample
-CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv) {
-  const cuuint64_t dims[2] = {(cuuint64_t)Skv, (cuuint64_t)B};
-  const cuuint64_t strides[1] = {(cuuint64_t)Skv * 4};
-  const cuuint32_t box[2] = {K1_BN, 1};
-  const cuuint32_t one[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(p), dims, strides, box,
-             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-constexpr int TMAP_ERROR = 1000;
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
@@ -467,7 +410,7 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
-    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv);
+    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, K1_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          K1Smem::ALLOC);

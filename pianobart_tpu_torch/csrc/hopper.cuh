@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and products, setmaxnreg.
+// tensor loads, wgmma shared-memory descriptors and products, setmaxnreg,
+// and on the host the tensor maps the flash kernels load through.
 //
 // Shared-memory tiles here are what a TMA load with 128-byte swizzle leaves:
 // rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at chunk
@@ -16,10 +17,16 @@
 // 8j + 2t + (e & 1), the mma.sync C layout for each 8-column slice.  A from
 // registers takes the mma.sync m16n8k16 A fragment of the warp's 16 rows.
 #pragma once
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace pbt {
+
+constexpr int BOX = 64;                 // bf16 columns per 128-byte TMA box
+constexpr int ROW = 2 * BOX;            // bytes per row of a box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,6 +154,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B from shared memory, both
+// K-major; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 128] += A[64 x 16] . B[16 x 128]; A from registers (per warp of 16
 // rows, the mma.sync A fragment layout), B from shared memory MN-major (the
 // transpose bit: B's k runs down the rows, its n along them)
@@ -169,6 +193,70 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------- host: tensor maps
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// what a C entry returns for a tensor map the driver refused: this plus its
+// CUresult (this alone where the driver offers no encoder)
+constexpr int TMAP_ERROR = 1000;
+
+// cuTensorMapEncodeTiled lives in the driver (libcuda); the runtime hands
+// out its address, so a library links nothing beyond the runtime.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, H, 128) bf16 at element strides (sb, ss, sh) as a 4-D map over
+// (D, H, S, B); a box is 64 columns of `rows` rows of one head, swizzled.
+// Rows past S arrive as zeros.
+inline CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int S, int H,
+                        long long sb, long long ss, long long sh, int rows) {
+  if (H == 1) sh = HEAD_DIM;   // an axis of size 1 is addressed by no stride:
+  if (B == 1) sb = ss * S;     // give it the packed one
+  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A packed (rows_total, n) array of 4-byte elements as a 2-D map; a box is
+// `box` consecutive elements of one row.  The (B, Skv) int32 kv mask (rows =
+// samples) and the (B, H, Sq) f32 lse and delta (rows = (b, h) pairs).
+inline CUresult rows_map(EncodeTiled enc, CUtensorMap* m, const void* p, int rows_total,
+                         int n, int box, CUtensorMapDataType type) {
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)rows_total};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
+  const cuuint32_t one[2] = {1, 1};
+  return enc(m, type, 2, const_cast<void*>(p), dims, strides, boxes, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+inline CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv,
+                         int box) {
+  return rows_map(enc, m, p, B, Skv, box, CU_TENSOR_MAP_DATA_TYPE_INT32);
 }
 
 }  // namespace pbt

@@ -25,7 +25,7 @@ from torch.nn import functional as F
 from .config import PianoBartConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import dropout
-from ..ops.fused_ln import dropout_add_ln, fused_eligible
+from ..ops.fused_ln import MAX_D, dropout_add_ln, fused_eligible
 
 KVCache = Dict[str, Any]
 Generator = Optional[torch.Generator]
@@ -85,9 +85,19 @@ class ResidualDropoutLN(LayerNorm):
     f32 and the bits from a seed drawn on the device from ``generator`` per
     call site (the role of the reference's per-site ``make_rng``), with no
     host sync.  Otherwise the unfused composition, adding in ``cfg.dtype``.
+
+    On CUDA the K4 kernels take rows of at most ``MAX_D``, so a fused model
+    wider than that (and a multiple of 128, where the reference's gate would
+    take its kernel) is refused when it is built on the card.
     """
 
     def __init__(self, cfg: PianoBartConfig, device=None):
+        if (cfg.fused_dropout_ln and cfg.d_model % 128 == 0
+                and cfg.d_model > MAX_D and device is not None
+                and torch.device(device).type == "cuda"):
+            raise ValueError(
+                f"fused_dropout_ln at d_model {cfg.d_model} is not supported on "
+                f"CUDA: the K4 kernels take rows of at most MAX_D = {MAX_D}")
         super().__init__(cfg, device)
         self.rate = cfg.dropout
         self.fused = cfg.fused_dropout_ln

@@ -13,8 +13,8 @@ logsumexp ``lse (B, H, Sq)`` in f32.  Masked scores are the finite
 (they depend on which kv tiles ran) and every loss mask excludes them.
 
 The backward picks its kernels as the reference's ``_bwd_impl`` does, after
-``delta = rowsum(dO * O)`` (computed here in plain PyTorch, as JAX's
-``_delta`` is outside Pallas):
+``delta = rowsum(dO * O)`` (JAX computes it in XLA outside Pallas; here
+:func:`flash_attention_delta`, one pass of a small kernel on CUDA):
 
 * K2 replaces ``_bwd_fused_kernel`` (launched by ``_bwd_fused_call``) where
   Sq and Skv fit the reference's single 1024-row block
@@ -32,18 +32,24 @@ Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
 (B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs over the kept pairs, 0.1381 ms
 at B=32 with ``chip_smoke.py``'s pad tail; K2 at the flagship train shape
 (32, 1024, 8, 128) bf16 ``10*B*H*S^2*D`` FLOPs, 0.347 ms per call unmasked,
-about half causal; K3a (3 products) and K3b (4) at the long-context shape
+about half causal (its two kernels do seven products, not five: 0.49 ms at
+best); K3a (3 products) and K3b (4) at the long-context shape
 (16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.
 
-K1's bf16 kernel is designed for Hopper (its source has the details): a
-producer warpgroup loads Q once and K, V and the mask by TMA into a ring of
-stages signalled by mbarriers; two consumer warpgroups of 64 q rows each
-run both products as ``wgmma`` (S = Q K^T from shared memory, O += P V with
-P in registers), the softmax in registers between them, S of the next tile
-under P V of this one.  Left for later: ping-pong scheduling of the two consumer warpgroups,
-a persistent schedule, TMA multicast across a cluster.  K2, K3a and K3b are
-still the simple first design: ``mma.sync`` products, synchronous tile
-loads.
+The bf16 kernels of K1, K2 and K3 are designed for Hopper (the sources
+have the details), with the primitives of ``csrc/hopper.cuh``: a producer
+warpgroup loads by TMA into a ring of stages signalled by mbarriers, and two
+consumer warpgroups of 64 rows each run every product as ``wgmma``.  K1
+loads Q once and streams K, V and the mask in tiles of 128; S = Q K^T from
+shared memory, O += P V with P in registers, S of the next tile under P V of
+this one.  K2/K3's dK/dV kernel owns 128 kv rows (K and V loaded once) and
+streams Q, dO, lse and delta in tiles of 64; the dQ kernel owns 128 q rows
+and streams K, V and the mask.  Each runs S and dP from shared memory, then
+dV += P^T dO and dK += dS^T Q (or dQ += dS K) with P and dS from registers
+and the swept tile read a second way, MN-major; the dQ kernel issues the
+next tile's S and dP under dQ += dS K.  Left for later: ping-pong scheduling
+of the consumer warpgroups, a persistent schedule, TMA multicast across a
+cluster, and a one-pass K2.
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -58,7 +64,7 @@ import torch
 from .build import build_kernel, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_dq", "flash_attention_dkv", "flash_attention_delta",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "flash_attention_dq_reference", "flash_attention_dkv_reference",
            "HEAD_DIM"]
@@ -97,7 +103,8 @@ def flash_attention_reference(q, k, v, kv_mask=None, causal: bool = False):
 
 
 def _delta(dout, out):
-    """delta = rowsum(dO * O) per head: (B, S, H, D) pair -> (B, H, S) f32."""
+    """delta = rowsum(dO * O) per head: (B, S, H, D) pair -> (B, H, S) f32.
+    The plain version of :func:`flash_attention_delta`."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -141,6 +148,15 @@ def _fused_eligible(Sq: int, Skv: int) -> bool:
     return Sq <= FUSED_BWD_MAX and Skv <= FUSED_BWD_MAX
 
 
+def _check_rows_layout(name, x):
+    """A ``(B, S, H, D)`` operand as the kernels address it: a contiguous
+    head axis, the other strides in multiples of 8 and a 16-byte aligned
+    start."""
+    if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous head axis, strides "
+                         f"in multiples of 8 and a 16-byte aligned start")
+
+
 def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
@@ -160,10 +176,7 @@ def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
         raise ValueError(f"flash kernel needs Sq, Skv multiples of {TILE}, "
                          f"got {Sq}, {Skv}")
     for name, x, _ in [("q", q, None)] + others:
-        if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
-                or x.data_ptr() % 16:
-            raise ValueError(f"{name} needs a contiguous head axis, strides "
-                             f"in multiples of 8 and a 16-byte aligned start")
+        _check_rows_layout(name, x)
     if kv_mask is not None and (kv_mask.shape != (B, Skv)
                                 or kv_mask.device != q.device):
         raise ValueError(f"kv_mask must be {(B, Skv)} on {q.device}")
@@ -173,6 +186,23 @@ def _int_mask(kv_mask, B, Skv, device):
     if kv_mask is None:
         return torch.ones((B, Skv), dtype=torch.int32, device=device)
     return kv_mask.to(torch.int32).contiguous()
+
+
+def _tma_ready(x):
+    """``x`` contiguous from a 16-byte aligned start, as a TMA map reads it:
+    ``x`` itself where it already is, else a copy."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _raise_for(entry, rc):
+    """The C entries' codes: 1000 + the CUresult of a refused tensor map,
+    else a CUDA error."""
+    if rc >= 1000:
+        raise RuntimeError(f"{entry}: the driver refused a TMA tensor map "
+                           f"(CUresult {rc - 1000}; 0 = no encoder)")
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
 
 
 def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
@@ -189,9 +219,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     _check_cuda_inputs(q, k, v, kv_mask)
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    mask = _int_mask(kv_mask, B, Skv, q.device)
-    if mask.data_ptr() % 16:    # the bf16 kernel reads it by TMA
-        mask = mask.clone()
+    mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = build_kernel("flash_fwd")
@@ -202,16 +230,46 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
-    if rc >= 1000:
-        raise RuntimeError(f"flash_fwd: the driver refused a TMA tensor map "
-                           f"(CUresult {rc - 1000}; 0 = no encoder)")
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
+    _raise_for("flash_fwd", rc)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_delta(dout, out) -> torch.Tensor:
+    """delta = rowsum(dO * O), ``(B, H, S)`` f32 from the ``(B, S, H, D)``
+    pair: what the backward subtracts from dP.  The reference computes it in
+    XLA outside its Pallas kernels (``_delta``); the plain PyTorch version
+    (:func:`_delta`) takes five passes over memory, so CUDA tensors take one
+    pass of ``csrc/flash_bwd.cu``'s delta kernel (counted in
+    ``flash_attention_delta.launches``) or raise.  CPU tensors take
+    :func:`_delta`."""
+    if not use_kernel(dout, "flash attention"):
+        return _delta(dout, out)
+    B, S, H, D = dout.shape
+    if dout.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"delta kernel takes bf16 or f32, got {dout.dtype}")
+    if out.shape != dout.shape or out.dtype != dout.dtype or out.device != dout.device:
+        raise ValueError("out must match dout's shape, dtype and device")
+    if D != HEAD_DIM:
+        raise ValueError(f"delta kernel takes head_dim {HEAD_DIM}, got {D}")
+    _check_rows_layout("dout", dout)
+    _check_rows_layout("out", out)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dout.device)
+    lib = build_kernel("flash_bwd")
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream(dout.device).cuda_stream
+        rc = lib.pbt_flash_delta(dout.data_ptr(), out.data_ptr(), delta.data_ptr(),
+                                 B, S, H, 1 if dout.dtype == torch.bfloat16 else 0,
+                                 *dout.stride()[:3], *out.stride()[:3], stream)
+    _raise_for("pbt_flash_delta", rc)
+    flash_attention_delta.launches += 1
+    return delta
+
+
+flash_attention_delta.launches = 0
 
 
 def _check_bwd_rows(q, lse, delta=None):
@@ -224,11 +282,13 @@ def _check_bwd_rows(q, lse, delta=None):
 
 def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
     """Launch one backward C entry of ``flash_bwd.cu`` on the current
-    stream; ``outs`` are its output tensors in the entry's order."""
+    stream; ``outs`` are its output tensors in the entry's order.  The bf16
+    kernels read the mask, lse and delta by TMA: each is made contiguous and
+    16-byte aligned first."""
     B, Sq, H, _ = q.shape
     Skv = k.shape[1]
-    mask = _int_mask(kv_mask, B, Skv, q.device)
-    lse, delta = lse.contiguous(), delta.contiguous()
+    mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
+    lse, delta = _tma_ready(lse), _tma_ready(delta)
     lib = build_kernel("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -239,8 +299,7 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    _raise_for(entry, rc)
 
 
 def flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout
@@ -301,7 +360,7 @@ def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
     take the plain versions; CUDA tensors launch the kernels or raise.
     """
     if not _fused_eligible(q.shape[1], k.shape[1]):
-        delta = _delta(dout, out)
+        delta = flash_attention_delta(dout, out)
         dq = flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout)
         dk, dv = flash_attention_dkv(q, k, v, kv_mask, causal, lse, delta, dout)
         return dq, dk, dv
@@ -314,7 +373,7 @@ def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("pbt_flash_bwd", q, k, v, kv_mask, causal, lse,
-                _delta(dout, out), dout, [dq, dk, dv])
+                flash_attention_delta(dout, out), dout, [dq, dk, dv])
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -167,7 +167,7 @@ class GenerationService:
                 for r, o in zip(batch, outs[:n]):
                     r.result = o
                     r.served_n = n
-            except Exception as exc:  # deliver, don't kill the worker
+            except BaseException as exc:  # deliver, don't kill the worker
                 for r in batch:
                     r.error = exc
             finally:

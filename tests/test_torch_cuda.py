@@ -15,6 +15,7 @@ import torch
 from pianobart_tpu_torch.ops import fused_ln as F
 from pianobart_tpu_torch.ops.flash import (_delta, flash_attention,
                                            flash_attention_bwd,
+                                           flash_attention_delta,
                                            flash_attention_bwd_reference,
                                            flash_attention_dkv,
                                            flash_attention_dkv_reference,
@@ -184,17 +185,91 @@ def test_flash_bwd_kernel_matches_reference(cuda, dtype, causal, use_mask):
     assert_bwd_close(got, want, dtype)
 
 
-def test_flash_bwd_kernel_reads_strided_inputs(cuda):
+def _bwd(kernel, q, k, v, m, causal, out, lse, dout):
+    """(dq, dk, dv) of the kernels and of their plain versions: "K2" through
+    flash_attention_bwd's one entry, "K3" through K3a and K3b (which take
+    any length) with the delta the backward computes."""
+    if kernel == "K2":
+        got = flash_attention_bwd(q, k, v, m, causal, out, lse, dout)
+        return got, flash_attention_bwd_reference(q, k, v, m, causal, out, lse, dout)
+    args = (q, k, v, m, causal, lse, _delta(dout, out), dout)
+    got = (flash_attention_dq(*args), *flash_attention_dkv(*args))
+    return got, (flash_attention_dq_reference(*args),
+                 *flash_attention_dkv_reference(*args))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_bwd_kernel_reads_strided_inputs(cuda, kernel):
     """q/k/v as views of one fused (B, S, 3, H, D) projection, dO a view
-    too: the kernel reads them through their strides."""
+    too: the kernels read them through their strides."""
     B, S, H, D = 2, 256, 2, 128
     qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=torch.bfloat16)
     q, k, v = qkv.unbind(2)
     out, lse = flash_attention_fwd(q, k, v, None, True)
     dout = torch.randn(B, S, 2, H, D, device=cuda, dtype=torch.bfloat16)[:, :, 0]
-    got = flash_attention_bwd(q, k, v, None, True, out, lse, dout)
-    want = flash_attention_bwd_reference(q, k, v, None, True, out, lse, dout)
+    got, want = _bwd(kernel, q, k, v, None, True, out, lse, dout)
     assert_bwd_close(got, want, torch.bfloat16)
+
+
+# (B, H) = (2, 2): a few CTAs; (12, 8): more CTAs than the card has SMs
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 192, 320, False), (2, 2, 192, 320, True), (2, 2, 320, 192, False),
+    (2, 2, 320, 192, True), (12, 8, 320, 320, False), (12, 8, 320, 320, True),
+    (1, 2, 64, 64, True)],
+    ids=["192x320", "192x320-causal", "320x192", "320x192-causal", "320-wide",
+         "320-causal-wide", "64-causal"])
+def test_flash_bwd_kernels_at_more_shapes(cuda, kernel, B, H, Sq, Skv, causal):
+    """Lengths that are multiples of 64 but not of the kernels' 128 fixed
+    rows (a CTA whose second warpgroup lies wholly past S), Sq != Skv both
+    ways, and one tile."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, causal, True,
+                                           B=B, H=H, S=Sq, Skv=Skv)
+    got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+    assert_bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("Skv", [256, 320])
+def test_flash_bwd_kernel_fully_masked_sample(cuda, kernel, Skv):
+    """Sample 0 with every key masked, non-causal: its lse is the -1e30
+    sentinel, so P is 1 on every key (not 0, and no overflow of the
+    exponent) as in the plain backward, whose gradients the kernels give."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=Skv)
+    mask[0] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, False)
+    assert (lse[0] == -1e30).all()
+    dout = torch.randn(out.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(7)
+                       ).to(torch.bfloat16)
+    got, want = _bwd(kernel, q, k, v, mask, False, out, lse, dout)
+    assert_bwd_close(got, want, torch.bfloat16)
+    assert all(bool(g[0].float().abs().max() > 0) for g in got)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_bwd_kernel_is_deterministic(cuda, kernel):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics)."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, True, True,
+                                           S=1024)
+    a, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    b, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_bwd_kernel_takes_an_unaligned_int_mask(cuda, kernel):
+    """An int32 mask that starts off a 16-byte boundary (the kernels load it
+    by TMA) gives what the same mask aligned gives."""
+    q, k, v, mask, out, lse, dout = _bwd_case(cuda, torch.bfloat16, False, True)
+    B, S = mask.shape
+    shifted = torch.zeros(B * S + 1, dtype=torch.int32, device=cuda)[1:].view(B, S)
+    shifted.copy_(mask)
+    assert shifted.data_ptr() % 16
+    got, _ = _bwd(kernel, q, k, v, shifted, False, out, lse, dout)
+    want, _ = _bwd(kernel, q, k, v, mask, False, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
@@ -233,6 +308,25 @@ def test_k3_kernels_match_reference(cuda, dtype, causal, use_mask):
     assert_bwd_close((dq, dk, dv), want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("strided", [False, True], ids=["packed", "views"])
+def test_delta_kernel_matches_reference(cuda, dtype, strided):
+    """delta = rowsum(dO * O) against its plain version, on packed tensors
+    and on views of a wider (B, S, 2, H, D) tensor; f32 sums in another
+    order (16 lanes of 8 products, then a tree)."""
+    B, S, H, D = 3, 320, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    both = torch.randn(B, S, 2, H, D, device=cuda, generator=g).to(dtype)
+    dout, out = both.unbind(2) if strided else (both[:, :, 0].contiguous(),
+                                                both[:, :, 1].contiguous())
+    before = flash_attention_delta.launches
+    got = flash_attention_delta(dout, out)
+    torch.cuda.synchronize()
+    assert flash_attention_delta.launches == before + 1
+    assert got.shape == (B, H, S) and got.dtype == torch.float32
+    torch.testing.assert_close(got, _delta(dout, out), atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.parametrize("S,counts", [(1024, (1, 0, 0)), (2048, (0, 1, 1))])
 def test_backward_picks_k2_or_k3(cuda, S, counts):
     """flash_attention's gradient moves only K2's count at S=1024 and only
@@ -268,6 +362,28 @@ def _ln_case(dev, dtype, N=256, D=1024, seed=0):
     dout = torch.randn(N, D, device=dev, generator=g).to(dtype)
     seed_t = torch.tensor([2 ** 40 + 3], dtype=torch.int64, device=dev)
     return h, res, gamma, beta, dout, seed_t
+
+
+def test_fused_tail_wider_than_the_kernel_raises_on_the_card(cuda):
+    """A ``fused_dropout_ln`` model at d_model 2048 (16 heads of 128, 1+1
+    layers, S=128) is wider than K4's MAX_D: building it on the card raises,
+    and a tail built on the CPU and moved to the card raises in the kernel's
+    input check.  No route takes the unfused tail in K4's place."""
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.models.bart import ResidualDropoutLN
+    cfg = PianoBartConfig(d_model=2048, num_heads=16, encoder_layers=1,
+                          decoder_layers=1, ffn_dim=4096, max_len=128,
+                          dtype=torch.bfloat16, fused_dropout_ln=True)
+    assert cfg.d_model > F.MAX_D and F.fused_eligible((2, 128, cfg.d_model))
+    with pytest.raises(ValueError, match=f"MAX_D = {F.MAX_D}"):
+        init_lm(cfg, seed=0, device=cuda, train=True)
+    tail = ResidualDropoutLN(cfg, device="cpu").to(cuda).train()
+    h = torch.randn(2, 128, cfg.d_model, device=cuda, dtype=torch.bfloat16)
+    f0 = F.dropout_add_ln_fwd.launches
+    with pytest.raises(ValueError, match=f"D <= {F.MAX_D}"):
+        tail(h, h, torch.Generator(device=cuda).manual_seed(0))
+    assert F.dropout_add_ln_fwd.launches == f0
 
 
 # K4 against its plain version fed the same Philox bits.  f32: rsqrtf and

@@ -58,6 +58,21 @@ def test_drop_rate_and_scale_match_jax(rate):
                                rtol=1e-6)
 
 
+def test_bf16_survivors_match_jax():
+    """The keep scale is rounded to the input's dtype before the product, as
+    the reference casts it: bf16 x = 1.5 at rate 0.1 keeps
+    1.5 * bf16(256/230) = 1.5 * 1.109375, rounded to 1.6640625, on both
+    sides (a scale kept in f32 would give 1.671875)."""
+    x = np.full((256, 256), 1.5, np.float32)
+    y = _port(0.1, torch.from_numpy(x).to(torch.bfloat16), seed=5)
+    yj = _jax(0.1, jnp.asarray(x, jnp.bfloat16), seed=5)
+    assert y.dtype == torch.bfloat16 and yj.dtype == jnp.bfloat16
+    kept = y.float().numpy()
+    kept_j = np.asarray(yj, np.float32)
+    assert set(np.unique(kept)) == {0.0, 1.6640625}
+    assert set(np.unique(kept_j)) == {0.0, 1.6640625}
+
+
 def test_unbiased_expectation():
     y = _port(0.3, torch.full((2048, 256), 2.0), seed=9).numpy()
     assert abs(y.mean() - 2.0) < 0.02

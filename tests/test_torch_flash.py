@@ -132,6 +132,22 @@ def test_bwd_reference_matches_jax_kernel(causal, use_mask):
                                    err_msg=f"d{name}", **TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_delta_matches_jax(dtype):
+    """flash_attention_delta on the CPU (its plain version) == JAX's _delta,
+    rowsum(dO * O) in f32 from inputs of either type, (B, H, S)."""
+    rng = np.random.default_rng(9)
+    dout, out = (np.asarray(jnp.asarray(rng.standard_normal((B, S, H, D)), dtype))
+                 .astype(np.float32) for _ in range(2))
+    want = jax_delta(jnp.asarray(dout, dtype).reshape(B, S, H * D),
+                     jnp.asarray(out, dtype).reshape(B, S, H * D), H)
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    got = port_flash.flash_attention_delta(torch.from_numpy(dout).to(tdt),
+                                           torch.from_numpy(out).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def _k3_case(causal, use_mask, Sl=128, blk=32):
     """Multi-block inputs for the two-kernel backward: JAX's forward at
     blocks of ``blk`` gives O and lse, and ``_delta`` the external delta."""

@@ -130,7 +130,8 @@ def test_near_constant_large_rows_stay_finite():
 
 @pytest.mark.parametrize("shape", [
     (32, 1024, 1024), (2, 128, 256), (1, 128, 128), (3, 128, 256), (4, 96, 128),
-    (32, 1024, 1000), (1, 100, 1024), (256, 64), (100, 128), (2, 2048, 1024)])
+    (32, 1024, 1000), (1, 100, 1024), (256, 64), (100, 128), (2, 2048, 1024),
+    (2, 64, 1152), (1, 128, 2048)])
 def test_fused_eligible_matches_jax(shape):
     assert F.fused_eligible(shape) == jax_fused_eligible(shape)
 
@@ -209,6 +210,27 @@ def test_model_switch(fused, train, rate, rows, expect, monkeypatch):
         assert calls[0].dtype == torch.int64 and calls[0].shape == (1,)
         mod(x, x, gen)
         assert not torch.equal(calls[0], calls[1])
+
+
+@pytest.mark.parametrize("d", [1152, 2048])
+def test_model_refuses_a_fused_tail_wider_than_the_kernel_on_cuda(d, monkeypatch):
+    """The reference's gate takes its kernel at any 128-multiple D, K4 on
+    the card only up to MAX_D.  So a wider fused model is refused when it is
+    built on CUDA (before anything is allocated there, so this runs without
+    a card); on the CPU it builds and takes the plain K4."""
+    import pianobart_tpu_torch.models.bart as bart
+    assert d > F.MAX_D and jax_fused_eligible((1, 128, d))
+    cfg = tiny_config(d_model=d, dropout=0.1, fused_dropout_ln=True)
+    with pytest.raises(ValueError, match=f"MAX_D = {F.MAX_D}"):
+        ResidualDropoutLN(cfg, device="cuda")
+    calls = []
+    real = bart.dropout_add_ln
+    monkeypatch.setattr(bart, "dropout_add_ln",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    mod = ResidualDropoutLN(cfg, device="cpu").train()
+    x = torch.randn(1, 128, d)
+    out = mod(x, torch.randn(1, 128, d), torch.Generator().manual_seed(0))
+    assert len(calls) == 1 and torch.isfinite(out).all()
 
 
 def test_fused_tail_equals_unfused_at_a_tiny_rate():

@@ -103,6 +103,25 @@ def test_generation_service_error_propagates():
                                   np.ones((4, 8), np.int32))
 
 
+def test_generation_service_delivers_a_base_exception():
+    """A SystemExit raised in a decode reaches its submitter, as the
+    reference's worker delivers any BaseException, and the worker thread
+    lives on to serve the next request."""
+    svc = GenerationService(device="cpu", batch_window_s=0.0)
+
+    def leave(intros, seeds):
+        raise SystemExit(3)
+
+    svc._decode_batch = leave
+    with pytest.raises(SystemExit):
+        svc.submit(np.zeros((4, 8), np.int32))
+    worker = svc._worker
+    svc._decode_batch = lambda intros, seeds: intros + 2
+    np.testing.assert_array_equal(svc.submit(np.ones((4, 8), np.int32)),
+                                  np.full((4, 8), 3, np.int32))
+    assert svc._worker is worker and worker.is_alive()
+
+
 def test_entry_points_without_a_device_raise_when_cuda_is_absent(monkeypatch):
     """No silent fallback to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
