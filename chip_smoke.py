@@ -29,8 +29,10 @@ result line:
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times;
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
-   Philox bits, at the flagship's N=32768 rows of D=1024 in bf16 and at a
-   small N in f32 (no single PyTorch call computes this: no yardstick);
+   Philox bits, at the flagship's N=32768 rows of D=1024 in bf16, at a
+   small N in f32, and at N=8192 rows wider than one warp takes (D = 1152,
+   2048 and 8192 in bf16, 2048 in f32), each with its bytes bound (no
+   single PyTorch call computes this: no yardstick);
 7. ``[serve]``: the serving slice at full flagship width (bf16, random
    weights from a seed): ``GenerationService`` warmup over buckets
    {1, 2, 4, 8}, concurrent requests from threads, output checks, timed
@@ -48,9 +50,12 @@ result line:
 10. ``[train_fused]``: the flagship step with ``fused_dropout_ln`` (K4 at
    all 40 sublayer tails): the fused step against the unfused one at
    dropout 1e-9 at B=4, then the timed steps at B=32 (K4a, K4b 40 each, K1,
-   K2 24 each), printed beside ``[train]``'s numbers of this run.
+   K2 24 each), printed beside ``[train]``'s numbers of this run;
+11. ``[train_f32]``: the flagship step as ``PianoBartConfig()`` stands (f32
+   compute and parameters): gradients through K1+K2 against plain attention
+   at B=2, then 3 warm-up and 5 timed steps at B=8 (K1, K2 24 each).
 
-Each main path (lab, serve, train, train_long, train_fused) is driven with every
+Each main path (lab, serve, train, train_long, train_fused, train_f32) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -80,6 +85,7 @@ def _counters():
             "flash_attention_dq": flash.flash_attention_dq,
             "flash_attention_dkv": flash.flash_attention_dkv,
             "flash_attention_delta": flash.flash_attention_delta,
+            "flash_attention_split": flash.flash_attention_split,
             "dropout_add_ln_fwd": fused_ln.dropout_add_ln_fwd,
             "dropout_add_ln_bwd": fused_ln.dropout_add_ln_bwd,
             "kt_fwd": kernel_lab.kt_fwd, "hl_fwd": kernel_lab.hl_fwd}
@@ -95,14 +101,16 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-COUNT_NAMES = "K1, K2, K3a, K3b, delta, K4a, K4b, L1, L2"
+COUNT_NAMES = "K1, K2, K3a, K3b, delta, split, K4a, K4b, L1, L2"
 
 
-def _counts(k1=0, k2=0, k3=0, k4=0):
+def _counts(k1=0, k2=0, k3=0, k4=0, f32=False):
     """Expected counts in ``_read_counts`` order (``COUNT_NAMES``): one delta
-    before each backward (K2, or K3a and K3b); the training paths launch no
-    lab kernel."""
-    return (k1, k2, k3, k3, k2 + k3, k4, k4, 0, 0)
+    before each backward (K2, or K3a and K3b); in f32 one tf32 prep launch
+    before each K1, K2, K3a and K3b; the training paths launch no lab
+    kernel."""
+    split = k1 + k2 + 2 * k3 if f32 else 0
+    return (k1, k2, k3, k3, k2 + k3, split, k4, k4, 0, 0)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -154,9 +162,10 @@ def _cuobjdump():
 
 def phase_build(state):
     """All sources built together (one nvcc per source, started at once),
-    then what the wgmma kernels (K1's bf16 kernel, K2/K3's dK/dV and dQ
-    kernels) compiled to: Hopper's products (HGMMA), tensor loads (UTMALDG)
-    and any older tensor-core product (HMMA.) in their SASS."""
+    then what the wgmma kernels (K1's bf16 and f32 kernels, K2/K3's dK/dV
+    and dQ kernels in both types) compiled to: Hopper's products (HGMMA),
+    tensor loads (UTMALDG) and any older tensor-core product (HMMA.) in
+    their SASS."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -178,7 +187,7 @@ def phase_build(state):
                               text=True, timeout=120, check=True).stdout
         for kernel in sass.split("Function : ")[1:]:
             name = kernel.split("\n", 1)[0].strip()
-            if "wgmma" in name:
+            if re.search(r"flash_\w+_(wgmma|tf32)_kernel", name):
                 counts = ", ".join(f"{op} {kernel.count(op)}"
                                    for op in ("HGMMA", "UTMALDG", "HMMA."))
                 label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
@@ -215,16 +224,19 @@ def _attn_bound_ms(q, mask, causal, products, arrays, row_vectors):
     """Least time for attention work on these inputs: ``products`` products
     of 2*D FLOPs per kept (row, key) pair per head, and ``arrays`` (B, S, H,
     D) arrays, ``row_vectors`` (B, H, S) f32 vectors and the mask moved
-    once."""
+    once.  bf16 products at the bf16 tensor-core peak; f32 ones as 3xTF32,
+    three tf32 products each at the tf32 peak (the least time for products
+    of f32 accuracy on this card: the CUDA cores' f32 peak is slower)."""
     import torch
-    from pianobart_tpu_torch.utils.flops import (PEAK_BF16_H100, PEAK_F32_H100,
+    from pianobart_tpu_torch.utils.flops import (PEAK_BF16_H100, PEAK_TF32_H100,
                                                  roofline_ms)
     B, S, H, D = q.shape
     flops = _attn_flops(q, mask, causal, products)
     nbytes = (arrays * q.numel() * q.element_size() + mask.numel() * 4
               + row_vectors * B * H * S * 4)
-    return roofline_ms(flops, nbytes, PEAK_BF16_H100 if q.dtype == torch.bfloat16
-                       else PEAK_F32_H100)
+    if q.dtype == torch.bfloat16:
+        return roofline_ms(flops, nbytes, PEAK_BF16_H100)
+    return roofline_ms(3 * flops, nbytes, PEAK_TF32_H100)
 
 
 def phase_flash(state):
@@ -234,14 +246,15 @@ def phase_flash(state):
     # Per element |dO| <= atol + rtol*|O_ref|, and |dlse| <= lse_tol.
     # bf16: the kernel rounds P to bf16 before P.V and O to bf16 at the end
     # (2^-9 relative each; rows that see few keys carry |O| up to ~4); the
-    # reference keeps P in f32.  f32: only the summation order and expf
-    # differ.
+    # reference keeps P in f32.  f32: 3xTF32 products (about 2^-22
+    # relative), ex2.approx and the summation order.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
+    f32 = torch.float32
     cases = [(1, False, torch.bfloat16, 1024), (8, False, torch.bfloat16, 1024),
              (1, True, torch.bfloat16, 1024), (8, True, torch.bfloat16, 1024),
              (32, False, torch.bfloat16, 1024), (32, True, torch.bfloat16, 1024),
              (16, False, torch.bfloat16, 2048), (16, True, torch.bfloat16, 2048),
-             (2, False, torch.float32, 1024)]
+             (2, False, f32, 1024), (2, True, f32, 1024), (8, False, f32, 1024)]
     for B, causal, dtype, S in cases:
         q, k, v, mask = _flash_case(B, causal, dtype, S=S)
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
@@ -259,6 +272,8 @@ def phase_flash(state):
         bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 2, 4, 1)
         tflops = _attn_flops(q, mask, causal, 2) / ms / 1e9
         name = f"B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        if dtype == f32:
+            bound_by += ", 3xTF32"
         print(f"[flash] {name}: max|dO|={err_o:.3e} (tol {atol:g} + {rtol:g}|O|) "
               f"max|dlse|={err_l:.3e} (tol {tol_l:g}) kernel {ms:.4f} ms "
               f"({tflops:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound), "
@@ -266,10 +281,11 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if (B, causal, dtype) == (32, False, torch.bfloat16):  # the train shape
-            state["k1"] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=lib_ms)
+        if (B, causal, dtype) in ((32, False, torch.bfloat16), (8, False, f32)):
+            # the train shapes ([train], [train_f32])
+            state["k1" if dtype == torch.bfloat16 else "k1_f32"] = dict(
+                max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by.split(",")[0], library_ms=lib_ms)
 
 
 def _sdpa_ms(q, k, v, mask, causal):
@@ -435,7 +451,8 @@ def phase_flash_bwd(state):
     from pianobart_tpu_torch.ops.flash import (
         _delta, flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_delta, flash_attention_dkv, flash_attention_dkv_reference,
-        flash_attention_dq, flash_attention_dq_reference, flash_attention_fwd)
+        flash_attention_dq, flash_attention_dq_reference, flash_attention_fwd,
+        flash_attention_split, flash_attention_split_reference)
     from pianobart_tpu_torch.utils.flops import PEAK_F32_H100, roofline_ms
     # Per element |d| <= atol*max|ref| + rtol*|ref|, and per output ||d|| <=
     # ntol*||ref||.  bf16: the kernel rounds P and dS to bf16 as product
@@ -446,18 +463,22 @@ def phase_flash_bwd(state):
     # largest entry.  That part is loose for the bulk of the rows (the largest
     # entries sit in rows that see few keys), so the norm check holds the
     # whole tensor: a lost kv tile or a coarser dS moves it far past 1e-2.
-    # f32: summation order and expf only.  K3a and K3b are the same CUDA
-    # kernels as K2 behind their own entries: the same tolerances.
+    # f32: 3xTF32 products (about 2^-22 relative), ex2.approx and summation
+    # order.  K3a and K3b are the same CUDA kernels as K2 behind their own
+    # entries: the same tolerances.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-2), torch.float32: (1e-5, 1e-5, 1e-5)}
     # the last field masks every key of sample 0 (its lse is the -1e30
     # sentinel, so P is 1 on every key); S=320 leaves the last 128-row CTA
     # of each kernel half past S
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [("K2", 32, 1024, False, bf16, False), ("K2", 32, 1024, True, bf16, False),
-             ("K2", 2, 1024, False, torch.float32, False),
+             ("K2", 2, 1024, False, f32, False), ("K2", 2, 1024, True, f32, False),
+             ("K2", 8, 1024, False, f32, False),
              ("K2", 2, 320, False, bf16, False), ("K2", 2, 320, True, bf16, False),
-             ("K2", 2, 320, False, bf16, True),
+             ("K2", 2, 320, False, bf16, True), ("K2", 2, 320, False, f32, False),
+             ("K2", 2, 320, False, f32, True),
              ("K3", 16, 2048, False, bf16, False), ("K3", 16, 2048, True, bf16, False),
+             ("K3", 2, 2048, False, f32, False), ("K3", 2, 2048, True, f32, False),
              ("K3", 2, 320, False, bf16, False), ("K3", 2, 320, True, bf16, False),
              ("K3", 2, 320, False, bf16, True)]
     for kid, B, S, causal, dtype, masked in cases:
@@ -490,6 +511,9 @@ def phase_flash_bwd(state):
                                   bound_ms=d_bound[0], bound_by=d_bound[1],
                                   library_ms=None)
         del got_d, want_d
+        if dtype == f32 and not causal:
+            _split_row(state, name, q, (kid, B, S, masked) == ("K2", 8, 1024, False),
+                       flash_attention_split, flash_attention_split_reference)
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
             torch.cuda.synchronize()
@@ -534,14 +558,38 @@ def phase_flash_bwd(state):
         if not ok:
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
         if (B, causal, dtype, masked) in ((32, False, bf16, False),
-                                          (16, False, bf16, False)):  # train shapes
-            keys = ["k2"] if kid == "K2" else ["k3a", "k3b"]
+                                          (16, False, bf16, False), (8, False, f32, False)):
+            # the train shapes ([train], [train_long], [train_f32])
+            keys = (["k2" if dtype == bf16 else "k2_f32"] if kid == "K2"
+                    else ["k3a", "k3b"])
             err_of = [max(errs)] if kid == "K2" else [errs[0], max(errs[1:])]
             for key, e, t, (bm, bb), p in zip(keys, err_of, ms, bounds, plain_ms):
                 state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
                                   bound_by=bb, library_ms=lib_ms)
         del q, k, v, out, lse, dout, got
         torch.cuda.empty_cache()
+
+
+def _split_row(state, name, x, record, split, reference):
+    """The f32 kernels' prep on ``x`` (natural and transposed planes, as the
+    backward asks for q) against its plain version, bit for bit, with its
+    times and bytes bound (x read once, four planes written once)."""
+    import torch
+    from pianobart_tpu_torch.utils.flops import PEAK_F32_H100, roofline_ms
+    got, want = split(x, True, True), reference(x, True, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms = _time_ms(lambda: split(x, True, True))
+    plain_ms = _time_ms(lambda: reference(x, True, True), iters=5)
+    bound = roofline_ms(6.0 * x.numel(), 5 * x.numel() * 4, PEAK_F32_H100)
+    print(f"[flash_bwd] tf32 split of q ({name}): planes equal to the plain "
+          f"version's: {same} (tol: equal), kernel {ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}), plain {plain_ms:.4f} ms")
+    if not same:
+        raise AssertionError(f"the tf32 split kernel disagrees with its plain version: {name}")
+    if record:
+        state["split"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                              bound_by=bound[1], library_ms=None)
 
 
 def _ln_bound_ms(N, D, itemsize, backward):
@@ -572,7 +620,11 @@ def phase_fused_ln(state):
     # one partial per 64 rows).  f32: rsqrtf and summation order only.
     tol = {torch.bfloat16: (1e-2, 1e-2, 5e-3), torch.float32: (1e-4, 1e-4, 1e-5)}
     rate = 0.1
-    for N, D, dtype in ((32768, 1024, torch.bfloat16), (256, 1024, torch.float32)):
+    # the flagship's rows, then rows wider than one warp takes (split across
+    # 2, 2 and 8 warps), the width of a d_model-2048 model in f32 too
+    bf16, f32 = torch.bfloat16, torch.float32
+    for N, D, dtype in ((32768, 1024, bf16), (256, 1024, f32), (8192, 1152, bf16),
+                        (8192, 2048, bf16), (8192, 8192, bf16), (8192, 2048, f32)):
         g = torch.Generator(device="cuda").manual_seed(SEED + 2)
         h, res, dout = (torch.randn(N, D, device="cuda", generator=g).to(dtype)
                         for _ in range(3))
@@ -615,7 +667,7 @@ def phase_fused_ln(state):
                   f"call computes it)")
         if not ok:
             raise AssertionError(f"K4 disagrees with its plain version: {name}")
-        if dtype == torch.bfloat16:   # the flagship train shape
+        if (N, D, dtype) == (32768, 1024, bf16):   # the flagship train shape
             for key, e, t, (bm, bb), p in zip(("k4a", "k4b"), (errs[0], max(errs[1:])),
                                               ms, bounds, plain_ms):
                 state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
@@ -870,11 +922,12 @@ def _grad_check(tag, models, batch, gen, expects, what):
         d, r = groups.setdefault(_grad_groups(name), [0.0, 0.0])
         groups[_grad_groups(name)] = [d + (p.grad - q.grad).float().square().sum().item(),
                                       r + q.grad.float().square().sum().item()]
-    # Both paths compute in bf16 and round at different places (K2 and K3
-    # round P and dS to bf16 as operands where the plain attention rounds the
+    # bf16: both paths round at different places (K2 and K3 round P and dS
+    # to bf16 as operands where the plain attention rounds the
     # probabilities; K4 adds the residual in f32 where the unfused tail adds
-    # in bf16); these differences compound over 8+8 layers.
-    tol = 5e-2
+    # in bf16); these differences compound over 8+8 layers.  f32: both paths
+    # keep f32 accuracy and differ by summation order.
+    tol = 5e-2 if models[0].cfg.dtype == torch.bfloat16 else 1e-3
     rels = {g: (d / r) ** 0.5 for g, (d, r) in groups.items()}
     print(f"[{tag}] grads {what}, B={batch.shape[0]}: loss {losses[0]:.6f} vs "
           f"{losses[1]:.6f}; |dg|/|g| per group (tol {tol:g}):")
@@ -918,8 +971,9 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10):
     model = init_lm(cfg, seed=SEED, device="cuda", train=True)
     st = create_train_state(model)
     batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
-    print(f"[{tag}] flagship width B={B} S={S} bf16 compute, f32 params, dropout "
-          f"{cfg.dropout}, fused_dropout_ln={cfg.fused_dropout_ln}, AdamW lr 2e-5; "
+    print(f"[{tag}] flagship width B={B} S={S} {str(cfg.dtype)[6:]} compute, "
+          f"{str(cfg.param_dtype)[6:]} params, dropout {cfg.dropout}, "
+          f"fused_dropout_ln={cfg.fused_dropout_ln}, AdamW lr 2e-5; "
           f"init {time.perf_counter() - t0:.1f} s")
     c_ms = _time_ms(lambda: corrupt_batch(batch, gen), iters=10)
     print(f"[{tag}] corrupt_batch B={B}: {c_ms:.3f} ms (CUDA events)")
@@ -1042,6 +1096,33 @@ def phase_train_fused(state):
           f"{res['peak_gib']:.2f} vs {base['peak_gib']:.2f} GiB")
 
 
+def phase_train_f32(state):
+    """The flagship step as ``PianoBartConfig()`` stands: f32 compute and f32
+    parameters, dropout 0.1, at B=8; every attention through the f32 K1 and
+    K2, beside [train] of this run."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartConfig
+
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig()
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k2=n_attn, f32=True)
+    _flash_vs_plain("train_f32", cfg.replace(dropout=0.0), rng, gen, 2, expect)
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_f32", cfg, 8, rng, gen, expect, warmup=3,
+                                 steps=5)
+    state["launches"]["train_f32"] = launches
+    state["train_f32"] = res
+    base = state["train"]
+    print(f"[train_f32] beside [train] of this run (bf16 compute, B=32): "
+          f"{res['ms']:.1f} vs {base['ms']:.1f} ms/step, {res['tokens_s']:.0f} vs "
+          f"{base['tokens_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} vs "
+          f"{base['peak_gib']:.2f} GiB")
+
+
 def main() -> int:
     try:
         import torch
@@ -1087,6 +1168,15 @@ KERNEL_RECORDS = (
     # no Pallas kernel: the reference's _delta, which XLA fuses
     ("flash_delta", "delta", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
      "flash_attention_delta", "train"),
+    # the f32 kernels (3xTF32) behind the same entries, on [train_f32]'s path
+    ("flash_fwd_f32", "k1_f32", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_f32"),
+    ("flash_bwd_f32", "k2_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_f32"),
+    # no Pallas kernel: the f32 kernels' operand prep (the reference's _mxu_in
+    # cast its f32 operands for single bf16 passes)
+    ("tf32_split", "split", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
+     "flash_attention_split", "train_f32"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",
@@ -1114,7 +1204,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("flash", phase_flash), ("lab", phase_lab), ("flash_bwd", phase_flash_bwd),
           ("fused_ln", phase_fused_ln), ("serve", phase_serve),
           ("train", phase_train), ("train_long", phase_train_long),
-          ("train_fused", phase_train_fused))
+          ("train_fused", phase_train_fused), ("train_f32", phase_train_f32))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@
 //                  and by the ring backward): the dQ kernel;
 //   pbt_flash_dkv  K3b, :312 _dkv_kernel (_dkv_call): the dK/dV kernel.
 // Same contract as the Pallas calls:
-//   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides; q is
-//                already scaled by D**-0.5 by the caller.
+//   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides (f32:
+//                by the prep); q is already scaled by D**-0.5 by the caller.
 //   kv_mask      (B, Skv) int32, nonzero = attend.  causal: keep row >= col.
 //   lse, delta   (B, H, Sq) f32: the forward's row logsumexp (or a merged
 //                one) and delta = rowsum(dO * O), computed by the caller.
@@ -82,8 +82,10 @@
 // delta kernel below: the reference leaves it to XLA, which fuses it into
 // one pass, and the plain PyTorch version takes five.
 //
-// The f32 kernels do the same algorithm with FMAs on the CUDA cores, for
-// checks where the point is the algorithm.
+// f32 (3xTF32, the default PianoBartConfig's path): flash_bwd_tf32_kernel
+// below, the same schedule on the tensor cores at f32 accuracy from the
+// planes of the prep kernel (pbt_tf32_split), every product three tf32
+// wgmma.  Bound: 3 x the bf16 FLOPs at 495 TFLOP/s tf32.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -482,160 +484,356 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (r < rows && l == 0) delta[(b * H + h) * S + s] = acc;
 }
 
-// ------------------------------------------------------------------ f32 / FMA
-// Thread tid owns output column d = tid for FR rows; scores are computed one
-// (row, column) pair per thread into padded smem.
-constexpr int THREADS = 128;
-constexpr int FR = 16;               // rows per CTA (q rows for dq, kv rows for dkv)
-constexpr int FT = 64;               // rows per swept tile
-constexpr int KP = HEAD_DIM + 1;     // tile pitch: column reads hit distinct banks
-constexpr int PP = FT + 1;           // score pitch
-constexpr size_t F32_SMEM =
-    (2 * FR * HEAD_DIM + 2 * FT * KP + 2 * FR * PP + 2 * FT) * sizeof(float) +
-    FT * sizeof(int);
+// ------------------------------------------------------------- tf32 prep
+// The f32 kernels' operands, made once per call: x (B, S, H, 128) f32 read
+// through its strides becomes hi = x rounded to tf32 and lo = x - hi
+// (exact), as natural planes nat (2, B, H, S, 128) and/or
+// transposed planes tr (2, B, H, 128, S) (hi, then lo; tr's s runs in the
+// order 0 2 4 6 1 3 5 7 within each 8, the k order of a tf32 A fragment
+// made from accumulators: hopper.cuh:split_acc_tf32).  One launch takes
+// every operand of a call (up to SPLIT_MAX, all (B, *, H, 128)); one CTA
+// per 32 rows of one (b, h) of one operand; bound by bytes (x read once,
+// each plane written once).
+constexpr int SPLIT_ROWS = 32;
+constexpr int SPLIT_MAX = 4;
 
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const int* __restrict__ mask, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Skv, int H, int causal,
-                     long long qsb, long long qss, long long qsh,
-                     long long ksb, long long kss, long long ksh,
-                     long long vsb, long long vss, long long vsh,
-                     long long osb, long long oss, long long osh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);   // FR x HEAD_DIM
-  float* Vs = Ks + FR * HEAD_DIM;
-  float* Qs = Vs + FR * HEAD_DIM;                    // FT x KP
-  float* Os = Qs + FT * KP;
-  float* Ps = Os + FT * KP;                          // FR x PP
-  float* Gs = Ps + FR * PP;                          // dS
-  float* Ls = Gs + FR * PP;
-  float* Ds = Ls + FT;
-  int* Mk = reinterpret_cast<int*>(Ds + FT);
+// The operands of one launch: null nat or tr where not asked for.  The
+// host fills it (ops/flash.py:_SplitArgs mirrors it field by field).
+struct SplitArgs {
+  const float* x[SPLIT_MAX];
+  float* nat[SPLIT_MAX];
+  float* tr[SPLIT_MAX];
+  long long sb[SPLIT_MAX], ss[SPLIT_MAX], sh[SPLIT_MAX];   // x's strides in elements
+  int S[SPLIT_MAX];
+};
 
-  const int kv0 = blockIdx.x * FR, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  load_tile_f32<THREADS>(Ks, k + b * ksb + (long long)kv0 * kss + h * ksh, kss, FR, HEAD_DIM);
-  load_tile_f32<THREADS>(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, FR, HEAD_DIM);
-  if (tid < FR) Mk[tid] = mask[(long long)b * Skv + kv0 + tid];
-  float acc_k[FR], acc_v[FR];
-#pragma unroll
-  for (int r = 0; r < FR; ++r) acc_k[r] = acc_v[r] = 0.f;
-
-  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-  const float* dl_bh = delta + ((long long)b * H + h) * Sq;
-  const int i0 = causal ? kv0 / FT : 0;
-  for (int i = i0; i < Sq / FT; ++i) {
-    const int q0 = i * FT;
-    __syncthreads();
-    load_tile_f32<THREADS>(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, FT, KP);
-    load_tile_f32<THREADS>(Os, dout + b * osb + (long long)q0 * oss + h * osh, oss, FT, KP);
-    if (tid < FT) { Ls[tid] = lse_bh[q0 + tid]; Ds[tid] = dl_bh[q0 + tid]; }
-    __syncthreads();
-    {
-      const int c = tid % FT, r0 = (tid / FT) * (FR / 2);   // q column c
-      for (int r = r0; r < r0 + FR / 2; ++r) {
-        float sc = 0.f, dpv = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HEAD_DIM; ++d) {
-          sc = fmaf(Ks[r * HEAD_DIM + d], Qs[c * KP + d], sc);
-          dpv = fmaf(Vs[r * HEAD_DIM + d], Os[c * KP + d], dpv);
-        }
-        const bool keep = Mk[r] != 0 && (!causal || q0 + c >= kv0 + r);
-        const float p = expf((keep ? sc : NEG_INF) - Ls[c]);
-        Ps[r * PP + c] = p;
-        Gs[r * PP + c] = p * (dpv - Ds[c]);
-      }
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const SplitArgs a, int B, int H) {
+  __shared__ float tile[SPLIT_ROWS][HEAD_DIM + 1];
+  const int op = blockIdx.z / B, b = blockIdx.z % B, h = blockIdx.y;
+  const int s0 = blockIdx.x * SPLIT_ROWS, S = a.S[op];
+  if (s0 >= S) return;
+  const float* __restrict__ x = a.x[op];
+  float* __restrict__ nat = a.nat[op];
+  float* __restrict__ tr = a.tr[op];
+  const long long sb = a.sb[op], ss = a.ss[op], sh = a.sh[op];
+  const long long plane = (long long)B * H * S * HEAD_DIM;
+  const long long bh = (long long)b * H + h;
+  for (int i = threadIdx.x; i < SPLIT_ROWS * HEAD_DIM / 4; i += 256) {
+    const int r = i / (HEAD_DIM / 4), c = 4 * (i % (HEAD_DIM / 4));
+    const float4 v = *reinterpret_cast<const float4*>(x + b * sb + (s0 + r) * ss + h * sh + c);
+    if (nat) {
+      uint32_t hi[4], lo[4];
+      tf32_split(v.x, hi[0], lo[0]);
+      tf32_split(v.y, hi[1], lo[1]);
+      tf32_split(v.z, hi[2], lo[2]);
+      tf32_split(v.w, hi[3], lo[3]);
+      const long long at = (bh * S + s0 + r) * HEAD_DIM + c;
+      *reinterpret_cast<uint4*>(nat + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(nat + plane + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < FR; ++r) {
-      float av = acc_v[r], ak = acc_k[r];
-      for (int c = 0; c < FT; ++c) {
-        av = fmaf(Ps[r * PP + c], Os[c * KP + tid], av);
-        ak = fmaf(Gs[r * PP + c], Qs[c * KP + tid], ak);
-      }
-      acc_v[r] = av;
-      acc_k[r] = ak;
+    if (tr) {
+      tile[r][c] = v.x;
+      tile[r][c + 1] = v.y;
+      tile[r][c + 2] = v.z;
+      tile[r][c + 3] = v.w;
     }
   }
-#pragma unroll
-  for (int r = 0; r < FR; ++r) {
-    const long long at = (((long long)b * Skv + kv0 + r) * H + h) * HEAD_DIM + tid;
-    dk[at] = acc_k[r];
-    dv[at] = acc_v[r];
+  if (!tr) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < HEAD_DIM * SPLIT_ROWS; i += 256) {
+    const int d = i / SPLIT_ROWS, j = i % SPLIT_ROWS, k = j % 8;
+    uint32_t hi, lo;
+    tf32_split(tile[j - k + (k < 4 ? 2 * k : 2 * k - 7)][d], hi, lo);
+    const long long at = (bh * HEAD_DIM + d) * S + s0 + j;
+    tr[at] = __uint_as_float(hi);
+    tr[plane + at] = __uint_as_float(lo);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const int* __restrict__ mask, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int Sq, int Skv, int H, int causal,
-                    long long qsb, long long qss, long long qsh,
-                    long long ksb, long long kss, long long ksh,
-                    long long vsb, long long vss, long long vsh,
-                    long long osb, long long oss, long long osh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);   // FR x HEAD_DIM
-  float* Os = Qs + FR * HEAD_DIM;
-  float* Ks = Os + FR * HEAD_DIM;                    // FT x KP
-  float* Vs = Ks + FT * KP;
-  float* Gs = Vs + FT * KP;                          // dS, FR x PP
-  float* Ls = Gs + FR * PP;
-  float* Ds = Ls + FT;
-  int* Ms = reinterpret_cast<int*>(Ds + FT);
+// ----------------------------------------------------- f32 / 3xTF32 wgmma
+// The f32 dK/dV (DKV) and dQ kernels: the bf16 template's schedule with one
+// consumer warpgroup of 64 fixed rows, every operand from the prep's hi
+// and lo planes, every product three tf32 wgmma (hi.hi', hi.lo', lo.hi').
+// The fixed operands' four planes take 128 KB, so a CTA holds one consumer
+// warpgroup (and, with 256 threads, up to 255 registers a thread with no
+// setmaxnreg); the swept operands stream through a ring of 3 slots of one
+// 64-row plane each (32 KB), their lse and delta (or mask) through a ring
+// of 2 per tile.  Per swept tile the planes come in the order the products
+// read them: DKV Q hi, lo, dO hi, lo (S^T = K Q^T and dP^T = V dO^T from
+// shared memory), dO^T hi, lo (dV += P^T dO, P^T from registers), Q^T hi,
+// lo (dK += dS^T Q); dQ K hi, lo, V hi, lo (S and dP), K^T hi, lo
+// (dQ += dS K).  The products run one after another.
+constexpr int T_SLOTS = 3;
+constexpr int T_PLANE = TILE * 4 * HEAD_DIM;   // 64 rows x 128 f32 (or 128 x 64): 32 KB
+// The tensor cores round each accumulation step toward zero, by up to an
+// ulp of the running sum: over the 24 steps of a tile times the 16-32
+// tiles of S = 1024-2048 that bias reaches 2-4e-5 of dQ, dK and dV, past
+// the f32 tolerance.  So the accumulators go to the output every T_FLUSH
+// tiles (stored, then added in f32 by the thread that owns the elements)
+// and start again from zero: 48 steps a chain.
+constexpr int T_FLUSH = 2;
 
-  const int q0 = blockIdx.x * FR, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  load_tile_f32<THREADS>(Qs, q + b * qsb + (long long)q0 * qss + h * qsh, qss, FR, HEAD_DIM);
-  load_tile_f32<THREADS>(Os, dout + b * osb + (long long)q0 * oss + h * osh, oss, FR, HEAD_DIM);
-  if (tid < FR) {
-    const long long at = ((long long)b * H + h) * Sq + q0 + tid;
-    Ls[tid] = lse[at];
-    Ds[tid] = delta[at];
-  }
-  float acc[FR];
+// acc (this thread's part of 64 rows x 128, rows `row` and row + 8) into
+// the (B, S, H, 128) output: stored (add = false) or added to it; acc is
+// zeroed.
+__device__ __forceinline__ void flush_rows(float* __restrict__ out, float (&acc)[HEAD_DIM / 2],
+                                           int b, int S, int row, int H, int h, int t,
+                                           bool add) {
 #pragma unroll
-  for (int r = 0; r < FR; ++r) acc[r] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * HEAD_DIM + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
+      float2 v = make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
+      if (add) {
+        const float2 o = *reinterpret_cast<const float2*>(at + dt * 8);
+        v.x += o.x;
+        v.y += o.y;
+      }
+      *reinterpret_cast<float2*>(at + dt * 8) = v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
+}
 
-  int n_tiles = Skv / FT;
-  if (causal) n_tiles = min(n_tiles, (q0 + FR - 1) / FT + 1);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * FT;
-    __syncthreads();
-    load_tile_f32<THREADS>(Ks, k + b * ksb + (long long)kv0 * kss + h * ksh, kss, FT, KP);
-    load_tile_f32<THREADS>(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, FT, KP);
-    if (tid < FT) Ms[tid] = mask[(long long)b * Skv + kv0 + tid];
-    __syncthreads();
-    {
-      const int c = tid % FT, r0 = (tid / FT) * (FR / 2);   // kv column c
-      for (int r = r0; r < r0 + FR / 2; ++r) {
-        float sc = 0.f, dpv = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HEAD_DIM; ++d) {
-          sc = fmaf(Qs[r * HEAD_DIM + d], Ks[c * KP + d], sc);
-          dpv = fmaf(Os[r * HEAD_DIM + d], Vs[c * KP + d], dpv);
+struct BwdTf32Smem {
+  static constexpr int A1H = 0;                      // fixed: K (dK/dV) or Q (dQ), hi
+  static constexpr int A1L = A1H + T_PLANE;          //   and lo
+  static constexpr int A2H = A1L + T_PLANE;          // fixed: V or dO
+  static constexpr int A2L = A2H + T_PLANE;
+  static constexpr int SLOT = A2L + T_PLANE;         // ring of planes
+  static constexpr int FIXV = SLOT + T_SLOTS * T_PLANE;   // fixed rows' mask, or lse and delta
+  static constexpr int SIDE = FIXV + 2 * TILE * 4;   // 2 per-tile entries: lse and delta, or mask
+  static constexpr int SIDE_STAGE = 2 * TILE * 4;
+  static constexpr int BAR = SIDE + 2 * SIDE_STAGE;  // fix, full[S], free[S], sfull[2], sfree[2]
+  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4) * 8 + 1024;
+};
+
+// Tensor maps: tq, tk, tv, to the natural planes of q, k, v, dO in boxes of
+// TILE rows; tt1, tt2 transposed planes in boxes of 128 rows (DKV: dO^T, Q^T;
+// dQ: K^T, K^T); tm the mask in boxes of TILE keys; tl, td lse and delta in
+// boxes of TILE entries.  DKV: dK into out1, dV into out2; else dQ into out1.
+template <bool DKV>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to,
+                      const __grid_constant__ CUtensorMap tt1,
+                      const __grid_constant__ CUtensorMap tt2,
+                      const __grid_constant__ CUtensorMap tm,
+                      const __grid_constant__ CUtensorMap tl,
+                      const __grid_constant__ CUtensorMap td,
+                      float* __restrict__ out1, float* __restrict__ out2,
+                      int Sq, int Skv, int H, int causal) {
+  using L = BwdTf32Smem;
+  constexpr int NP = DKV ? 8 : 6;       // planes per swept tile
+  constexpr int NS = T_SLOTS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* bar_full = bar_fix + 1;     // plane of slot s landed
+  uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
+  uint64_t* side_full = bar_free + NS;  // side entry e landed
+  uint64_t* side_free = side_full + 2;  // side entry e read
+
+  const int f0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int s_fixed = DKV ? Skv : Sq;
+  // swept tiles i0 .. n-1, as in the bf16 kernel (64 fixed rows here)
+  int i0 = 0, n = (DKV ? Sq : Skv) / TILE;
+  if (causal) {
+    if (DKV) i0 = min(f0 / TILE, n);
+    else n = min(n, f0 / TILE + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_fix, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + s, 1);
+      mbar_init(bar_free + s, 4);
+    }
+    for (int e = 0; e < 2; ++e) {
+      mbar_init(side_full + e, 1);
+      mbar_init(side_free + e, 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warpgroup: one thread keeps the rings full
+    if (threadIdx.x == 128) {
+      const CUtensorMap* ta1 = DKV ? &tk : &tq;
+      const CUtensorMap* ta2 = DKV ? &tv : &to;
+      mbar_arrive_expect_tx(bar_fix, 4 * T_PLANE + (DKV ? TILE * 4 : 2 * TILE * 4));
+      for (int pl = 0; pl < 2; ++pl)
+        for (int x = 0; x < 4; ++x) {
+          tma_load_4d(sm + (pl ? L::A1L : L::A1H) + x * TILE * ROW, ta1, bar_fix, FBOX * x, f0,
+                      bh, pl);
+          tma_load_4d(sm + (pl ? L::A2L : L::A2H) + x * TILE * ROW, ta2, bar_fix, FBOX * x, f0,
+                      bh, pl);
         }
-        const bool keep = Ms[c] != 0 && (!causal || q0 + r >= kv0 + c);
-        const float p = expf((keep ? sc : NEG_INF) - Ls[r]);
-        Gs[r * PP + c] = p * (dpv - Ds[r]);
+      if (DKV) {
+        tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
+      } else {
+        tma_load_2d(sm + L::FIXV, &tl, bar_fix, f0, bh);
+        tma_load_2d(sm + L::FIXV + TILE * 4, &td, bar_fix, f0, bh);
+      }
+      for (int i = i0; i < n; ++i) {
+        const int j = i - i0, e = j % 2, r0 = i * TILE;
+        mbar_wait(side_free + e, ((j / 2) & 1) ^ 1);
+        unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
+        if (DKV) {
+          mbar_arrive_expect_tx(side_full + e, 2 * TILE * 4);
+          tma_load_2d(sv, &tl, side_full + e, r0, bh);
+          tma_load_2d(sv + TILE * 4, &td, side_full + e, r0, bh);
+        } else {
+          mbar_arrive_expect_tx(side_full + e, TILE * 4);
+          tma_load_2d(sv, &tm, side_full + e, r0, b);
+        }
+        for (int q = 0; q < NP; ++q) {
+          const int p = j * NP + q, s = p % NS;
+          mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
+          unsigned char* dst = sm + L::SLOT + s * T_PLANE;
+          mbar_arrive_expect_tx(bar_full + s, T_PLANE);
+          if (q < 4) {                                   // natural: 4 boxes of TILE rows
+            const CUtensorMap* m = q < 2 ? (DKV ? &tq : &tk) : (DKV ? &to : &tv);
+            for (int x = 0; x < 4; ++x)
+              tma_load_4d(dst + x * TILE * ROW, m, bar_full + s, FBOX * x, r0, bh, q % 2);
+          } else {                                       // transposed: 2 boxes of 128 rows
+            const CUtensorMap* m = q < 6 && DKV ? &tt1 : &tt2;
+            for (int x = 0; x < 2; ++x)
+              tma_load_4d(dst + x * HEAD_DIM * ROW, m, bar_full + s, r0 + FBOX * x, 0, bh,
+                          q % 2);
+          }
+        }
       }
     }
-    __syncthreads();
+  } else {
+    // ---- the consumer warpgroup: fixed rows f0 .. f0 + 63
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int fr = warp * 16 + lane / 4;             // this thread's rows: fr, fr + 8
+    const int row = f0 + fr;
+    const uint64_t da1h = smem_desc_sw128(sm + L::A1H, 16), da1l = smem_desc_sw128(sm + L::A1L, 16);
+    const uint64_t da2h = smem_desc_sw128(sm + L::A2H, 16), da2l = smem_desc_sw128(sm + L::A2L, 16);
+    auto plane = [&](int p) { return sm + L::SLOT + (p % NS) * T_PLANE; };
+    auto wait_plane = [&](int p) { mbar_wait(bar_full + p % NS, (p / NS) & 1); };
+    auto release = [&](int p) { if (lane == 0) mbar_arrive(bar_free + p % NS); };
+
+    float acc1[HEAD_DIM / 2], acc2[HEAD_DIM / 2];   // dK and dV, or dQ alone
 #pragma unroll
-    for (int r = 0; r < FR; ++r) {
-      float a = acc[r];
-      for (int c = 0; c < FT; ++c) a = fmaf(Gs[r * PP + c], Ks[c * KP + tid], a);
-      acc[r] = a;
+    for (int i = 0; i < HEAD_DIM / 2; ++i) acc1[i] = acc2[i] = 0.f;
+
+    mbar_wait(bar_fix, 0);
+    bool keep[2];
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (DKV) {
+        keep[r] = reinterpret_cast<const int*>(sm + L::FIXV)[fr + 8 * r] != 0;
+      } else {
+        lse_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[fr + 8 * r];
+        dl_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[TILE + fr + 8 * r];
+      }
+    }
+
+    // d = A B^T over the head dim, A fixed (planes ah, al), B the planes p,
+    // p + 1: 16 k8 steps of three products; then the planes are released
+    auto first = [&](float (&d)[TILE / 2], uint64_t ah, uint64_t al, int p) {
+      wait_plane(p);
+      wait_plane(p + 1);
+      const uint64_t dbh = smem_desc_sw128(plane(p), 16);
+      const uint64_t dbl = smem_desc_sw128(plane(p + 1), 16);
+      wgmma_fence();
+      // the small terms first, while the accumulator is small (see below)
+#pragma unroll
+      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+        const uint32_t o = ((kk / 4) * TILE * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n64(d, ah + o, dbl + o, kk > 0);
+        wgmma_ss_tf32_n64(d, al + o, dbh + o, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+        const uint32_t o = ((kk / 4) * TILE * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n64(d, ah + o, dbh + o, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      release(p);
+      release(p + 1);
+    };
+    // acc += X B with X (64 x TILE) from registers as hi and lo fragments,
+    // B the transposed planes p, p + 1: 8 k8 steps of three products
+    auto last = [&](float (&acc)[HEAD_DIM / 2], uint32_t (&xh)[TILE / 8][4],
+                    uint32_t (&xl)[TILE / 8][4], int p) {
+      wait_plane(p);
+      wait_plane(p + 1);
+      const uint64_t dbh = smem_desc_sw128(plane(p), 16);
+      const uint64_t dbl = smem_desc_sw128(plane(p + 1), 16);
+      fence_regs(acc);
+      fence_regs(xh);
+      fence_regs(xl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 8; ++kk) {
+        const uint32_t o = ((kk / 4) * HEAD_DIM * ROW + (kk % 4) * 32) / 16;
+        wgmma_rs_tf32_n128(acc, xh[kk], dbh + o);
+        wgmma_rs_tf32_n128(acc, xh[kk], dbl + o);
+        wgmma_rs_tf32_n128(acc, xl[kk], dbh + o);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(xh);
+      fence_regs(xl);
+      release(p);
+      release(p + 1);
+    };
+
+    for (int i = i0; i < n; ++i) {
+      const int j = i - i0, p = j * NP, r0 = i * TILE, e = j % 2;
+      float sc[TILE / 2], dp[TILE / 2];
+      uint32_t xh[TILE / 8][4], xl[TILE / 8][4];
+      first(sc, da1h, da1l, p);                      // S^T = K Q^T, or S = Q K^T
+      first(dp, da2h, da2l, p + 2);                  // dP^T = V dO^T, or dP = dO V^T
+      mbar_wait(side_full + e, (j / 2) & 1);
+      const unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
+      if (DKV) {
+        const float* lv = reinterpret_cast<const float*>(sv);
+        if (causal && r0 < f0 + 63)
+          probs_t<true>(sc, dp, lv, lv + TILE, keep, row, r0, t);
+        else
+          probs_t<false>(sc, dp, lv, lv + TILE, keep, row, r0, t);
+      } else {
+        const int* mk = reinterpret_cast<const int*>(sv);
+        if (causal && r0 + 63 > f0)
+          probs<true>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+        else
+          probs<false>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+      }
+      if (lane == 0) mbar_arrive(side_free + e);
+      if (DKV) {
+        split_acc_tf32(xh, xl, sc);
+        last(acc2, xh, xl, p + 4);                   // dV += P^T dO
+      }
+      split_acc_tf32(xh, xl, dp);
+      last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
+      if (j % T_FLUSH == T_FLUSH - 1 || i == n - 1) {
+        flush_rows(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH);
+        if (DKV) flush_rows(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH);
+      }
+    }
+    if (i0 == n) {                                   // no tile: zero gradients
+      flush_rows(out1, acc1, b, s_fixed, row, H, h, t, false);
+      if (DKV) flush_rows(out2, acc2, b, s_fixed, row, H, h, t, false);
     }
   }
-#pragma unroll
-  for (int r = 0; r < FR; ++r)
-    dq[(((long long)b * Sq + q0 + r) * H + h) * HEAD_DIM + tid] = acc[r];
 }
 
 typedef long long ll;
@@ -675,79 +873,110 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// The f32 kernel of one pass from the prep's planes: q, k, v, dout natural,
+// qt, kt, ot transposed (those the pass reads; the others may be null).
+template <bool DKV>
+int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
+                const void* qt, const void* kt, const void* ot, const void* mask,
+                const void* lse, const void* delta, void* out1, void* out2, int B, int Sq,
+                int Skv, int H, int causal, cudaStream_t st) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return TMAP_ERROR;
+  const int BH = B * H;
+  const void* t1 = DKV ? ot : kt;
+  const void* t2 = DKV ? qt : kt;
+  const int t_cols = DKV ? Sq : Skv;
+  CUtensorMap tq, tk, tv, to, tt1, tt2, tm, tl, td;
+  CUresult r = plane_map(enc, &tq, q, BH, Sq, HEAD_DIM, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &to, dout, BH, Sq, HEAD_DIM, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, BH, Skv, HEAD_DIM, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, BH, Skv, HEAD_DIM, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt1, t1, BH, HEAD_DIM, t_cols, HEAD_DIM);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt2, t2, BH, HEAD_DIM, t_cols, HEAD_DIM);
+  if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, TILE);
+  if (r == CUDA_SUCCESS)
+    r = rows_map(enc, &tl, lse, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (r == CUDA_SUCCESS)
+    r = rows_map(enc, &td, delta, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
+  cudaFuncSetAttribute(flash_bwd_tf32_kernel<DKV>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, BwdTf32Smem::ALLOC);
+  dim3 grid((DKV ? Skv : Sq) / TILE, H, B);
+  flash_bwd_tf32_kernel<DKV><<<grid, 256, BwdTf32Smem::ALLOC, st>>>(
+      tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2, Sq, Skv, H, causal);
+  return (int)cudaGetLastError();
+}
+
 // The dK/dV kernel on `st`.
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* mask, const void* lse, const void* delta, void* dk,
-               void* dv, int B, int Sq, int Skv, int H, int dtype, int causal,
-               PBT_STRIDES, cudaStream_t st) {
+               const void* qt, const void* ot, const void* mask, const void* lse,
+               const void* delta, void* dk, void* dv, int B, int Sq, int Skv, int H,
+               int dtype, int causal, PBT_STRIDES, cudaStream_t st) {
   if (dtype == 1)
     return launch_wgmma<true>(q, k, v, dout, mask, lse, delta, dk, dv, B, Sq, Skv, H,
                               causal, PBT_STRIDE_ARGS, st);
-  cudaFuncSetAttribute(flash_dkv_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-  flash_dkv_f32_kernel<<<dim3(Skv / FR, H, B), THREADS, F32_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const int*)mask, (const float*)lse, (const float*)delta, (float*)dk,
-      (float*)dv, Sq, Skv, H, causal, PBT_STRIDE_ARGS);
-  return (int)cudaGetLastError();
+  return launch_tf32<true>(q, k, v, dout, qt, nullptr, ot, mask, lse, delta, dk, dv, B, Sq,
+                           Skv, H, causal, st);
 }
 
 // The dQ kernel on `st`.
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* mask, const void* lse, const void* delta, void* dq,
-              int B, int Sq, int Skv, int H, int dtype, int causal, PBT_STRIDES,
+              const void* kt, const void* mask, const void* lse, const void* delta,
+              void* dq, int B, int Sq, int Skv, int H, int dtype, int causal, PBT_STRIDES,
               cudaStream_t st) {
   if (dtype == 1)
     return launch_wgmma<false>(q, k, v, dout, mask, lse, delta, dq, nullptr, B, Sq, Skv,
                                H, causal, PBT_STRIDE_ARGS, st);
-  cudaFuncSetAttribute(flash_dq_f32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
-  flash_dq_f32_kernel<<<dim3(Sq / FR, H, B), THREADS, F32_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const int*)mask, (const float*)lse, (const float*)delta, (float*)dq,
-      Sq, Skv, H, causal, PBT_STRIDE_ARGS);
-  return (int)cudaGetLastError();
+  return launch_tf32<false>(q, k, v, dout, nullptr, kt, nullptr, mask, lse, delta, dq,
+                            nullptr, B, Sq, Skv, H, causal, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// (B, S, H) axes of q, k, v and dO; the D axis must be contiguous.  Each
-// entry launches on `stream` and returns the first nonzero of its kernels'
-// codes: cudaGetLastError(), or 1000 + the CUresult of a tensor map the
-// driver refused (1000 alone where the driver offers no encoder).
+// dtype: 0 = float32, 1 = bfloat16.  bf16: q, k, v, dO (B, S, H, 128) at
+// element strides for their (B, S, H) axes (the D axis contiguous); qt, kt,
+// ot are not read.  f32: q, k, v, dO are the natural split planes of
+// pbt_tf32_split and qt, kt, ot the transposed planes of q, k and dO (each
+// entry reads the ones its kernels use: K2 qt, kt, ot; K3a kt; K3b qt, ot);
+// the strides are not read.  Each entry launches on `stream` and returns
+// the first nonzero of its kernels' codes: cudaGetLastError(), or 1000 + the
+// CUresult of a tensor map the driver refused (1000 alone where the driver
+// offers no encoder).
 
 // K2: the dK/dV kernel, then the dQ kernel.
 extern "C" int pbt_flash_bwd(const void* q, const void* k, const void* v,
-                             const void* dout, const void* mask, const void* lse,
+                             const void* dout, const void* qt, const void* kt,
+                             const void* ot, const void* mask, const void* lse,
                              const void* delta, void* dq, void* dk, void* dv,
                              int B, int Sq, int Skv, int H, int dtype, int causal,
                              PBT_STRIDES, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int rc = launch_dkv(q, k, v, dout, mask, lse, delta, dk, dv, B, Sq, Skv, H,
+  int rc = launch_dkv(q, k, v, dout, qt, ot, mask, lse, delta, dk, dv, B, Sq, Skv, H,
                       dtype, causal, PBT_STRIDE_ARGS, st);
   if (rc != 0) return rc;
-  return launch_dq(q, k, v, dout, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
+  return launch_dq(q, k, v, dout, kt, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
                    causal, PBT_STRIDE_ARGS, st);
 }
 
 // K3a: dQ alone.
 extern "C" int pbt_flash_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* mask, const void* lse,
+                            const void* dout, const void* qt, const void* kt,
+                            const void* ot, const void* mask, const void* lse,
                             const void* delta, void* dq, int B, int Sq, int Skv,
                             int H, int dtype, int causal, PBT_STRIDES,
                             void* stream) {
-  return launch_dq(q, k, v, dout, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
+  return launch_dq(q, k, v, dout, kt, mask, lse, delta, dq, B, Sq, Skv, H, dtype,
                    causal, PBT_STRIDE_ARGS, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K3b: dK and dV alone.
 extern "C" int pbt_flash_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const void* mask, const void* lse,
+                             const void* dout, const void* qt, const void* kt,
+                             const void* ot, const void* mask, const void* lse,
                              const void* delta, void* dk, void* dv, int B, int Sq,
                              int Skv, int H, int dtype, int causal, PBT_STRIDES,
                              void* stream) {
-  return launch_dkv(q, k, v, dout, mask, lse, delta, dk, dv, B, Sq, Skv, H,
+  return launch_dkv(q, k, v, dout, qt, ot, mask, lse, delta, dk, dv, B, Sq, Skv, H,
                     dtype, causal, PBT_STRIDE_ARGS,
                     reinterpret_cast<cudaStream_t>(stream));
 }
@@ -769,5 +998,19 @@ extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, i
     flash_delta_kernel<float><<<grid, 16 * DELTA_ROWS, 0, st>>>(
         (const float*)dout, (const float*)out, (float*)delta, S, H, rows, osb, oss, osh,
         tsb, tss, tsh);
+  return (int)cudaGetLastError();
+}
+
+// The f32 kernels' prep, one launch for the n (<= SPLIT_MAX) operands that
+// `args` (a host SplitArgs) describes: each x (B, S, H, 128) f32 at element
+// strides for its (B, S, H) axes (the D axis contiguous, 16-byte aligned
+// rows) into natural planes nat (2, B, H, S, 128) and transposed planes tr
+// (2, B, H, 128, S), either of which may be null.  Each S a multiple of 32.
+extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, void* stream) {
+  const SplitArgs a = *reinterpret_cast<const SplitArgs*>(args);
+  int s_max = 0;
+  for (int i = 0; i < n; ++i) s_max = max(s_max, a.S[i]);
+  const dim3 grid(s_max / SPLIT_ROWS, H, B * n);
+  tf32_split_kernel<<<grid, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a, B, H);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,7 @@
 // Pieces shared by the flash forward (flash_fwd.cu), backward (flash_bwd.cu)
 // and lab (flash_lab.cu) kernels: constants, bf16 packing, accumulators as
-// A fragments, exp2, the f32 tile load, and the lab's mma.sync m16n8k16
-// product, 16-byte tile load into padded shared memory and transposed
-// fragment load.
+// A fragments, exp2, and the lab's mma.sync m16n8k16 product, 16-byte tile
+// load into padded shared memory and transposed fragment load.
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
@@ -96,16 +95,6 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
     int r = i / CHUNKS, c = (i % CHUNKS) * 8;
     *reinterpret_cast<uint4*>(dst + r * LDS + c) =
         *reinterpret_cast<const uint4*>(src + r * ss + c);
-  }
-}
-
-// rows x 128 f32 tile into smem at row pitch `pitch`
-template <int THREADS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long ss, int rows, int pitch) {
-  for (int i = threadIdx.x; i < rows * HEAD_DIM; i += THREADS) {
-    int r = i / HEAD_DIM, c = i % HEAD_DIM;
-    dst[r * pitch + c] = src[r * ss + c];
   }
 }
 

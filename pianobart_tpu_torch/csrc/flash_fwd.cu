@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:_fwd_kernel
 // (launched by _fwd). Same contract:
-//   q, k, v   (B, S, H, D) bf16 or f32, read through their strides; q is
-//             already scaled by D**-0.5 by the caller.
+//   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32:
+//             by the prep); q is already scaled by D**-0.5 by the caller.
 //   kv_mask   (B, Skv) int32, nonzero = attend.  causal: keep row >= col.
 //   o         (B, Sq, H, D) contiguous, input dtype.
 //   lse       (B, H, Sq) f32 row logsumexp (natural log).
@@ -39,8 +39,21 @@
 // persistent schedule (each CTA loads Q and stores O with nothing to overlap
 // them), a TMA store of O, clusters with TMA multicast of K and V.
 //
-// The f32 kernel does the same algorithm with FMAs on the CUDA cores, for
-// checks where the point is the algorithm; it is on no main path.
+// f32 design (3xTF32, the default PianoBartConfig's path): the same
+// schedule on the tensor cores at f32 accuracy.  tf32 wgmma reads its
+// shared-memory operands K-major only, so the wrapper's prep
+// (flash_bwd.cu:pbt_tf32_split) hands the kernel Q's and K's planes of
+// hi = x rounded to tf32 and lo = x - hi, and V's transposed (d along the
+// rows, the kv index within each 8 in the k order of an A fragment made
+// from accumulators).  Every product is three tf32 wgmma, hi.hi' + hi.lo' +
+// lo.hi', about 2^-22 relative: S = Q K^T as m64n64k8 from shared memory,
+// O += P V as m64n128k8 with P split into hi and lo in registers.  An f32
+// plane is four times a bf16 tile, so Q's two planes take 128 KB and the kv
+// tiles (64 rows) stream through a ring of 3 slots of one 32 KB plane each
+// (K hi, K lo, V^T hi, V^T lo in turn, the mask with K hi); the products of
+// a tile run one after the other in each of the two consumer warpgroups.
+// Bound: 3 x 4*B*H*Sq*Skv*D FLOPs at 495 TFLOP/s tf32 (0.047 ms at B=2,
+// S=1024, H=8 with the smoke run's pad tail).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -289,112 +302,245 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The f32 kernel's tile and block (it stays the simple design)
-constexpr int BN = 64;
-constexpr int THREADS = 128;
+// ----------------------------------------------------- f32 / 3xTF32 wgmma
+constexpr int F_BN = 64;                 // kv rows per tile
+constexpr int F_SLOTS = 3;               // ring of plane tiles
+constexpr int F_PLANE = F_BN * 4 * HEAD_DIM;   // 64 rows x 128 f32 (or 128 x 64): 32 KB
 
-// ------------------------------------------------------------------ f32 / FMA
-constexpr int FM = 16;                    // q rows per CTA
-constexpr int KP = HEAD_DIM + 1;          // K pitch: column reads hit distinct banks
-constexpr int PP = BN + 1;                // P pitch
-constexpr size_t FMA_SMEM =
-    (FM * HEAD_DIM + BN * KP + BN * HEAD_DIM + FM * PP + 3 * FM) * sizeof(float) +
-    BN * sizeof(int);
+// Shared memory, in bytes from a 1024-aligned base.  Q's hi and lo planes
+// (4 boxes of 128 rows each), then the ring: per kv tile four planes go
+// through it in turn, K hi, K lo (4 boxes of 64 kv rows), V^T hi, V^T lo
+// (2 boxes of 128 d rows); the kv mask rides with K hi.
+struct K1F32Smem {
+  static constexpr int QHI = 0;
+  static constexpr int QLO = QHI + K1_BM * 4 * HEAD_DIM;
+  static constexpr int SLOT = QLO + K1_BM * 4 * HEAD_DIM;
+  static constexpr int MASK = SLOT + F_SLOTS * F_PLANE;         // per slot F_BN int32
+  static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;         // Q, full[S], free[S]
+  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS) * 8 + 1024;
+};
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ mask,
-                     float* __restrict__ o, float* __restrict__ lse,
-                     int Sq, int Skv, int H, int causal,
-                     long long qsb, long long qss, long long qsh,
-                     long long ksb, long long kss, long long ksh,
-                     long long vsb, long long vss, long long vsh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + FM * HEAD_DIM;
-  float* Vs = Ks + BN * KP;
-  float* Ps = Vs + BN * HEAD_DIM;
-  float* m_s = Ps + FM * PP;
-  float* l_s = m_s + FM;
-  float* c_s = l_s + FM;
-  int* Ms = reinterpret_cast<int*>(c_s + FM);
-
-  const int q0 = blockIdx.x * FM, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;  // also the output column d this thread owns
-
-  for (int i = tid; i < FM * HEAD_DIM; i += THREADS) {
-    int r = i / HEAD_DIM, c = i % HEAD_DIM;
-    Qs[i] = q[b * qsb + (long long)(q0 + r) * qss + h * qsh + c];
+// Masks (the causal one, DIAG, only where the diagonal crosses the
+// warpgroup's rows; mk the tile's F_BN mask entries), then the
+// online-softmax update of rows `row` and `row + 8` as in softmax_tile.
+template <bool DIAG>
+__device__ __forceinline__ void softmax_tile_f32(float (&sc)[F_BN / 2], const int* mk,
+                                                 float (&m_i)[2], float (&l_i)[2],
+                                                 float (&corr)[2], int row, int kv0, int t) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int nt = 0; nt < F_BN / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    const int2 keep = *reinterpret_cast<const int2*>(mk + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool kp = ((e & 1) ? keep.y : keep.x) != 0;
+      if (DIAG) kp &= row + (e >= 2 ? 8 : 0) - (kv0 + c + (e & 1)) >= 0;
+      sc[4 * nt + e] = kp ? sc[4 * nt + e] : NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * nt + e]);
+    }
   }
-  if (tid < FM) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
-  float acc[FM];
+  float cl[2], ml[2];
 #pragma unroll
-  for (int r = 0; r < FM; ++r) acc[r] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_i[r], mx[r]);
+    corr[r] = exp2_approx((m_i[r] - m_new) * LOG2E);
+    cl[r] = m_new == NEG_INF ? 0.f : LOG2E;      // no kept key yet: p = 1
+    ml[r] = m_new * cl[r];
+    m_i[r] = m_new;
+    l_i[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < F_BN / 2; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], cl[(i >> 1) & 1], -ml[(i >> 1) & 1]));
+    l_i[(i >> 1) & 1] += sc[i];
+  }
+}
 
+// The f32 forward: O and lse at f32 accuracy on the tensor cores.  The
+// wrapper's prep (pbt_tf32_split) hands it Q's and K's hi and lo planes and
+// V's transposed ones.  tq: Q planes in boxes of K1_BM rows; tk: K planes in
+// boxes of F_BN rows; tv: V^T planes in boxes of 128 d rows; tm: the mask in
+// boxes of F_BN keys.
+__global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tm,
+                      float* __restrict__ o, float* __restrict__ lse,
+                      int Sq, int Skv, int H, int causal) {
+  using L = K1F32Smem;
+  constexpr int NWG = K1_WG;
+  constexpr int BM = K1_BM, BN = F_BN, NS = F_SLOTS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* bar_full = bar_q + 1;       // plane of slot s landed
+  uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
+
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int wg = threadIdx.x / 128;
   int n_tiles = Skv / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + FM - 1) / BN + 1);
+  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
+  const int n_planes = 4 * n_tiles;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();
-    for (int i = tid; i < BN * HEAD_DIM; i += THREADS) {
-      int r = i / HEAD_DIM, c = i % HEAD_DIM;
-      Ks[r * KP + c] = k[b * ksb + (long long)(kv0 + r) * kss + h * ksh + c];
-      Vs[i] = v[b * vsb + (long long)(kv0 + r) * vss + h * vsh + c];
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + s, 1);
+      mbar_init(bar_free + s, 4 * NWG);
     }
-    for (int i = tid; i < BN; i += THREADS) Ms[i] = mask[(long long)b * Skv + kv0 + i];
-    __syncthreads();
-
-    // scores: thread owns kv column c for 8 of the 16 rows
-    {
-      const int c = tid % BN, r0 = (tid / BN) * (FM / 2);
-      for (int r = r0; r < r0 + FM / 2; ++r) {
-        float sc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HEAD_DIM; ++d) sc = fmaf(Qs[r * HEAD_DIM + d], Ks[c * KP + d], sc);
-        const bool keep = Ms[c] != 0 && (!causal || q0 + r >= kv0 + c);
-        Ps[r * PP + c] = keep ? sc : NEG_INF;
-      }
-    }
-    __syncthreads();
-    if (tid < FM) {  // online-softmax update of row tid
-      float* pr = Ps + tid * PP;
-      float mx = NEG_INF;
-      for (int c = 0; c < BN; ++c) mx = fmaxf(mx, pr[c]);
-      const float m_new = fmaxf(m_s[tid], mx);
-      const float corr = expf(m_s[tid] - m_new);
-      float sum = 0.f;
-      for (int c = 0; c < BN; ++c) { pr[c] = expf(pr[c] - m_new); sum += pr[c]; }
-      l_s[tid] = l_s[tid] * corr + sum;
-      m_s[tid] = m_new;
-      c_s[tid] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < FM; ++r) {
-      float a = acc[r] * c_s[r];
-      for (int c = 0; c < BN; ++c) a = fmaf(Ps[r * PP + c], Vs[c * HEAD_DIM + tid], a);
-      acc[r] = a;
-    }
+    mbar_fence_init();
   }
   __syncthreads();
+
+  if (wg == NWG) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_arrive_expect_tx(bar_q, 2 * BM * 4 * HEAD_DIM);
+      for (int pl = 0; pl < 2; ++pl)
+        for (int x = 0; x < 4; ++x)
+          tma_load_4d(sm + (pl ? L::QLO : L::QHI) + x * BM * ROW, &tq, bar_q, FBOX * x, q0,
+                      bh, pl);
+      for (int p = 0; p < n_planes; ++p) {
+        const int s = p % NS, kv0 = (p / 4) * BN, kind = p % 4;
+        mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
+        unsigned char* dst = sm + L::SLOT + s * F_PLANE;
+        if (kind < 2) {                                  // K hi or lo: 4 boxes of BN rows
+          mbar_arrive_expect_tx(bar_full + s, F_PLANE + (kind == 0 ? BN * 4 : 0));
+          for (int x = 0; x < 4; ++x)
+            tma_load_4d(dst + x * BN * ROW, &tk, bar_full + s, FBOX * x, kv0, bh, kind);
+          if (kind == 0) tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_full + s, kv0, b);
+        } else {                                         // V^T hi or lo: 2 boxes of 128 rows
+          mbar_arrive_expect_tx(bar_full + s, F_PLANE);
+          for (int x = 0; x < 2; ++x)
+            tma_load_4d(dst + x * HEAD_DIM * ROW, &tv, bar_full + s, kv0 + FBOX * x, 0, bh,
+                        kind - 2);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: q rows q0 + 64*wg .. +63.  Per kv tile:
+    // S = Q K^T (3 x 16 k8 steps from shared memory), softmax, P split in
+    // registers, O += P V (3 x 8 k8 steps, P from registers).
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int wrow0 = q0 + wg * 64;
+    const int row = wrow0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
+    const uint64_t dqh = smem_desc_sw128(sm + L::QHI + wg * 64 * ROW, 16);
+    const uint64_t dql = smem_desc_sw128(sm + L::QLO + wg * 64 * ROW, 16);
+    auto plane = [&](int p) { return sm + L::SLOT + (p % NS) * F_PLANE; };
+    auto wait_plane = [&](int p) { mbar_wait(bar_full + p % NS, (p / NS) & 1); };
+    auto release = [&](int p) { if (lane == 0) mbar_arrive(bar_free + p % NS); };
+
+    float acc[HEAD_DIM / 2];                         // O, 64 rows x 128 per warpgroup
 #pragma unroll
-  for (int r = 0; r < FM; ++r) {
-    const float l = l_s[r] == 0.f ? 1.f : l_s[r];
-    o[(((long long)b * Sq + q0 + r) * H + h) * HEAD_DIM + tid] = acc[r] / l;
-  }
-  if (tid < FM) {
-    const float l = l_s[tid] == 0.f ? 1.f : l_s[tid];
-    lse[((long long)b * H + h) * Sq + q0 + tid] = m_s[tid] + logf(l);
+    for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {NEG_INF, NEG_INF};               // score domain
+    float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
+    float sc[BN / 2], corr[2];
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];           // P's hi and lo as A fragments
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int p = 4 * j, kv0 = j * BN;
+      wait_plane(p);
+      wait_plane(p + 1);
+      const uint64_t dkh = smem_desc_sw128(plane(p), 16);
+      const uint64_t dkl = smem_desc_sw128(plane(p + 1), 16);
+      wgmma_fence();
+      // the small terms first, while the accumulator is small: the tensor
+      // cores round each step toward zero, by up to an ulp of the sum
+#pragma unroll
+      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+        const uint32_t qo = ((kk / 4) * BM * ROW + (kk % 4) * 32) / 16;
+        const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n64(sc, dqh + qo, dkl + ko, kk > 0);
+        wgmma_ss_tf32_n64(sc, dql + qo, dkh + ko, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+        const uint32_t qo = ((kk / 4) * BM * ROW + (kk % 4) * 32) / 16;
+        const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n64(sc, dqh + qo, dkh + ko, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);
+      if (causal && kv0 + BN - 1 > wrow0)
+        softmax_tile_f32<true>(sc, mk, m_i, l_i, corr, row, kv0, t);
+      else
+        softmax_tile_f32<false>(sc, mk, m_i, l_i, corr, row, kv0, t);
+      fence_regs(sc);                                // p computed before the release
+      release(p);
+      release(p + 1);
+#pragma unroll
+      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
+        acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
+        acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
+      }
+      split_acc_tf32(ph, pl, sc);
+      wait_plane(p + 2);
+      wait_plane(p + 3);
+      const uint64_t dvh = smem_desc_sw128(plane(p + 2), 16);
+      const uint64_t dvl = smem_desc_sw128(plane(p + 3), 16);
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t vo = ((kk / 4) * HEAD_DIM * ROW + (kk % 4) * 32) / 16;
+        wgmma_rs_tf32_n128(acc, ph[kk], dvh + vo);
+        wgmma_rs_tf32_n128(acc, ph[kk], dvl + vo);
+        wgmma_rs_tf32_n128(acc, pl[kk], dvh + vo);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      release(p + 2);
+      release(p + 3);
+    }
+
+    // epilogue: full row sums, normalise, store O and lse for rows < Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      if (rr >= Sq) continue;
+      float* orow = o + (((long long)b * Sq + rr) * H + h) * HEAD_DIM;
+      const float inv = 1.f / l_i[r];
+#pragma unroll
+      for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
+        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
+            make_float2(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+      if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+    }
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
-// (B, S, H) axes; the D axis must be contiguous.  Returns cudaGetLastError(),
-// or 1000 + the CUresult of a tensor map the driver refused (1000 alone
-// where the driver offers no encoder).
+// dtype: 0 = float32, 1 = bfloat16.  bf16: q, k, v (B, S, H, 128) at
+// element strides for the (B, S, H) axes (the D axis contiguous).  f32: q
+// and k are the natural split planes of pbt_tf32_split (flash_bwd.cu) and v
+// its transposed planes; the strides are not read.  Returns
+// cudaGetLastError(), or 1000 + the CUresult of a tensor map the driver
+// refused (1000 alone where the driver offers no encoder).
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int dtype, int causal,
@@ -403,10 +549,10 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              long long vsb, long long vss, long long vsh,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return TMAP_ERROR;
+  CUtensorMap tq, tk, tv, tm;
   if (dtype == 1) {
-    const EncodeTiled enc = tensor_map_encoder();
-    if (!enc) return TMAP_ERROR;
-    CUtensorMap tq, tk, tv, tm;
     CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
@@ -418,13 +564,16 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     flash_fwd_wgmma_kernel<<<grid, 128 * (K1_WG + 1), K1Smem::ALLOC, st>>>(
         tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal);
   } else {
-    cudaFuncSetAttribute(flash_fwd_f32_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FMA_SMEM);
-    dim3 grid(Sq / FM, H, B);
-    flash_fwd_f32_kernel<<<grid, THREADS, FMA_SMEM, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)mask,
-        (float*)o, (float*)lse, Sq, Skv, H, causal,
-        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
+    CUresult r = plane_map(enc, &tq, q, B * H, Sq, HEAD_DIM, K1_BM);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, HEAD_DIM, F_BN);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, B * H, HEAD_DIM, Skv, HEAD_DIM);
+    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, F_BN);
+    if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
+    cudaFuncSetAttribute(flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         K1F32Smem::ALLOC);
+    dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
+    flash_fwd_tf32_kernel<<<grid, 128 * (K1_WG + 1), K1F32Smem::ALLOC, st>>>(
+        tq, tk, tv, tm, (float*)o, (float*)lse, Sq, Skv, H, causal);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and products, setmaxnreg,
-// and on the host the tensor maps the flash kernels load through.
+// tensor loads, wgmma shared-memory descriptors and products (bf16 and
+// tf32), the 3xTF32 split, setmaxnreg, and on the host the tensor maps the
+// flash kernels load through.
 //
 // Shared-memory tiles here are what a TMA load with 128-byte swizzle leaves:
 // rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at chunk
@@ -15,7 +16,17 @@
 // wgmma accumulator layout, per warp w of the warpgroup (rows 16w..16w+15),
 // g = lane / 4, t = lane % 4: d[4j + e] is row g + 8 * (e >= 2), column
 // 8j + 2t + (e & 1), the mma.sync C layout for each 8-column slice.  A from
-// registers takes the mma.sync m16n8k16 A fragment of the warp's 16 rows.
+// registers takes the mma.sync m16n8k16 A fragment of the warp's 16 rows
+// (bf16) or the m16n8k8 one (tf32: a0 = A[g][t], a1 = A[g+8][t],
+// a2 = A[g][t+4], a3 = A[g+8][t+4]).
+//
+// tf32 products (the f32 kernels, 3xTF32): wgmma reads tf32 operands from
+// shared memory K-major only (the transpose bits are for 16-bit types), so
+// an f32 tile is 128-byte rows of 32 values, a k8 step adding 32 bytes as a
+// bf16 k16 step does.  Each f32 operand x is split into hi = x rounded to
+// tf32 and lo = x - hi (exact in f32), and a product is three:
+// hi.hi' + hi.lo' + lo.hi' (lo.lo' is below 2^-22 of it, and so is what
+// the tensor cores drop of lo's own low 13 bits).
 #pragma once
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
@@ -27,6 +38,7 @@ namespace pbt {
 
 constexpr int BOX = 64;                 // bf16 columns per 128-byte TMA box
 constexpr int ROW = 2 * BOX;            // bytes per row of a box
+constexpr int FBOX = 32;                // f32 columns per 128-byte TMA box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -121,6 +133,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// The same for A fragments in registers: fenced before the products that
+// read them and again after the wait, so the compiler neither computes them
+// late nor reuses their registers while a product still reads them.
+template <int KS>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(REGS));
@@ -195,6 +218,78 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] (+)= A[64 x 8] . B[8 x 64] in tf32; A and B from shared memory,
+// both K-major; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 8] . B[8 x 128] in tf32; A from registers (per warp
+// of 16 rows, the m16n8k8 tf32 A fragment), B from shared memory K-major
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ------------------------------------------------------------------ 3xTF32
+// x rounded to tf32 (10 mantissa bits, ties away from zero): the low 13
+// bits of the result are 0.  ops/flash.py:_tf32_round is the same bit rule.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo exactly: hi = x rounded to tf32, lo = x - hi
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// f32 accumulators of a 64 x 8KS product (this thread's part, in the
+// accumulator layout) as tf32 A fragments of hi and lo, k8 slice kk from
+// v[4kk .. 4kk+3].  The accumulator holds columns 2t and 2t+1 of a slice,
+// the A fragment columns t and t+4: column 2t is given as k = t and column
+// 2t+1 as k = t+4, so within each 8 the fragment's k order is the columns
+// 0 2 4 6 1 3 5 7, and the B operand's rows must come in that order too
+// (pbt_tf32_split's transposed planes do).
+template <int KS>
+__device__ __forceinline__ void split_acc_tf32(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4],
+                                               const float (&v)[4 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    tf32_split(v[4 * kk], hi[kk][0], lo[kk][0]);       // (g, 2t)     as k = t
+    tf32_split(v[4 * kk + 2], hi[kk][1], lo[kk][1]);   // (g + 8, 2t)
+    tf32_split(v[4 * kk + 1], hi[kk][2], lo[kk][2]);   // (g, 2t + 1) as k = t + 4
+    tf32_split(v[4 * kk + 3], hi[kk][3], lo[kk][3]);   // (g + 8, 2t + 1)
+  }
+}
+
 // ------------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -252,6 +347,23 @@ inline CUresult rows_map(EncodeTiled enc, CUtensorMap* m, const void* p, int row
   return enc(m, type, 2, const_cast<void*>(p), dims, strides, boxes, one,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The split planes of pbt_tf32_split, (2, B*H, rows, cols) f32 packed
+// (hi, then lo), as a 4-D map over (cols, rows, B*H, 2); a box is 32
+// columns of `box_rows` rows of one (b, h) and one plane, swizzled.
+// Natural planes: rows = S, cols = 128; transposed: rows = 128, cols = S.
+// Rows past `rows` arrive as zeros.
+inline CUresult plane_map(EncodeTiled enc, CUtensorMap* m, const void* p, int BH, int rows,
+                          int cols, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)BH, 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)cols * 4, (cuuint64_t)rows * cols * 4,
+                                 (cuuint64_t)BH * rows * cols * 4};
+  const cuuint32_t box[4] = {FBOX, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 inline CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv,

@@ -36,11 +36,14 @@ KERNELS = {
     "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "hopper.cuh"), {
         "pbt_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P]}),
     "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {
-        "pbt_flash_bwd": [_P] * 10 + _FLASH_BWD_TAIL,
-        "pbt_flash_dq": [_P] * 8 + _FLASH_BWD_TAIL,
-        "pbt_flash_dkv": [_P] * 9 + _FLASH_BWD_TAIL,
+        # q, k, v, dout, qt, kt, ot, mask, lse, delta, then the outputs
+        "pbt_flash_bwd": [_P] * 13 + _FLASH_BWD_TAIL,
+        "pbt_flash_dq": [_P] * 11 + _FLASH_BWD_TAIL,
+        "pbt_flash_dkv": [_P] * 12 + _FLASH_BWD_TAIL,
         # dout, out, delta; B, S, H, dtype; dout's and out's strides; stream
-        "pbt_flash_delta": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_P]}),
+        "pbt_flash_delta": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_P],
+        # the operands (a SplitArgs); n, B, H; stream
+        "pbt_tf32_split": [_P] + [_I] * 3 + [_P]}),
     "fused_ln": ("fused_ln.cu", (), {
         # h, res, gamma, beta, seed, out, mean, rstd; N, D, dtype; threshold,
         # keep scale, eps; stream

@@ -51,13 +51,25 @@ next tile's S and dP under dQ += dS K.  Left for later: ping-pong scheduling
 of the consumer warpgroups, a persistent schedule, TMA multicast across a
 cluster, and a one-pass K2.
 
+The f32 kernels (the default ``PianoBartConfig``'s path) run the same
+schedules on the tensor cores at f32 accuracy as 3xTF32: each operand x is
+split into hi = x rounded to tf32 and lo = x - hi, and each product is
+hi.hi' + hi.lo' + lo.hi' (about 2^-22 relative; one tf32 pass keeps three
+decimal digits, the TPU's f32 kernels single bf16 passes).  tf32 ``wgmma``
+reads its shared-memory operands K-major only, so a prep kernel
+(:func:`flash_attention_split`, its own launch count) makes the hi and lo
+planes once per call, and transposed planes of the operands a product
+contracts over S with.  Bound: three tf32 products per f32 product at 495
+TFLOP/s.
+
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
 :mod:`.build` at first use, never at import.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -65,8 +77,9 @@ from .build import build_kernel, use_kernel
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_dq", "flash_attention_dkv", "flash_attention_delta",
-           "flash_attention_reference", "flash_attention_bwd_reference",
-           "flash_attention_dq_reference", "flash_attention_dkv_reference",
+           "flash_attention_split", "flash_attention_reference",
+           "flash_attention_bwd_reference", "flash_attention_dq_reference",
+           "flash_attention_dkv_reference", "flash_attention_split_reference",
            "HEAD_DIM"]
 
 NEG_INF = -1e30
@@ -142,6 +155,36 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, causal, out, lse, dout):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits, ties away from zero) as
+    the kernels round it (``hopper.cuh:tf32_round``): half a tf32 ulp added
+    to the bits, the low 13 cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_planes(x):
+    """``(2, B, H, S, D)``: hi = x rounded to tf32 and lo = x - hi (exact
+    in f32)."""
+    x = x.float().permute(0, 2, 1, 3)
+    hi = _tf32_round(x)
+    return torch.stack([hi, x - hi])
+
+
+def flash_attention_split_reference(x, natural: bool = True,
+                                     transposed: bool = False):
+    """Plain version of :func:`flash_attention_split`: ``(nat, tr)``, each
+    None where not asked for."""
+    planes = _split_planes(x)
+    nat = planes.contiguous() if natural else None
+    tr = None
+    if transposed:
+        S = x.shape[1]
+        order = torch.arange(S, device=x.device).view(-1, 4, 2).transpose(1, 2)
+        tr = planes.transpose(3, 4)[..., order.reshape(-1)].contiguous()
+    return nat, tr
+
+
 def _fused_eligible(Sq: int, Skv: int) -> bool:
     """True where the reference's ``_fused_eligible(Sq, Skv, None, None)``
     is: both lengths fit its single 1024-row backward block."""
@@ -205,6 +248,77 @@ def _raise_for(entry, rc):
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
 
 
+_SPLIT_MAX = 4     # operands of one prep launch (csrc/flash_bwd.cu:SPLIT_MAX)
+
+
+class _SplitArgs(ctypes.Structure):
+    """``csrc/flash_bwd.cu:SplitArgs``, field by field."""
+    _fields_ = [("x", ctypes.c_void_p * _SPLIT_MAX), ("nat", ctypes.c_void_p * _SPLIT_MAX),
+                ("tr", ctypes.c_void_p * _SPLIT_MAX), ("sb", ctypes.c_longlong * _SPLIT_MAX),
+                ("ss", ctypes.c_longlong * _SPLIT_MAX), ("sh", ctypes.c_longlong * _SPLIT_MAX),
+                ("S", ctypes.c_int * _SPLIT_MAX)]
+
+
+def _split_launch(specs: Sequence[Tuple[torch.Tensor, bool, bool]]):
+    """One launch of the prep kernel for the ``(x, natural, transposed)``
+    operands of one call (CUDA tensors of one (B, *, H, 128) family);
+    returns their ``(nat, tr)`` pairs."""
+    B, _, H, _ = specs[0][0].shape
+    args, outs = _SplitArgs(), []
+    for i, (x, natural, transposed) in enumerate(specs):
+        S = x.shape[1]
+        if (x.dtype != torch.float32 or x.dim() != 4 or x.shape[0] != B or x.shape[2] != H
+                or x.shape[3] != HEAD_DIM or S % TILE):
+            raise ValueError(f"tf32 split takes f32 ({B}, S, {H}, {HEAD_DIM}) with S a "
+                             f"multiple of {TILE}, got {x.dtype} {tuple(x.shape)}")
+        _check_rows_layout("x", x)
+        nat = (torch.empty((2, B, H, S, HEAD_DIM), dtype=torch.float32, device=x.device)
+               if natural else None)
+        tr = (torch.empty((2, B, H, HEAD_DIM, S), dtype=torch.float32, device=x.device)
+              if transposed else None)
+        args.x[i] = x.data_ptr()
+        args.nat[i] = None if nat is None else nat.data_ptr()
+        args.tr[i] = None if tr is None else tr.data_ptr()
+        args.sb[i], args.ss[i], args.sh[i] = x.stride()[:3]
+        args.S[i] = S
+        outs.append((nat, tr))
+    x = specs[0][0]
+    lib = build_kernel("flash_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pbt_tf32_split(ctypes.addressof(args), len(specs), B, H, stream)
+    _raise_for("pbt_tf32_split", rc)
+    flash_attention_split.launches += 1
+    return outs
+
+
+def flash_attention_split(x, natural: bool = True, transposed: bool = False):
+    """The f32 kernels' prep: every f32 operand x of a product is split into
+    hi = x rounded to tf32 and lo = x - hi (exact in f32), so the tensor
+    cores take its products as hi.hi' + hi.lo' + lo.hi' at f32 accuracy
+    (3xTF32).  From ``x (B, S, H, 128)`` f32 (read through its strides)
+    returns ``(nat, tr)``: ``nat (2, B, H, S, 128)`` the natural hi and lo
+    planes, ``tr (2, B, H, 128, S)`` the transposed ones (the operand of a
+    product that contracts over S, which tf32 ``wgmma`` reads from shared
+    memory only with S along the rows), whose S runs in the order 0 2 4 6 1
+    3 5 7 within each 8 (the k order of an A fragment made from an f32
+    accumulator); each None where not asked for.
+
+    No Pallas kernel: the TPU kernels took their f32 dots as single bf16
+    passes.  CPU tensors take :func:`flash_attention_split_reference`; CUDA
+    tensors launch ``csrc/flash_bwd.cu``'s prep kernel (counted in
+    ``flash_attention_split.launches``) or raise.  The f32 attention
+    wrappers split all the operands of a call in one launch.  Bound by
+    bytes: x read once, each plane written once.
+    """
+    if not use_kernel(x, "flash attention"):
+        return flash_attention_split_reference(x, natural, transposed)
+    return _split_launch([(x, natural, transposed)])[0]
+
+
+flash_attention_split.launches = 0
+
+
 def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
                         causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,11 +336,16 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ops = (q, k, v)
+    if q.dtype == torch.float32:   # Q's and K's planes, V's transposed
+        (qn, _), (kn, _), (_, vt) = _split_launch(
+            [(q, True, False), (k, True, False), (v, False, True)])
+        ops = (qn, kn, vt)
     lib = build_kernel("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.pbt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            *(x.data_ptr() for x in ops), mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
@@ -280,20 +399,33 @@ def _check_bwd_rows(q, lse, delta=None):
             raise ValueError(f"{name} must be f32 {(B, H, Sq)} on {q.device}")
 
 
+# which transposed planes (of q, k, dO) each backward entry's f32 kernels read
+_TRANSPOSED = {"pbt_flash_bwd": (True, True, True), "pbt_flash_dq": (False, True, False),
+               "pbt_flash_dkv": (True, False, True)}
+
+
 def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
     """Launch one backward C entry of ``flash_bwd.cu`` on the current
-    stream; ``outs`` are its output tensors in the entry's order.  The bf16
+    stream; ``outs`` are its output tensors in the entry's order.  The
     kernels read the mask, lse and delta by TMA: each is made contiguous and
-    16-byte aligned first."""
+    16-byte aligned first.  f32 operands go to the kernels as the prep's
+    planes (:func:`flash_attention_split`, one launch for the four)."""
     B, Sq, H, _ = q.shape
     Skv = k.shape[1]
     mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     lse, delta = _tma_ready(lse), _tma_ready(delta)
+    ops, trs = (q, k, v, dout), (None, None, None)
+    if q.dtype == torch.float32:
+        tq, tk, to = _TRANSPOSED[entry]
+        (qn, qt), (kn, kt), (vn, _), (on, ot) = _split_launch(
+            [(q, True, tq), (k, True, tk), (v, True, False), (dout, True, to)])
+        ops, trs = (qn, kn, vn, on), (qt, kt, ot)
     lib = build_kernel("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            *(x.data_ptr() for x in ops),
+            *(None if x is None else x.data_ptr() for x in trs),
             mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(o.data_ptr() for o in outs), B, Sq, Skv, H,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),

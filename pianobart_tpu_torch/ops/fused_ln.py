@@ -22,6 +22,11 @@ the reference's own bits to the plain version through ``bits=``.
 Bounds (H100, 3.35 TB/s), both by bytes: at the flagship N = 32768 rows of
 D = 1024 in bf16, K4a moves 192 MiB (0.060 ms) and K4b 320 MiB (0.100 ms).
 
+The kernels take any D that is a multiple of 128 up to ``MAX_D`` = 8192: a
+row of up to 1024 per warp, a wider one split across up to 8 warps of a
+CTA (each lane holds at most 32 elements of a row).  That passes what the
+reference's kernel fits in its TPU's scoped VMEM (256 rows of 2048 f32).
+
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
 :mod:`.build` at first use, never at import.
@@ -39,7 +44,7 @@ __all__ = ["threshold", "keep_scale", "fused_eligible", "philox_bits",
            "dropout_add_ln_reference", "dropout_add_ln_bwd_reference"]
 
 LN_EPS = 1e-5
-MAX_D = 1024       # the kernels hold 32 elements of a row per lane
+MAX_D = 8192       # 8 warps of 32 lanes, 32 elements of a row each
 BWD_ROWS = 64      # rows per K4b CTA: one (dgamma, dbeta) partial row each
 
 _M32 = 0xFFFFFFFF
@@ -149,7 +154,7 @@ def dropout_add_ln_bwd_reference(h, residual, gamma, mean, rstd, dout, seed,
 
 def _check_cuda_inputs(rate, seed, h, residual, vectors, dout=None):
     """What the kernels take: bf16/f32 (N, D) rows, D % 128 == 0 and
-    D <= 1024, N % 128 == 0, contiguous and 16-byte aligned; f32 (D,)
+    D <= MAX_D, N % 128 == 0, contiguous and 16-byte aligned; f32 (D,)
     vectors; one int64 seed on the device; a rate whose threshold fits 32
     bits."""
     d = h.shape[-1]

@@ -9,9 +9,9 @@
 # Run from the root of the changed checkout.  Each run's whole output goes
 # to <out_dir>/ab_<i>_<parent|change>.log (default out_dir: build/ab);
 # the lines that compare the trees (K1 at every [flash] shape, K2, K3a and
-# K3b at every [flash_bwd] shape, the lab's variants, decode, ms/step,
-# [train]'s losses) are printed.  Exits non-zero
-# if any run did.
+# K3b at every [flash_bwd] shape, K4a and K4b at every [fused_ln] shape, the
+# lab's variants, decode, ms/step, [train]'s losses) are printed.  Exits
+# non-zero if any run did.
 set -u
 parent=$(cd "$1" && pwd)
 out=$(mkdir -p "${2:-build/ab}" && cd "${2:-build/ab}" && pwd)
@@ -26,7 +26,7 @@ for who in parent change change parent; do
   rc=$?
   [ $rc -eq 0 ] || status=1
   echo "run $i $who rc=$rc"
-  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[flash\] B=\|^\[flash_bwd\]\|loss per step" "$log" \
+  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[flash\] B=\|^\[flash_bwd\]\|^\[fused_ln\].*K4\|loss per step" "$log" \
     | grep -v "^\[train_long\] loss\|^\[train_fused\] loss\|phase ok" | cut -c1-520
 done
 exit $status

@@ -19,11 +19,12 @@ from typing import Mapping, Tuple
 
 import torch
 
-__all__ = ["PEAK_BF16_H100", "PEAK_F32_H100", "HBM_BYTES_PER_S_H100",
+__all__ = ["PEAK_BF16_H100", "PEAK_TF32_H100", "PEAK_F32_H100", "HBM_BYTES_PER_S_H100",
            "roofline_ms", "matmul_param_count", "pretrain_step_flops"]
 
 # NVIDIA H100 SXM data-sheet peaks at a 700 W power limit
 PEAK_BF16_H100 = 989e12         # dense bf16 tensor-core FLOP/s
+PEAK_TF32_H100 = 495e12         # dense tf32 tensor-core FLOP/s (3xTF32 f32: a third)
 PEAK_F32_H100 = 67e12           # f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S_H100 = 3.35e12  # HBM3
 

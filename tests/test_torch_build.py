@@ -67,17 +67,22 @@ def test_wgmma_operands_are_numbered_in_order(name, body):
     """An inline-asm operand numbered wrong compiles and computes garbage:
     the accumulators are %0.. in order, one per f32 of the m64nN tile, and
     the template reads every input after them in order, the predicate's
-    last."""
+    last.  bf16 products are k16 deep, tf32 ones k8; both take a register
+    A fragment of 4 registers a thread."""
     template, outs, ins = re.split(r"\n\s*:", body)
     template = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', template))
     acc = [int(i) for i in re.findall(r'"\+f"\(d\[(\d+)\]\)', outs)]
     n_in = len(re.findall(r'"[rl]"\(', ins))
-    n = int(re.search(r"\.m64n(\d+)k16\.", template).group(1))
+    shape = re.search(r"\.m64n(\d+)k(\d+)\.f32\.(\w+)\.(\w+) ", template)
+    n, k, ta, tb = int(shape.group(1)), int(shape.group(2)), shape.group(3), shape.group(4)
+    assert (ta, tb, k) in (("bf16", "bf16", 16), ("tf32", "tf32", 8)), name
     assert acc == list(range(n // 2))
-    braces = re.search(r"bf16 \{([^}]*)\}", template)
+    braces = re.search(ta + r" \{([^}]*)\}", template)
     assert [int(i) for i in re.findall(r"%(\d+)", braces.group(1))] == acc
     rest = [int(i) for i in re.findall(r"%(\d+)", template[braces.end():])]
     assert rest == sorted(rest), name    # A, B, ... in the order they are bound
     used = {int(i) for i in re.findall(r"%(\d+)", template)}
     assert used == set(range(len(acc) + n_in)), name
     assert re.search(r"setp\.ne\.b32 p, %(\d+)", template).group(1) == str(len(acc) + n_in - 1)
+    if ta == "tf32":    # scale-a and scale-b only: tf32 has no transpose bits
+        assert re.search(r", p, 1, 1;", template), name

@@ -22,7 +22,9 @@ from pianobart_tpu_torch.ops.flash import (_delta, flash_attention,
                                            flash_attention_dq,
                                            flash_attention_dq_reference,
                                            flash_attention_fwd,
-                                           flash_attention_reference)
+                                           flash_attention_reference,
+                                           flash_attention_split,
+                                           flash_attention_split_reference)
 from pianobart_tpu_torch.scripts import kernel_lab as lab
 
 pytestmark = pytest.mark.cuda
@@ -48,8 +50,11 @@ def _inputs(dev, dtype, B=2, S=256, H=2, D=128, seed=0, Skv=None):
 
 
 # bf16: P and O are rounded to bf16 in the kernel (2^-9 relative each);
-# f32: summation order and expf only.
+# f32: the kernel's products are 3xTF32 (hi.hi' + hi.lo' + lo.hi', about
+# 2^-22 relative, as close as f32's own rounding), its exp2 the ex2.approx
+# of the score-domain difference, and it sums in another order.
 TOL = {torch.bfloat16: (1e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -69,52 +74,57 @@ def test_flash_kernel_matches_reference(cuda, dtype, causal, use_mask):
 
 
 # (B, H) = (2, 2): a few CTAs; (12, 8): more CTAs than the card has SMs
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 192, 320, False), (2, 2, 192, 320, True), (12, 8, 192, 320, False),
     (12, 8, 192, 320, True), (1, 2, 2048, 2048, True), (1, 2, 256, 256, False)],
     ids=["192x320", "192x320-causal", "192x320-wide", "192x320-causal-wide",
          "2048-causal", "B1"])
-def test_flash_kernel_matches_reference_at_more_shapes(cuda, B, H, Sq, Skv, causal):
+def test_flash_kernel_matches_reference_at_more_shapes(cuda, B, H, Sq, Skv, causal, dtype):
     """Lengths that are multiples of 64 but not of the kernel's 128-row
-    tiles (a ragged last q tile and kv tile), the long context, one sample."""
-    q, k, v, mask = _inputs(cuda, torch.bfloat16, B=B, H=H, S=Sq, Skv=Skv)
+    tiles (a ragged last q tile, and a ragged kv tile for bf16's 128 kv
+    rows), the long context, one sample."""
+    q, k, v, mask = _inputs(cuda, dtype, B=B, H=H, S=Sq, Skv=Skv)
     out, lse = flash_attention_fwd(q, k, v, mask, causal)
     ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
-    atol, rtol, ltol = TOL[torch.bfloat16]
+    atol, rtol, ltol = TOL[dtype]
     assert out.shape == q.shape and lse.shape == (B, H, Sq)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H", [(2, 2), (12, 8)], ids=["small", "wide"])
 @pytest.mark.parametrize("Skv", [256, 320])
-def test_flash_kernel_fully_masked_sample(cuda, Skv, B, H):
+def test_flash_kernel_fully_masked_sample(cuda, Skv, B, H, dtype):
     """Sample 0 with every key masked, non-causal: as in the plain version,
     O is the mean of v over the Skv keys (a zero-filled key past Skv in a
     ragged tile takes no part) and lse is the -1e30 sentinel plus log Skv."""
-    q, k, v, mask = _inputs(cuda, torch.bfloat16, B=B, H=H, S=Skv)
+    q, k, v, mask = _inputs(cuda, dtype, B=B, H=H, S=Skv)
     mask[0] = 0.0
     out, lse = flash_attention_fwd(q, k, v, mask, False)
     ref, ref_lse = flash_attention_reference(q, k, v, mask, False)
-    atol, rtol, ltol = TOL[torch.bfloat16]
+    atol, rtol, ltol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
     mean_v = v[0].float().mean(0).expand_as(out[0])
     torch.testing.assert_close(out[0].float(), mean_v, atol=atol, rtol=rtol)
 
 
-def test_flash_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_is_deterministic(cuda, dtype):
     """Two launches on the same inputs give the same bits (no atomics)."""
-    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=1024)
+    q, k, v, mask = _inputs(cuda, dtype, S=1024)
     a = flash_attention_fwd(q, k, v, mask, False)
     b = flash_attention_fwd(q, k, v, mask, False)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def test_flash_kernel_takes_an_unaligned_int_mask(cuda):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_takes_an_unaligned_int_mask(cuda, dtype):
     """An int32 mask that starts off a 16-byte boundary (the kernel loads it
     by TMA) gives what the same mask aligned gives."""
-    q, k, v, mask = _inputs(cuda, torch.bfloat16)
+    q, k, v, mask = _inputs(cuda, dtype)
     B, S = mask.shape
     shifted = torch.zeros(B * S + 1, dtype=torch.int32, device=cuda)[1:].view(B, S)
     shifted.copy_(mask)
@@ -124,14 +134,17 @@ def test_flash_kernel_takes_an_unaligned_int_mask(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_flash_kernel_reads_strided_inputs(cuda):
-    """q/k/v as views of one fused (B, S, 3, H, D) projection: no copies."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_reads_strided_inputs(cuda, dtype):
+    """q/k/v as views of one fused (B, S, 3, H, D) projection: no copies
+    (f32: the prep reads them through their strides)."""
     B, S, H, D = 2, 256, 2, 128
-    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=torch.bfloat16)
+    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=dtype)
     q, k, v = qkv.unbind(2)
     out, _ = flash_attention_fwd(q, k, v)
     ref, _ = flash_attention_reference(q, k, v)
-    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    atol, rtol, _ = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -148,7 +161,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 # to bf16 at the end (2^-9 relative each) where the plain version keeps f32.
 # dQ = dS K sums terms of both signs (rows of dS sum to zero), so an entry
 # can be far smaller than the terms whose rounding it carries: the absolute
-# part scales with the tensor's largest entry.  f32: summation order only.
+# part scales with the tensor's largest entry.  f32: 3xTF32 products (about
+# 2^-22 relative), ex2.approx and summation order.
 BWD_TOL = {torch.bfloat16: (1e-2, 1e-2, 1e-2), torch.float32: (1e-5, 1e-5, 1e-5)}
 
 
@@ -198,20 +212,24 @@ def _bwd(kernel, q, k, v, m, causal, out, lse, dout):
                  *flash_attention_dkv_reference(*args))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
-def test_flash_bwd_kernel_reads_strided_inputs(cuda, kernel):
+def test_flash_bwd_kernel_reads_strided_inputs(cuda, kernel, dtype):
     """q/k/v as views of one fused (B, S, 3, H, D) projection, dO a view
-    too: the kernels read them through their strides."""
+    too: the kernels (f32: the prep) read them through their strides.  q
+    pre-scaled by D**-0.5, as the kernels' callers hand it over."""
     B, S, H, D = 2, 256, 2, 128
-    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=torch.bfloat16)
+    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=dtype)
+    qkv[:, :, 0] *= D ** -0.5
     q, k, v = qkv.unbind(2)
     out, lse = flash_attention_fwd(q, k, v, None, True)
-    dout = torch.randn(B, S, 2, H, D, device=cuda, dtype=torch.bfloat16)[:, :, 0]
+    dout = torch.randn(B, S, 2, H, D, device=cuda, dtype=dtype)[:, :, 0]
     got, want = _bwd(kernel, q, k, v, None, True, out, lse, dout)
-    assert_bwd_close(got, want, torch.bfloat16)
+    assert_bwd_close(got, want, dtype)
 
 
 # (B, H) = (2, 2): a few CTAs; (12, 8): more CTAs than the card has SMs
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 192, 320, False), (2, 2, 192, 320, True), (2, 2, 320, 192, False),
@@ -219,50 +237,52 @@ def test_flash_bwd_kernel_reads_strided_inputs(cuda, kernel):
     (1, 2, 64, 64, True)],
     ids=["192x320", "192x320-causal", "320x192", "320x192-causal", "320-wide",
          "320-causal-wide", "64-causal"])
-def test_flash_bwd_kernels_at_more_shapes(cuda, kernel, B, H, Sq, Skv, causal):
-    """Lengths that are multiples of 64 but not of the kernels' 128 fixed
-    rows (a CTA whose second warpgroup lies wholly past S), Sq != Skv both
-    ways, and one tile."""
-    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, causal, True,
+def test_flash_bwd_kernels_at_more_shapes(cuda, kernel, B, H, Sq, Skv, causal, dtype):
+    """Lengths that are multiples of 64 but not of the bf16 kernels' 128
+    fixed rows (a CTA whose second warpgroup lies wholly past S), Sq != Skv
+    both ways, and one tile."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, True,
                                            B=B, H=H, S=Sq, Skv=Skv)
     got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
-    assert_bwd_close(got, want, torch.bfloat16)
+    assert_bwd_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 @pytest.mark.parametrize("Skv", [256, 320])
-def test_flash_bwd_kernel_fully_masked_sample(cuda, kernel, Skv):
+def test_flash_bwd_kernel_fully_masked_sample(cuda, kernel, Skv, dtype):
     """Sample 0 with every key masked, non-causal: its lse is the -1e30
     sentinel, so P is 1 on every key (not 0, and no overflow of the
     exponent) as in the plain backward, whose gradients the kernels give."""
-    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=Skv)
+    q, k, v, mask = _inputs(cuda, dtype, S=Skv)
     mask[0] = 0.0
     out, lse = flash_attention_fwd(q, k, v, mask, False)
     assert (lse[0] == -1e30).all()
     dout = torch.randn(out.shape, device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(7)
-                       ).to(torch.bfloat16)
+                       ).to(dtype)
     got, want = _bwd(kernel, q, k, v, mask, False, out, lse, dout)
-    assert_bwd_close(got, want, torch.bfloat16)
+    assert_bwd_close(got, want, dtype)
     assert all(bool(g[0].float().abs().max() > 0) for g in got)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
-def test_flash_bwd_kernel_is_deterministic(cuda, kernel):
+def test_flash_bwd_kernel_is_deterministic(cuda, kernel, dtype):
     """Two backward calls on the same inputs give the same bits (no
     atomics)."""
-    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, True, True,
-                                           S=1024)
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, True, True, S=1024)
     a, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
     b, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
-def test_flash_bwd_kernel_takes_an_unaligned_int_mask(cuda, kernel):
+def test_flash_bwd_kernel_takes_an_unaligned_int_mask(cuda, kernel, dtype):
     """An int32 mask that starts off a 16-byte boundary (the kernels load it
     by TMA) gives what the same mask aligned gives."""
-    q, k, v, mask, out, lse, dout = _bwd_case(cuda, torch.bfloat16, False, True)
+    q, k, v, mask, out, lse, dout = _bwd_case(cuda, dtype, False, True)
     B, S = mask.shape
     shifted = torch.zeros(B * S + 1, dtype=torch.int32, device=cuda)[1:].view(B, S)
     shifted.copy_(mask)
@@ -277,6 +297,42 @@ def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
     lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(q, k, v, None, False, q, lse, q)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["packed", "views"])
+@pytest.mark.parametrize("S", [256, 320])
+def test_tf32_split_kernel_matches_reference(cuda, S, strided):
+    """The f32 kernels' prep against its plain version, bit for bit: hi
+    rounded to tf32 by the same bit rule, lo = x - hi, the transposed planes
+    in the fragment order; natural and transposed alone and together."""
+    B, H, D = 2, 3, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    both = torch.randn(B, S, 2, H, D, device=cuda, generator=g) * 10.0
+    x = both[:, :, 1] if strided else both[:, :, 1].contiguous()
+    before = flash_attention_split.launches
+    for natural, transposed in [(True, False), (False, True), (True, True)]:
+        got = flash_attention_split(x, natural, transposed)
+        want = flash_attention_split_reference(x, natural, transposed)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert flash_attention_split.launches == before + 3
+
+
+def test_f32_attention_runs_the_split_kernel(cuda):
+    """An f32 flash_attention forward and backward: K1 and K2 once each,
+    the prep once before each (Q, K, V; then Q, K, V, dO in one launch)."""
+    q, k, v, mask = (x.requires_grad_() if x.dim() == 4 else x
+                     for x in _inputs(cuda, torch.float32))
+    counters = (flash_attention_fwd, flash_attention_bwd, flash_attention_split)
+    before = [c.launches for c in counters]
+    out = flash_attention(q, k, v, mask, True)
+    assert flash_attention_split.launches - before[2] == 1
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 2]
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
 
 
 def test_flash_autograd_runs_both_kernels(cuda):
@@ -365,15 +421,15 @@ def _ln_case(dev, dtype, N=256, D=1024, seed=0):
 
 
 def test_fused_tail_wider_than_the_kernel_raises_on_the_card(cuda):
-    """A ``fused_dropout_ln`` model at d_model 2048 (16 heads of 128, 1+1
+    """A ``fused_dropout_ln`` model at d_model 8320 (65 heads of 128, 1+1
     layers, S=128) is wider than K4's MAX_D: building it on the card raises,
     and a tail built on the CPU and moved to the card raises in the kernel's
     input check.  No route takes the unfused tail in K4's place."""
     from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.models import PianoBartConfig
     from pianobart_tpu_torch.models.bart import ResidualDropoutLN
-    cfg = PianoBartConfig(d_model=2048, num_heads=16, encoder_layers=1,
-                          decoder_layers=1, ffn_dim=4096, max_len=128,
+    cfg = PianoBartConfig(d_model=8320, num_heads=65, encoder_layers=1,
+                          decoder_layers=1, ffn_dim=128, max_len=128,
                           dtype=torch.bfloat16, fused_dropout_ln=True)
     assert cfg.d_model > F.MAX_D and F.fused_eligible((2, 128, cfg.d_model))
     with pytest.raises(ValueError, match=f"MAX_D = {F.MAX_D}"):
@@ -394,8 +450,10 @@ LN_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [256, 1024])
+@pytest.mark.parametrize("D", [256, 1024, 1152, 2048, 8192])
 def test_fused_ln_kernels_match_reference(cuda, dtype, D):
+    """D <= 1024: a row per warp; 1152, 2048: a row across 2 warps; 8192:
+    across all 8 warps of a CTA."""
     h, res, gamma, beta, dout, seed = _ln_case(cuda, dtype, D=D)
     f0, b0 = F.dropout_add_ln_fwd.launches, F.dropout_add_ln_bwd.launches
     out, mean, rstd = F.dropout_add_ln_fwd(h, res, gamma, beta, seed, 0.1)
@@ -417,6 +475,32 @@ def test_fused_ln_kernels_match_reference(cuda, dtype, D):
         assert a.dtype == b.dtype, name
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol,
                                    msg=name)
+
+
+@pytest.mark.parametrize("d", [1152, 2048, 8192])
+def test_fused_tail_trains_past_1024_on_the_card(cuda, d):
+    """A ``fused_dropout_ln`` model wider than one warp's row (1+1 layers of
+    heads of 128, S=128) builds on the card and takes a pretrain step
+    through K4a and K4b at all 5 tails."""
+    import numpy as np
+    from pianobart_tpu_torch import vocab as V
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.train.pretrain import pretrain_step
+    from pianobart_tpu_torch.train.state import create_train_state
+    cfg = PianoBartConfig(d_model=d, num_heads=d // 128, encoder_layers=1,
+                          decoder_layers=1, ffn_dim=256, max_len=128,
+                          dtype=torch.bfloat16, fused_dropout_ln=True)
+    st = create_train_state(init_lm(cfg, seed=0, device=cuda, train=True))
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, V.TOKEN_BOUNDARY[f], (1, 128)) for f in range(8)], -1)
+    x[0, -1] = V.EOS
+    f0, b0 = F.dropout_add_ln_fwd.launches, F.dropout_add_ln_bwd.launches
+    _, metrics = pretrain_step(st, torch.as_tensor(x, device=cuda),
+                               torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert (F.dropout_add_ln_fwd.launches - f0, F.dropout_add_ln_bwd.launches - b0) == (5, 5)
+    assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())
 
 
 def test_fused_ln_autograd_runs_both_kernels(cuda):

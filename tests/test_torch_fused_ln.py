@@ -31,11 +31,21 @@ torch.set_num_threads(2)
 B, S, D = 2, 128, 256
 SEED = 7
 TOL = dict(rtol=1e-5, atol=1e-5)
-CASES = [(np.float32, 0.1), (jnp.bfloat16, 0.1), (np.float32, 0.0)]
-CASE_IDS = ["f32", "bf16", "rate0"]
+# (dtype, rate, D): D = 256 at (B, S) rows; the rows K4 splits across warps
+# on the card (D > 1024) at 128 rows, as (1, 128, D)
+CASES = [(np.float32, 0.1, D), (jnp.bfloat16, 0.1, D), (np.float32, 0.0, D),
+         (np.float32, 0.1, 1152), (jnp.bfloat16, 0.1, 1152),
+         (np.float32, 0.1, 2048), (jnp.bfloat16, 0.1, 2048)]
+CASE_IDS = ["f32", "bf16", "rate0", "f32-D1152", "bf16-D1152", "f32-D2048",
+            "bf16-D2048"]
 
 
-def _inputs(dtype, seed=0):
+def _shape(d):
+    return (B, S, d) if d == D else (1, 128, d)
+
+
+def _inputs(dtype, seed=0, d=D):
+    B, S, D = _shape(d)
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((B, S, D)).astype(np.float32)
     res = rng.standard_normal((B, S, D)).astype(np.float32)
@@ -49,7 +59,8 @@ def _inputs(dtype, seed=0):
         (th, tr, torch.from_numpy(gamma), torch.from_numpy(beta))
 
 
-def _host(seed):
+def _host(seed, d=D):
+    B, S, D = _shape(d)
     return torch.from_numpy(np.asarray(_host_bits(jnp.uint32(seed), B * S, D))
                             .astype(np.int64))
 
@@ -71,32 +82,33 @@ def test_quantisation_matches_jax():
         assert F.keep_scale(rate) == jax_keep_scale(rate)
 
 
-@pytest.mark.parametrize("dtype,rate", CASES, ids=CASE_IDS)
-def test_forward_matches_jax(dtype, rate):
+@pytest.mark.parametrize("dtype,rate,d", CASES, ids=CASE_IDS)
+def test_forward_matches_jax(dtype, rate, d):
     """The plain K4a fed the reference's bits == JAX's dropout_add_ln."""
-    jargs, targs = _inputs(dtype)
+    jargs, targs = _inputs(dtype, d=d)
     want = jax_dropout_add_ln(*jargs, jnp.uint32(SEED), rate)
     out, mean, rstd = F.dropout_add_ln_reference(*targs, None, rate,
-                                                 bits=_host(SEED))
-    assert out.dtype == targs[0].dtype and out.shape == (B, S, D)
-    assert mean.shape == rstd.shape == (B * S,)
+                                                 bits=_host(SEED, d))
+    shape = _shape(d)
+    assert out.dtype == targs[0].dtype and out.shape == shape
+    assert mean.shape == rstd.shape == (shape[0] * shape[1],)
     _assert_close(out, want, dtype, "out")
 
 
-@pytest.mark.parametrize("dtype,rate", CASES, ids=CASE_IDS)
-def test_backward_matches_jax_vjp(dtype, rate):
+@pytest.mark.parametrize("dtype,rate,d", CASES, ids=CASE_IDS)
+def test_backward_matches_jax_vjp(dtype, rate, d):
     """The plain K4b fed the reference's bits == jax.vjp of JAX's
     dropout_add_ln (its Pallas backward in interpret mode): dh, dres,
     dgamma, dbeta.  dgamma and dbeta are f32 sums over 256 rows: 1e-5 in
     f32; in the bf16 case 1e-4 relative (the same bf16 inputs, f32 sums of
     terms of both signs in another order)."""
-    jargs, targs = _inputs(dtype, seed=1)
-    dout = np.random.default_rng(2).standard_normal((B, S, D)).astype(np.float32)
+    jargs, targs = _inputs(dtype, seed=1, d=d)
+    dout = np.random.default_rng(2).standard_normal(_shape(d)).astype(np.float32)
     jdout = jnp.asarray(dout, dtype=dtype)
     _, vjp = jax.vjp(lambda h, r, g, b: jax_dropout_add_ln(
         h, r, g, b, jnp.uint32(SEED), rate), *jargs)
     want = vjp(jdout)
-    bits = _host(SEED)
+    bits = _host(SEED, d)
     _, mean, rstd = F.dropout_add_ln_reference(*targs, None, rate, bits=bits)
     tdout = torch.from_numpy(np.array(jdout.astype(jnp.float32))).to(targs[0].dtype)
     got = F.dropout_add_ln_bwd_reference(targs[0], targs[1], targs[2], mean, rstd,
@@ -212,7 +224,7 @@ def test_model_switch(fused, train, rate, rows, expect, monkeypatch):
         assert not torch.equal(calls[0], calls[1])
 
 
-@pytest.mark.parametrize("d", [1152, 2048])
+@pytest.mark.parametrize("d", [8320, 16384])
 def test_model_refuses_a_fused_tail_wider_than_the_kernel_on_cuda(d, monkeypatch):
     """The reference's gate takes its kernel at any 128-multiple D, K4 on
     the card only up to MAX_D.  So a wider fused model is refused when it is
