@@ -9,8 +9,9 @@ result line:
 1. device report (name, count, ``nvidia-smi`` name and power limit);
 2. build the four kernel sources with ``nvcc`` (flash forward K1, flash
    backward K2/K3a/K3b, fused dropout+residual+LayerNorm K4a/K4b, the
-   kernel lab's L1/L2), one process per source, with ptxas's registers and
-   spills and the HGMMA/UTMALDG/HMMA counts of the wgmma kernels' SASS;
+   kernel lab's L1/L2, instances of K1's kernel template), one process per
+   source, with ptxas's registers and spills and the HGMMA/UTMALDG/HMMA
+   counts of the wgmma kernels' SASS (an HMMA., or no HGMMA or UTMALDG, fails);
 3. ``[flash]``: K1 against its plain PyTorch version at the serving and
    training shapes and at the long-context shape (B=16, S=2048), with times
    of the kernel, the plain version, the bound and
@@ -18,7 +19,8 @@ result line:
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
    of L2 (``exp2`` x ``causal``) against its plain version at the lab shape
    (B=32, S=1024, bf16), with the same times, every variant on rows with
-   no kept key at a small shape, then the port's kernel lab
+   no kept key and at ragged lengths (S=320; Sq=192, Skv=320) at small
+   shapes, then the port's kernel lab
    (``kernel_lab.main(kt=True)``: checks against K1, two interleaved
    sweeps) as this phase's main path;
 5. ``[flash_bwd]``: K2 against its plain version at the flagship training
@@ -160,12 +162,32 @@ def _cuobjdump():
     return None
 
 
+# K1's kernel template flash_fwd_wgmma_kernel<KT, SPLIT_P>, by its flags
+FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded",
+                 ("1", "1"): "L1, P split"}
+
+
+def _sass_label(name):
+    """``flash_..._kernel<flags> (role)`` from a kernel's mangled name."""
+    label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
+    flags = re.match(r"ILb([01])E(?:Lb([01])E)?", name[name.index(label) + len(label):])
+    if not flags:
+        return label
+    if label.startswith("flash_bwd"):
+        return label + ("<true> (dK/dV)" if flags.group(1) == "1" else "<false> (dQ)")
+    kt, split = flags.groups()
+    tf = {"0": "false", "1": "true"}
+    return f"{label}<{tf[kt]}, {tf[split]}> ({FWD_INSTANCES[kt, split]})"
+
+
 def phase_build(state):
     """All sources built together (one nvcc per source, started at once),
-    then what the wgmma kernels (K1's bf16 and f32 kernels, K2/K3's dK/dV
-    and dQ kernels in both types) compiled to: Hopper's products (HGMMA),
-    tensor loads (UTMALDG) and any older tensor-core product (HMMA.) in
-    their SASS."""
+    then what the wgmma kernels (K1's bf16 and f32 kernels, the lab's three
+    instances of K1's template, K2/K3's dK/dV and dQ kernels in both types)
+    compiled to: Hopper's products (HGMMA), tensor loads (UTMALDG) and any
+    older tensor-core product (HMMA.) in their SASS.  Fails if one of them
+    has an HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or
+    any other, come back)."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -182,18 +204,22 @@ def phase_build(state):
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
-    for lib in ("flash_fwd", "flash_bwd"):
+    for lib, expect in (("flash_fwd", 2), ("flash_bwd", 4), ("flash_lab", 3)):
         sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
                               text=True, timeout=120, check=True).stdout
+        found = 0
         for kernel in sass.split("Function : ")[1:]:
             name = kernel.split("\n", 1)[0].strip()
             if re.search(r"flash_\w+_(wgmma|tf32)_kernel", name):
-                counts = ", ".join(f"{op} {kernel.count(op)}"
-                                   for op in ("HGMMA", "UTMALDG", "HMMA."))
-                label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
-                label += {"ILb1E": "<true> (dK/dV)", "ILb0E": "<false> (dQ)"}.get(
-                    name[name.index(label) + len(label):][:5], "")
-                print(f"[build] {lib} SASS of {label}: {counts}")
+                found += 1
+                counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
+                label = _sass_label(name)
+                print(f"[build] {lib} SASS of {label}: "
+                      + ", ".join(f"{op} {n}" for op, n in counts.items()))
+                if counts["HMMA."] or not (counts["HGMMA"] and counts["UTMALDG"]):
+                    raise AssertionError(f"{label} is not a TMA + wgmma kernel: {counts}")
+        if found != expect:
+            raise AssertionError(f"{lib}: {found} wgmma kernels in its SASS, not {expect}")
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -370,24 +396,44 @@ def phase_lab(state):
     del q, k, v, kt, mask, nat_lse
     torch.cuda.empty_cache()
 
+    def check(what, q, k, v, mask, causal):
+        """Every variant against its plain version; the largest |dO|."""
+        errs = []
+        for name, kw in variants:
+            out, lse = getattr(lab, f"{name}_lse")(q, k, v, mask, causal, **kw)
+            r_out, r_lse = getattr(lab, f"{name}_reference")(q, k, v, mask, causal, **kw)
+            atol, rtol = (1e-4, 2.0 ** -7) if kw.get("upcast", True) else (1e-2, 1e-2)
+            d_o = (out.float() - r_out.float()).abs()
+            errs.append(d_o.max().item())
+            if not (bool((d_o <= atol + rtol * r_out.float().abs()).all())
+                    and (lse - r_lse).abs().max().item() <= 1e-3
+                    and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"{name} {kw} causal={causal} disagrees on {what}")
+        return max(errs)
+
     # rows with no kept key: every key of sample 0 masked, the first kv tile
     # of sample 1; O and lse as the plain version's -1e30 sentinel gives them
-    q, k, v, mask = _flash_case(2, False, torch.bfloat16, S=256)
-    mask[0] = 0.0
-    mask[1] = 1.0
-    mask[1, :80] = 0.0
-    errs = []
-    for name, kw in variants:
-        out, lse = getattr(lab, f"{name}_lse")(q, k, v, mask, False, **kw)
-        r_out, r_lse = getattr(lab, f"{name}_reference")(q, k, v, mask, False, **kw)
-        atol, rtol = (1e-4, 2.0 ** -7) if kw.get("upcast", True) else (1e-2, 1e-2)
-        d_o = (out.float() - r_out.float()).abs()
-        errs.append(d_o.max().item())
-        if not (bool((d_o <= atol + rtol * r_out.float().abs()).all())
-                and (lse - r_lse).abs().max().item() <= 1e-3):
-            raise AssertionError(f"{name} {kw} disagrees on fully masked rows")
-    print(f"[lab] fully masked rows (B=2 S=256, sample 0 all masked, sample 1 its "
-          f"first 80 keys), every variant: max|dO| {max(errs):.3e}")
+    for S in (256, 320):
+        q, k, v, mask = _flash_case(2, False, torch.bfloat16, S=S)
+        mask[0] = 0.0
+        mask[1] = 1.0
+        mask[1, :80] = 0.0
+        err = check("fully masked rows", q, k, v, mask, False)
+        print(f"[lab] fully masked rows (B=2 S={S}, sample 0 all masked, sample 1 its "
+              f"first 80 keys), every variant: max|dO| {err:.3e}")
+
+    # ragged tiles: lengths 64 past a multiple of K1's 128-row tiles (rows past
+    # Sq not stored, keys past Skv TMA's zeros, under KT a whole box of them)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for Sq, Skv in ((320, 320), (192, 320)):
+        q = (torch.randn(2, Sq, 8, D, device="cuda", generator=g) * D ** -0.5).bfloat16()
+        k, v = (torch.randn(2, Skv, 8, D, device="cuda", generator=g).bfloat16()
+                for _ in range(2))
+        mask = torch.ones(2, Skv, device="cuda")
+        mask[1, Skv - 40:] = 0.0
+        errs = [check(f"Sq={Sq} Skv={Skv}", q, k, v, mask, causal) for causal in (False, True)]
+        print(f"[lab] ragged tiles B=2 Sq={Sq} Skv={Skv} H=8, every variant, causal and "
+              f"not: max|dO| {max(errs):.3e}")
 
     # main path: the lab's own program, as `PBX_LAB_KT=1 python -m
     # pianobart_tpu_torch.scripts.kernel_lab` runs it

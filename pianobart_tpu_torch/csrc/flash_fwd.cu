@@ -16,28 +16,12 @@
 // tail); the q/k/v/o bytes take a fifth of that at 3.35 TB/s, so the kernel
 // is bound by operations, i.e. by how fully it keeps the tensor cores busy.
 //
-// bf16 design (Hopper): one CTA per (128-row q tile, head, batch) with two
-// consumer warpgroups of 64 q rows each and one producer warpgroup.  One producer
-// thread loads Q once and K, V and the kv mask tile by tile with TMA
-// (cp.async.bulk.tensor over 4-D maps of (D, H, S, B) with the caller's
-// strides, 128-byte swizzle, each 128-wide row as two 64-column boxes) into a
-// ring of 3 stages of 128 kv rows (225 KB of shared memory with Q); per
-// stage one mbarrier reports K and the mask, one V, and one collects the
-// consumer warps' release.  The consumers run S = Q K^T as wgmma m64n128k16
-// with both operands in shared memory (K lands K-major: no transpose, no
-// ldmatrix), mask with selects (the causal mask only on tiles the diagonal
-// crosses) and update the online softmax in registers (exp2 by FFMA + ex2,
-// the max kept in the score domain so the -1e30 sentinel cancels exactly),
-// round P to bf16 and run O += P V as wgmma m64n128k16 with P from registers
-// and V from shared memory through the transpose bit.  Inside a warpgroup,
-// S of tile j is issued before O += P V of tile j-1, so tile j's softmax runs
-// under that product.  setmaxnreg moves registers from the producer (24) to
-// the consumers (240).  Keys past Skv in a ragged last tile arrive as TMA's
-// zeros and take p = 0; rows past Sq are not stored.  No atomics: the same
-// inputs give the same bits.  Left on the table: ping-pong scheduling of the
-// two consumer warpgroups (one's softmax under the other's products), a
-// persistent schedule (each CTA loads Q and stores O with nothing to overlap
-// them), a TMA store of O, clusters with TMA multicast of K and V.
+// bf16 design (Hopper): flash_fwd_bf16.cuh, the kernel template K1 shares
+// with the kernel lab; K1 is its instance <false, false> (K read K-major, P
+// rounded to bf16) with K1_UNITS (p = 2^(s log2 e - m log2 e), lse natural):
+// one CTA per (128-row q tile, head, batch), a producer warpgroup keeping a
+// 3-stage TMA ring of 128 kv rows full, two consumer warpgroups running
+// S = Q K^T and O += P V as wgmma, tile j's softmax under tile j-1's P V.
 //
 // f32 design (3xTF32, the default PianoBartConfig's path): the same
 // schedule on the tensor cores at f32 accuracy.  tf32 wgmma reads its
@@ -55,252 +39,12 @@
 // Bound: 3 x 4*B*H*Sq*Skv*D FLOPs at 495 TFLOP/s tf32 (0.047 ms at B=2,
 // S=1024, H=8 with the smoke run's pad tail).
 #include "flash_common.cuh"
+#include "flash_fwd_bf16.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace pbt;
-
-// ------------------------------------------------------------ bf16 / wgmma
-constexpr int K1_WG = 2;                // consumer warpgroups, 64 q rows each
-constexpr int K1_BM = 64 * K1_WG;
-constexpr int K1_BN = 128;              // kv rows per stage
-constexpr int K1_STAGES = 3;
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
-struct K1Smem {
-  static constexpr int BM = K1_BM;
-  static constexpr int Q = 0;                                   // 2 boxes of BM rows
-  static constexpr int K = Q + BM * 2 * HEAD_DIM;               // per stage 2 boxes of BN rows
-  static constexpr int V = K + K1_STAGES * K1_BN * 2 * HEAD_DIM;
-  static constexpr int MASK = V + K1_STAGES * K1_BN * 2 * HEAD_DIM;  // per stage BN int32
-  static constexpr int BAR = MASK + K1_STAGES * K1_BN * 4;      // Q, K[S], V[S], free[S]
-  static constexpr int ALLOC = BAR + (1 + 3 * K1_STAGES) * 8 + 1024;
-};
-
-// S = Q K^T for one kv tile: 8 k16 steps over the head dim, 4 in each
-// 64-column box; issued and committed, not waited for
-__device__ __forceinline__ void issue_qk(float (&sc)[K1_BN / 2], uint64_t dq,
-                                         const unsigned char* kt) {
-  const uint64_t dk = smem_desc_sw128(kt, 16);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
-    wgmma_ss_n128(sc, dq + ((kk / 4) * K1_BM * ROW + (kk % 4) * 32) / 16,
-                  dk + ((kk / 4) * K1_BN * ROW + (kk % 4) * 32) / 16, kk > 0);
-  wgmma_commit();
-}
-
-// O += P V for one kv tile; V's tile is MN-major for this product (d along
-// its rows); issued and committed, not waited for
-__device__ __forceinline__ void issue_pv(float (&acc)[HEAD_DIM / 2],
-                                         const uint32_t (&pa)[K1_BN / 16][4],
-                                         const unsigned char* vt) {
-  const uint64_t dv = smem_desc_sw128(vt, K1_BN * ROW);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < K1_BN / 16; ++kk) wgmma_rs_n128_tb(acc, pa[kk], dv + kk * 16 * ROW / 16);
-  wgmma_commit();
-}
-
-// Masks (the causal one, DIAG, only where the diagonal crosses the
-// warpgroup's rows; selects, no branches), then the online-softmax update
-// of rows `row` and `row + 8`: sc becomes p, and corr the factor for the O
-// accumulated so far.
-template <bool DIAG>
-__device__ __forceinline__ void softmax_tile(float (&sc)[K1_BN / 2], const int* mk,
-                                             float (&m_i)[2], float (&l_i)[2],
-                                             float (&corr)[2], int row, int kv0, int Skv,
-                                             int t) {
-  constexpr int BN = K1_BN;
-  const bool ragged = kv0 + BN > Skv;               // keys past Skv: TMA's zeros
-  float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    const int2 keep = *reinterpret_cast<const int2*>(mk + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      bool kp = ((e & 1) ? keep.y : keep.x) != 0;
-      if (DIAG) kp &= row + (e >= 2 ? 8 : 0) - (kv0 + c + (e & 1)) >= 0;
-      sc[4 * nt + e] = kp ? sc[4 * nt + e] : NEG_INF;
-      mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * nt + e]);
-    }
-  }
-  float cl[2], ml[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_i[r], mx[r]);
-    corr[r] = exp2_approx((m_i[r] - m_new) * LOG2E);
-    // p = 2^(s*c - m*c): with no kept key so far (m_new the sentinel)
-    // c = 0 gives p = 1 exactly, as exp(s - m) does in the reference
-    cl[r] = m_new == NEG_INF ? 0.f : LOG2E;
-    ml[r] = m_new * cl[r];
-    m_i[r] = m_new;
-    l_i[r] *= corr[r];
-  }
-#pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float& x = sc[4 * nt + e];
-      x = exp2_approx(fmaf(x, cl[e >> 1], -ml[e >> 1]));
-      if (ragged && kv0 + nt * 8 + 2 * t + (e & 1) >= Skv) x = 0.f;
-      l_i[e >> 1] += x;
-    }
-  }
-}
-
-// p rounded to bf16 as the A fragments of O += P V
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[K1_BN / 16][4],
-                                       const float (&sc)[K1_BN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < K1_BN / 16; ++kk) acc_to_a(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
-}
-
-__global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tm,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                       int Sq, int Skv, int H, int causal) {
-  using L = K1Smem;
-  constexpr int NWG = K1_WG;
-  constexpr int BM = L::BM, BN = K1_BN, NS = K1_STAGES;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);
-  uint64_t* bar_k = bar_q + 1;          // K tile and mask of stage s landed
-  uint64_t* bar_v = bar_k + NS;         // V tile of stage s landed
-  uint64_t* bar_free = bar_v + NS;      // stage s read by every consumer warp
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int wg = threadIdx.x / 128;
-  int n_tiles = (Skv + BN - 1) / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(bar_k + s, 1);
-      mbar_init(bar_v + s, 1);
-      mbar_init(bar_free + s, 4 * NWG);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wg == NWG) {
-    // ---- producer warpgroup: one thread keeps the ring full
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 128 * NWG) {
-      mbar_arrive_expect_tx(bar_q, BM * 2 * HEAD_DIM);
-      tma_load_4d(sm + L::Q, &tq, bar_q, 0, h, q0, b);
-      tma_load_4d(sm + L::Q + BM * ROW, &tq, bar_q, BOX, h, q0, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % NS, kv0 = j * BN;
-        mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
-        unsigned char* kt = sm + L::K + s * BN * 2 * HEAD_DIM;
-        unsigned char* vt = sm + L::V + s * BN * 2 * HEAD_DIM;
-        mbar_arrive_expect_tx(bar_k + s, BN * 2 * HEAD_DIM + BN * 4);
-        tma_load_4d(kt, &tk, bar_k + s, 0, h, kv0, b);
-        tma_load_4d(kt + BN * ROW, &tk, bar_k + s, BOX, h, kv0, b);
-        tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_k + s, kv0, b);
-        mbar_arrive_expect_tx(bar_v + s, BN * 2 * HEAD_DIM);
-        tma_load_4d(vt, &tv, bar_v + s, 0, h, kv0, b);
-        tma_load_4d(vt + BN * ROW, &tv, bar_v + s, BOX, h, kv0, b);
-      }
-    }
-  } else {
-    // ---- consumer warpgroup wg: q rows q0 + 64*wg .. +63.  S of tile j is
-    // issued before O += P V of tile j-1, so tile j's softmax runs while
-    // the tensor cores do tile j-1's second product.
-    setmaxnreg_inc<240>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int t = lane % 4;
-    const int wrow0 = q0 + wg * 64;
-    const int row = wrow0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
-    const uint64_t dq = smem_desc_sw128(sm + L::Q + wg * 64 * ROW, 16);
-    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * HEAD_DIM; };
-    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * HEAD_DIM; };
-    auto m_tile = [&](int s) { return reinterpret_cast<const int*>(sm + L::MASK + s * BN * 4); };
-
-    float acc[HEAD_DIM / 2];                         // O, 64 rows x 128 per warpgroup
-#pragma unroll
-    for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
-    float m_i[2] = {NEG_INF, NEG_INF};               // score domain
-    float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
-    float sc[BN / 2], corr[2];
-    uint32_t pa[BN / 16][4];                         // P in bf16 as A fragments
-
-    mbar_wait(bar_q, 0);
-    mbar_wait(bar_k, 0);
-    issue_qk(sc, dq, k_tile(0));
-    wgmma_wait<0>();
-    fence_regs(sc);
-    // the causal mask where the diagonal crosses this warpgroup's rows
-    auto softmax = [&](int s, int kv0) {
-      if (causal && kv0 + BN - 1 > wrow0)
-        softmax_tile<true>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t);
-      else
-        softmax_tile<false>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t);
-    };
-    softmax(0, 0);
-    pack_p(pa, sc);
-    for (int j = 1; j < n_tiles; ++j) {
-      const int s = j % NS, sp = (j - 1) % NS;
-      mbar_wait(bar_k + s, (j / NS) & 1);
-      issue_qk(sc, dq, k_tile(s));
-      mbar_wait(bar_v + sp, ((j - 1) / NS) & 1);
-      fence_regs(acc);
-      issue_pv(acc, pa, v_tile(sp));
-      wgmma_wait<1>();                               // S of tile j is in
-      fence_regs(sc);
-      softmax(s, j * BN);
-      fence_regs(sc);                                // p computed before the wait
-      wgmma_wait<0>();                               // O of tile j-1 is in
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(bar_free + sp);     // stage j-1 may be refilled
-#pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
-        acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
-        acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
-      }
-      pack_p(pa, sc);
-    }
-    const int last = (n_tiles - 1) % NS;
-    mbar_wait(bar_v + last, ((n_tiles - 1) / NS) & 1);
-    fence_regs(acc);
-    issue_pv(acc, pa, v_tile(last));
-    wgmma_wait<0>();
-    fence_regs(acc);
-
-    // epilogue: full row sums, normalise, store O and lse for rows < Sq
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-      if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = row + 8 * r;
-      if (rr >= Sq) continue;
-      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * HEAD_DIM;
-      const float inv = 1.f / l_i[r];
-#pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-            pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
-      if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
-    }
-  }
-}
 
 // ----------------------------------------------------- f32 / 3xTF32 wgmma
 constexpr int F_BN = 64;                 // kv rows per tile
@@ -558,11 +302,8 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, K1_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
-    cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         K1Smem::ALLOC);
-    dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
-    flash_fwd_wgmma_kernel<<<grid, 128 * (K1_WG + 1), K1Smem::ALLOC, st>>>(
-        tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal);
+    return launch_fwd_bf16<false, false>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
+                                         K1_UNITS, st);
   } else {
     CUresult r = plane_map(enc, &tq, q, B * H, Sq, HEAD_DIM, K1_BM);
     if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, HEAD_DIM, F_BN);

@@ -2,300 +2,51 @@
 // PyTorch through ctypes.
 //
 // Replaces the two Pallas TPU kernels of scripts/kernel_lab.py, both K1's
-// forward (flash_fwd.cu) with one design choice changed:
+// forward with one design choice changed:
 //   L1  _kt_fwd_kernel (launched by kt_fwd): K read pre-transposed, as the
 //       (B, H*D, Skv) array the caller built with Skv contiguous.  Options
 //       upcast (f32 operands) and exp2 (exp2-domain softmax).
 //   L2  hl_fwd's kernel: K1's layout, always with f32 operands; option exp2.
-// Contract as K1's, bf16 only: q (B, Sq, H, D) pre-scaled by the caller,
-// v (B, Skv, H, D), read through their strides; kv_mask (B, Skv) int32,
-// nonzero = attend; causal keeps row >= col; o (B, Sq, H, D) bf16
-// contiguous; lse (B, H, Sq) f32, in log2 units under exp2.  Masked scores
-// are the finite -1e30 and l == 0 is guarded, as in K1.
 //
-// What the options mean on Hopper:
-//   EXP2     p = 2^(s*c - m*c) as one FFMA and one ex2.approx (c = log2 e),
-//            with the running max m kept in the score domain and m*c formed
-//            once per row and tile, and lse = m*c + log2(l).  A row whose
-//            keys so far are all masked (s = m = -1e30) takes c = 0 there,
-//            so that p = 1 as in the plain version: s*c - round(m*c) would
-//            leave the product's rounding, ~1e23 at that size, in the
-//            exponent.  Where the TPU lab scaled bf16 q by log2(e) in bf16
-//            (exp2 without upcast), log2(e) rounds to 1.4453125 and q*log2(e)
-//            to bf16: the Q tile is scaled so, with one bf16 rounding, as it
-//            lands in shared memory, and c = 1.  That variant computes a
-//            softmax of 1.0018*s, as the reference lab does.
-//   SPLIT_P  "f32 operands".  bf16 x bf16 products are exact in f32, so Q.K^T
-//            on bf16 mma.sync already equals the upcast product up to
-//            summation order; only P.V differs, where the upcast keeps P in
-//            f32.  P is split into hi = bf16(P) and lo = bf16(P - hi), and
-//            each P.V step issues two mma.sync (hi.V + lo.V): about 16 bits
-//            of P.  Without it (L1, upcast off) P rounds to bf16 as in K1.
-//   KT       the K^T tile sits in shared memory as 128 d-rows x 64 kv columns
-//            at a pitch of 72 bf16 (144 B), so the B fragments of Q.K^T are
-//            pairs along d, down two rows.  One ldmatrix.x4.trans gives the
-//            fragments of two 8-wide kv slices for one 16-deep d step: 32
-//            per tile and warp, where K1's natural layout takes 128 32-bit
-//            shared loads.  Neither layout has bank conflicts: the 8 rows of
-//            each 8x8 matrix start 36 words apart (K1's 68), so they fall on
-//            8 distinct groups of 4 banks.  The global load of the tile is
-//            128 rows of 128 B (K1: 64 rows of 256 B), 16 B a thread in both.
-//            The transpose itself is the caller's extra pass over K.
+// Each is K1's own kernel (flash_fwd_bf16.cuh, flash_fwd_wgmma_kernel<KT,
+// SPLIT_P>; K1 is <false, false>) with the option changed, so that the lab
+// measures the option and nothing else:
+//   L2                   <false, true>   P split into two bf16 products
+//   L1, upcast           <true, true>    K^T through the transpose bit, P split
+//   L1, no upcast        <true, false>   K^T through the transpose bit
+// and the softmax's units at run time (SoftmaxUnits): under exp2 the lse is
+// m*c + log2 l (a fully masked row keeps the -1e30 sentinel), and without
+// upcast Q is scaled to bf16(q * bf16(log2 e)) in shared memory with c = 1,
+// as the reference lab's bf16 arithmetic does; otherwise c = log2 e, as in
+// K1, whose softmax is exp2-domain already (the settings differ only in the
+// lse's unit and in c).  Contract as K1's, bf16 only, the lse in log2 units
+// under exp2.  Sq and Skv are multiples of 64 (the callers' rule); K1's
+// 128-row tiles make S = 320 ragged at both ends: rows past Sq are not
+// stored, keys past Skv arrive as TMA's zeros and take p = 0.
 //
-// Bound at the lab shape (B=32, S=1024, H=8, D=128, no mask): 4*B*H*S^2*D
-// FLOPs = 137.4 GFLOP, 0.139 ms at 989 TFLOP/s bf16, against 268 MB of
-// q/k/v/o (0.080 ms at 3.35 TB/s): bound by operations.  That bound is the
-// function's work and the same for every variant; SPLIT_P's third product
-// is this kernel's own extra cost.
-//
-// Design: K1's simple one, so that the lab measures the options and nothing
-// else.  One CTA per (64-row q tile, head, batch), four warps of 16 q rows,
-// a loop over 64-row kv tiles loaded synchronously into shared memory,
-// mma.sync.m16n8k16 bf16 with f32 accumulation, the S accumulators reused
-// as P's A fragments, V's B fragments gathered as in K1, causal tiles above
-// the diagonal skipped.
+// Bound at the lab shape (B=32, S=1024, H=8, D=128, the smoke run's pad
+// tail): 4*B*H*S^2*D FLOPs over the kept pairs, 0.1381 ms at 989 TFLOP/s
+// bf16, against q/k/v/o bytes at a fifth of that: bound by operations.  The
+// bound is the function's work and the same for every variant; SPLIT_P's
+// third product and L1's transpose of K are the variants' own extra cost.
 #include "flash_common.cuh"
+#include "flash_fwd_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace pbt;
 
-constexpr int BM = 64;              // q rows per CTA (16 per warp)
-constexpr int BN = 64;              // kv rows per tile
-constexpr int THREADS = 128;
-constexpr int LDT = BN + 8;         // K^T tile pitch (bf16): no bank conflicts
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LOG2E_BF16 = 1.4453125f;   // bf16(log2 e)
-
-template <bool KT>
-constexpr size_t smem_bytes() {
-  return (2 * BM * LDS + (KT ? HEAD_DIM * LDT : BN * LDS)) * sizeof(__nv_bfloat16) +
-         BN * sizeof(int);
-}
-
-// (hi, lo) bf16 pairs of two f32 values: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
-// A fragments of P (from the S accumulators lo, hi of one 16-wide kv slab)
-template <bool SPLIT_P>
-__device__ __forceinline__ void p_fragments(uint32_t a_hi[4], uint32_t a_lo[4],
-                                            const float lo[4], const float hi[4]) {
-  if constexpr (SPLIT_P) {
-    split_bf16(a_hi[0], a_lo[0], lo[0], lo[1]);
-    split_bf16(a_hi[1], a_lo[1], lo[2], lo[3]);
-    split_bf16(a_hi[2], a_lo[2], hi[0], hi[1]);
-    split_bf16(a_hi[3], a_lo[3], hi[2], hi[3]);
-  } else {
-    acc_to_a(a_hi, lo, hi);
-  }
-}
-
-template <bool KT, bool EXP2, bool SPLIT_P>
-__global__ void __launch_bounds__(THREADS)
-flash_lab_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ mask,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Skv, int H, int causal, int q_log2e_bf16,
+// The maps of q, v and the mask, K's built by the caller into tk; returns
+// 0, or TMAP_ERROR + the CUresult of a map the driver refused.
+int qv_mask_maps(EncodeTiled enc, CUtensorMap* tq, CUtensorMap* tv, CUtensorMap* tm,
+                 const void* q, const void* v, const void* mask, int B, int Sq, int Skv, int H,
                  long long qsb, long long qss, long long qsh,
-                 long long ks0, long long ks1, long long ks2,
                  long long vsb, long long vss, long long vsh) {
-  // k strides: KT: (batch, head, d row) of K^T, kv contiguous;
-  //            else (batch, kv row, head) of K, d contiguous.
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Qs + BM * LDS;
-  __nv_bfloat16* Ks = Vs + BN * LDS;
-  int* Ms = reinterpret_cast<int*>(Ks + (KT ? HEAD_DIM * LDT : BN * LDS));
-
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
-  const int wr = warp * 16;               // this warp's first row in the tile
-
-  // Q tile; under the bf16 log2(e) option each element becomes
-  // bf16(q * 1.4453125): the f32 product of two bf16 values is exact, so
-  // this is one rounding, as bf16 arithmetic gives it.
-  {
-    const __nv_bfloat16* src = q + b * qsb + (long long)q0 * qss + h * qsh;
-    constexpr int CHUNKS = HEAD_DIM / 8;
-    for (int i = threadIdx.x; i < BM * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      uint4 x = *reinterpret_cast<const uint4*>(src + r * qss + c);
-      if (q_log2e_bf16) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(p[j]);
-          p[j] = __floats2bfloat162_rn(f.x * LOG2E_BF16, f.y * LOG2E_BF16);
-        }
-      }
-      *reinterpret_cast<uint4*>(Qs + r * LDS + c) = x;
-    }
-  }
-  // scores times c are in the softmax's domain (log2 under EXP2)
-  const float c = EXP2 && !q_log2e_bf16 ? LOG2E : 1.f;
-
-  float m_i[2] = {NEG_INF, NEG_INF};  // rows g and g + 8
-  float l_i[2] = {0.f, 0.f};          // this thread's partial row sums
-  float acc[HEAD_DIM / 8][4];
-#pragma unroll
-  for (int i = 0; i < HEAD_DIM / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  int n_tiles = Skv / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();  // previous tile fully consumed
-    if constexpr (KT) {  // 128 d rows of 64 kv values (128 B), 16 B a thread
-      const __nv_bfloat16* src = k + b * ks0 + h * ks1 + kv0;
-      constexpr int CHUNKS = BN / 8;
-      for (int i = threadIdx.x; i < HEAD_DIM * CHUNKS; i += THREADS) {
-        const int r = i / CHUNKS, cc = (i % CHUNKS) * 8;
-        *reinterpret_cast<uint4*>(Ks + r * LDT + cc) =
-            *reinterpret_cast<const uint4*>(src + r * ks2 + cc);
-      }
-    } else {
-      load_tile_bf16<THREADS>(Ks, k + b * ks0 + (long long)kv0 * ks1 + h * ks2, ks1, BN);
-    }
-    load_tile_bf16<THREADS>(Vs, v + b * vsb + (long long)kv0 * vss + h * vsh, vss, BN);
-    for (int i = threadIdx.x; i < BN; i += THREADS)
-      Ms[i] = mask[(long long)b * Skv + kv0 + i];
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HEAD_DIM; kk += 16) {
-      uint32_t a[4];
-      load_a(a, Qs + (wr + g) * LDS + kk + 2 * t);
-      if constexpr (KT) {
-        // lane l addresses row l % 8 of matrix l / 8: matrices (d kk.., kv
-        // slice nt), (d kk+8.., nt), (d kk.., nt+1), (d kk+8.., nt+1)
-        const __nv_bfloat16* kb = Ks + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDT +
-                                  (lane >> 4) * 8;
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; nt += 2) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, kb + nt * 8);
-          mma_bf16(s[nt], a, bf[0], bf[1]);
-          mma_bf16(s[nt + 1], a, bf[2], bf[3]);
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt)
-          mma_bt(s[nt], a, Ks + (nt * 8 + g) * LDS + kk + 2 * t);
-      }
-    }
-
-    // masks, then the online-softmax update
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int row = q0 + wr + g + (e >= 2 ? 8 : 0);
-        const bool keep = Ms[col] != 0 && (!causal || row >= kv0 + col);
-        if (!keep) s[nt][e] = NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float corr[2], cr[2], mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      corr[r] = EXP2 ? exp2_approx((m_i[r] - m_new) * c) : __expf(m_i[r] - m_new);
-      m_i[r] = m_new;
-      l_i[r] *= corr[r];
-      // every key of the row masked so far: s = m = -1e30 and p must be 1,
-      // but s*c - round(m*c) does not cancel, so c = 0 there
-      cr[r] = m_new == NEG_INF ? 0.f : c;
-      mc[r] = m_new * cr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        s[nt][e] = EXP2 ? exp2_approx(fmaf(s[nt][e], cr[r], -mc[r]))
-                        : __expf(s[nt][e] - m_i[r]);
-        l_i[r] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
-      acc[dt][0] *= corr[0]; acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1]; acc[dt][3] *= corr[1];
-    }
-
-    // acc += P V (hi, then lo under SPLIT_P), V's fragments gathered once
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a_hi[4], a_lo[4];
-      p_fragments<SPLIT_P>(a_hi, a_lo, s[2 * kk], s[2 * kk + 1]);
-      const __nv_bfloat16* vb = Vs + (kk * 16 + 2 * t) * LDS + g;
-#pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
-        const __nv_bfloat16* p = vb + dt * 8;
-        const uint32_t b0 = pack_pair(p[0], p[LDS]);
-        const uint32_t b1 = pack_pair(p[8 * LDS], p[9 * LDS]);
-        mma_bf16(acc[dt], a_hi, b0, b1);
-        if constexpr (SPLIT_P) mma_bf16(acc[dt], a_lo, b0, b1);
-      }
-    }
-  }
-
-  // epilogue: full row sums, normalise, store O and lse
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wr + g + 8 * r;
-    __nv_bfloat16* orow = o + (((long long)b * Sq + row) * H + h) * HEAD_DIM;
-    const float inv = 1.f / l_i[r];
-#pragma unroll
-    for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    if (t == 0) {  // a fully masked row keeps the -1e30 sentinel, as the plain version
-      const float m = EXP2 && m_i[r] != NEG_INF ? m_i[r] * c : m_i[r];
-      lse[((long long)b * H + h) * Sq + row] = m + (EXP2 ? log2f(l_i[r]) : logf(l_i[r]));
-    }
-  }
-}
-
-template <bool KT, bool EXP2, bool SPLIT_P>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-           void* lse, int B, int Sq, int Skv, int H, int causal, int q_log2e_bf16,
-           long long qsb, long long qss, long long qsh,
-           long long ks0, long long ks1, long long ks2,
-           long long vsb, long long vss, long long vsh, void* stream) {
-  auto kernel = flash_lab_kernel<KT, EXP2, SPLIT_P>;
-  constexpr size_t smem = smem_bytes<KT>();
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid(Sq / BM, H, B);
-  kernel<<<grid, THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)mask, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal,
-      q_log2e_bf16, qsb, qss, qsh, ks0, ks1, ks2, vsb, vss, vsh);
-  return (int)cudaGetLastError();
+  CUresult r = qkv_map(enc, tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
+  if (r == CUDA_SUCCESS) r = qkv_map(enc, tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
+  if (r == CUDA_SUCCESS) r = mask_map(enc, tm, mask, B, Skv, K1_BN);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + (int)r;
 }
 
 }  // namespace
@@ -303,7 +54,9 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 // L1.  kt is K^T, (B, H*D, Skv) with Skv contiguous; its strides are given
 // as (batch, head = D rows, d row).  q and v strides in elements for their
 // (B, S, H) axes, D contiguous.  upcast: split P (f32 P.V); exp2 without
-// upcast: the bf16 log2(e) scaling of q.  Returns cudaGetLastError().
+// upcast: the bf16 log2(e) scaling of q.  Returns cudaGetLastError(), or
+// 1000 + the CUresult of a tensor map the driver refused (1000 alone where
+// the driver offers no encoder).
 extern "C" int pbt_kt_fwd(const void* q, const void* kt, const void* v,
                           const void* mask, void* o, void* lse,
                           int B, int Sq, int Skv, int H, int causal, int upcast,
@@ -312,19 +65,24 @@ extern "C" int pbt_kt_fwd(const void* q, const void* kt, const void* v,
                           long long ktsb, long long ktsh, long long ktsd,
                           long long vsb, long long vss, long long vsh,
                           void* stream) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return TMAP_ERROR;
+  CUtensorMap tq, tk, tv, tm;
+  int rc = qv_mask_maps(enc, &tq, &tv, &tm, q, v, mask, B, Sq, Skv, H, qsb, qss, qsh,
+                        vsb, vss, vsh);
+  if (rc) return rc;
+  const CUresult r = kt_map(enc, &tk, kt, B, Skv, H, ktsb, ktsh, ktsd);
+  if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   const int bf16_scale = exp2 && !upcast;
-#define PBT_KT_ARGS q, kt, v, mask, o, lse, B, Sq, Skv, H, causal, bf16_scale, \
-    qsb, qss, qsh, ktsb, ktsh, ktsd, vsb, vss, vsh, stream
-  if (exp2)
-    return upcast ? launch<true, true, true>(PBT_KT_ARGS)
-                  : launch<true, true, false>(PBT_KT_ARGS);
-  return upcast ? launch<true, false, true>(PBT_KT_ARGS)
-                : launch<true, false, false>(PBT_KT_ARGS);
-#undef PBT_KT_ARGS
+  const SoftmaxUnits u = {bf16_scale ? 1.f : LOG2E, exp2, bf16_scale};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return upcast ? launch_fwd_bf16<true, true>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, u, st)
+                : launch_fwd_bf16<true, false>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, u,
+                                               st);
 }
 
 // L2.  K1's layout and strides (batch, row, head for q, k, v); P.V always
-// split (f32 operands).  Returns cudaGetLastError().
+// split (f32 operands).  Returns as pbt_kt_fwd.
 extern "C" int pbt_hl_fwd(const void* q, const void* k, const void* v,
                           const void* mask, void* o, void* lse,
                           int B, int Sq, int Skv, int H, int causal, int exp2,
@@ -332,9 +90,15 @@ extern "C" int pbt_hl_fwd(const void* q, const void* k, const void* v,
                           long long ksb, long long kss, long long ksh,
                           long long vsb, long long vss, long long vsh,
                           void* stream) {
-  if (exp2)
-    return launch<false, true, true>(q, k, v, mask, o, lse, B, Sq, Skv, H, causal, 0,
-                                     qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
-  return launch<false, false, true>(q, k, v, mask, o, lse, B, Sq, Skv, H, causal, 0,
-                                    qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return TMAP_ERROR;
+  CUtensorMap tq, tk, tv, tm;
+  int rc = qv_mask_maps(enc, &tq, &tv, &tm, q, v, mask, B, Sq, Skv, H, qsb, qss, qsh,
+                        vsb, vss, vsh);
+  if (rc) return rc;
+  const CUresult r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
+  if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
+  const SoftmaxUnits u = {LOG2E, exp2, 0};
+  return launch_fwd_bf16<false, true>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, u,
+                                      reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads, wgmma shared-memory descriptors and products (bf16 and
-// tf32), the 3xTF32 split, setmaxnreg, and on the host the tensor maps the
-// flash kernels load through.
+// tf32), the 3xTF32 split, setmaxnreg, the async-proxy fence and named
+// barriers, and on the host the tensor maps the flash kernels load through.
 //
 // Shared-memory tiles here are what a TMA load with 128-byte swizzle leaves:
 // rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at chunk
@@ -154,6 +154,20 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(REGS));
 }
 
+// this thread's generic-proxy writes to shared memory made visible to the
+// async proxy (wgmma's operand reads, TMA): after writing a tile that a
+// product reads, before the barrier that hands it over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier ID (1..15; 0 is __syncthreads) over `threads` threads; the
+// ID an immediate, so that ptxas reserves only the barriers a kernel names
+template <int ID>
+__device__ __forceinline__ void named_barrier_sync(int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "r"(threads) : "memory");
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B from shared memory, both
 // K-major; scale_d = 0 overwrites D
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
@@ -166,6 +180,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with B MN-major (the transpose bit: B's k runs down the rows, its
+// n along them), as K^T lands for S = Q K^T
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -329,6 +366,24 @@ inline CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, i
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// K^T, (B, H*128, Skv) bf16 with Skv contiguous, at element strides (sb,
+// sh, sd) for the batch, the head (128 d rows) and the d row, as a 4-D map
+// over (Skv, D, H, B); a box is 64 kv columns of the 128 d rows of one
+// head, swizzled.  Keys past Skv arrive as zeros.
+inline CUresult kt_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv, int H,
+                       long long sb, long long sh, long long sd) {
+  if (H == 1) sh = sd * HEAD_DIM;   // axes of size 1: the packed stride
+  if (B == 1) sb = sh * H;
+  const cuuint64_t dims[4] = {(cuuint64_t)Skv, (cuuint64_t)HEAD_DIM, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sd * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {BOX, HEAD_DIM, 1, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
              one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

@@ -33,7 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FLASH_BWD_TAIL = [_I] * 6 + [_L] * 12 + [_P]   # B, Sq, Skv, H, dtype, causal; strides; stream
 # library -> (source, headers it includes, {C entry point: argtypes})
 KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "hopper.cuh"), {
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh", "hopper.cuh"), {
         "pbt_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P]}),
     "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {
         # q, k, v, dout, qt, kt, ot, mask, lse, delta, then the outputs
@@ -51,7 +51,7 @@ KERNELS = {
         # h, res, gamma, mean, rstd, dout, seed, dh, dres, dgamma_p, dbeta_p;
         # N, D, dtype; threshold, keep scale; stream
         "pbt_fused_ln_bwd": [_P] * 11 + [_I] * 3 + [ctypes.c_uint32, _F, _P]}),
-    "flash_lab": ("flash_lab.cu", ("flash_common.cuh",), {
+    "flash_lab": ("flash_lab.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh", "hopper.cuh"), {
         # q, kt, v, mask, o, lse; B, Sq, Skv, H, causal, upcast, exp2; strides; stream
         "pbt_kt_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P],
         # q, k, v, mask, o, lse; B, Sq, Skv, H, causal, exp2; strides; stream

@@ -10,7 +10,8 @@
 # to <out_dir>/ab_<i>_<parent|change>.log (default out_dir: build/ab);
 # the lines that compare the trees (K1 at every [flash] shape, K2, K3a and
 # K3b at every [flash_bwd] shape, K4a and K4b at every [fused_ln] shape, the
-# lab's variants, decode, ms/step, [train]'s losses) are printed.  Exits
+# lab's variants and its two sweeps (ms per chain), the SASS counts of the
+# wgmma kernels, decode, ms/step, [train]'s losses) are printed.  Exits
 # non-zero if any run did.
 set -u
 parent=$(cd "$1" && pwd)
@@ -26,7 +27,7 @@ for who in parent change change parent; do
   rc=$?
   [ $rc -eq 0 ] || status=1
   echo "run $i $who rc=$rc"
-  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[flash\] B=\|^\[flash_bwd\]\|^\[fused_ln\].*K4\|loss per step" "$log" \
+  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[[01]\] \|^\[flash\] B=\|^\[flash_bwd\]\|^\[fused_ln\].*K4\|loss per step\|SASS of" "$log" \
     | grep -v "^\[train_long\] loss\|^\[train_fused\] loss\|phase ok" | cut -c1-520
 done
 exit $status

@@ -2,7 +2,9 @@
 the card against the committed flash forward (K1, ``ops/flash.py``).
 
 The counterpart of ``scripts/kernel_lab.py``, with its two experiments as
-Hopper kernels (``csrc/flash_lab.cu``):
+Hopper kernels (``csrc/flash_lab.cu``), each K1's own kernel template
+(``csrc/flash_fwd_bf16.cuh``) with one option changed, so that the lab
+measures the option and nothing else:
 
 * L1, :func:`kt_fwd`: K1's forward reading K pre-transposed, with a real
   transpose of K to ``(B, H*D, Skv)`` inside every call (the lab times it as
@@ -12,18 +14,20 @@ Hopper kernels (``csrc/flash_lab.cu``):
 
 "f32 operands" on Hopper: bf16 x bf16 products are exact in f32, so only
 P.V changes, where the kernel splits P into two bf16 halves and issues two
-products (``csrc/flash_lab.cu``, ``SPLIT_P``).  Without ``upcast``, P rounds
-to bf16 before P.V as in K1, and under ``exp2`` q is scaled by log2(e)
-rounded to bf16 (1.4453125) in bf16, exactly as the reference lab does: that
-variant's softmax is of 1.0018*s and its lse is in those units.
+products (``SPLIT_P``).  K pre-transposed is read through ``wgmma``'s
+transpose bit (``KT``).  Without ``upcast``, P rounds to bf16 before P.V as
+in K1, and under ``exp2`` q is scaled by log2(e) rounded to bf16
+(1.4453125) in bf16, exactly as the reference lab does: that variant's
+softmax is of 1.0018*s and its lse is in those units.
 
 The kernels take bf16 CUDA tensors only, head_dim 128, Sq and Skv multiples
 of 64; other CUDA inputs raise (K1's f32 kernel stays the f32 check of the
 algorithm).  CPU tensors take the plain versions (:func:`kt_fwd_reference`,
 :func:`hl_fwd_reference`), which make the reference's roundings in f32.
-``block`` is the reference's TPU tile; the Hopper kernels keep their own
-64-row tiles, so it is validated (a positive multiple of 64) and changes
-neither the schedule nor the result.
+``block`` is the reference's TPU tile; the Hopper kernels keep K1's
+128-row tiles (a length of 64 past a multiple of 128 makes a ragged tile),
+so it is validated (a positive multiple of 64) and changes neither the
+schedule nor the result.
 
 :func:`main` runs the lab's program: each variant checked against K1
 (max |diff| < 0.05), then each as a chain of 24 attentions with the
@@ -50,7 +54,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.build import build_kernel, use_kernel
 from ..ops.flash import (HEAD_DIM, TILE, _check_cuda_inputs, _int_mask,
-                         _mask_and_scores, flash_attention)
+                         _mask_and_scores, _raise_for, _tma_ready, flash_attention)
 
 __all__ = ["kt_fwd", "hl_fwd", "kt_fwd_lse", "hl_fwd_lse", "kt_attention",
            "kt_fwd_reference", "hl_fwd_reference", "main", "LOG2E"]
@@ -108,7 +112,7 @@ def _check_lab_inputs(q, k, v, kv_mask):
 def _launch(entry, q, k, v, kv_mask, k_strides, flags):
     B, Sq, H, D = q.shape
     Skv = v.shape[1]
-    mask = _int_mask(kv_mask, B, Skv, q.device)
+    mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = build_kernel("flash_lab")
@@ -118,8 +122,7 @@ def _launch(entry, q, k, v, kv_mask, k_strides, flags):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, *flags,
             *q.stride()[:3], *k_strides, *v.stride()[:3], stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    _raise_for(entry, rc)
     return out, lse
 
 

@@ -86,3 +86,41 @@ def test_wgmma_operands_are_numbered_in_order(name, body):
     assert re.search(r"setp\.ne\.b32 p, %(\d+)", template).group(1) == str(len(acc) + n_in - 1)
     if ta == "tf32":    # scale-a and scale-b only: tf32 has no transpose bits
         assert re.search(r", p, 1, 1;", template), name
+
+
+BF16_WGMMA = [(n, b) for n, b in WGMMA if ".f32.bf16.bf16 " in b]
+
+
+@pytest.mark.parametrize("name,body", BF16_WGMMA, ids=[n for n, _ in BF16_WGMMA])
+def test_bf16_wgmma_transpose_bit_follows_the_name(name, body):
+    """A bf16 product's last immediate is tnspB (after scale-d, the two
+    scales and, from shared memory, tnspA): set in the ``_tb`` wrappers,
+    which read B MN-major (V for O += P V, K^T for S = Q K^T), clear in the
+    others.  A wrong bit compiles and multiplies by the transpose."""
+    template = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', re.split(r"\n\s*:", body)[0]))
+    imm = re.search(r", p((?:, [01])+);", template).group(1).split(", ")[1:]
+    from_smem = not re.search(r"\{%\d+, %\d+, %\d+, %\d+\}, %\d+, p", template)
+    assert imm[:2] == ["1", "1"] and len(imm) == (4 if from_smem else 3), name
+    if from_smem:
+        assert imm[2] == "0", name         # A K-major
+    assert imm[-1] == ("1" if name.endswith("_tb") else "0"), name
+
+
+def _includes(name, seen=None):
+    """The ``#include "..."`` files of a csrc file, transitively."""
+    seen = set() if seen is None else seen
+    for inc in re.findall(r'^#include "([^"]+)"', (CSRC / name).read_text(), re.M):
+        if inc not in seen:
+            seen.add(inc)
+            _includes(inc, seen)
+    return seen
+
+
+@pytest.mark.parametrize("lib", list(KERNELS))
+def test_kernel_headers_are_every_include_of_the_source(lib):
+    """``_so_path`` hashes the source and the listed headers only: a header
+    left out of the tuple leaves a stale library on the card after it
+    changes."""
+    source, headers, _ = KERNELS[lib]
+    assert len(set(headers)) == len(headers)
+    assert set(headers) == _includes(source)

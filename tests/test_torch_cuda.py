@@ -627,3 +627,68 @@ def test_lab_main_runs_on_the_card(cuda):
     assert all(a > b for a, b in zip(after, before))
     assert all(e < 0.05 for e in res["checks"].values()) and len(res["checks"]) == 4
     assert all(t > 0 for s in res["sweeps"] for t in s.values())
+
+
+# The lab's instances of K1's kernel template <KT, SPLIT_P>, by variant:
+# kt_fwd upcast=False <true, false>, kt_fwd upcast=True <true, true>, hl_fwd
+# <false, true>.  Tolerances as for LAB_VARIANTS above.
+LAB_IDS = [f"{n}-{'-'.join(f'{k}={v}' for k, v in kw.items())}" for n, kw in LAB_VARIANTS]
+
+
+def _lab_tol(kw):
+    return (1e-4, 2.0 ** -7) if kw.get("upcast", True) else (1e-2, 1e-2)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(320, 320), (192, 320)])
+@pytest.mark.parametrize("name,kw", LAB_VARIANTS, ids=LAB_IDS)
+def test_lab_kernels_at_ragged_shapes(cuda, name, kw, Sq, Skv):
+    """Lengths of 64 past a multiple of K1's 128-row tiles: the last q tile
+    stores only its rows below Sq, the last kv tile's keys past Skv arrive
+    as TMA's zeros (under KT a whole 64-key box of them) and take p = 0."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=Sq, Skv=Skv, seed=3)
+    out, lse = getattr(lab, f"{name}_lse")(q, k, v, mask, False, **kw)
+    r_out, r_lse = getattr(lab, f"{name}_reference")(q, k, v, mask, False, **kw)
+    atol, rtol = _lab_tol(kw)
+    assert out.shape == q.shape and lse.shape == (2, 2, Sq)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
+    if kw["exp2"] and kw.get("upcast", True):
+        _, nat = flash_attention_reference(q, k, v, mask, False)
+        torch.testing.assert_close(lse * math.log(2.0), nat, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("name,kw", LAB_VARIANTS, ids=LAB_IDS)
+def test_lab_kernels_fully_masked_rows_at_a_ragged_length(cuda, name, kw):
+    """test_lab_kernels_fully_masked_rows at Skv = 320, every instance: the
+    sentinel's c = 0 and the lse left at -1e30 plus log also where the last
+    kv tile is ragged (its zero-filled keys take p = 0, not 1)."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=320)
+    mask[0] = 0.0
+    mask[1, :80] = 0.0
+    out, lse = getattr(lab, f"{name}_lse")(q, k, v, mask, False, **kw)
+    r_out, r_lse = getattr(lab, f"{name}_reference")(q, k, v, mask, False, **kw)
+    atol, rtol = _lab_tol(kw)
+    torch.testing.assert_close(out.float(), r_out.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, r_lse, atol=1e-3, rtol=0)
+    mean_v = v[0].float().mean(0).expand_as(out[0])
+    torch.testing.assert_close(out[0].float(), mean_v, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("upcast", [False, True])
+def test_kt_attention_reads_a_padded_kt(cuda, upcast):
+    """K^T as a slice of a (B, H*D, Skv + 64) buffer: its d rows 64 keys
+    apart beyond Skv, read through the tensor map's strides; the same bits
+    as from a packed K^T."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=320)
+    B, S, H, D = k.shape
+    packed = k.reshape(B, S, H * D).transpose(1, 2).contiguous()
+    buf = torch.full((B, H * D, S + 64), float("nan"), dtype=k.dtype, device=cuda)
+    buf[..., :S] = packed
+    padded = buf[..., :S]
+    assert padded.stride() == (H * D * (S + 64), S + 64, 1)
+    got = lab.kt_attention(q, padded, v, mask, False, upcast=upcast)
+    want = lab.kt_attention(q, packed, v, mask, False, upcast=upcast)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    r_out, _ = lab.kt_fwd_reference(q, k, v, mask, False, upcast=upcast)
+    atol, rtol = _lab_tol(dict(upcast=upcast))
+    torch.testing.assert_close(got[0].float(), r_out.float(), atol=atol, rtol=rtol)
