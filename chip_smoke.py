@@ -12,8 +12,9 @@ result line:
    kernel lab's L1/L2, instances of K1's kernel template), one process per
    source, with ptxas's registers and spills and the HGMMA/UTMALDG/HMMA
    counts of the wgmma kernels' SASS (an HMMA., or no HGMMA or UTMALDG, fails);
-3. ``[flash]``: K1 against its plain PyTorch version at the serving and
-   training shapes and at the long-context shape (B=16, S=2048), with times
+3. ``[flash]``: K1 against its plain PyTorch version at the serving
+   shapes (every decode bucket, B = 1, 2, 4, 8), the training shapes and
+   the long-context shape (B=16, S=2048), with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -40,24 +41,30 @@ result line:
    {1, 2, 4, 8}, concurrent requests from threads, output checks, timed
    batch-1 and batch-8 fixed-length continuations, K1's launch count per
    decode batch, and a profiled window of decode steps;
-8. ``[train]``: the flagship pretrain step: gradients through K1+K2 against
+8. ``[serve_http]``: the MIDI-file serving path on [serve]'s model: four
+   two-track songs written by the port's MIDI writer, uploaded to the port's
+   WSGI ``App``, concurrent ``GET /api/generate`` requests from threads
+   (each a 200 whose MIDI downloads and parses back, or the JAX App's 500
+   "generation produced no notes"), one request over a localhost socket,
+   then the ``demo`` CLI in process; K1 launches 8 per decode batch;
+9. ``[train]``: the flagship pretrain step: gradients through K1+K2 against
    the plain attention path at B=4, then ``pretrain_step`` at B=32, S=1024
    (bf16 compute, f32 parameters, dropout 0.1) with ms/step, tokens/s, MFU,
    peak memory, launches per step (K1 and K2 24 each, K3 and K4 none) and
    a profiled window;
-9. ``[train_long]``: the long-context step (``max_len=2048``, B=16, the
+10. ``[train_long]``: the long-context step (``max_len=2048``, B=16, the
    flagship's tokens per batch): gradients through K1+K3 against plain
    attention at B=2, then the same timed steps (K1, K3a, K3b 24 each, K2
    none);
-10. ``[train_fused]``: the flagship step with ``fused_dropout_ln`` (K4 at
+11. ``[train_fused]``: the flagship step with ``fused_dropout_ln`` (K4 at
    all 40 sublayer tails): the fused step against the unfused one at
    dropout 1e-9 at B=4, then the timed steps at B=32 (K4a, K4b 40 each, K1,
    K2 24 each), printed beside ``[train]``'s numbers of this run;
-11. ``[train_f32]``: the flagship step as ``PianoBartConfig()`` stands (f32
+12. ``[train_f32]``: the flagship step as ``PianoBartConfig()`` stands (f32
    compute and parameters): gradients through K1+K2 against plain attention
    at B=2, then 3 warm-up and 5 timed steps at B=8 (K1, K2 24 each).
 
-Each main path (lab, serve, train, train_long, train_fused, train_f32) is driven with every
+Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -276,7 +283,9 @@ def phase_flash(state):
     # relative), ex2.approx and the summation order.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
     f32 = torch.float32
-    cases = [(1, False, torch.bfloat16, 1024), (8, False, torch.bfloat16, 1024),
+    # B = 1, 2, 4 and 8 are the serving paths' decode buckets
+    cases = [(1, False, torch.bfloat16, 1024), (2, False, torch.bfloat16, 1024),
+             (4, False, torch.bfloat16, 1024), (8, False, torch.bfloat16, 1024),
              (1, True, torch.bfloat16, 1024), (8, True, torch.bfloat16, 1024),
              (32, False, torch.bfloat16, 1024), (32, True, torch.bfloat16, 1024),
              (16, False, torch.bfloat16, 2048), (16, True, torch.bfloat16, 2048),
@@ -860,6 +869,7 @@ def phase_serve(state):
               f"K1 launches {d}; max_steps cap: none")
     print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _where_time_goes(model, x, S)
+    state["serve_model"] = model   # [serve_http] serves the same weights
 
 
 def _where_time_goes(model, x, S, steps=64):
@@ -912,6 +922,225 @@ def _profile_window(tag, what, fn, steps):
     for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
     return busy
+
+
+def _song(rng, n_notes=300):
+    """A two-track piano song (melody over a bass line, 4/4 then 3/4, two
+    tempos) as the port's MidiFile."""
+    from pianobart_tpu_torch.midi import (Instrument, MidiFile, Note, TempoChange,
+                                          TimeSignature)
+    song = MidiFile(ticks_per_beat=480)
+    song.tempo_changes = [TempoChange(tempo=float(rng.integers(70, 160)), time=0),
+                          TempoChange(tempo=float(rng.integers(70, 160)), time=480 * 64)]
+    song.time_signature_changes = [TimeSignature(4, 4, 0), TimeSignature(3, 4, 480 * 128)]
+    for program, lo, hi, name in ((0, 60, 96, "MELODY"), (32, 28, 60, "PIANO")):
+        inst, tick = Instrument(program=program, name=name), 0
+        for _ in range(n_notes):
+            dur = int(rng.choice([120, 240, 360, 480, 960]))
+            inst.notes.append(Note(velocity=int(rng.integers(40, 120)),
+                                   pitch=int(rng.integers(lo, hi)),
+                                   start=tick, end=tick + dur))
+            tick += int(rng.choice([120, 240, 240, 480]))
+        song.instruments.append(inst)
+    return song
+
+
+def _wsgi(app, method, path, body=b"", ctype=None):
+    """One WSGI call: (status, headers, body bytes)."""
+    import io
+    got = {}
+    environ = {"REQUEST_METHOD": method, "PATH_INFO": path,
+               "wsgi.input": io.BytesIO(body), "CONTENT_LENGTH": str(len(body))}
+    if ctype:
+        environ["CONTENT_TYPE"] = ctype
+    out = b"".join(app(environ, lambda status, headers: got.update(
+        status=status, headers=dict(headers))))
+    return got["status"], got["headers"], out
+
+
+def _check_answer(app, status, body, written):
+    """A generate answer is a 200 whose MIDI downloads, parses back and is
+    one decoded grid cleaned and written, or the JAX App's 500 for an empty
+    continuation; anything else fails."""
+    from pianobart_tpu_torch.midi import read_midi_bytes
+    j = json.loads(body)
+    if status == "500 Internal Server Error":
+        if j != {"error": "generation produced no notes"}:
+            raise AssertionError(f"unexpected 500 body {j}")
+        return "500", None
+    if status != "200 OK":
+        raise AssertionError(f"generate answered {status}: {j}")
+    st, _, blob = _wsgi(app, "GET", f"/api/outputs/{j['file']}")
+    if st != "200 OK":
+        raise AssertionError(f"output {j['file']} does not download: {st}")
+    n_notes = sum(len(i.notes) for i in read_midi_bytes(blob).instruments)
+    if n_notes == 0 or blob not in written():
+        raise AssertionError(f"output {j['file']} is not a cleaned decoded grid")
+    return "200", j
+
+
+def phase_serve_http(state):
+    """The MIDI-file serving path on the card: uploads and concurrent
+    generate requests through the port's WSGI ``App`` (random flagship
+    weights, [serve]'s model), one request over a localhost socket, then
+    the demo CLI in process."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.midi import midi_bytes, read_midi
+    from pianobart_tpu_torch.ops.flash import flash_attention_fwd
+    from pianobart_tpu_torch.serve.app import App, GenerationService
+    from pianobart_tpu_torch.serve.demo import window_to_midi
+
+    model = state.pop("serve_model")
+    retries = int(os.environ.setdefault("PBX_DEMO_RETRIES", "4"))
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="serve_http_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    t_phase = time.perf_counter()
+    try:
+        os.chdir(work)   # App keeps uploads/ and outputs/ under the working directory
+        rng = np.random.default_rng(SEED)
+        svc = GenerationService(model=model, device="cuda", max_batch=8)
+        grids = []
+        decode = svc._decode_batch
+
+        def recording(intros, seeds):
+            out = decode(intros, seeds)
+            grids.extend(out)
+            return out
+
+        svc._decode_batch = recording
+
+        def written():
+            """The bytes each recorded grid writes as a continuation."""
+            out = []
+            for g in grids:
+                if window_to_midi(g, "check.mid"):
+                    with open("check.mid", "rb") as f:
+                        out.append(f.read())
+            return out
+
+        app = App(svc)
+        names = []
+        for i in range(4):
+            data = midi_bytes(_song(rng))
+            boundary = "pbxsmoke"
+            body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                    f"filename=\"song{i}.mid\"\r\nContent-Type: audio/midi\r\n\r\n"
+                    ).encode() + data + f"\r\n--{boundary}--\r\n".encode()
+            st, _, out = _wsgi(app, "POST", "/api/upload", body,
+                               f"multipart/form-data; boundary={boundary}")
+            if st != "200 OK":
+                raise AssertionError(f"upload answered {st}: {out!r}")
+            names.append(json.loads(out)["file"])
+            with open(os.path.join("uploads", names[-1]), "rb") as f:
+                if f.read() != data:
+                    raise AssertionError("upload stored other bytes")
+        st, _, out = _wsgi(app, "GET", "/api/health")
+        health = json.loads(out)
+        if st != "200 OK" or health["status"] != "ok" or not health["model_loaded"]:
+            raise AssertionError(f"health {st}: {health}")
+        print(f"[serve_http] {len(names)} uploads of two-track songs "
+              f"({2 * 300} notes each), health {health}; PBX_DEMO_RETRIES={retries}")
+
+        answers, lat = [None] * len(names), [0.0] * len(names)
+
+        def client(i):
+            t = time.perf_counter()
+            answers[i] = _wsgi(app, "GET", f"/api/generate/pianobart/{names[i]}")
+            lat[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(names))]
+        _reset_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a generate request never returned")
+        ends = []
+        for i, (st, _, body) in enumerate(answers):
+            kind, j = _check_answer(app, st, body, written)
+            ends.append(kind)
+            what = (f"latency_s {j['latency_s']} attempts {j['attempts']} "
+                    f"batch {j['batch_size_served']}" if j else
+                    f"no notes after {retries} attempts")
+            print(f"[serve_http]   request {i}: {kind}, client {lat[i]:.3f} s, {what}")
+        print(f"[serve_http] {len(names)} concurrent requests in {wall:.3f} s; "
+              f"batch_sizes_served {svc.batch_sizes_served}")
+
+        # one request over a real socket
+        threading.Thread(target=app.run, kwargs={"host": "127.0.0.1", "port": 0},
+                         daemon=True).start()
+        for _ in range(500):
+            if app.server is not None:
+                break
+            time.sleep(0.01)
+        url = (f"http://127.0.0.1:{app.server.server_port}"
+               f"/api/generate/pianobart/{names[0]}")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(url, timeout=300) as r:
+                st, body = f"{r.status} {r.reason}", r.read()
+        except urllib.error.HTTPError as err:   # a 500 is one of the two answers
+            st, body = f"{err.code} {err.reason}", err.read()
+        finally:
+            app.shutdown()
+        kind, j = _check_answer(app, st, body, written)
+        ends.append(kind)
+        print(f"[serve_http] over a localhost socket: {kind} in "
+              f"{time.perf_counter() - t0:.3f} s"
+              + (f", attempts {j['attempts']}" if j else ""))
+        batches = len(svc.batch_sizes_served)
+
+        # the demo CLI in process, on the card (its own flagship model)
+        demo_out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(demo_out):
+            rc = cli.main(["demo", "--input", os.path.join("uploads", names[1]),
+                           "--output", "demo_out.mid"])
+        lines = demo_out.getvalue().splitlines()
+        empty = sum(x.startswith("empty continuation") for x in lines)
+        saved = "Saved to demo_out.mid" in lines
+        if rc != 0 or not (saved or lines[-1:] == ["Generate Fail! (empty)"]):
+            raise AssertionError(f"demo CLI: rc {rc}, output {lines}")
+        if saved and not any(i.notes for i in read_midi("demo_out.mid").instruments):
+            raise AssertionError("the demo's output has no notes")
+        demo_attempts = empty + int(saved)
+        print(f"[serve_http] demo CLI in {time.perf_counter() - t0:.1f} s: "
+              f"{lines[-1]} after {demo_attempts} attempt(s)")
+
+        state.setdefault("launches", {})["serve_http"] = _read_counts()
+        k1 = flash_attention_fwd.launches
+        expect = model.cfg.encoder_layers * (batches + demo_attempts)
+        print(f"[serve_http] answers: {ends.count('200')} x 200, {ends.count('500')} x "
+              f"500 (no notes); {batches} decode batches + {demo_attempts} demo "
+              f"decodes; K1 launches {k1} (expected {expect})")
+        if k1 != expect:
+            raise AssertionError(f"K1 launched {k1} times, expected {expect}")
+        others = {n: c for n, c in state["launches"]["serve_http"].items()
+                  if c and n != "flash_attention_fwd"}
+        if others:
+            raise AssertionError(f"kernels off this path launched: {others}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+    # the service's worker thread outlives the phase; the flagship weights
+    # must not, so the later phases start as they do without this one
+    svc.model = None
+    del model
+    torch.cuda.empty_cache()
+    print(f"[serve_http] wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def _pretrain_batch(B, S, rng):
@@ -1249,6 +1478,7 @@ def _kernel_record(name, key, source, replaces, counter, home, state):
 PHASES = (("device", phase_device), ("build", phase_build),
           ("flash", phase_flash), ("lab", phase_lab), ("flash_bwd", phase_flash_bwd),
           ("fused_ln", phase_fused_ln), ("serve", phase_serve),
+          ("serve_http", phase_serve_http),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32))
 

@@ -27,7 +27,7 @@ for who in parent change change parent; do
   rc=$?
   [ $rc -eq 0 ] || status=1
   echo "run $i $who rc=$rc"
-  grep "force_full\|ms/step\|concurrent\|^\[lab\] kt\|^\[lab\] hl\|^\[[01]\] \|^\[flash\] B=\|^\[flash_bwd\]\|^\[fused_ln\].*K4\|loss per step\|SASS of" "$log" \
+  grep "force_full\|ms/step\|concurrent\|^\[serve_http\] answers\|^\[lab\] kt\|^\[lab\] hl\|^\[[01]\] \|^\[flash\] B=\|^\[flash_bwd\]\|^\[fused_ln\].*K4\|loss per step\|SASS of" "$log" \
     | grep -v "^\[train_long\] loss\|^\[train_fused\] loss\|phase ok" | cut -c1-520
 done
 exit $status

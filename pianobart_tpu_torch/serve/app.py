@@ -1,23 +1,93 @@
-"""Serving backend on token windows (``pianobart_tpu/serve/app.py``).
+"""HTTP serving backend (pure-stdlib WSGI; ``pianobart_tpu/serve/app.py``).
+
+Same surface as the JAX package's app and the reference Flask app
+(``gui/backend/app.py``):
+
+* ``GET  /``                          — minimal web UI (static/index.html)
+* ``POST /api/upload``                — store a MIDI, render audio preview
+* ``GET  /api/generate/<model>/<f>``  — continuation for an uploaded MIDI
+* ``GET  /api/<folder>/<file>``       — artifact download
+* ``GET  /api/health``                — liveness + model info
 
 :class:`GenerationService` holds one model, loaded lazily and reused across
 requests, and MICRO-BATCHES concurrent requests: a worker thread drains the
-queue into one batched KV-cached decode, with batch sizes bucketed to powers
-of two.  The MIDI-file entry, the HTTP routes and the demo come with the
-port of the MIDI parser, writer and tokenizer.
+queue into one batched KV-cached decode on the card, with batch sizes
+bucketed to powers of two.  :meth:`GenerationService.generate` takes a MIDI
+file to a MIDI file (intro window, decode with per-request retries, cleaned
+continuation).
+
+Audio rendering shells out to FluidSynth when available; without it the
+endpoints still serve MIDI.  The weights are random, drawn from a seed:
+checkpoint loading for serving is ROADMAP Queue A item 6, and until then a
+checkpoint path is refused.
+
+``create_app`` returns a WSGI callable: host it with any WSGI server, or
+``App.run()`` (wsgiref, threaded) for development.
 """
 from __future__ import annotations
 
+import json
+import mimetypes
+import os
+import shutil
+import subprocess
 import threading
 import time
-from typing import List, Optional
+import uuid
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .demo import midi_to_window, refuse_checkpoint, window_to_midi
 
-__all__ = ["GenerationService"]
+__all__ = ["GenerationService", "App", "create_app", "parse_ckpt_registry"]
+
+UPLOAD_DIR = "uploads"
+OUTPUT_DIR = "outputs"
+_STATIC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "static")
+
+
+def _render_audio(midi_path: str, wav_path: str) -> bool:
+    exe = shutil.which("fluidsynth")
+    if not exe:
+        return False
+    try:
+        subprocess.run([exe, "-ni", "-F", wav_path, midi_path],
+                       check=True, capture_output=True, timeout=120)
+        return True
+    except Exception:
+        return False
+
+
+def _parse_multipart_file(environ, field: str) -> Tuple[str, bytes]:
+    """Minimal multipart/form-data parser for one file field (the stdlib
+    ``cgi`` module is deprecated/removed in newer Pythons)."""
+    ctype = environ.get("CONTENT_TYPE", "")
+    if "multipart/form-data" not in ctype or "boundary=" not in ctype:
+        raise ValueError("expected multipart/form-data")
+    boundary = ctype.split("boundary=", 1)[1].split(";")[0].strip().strip('"')
+    length = int(environ.get("CONTENT_LENGTH") or 0)
+    body = environ["wsgi.input"].read(length)
+    delim = b"--" + boundary.encode()
+    for part in body.split(delim):
+        if b"\r\n\r\n" not in part:
+            continue
+        header, _, payload = part.partition(b"\r\n\r\n")
+        htext = header.decode("latin-1", errors="replace")
+        if f'name="{field}"' not in htext or "filename=" not in htext:
+            continue
+        filename = htext.split("filename=", 1)[1].split("\r\n")[0].strip().strip('"')
+        if not filename:
+            continue
+        # exactly ONE trailing CRLF belongs to the boundary delimiter; the
+        # closing '--' lands in the NEXT split element, so a binary upload
+        # ending in 0x0d/0x0a/'--' keeps those bytes
+        if payload.endswith(b"\r\n"):
+            payload = payload[:-2]
+        return filename, payload
+    raise ValueError("no file")
 
 
 class _Pending:
@@ -48,12 +118,17 @@ class GenerationService:
 
     ``model`` defaults to the flagship bf16 ``PianoBartLM`` with random
     weights from ``seed``; ``device`` defaults to CUDA and raises without it.
+    ``generate_fn(midi_in, midi_out, seed) -> ok`` replaces the whole MIDI
+    path (a test hook, as in the JAX package).
     """
 
     def __init__(self, model=None, cfg=None, device: DeviceLike = None,
                  seed: int = 0, max_batch: int = 8,
-                 batch_window_s: float = 0.02):
+                 batch_window_s: float = 0.02,
+                 generate_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
+        self.ckpt = None        # no checkpoint loading yet (Queue A item 6)
+        self._generate_fn = generate_fn
         self.model = model
         self._cfg_arg = cfg  # None -> flagship dims in bf16
         self.seed = seed
@@ -68,7 +143,7 @@ class GenerationService:
         self.batch_sizes_served: list = []  # observability / tests
 
     def _ensure(self):
-        if self._ready:
+        if self._ready or self._generate_fn is not None:
             return
         with self._lock:
             if self._ready:
@@ -97,7 +172,9 @@ class GenerationService:
         """Run one decode at every reachable bucket shape before the first
         live request: it builds the flash kernel and fills the CUDA caching
         allocator and the matmul heuristics at each shape.  Returns
-        {bucket: seconds}."""
+        {bucket: seconds}; nothing to warm behind a ``generate_fn``."""
+        if self._generate_fn is not None:
+            return {}
         self._ensure()
         if buckets is None:
             # exactly the shapes the worker's drain can produce
@@ -110,6 +187,40 @@ class GenerationService:
             self._decode_batch(intros, list(range(b)))
             timings[int(b)] = round(time.time() - t0, 3)
         return timings
+
+    def generate(self, midi_in: str, midi_out: str,
+                 seed: int = 0) -> Tuple[bool, dict]:
+        """MIDI file -> continuation MIDI file.  Returns (ok, info): ok is
+        False when every attempt came back empty; info carries the served
+        batch size, the seed's semantics under micro-batching and the
+        number of decode attempts."""
+        if self._generate_fn is not None:
+            return bool(self._generate_fn(midi_in, midi_out, seed)), {}
+        self._ensure()
+        intro = np.asarray(midi_to_window(midi_in, self.cfg.max_len))[0]
+        # A sampled first token outside the legal range yields an empty
+        # continuation (the reference one-shots this and prints "Generate
+        # Fail!", demo.py:102).  Retry per REQUEST: each retry re-enters the
+        # micro-batch queue with a distinct seed, so it can coalesce with
+        # live traffic.
+        retries = max(1, int(os.environ.get("PBX_DEMO_RETRIES", "4")))
+        ok = False
+        for attempt in range(retries):
+            req = self._submit_req(intro, seed + attempt)
+            ok = window_to_midi(np.asarray(req.result), midi_out)
+            if ok:
+                break
+        info = {
+            "batch_size_served": req.served_n,
+            "seed_semantics": ("per-request" if req.served_n == 1 else
+                               f"batch-level stream over {req.served_n} "
+                               f"coalesced requests"),
+            # every decode attempt, the last included: exhausting the
+            # retries reports attempts == PBX_DEMO_RETRIES with ok False
+            "attempts": attempt + 1,
+            "retries": attempt,
+        }
+        return ok, info
 
     # -- micro-batching queue -------------------------------------------------
 
@@ -173,3 +284,178 @@ class GenerationService:
             finally:
                 for r in batch:
                     r.event.set()
+
+
+class App:
+    """Minimal WSGI application with the reference's route table.
+
+    ``services`` is a registry of named models ({name: GenerationService});
+    the ``<model>`` segment of ``/api/generate/<model>/<file>`` selects one.
+    A single service registers as ``pianobart`` (the reference frontend's
+    default model name).  Uploads and outputs live under the working
+    directory."""
+
+    def __init__(self, services, ckpt: Optional[str] = None):
+        if isinstance(services, GenerationService):   # single-model shorthand
+            services = {"pianobart": services}
+        self.services = services
+        self.ckpt = ckpt
+        self.server = None      # the running server of run(), for shutdown()
+        os.makedirs(UPLOAD_DIR, exist_ok=True)
+        os.makedirs(OUTPUT_DIR, exist_ok=True)
+
+    # -- WSGI ---------------------------------------------------------------
+    def __call__(self, environ, start_response):
+        method = environ["REQUEST_METHOD"]
+        path = environ.get("PATH_INFO", "/")
+        try:
+            status, headers, body = self.route(method, path, environ)
+        except Exception as exc:  # the server answers 500 and keeps running
+            status, headers, body = self._json(500, {"error": str(exc)})
+        start_response(status, headers)
+        return [body]
+
+    def _json(self, code: int, obj) -> Tuple[str, list, bytes]:
+        body = json.dumps(obj).encode()
+        codes = {200: "200 OK", 400: "400 Bad Request", 404: "404 Not Found",
+                 500: "500 Internal Server Error"}
+        return codes[code], [("Content-Type", "application/json"),
+                             ("Content-Length", str(len(body)))], body
+
+    def _file(self, root: str, name: str) -> Tuple[str, list, bytes]:
+        path = os.path.join(root, os.path.basename(name))
+        if not os.path.exists(path):
+            return self._json(404, {"error": "not found"})
+        with open(path, "rb") as f:
+            body = f.read()
+        ctype = mimetypes.guess_type(path)[0] or "application/octet-stream"
+        return "200 OK", [("Content-Type", ctype),
+                          ("Content-Length", str(len(body)))], body
+
+    # -- routes ---------------------------------------------------------------
+    def route(self, method: str, path: str, environ) -> Tuple[str, list, bytes]:
+        if method == "GET" and path in ("/", "/index.html"):
+            return self._file(_STATIC, "index.html")
+        if method == "GET" and path == "/api/health":
+            return self._json(200, {
+                "status": "ok", "ckpt": self.ckpt,
+                "model_loaded": any(s.ready for s in self.services.values()),
+                "models": {name: {"ckpt": s.ckpt, "loaded": s.ready}
+                           for name, s in self.services.items()}})
+        if method == "POST" and path == "/api/upload":
+            return self.upload(environ)
+        if method == "GET" and path.startswith("/api/generate/"):
+            parts = path[len("/api/generate/"):].split("/", 1)
+            if len(parts) != 2:
+                return self._json(404, {"error": "bad generate path"})
+            return self.generate(parts[0], parts[1])
+        if method == "GET" and path.startswith("/api/"):
+            parts = path[len("/api/"):].split("/", 1)
+            if len(parts) == 2:
+                root = {"uploads": UPLOAD_DIR, "outputs": OUTPUT_DIR}.get(parts[0])
+                if root is None:
+                    return self._json(404, {"error": "unknown folder"})
+                return self._file(root, parts[1])
+        return self._json(404, {"error": "no such route"})
+
+    def upload(self, environ) -> Tuple[str, list, bytes]:
+        try:
+            filename, data = _parse_multipart_file(environ, field="file")
+        except ValueError as exc:
+            return self._json(400, {"error": str(exc)})
+        name = f"{uuid.uuid4().hex[:8]}_{os.path.basename(filename)}"
+        path = os.path.join(UPLOAD_DIR, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        wav = path.rsplit(".", 1)[0] + ".wav"
+        audio = _render_audio(path, wav)
+        return self._json(200, {"file": name,
+                                "audio": os.path.basename(wav) if audio else None})
+
+    def generate(self, model: str, fname: str) -> Tuple[str, list, bytes]:
+        service = self.services.get(model)
+        if service is None:
+            return self._json(404, {"error": f"unknown model '{model}'",
+                                    "models": sorted(self.services)})
+        src = os.path.join(UPLOAD_DIR, os.path.basename(fname))
+        if not os.path.exists(src):
+            return self._json(404, {"error": "not uploaded"})
+        # the model name in the output path: two models generating from the
+        # same upload must not overwrite each other's MIDI/WAV
+        out_name = f"gen_{model}_{os.path.basename(fname)}"
+        out = os.path.join(OUTPUT_DIR, out_name)
+        t0 = time.time()
+        ok, info = service.generate(src, out)
+        if not ok:
+            return self._json(500, {"error": "generation produced no notes"})
+        wav = out.rsplit(".", 1)[0] + ".wav"
+        audio = _render_audio(out, wav)
+        return self._json(200, {"file": out_name, "model": model,
+                                "audio": os.path.basename(wav) if audio else None,
+                                "latency_s": round(time.time() - t0, 3),
+                                **info})
+
+    def run(self, host: str = "0.0.0.0", port: int = 5000) -> None:
+        """Serve until ``shutdown()``.  Threaded: concurrent requests must
+        overlap to reach the micro-batching queue together (wsgiref's
+        default server is single-threaded)."""
+        import socketserver
+        from wsgiref.simple_server import WSGIServer, make_server
+
+        class ThreadingWSGIServer(socketserver.ThreadingMixIn, WSGIServer):
+            daemon_threads = True
+
+        with make_server(host, port, self,
+                         server_class=ThreadingWSGIServer) as srv:
+            self.server = srv
+            print(f"pianobart_tpu_torch serving on http://{host}:{srv.server_port}")
+            srv.serve_forever()
+
+    def shutdown(self) -> None:
+        """Stop a ``run()`` started in another thread."""
+        if self.server is not None:
+            self.server.shutdown()
+
+
+def parse_ckpt_registry(entries) -> dict:
+    """CLI --ckpt entries -> {name: path}: "name=path" registers a named
+    model; a bare path registers as "pianobart" (the reference frontend's
+    default model name).  Duplicate names are an error.
+
+    A '=' only splits when the left side looks like a model NAME (no path
+    separator): ``--ckpt result/lr=1e-3/best`` is a bare path with '=' in a
+    directory name, not a registration of model "result/lr"."""
+    ckpts: dict = {}
+    for entry in entries or []:
+        name, sep, path = entry.partition("=")
+        if sep and name and os.sep not in name and "/" not in name:
+            pass                       # explicit name=path registration
+        else:
+            name, path = "pianobart", entry
+        if name in ckpts:
+            raise SystemExit(f"duplicate model name '{name}' in --ckpt")
+        ckpts[name] = path
+    return ckpts or {"pianobart": None}
+
+
+def create_app(ckpt: Optional[str] = None,
+               generate_fn: Optional[Callable] = None,
+               ckpts: Optional[dict] = None,
+               max_batch: int = 8, batch_window_s: float = 0.02,
+               device: DeviceLike = None) -> App:
+    """``ckpts``: {name: path} registry; ``ckpt``: a single checkpoint
+    registered as ``pianobart``.  Every path must be ``None`` (random
+    weights from ``GenerationService``'s default seed): a checkpoint path
+    raises.  ``generate_fn`` (tests) applies to every registered model;
+    ``device`` defaults to CUDA and raises without it."""
+    if ckpts is None:
+        ckpts = {"pianobart": ckpt}
+    for path in ckpts.values():
+        if path is not None:
+            refuse_checkpoint(path)
+    services = {
+        name: GenerationService(device=device,
+                                generate_fn=generate_fn, max_batch=max_batch,
+                                batch_window_s=batch_window_s)
+        for name in ckpts}
+    return App(services, ckpt)
