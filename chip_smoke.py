@@ -25,7 +25,8 @@ result line:
    (``kernel_lab.main(kt=True)``: checks against K1, two interleaved
    sweeps) as this phase's main path;
 5. ``[flash_bwd]``: K2 against its plain version at the flagship training
-   shape (B=32, S=1024, bf16, causal and not) and in f32, and K3a and K3b
+   shape (B=32, S=1024, bf16, causal and not), at the pretraining run's
+   (B=8, S=1024, bf16, causal and not) and in f32, and K3a and K3b
    at the long-context shape (B=16, S=2048, bf16, causal and not), each
    also at B=2, S=320 (half a CTA past S) and with a fully masked sample,
    with the same times (the yardstick is SDPA's backward); at each case the
@@ -62,9 +63,20 @@ result line:
    K2 24 each), printed beside ``[train]``'s numbers of this run;
 12. ``[train_f32]``: the flagship step as ``PianoBartConfig()`` stands (f32
    compute and parameters): gradients through K1+K2 against plain attention
-   at B=2, then 3 warm-up and 5 timed steps at B=8 (K1, K2 24 each).
+   at B=2, then 3 warm-up and 5 timed steps at B=8 (K1, K2 24 each);
+13. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
+   width (bf16 compute, f32 parameters), in a temporary directory outside
+   the checkout: 64 two-track songs tokenized by the native codec
+   (``tokenize --no_pad``) and checked (``check --packed``), ``pretrain``
+   (B=8, 3 epochs, a safety save every dispatch) in a subprocess stopped by
+   SIGTERM after epoch 1 (exit 75), then ``--resume`` (exit 0, epochs 1-3
+   each once); in process the best checkpoint restored into a fresh model
+   re-scores ``best_acc`` to 1e-5, and a fourth epoch (``run(4,
+   resume=True)``) launches K1 24 per train step and per validation batch,
+   K2 24 per train step; tokens/s per epoch and each save's seconds.
 
-Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32) is driven with every
+Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
+pretrain_run) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -527,6 +539,7 @@ def phase_flash_bwd(state):
     # of each kernel half past S
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("K2", 32, 1024, False, bf16, False), ("K2", 32, 1024, True, bf16, False),
+             ("K2", 8, 1024, False, bf16, False), ("K2", 8, 1024, True, bf16, False),
              ("K2", 2, 1024, False, f32, False), ("K2", 2, 1024, True, f32, False),
              ("K2", 8, 1024, False, f32, False),
              ("K2", 2, 320, False, bf16, False), ("K2", 2, 320, True, bf16, False),
@@ -1398,6 +1411,221 @@ def phase_train_f32(state):
           f"{base['peak_gib']:.2f} GiB")
 
 
+def _meta(save_dir):
+    """``meta.json`` of a checkpoint directory, or None while it is absent
+    or half written."""
+    try:
+        with open(os.path.join(save_dir, "meta.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _epoch_events(save_dir):
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return [e for e in map(json.loads, f) if e["event"] == "epoch"]
+
+
+def _pretrain_cli(tag, argv, cwd, log, stop_after_epoch=None):
+    """``python -m pianobart_tpu_torch.cli pretrain`` as a user starts it,
+    in ``cwd``; with ``stop_after_epoch``, SIGTERM once ``meta.json`` shows
+    that epoch saved.  Returns (exit code, seconds); the process never
+    outlives the call."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                      os.environ.get("PYTHONPATH")])))
+    save = os.path.join(cwd, "result", "pretrain", "pianobart")
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "pianobart_tpu_torch.cli",
+                                 "pretrain"] + argv, cwd=cwd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            if stop_after_epoch is not None:
+                while (_meta(save) or {}).get("last_step") is None or \
+                        _meta(save)["last_step"] < stop_after_epoch:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                        raise AssertionError(f"{tag}: epoch {stop_after_epoch} was "
+                                             f"never saved (exit {proc.poll()})")
+                    time.sleep(0.05)
+                print(f"[pretrain_run] {tag}: epoch {stop_after_epoch} saved after "
+                      f"{time.perf_counter() - t0:.1f} s; SIGTERM")
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        for line in f:
+            if line.startswith(("train ", "Epoch", "[preempt]", "Time cost",
+                                "Traceback", "WARNING")) or "Error" in line:
+                print(f"[pretrain_run]   {tag}| {line.rstrip()}")
+    return rc, wall
+
+
+def phase_pretrain_run(state):
+    """The pretraining run as a user starts it, at flagship width (bf16
+    compute, f32 parameters, random init), every file in a temporary
+    directory outside the checkout: 64 two-track songs tokenized by the
+    native codec, checked, pretrained 3 epochs at B=8 with a safety save
+    every dispatch by the CLI in a subprocess, SIGTERM after epoch 1 (exit
+    75), ``--resume`` (exit 0); then in process the best checkpoint restored
+    into a fresh model re-scores its ``best_acc``, and a fourth epoch runs
+    with every kernel's launches counted."""
+    import io
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.data import load_pretrain
+    from pianobart_tpu_torch.midi import native
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.train import state as state_mod
+    from pianobart_tpu_torch.train.runner import PretrainRunner
+    from pianobart_tpu_torch.train.state import create_train_state
+
+    torch.cuda.empty_cache()
+    B, seed = 8, 2023          # the CLI's --batch_size here, its --seed default
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pbt_pretrain_run_")
+    try:
+        rng = np.random.default_rng(SEED + 4)
+        songs = os.path.join(tmp, "songs")
+        os.makedirs(songs)
+        for i in range(64):
+            _song(rng).dump(os.path.join(songs, f"song{i:02d}.mid"))
+        data = os.path.join(tmp, "Data", "output_pretrain")
+        t0 = time.perf_counter()
+        if not native.available():
+            raise AssertionError("the native MIDI codec did not build (g++)")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(["tokenize", "--dataset", songs, "--no_pad",
+                           "--out_root", data])
+            split = os.path.join(data, "songs", "songs_train_split.npy")
+            rc_check = cli.main(["check", "--file", split, "--packed"])
+        lines = log.getvalue().splitlines()
+        print(f"[pretrain_run] tokenize --no_pad by the native codec "
+              f"({os.path.basename(native._lib._name)}) in "
+              f"{time.perf_counter() - t0:.2f} s: "
+              + "; ".join(l for l in lines if "->" in l or "processed" in l))
+        print(f"[pretrain_run] check --packed: {' '.join(lines[-1:])} (exit {rc_check})")
+        if rc != 0 or rc_check != 0 or "64/64 MIDI files" not in log.getvalue():
+            raise AssertionError(f"tokenize/check failed: {lines}")
+
+        argv = ["--dataroot", data, "--datasets", "songs", "--batch_size", str(B),
+                "--epochs", "3", "--checkpoint_every_dispatches", "1"]
+        save = os.path.join(tmp, "result", "pretrain", "pianobart")
+        rc, wall1 = _pretrain_cli("run", argv, tmp, os.path.join(tmp, "run.log"),
+                                  stop_after_epoch=1)
+        meta = _meta(save)
+        print(f"[pretrain_run] run: exit {rc} after {wall1:.1f} s; meta last_step "
+              f"{meta['last_step']}, safety {meta.get('safety')}")
+        if rc != 75 or not (meta.get("safety") or meta["last_step"] > 1):
+            raise AssertionError("pretrain did not exit 75 with a safety or "
+                                 "epoch-end save on SIGTERM")
+        rc, wall2 = _pretrain_cli("resume", argv + ["--resume"], tmp,
+                                  os.path.join(tmp, "resume.log"))
+        meta = _meta(save)
+        epochs = [e["epoch"] for e in _epoch_events(save)]
+        print(f"[pretrain_run] resume: exit {rc} after {wall2:.1f} s; meta "
+              f"last_step {meta['last_step']}, history {[h['step'] for h in meta['history']]}, "
+              f"metrics.jsonl epochs {epochs}, best_step {meta['best_step']} "
+              f"best_acc {meta['best_acc']:.6f}")
+        if rc != 0 or meta["last_step"] != 3 or "safety" in meta or \
+                [h["step"] for h in meta["history"]] != [1, 2, 3] or epochs != [1, 2, 3]:
+            raise AssertionError("the resumed run did not end with epochs 1-3 "
+                                 "each saved and logged once")
+
+        # in process: a fresh model, the best checkpoint, the same data and seed
+        cfg = PianoBartConfig(dtype=torch.bfloat16)   # the CLI's defaults
+        X_train, X_val = load_pretrain(data, ["songs"], seed=seed)
+        st = create_train_state(init_lm(cfg, seed=1, device="cuda", train=True))
+        runner = PretrainRunner(st, cfg, X_train, X_val, save, batch_size=B,
+                                seed=seed, checkpoint_every_dispatches=1)
+        t0 = time.perf_counter()
+        _, best_step = runner.ckpt.restore(runner.state, best=True)
+        t_restore = time.perf_counter() - t0
+        va = runner.valid_epoch()
+        n_tok = np.asarray(cfg.field_sizes, dtype=np.float64)
+        rescored = float((va["field_acc"] * n_tok).sum() / n_tok.sum())
+        diff = abs(rescored - meta["best_acc"])
+        print(f"[pretrain_run] best/ (epoch {best_step}) restored into init_lm(seed=1) "
+              f"in {t_restore:.2f} s, re-scored: weighted acc {rescored:.6f} vs "
+              f"best_acc {meta['best_acc']:.6f}, |diff| {diff:.2e} (tol 1e-5)")
+        if diff > 1e-5:
+            raise AssertionError("the restored best checkpoint does not re-score best_acc")
+
+        saves, copies = [], []
+        for name in ("save", "save_safety"):
+            real = getattr(runner.ckpt, name)
+
+            def timed(*a, _real=real, _name=name, **k):
+                t = time.perf_counter()
+                _real(*a, **k)
+                saves.append((_name, time.perf_counter() - t))
+            setattr(runner.ckpt, name, timed)
+        real_payload = state_mod._payload
+
+        def timed_payload(st):   # the copy to the host, before torch.save
+            t = time.perf_counter()
+            out = real_payload(st)
+            copies.append(time.perf_counter() - t)
+            return out
+        n_train, n_valid = len(X_train) // B, -(-len(X_val) // B)
+        n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+        expect = _counts(k1=n_attn * (n_train + n_valid), k2=n_attn * n_train)
+        _reset_counts()
+        t0 = time.perf_counter()
+        state_mod._payload = timed_payload
+        try:
+            runner.run(4, resume=True)
+        finally:
+            state_mod._payload = real_payload
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        counts = _read_counts()
+        state["launches"]["pretrain_run"] = counts
+        events = _epoch_events(save)
+        last = events[-1]
+        print(f"[pretrain_run] run(4, resume=True) in {wall4:.1f} s: epoch "
+              f"{last['epoch']}, {n_train} train steps + {n_valid} valid batch(es) "
+              f"(train {len(X_train)}, valid {len(X_val)} windows), loss "
+              f"{last['train']['loss']:.4f}, weighted acc {last['weighted_acc']:.6f}")
+        print(f"[pretrain_run] launches ({COUNT_NAMES}) {tuple(counts.values())}, "
+              f"expected {expect}")
+        if tuple(counts.values()) != expect:
+            raise AssertionError(f"launches {counts}, expected {expect}")
+        if last["epoch"] != 4 or not np.isfinite(last["train"]["loss"]):
+            raise AssertionError("epoch 4 did not train")
+        tps = [round(e["train"]["tokens_per_sec"]) for e in events]
+        tokens = n_train * B * cfg.max_len
+        safety = sum(t for n, t in saves if n == "save_safety")
+        bare = tokens / (tokens / last["train"]["tokens_per_sec"] - safety)
+        base = state["train"]
+        print(f"[pretrain_run] tokens/s per epoch (B={B}, epochs 1-4, each "
+              f"including its safety save) {tps}; epoch 4 without its safety save "
+              f"{bare:.0f}; beside [train] of this run at B=32: {base['ms']:.1f} "
+              f"ms/step, {base['tokens_s']:.0f} tokens/s")
+        size = os.path.getsize(os.path.join(save, "step_4", "state.pt")) / 2**30
+        print(f"[pretrain_run] checkpoint saves of epoch 4, {size:.2f} GiB a payload "
+              f"(s, of which the copy to the host): " + ", ".join(
+                  f"{n} {t:.2f} ({c:.2f})" for (n, t), c in zip(saves, copies))
+              + f"; restore of best/ {t_restore:.2f}")
+        state["pretrain_run"] = dict(saves=saves, copies=copies, tokens_s=tps,
+                                     rescore_diff=diff)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[pretrain_run] wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1480,7 +1708,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("fused_ln", phase_fused_ln), ("serve", phase_serve),
           ("serve_http", phase_serve_http),
           ("train", phase_train), ("train_long", phase_train_long),
-          ("train_fused", phase_train_fused), ("train_f32", phase_train_f32))
+          ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
+          ("pretrain_run", phase_pretrain_run))
 
 
 if __name__ == "__main__":

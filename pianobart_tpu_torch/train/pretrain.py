@@ -5,7 +5,8 @@ One step: corrupt the clean batch on the device
 (:func:`~pianobart_tpu_torch.ops.noise.corrupt_batch`), encode the corrupted
 sequence, decode the right-shifted clean sequence (``<SOS>`` first), take the
 vocab-size-weighted masked cross-entropy against the clean sequence, then
-clip at 3.0 and take an AdamW step (lr 2e-5, wd 0.01).
+clip at 3.0 and take an AdamW step (lr 2e-5, wd 0.01), or under gradient
+accumulation add to the window's gradients (``train/state.py``).
 
 The step updates ``state.model`` in place (the role of JAX's
 ``donate_argnums``) and returns its metrics as device tensors: nothing in a
@@ -29,7 +30,7 @@ from .. import vocab as V
 from ..ops.noise import corrupt_batch
 from .objective import (masked_field_accuracy, masked_field_ce, shift_right,
                         weighted_average_accuracy)
-from .state import TrainState, clip_by_global_norm_logged
+from .state import TrainState, apply_gradients
 
 __all__ = ["pretrain_step", "pretrain_eval_step", "pretrain_multi_step",
            "batch_iterator"]
@@ -50,24 +51,32 @@ def _forward_loss(model, batch, corrupted, loss_mask, generator=None):
 
 
 def _update(state: TrainState, batch, corrupted, loss_mask, generator) -> Metrics:
-    """Gradient step on an already corrupted batch: forward, backward, clip,
-    AdamW.  Split out so that a test can feed the same corruption to both
-    packages."""
+    """Gradient step on an already corrupted batch: forward, backward, then
+    :func:`~pianobart_tpu_torch.train.state.apply_gradients` (clip, AdamW at
+    the schedule's rate, EMA; under accumulation only every
+    ``accum_steps``-th call).  Split out so that a test can feed the same
+    corruption to both packages.
+
+    The gradients are cleared when an accumulation window opens, that is
+    after each real update, so the micro-steps of a window sum into
+    ``.grad`` (and a window restored from a checkpoint carries on)."""
     model, opt = state.model, state.optimizer
     model.train()
-    opt.zero_grad(set_to_none=True)
+    if state.step % state.accum_steps == 0:
+        opt.zero_grad(set_to_none=True)
     total, (fused, per_field) = _forward_loss(model, batch, corrupted, loss_mask,
                                               generator)
     total.backward()
-    state.grad_norm = clip_by_global_norm_logged(model.parameters(), 3.0)
-    opt.step()
-    state.step += 1
+    apply_gradients(state)
+    # a micro-step reports the last real update's norm (0 before the first)
+    norm = (state.grad_norm if state.grad_norm is not None
+            else torch.zeros((), device=batch.device))
     with torch.no_grad():
         accs = masked_field_accuracy(fused.detach(), batch, loss_mask, model.cfg)
         return {"loss": total.detach(), "field_loss": per_field.detach(),
                 "field_acc": accs,
                 "weighted_acc": weighted_average_accuracy(accs, model.cfg),
-                "grad_norm": state.grad_norm,
+                "grad_norm": norm,
                 "tokens": torch.tensor(batch.shape[0] * batch.shape[1],
                                        device=batch.device)}
 

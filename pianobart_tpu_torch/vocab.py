@@ -1,7 +1,8 @@
-"""Octuple vocabulary: field layout, quantizer constants and bin tables.
+"""Octuple vocabulary: field layout, quantizer constants, bin tables and
+the reference-compatible dictionary (``Octuple.pkl``, ``dict.txt``).
 
-A copy of ``pianobart_tpu/vocab.py`` up to its event naming (the port
-imports nothing from the JAX package).  Eight per-field token spaces, each
+A copy of ``pianobart_tpu/vocab.py`` (the port imports nothing from the JAX
+package).  Eight per-field token spaces, each
 ending with six specials ``<PAD> <MASK> <SOS> <EOS> <CLS> <SEP>`` whose ids
 follow the largest content id of the field:
 
@@ -9,11 +10,16 @@ follow the largest content id of the field:
     Duration 134, Velocity 38, TimeSig 260, Tempo 55
 
 The quantizers (tempo, velocity, duration, time signature) are what the
-MIDI codec (:mod:`pianobart_tpu_torch.tokenizer.codec`) needs.
+MIDI codec (:mod:`pianobart_tpu_torch.tokenizer.codec`) needs;
+:class:`OctupleVocab` names every event as the reference's ``make_dict.py``
+does (``cli make-dict`` writes its pickle and ``dict.txt``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import pickle
+from functools import cached_property
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -71,6 +77,13 @@ TOTAL_VOCAB = sum(FIELD_SIZES)  # 1280
 #: Offsets of each field within the fused (concatenated) vocabulary.
 FIELD_OFFSETS: Tuple[int, ...] = tuple(sum(FIELD_SIZES[:i])
                                        for i in range(len(FIELD_SIZES)))
+
+PAD_WORD = np.array(PAD, dtype=np.int64)
+MASK_WORD = np.array(MASK, dtype=np.int64)
+SOS_WORD = np.array(SOS, dtype=np.int64)
+EOS_WORD = np.array(EOS, dtype=np.int64)
+CLS_WORD = np.array(CLS, dtype=np.int64)
+SEP_WORD = np.array(SEP, dtype=np.int64)
 
 
 def tempo_to_bin(bpm: float) -> int:
@@ -167,3 +180,116 @@ def time_signature_reduce(numerator: int, denominator: int) -> Tuple[int, int]:
                 numerator //= i
                 break
     return numerator, denominator
+
+
+# ---------------------------------------------------------------------------
+# Human-readable event naming (make_dict.py parity).
+# ---------------------------------------------------------------------------
+
+def _format_tempo(e: int) -> str:
+    # make_dict.py prints the float produced by e2b verbatim via f-string.
+    return f"Tempo {bin_to_tempo(e)}"
+
+
+def _content_event_names(field: str) -> List[str]:
+    if field == "Bar":
+        return [f"Bar {i}" for i in range(BAR_COUNT)]
+    if field == "Position":
+        denom = BEAT_NOTE_FACTOR * POS_RESOLUTION
+        return [f"Position {i}/{denom}" for i in range(MAX_POS_TOK + 1)]
+    if field == "Instrument":
+        return [f"Instrument {i}" for i in range(MAX_INST)] + ["Instrument percussion"]
+    if field == "Pitch":
+        names = [f"Pitch {i}" for i in range(128)]
+        names += [f"Pitch percussion {i}" for i in range(128)]
+        return names
+    if field == "Duration":
+        return [f"Duration {i}" for i in range(MAX_DURATION_TOK + 1)]
+    if field == "Velocity":
+        return [f"Velocity {bin_to_velocity(i)}" for i in range(MAX_VELOCITY_TOK + 1)]
+    if field == "TimeSig":
+        return [f"TimeSig {n}/{d}" for (n, d) in TS_LIST]
+    if field == "Tempo":
+        return [_format_tempo(i) for i in range(MAX_TEMPO_TOK + 1)]
+    raise KeyError(field)
+
+
+@dataclasses.dataclass(frozen=True)
+class OctupleVocab:
+    """The 8-field Octuple vocabulary with reference-compatible views."""
+
+    fields: Tuple[str, ...] = FIELDS
+    sizes: Tuple[int, ...] = FIELD_SIZES
+
+    @cached_property
+    def e2w(self) -> Dict[str, Dict[str, int]]:
+        out: Dict[str, Dict[str, int]] = {}
+        for f in self.fields:
+            names = _content_event_names(f) + [f"{f} {s}" for s in SPECIALS]
+            out[f] = {name: i for i, name in enumerate(names)}
+        return out
+
+    @cached_property
+    def w2e(self) -> Dict[str, Dict[int, str]]:
+        return {f: {i: n for n, i in m.items()} for f, m in self.e2w.items()}
+
+    @property
+    def n_tokens(self) -> List[int]:
+        return list(self.sizes)
+
+    @property
+    def total(self) -> int:
+        return TOTAL_VOCAB
+
+    @property
+    def offsets(self) -> Tuple[int, ...]:
+        return FIELD_OFFSETS
+
+    # Special words as (8,) arrays, mirroring PianoBart.py:38-41.
+    pad_word = PAD_WORD
+    mask_word = MASK_WORD
+    sos_word = SOS_WORD
+    eos_word = EOS_WORD
+    cls_word = CLS_WORD
+    sep_word = SEP_WORD
+
+    @property
+    def bar_pad_id(self) -> int:
+        return PAD[0]
+
+    def save_pickle(self, path: str) -> None:
+        """Dump an ``Octuple.pkl``-compatible ``(e2w, w2e)`` tuple."""
+        with open(path, "wb") as f:
+            pickle.dump((self.e2w, self.w2e), f)
+
+    @staticmethod
+    def from_pickle(path: str) -> "OctupleVocab":
+        """Load and *verify* a reference pickle matches the derived vocab."""
+        with open(path, "rb") as f:
+            e2w, _ = pickle.load(f)
+        vocab = OctupleVocab()
+        derived = vocab.e2w
+
+        def _norm(name: str) -> str:
+            # Tempo event names embed a float repr that differs across Python
+            # versions; normalize numerically.
+            if name.startswith("Tempo ") and not any(s in name for s in SPECIALS):
+                return f"Tempo {float(name.split(' ', 1)[1]):.9g}"
+            return name
+
+        for field in vocab.fields:
+            ref = {_norm(k): v for k, v in e2w[field].items()}
+            mine = {_norm(k): v for k, v in derived[field].items()}
+            if ref != mine:
+                raise ValueError(f"pickle vocabulary mismatch in field {field}")
+        return vocab
+
+    def dump_dict_txt(self, path: str) -> None:
+        """Write a ``dict.txt``-compatible listing (one line per token)."""
+        with open(path, "w") as f:
+            for field in self.fields:
+                for name, idx in self.e2w[field].items():
+                    f.write(f"{name}:  {idx}\n")
+
+
+VOCAB = OctupleVocab()

@@ -42,8 +42,13 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
-    assert len(mods) >= 38
-    # the serving path's MIDI modules, the demo and the CLI among them
+    assert len(mods) >= 46
+    # the serving path's MIDI modules, the demo and the CLI among them, and
+    # the pretraining run's: datasets, native codec, tokenizer pipeline and
+    # validators, runner, logging, preemption
     assert {f"pianobart_tpu_torch.{m}" for m in (
         "midi.events", "midi.parser", "midi.writer", "tokenizer.codec",
-        "tokenizer.segment", "serve.app", "serve.demo", "cli")} <= mods
+        "tokenizer.segment", "serve.app", "serve.demo", "cli",
+        "data", "data.datasets", "midi.native", "tokenizer.pipeline",
+        "tokenizer.validate", "train.state", "train.runner", "utils.logging",
+        "utils.preemption")} <= mods
