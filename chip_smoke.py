@@ -73,10 +73,31 @@ result line:
    each once); in process the best checkpoint restored into a fresh model
    re-scores ``best_acc`` to 1e-5, and a fourth epoch (``run(4,
    resume=True)``) launches K1 24 per train step and per validation batch,
-   K2 24 per train step; tokens/s per epoch and each save's seconds.
+   K2 24 per train step; tokens/s per epoch and each save's seconds;
+14. ``[finetune]``: the finetunes as a user runs them, at flagship width
+   (bf16 compute, f32 parameters, dropout 0.1, B=8), in a temporary directory
+   outside the checkout: 40 songs by 4 composers written by the port's MIDI
+   writer and tokenized by its ``tokenize`` for every task; ``finetune
+   --task composer --ckpt`` [pretrain_run]'s ``best/`` (the trunk grafted,
+   the head left as drawn, both checked), ``finetune --task velocity``,
+   ``finetune-generation --fad --ckpt`` the same ``best/``, one epoch each
+   in process (ms per train step, peak memory, a finite loss, ``best/``;
+   K1, delta and K2 24 per train step, K1 24 per eval batch); then melody,
+   emotion and the ablation one train and one eval step each through their
+   step functions, and 4 more emotion train steps under the profiler (the
+   device's busy share, the heaviest kernels, the clip and AdamW's share);
+15. ``[serve_ckpt]``: the generation finetune's ``best/`` exported by
+   ``export-ckpt`` to a reference ``.ckpt`` and converted back by
+   ``convert-ckpt`` (weights equal), ``create_app`` over the directory and
+   the file (each load's seconds), each loaded model's logits against the
+   finetuned model in memory (|diff| 0), both loaded again at the service's
+   default cfg (bf16 parameters equal to ``best/``'s cast to bf16), then 2
+   uploaded songs generated by
+   both models at once (a 200 whose MIDI parses back, or the 500 "no
+   notes"; K1 8 launches per decode batch).
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-pretrain_run) is driven with every
+pretrain_run, finetune, serve_ckpt) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -904,9 +925,11 @@ def _where_time_goes(model, x, S, steps=64):
                                      max_steps=steps, device="cuda"), steps)
 
 
-def _profile_window(tag, what, fn, steps):
+def _profile_window(tag, what, fn, steps, groups=None):
     """Run ``fn`` (``steps`` steps) under torch.profiler: the device's busy
-    share of the wall time, device ops per step, the heaviest kernels."""
+    share of the wall time, device ops per step, the heaviest kernels, and
+    the device time of each of ``groups`` ({label: predicate on a kernel's
+    name})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -918,7 +941,9 @@ def _profile_window(tag, what, fn, steps):
         wall = time.perf_counter() - t0
     per_name, busy_us = {}, 0.0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a user annotation on the device's timeline (the optimizer's
+        # "Optimizer.step#AdamW.step") spans kernels that are counted anyway
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             us = e.time_range.elapsed_us()
             busy_us += us
             n, t = per_name.get(e.name, (0, 0.0))
@@ -934,6 +959,10 @@ def _profile_window(tag, what, fn, steps):
           f"wall per step {1e3 * wall / steps:.2f} ms under the profiler")
     for name, (n, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"[{tag}]   {us / 1e3:9.3f} ms  x{n:<6d} {name[:90]}")
+    for label, pick in (groups or {}).items():
+        us = sum(t for name, (_, t) in per_name.items() if pick(name))
+        print(f"[{tag}] {label}: {us / 1e3:.3f} ms of the busy time "
+              f"({100 * us / busy_us:.1f}%), {us / 1e3 / steps:.3f} ms per step")
     return busy
 
 
@@ -1495,6 +1524,9 @@ def phase_pretrain_run(state):
     B, seed = 8, 2023          # the CLI's --batch_size here, its --seed default
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="pbt_pretrain_run_")
+    # kept for [finetune], which grafts its best/ (main() removes it)
+    state.setdefault("tmpdirs", []).append(tmp)
+    state["pretrain_best"] = os.path.join(tmp, "result", "pretrain", "pianobart", "best")
     try:
         rng = np.random.default_rng(SEED + 4)
         songs = os.path.join(tmp, "songs")
@@ -1622,8 +1654,411 @@ def phase_pretrain_run(state):
         state["pretrain_run"] = dict(saves=saves, copies=copies, tokens_s=tps,
                                      rescore_diff=diff)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        # only what [finetune] needs outlives the phase: best/ and meta.json
+        save = os.path.dirname(state["pretrain_best"])
+        for d in os.listdir(save) if os.path.isdir(save) else []:
+            if d not in ("best", "meta.json"):
+                path = os.path.join(save, d)
+                shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
     print(f"[pretrain_run] wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _supervised_cli(tag, argv, n_attn):
+    """One training command of the finetune CLI in process: each train and
+    eval step timed (synchronized), launches over the run, peak device
+    memory.  Checks the launches (K1 per attention per train step and per
+    eval batch, delta and K2 per attention per train step), a finite loss
+    and ``best/``.  Returns (runner, train-step seconds, launches)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.train import runner as runner_mod
+
+    runners, steps = [], {True: [], False: []}
+    real_init = runner_mod.SupervisedRunner.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        step_fn = self.step_fn
+
+        def timed(st, x, y, gen, train=True, weight=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(st, x, y, gen, train=train, weight=weight)
+            torch.cuda.synchronize()
+            steps[train].append(time.perf_counter() - t)
+            return out
+        self.step_fn = timed
+        runners.append(self)
+
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = _read_counts()
+    t0 = time.perf_counter()
+    runner_mod.SupervisedRunner.__init__ = init
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        runner_mod.SupervisedRunner.__init__ = real_init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = _read_counts()
+    counts = tuple(after[k] - before[k] for k in after)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run = runners[0]
+    with open(os.path.join(run.save_dir, "metrics.jsonl")) as f:
+        epoch = [e for e in map(json.loads, f) if e["event"] == "epoch"][-1]
+    n_train, n_eval = len(steps[True]), len(steps[False])
+    want = (-(-len(run.X_train) // 8), -(-len(run.X_val) // 8) + -(-len(run.X_test) // 8))
+    expect = _counts(k1=n_attn * (n_train + n_eval), k2=n_attn * n_train)
+    ms = [round(1e3 * t, 1) for t in steps[True]]
+    print(f"[finetune] {tag}: exit {rc} in {wall:.1f} s; {n_train} train steps "
+          f"(ms each {ms}; {np.median(ms[1:]):.1f} ms/step after the first), "
+          f"{n_eval} eval batches ({1e3 * np.mean(steps[False]):.1f} ms each); "
+          f"train {len(run.X_train)}, valid {len(run.X_val)}, test {len(run.X_test)} "
+          f"windows; loss {epoch['train']['loss']:.4f}, valid {epoch['valid']}; "
+          f"peak {peak:.2f} GiB; best/ "
+          f"{os.path.isdir(os.path.join(run.save_dir, 'best'))}")
+    print(f"[finetune] {tag}: launches ({COUNT_NAMES}) {counts}, expected {expect}")
+    if rc != 0 or (n_train, n_eval) != want or counts != expect:
+        raise AssertionError(f"{tag}: exit {rc}, steps {(n_train, n_eval)} (want "
+                             f"{want}), launches {counts}")
+    if not np.isfinite(epoch["train"]["loss"]) or not os.path.isdir(
+            os.path.join(run.save_dir, "best")):
+        raise AssertionError(f"{tag}: no finite loss or no best/")
+    return run, ms, counts
+
+
+def phase_finetune(state):
+    """The finetunes as a user runs them, at flagship width (bf16 compute,
+    f32 parameters, dropout 0.1, the CLI's B=8), in a temporary directory
+    outside the checkout: 40 two-track songs by 4 composers written by the
+    port's MIDI writer, tokenized by the port's ``tokenize`` for every task;
+    ``finetune --task composer --ckpt`` [pretrain_run]'s ``best/`` (the
+    trunk grafted onto the classifier, checked), ``finetune --task
+    velocity`` and ``finetune-generation --fad --ckpt`` the same, one epoch
+    each; then melody, emotion and the ablation one train and one eval step
+    each through their step functions, and 4 more emotion train steps under
+    the profiler."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.compat.from_jax import init_model
+    from pianobart_tpu_torch.data import load_finetune
+    from pianobart_tpu_torch.models import (PianoBartConfig, PianoBartLM,
+                                            SequenceClassification,
+                                            TokenClassification)
+    from pianobart_tpu_torch.train.finetune import (finetune_seq_step,
+                                                    finetune_token_step)
+    from pianobart_tpu_torch.train.generation import ablation_step
+    from pianobart_tpu_torch.train.state import CheckpointManager, create_train_state
+
+    t_phase = time.perf_counter()
+    pre_best = state["pretrain_best"]
+    tmp = tempfile.mkdtemp(prefix="pbt_finetune_")
+    state["tmpdirs"].append(tmp)
+    state["finetune_dir"] = tmp
+    here = os.getcwd()
+    cfg = PianoBartConfig(dtype=torch.bfloat16)        # the CLI's defaults
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    try:
+        os.chdir(tmp)        # the CLI writes result/finetune/<run>/ here
+        rng = np.random.default_rng(SEED + 5)
+        for comp in ("Bach", "Chopin", "Liszt", "Mozart"):
+            os.makedirs(os.path.join("songs", comp))
+            for i in range(10):      # Q1-Q4: the emotion labels of the names
+                _song(rng).dump(os.path.join("songs", comp, f"Q{i % 4 + 1}_{comp}{i}.mid"))
+        data = {}
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            for task in ("composer", "velocity", "generate", "melody", "emotion"):
+                if cli.main(["tokenize", "--dataset", "songs", "--task", task,
+                             "--out_root", os.path.join("Data", task)]) != 0:
+                    raise AssertionError(f"tokenize --task {task} failed")
+                data[task] = os.path.abspath(os.path.join("Data", task, "songs"))
+        print(f"[finetune] tokenize --task composer/velocity/generate/melody/emotion "
+              f"of 40 songs in {time.perf_counter() - t0:.1f} s: "
+              + "; ".join(l for l in log.getvalue().splitlines() if "train:" in l))
+
+        # the pretrain trunk grafted onto the composer classifier, checked
+        real_graft, grafts = cli._load_init_ckpt, []
+
+        def checked(model, args):
+            drawn = {k: v.clone() for k, v in model.state_dict().items()
+                     if not k.startswith("pianobart.")}
+            out = real_graft(model, args)
+            saved = CheckpointManager(args.ckpt).params()
+            sd = out.state_dict()
+            trunk = [k for k in sd if k.startswith("pianobart.")]
+            grafts.append((
+                all(torch.equal(sd[k], saved[k].to(sd[k].device)) for k in trunk),
+                all(torch.equal(sd[k], v) for k, v in drawn.items()), len(trunk),
+                len(drawn)))
+            return out
+        cli._load_init_ckpt = checked
+        try:
+            _reset_counts()
+            _supervised_cli("composer", [
+                "finetune", "--task", "composer", "--dataroot", data["composer"],
+                "--dataset", "songs", "--epochs", "1", "--ckpt", pre_best], n_attn)
+        finally:
+            cli._load_init_ckpt = real_graft
+        trunk_ok, head_ok, n_trunk, n_head = grafts[0]
+        print(f"[finetune] composer --ckpt [pretrain_run]'s best/: {n_trunk} trunk "
+              f"tensors equal the checkpoint's: {trunk_ok}; {n_head} head tensors "
+              f"kept their draw: {head_ok}")
+        if not (trunk_ok and head_ok):
+            raise AssertionError("the graft of the pretrain trunk is wrong")
+        _supervised_cli("velocity", [
+            "finetune", "--task", "velocity", "--dataroot", data["velocity"],
+            "--dataset", "songs", "--epochs", "1"], n_attn)
+        gen, _, _ = _supervised_cli("generation", [
+            "finetune-generation", "--dataroot", data["generate"], "--datasets",
+            "songs", "--fad", "--epochs", "1", "--ckpt", pre_best], n_attn)
+        state["gen_best"] = os.path.abspath(os.path.join(gen.save_dir, "best"))
+        model = gen.state.model.eval()
+        for p in model.parameters():
+            p.grad = None
+        state["gen_model"] = model
+        del gen
+
+        # melody, emotion, ablation: one train and one eval step at B=8
+        def one_step(tag, cls, kw, step, task, where, profile=0):
+            X, _, _, Y, _, _ = load_finetune(data[where], "songs", task)
+            x = torch.as_tensor(X[:8].astype(np.int64), device="cuda")
+            y = np.asarray(Y[:8]).astype(np.int64)
+            if y.ndim == 3 and y.shape[-1] == 1:      # token labels (N, S, 1)
+                y = y[..., 0]
+            y = torch.as_tensor(y, device="cuda")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m = init_model(cls, cfg, seed=SEED, device="cuda", train=True, **kw)
+            st = create_train_state(m)
+            gen_ = torch.Generator(device="cuda").manual_seed(SEED)
+            before = _read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, mt = step(st, x, y, gen_, train=True)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t
+            mid = _read_counts()
+            t = time.perf_counter()
+            _, me = step(st, x, y, None, train=False)
+            torch.cuda.synchronize()
+            t_eval = time.perf_counter() - t
+            after = _read_counts()
+            tr = tuple(mid[k] - before[k] for k in mid)
+            ev = tuple(after[k] - mid[k] for k in mid)
+            losses = (mt["loss"].item(), me["loss"].item())
+            print(f"[finetune] {tag}: B={len(x)} first train step {1e3 * t_train:.1f} ms, "
+                  f"eval step {1e3 * t_eval:.1f} ms, losses {losses}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches train "
+                  f"{tr} eval {ev}")
+            if tr != _counts(k1=n_attn, k2=n_attn) or ev != _counts(k1=n_attn) \
+                    or not np.isfinite(losses).all() or st.step != 1:
+                raise AssertionError(f"{tag}: launches {tr} / {ev}, losses {losses}")
+            if profile:
+                # where a finetune train step's time goes: the device's busy
+                # share, and the clip and AdamW (foreach kernels over the
+                # f32 parameters) beside the forward and backward
+                _profile_window(
+                    "finetune", f"{profile} {tag} train steps at B={len(x)}",
+                    lambda: [step(st, x, y, gen_, train=True) for _ in range(profile)],
+                    profile, {"clip + AdamW (multi_tensor_apply kernels)":
+                              lambda n: "multi_tensor_apply" in n})
+
+        one_step("melody", TokenClassification, {"class_num": 5},
+                 finetune_token_step, "melody", "melody")
+        one_step("emotion", SequenceClassification, {"class_num": 4},
+                 finetune_seq_step, "emotion", "emotion", profile=4)
+        one_step("ablation", PianoBartLM, {},
+                 lambda st, x, y, g, train, weight=None: ablation_step(
+                     st, x, g, train=train, weight=weight), "gen", "generate")
+        state["launches"]["finetune"] = _read_counts()
+    finally:
+        os.chdir(here)
+    print(f"[finetune] wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_serve_ckpt(state):
+    """Serving from checkpoints: the generation finetune's ``best/`` exported
+    to a reference ``.ckpt`` (``export-ckpt``) and converted back
+    (``convert-ckpt``, its weights checked equal); ``create_app`` over the
+    directory and the file, each load timed; each loaded model's fused
+    logits on one batch (B=2) against the finetuned model in memory
+    (|diff| 0: the same f32 parameters, the same kernels); both loaded at
+    the service's default cfg (``serve --ckpt`` as users run it), their bf16
+    parameters checked equal to ``best/``'s cast; then 2 uploaded
+    songs, each a ``GET /api/generate/<model>/<file>`` to both models at
+    once, K1 8 launches per decode batch."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.midi import midi_bytes
+    from pianobart_tpu_torch.models import PianoBartConfig, attention_mask_from_bars
+    from pianobart_tpu_torch.ops.flash import flash_attention_fwd
+    from pianobart_tpu_torch.serve.app import create_app
+    from pianobart_tpu_torch.serve.demo import window_to_midi
+    from pianobart_tpu_torch.train.state import CheckpointManager
+
+    t_phase = time.perf_counter()
+    best, model = state.pop("gen_best"), state.pop("gen_model")
+    here = os.getcwd()
+    work = os.path.join(state["finetune_dir"], "serve")
+    os.makedirs(work)
+    ref = os.path.join(work, "generation.ckpt")
+    try:
+        os.chdir(work)   # App keeps uploads/ and outputs/ here
+        timings = {}
+        for name, argv in (("export-ckpt", ["export-ckpt", "--ckpt", best, "--output", ref]),
+                           ("convert-ckpt", ["convert-ckpt", "--ckpt", ref, "--output",
+                                             "converted"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli.main(argv) != 0:
+                    raise AssertionError(f"{name} failed")
+            timings[name] = time.perf_counter() - t0
+        a, b = CheckpointManager(best).params(), CheckpointManager("converted").params()
+        same = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+        print(f"[serve_ckpt] export-ckpt of best/ to a reference .ckpt "
+              f"({os.path.getsize(ref) / 2**30:.2f} GiB) in {timings['export-ckpt']:.1f} s, "
+              f"convert-ckpt back in {timings['convert-ckpt']:.1f} s; the converted "
+              f"weights equal best/'s: {same}")
+        if not same:
+            raise AssertionError("export-ckpt then convert-ckpt changed the weights")
+
+        cfg = PianoBartConfig(dtype=torch.bfloat16)   # the finetune's: f32 params
+        app = create_app(ckpts={"finetuned": best, "exported": ref}, device="cuda",
+                         cfg=cfg)
+        payload = os.path.getsize(os.path.join(best, "state.pt")) / 2**30
+        for name, svc in app.services.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc._ensure()
+            torch.cuda.synchronize()
+            print(f"[serve_ckpt] load '{name}' ({svc.ckpt}; "
+                  f"{payload if name == 'finetuned' else os.path.getsize(ref) / 2**30:.2f}"
+                  f" GiB file) in {time.perf_counter() - t0:.2f} s")
+        X = np.load(os.path.join(state["finetune_dir"], "Data", "generate", "songs",
+                                 "songs_test.npy"))
+        x = torch.as_tensor(np.concatenate([X, X])[:2].astype(np.int64), device="cuda")
+        mask = attention_mask_from_bars(x)
+        with torch.no_grad():
+            want = model(x, x, mask, mask)
+            for name, svc in app.services.items():
+                diff = (svc.model(x, x, mask, mask).float() - want.float()).abs().max().item()
+                print(f"[serve_ckpt] '{name}' fused logits (B=2) against the finetuned "
+                      f"model in memory: |diff| {diff}")
+                if diff != 0.0:
+                    raise AssertionError(f"'{name}' loads other weights (|diff| {diff})")
+        del model, want
+        # serve --ckpt / demo --ckpt as users run them: the service's default
+        # cfg casts the f32 checkpoint into bf16 parameters on load
+        for name, svc in create_app(ckpts={"finetuned": best, "exported": ref},
+                                    device="cuda").services.items():
+            t0 = time.perf_counter()
+            svc._ensure()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = svc.model.state_dict()
+            bad = sorted(set(got) ^ set(a)) + [
+                k for k, v in a.items() if k in got and not torch.equal(
+                    got[k].cpu(), v.to(torch.bfloat16) if v.is_floating_point() else v)]
+            print(f"[serve_ckpt] load '{name}' with the default cfg (bf16 parameters) "
+                  f"in {dt:.2f} s; {len(got) - len(bad)} of {len(a)} tensors equal "
+                  f"best/'s cast to bf16")
+            if bad:
+                raise AssertionError(f"'{name}' at the default cfg: {bad[:5]} differ")
+            svc.model = None
+        torch.cuda.empty_cache()
+
+        grids = {}
+        for name, svc in app.services.items():
+            decode = svc._decode_batch
+
+            def recording(intros, seeds, _decode=decode, _name=name):
+                out = _decode(intros, seeds)
+                grids.setdefault(_name, []).extend(out)
+                return out
+            svc._decode_batch = recording
+
+        def written():
+            out = []
+            for g in (g for gs in grids.values() for g in gs):
+                if window_to_midi(g, "check.mid"):
+                    with open("check.mid", "rb") as f:
+                        out.append(f.read())
+            return out
+
+        rng = np.random.default_rng(SEED + 6)
+        names = []
+        for i in range(2):
+            body = (b"--pbx\r\nContent-Disposition: form-data; name=\"file\"; "
+                    b"filename=\"s.mid\"\r\n\r\n" + midi_bytes(_song(rng))
+                    + b"\r\n--pbx--\r\n")
+            st, _, out = _wsgi(app, "POST", "/api/upload", body,
+                               "multipart/form-data; boundary=pbx")
+            if st != "200 OK":
+                raise AssertionError(f"upload answered {st}")
+            names.append(json.loads(out)["file"])
+        _reset_counts()
+        answers = {}
+
+        def client(model_name, fname):
+            t = time.perf_counter()
+            answers[model_name, fname] = (_wsgi(app, "GET",
+                                                f"/api/generate/{model_name}/{fname}"),
+                                          time.perf_counter() - t)
+        threads = [threading.Thread(target=client, args=(m, f))
+                   for m in app.services for f in names]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a generate request never returned")
+        wall = time.perf_counter() - t0
+        ends = []
+        for (m, f), ((st, _, body), lat) in sorted(answers.items()):
+            kind, j = _check_answer(app, st, body, written)
+            ends.append(kind)
+            print(f"[serve_ckpt]   {m}/{f}: {kind} in {lat:.3f} s"
+                  + (f", attempts {j['attempts']} batch {j['batch_size_served']}"
+                     if j else ""))
+        state["launches"]["serve_ckpt"] = _read_counts()
+        batches = sum(len(s.batch_sizes_served) for s in app.services.values())
+        k1 = flash_attention_fwd.launches
+        _, _, health = _wsgi(app, "GET", "/api/health")
+        print(f"[serve_ckpt] {len(threads)} requests in {wall:.2f} s: "
+              f"{ends.count('200')} x 200, {ends.count('500')} x 500 (no notes); "
+              f"{batches} decode batches, K1 launches {k1} (expected "
+              f"{cfg.encoder_layers * batches}); health {json.loads(health)}")
+        if k1 != cfg.encoder_layers * batches:
+            raise AssertionError(f"K1 launched {k1} times for {batches} decode batches")
+        others = {n: c for n, c in state["launches"]["serve_ckpt"].items()
+                  if c and n != "flash_attention_fwd"}
+        if others:
+            raise AssertionError(f"kernels off this path launched: {others}")
+        for svc in app.services.values():
+            svc.model = None      # the worker threads outlive the phase
+    finally:
+        os.chdir(here)
+    torch.cuda.empty_cache()
+    print(f"[serve_ckpt] wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1640,16 +2075,21 @@ def main() -> int:
     except ImportError:
         print("FAIL: pianobart_tpu_torch is not beside chip_smoke.py", file=sys.stderr)
         return 1
-    state = {}
-    for name, phase in PHASES:
-        t0 = time.perf_counter()
-        try:
-            phase(state)
-        except Exception:
-            traceback.print_exc()
-            print(f"FAIL: phase {name}", file=sys.stderr)
-            return 1
-        print(f"[{name}] phase ok in {time.perf_counter() - t0:.1f} s")
+    import shutil
+    state = {"launches": {}, "tmpdirs": []}
+    try:
+        for name, phase in PHASES:
+            t0 = time.perf_counter()
+            try:
+                phase(state)
+            except Exception:
+                traceback.print_exc()
+                print(f"FAIL: phase {name}", file=sys.stderr)
+                return 1
+            print(f"[{name}] phase ok in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for d in state["tmpdirs"]:
+            shutil.rmtree(d, ignore_errors=True)
     print(state["smi"])
     print(json.dumps({"kernels": [
         _kernel_record(*rec, state) for rec in KERNEL_RECORDS]}))
@@ -1709,7 +2149,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("serve_http", phase_serve_http),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
-          ("pretrain_run", phase_pretrain_run))
+          ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
+          ("serve_ckpt", phase_serve_ckpt))
 
 
 if __name__ == "__main__":

@@ -4,18 +4,25 @@ JAX CLI's flags plus ``--device``:
     python -m pianobart_tpu_torch.cli tokenize --dataset songs/ --no_pad
     python -m pianobart_tpu_torch.cli pretrain --dataroot Data/output_pretrain --datasets songs
     python -m pianobart_tpu_torch.cli pretrain ... --resume
+    python -m pianobart_tpu_torch.cli finetune --task composer --dataset pianist8 --ckpt result/pretrain/pianobart
+    python -m pianobart_tpu_torch.cli finetune-generation --dataroot ... --datasets maestro --fad
+    python -m pianobart_tpu_torch.cli ablation --dataroot ... --datasets maestro
+    python -m pianobart_tpu_torch.cli eval-gen --ckpt ... --dataroot ... --output gen.npy
+    python -m pianobart_tpu_torch.cli export-ckpt --ckpt result/finetune/generation_pianobart --output gen.ckpt
+    python -m pianobart_tpu_torch.cli convert-ckpt --ckpt gen.ckpt --output converted/
     python -m pianobart_tpu_torch.cli check --file songs_train_split.npy --packed
     python -m pianobart_tpu_torch.cli concat --dataroot ... --datasets a b --output all.npy
     python -m pianobart_tpu_torch.cli make-dict --out_dir Data
-    python -m pianobart_tpu_torch.cli serve --warm
-    python -m pianobart_tpu_torch.cli demo --input song.mid --output out.mid
+    python -m pianobart_tpu_torch.cli serve --ckpt gen=result/finetune/generation_pianobart --warm
+    python -m pianobart_tpu_torch.cli demo --input song.mid --output out.mid --ckpt gen.ckpt
 
-``pretrain``, ``serve`` and ``demo`` run on CUDA unless ``--device cpu`` is
-given, and raise without a card otherwise; the data commands run on the
-host.  ``pretrain --ckpt`` takes the port's own checkpoint directories;
-serving still runs random weights (``--nopretrain``, or no ``--ckpt``): a
-checkpoint path there raises until serving loads one (ROADMAP Queue A item
-6).  The other subcommands come with their slices.
+The training commands, ``eval-gen``, ``serve`` and ``demo`` run on CUDA
+unless ``--device cpu`` is given, and raise without a card otherwise; the
+data and checkpoint-conversion commands run on the host.  ``--ckpt`` takes
+a checkpoint directory of the port (a manager root or a payload directory)
+or a reference ``.ckpt``/``.pth`` file; a merged ``.msgpack`` raises until
+merging is ported (ROADMAP Queue A item 6b).  The JAX package's orbax
+checkpoints reach the port through the JAX CLI's ``export-ckpt``.
 """
 from __future__ import annotations
 
@@ -49,7 +56,8 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint to initialize from (a checkpoint "
-                        "directory of the port)")
+                        "directory of the port, or a reference .ckpt/.pth); "
+                        "the entries the model shares are grafted")
     p.add_argument("--resume", action="store_true",
                    help="resume epoch/optimizer from the save dir")
     p.add_argument("--nopretrain", action="store_true")
@@ -74,10 +82,12 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _cfg_from_args(args, **kw):
-    """``--dtype bf16``: bf16 compute over f32 parameters."""
+    """``--dtype bf16`` (the default, also of the commands without the flag):
+    bf16 compute over f32 parameters."""
     import torch
     from .models import PianoBartConfig
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    dtype = (torch.bfloat16 if getattr(args, "dtype", "bf16") == "bf16"
+             else torch.float32)
     return PianoBartConfig(
         d_model=args.hs, encoder_layers=args.layers,
         decoder_layers=args.layers, ffn_dim=args.ffn_dims,
@@ -86,18 +96,26 @@ def _cfg_from_args(args, **kw):
 
 
 def _load_init_ckpt(model, args):
-    """--ckpt: the port's checkpoint directory (a manager root or a payload
-    directory).  Merged ``.msgpack`` files and reference ``.ckpt`` files
-    load with ROADMAP Queue A item 6."""
+    """--ckpt: graft the checkpoint's entries that the model shares (a
+    pretrain trunk into a classifier, a finetune into an LM) onto the drawn
+    model.  A directory is a checkpoint of the port; a file a reference
+    ``.ckpt``/``.pth`` (its kind detected); a merged ``.msgpack`` raises
+    (ROADMAP Queue A item 6b)."""
     if not args.ckpt or args.nopretrain:
         return model
-    if os.path.isdir(args.ckpt):
-        from .train.state import CheckpointManager
-        return CheckpointManager(args.ckpt).restore_params(model)
-    raise NotImplementedError(
-        f"cannot load checkpoint {args.ckpt!r}: the PyTorch port loads its "
-        f"own checkpoint directories only; merged .msgpack and reference "
-        f".ckpt files come with checkpoint interop (ROADMAP Queue A item 6)")
+    from .decode import checkpoint_entries
+    from .train.state import graft_
+    graft_(model, checkpoint_entries(args.ckpt, model.cfg), args.ckpt)
+    return model
+
+
+def _train_state(model, args):
+    from .train.state import create_train_state
+    return create_train_state(model, args.lr, schedule=args.lr_schedule,
+                              warmup_steps=args.warmup_steps,
+                              decay_steps=args.decay_steps,
+                              accum_steps=args.accum_steps,
+                              ema_decay=args.ema_decay)
 
 
 def _make_lr_fn(args, lr: float):
@@ -149,7 +167,6 @@ def cmd_pretrain(args) -> int:
     from .data import load_pretrain
     from .device import resolve_device
     from .train.runner import PretrainRunner
-    from .train.state import create_train_state
 
     device = resolve_device(args.device)
     cfg = _cfg_from_args(args)
@@ -164,11 +181,7 @@ def cmd_pretrain(args) -> int:
             f"{X_train.shape[1]}")
     model = _load_init_ckpt(init_lm(cfg, seed=args.seed, device=device,
                                     train=True), args)
-    state = create_train_state(model, args.lr, schedule=args.lr_schedule,
-                               warmup_steps=args.warmup_steps,
-                               decay_steps=args.decay_steps,
-                               accum_steps=args.accum_steps,
-                               ema_decay=args.ema_decay)
+    state = _train_state(model, args)
     save_dir = os.path.join("result", "pretrain", args.name)
     runner = PretrainRunner(state, cfg, X_train, X_val, save_dir,
                             batch_size=args.batch_size,
@@ -178,6 +191,190 @@ def cmd_pretrain(args) -> int:
                                 args.checkpoint_every_dispatches),
                             lr_fn=_make_lr_fn(args, args.lr))
     return _run_guarded(runner, args.epochs, args.resume)
+
+
+def cmd_finetune(args) -> int:
+    import functools
+    from .compat.from_jax import init_model
+    from .data import load_finetune
+    from .device import resolve_device
+    from .models import SequenceClassification, TokenClassification
+    from .train.finetune import finetune_seq_step, finetune_token_step
+    from .train.runner import SupervisedRunner
+
+    class_num = args.class_num or {"melody": 4, "velocity": 7,
+                                   "composer": 8, "emotion": 4}[args.task]
+    seq = args.task in ("composer", "emotion")
+    velocity = args.task == "velocity"
+    device = resolve_device(args.device)
+    cfg = _cfg_from_args(
+        args, decoder_label_vocab=(class_num + 1 if velocity else None))
+    data = list(load_finetune(args.dataroot, args.dataset, args.task))
+    # token labels come out of the tokenizer as (N, S, 1)
+    for i in range(3, 6):
+        y = np.asarray(data[i])
+        if y.ndim == 3 and y.shape[-1] == 1:
+            data[i] = y.squeeze(-1)
+    # fail fast on out-of-range labels (a CE gather past the classes)
+    n_classes = class_num + (0 if seq else 1)
+    y_max = max(int(np.asarray(data[i]).max()) for i in range(3, 6))
+    if y_max >= n_classes:
+        raise SystemExit(
+            f"label id {y_max} out of range for --class_num {class_num} "
+            f"({n_classes} classes); pass --class_num {y_max + (1 if seq else 0)}")
+    model = init_model(SequenceClassification if seq else TokenClassification,
+                       cfg, seed=args.seed, device=device, train=True,
+                       class_num=n_classes)
+    state = _train_state(_load_init_ckpt(model, args), args)
+    save_dir = os.path.join("result", "finetune", f"{args.task}_{args.name}")
+    if seq:
+        step = functools.partial(finetune_seq_step, reg_weight=args.weight)
+    else:
+        step = functools.partial(finetune_token_step, velocity=velocity,
+                                 reg_weight=args.weight)
+    runner = SupervisedRunner(state, cfg, step, data, save_dir,
+                              batch_size=args.batch_size, patience=3,
+                              seed=args.seed, lr_fn=_make_lr_fn(args, args.lr))
+    return _run_guarded(runner, args.epochs, args.resume)
+
+
+def cmd_finetune_generation(args) -> int:
+    from .compat.from_jax import init_lm
+    from .data import load_finetune
+    from .device import resolve_device
+    from .train.generation import generation_step
+    from .train.runner import SupervisedRunner
+    from .utils.fad import generation_fad
+
+    device = resolve_device(args.device)
+    cfg = _cfg_from_args(args)
+    data = load_finetune(args.dataroot, args.datasets, "gen")
+    model = init_lm(cfg, seed=args.seed, device=device, train=True)
+    state = _train_state(_load_init_ckpt(model, args), args)
+    save_dir = os.path.join("result", "finetune", f"generation_{args.name}")
+
+    def step_fn(state, x, y, generator, train=True, weight=None):
+        return generation_step(state, x, y, generator,
+                               decoder_mode=args.decoder_mode, train=train,
+                               weight=weight)
+
+    def eval_hook(x, y, metrics):
+        if not args.fad:
+            return {}
+        fad, fad_bar = generation_fad(y, metrics["outputs"], metrics["attn_dec"],
+                                      jit_windows=args.fad_jit, device=device)
+        return {"fad": fad, "fad_bar": fad_bar}
+
+    runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
+                              batch_size=args.batch_size, patience=30,
+                              seed=args.seed, select="weighted_field_acc",
+                              eval_hook=eval_hook,
+                              lr_fn=_make_lr_fn(args, args.lr))
+    return _run_guarded(runner, args.epochs, args.resume)
+
+
+def cmd_ablation(args) -> int:
+    from .compat.from_jax import init_lm
+    from .device import resolve_device
+    from .train.generation import ablation_step
+    from .train.runner import SupervisedRunner
+
+    device = resolve_device(args.device)
+    cfg = _cfg_from_args(args)
+    # full sequences (Ablation.py:279-304), split 80/10/10 after a seeded
+    # shuffle
+    parts, looked = [], []
+    for split in ("train", "test", "valid"):
+        p = os.path.join(args.dataroot, f"{args.datasets}_{split}.npy")
+        looked.append(p)
+        if os.path.exists(p):
+            parts.append(np.load(p, allow_pickle=True))
+    if not parts:
+        raise SystemExit(f"no ablation data found; looked for: {looked}")
+    arr = np.concatenate(parts, axis=0)
+    arr = arr[np.random.default_rng(args.seed).permutation(len(arr))]
+    s1, s2 = int(len(arr) * 0.8), int(len(arr) * 0.9)
+    X_train, X_val, X_test = arr[:s1], arr[s1:s2], arr[s2:]
+    data = (X_train, X_val, X_test, X_train, X_val, X_test)
+    model = init_lm(cfg, seed=args.seed, device=device, train=True)
+    state = _train_state(_load_init_ckpt(model, args), args)
+    save_dir = os.path.join("result", "finetune", f"ablation_{args.name}")
+
+    def step_fn(state, x, y, generator, train=True, weight=None):
+        return ablation_step(state, x, generator, train=train, weight=weight)
+
+    runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
+                              batch_size=args.batch_size, patience=30,
+                              seed=args.seed, select="weighted_field_acc",
+                              lr_fn=_make_lr_fn(args, args.lr))
+    return _run_guarded(runner, args.epochs, args.resume)
+
+
+def cmd_eval_gen(args) -> int:
+    """Generation over a test set, the tail padded to the batch -> one
+    stacked ``.npy`` (the reference's ``eval_generation.py``)."""
+    import torch
+    from .decode import generate, load_inference_model
+    from .device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _cfg_from_args(args)
+    X = np.load(os.path.join(args.dataroot, f"{args.datasets}_test.npy"),
+                allow_pickle=True).astype(np.int32)
+    model = load_inference_model(
+        cfg, None if args.nopretrain else args.ckpt, args.seed, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    outs = []
+    bs = args.batch_size
+    for i in range(0, len(X), bs):
+        chunk = X[i:i + bs]
+        n = len(chunk)
+        if n < bs:
+            chunk = np.concatenate([chunk, np.tile(chunk[:1], (bs - n, 1, 1))])
+        out = generate(model, chunk, generator=gen, device=device).cpu().numpy()
+        outs.append(out[:n])
+        print(f"generated {i + n}/{len(X)}")
+    out = np.concatenate(outs, axis=0)
+    np.save(args.output, out)
+    print(f"saved {out.shape} to {args.output}")
+    return 0
+
+
+def cmd_convert_ckpt(args) -> int:
+    """A reference ``.ckpt``/``.pth`` -> a checkpoint directory of the port
+    (a ``PianoBartLM``: the entries it lacks drawn from seed 0)."""
+    from .decode import load_inference_model
+    from .train.state import CheckpointManager, create_train_state
+
+    model = load_inference_model(_cfg_from_args(args), args.ckpt, 0, "cpu",
+                                 kind=args.kind)
+    CheckpointManager(args.output).save(
+        0, create_train_state(model), {"weighted_acc": -1.0, "source": args.ckpt},
+        is_best=True)
+    print(f"converted {args.ckpt} -> {args.output}")
+    return 0
+
+
+def cmd_export_ckpt(args) -> int:
+    """A checkpoint directory of the port -> a reference ``.ckpt`` (its
+    weights, or with ``--ema`` its EMA shadow, grafted onto a
+    ``PianoBartLM``)."""
+    from .compat.torch_export import export_lm, export_trunk, save_torch_checkpoint
+    from .decode import load_inference_model
+    from .train.state import CheckpointManager
+
+    cfg = _cfg_from_args(args)
+    model = load_inference_model(cfg, args.ckpt, 0, "cpu")
+    if args.ema:
+        CheckpointManager(args.ckpt).restore_ema_params(model)
+    sd = model.state_dict()
+    sd = (export_trunk(sd, cfg, strict_ref=args.strict_ref) if args.trunk_only
+          else export_lm(sd, cfg, strict_ref=args.strict_ref))
+    save_torch_checkpoint(sd, args.output)
+    print(f"exported {args.ckpt} -> {args.output} "
+          f"({'trunk' if args.trunk_only else 'lm'}"
+          f"{', ema' if args.ema else ''}, {len(sd)} tensors)")
+    return 0
 
 
 def cmd_tokenize(args) -> int:
@@ -234,7 +431,7 @@ def cmd_demo(args) -> int:
 
 def cmd_serve(args) -> int:
     # "name=path" entries register named models; a bare path registers as
-    # "pianobart" (create_app refuses any path until checkpoints load)
+    # "pianobart"
     from .serve.app import create_app, parse_ckpt_registry
     app = create_app(ckpts=parse_ckpt_registry(args.ckpt),
                      max_batch=args.max_batch,
@@ -266,6 +463,77 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(sp)
     _add_train_flags(sp)
     sp.set_defaults(fn=cmd_pretrain)
+
+    sf = sub.add_parser("finetune")
+    sf.add_argument("--task", required=True,
+                    choices=["melody", "velocity", "composer", "emotion"])
+    sf.add_argument("--dataset", type=str, required=True)
+    sf.add_argument("--dataroot", type=str, default="Data/finetune/others")
+    sf.add_argument("--class_num", type=int, default=None)
+    sf.add_argument("--weight", type=float, default=None,
+                    help="L2 regularization weight (sum of the parameters' "
+                         "unsquared L2 norms, as the reference)")
+    sf.add_argument("--error_correction", action="store_true",
+                    help="accepted for reference-CLI parity; label squeeze "
+                         "is automatic")
+    _add_model_flags(sf)
+    _add_train_flags(sf)
+    sf.set_defaults(fn=cmd_finetune, batch_size=8, epochs=50)
+
+    sg = sub.add_parser("finetune-generation")
+    sg.add_argument("--datasets", type=str, default="maestro")
+    sg.add_argument("--dataroot", type=str, default="Data/finetune/others")
+    sg.add_argument("--decoder_mode", choices=["intro", "shifted"],
+                    default="intro")
+    sg.add_argument("--fad", action="store_true",
+                    help="compute FAD metrics during eval epochs")
+    sg.add_argument("--fad_jit", action="store_true",
+                    help="window FAD in ONE batched call on the model's "
+                         "device instead of the host per-sample loop")
+    _add_model_flags(sg)
+    _add_train_flags(sg)
+    sg.set_defaults(fn=cmd_finetune_generation, batch_size=8, lr=2e-6)
+
+    sa = sub.add_parser("ablation")
+    sa.add_argument("--datasets", type=str, default="maestro")
+    sa.add_argument("--dataroot", type=str, default="Data/output_generation")
+    _add_model_flags(sa)
+    _add_train_flags(sa)
+    sa.set_defaults(fn=cmd_ablation, batch_size=8)
+
+    se = sub.add_parser("eval-gen")
+    se.add_argument("--datasets", type=str, default="maestro")
+    se.add_argument("--dataroot", type=str, required=True)
+    se.add_argument("--output", type=str, default="generation_output.npy")
+    _add_model_flags(se)
+    _add_train_flags(se)
+    se.set_defaults(fn=cmd_eval_gen, batch_size=8)
+
+    scc = sub.add_parser("convert-ckpt")
+    scc.add_argument("--ckpt", required=True, help="reference .ckpt/.pth")
+    scc.add_argument("--output", required=True,
+                     help="checkpoint directory of the port")
+    scc.add_argument("--kind", default=None,
+                     choices=[None, "trunk", "lm", "seq", "token"])
+    _add_model_flags(scc)
+    scc.set_defaults(fn=cmd_convert_ckpt)
+
+    sxc = sub.add_parser("export-ckpt")
+    sxc.add_argument("--ckpt", required=True,
+                     help="checkpoint directory of the port")
+    sxc.add_argument("--output", required=True, help="reference .ckpt path")
+    sxc.add_argument("--trunk_only", action="store_true",
+                     help="export the PianoBart trunk only (pretrain-style "
+                          "checkpoint, pretrain.py:100)")
+    sxc.add_argument("--strict_ref", action="store_true",
+                     help="also emit the reference's unused HF token-"
+                          "embedding tables so main.py:168's strict "
+                          "load_state_dict accepts the checkpoint")
+    sxc.add_argument("--ema", action="store_true",
+                     help="export the Polyak shadow average instead of the "
+                          "raw params (runs trained with --ema_decay)")
+    _add_model_flags(sxc)
+    sxc.set_defaults(fn=cmd_export_ckpt)
 
     st = sub.add_parser("tokenize")
     st.add_argument("--dataset", type=str, required=True,
@@ -320,8 +588,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve")
     sv.add_argument("--ckpt", nargs="+", default=None,
                     help="checkpoint(s) to serve: a bare path (served as "
-                         "'pianobart') and/or name=path entries; refused "
-                         "until the port loads checkpoints")
+                         "'pianobart') and/or name=path entries; the "
+                         "<model> segment of /api/generate/<model>/<file> "
+                         "selects one")
     sv.add_argument("--host", default="0.0.0.0")
     sv.add_argument("--port", type=int, default=5000)
     sv.add_argument("--max_batch", type=int, default=8,

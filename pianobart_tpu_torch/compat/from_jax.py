@@ -1,5 +1,6 @@
-"""Weights for the port: carried across from a flax ``PianoBartLM`` params
-tree, or drawn at random from a seed.
+"""Weights for the port: carried across from a flax params tree
+(``PianoBartLM``, ``SequenceClassification``, ``TokenClassification``), or
+drawn at random from a seed.
 
 The port's modules carry the flax module names (``layers_3`` becomes
 ``layers.3``), so the mapping is mechanical: Dense ``kernel (in, out)`` ->
@@ -18,10 +19,16 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..models.bart import LayerNorm, PositionalEmbedding
 from ..models.config import PianoBartConfig
-from ..models.embedding import OctupleEmbedding
+from ..models.embedding import LabelEmbedding, OctupleEmbedding
+from ..models.heads import (AttentionPooling, Excitation, SequenceClassifierHead,
+                            TokenClassifierHead)
 from ..models.pianobart import PianoBartLM
 
-__all__ = ["lm_state_dict_from_jax", "init_lm"]
+__all__ = ["lm_state_dict_from_jax", "init_lm", "init_model", "draw_params_"]
+
+# modules whose Linear layers flax builds with its default kernel init
+_LECUN = (LabelEmbedding, AttentionPooling, SequenceClassifierHead,
+          TokenClassifierHead, Excitation)
 
 
 def _to_tensor(leaf: Any) -> torch.Tensor:
@@ -35,8 +42,9 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
 
 def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
                            ) -> Dict[str, torch.Tensor]:
-    """flax ``PianoBartLM`` params (``{"params": ...}`` or the inner tree)
-    -> the port's ``PianoBartLM`` ``state_dict``."""
+    """flax params (``{"params": ...}`` or the inner tree) of a
+    ``PianoBartLM`` or a classifier (``pianobart`` and ``head`` subtrees) ->
+    the port's ``state_dict`` of the same model."""
     tree = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -53,6 +61,8 @@ def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
             sd[prefix + key] = t
 
     walk(tree, "")
+    if "pianobart" not in tree:     # a head or a module of its own
+        return sd
     for part, n in (("encoder", cfg.encoder_layers), ("decoder", cfg.decoder_layers)):
         found = {k.split(".")[3] for k in sd if k.startswith(f"pianobart.{part}.layers.")}
         if len(found) != n:
@@ -60,30 +70,70 @@ def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
     return sd
 
 
-def init_lm(cfg: PianoBartConfig, seed: int = 0, device: DeviceLike = None,
-            train: bool = False) -> PianoBartLM:
-    """A ``PianoBartLM`` with random weights drawn as the flax initialisers
-    draw them: normal(0.02) for dense kernels and positions, normal(1.0) for
-    the embedding table, zero biases, unit LayerNorm scales.  The draw is
-    made on the CPU in f32 from ``seed`` and cast to ``cfg.param_dtype``, so
-    every device gets the same weights.  Returned in eval mode, or in train
-    mode (dropout on) when ``train``."""
-    model = PianoBartLM(cfg, device=resolve_device(device))
+def draw_params_(model: nn.Module, seed: int = 0, skip=()) -> nn.Module:
+    """Draw ``model``'s parameters in place as the flax initialisers draw
+    them: normal(0.02) for the trunk's and the LM head's dense kernels and
+    the positions, normal(1.0) for the embedding tables, flax's default
+    ``lecun_normal`` (a normal truncated at two deviations, of variance
+    1/fan_in) for the heads' and the label embedding's kernels, zero
+    biases, unit LayerNorm scales.  The draws come in module order from one
+    CPU generator seeded with ``seed``, in f32, and are cast to each
+    parameter's type and device.  Parameters named in ``skip`` are left as
+    they are and take no draw."""
     gen = torch.Generator().manual_seed(seed)
+    lecun = {id(m) for owner in model.modules() if isinstance(owner, _LECUN)
+             for m in owner.modules() if isinstance(m, nn.Linear)}
 
     def normal_(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
 
+    def lecun_(p: torch.Tensor) -> None:
+        t = torch.empty(p.shape)
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        # flax's variance_scaling: the deviation of the truncated draw
+        p.copy_(t * (p.shape[1] ** -0.5 / .87962566103423978))
+
     with torch.no_grad():
-        for mod in model.modules():
+        for name, mod in model.named_modules():
+            def want(leaf: str) -> bool:
+                return (f"{name}.{leaf}" if name else leaf) not in skip
             if isinstance(mod, nn.Linear):
-                normal_(mod.weight, 0.02)
-                mod.bias.zero_()
+                if want("weight"):
+                    if id(mod) in lecun:
+                        lecun_(mod.weight)
+                    else:
+                        normal_(mod.weight, 0.02)
+                if mod.bias is not None and want("bias"):
+                    mod.bias.zero_()
             elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-            elif isinstance(mod, OctupleEmbedding):
-                normal_(mod.table, 1.0)
+                if want("weight"):
+                    mod.weight.fill_(1.0)
+                if want("bias"):
+                    mod.bias.zero_()
+            elif isinstance(mod, (OctupleEmbedding, LabelEmbedding)):
+                if want("table"):
+                    normal_(mod.table, 1.0)
             elif isinstance(mod, PositionalEmbedding):
-                normal_(mod.embedding, 0.02)
-    return model.train(train)
+                if want("embedding"):
+                    normal_(mod.embedding, 0.02)
+    return model
+
+
+def init_model(cls, cfg: PianoBartConfig, seed: int = 0, device: DeviceLike = None,
+               train: bool = False, **kw) -> nn.Module:
+    """``cls(cfg, **kw)`` (``PianoBartLM``, ``SequenceClassification``,
+    ``TokenClassification`` with its ``class_num``) with random weights
+    from ``seed`` (:func:`draw_params_`), on CUDA unless ``device`` says
+    otherwise.  Returned in eval mode, or in train mode when ``train``."""
+    model = cls(cfg, device=resolve_device(device), **kw)
+    return draw_params_(model, seed).train(train)
+
+
+def init_lm(cfg: PianoBartConfig, seed: int = 0, device: DeviceLike = None,
+            train: bool = False) -> PianoBartLM:
+    """A ``PianoBartLM`` with random weights drawn as the flax initialisers
+    draw them (:func:`draw_params_`).  The draw is made on the CPU in f32
+    from ``seed`` and cast to ``cfg.param_dtype``, so every device gets the
+    same weights.  Returned in eval mode, or in train mode (dropout on)
+    when ``train``."""
+    return init_model(PianoBartLM, cfg, seed, device, train)

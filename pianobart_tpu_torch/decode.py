@@ -12,6 +12,9 @@ The loop is a Python loop in eager mode: the early-stop test reads
 ``done.all()`` on the host once per step (skipped under ``force_full``,
 where nothing can finish early).  A CUDA graph of the step is the measured
 work that replaces it.
+
+:func:`load_inference_model` builds the model a server or a demo decodes
+with, from a checkpoint or from a seed.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ import torch
 
 from . import vocab as V
 from .device import DeviceLike, resolve_device
+from .models.config import PianoBartConfig
+from .models.embedding import OctupleEmbedding
 from .models.pianobart import PianoBartLM, attention_mask_from_bars
 from .ops.sampling import DEFAULT_TEMPERATURE, DEFAULT_TOP_P, sample_octuple
 
-__all__ = ["generate"]
+__all__ = ["generate", "load_inference_model", "checkpoint_entries", "refuse_msgpack"]
 
 
 def _generate_impl(model: PianoBartLM, encoder_ids, encoder_mask, generator,
@@ -112,3 +117,58 @@ def generate(
         return _generate_impl(model, encoder_ids, encoder_mask, generator,
                               tuple(temperature), tuple(top_p), steps,
                               force_full)
+
+
+def refuse_msgpack(ckpt: Optional[str]) -> None:
+    """Raise for a merged ``.msgpack`` file: that load form comes with
+    merging (ROADMAP Queue A item 6b)."""
+    if ckpt and str(ckpt).endswith(".msgpack"):
+        raise NotImplementedError(
+            f"cannot load {ckpt!r}: merged .msgpack files load with merging "
+            f"(ROADMAP Queue A item 6b); the port loads its checkpoint "
+            f"directories and reference .ckpt/.pth files")
+
+
+def checkpoint_entries(ckpt: str, cfg: PianoBartConfig, kind: Optional[str] = None):
+    """The port-named tensors of a checkpoint, on the host: a checkpoint
+    directory of the port (a manager root or a payload directory; only the
+    weights are read, memory-mapped) or a reference ``.ckpt``/``.pth``
+    file (of ``kind``, detected when ``None``;
+    :func:`~.compat.torch_import.import_checkpoint`)."""
+    import os
+    refuse_msgpack(ckpt)
+    if os.path.isdir(ckpt):
+        from .train.state import CheckpointManager
+        return CheckpointManager(ckpt).params()
+    from .compat.torch_import import import_checkpoint
+    return import_checkpoint(ckpt, cfg, kind)
+
+
+def load_inference_model(cfg: PianoBartConfig, ckpt: Optional[str] = None,
+                         seed: int = 0, device: DeviceLike = None,
+                         kind: Optional[str] = None) -> PianoBartLM:
+    """A ``PianoBartLM`` in eval mode on ``device`` (CUDA by default) for
+    serving, the demo and evaluation; the counterpart of the JAX package's
+    ``load_inference_params``.
+
+    With ``ckpt`` (see :func:`checkpoint_entries`) the model is built on
+    the ``meta`` device and its storage allocated on ``device`` without a
+    draw; the checkpoint's tensors are copied in (cast to
+    ``cfg.param_dtype``), and only the parameters it lacks (the LM head of a
+    trunk-only checkpoint) are drawn, in module order from a generator
+    seeded with ``seed`` (:func:`~.compat.from_jax.draw_params_`).  Without
+    ``ckpt``: ``init_lm(cfg, seed)``.  A merged ``.msgpack`` raises."""
+    from .compat.from_jax import draw_params_, init_lm
+    from .train.state import graft_
+    device = resolve_device(device)
+    if not ckpt:
+        return init_lm(cfg, seed, device)
+    saved = checkpoint_entries(ckpt, cfg, kind)
+    model = PianoBartLM(cfg, device="meta").to_empty(device=device)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, OctupleEmbedding):
+                mod.offsets.copy_(torch.tensor(cfg.field_offsets))
+    missing = graft_(model, saved, ckpt)
+    loaded = set(model.state_dict()) - set(missing)
+    return draw_params_(model, seed, skip=loaded).eval()

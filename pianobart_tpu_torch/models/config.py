@@ -1,6 +1,6 @@
 """Model configuration: the dataclass of ``pianobart_tpu/models/config.py``
-with ``torch.dtype`` fields.  The ring/TP fields, remat and the label
-decoder come with the parallelism and finetune paths that use them;
+with ``torch.dtype`` fields.  The ring/TP fields and remat come with the
+parallelism path that uses them;
 ``fused_dropout_ln`` stands in for the reference's ``PBX_FUSED_DROPLN``
 environment switch.
 
@@ -15,7 +15,7 @@ Defaults are the published PianoBART shape: d_model 1024, 8+8 layers, ffn
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +36,10 @@ class PianoBartConfig:
     attention_dropout: float = 0.0
     activation_dropout: float = 0.0
     pos_offset: int = 2                    # HF Bart learned-pos-embedding offset
+    # The velocity finetune's decoder reads label ids through a
+    # LabelEmbedding of this vocabulary instead of the octuple embedding.
+    decoder_label_vocab: Optional[int] = None
+    decoder_label_dim: int = 64
     dtype: torch.dtype = torch.float32     # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     use_flash_attention: bool = True       # flash kernel where eligible

@@ -17,9 +17,10 @@ file to a MIDI file (intro window, decode with per-request retries, cleaned
 continuation).
 
 Audio rendering shells out to FluidSynth when available; without it the
-endpoints still serve MIDI.  The weights are random, drawn from a seed:
-checkpoint loading for serving is ROADMAP Queue A item 6, and until then a
-checkpoint path is refused.
+endpoints still serve MIDI.  Each model loads at its first use from its
+checkpoint (a checkpoint directory of the port, or a reference
+``.ckpt``/``.pth``; :func:`~..decode.load_inference_model`), or is drawn
+from a seed when it has none.
 
 ``create_app`` returns a WSGI callable: host it with any WSGI server, or
 ``App.run()`` (wsgiref, threaded) for development.
@@ -39,8 +40,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..decode import refuse_msgpack
 from ..device import DeviceLike, resolve_device
-from .demo import midi_to_window, refuse_checkpoint, window_to_midi
+from .demo import midi_to_window, window_to_midi
 
 __all__ = ["GenerationService", "App", "create_app", "parse_ckpt_registry"]
 
@@ -116,18 +118,22 @@ def _batch_seed(seeds: List[int]) -> int:
 class GenerationService:
     """Holds the model, loaded lazily, reused across calls.
 
-    ``model`` defaults to the flagship bf16 ``PianoBartLM`` with random
-    weights from ``seed``; ``device`` defaults to CUDA and raises without it.
-    ``generate_fn(midi_in, midi_out, seed) -> ok`` replaces the whole MIDI
-    path (a test hook, as in the JAX package).
+    ``model`` defaults to a ``PianoBartLM`` of ``cfg`` (the flagship with
+    bf16 weights by default) loaded from ``ckpt`` at first use, or with
+    random weights from ``seed`` without one; ``device`` defaults to CUDA
+    and raises without it.  A merged ``.msgpack`` is refused here, before
+    any request.  ``generate_fn(midi_in, midi_out, seed) -> ok`` replaces
+    the whole MIDI path (a test hook, as in the JAX package).
     """
 
     def __init__(self, model=None, cfg=None, device: DeviceLike = None,
                  seed: int = 0, max_batch: int = 8,
                  batch_window_s: float = 0.02,
-                 generate_fn: Optional[Callable] = None):
+                 generate_fn: Optional[Callable] = None,
+                 ckpt: Optional[str] = None):
         self.device = resolve_device(device)
-        self.ckpt = None        # no checkpoint loading yet (Queue A item 6)
+        refuse_msgpack(ckpt)
+        self.ckpt = ckpt
         self._generate_fn = generate_fn
         self.model = model
         self._cfg_arg = cfg  # None -> flagship dims in bf16
@@ -148,12 +154,13 @@ class GenerationService:
         with self._lock:
             if self._ready:
                 return
-            from ..compat.from_jax import init_lm
+            from ..decode import load_inference_model
             from ..models.config import PianoBartConfig
             # serving holds bf16 weights: the decode step then casts nothing
             self.cfg = self._cfg_arg or PianoBartConfig(
                 dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-            self.model = init_lm(self.cfg, self.seed, self.device)
+            self.model = load_inference_model(self.cfg, self.ckpt, self.seed,
+                                              self.device)
             self._ready = True
 
     @property
@@ -442,20 +449,19 @@ def create_app(ckpt: Optional[str] = None,
                generate_fn: Optional[Callable] = None,
                ckpts: Optional[dict] = None,
                max_batch: int = 8, batch_window_s: float = 0.02,
-               device: DeviceLike = None) -> App:
+               device: DeviceLike = None, cfg=None) -> App:
     """``ckpts``: {name: path} registry; ``ckpt``: a single checkpoint
-    registered as ``pianobart``.  Every path must be ``None`` (random
-    weights from ``GenerationService``'s default seed): a checkpoint path
-    raises.  ``generate_fn`` (tests) applies to every registered model;
-    ``device`` defaults to CUDA and raises without it."""
+    registered as ``pianobart``.  Each path (or ``None``: random weights
+    from ``GenerationService``'s default seed) loads at the model's first
+    use, with ``cfg`` (``GenerationService``'s default when ``None``).
+    ``generate_fn`` (tests) applies to every registered model; ``device``
+    defaults to CUDA and raises without it."""
     if ckpts is None:
         ckpts = {"pianobart": ckpt}
-    for path in ckpts.values():
-        if path is not None:
-            refuse_checkpoint(path)
     services = {
-        name: GenerationService(device=device,
+        name: GenerationService(cfg=cfg, device=device, ckpt=path,
                                 generate_fn=generate_fn, max_batch=max_batch,
                                 batch_window_s=batch_window_s)
-        for name in ckpts}
-    return App(services, ckpt)
+        for name, path in ckpts.items()}
+    return App(services, ckpt if ckpt is not None
+               else next(iter(ckpts.values()), None))

@@ -5,9 +5,8 @@ Equivalent of reference ``demo.py``: tokenize an input MIDI keeping the
 illegal/special token becomes ``<EOS>``; drum pitches dropped,
 demo.py:72-102), and write the continuation MIDI.
 
-The weights are random, drawn from a seed: the port has no checkpoint
-format yet (ROADMAP Queue A item 6), so a checkpoint path is refused
-rather than served as random weights.
+The weights come from a checkpoint (a checkpoint directory of the port or
+a reference ``.ckpt``/``.pth``), or are drawn from a seed without one.
 """
 from __future__ import annotations
 
@@ -19,23 +18,13 @@ import torch
 
 from .. import decode
 from .. import vocab as V
-from ..compat.from_jax import init_lm
 from ..device import DeviceLike, resolve_device
 from ..midi.parser import read_midi
 from ..models.config import PianoBartConfig
 from ..tokenizer.codec import midi_to_octuple, octuple_to_midi
 from ..tokenizer.segment import pad_segment
 
-__all__ = ["midi_to_window", "clean_generated", "window_to_midi", "run_demo",
-           "refuse_checkpoint"]
-
-
-def refuse_checkpoint(ckpt: str) -> None:
-    """Raise for a checkpoint path: the port cannot load one yet."""
-    raise NotImplementedError(
-        f"cannot load checkpoint {ckpt!r}: the PyTorch port has no checkpoint "
-        f"loading for serving yet (ROADMAP Queue A item 6); serve random "
-        f"weights explicitly with --nopretrain / no --ckpt")
+__all__ = ["midi_to_window", "clean_generated", "window_to_midi", "run_demo"]
 
 
 def midi_to_window(midi_path: str, window: int = V.MAX_WINDOW) -> np.ndarray:
@@ -92,11 +81,11 @@ def run_demo(input_path: str, output_path: str = "./output.mid",
              heads: int = 8, nopretrain: bool = False,
              rng_seed: int = 0, force_full: bool = False,
              device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
-    """Continue ``input_path`` into ``output_path`` with bf16 random weights
-    from ``rng_seed``, on CUDA unless ``device`` says otherwise.  Returns
-    the intro and the last continuation grid."""
-    if ckpt and not nopretrain:
-        refuse_checkpoint(ckpt)
+    """Continue ``input_path`` into ``output_path`` with bf16 weights from
+    ``ckpt`` (unless ``nopretrain``) or drawn from ``rng_seed``, on CUDA
+    unless ``device`` says otherwise.  Returns the intro and the last
+    continuation grid."""
+    ckpt = ckpt if ckpt and not nopretrain else None
     device = resolve_device(device)
     # bf16 weights and compute, as the serving path holds them
     cfg = PianoBartConfig(d_model=hs, encoder_layers=layers,
@@ -104,7 +93,7 @@ def run_demo(input_path: str, output_path: str = "./output.mid",
                           num_heads=heads, max_len=max_seq_len,
                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     intro = midi_to_window(input_path, window=max_seq_len)
-    model = init_lm(cfg, rng_seed, device)
+    model = decode.load_inference_model(cfg, ckpt, rng_seed, device)
 
     # The reference demo is one-shot: a sampled first token outside the
     # legal range truncates the whole continuation to nothing and it just

@@ -1,10 +1,13 @@
-"""Loss and metric primitives of the pretrain step, the counterpart of
+"""Loss and metric primitives of every trainer, the counterpart of
 ``pianobart_tpu/train/objective.py``.
 
 * per-field masked cross-entropy with vocab-size weighting
-  (``total = sum_i n_i * CE_i / sum_i n_i``);
+  (``total = sum_i n_i * CE_i / sum_i n_i``), optionally with extra
+  per-field weights (the generation finetune's
+  :data:`GENERATION_FIELD_WEIGHTS`);
 * per-field masked accuracy and its vocab-size-weighted mean;
-* teacher-forcing ``shift_right``.
+* teacher-forcing ``shift_right``;
+* the finetunes' pad-masked token CE and (sample-weighted) sequence CE.
 
 Softmax in f32.  Empty masks are guarded: a field with no masked position
 contributes 0 instead of dividing by zero.  Everything stays on the device:
@@ -12,7 +15,7 @@ no ``.item()``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -20,8 +23,12 @@ from torch.nn import functional as F
 from ..models.config import PianoBartConfig
 from ..models.heads import split_fields
 
-__all__ = ["masked_field_ce", "masked_field_accuracy",
-           "weighted_average_accuracy", "shift_right"]
+__all__ = ["GENERATION_FIELD_WEIGHTS", "masked_field_ce", "masked_field_accuracy",
+           "weighted_average_accuracy", "shift_right", "token_ce", "sequence_ce"]
+
+#: The generation finetune's per-field loss weights: Program, TimeSig and
+#: Tempo 0.3, Pitch 1.5 (reference ``finetune_generation.py:241-246``).
+GENERATION_FIELD_WEIGHTS: Tuple[float, ...] = (1, 1, 0.3, 1.5, 1, 1, 0.3, 0.3)
 
 
 def _field_mask(loss_mask: torch.Tensor, cfg: PianoBartConfig) -> torch.Tensor:
@@ -41,15 +48,19 @@ def masked_field_ce(
     targets: torch.Tensor,               # (B, S, 8) int
     loss_mask: torch.Tensor,             # (B, S, 8) or (B, S)
     cfg: PianoBartConfig,
+    field_weights: Optional[Sequence[float]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (weighted total loss, per-field losses (8,))."""
+    """Returns (weighted total loss, per-field losses (8,)); each field's
+    mean is multiplied by its ``field_weights`` entry, when given, before
+    the vocab-size weighting."""
     mask = _field_mask(loss_mask, cfg)
     fields = split_fields(fused_logits.float(), cfg)
     losses = []
     for i in range(cfg.n_fields):
         logp = F.log_softmax(fields[i], dim=-1)
         nll = -torch.gather(logp, -1, targets[..., i:i + 1].long())[..., 0]
-        losses.append(_masked_mean(nll, mask[..., i]))
+        li = _masked_mean(nll, mask[..., i])
+        losses.append(li if field_weights is None else li * field_weights[i])
     losses = torch.stack(losses)
     n_tok = torch.tensor(cfg.field_sizes, dtype=torch.float32, device=losses.device)
     return (losses * n_tok).sum() / n_tok.sum(), losses
@@ -81,3 +92,24 @@ def shift_right(ids: torch.Tensor, sos_row: Sequence[int]) -> torch.Tensor:
     sos = torch.tensor(sos_row, dtype=ids.dtype, device=ids.device)
     sos = sos.expand(ids.shape[0], 1, *ids.shape[2:])
     return torch.cat([sos, ids[:, :-1]], dim=1)
+
+
+def token_ce(logits: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """Pad-masked token-level CE: ``logits (B, S, C)``, ``targets (B, S)``,
+    ``mask (B, S)`` (reference ``finetune.py:125-130``)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def sequence_ce(logits: torch.Tensor, targets: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean sequence-level CE (reference ``finetune.py:131-132``);
+    ``weight (B,)`` zeroes the padded samples of a tail batch, so that every
+    sample of a split counts once."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[:, None].long())[:, 0]
+    if weight is None:
+        return nll.mean()
+    return (nll * weight).sum() / weight.sum().clamp(min=1.0)

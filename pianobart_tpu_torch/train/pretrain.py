@@ -30,7 +30,7 @@ from .. import vocab as V
 from ..ops.noise import corrupt_batch
 from .objective import (masked_field_accuracy, masked_field_ce, shift_right,
                         weighted_average_accuracy)
-from .state import TrainState, apply_gradients
+from .state import TrainState, gradient_step
 
 __all__ = ["pretrain_step", "pretrain_eval_step", "pretrain_multi_step",
            "batch_iterator"]
@@ -51,31 +51,19 @@ def _forward_loss(model, batch, corrupted, loss_mask, generator=None):
 
 
 def _update(state: TrainState, batch, corrupted, loss_mask, generator) -> Metrics:
-    """Gradient step on an already corrupted batch: forward, backward, then
-    :func:`~pianobart_tpu_torch.train.state.apply_gradients` (clip, AdamW at
-    the schedule's rate, EMA; under accumulation only every
-    ``accum_steps``-th call).  Split out so that a test can feed the same
-    corruption to both packages.
-
-    The gradients are cleared when an accumulation window opens, that is
-    after each real update, so the micro-steps of a window sum into
-    ``.grad`` (and a window restored from a checkpoint carries on)."""
-    model, opt = state.model, state.optimizer
-    model.train()
-    if state.step % state.accum_steps == 0:
-        opt.zero_grad(set_to_none=True)
-    total, (fused, per_field) = _forward_loss(model, batch, corrupted, loss_mask,
-                                              generator)
-    total.backward()
-    apply_gradients(state)
-    # a micro-step reports the last real update's norm (0 before the first)
-    norm = (state.grad_norm if state.grad_norm is not None
-            else torch.zeros((), device=batch.device))
+    """Gradient step on an already corrupted batch through
+    :func:`~pianobart_tpu_torch.train.state.gradient_step` (forward,
+    backward, clip, AdamW at the schedule's rate, EMA; under accumulation
+    only every ``accum_steps``-th call).  Split out so that a test can feed
+    the same corruption to both packages."""
+    cfg = state.model.cfg
+    total, (fused, per_field), norm = gradient_step(
+        state, lambda gen: _forward_loss(state.model, batch, corrupted,
+                                         loss_mask, gen), generator)
     with torch.no_grad():
-        accs = masked_field_accuracy(fused.detach(), batch, loss_mask, model.cfg)
-        return {"loss": total.detach(), "field_loss": per_field.detach(),
-                "field_acc": accs,
-                "weighted_acc": weighted_average_accuracy(accs, model.cfg),
+        accs = masked_field_accuracy(fused, batch, loss_mask, cfg)
+        return {"loss": total, "field_loss": per_field, "field_acc": accs,
+                "weighted_acc": weighted_average_accuracy(accs, cfg),
                 "grad_norm": norm,
                 "tokens": torch.tensor(batch.shape[0] * batch.shape[1],
                                        device=batch.device)}

@@ -1,5 +1,6 @@
-"""The pretraining epoch runner (``pianobart_tpu/train/runner.py``), the
-orchestration layer behind ``cli pretrain``.
+"""The epoch runners (``pianobart_tpu/train/runner.py``), the orchestration
+layer behind ``cli pretrain`` (:class:`PretrainRunner`) and the finetunes,
+the generation finetune and the ablation (:class:`SupervisedRunner`).
 
 Mirrors the reference's pretrain loop (``main.py:17-100``): epochs,
 vocab-weighted best-model selection, patience-based early stop, a
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +32,7 @@ from ..utils.preemption import Preempted, PreemptionGuard
 from .pretrain import batch_iterator, pretrain_eval_step, pretrain_multi_step
 from .state import CheckpointManager, TrainState, ema_applied
 
-__all__ = ["PretrainRunner"]
+__all__ = ["PretrainRunner", "SupervisedRunner"]
 
 _TRAIN, _VALID = 0, 1
 
@@ -42,7 +43,58 @@ def _seed(kind: int, seed: int, index: int) -> int:
         1, np.uint64)[0])
 
 
-class PretrainRunner:
+class _EpochRunner:
+    """What both runners share: the device, the seeded generators, the
+    checkpoint manager and the log, the safety save on preemption, and the
+    resume that replays the data order of the epochs it skips."""
+
+    def __init__(self, state: TrainState, cfg: PianoBartConfig, save_dir: str,
+                 seed: int, preempt: Optional[PreemptionGuard]):
+        self.state = state
+        self.cfg = cfg
+        self.device = next(state.model.parameters()).device
+        self.seed = seed
+        self.preempt = preempt
+        self.logger = MetricsLogger(save_dir)
+        self.ckpt = CheckpointManager(save_dir)
+        self.np_rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device)
+        self._cur_epoch = 0  # set by run(); safety saves record it
+        self._safety_at = None  # (epoch, step) the safety slot holds
+
+    def _put(self, batch) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(batch), device=self.device)
+
+    def _generator(self, kind: int, index: int) -> torch.Generator:
+        return self.generator.manual_seed(_seed(kind, self.seed, index))
+
+    def _save_safety(self) -> None:
+        at = (self._cur_epoch, self.state.step)
+        if at != self._safety_at:
+            self.ckpt.save_safety(self.state, self._cur_epoch)
+            self._safety_at = at
+
+    def _check_preempt(self) -> None:
+        """Graceful shutdown: save the safety slot, then bail.  Resume
+        restarts the interrupted epoch from it."""
+        if self.preempt is not None and self.preempt.requested:
+            self._save_safety()
+            raise Preempted(
+                f"preempted at epoch {self._cur_epoch + 1}, optimizer step "
+                f"{int(self.state.step)}: safety checkpoint saved under "
+                f"{self.ckpt.directory}; rerun with --resume to continue")
+
+    def _resume(self, n_train: int) -> Tuple[int, float]:
+        """Restore the newest checkpoint; return the epoch to start at and
+        the best score so far (else the first epoch after a resume always
+        looks best), after replaying the data order of the epochs taken."""
+        self.state, start = self.ckpt.restore(self.state)
+        for _ in range(start):
+            self.np_rng.permutation(n_train)
+        return start, float(self.ckpt.meta().get("best_acc", -1.0))
+
+
+class PretrainRunner(_EpochRunner):
     """Pretraining epochs (main.py:17-100).
 
     The hooks replace the port's steps (the JAX runner's sequence-parallel path uses them):
@@ -66,42 +118,20 @@ class PretrainRunner:
                  eval_step_fn: Optional[Callable] = None,
                  lr_fn: Optional[Callable] = None,
                  preempt: Optional[PreemptionGuard] = None):
-        self.state = state
-        self.cfg = cfg
-        self.device = next(state.model.parameters()).device
+        super().__init__(state, cfg, save_dir, seed, preempt)
         self.train_data = train_data
         self.valid_data = valid_data
         self.batch_size = batch_size
         self.mask_percent = mask_percent
         self.patience = patience
-        self.seed = seed
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         # mid-epoch safety checkpoints every N dispatches (0 = off)
         self.checkpoint_every_dispatches = checkpoint_every_dispatches
         self.train_step_fn = train_step_fn
         self.eval_step_fn = eval_step_fn
         self.lr_fn = lr_fn
-        self.preempt = preempt
-        self.logger = MetricsLogger(save_dir)
-        self.ckpt = CheckpointManager(save_dir)
-        self.np_rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device)
         self.best_acc = -1.0
         self.bad_epochs = 0
-        self._cur_epoch = 0  # set by run(); safety saves record it
-        self._safety_at = None  # (epoch, step) the safety slot holds
-
-    def _put(self, batch) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch), device=self.device)
-
-    def _generator(self, kind: int, index: int) -> torch.Generator:
-        return self.generator.manual_seed(_seed(kind, self.seed, index))
-
-    def _save_safety(self) -> None:
-        at = (self._cur_epoch, self.state.step)
-        if at != self._safety_at:
-            self.ckpt.save_safety(self.state, self._cur_epoch)
-            self._safety_at = at
 
     def train_epoch(self) -> Dict[str, Any]:
         """Batches go ``steps_per_dispatch`` at a time through
@@ -172,16 +202,6 @@ class PretrainRunner:
             out["lr"] = float(self.lr_fn(int(self.state.step)))
         return out
 
-    def _check_preempt(self) -> None:
-        """Graceful shutdown: save the safety slot, then bail.  Resume
-        restarts the interrupted epoch from it."""
-        if self.preempt is not None and self.preempt.requested:
-            self._save_safety()
-            raise Preempted(
-                f"preempted at epoch {self._cur_epoch + 1}, optimizer step "
-                f"{int(self.state.step)}: safety checkpoint saved under "
-                f"{self.ckpt.directory}; rerun with --resume to continue")
-
     def valid_epoch(self) -> Dict[str, Any]:
         """Validation over every sample (the tail batch padded at weight 0),
         with the EMA shadow when the state keeps one."""
@@ -208,12 +228,7 @@ class PretrainRunner:
         start_epoch = 0
         run_t0 = time.time()
         if resume:
-            self.state, start_epoch = self.ckpt.restore(self.state)
-            # else the first epoch after a resume always looks "best"
-            self.best_acc = float(self.ckpt.meta().get("best_acc", -1.0))
-            # the data order of the epochs already taken
-            for _ in range(start_epoch):
-                self.np_rng.permutation(len(self.train_data))
+            start_epoch, self.best_acc = self._resume(len(self.train_data))
         n_tok = np.asarray(self.cfg.field_sizes, dtype=np.float64)
         for epoch in range(start_epoch, epochs):
             self._cur_epoch = epoch
@@ -251,4 +266,180 @@ class PretrainRunner:
         # total wall-time report (main.py:94-100)
         self.logger.epoch_line(
             f"Time cost in pretrain is {time.time() - run_t0:.1f}s")
+        return self.state
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class SupervisedRunner(_EpochRunner):
+    """The epoch loop of the finetunes, the generation finetune and the
+    ablation (the reference's ``main.py:186-211, 291-321``).
+
+    ``step_fn(state, x, y, generator, train=..., weight=...) -> (state,
+    metrics)``; the metrics carry ``loss`` and either ``acc_num`` /
+    ``acc_den`` or ``field_acc``.  ``data`` is ``(X_train, X_val, X_test,
+    y_train, y_val, y_test)``.
+
+    * Every sample of a split counts once: the tail batch is padded with
+      copies of its first sample at sample weight 0.
+    * Validation and test use the EMA shadow when the state keeps one.
+    * ``eval_hook(x, y, metrics) -> {name: float}`` runs on every eval
+      batch (its real samples only); the epoch reports each name's mean.
+    * The test split's predictions are saved to ``test_outputs.npy`` every
+      epoch.
+    * ``select``: ``"scalar_acc"`` (accuracy, else minus the loss) or
+      ``"weighted_field_acc"`` (the vocab-size-weighted field accuracy).  A
+      score equal to the best refreshes ``best/`` (``>=``, as the
+      reference); more than ``patience`` epochs without one end the run
+      with an ``early_stop`` event.
+    * ``preempt`` is polled after every train batch: a pending request
+      writes the safety checkpoint and raises :class:`Preempted`; ``run(...,
+      resume=True)`` restarts the interrupted epoch from it.
+
+    Randomness as :class:`PretrainRunner`'s: one permutation per epoch from
+    a numpy generator seeded with ``seed`` (replayed for the epochs a resume
+    skips), each train step's dropout from a generator seeded from (seed,
+    step).
+    """
+
+    def __init__(self, state: TrainState, cfg: PianoBartConfig, step_fn, data,
+                 save_dir: str, batch_size: int = 8, patience: int = 3,
+                 seed: int = 2023, select: str = "scalar_acc",
+                 eval_hook: Optional[Callable] = None,
+                 lr_fn: Optional[Callable] = None,
+                 preempt: Optional[PreemptionGuard] = None):
+        super().__init__(state, cfg, save_dir, seed, preempt)
+        self.step_fn = step_fn
+        (self.X_train, self.X_val, self.X_test,
+         self.y_train, self.y_val, self.y_test) = data
+        self.save_dir = save_dir
+        self.batch_size = batch_size
+        self.patience = patience
+        self.select = select
+        self.eval_hook = eval_hook
+        self.lr_fn = lr_fn
+        self.best = -1.0
+        self.bad = 0
+
+    def _epoch(self, X, y, train: bool,
+               collect_outputs: bool = False) -> Dict[str, Any]:
+        losses, acc_num, acc_den, field_accs, gnorms = [], [], [], [], []
+        extras, outputs = [], []
+        n = len(X)
+        idx = self.np_rng.permutation(n) if train else np.arange(n)
+        for i in range(0, n, self.batch_size):
+            sel = idx[i:i + self.batch_size]
+            real = len(sel)
+            weight = None
+            if real < self.batch_size:
+                pad = self.batch_size - real
+                weight = self._put(np.concatenate(
+                    [np.ones(real, np.float32), np.zeros(pad, np.float32)]))
+                sel = np.concatenate([sel, np.repeat(sel[:1], pad)])
+            bx = self._put(np.asarray(X[sel]).astype(np.int64))
+            by = self._put(np.asarray(y[sel]).astype(np.int64))
+            if train:
+                self.state, m = self.step_fn(
+                    self.state, bx, by, self._generator(_TRAIN, self.state.step),
+                    train=True, weight=weight)
+                self._check_preempt()
+            else:
+                _, m = self.step_fn(self.state, bx, by, None, train=False,
+                                    weight=weight)
+            losses.append(m["loss"])
+            if "acc_num" in m:
+                acc_num.append(m["acc_num"])
+                acc_den.append(m["acc_den"])
+            if "field_acc" in m:
+                field_accs.append(m["field_acc"])
+            if "grad_norm" in m:
+                gnorms.append(m["grad_norm"])
+            if self.eval_hook is not None and not train:
+                hm = dict(m)
+                for k in ("outputs", "attn_dec", "pred"):
+                    if k in hm:
+                        hm[k] = _host(hm[k])[:real]
+                extras.append(self.eval_hook(_host(bx)[:real], _host(by)[:real], hm))
+            if collect_outputs:
+                key = "pred" if "pred" in m else "outputs"
+                if key in m:
+                    outputs.append(_host(m[key])[:real])
+        out: Dict[str, Any] = {
+            "loss": float(torch.stack(losses).mean()) if losses else 0.0}
+        # host sums in float64, batch by batch, as the JAX runner adds them
+        num = den = 0.0
+        for a, b in zip(torch.stack(acc_num).tolist() if acc_num else [],
+                        torch.stack(acc_den).tolist() if acc_den else []):
+            num += a
+            den += b
+        if den:
+            out["acc"] = num / den
+        if field_accs:
+            out["field_acc"] = torch.stack(field_accs).mean(0).cpu().numpy()
+        if gnorms:
+            g = torch.stack(gnorms).cpu().numpy()
+            out["grad_norm_mean"] = float(g.mean())
+            out["grad_norm_max"] = float(g.max())
+        if train and self.lr_fn is not None:
+            out["lr"] = float(self.lr_fn(int(self.state.step)))
+        if extras:
+            out.update({k: float(np.mean([e[k] for e in extras]))
+                        for k in extras[0]})
+        if collect_outputs and outputs:
+            out["outputs"] = np.concatenate(outputs, axis=0)
+        return out
+
+    def _eval_epoch(self, X, y, collect_outputs: bool = False) -> Dict[str, Any]:
+        with ema_applied(self.state):
+            return self._epoch(X, y, train=False, collect_outputs=collect_outputs)
+
+    def _selection_score(self, va: Dict[str, Any]) -> float:
+        if self.select == "weighted_field_acc":
+            n_tok = np.asarray(self.cfg.field_sizes, dtype=np.float64)
+            return float((va["field_acc"] * n_tok).sum() / n_tok.sum())
+        return float(va.get("acc", -va["loss"]))
+
+    def run(self, epochs: int, resume: bool = False,
+            run_test_each_epoch: bool = True) -> TrainState:
+        start = 0
+        if resume:
+            start, self.best = self._resume(len(self.X_train))
+        for epoch in range(start, epochs):
+            self._cur_epoch = epoch
+            # a signal that landed during the last epoch's eval or save
+            self._check_preempt()
+            tr = self._epoch(self.X_train, self.y_train, train=True)
+            va = self._eval_epoch(self.X_val, self.y_val)
+            te = (self._eval_epoch(self.X_test, self.y_test, collect_outputs=True)
+                  if run_test_each_epoch else {})
+            test_outputs = te.pop("outputs", None)
+            if test_outputs is not None:
+                np.save(f"{self.save_dir}/test_outputs.npy", test_outputs)
+            score = self._selection_score(va)
+            is_best = score >= self.best
+            self.best = max(score, self.best)
+            self.bad = 0 if is_best else self.bad + 1
+            self.ckpt.save(epoch + 1, self.state, {"weighted_acc": score, **va},
+                           is_best)
+            self._safety_at = None
+            self.logger.log("epoch", epoch=epoch + 1, train=tr, valid=va,
+                            test=te, score=score, best=is_best)
+            self.logger.epoch_line(
+                f"Epoch {epoch + 1}: train_loss={tr['loss']:.4f}, "
+                f"valid_loss={va['loss']:.4f}, "
+                + (f"gnorm={tr['grad_norm_mean']:.3f}, "
+                   if "grad_norm_mean" in tr else "")
+                + (f"lr={tr['lr']:.2e}, " if "lr" in tr else "")
+                + (f"valid_acc={va.get('acc', float('nan')):.4f}, "
+                   if "acc" in va else "")
+                + (f"test_acc={te.get('acc', float('nan')):.4f}"
+                   if "acc" in te else ""))
+            if self.bad > self.patience:
+                self.logger.epoch_line(
+                    f"valid acc not improving for {self.patience} epochs")
+                self.logger.log("early_stop", epoch=epoch + 1,
+                                patience=self.patience)
+                break
         return self.state

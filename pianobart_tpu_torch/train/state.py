@@ -12,7 +12,8 @@ in :func:`apply_gradients`).
 :class:`CheckpointManager` keeps the JAX manager's layout and ``meta.json``
 (``step_N/``, ``best/``, the ``safety/`` slot) with a ``torch.save`` payload:
 true resume of the model, the optimizer, the EMA shadow and a partial
-accumulation window.
+accumulation window; and, for a finetune or a server, the weights (or the
+EMA shadow) alone, grafted onto any model that shares their names.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import torch
 from torch import nn
 
 __all__ = ["TrainState", "make_schedule", "make_optimizer", "create_train_state",
-           "apply_gradients", "clip_by_global_norm_logged", "get_grad_norm",
-           "get_ema_params", "ema_applied", "CheckpointManager"]
+           "apply_gradients", "gradient_step", "clip_by_global_norm_logged",
+           "get_grad_norm",
+           "get_ema_params", "ema_applied", "CheckpointManager", "graft_"]
 
 Schedule = Callable[[int], float]
 
@@ -220,6 +222,26 @@ def apply_gradients(state: TrainState) -> bool:
             torch._foreach_add_(state.ema, [p.detach() for p in state.model.parameters()],
                                 alpha=1.0 - d)
     return True
+
+
+def gradient_step(state: TrainState, loss_fn: Callable, generator):
+    """One train micro-step of every trainer: ``loss_fn(generator) -> (loss,
+    aux)`` in training mode (dropout from ``generator``), backward, then
+    :func:`apply_gradients`.  Returns ``(loss, aux, grad_norm)`` detached.
+
+    The gradients are cleared when an accumulation window opens, that is
+    after each real update, so the micro-steps of a window sum into
+    ``.grad`` (and a window restored from a checkpoint carries on).  A
+    micro-step reports the last real update's norm (0 before the first)."""
+    state.model.train()
+    if state.step % state.accum_steps == 0:
+        state.optimizer.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(generator)
+    loss.backward()
+    apply_gradients(state)
+    norm = (state.grad_norm if state.grad_norm is not None
+            else torch.zeros((), device=loss.device))
+    return loss.detach(), tuple(a.detach() for a in aux), norm
 
 
 def get_grad_norm(state: TrainState) -> Optional[torch.Tensor]:
@@ -492,18 +514,62 @@ class CheckpointManager:
             f"root (meta.json + step_N/best subdirs) or a checkpoint payload "
             f"dir ({PAYLOAD})")
 
-    def restore_params(self, model: nn.Module, best: bool = True) -> nn.Module:
-        """Load only the model's weights, in place (strict: the model must be
-        the one saved), and return the model.
+    def params(self, best: bool = True) -> Dict[str, torch.Tensor]:
+        """The saved model's ``state_dict``, memory-mapped on the host: the
+        optimizer's moments in the same file are never read.
 
         Takes a manager root (``.../name`` with ``meta.json`` and
         ``step_N``/``best``) or a payload directory (``.../name/best``,
         ``.../name/step_7``); an empty directory raises
         ``FileNotFoundError``."""
+        return self._load(best)["model"]
+
+    def _load(self, best: bool) -> Dict[str, Any]:
         path = os.path.join(self._payload_path(best), PAYLOAD)
-        model.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True, mmap=True)["model"])
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+    def restore_params(self, model: nn.Module, best: bool = True) -> nn.Module:
+        """Graft the saved weights onto ``model`` in place and return it
+        (a pretrain trunk into a classifier, a checkpoint into a serving
+        model): every parameter of ``model`` that the checkpoint holds is
+        loaded, its shape checked; the others keep their values, and
+        checkpoint entries the model lacks are ignored.  Raises if no entry
+        matches.  Paths as :meth:`params`."""
+        graft_(model, self.params(best), self.directory)
         return model
+
+    def restore_ema_params(self, model: nn.Module, best: bool = True) -> nn.Module:
+        """Graft the saved EMA shadow (runs trained with ``--ema_decay``)
+        onto ``model``, as :meth:`restore_params` grafts the weights."""
+        payload = self._load(best)
+        names = list(payload["model"])
+        if not payload.get("ema"):
+            raise FileNotFoundError(
+                f"{self._payload_path(best)} has no EMA shadow in its optimizer "
+                f"state — the run was not trained with --ema_decay")
+        if len(names) != len(payload["ema"]):
+            raise ValueError(f"{self._payload_path(best)}: {len(payload['ema'])} "
+                             f"EMA tensors for {len(names)} parameters")
+        graft_(model, dict(zip(names, payload["ema"])), self.directory)
+        return model
+
+
+def graft_(model: nn.Module, saved: Dict[str, torch.Tensor], source: str = "checkpoint"
+           ) -> List[str]:
+    """Copy every entry of ``saved`` whose name ``model`` has into the
+    model's tensor, in place (a differing shape raises ``RuntimeError``
+    "size mismatch"); the model's other tensors stay, entries it lacks are
+    ignored.  Returns the names the model has and ``saved`` lacks; raises
+    ``ValueError`` if no name matched."""
+    own = model.state_dict()
+    matched = {k: v for k, v in saved.items() if k in own}
+    if not matched:
+        raise ValueError(
+            f"{source}: none of its {len(saved)} tensors matches a parameter "
+            f"of the {type(model).__name__} (e.g. {next(iter(saved), None)!r} "
+            f"vs {next(iter(own), None)!r})")
+    model.load_state_dict(matched, strict=False)
+    return [k for k in own if k not in matched]
 
 
 def _jsonable(v):

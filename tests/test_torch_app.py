@@ -451,18 +451,21 @@ def test_run_demo_retries_seeds_until_nonempty(tmp_path, monkeypatch, capsys):
 # -- refusals ---------------------------------------------------------------
 
 def test_checkpoint_paths_are_refused(tmp_path, monkeypatch):
+    """A merged ``.msgpack`` (ROADMAP Queue A item 6b) is refused before any
+    request or decode; the forms that load are
+    ``tests/test_torch_serve_ckpt.py``'s."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tapp.create_app(ckpt="ck", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tapp.create_app(ckpts={"a": None, "b": "ck_b"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        tapp.create_app(ckpt="ck.msgpack", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        tapp.create_app(ckpts={"a": None, "b": "ck_b.msgpack"}, device="cpu")
     make_song(np.random.default_rng(0), n_notes=30).dump("in.mid")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tdemo.run_demo("in.mid", "out.mid", ckpt="ck", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        cli.main(["demo", "--input", "in.mid", "--ckpt", "ck", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        cli.main(["serve", "--ckpt", "name=ck", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        tdemo.run_demo("in.mid", "out.mid", ckpt="ck.msgpack", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        cli.main(["demo", "--input", "in.mid", "--ckpt", "ck.msgpack", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        cli.main(["serve", "--ckpt", "name=ck.msgpack", "--device", "cpu"])
     assert not os.path.exists("out.mid")
 
 

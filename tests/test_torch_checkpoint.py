@@ -3,7 +3,8 @@ epoch saves, safety saves and restores through both gives the same
 ``meta.json`` and keeps the same directories; the port's payload round trip
 is bit-exact (model, AdamW moments and counts, EMA shadow, a partial
 accumulation window); ``restore_params`` from a root and from a payload
-directory; an empty directory raises."""
+directory; an empty directory raises; a pretrain checkpoint grafted onto a
+classifier."""
 import json
 import os
 
@@ -171,6 +172,30 @@ def test_restore_params_from_root_and_payload_dir(tmp_path):
     bigger = init_lm(tiny_config(**CFG, d_model=128), device="cpu")
     with pytest.raises(RuntimeError, match="size mismatch"):
         CheckpointManager(str(tmp_path / "c")).restore_params(bigger)
+
+
+def test_restore_params_grafts_a_trunk_into_a_classifier(tmp_path):
+    """A pretrain checkpoint (trunk and LM head) onto a drawn classifier:
+    the trunk is the checkpoint's, the head keeps its draw, the checkpoint's
+    LM head is ignored; a model with no name in common raises, and one whose
+    shared names differ in shape raises "size mismatch"."""
+    from pianobart_tpu_torch.compat.from_jax import init_model
+    from pianobart_tpu_torch.models import SequenceClassification
+    cfg = tiny_config(**CFG)
+    st = create_train_state(init_lm(cfg, seed=3, device="cpu"))
+    CheckpointManager(str(tmp_path / "c")).save(1, st, {"weighted_acc": 0.1}, True)
+    saved = st.model.state_dict()
+    model = init_model(SequenceClassification, cfg, seed=4, device="cpu", class_num=3)
+    drawn = {k: v.clone() for k, v in model.state_dict().items()}
+    assert CheckpointManager(str(tmp_path / "c")).restore_params(model) is model
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, saved[k] if k.startswith("pianobart.") else drawn[k]), k
+    with pytest.raises(ValueError, match="matches a parameter"):
+        CheckpointManager(str(tmp_path / "c")).restore_params(torch.nn.Linear(2, 2))
+    wider = init_model(SequenceClassification, tiny_config(**CFG, d_model=128),
+                       device="cpu", class_num=3)
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        CheckpointManager(str(tmp_path / "c")).restore_params(wider)
 
 
 def test_gc_sweeps_stale_tmp_and_keeps_best(tmp_path):

@@ -1,8 +1,8 @@
 """The port's data and training CLI: ``tokenize``, ``concat``, ``check`` and
 ``make-dict`` write what the JAX CLI writes, byte for byte; ``pretrain``
 runs end to end on the CPU at a tiny width, then resumes; a preemption maps
-to exit 75; the refusals (a checkpoint file, a window length that differs
-from ``--max_seq_len``, no card without ``--device cpu``)."""
+to exit 75; the refusals (a merged ``.msgpack`` checkpoint, a window length
+that differs from ``--max_seq_len``, no card without ``--device cpu``)."""
 import json
 import os
 
@@ -102,16 +102,19 @@ def test_pretrain_end_to_end_then_resume(songs, tmp_path, monkeypatch):
 
 
 def test_pretrain_refusals(songs, tmp_path, monkeypatch):
-    """A checkpoint file (merged ``.msgpack``, reference ``.ckpt``) raises
-    ``NotImplementedError`` naming Queue A item 6, unless ``--nopretrain``;
-    without a card and without ``--device`` the command raises."""
+    """A merged ``.msgpack`` raises ``NotImplementedError`` naming Queue A
+    item 6b, unless ``--nopretrain``; a reference ``.ckpt`` that is not
+    there raises ``FileNotFoundError`` (loading one is
+    ``tests/test_torch_interop.py``'s); without a card and without
+    ``--device`` the command raises."""
     monkeypatch.chdir(tmp_path)
     data = str(tmp_path / "data")
     cli.main(["tokenize", "--dataset", songs, "--no_pad", "--out_root", data])
     base = ["pretrain", "--dataroot", data, "--datasets", "songs", "--epochs", "0"]
-    for path in ("merged.msgpack", "ref.ckpt"):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            cli.main(base + TINY + ["--ckpt", path])
+    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+        cli.main(base + TINY + ["--ckpt", "merged.msgpack"])
+    with pytest.raises(FileNotFoundError):
+        cli.main(base + TINY + ["--ckpt", "ref.ckpt"])
     assert cli.main(base + TINY + ["--ckpt", "merged.msgpack", "--nopretrain"]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

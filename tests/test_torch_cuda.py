@@ -692,3 +692,83 @@ def test_kt_attention_reads_a_padded_kt(cuda, upcast):
     r_out, _ = lab.kt_fwd_reference(q, k, v, mask, False, upcast=upcast)
     atol, rtol = _lab_tol(dict(upcast=upcast))
     torch.testing.assert_close(got[0].float(), r_out.float(), atol=atol, rtol=rtol)
+
+
+# -- the finetune path and checkpoint loading on the card -------------------
+
+def _flash_cfg(**kw):
+    from pianobart_tpu_torch.models import tiny_config
+    return tiny_config(d_model=256, num_heads=2, max_len=256, encoder_layers=1,
+                       decoder_layers=1, ffn_dim=256, use_flash_attention=True,
+                       dtype=torch.bfloat16, **kw)
+
+
+def _counts():
+    return (flash_attention_fwd.launches, flash_attention_delta.launches,
+            flash_attention_bwd.launches)
+
+
+@pytest.mark.parametrize("task", ["seq", "velocity", "generation"])
+def test_finetune_step_launches_k1_delta_k2_per_attention(cuda, task):
+    """A train step of a flash-eligible model runs K1, the delta kernel and
+    K2 once per attention (3 here: encoder, decoder self, cross), an eval
+    step K1 alone; the loss is finite."""
+    from pianobart_tpu_torch.compat.from_jax import init_model
+    from pianobart_tpu_torch.models import (PianoBartLM, SequenceClassification,
+                                            TokenClassification)
+    from pianobart_tpu_torch.train.finetune import (finetune_seq_step,
+                                                    finetune_token_step)
+    from pianobart_tpu_torch.train.generation import generation_step
+    from pianobart_tpu_torch.train.state import create_train_state
+    B, S = 2, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(0, 4, (B, S, 8), device=cuda, generator=g)
+    if task == "seq":
+        model = init_model(SequenceClassification, _flash_cfg(), device=cuda,
+                           train=True, class_num=4)
+        y = torch.randint(0, 4, (B,), device=cuda, generator=g)
+        step = finetune_seq_step
+    elif task == "velocity":
+        model = init_model(TokenClassification, _flash_cfg(decoder_label_vocab=5),
+                           device=cuda, train=True, class_num=5)
+        y = torch.randint(0, 4, (B, S), device=cuda, generator=g)
+        step = lambda *a, **k: finetune_token_step(*a, velocity=True, **k)
+    else:
+        model = init_model(PianoBartLM, _flash_cfg(), device=cuda, train=True)
+        y = torch.randint(0, 4, (B, S, 8), device=cuda, generator=g)
+        step = generation_step
+    state = create_train_state(model)
+    before = _counts()
+    _, m = step(state, x, y, g, train=True)
+    assert [a - b for a, b in zip(_counts(), before)] == [3, 3, 3]
+    assert torch.isfinite(m["loss"]).item()
+    before = _counts()
+    step(state, x, y, None, train=False)
+    assert [a - b for a, b in zip(_counts(), before)] == [3, 0, 0]
+
+
+def test_loading_both_forms_on_the_card(cuda, tmp_path):
+    """A checkpoint directory and the same weights as a reference ``.ckpt``
+    load onto the card (built on the meta device), every tensor equal to
+    the source's, and give the same logits (|diff| 0)."""
+    from pianobart_tpu_torch.compat import torch_export
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.decode import load_inference_model
+    from pianobart_tpu_torch.train.state import CheckpointManager, create_train_state
+    cfg = _flash_cfg()
+    model = init_lm(cfg, seed=5, device="cpu")
+    CheckpointManager(str(tmp_path / "run")).save(1, create_train_state(model), {}, True)
+    torch_export.save_torch_checkpoint(torch_export.export_lm(model.state_dict(), cfg),
+                                       str(tmp_path / "ref.ckpt"))
+    x = torch.randint(0, 4, (2, 256, 8), device=cuda)
+    mask = torch.ones(2, 256, device=cuda)
+    logits = []
+    for path in (str(tmp_path / "run"), str(tmp_path / "ref.ckpt")):
+        loaded = load_inference_model(cfg, path, device=cuda)
+        for k, v in loaded.state_dict().items():
+            assert v.device.type == "cuda" and torch.equal(v.cpu(), model.state_dict()[k]), k
+        before = flash_attention_fwd.launches
+        with torch.no_grad():
+            logits.append(loaded(x, x, mask, mask))
+        assert flash_attention_fwd.launches == before + 3
+    assert torch.equal(logits[0], logits[1])
