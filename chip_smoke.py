@@ -52,7 +52,10 @@ result line:
    the plain attention path at B=4, then ``pretrain_step`` at B=32, S=1024
    (bf16 compute, f32 parameters, dropout 0.1) with ms/step, tokens/s, MFU,
    peak memory, launches per step (K1 and K2 24 each, K3 and K4 none) and
-   a profiled window;
+   a profiled window; then the five corruptions the shipped ``corrupt_batch``
+   never picks (bar deletion, element masking, bar masking, bar x
+   instrument element masking, bar infilling) at B=32, S=1024 on the
+   device, each with its ms and the CPU tests' invariants on its output;
 10. ``[train_long]``: the long-context step (``max_len=2048``, B=16, the
    flagship's tokens per batch): gradients through K1+K3 against plain
    attention at B=2, then the same timed steps (K1, K3a, K3b 24 each, K2
@@ -94,10 +97,21 @@ result line:
    default cfg (bf16 parameters equal to ``best/``'s cast to bf16), then 2
    uploaded songs generated by
    both models at once (a 200 whose MIDI parses back, or the 500 "no
-   notes"; K1 8 launches per decode batch).
+   notes"; K1 8 launches per decode batch);
+16. ``[merge]``: [finetune]'s composer and generation ``best/`` merged over
+   [pretrain_run]'s ``best/`` by the ``merge`` CLI in process at flagship
+   width (f32), every method (average, task arithmetic, TIES, the random
+   and magnitude masks, Fisher and RegMean on 32 windows of
+   [pretrain_run]'s data), each with its seconds, peak memory and launches
+   (Fisher: K1, delta, K2 24 per batch per model; RegMean: K1 24); the
+   deterministic methods against the host in f32 (equal) and in float64,
+   and TIES's thresholds equal; the Fisher pass timed by ``StepTimer``, one RegMean batch traced
+   with its memory snapshot; ``--head_from`` to a ``.msgpack`` loaded at
+   f32 (logits |diff| 0 against the merge in memory), grafted onto a
+   classifier, and served at bf16 (2 songs, K1 8 per decode batch).
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-pretrain_run, finetune, serve_ckpt) is driven with every
+pretrain_run, finetune, serve_ckpt, merge) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1352,6 +1366,95 @@ def phase_train(state):
     launches, state["train"] = _train_steps("train", cfg, 32, rng, gen,
                                             _counts(k1=n_attn, k2=n_attn))
     state.setdefault("launches", {})["train"] = launches
+    _unused_corruptions("train", 32, cfg.max_len)
+
+
+def _first_of_group(keys):
+    """For each entry of ``keys``, the index of the first entry with its
+    key."""
+    import numpy as np
+    _, first, inverse = np.unique(keys, return_index=True, return_inverse=True)
+    return first[inverse]
+
+
+def _is_subsequence(rows, x):
+    xi = 0
+    for r in map(tuple, rows.tolist()):
+        while xi < len(x) and tuple(x[xi]) != r:
+            xi += 1
+        if xi == len(x):
+            return False
+        xi += 1
+    return True
+
+
+def _corruption_faults(name, x, o, l, p):
+    """The invariants the CPU tests (tests/test_torch_noise.py) check, on
+    one sample's output: a list of what failed."""
+    import numpy as np
+    from pianobart_tpu_torch import vocab as V
+    S = len(x)
+    pad, mask = np.asarray(V.PAD), np.asarray(V.MASK)
+    bad = []
+    if name == "bar_deletion":
+        gone = np.setdiff1d(x[:, 0], o[:, 0])
+        dropped = np.isin(x[:, 0], gone)
+        n = S - int(dropped.sum())
+        first = np.where(dropped)[0]
+        want_l = np.arange(S) >= (first.min() if len(first) else S)
+        if not ((o[:n] == x[~dropped]).all() and (o[n:] == pad).all()):
+            bad.append("survivors are not x without the deleted bars, then padding")
+        if not (l == want_l).all():
+            bad.append("loss is not every position from the first deletion")
+    elif name == "token_mask_element":
+        k = round(S * p * 8)
+        n80, n10 = round(k * 0.8), round(k * 0.1)
+        if l.sum() != k or not ((o != x) <= l).all():
+            bad.append("not k elements chosen, or an unchosen one changed")
+        if not n80 <= (o == mask[None]).sum() <= n80 + n10:
+            bad.append("<MASK> count")
+    elif name in ("bar_mask", "bar_mask_element"):
+        if l[0].any() or l[-1].any():
+            bad.append("row 0 or S-1 not exempt")
+        if not (o[~l] == x[~l]).all():
+            bad.append("an element without loss changed")
+        key = x[:, 0] if name == "bar_mask" else x[:, 0] * V.FIELD_SIZES[2] + x[:, 2]
+        inner = np.arange(1, S - 1)
+        first = inner[_first_of_group(key[inner])]
+        if not (l[inner] == l[first]).all():
+            bad.append("the loss differs inside a group")
+    elif name == "bar_infilling":
+        if not (l == (o != x).any(-1)).all():
+            bad.append("loss is not the changed rows")
+        content = o[~(o == mask).all(-1) & ~(o == pad).all(-1)]
+        if not _is_subsequence(content, x[~(x == pad).all(-1)]):
+            bad.append("content rows are not a subsequence of x")
+    return bad
+
+
+def _unused_corruptions(tag, B, S, p=0.15):
+    """The five corruptions the shipped ``corrupt_batch`` never picks, on
+    the device at the pretrain shape: ms by CUDA events, and the CPU tests'
+    invariants on every sample of the card's output."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.ops import noise
+    rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
+    x = batch.cpu().numpy()
+    for name in ("bar_deletion", "token_mask_element", "bar_mask", "bar_mask_element",
+                 "bar_infilling"):
+        fn = getattr(noise, name)
+        ms = _time_ms(lambda: fn(batch, p, gen), iters=5, warmup=1)
+        out, loss = fn(batch, p, gen)
+        o, l = out.cpu().numpy(), loss.cpu().numpy()
+        faults = {f for i in range(B) for f in _corruption_faults(name, x[i], o[i], l[i], p)}
+        print(f"[{tag}] {name} B={B} S={S}: {ms:.3f} ms (CUDA events); loss fraction "
+              f"{l.mean():.4f}; invariants on all {B} samples: "
+              f"{'hold' if not faults else sorted(faults)}")
+        if faults or out.shape != batch.shape or not l.any():
+            raise AssertionError(f"{name} on the card: {sorted(faults)}")
 
 
 def phase_train_long(state):
@@ -1542,6 +1645,7 @@ def phase_pretrain_run(state):
             rc = cli.main(["tokenize", "--dataset", songs, "--no_pad",
                            "--out_root", data])
             split = os.path.join(data, "songs", "songs_train_split.npy")
+            state["pretrain_data"] = split      # [merge]'s --data
             rc_check = cli.main(["check", "--file", split, "--packed"])
         lines = log.getvalue().splitlines()
         print(f"[pretrain_run] tokenize --no_pad by the native codec "
@@ -1808,7 +1912,7 @@ def phase_finetune(state):
         cli._load_init_ckpt = checked
         try:
             _reset_counts()
-            _supervised_cli("composer", [
+            composer, _, _ = _supervised_cli("composer", [
                 "finetune", "--task", "composer", "--dataroot", data["composer"],
                 "--dataset", "songs", "--epochs", "1", "--ckpt", pre_best], n_attn)
         finally:
@@ -1826,6 +1930,10 @@ def phase_finetune(state):
             "finetune-generation", "--dataroot", data["generate"], "--datasets",
             "songs", "--fad", "--epochs", "1", "--ckpt", pre_best], n_attn)
         state["gen_best"] = os.path.abspath(os.path.join(gen.save_dir, "best"))
+        # the two models [merge] merges, over [pretrain_run]'s best/
+        state["merge_models"] = (os.path.abspath(os.path.join(composer.save_dir, "best")),
+                                 state["gen_best"])
+        del composer
         model = gen.state.model.eval()
         for p in model.parameters():
             p.grad = None
@@ -2061,6 +2169,349 @@ def phase_serve_ckpt(state):
     print(f"[serve_ckpt] wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _close(card, host, pre=None, rtol=1e-6, atol=1e-7):
+    """(max |card - host|, whether every entry is within ``rtol * |host| +
+    atol``, entries decided apart, entries) over a state_dict, the host in
+    float64.  With ``pre`` (a selection: TIES, a magnitude mask) an entry
+    that one side leaves at its pretrained value and the other does not was
+    decided apart: f32 deltas against exact ones may order entries at a
+    threshold apart.  Those are counted, not compared."""
+    worst, ok, apart, n = 0.0, True, 0, 0
+    for k, h in host.items():
+        c = card[k].cpu()
+        d = (c.double() - h).abs()
+        if pre is not None:
+            split = (c == pre[k]) != (h == pre[k].double())
+            apart += int(split.sum())
+            d = d.masked_fill(split, 0.0)
+        worst = max(worst, float(d.max()))
+        ok = ok and bool((d <= rtol * h.abs() + atol).all())
+        n += h.numel()
+    return worst, ok, apart, n
+
+
+def phase_merge(state):
+    """Model merging as a user runs it, at flagship width (f32 parameters
+    and compute, as ``run_merge`` builds the model): [finetune]'s composer
+    and generation ``best/`` merged over [pretrain_run]'s ``best/`` by the
+    port's ``merge`` CLI in process, every method (average, task arithmetic,
+    TIES, the random mask over average, the magnitude mask over TIES,
+    Fisher and RegMean on 32 windows of [pretrain_run]'s data in batches of
+    4), each with its seconds, peak memory and launches (Fisher: K1, delta
+    and K2 24 per batch per model, the f32 prep before each K1 and K2;
+    RegMean: K1 and the prep 24 per batch per model; the rest none); the
+    deterministic methods held against the same functions on the host, in
+    f32 (equal) and in float64, TIES's thresholds equal; the Fisher pass timed by ``StepTimer``
+    and one RegMean batch traced with its memory; then ``--head_from`` the
+    generation ``best/`` to a ``.msgpack``, loaded at f32 (its logits those
+    of the merge in memory, |diff| 0) and at the service's bf16 to serve 2
+    uploaded songs (K1 8 per decode batch), and grafted by ``finetune
+    --ckpt`` onto a classifier."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import cli
+    from pianobart_tpu_torch.compat.from_jax import init_model
+    from pianobart_tpu_torch.decode import checkpoint_entries, load_inference_model
+    from pianobart_tpu_torch.merge import cli as merge_cli
+    from pianobart_tpu_torch.merge import methods
+    from pianobart_tpu_torch.midi import midi_bytes
+    from pianobart_tpu_torch.models import (PianoBartConfig, PianoBartLM,
+                                            SequenceClassification,
+                                            attention_mask_from_bars)
+    from pianobart_tpu_torch.ops.flash import flash_attention_fwd
+    from pianobart_tpu_torch.serve.app import create_app
+    from pianobart_tpu_torch.serve.demo import window_to_midi
+    from pianobart_tpu_torch.utils.profiling import (MEMORY_FILE, TRACE_FILE,
+                                                     StepTimer, trace)
+
+    t_phase = time.perf_counter()
+    pre = state["pretrain_best"]
+    composer, generation = state.pop("merge_models")
+    data = state["pretrain_data"]
+    work = os.path.join(state["finetune_dir"], "merge")
+    os.makedirs(work)
+    cfg = PianoBartConfig()                      # run_merge's default
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    n_win = min(32, len(np.load(data, mmap_mode="r")))
+    n_batches = len(range(0, n_win, 4))
+    base = ["merge", "--models", composer, generation, "--pretrained", pre,
+            "--data", data, "--num_examples", "32", "--device", "cuda"]
+    runs = (("average_merging", ["--method", "average_merging"], _counts()),
+            ("task_arithmetic", ["--method", "task_arithmetic"], _counts()),
+            ("ties_merging", ["--method", "ties_merging"], _counts()),
+            ("mask random/average", ["--method", "mask_merging"], _counts()),
+            ("mask magnitude/ties", ["--method", "mask_merging", "--mask_strategy",
+                                     "magnitude", "--mask_apply_method", "ties_merging"],
+             _counts()),
+            ("fisher_merging", ["--method", "fisher_merging"],
+             _counts(k1=2 * n_batches * n_attn, k2=2 * n_batches * n_attn, f32=True)),
+            ("regmean_merging", ["--method", "regmean_merging"],
+             _counts(k1=2 * n_batches * n_attn, f32=True)))
+    merged, timer = {}, StepTimer()
+    real_merge, real_fisher = merge_cli.merge, methods.compute_fisher_weights
+
+    def keeping(args, cfg=None):
+        out = real_merge(args, cfg)
+        merged[args.output] = out
+        return out
+
+    def timed_fisher(*a, **k):
+        with timer:
+            return timer.observe(real_fisher(*a, **k))
+    print(f"[merge] {composer} and {generation} over {pre}; --data {n_win} windows "
+          f"in {n_batches} batches of 4; f32 parameters and compute")
+    merge_cli.merge, methods.compute_fisher_weights = keeping, timed_fisher
+    try:
+        _reset_counts()
+        for name, extra, expect in runs:
+            out = os.path.join(work, name.replace(" ", "_").replace("/", "_") + ".msgpack")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = _read_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                rc = cli.main(base + extra + ["--output", out])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = _read_counts()
+            counts = tuple(after[k] - before[k] for k in after)
+            size = os.path.getsize(out) / 2**30
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[merge] {name}: {dt:.1f} s, peak {peak:.2f} GiB, {size:.2f} GiB file; launches ({COUNT_NAMES}) {counts}, expected "
+                  f"{expect}; {log.getvalue().strip()}")
+            if rc != 0 or counts != expect:
+                raise AssertionError(f"{name}: exit {rc}, launches {counts}")
+            if name == "fisher_merging":
+                print(f"[merge] fisher_merging: the Fisher pass of each model by StepTimer "
+                      f"{timer.count} x {timer.mean_ms:.0f} ms ({n_batches} batches, B=4)")
+            if name != "ties_merging":
+                os.remove(out)
+                merged.pop(out)
+        # --head_from: the merged trunk with the generation finetune's LM head
+        head_path = os.path.join(work, "merged.msgpack")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(base + ["--method", "ties_merging", "--head_from", generation,
+                                  "--output", head_path])
+        print(f"[merge] ties_merging --head_from the generation best/: exit {rc} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        state["launches"]["merge"] = _read_counts()
+    finally:
+        merge_cli.merge, methods.compute_fisher_weights = real_merge, real_fisher
+    if rc != 0:
+        raise AssertionError("merge --head_from failed")
+
+    # the deterministic methods on the card against the host: in f32 (the
+    # same arithmetic: equal entry for entry) and in float64
+    trunks = {n: merge_cli._trunk(checkpoint_entries(p, cfg), "cuda")
+              for n, p in (("pre", pre), ("composer", composer), ("generation", generation))}
+    host32 = {n: {k: v.cpu() for k, v in t.items()} for n, t in trunks.items()}
+    host = {n: {k: v.double() for k, v in t.items()} for n, t in host32.items()}
+    ties_file = os.path.join(work, "ties_merging.msgpack")
+    cli_ties = merged.pop(ties_file)
+    same = all(torch.equal(cli_ties[merge_cli.TRUNK + k], v) for k, v in
+               methods.ties_merging(trunks["pre"], [trunks["composer"],
+                                                    trunks["generation"]]).items())
+    print(f"[merge] the CLI's ties_merging equals the function's on the same trunks: {same}")
+    if not same:
+        raise AssertionError("the merge CLI does not compute ties_merging")
+    cases = (("average_merging", False, lambda t: methods.average_merging(
+                 [t["composer"], t["generation"]])),
+             ("task_arithmetic", False, lambda t: methods.task_arithmetic(
+                 t["pre"], [t["composer"], t["generation"]])),
+             ("ties_merging", True, lambda t: methods.ties_merging(
+                 t["pre"], [t["composer"], t["generation"]])),
+             ("magnitude mask (composer)", True, lambda t: methods.mask_model_weights(
+                 t["composer"], t["pre"], mask_strategy="magnitude")),
+             ("magnitude mask (generation)", True, lambda t: methods.mask_model_weights(
+                 t["generation"], t["pre"], mask_strategy="magnitude", seed=1)))
+    for name, selects, fn in cases:
+        t0 = time.perf_counter()
+        card = fn(trunks)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        want32 = fn(host32)
+        equal = all(torch.equal(card[k].cpu(), v) for k, v in want32.items())
+        del want32
+        t0 = time.perf_counter()
+        want = fn(host)
+        t_host = time.perf_counter() - t0
+        worst, ok, apart, n = _close(card, want, host32["pre"] if selects else None)
+        # at most one entry in a million decided apart at a threshold
+        print(f"[merge] {name}: card (f32) {t_card:.2f} s; equal to the host's f32 entry "
+              f"for entry: {equal}; against the host's float64 ({t_host:.1f} s): max "
+              f"|diff| {worst:.3e} (tol rtol 1e-6, atol 1e-7), {apart} of {n} entries "
+              f"decided apart (at most 1e-6 of them): {'ok' if ok else 'FAIL'}")
+        if not (equal and ok and apart <= 1e-6 * n):
+            raise AssertionError(f"{name} on the card disagrees with the host")
+        del card, want
+    # TIES's trim thresholds: the k-th smallest |delta| of each model, k =
+    # int(0.8 * total), on the card (a sort) against the host (kthvalue); the
+    # card's kthvalue timed for the record
+    for n in ("composer", "generation"):
+        flat = torch.cat([(trunks[n][k] - trunks["pre"][k]).reshape(-1)
+                          for k in trunks["pre"]]).abs()
+        k = int(flat.numel() * 0.8)
+        thr = methods._kth_smallest(flat, k)
+        t_thr = _time_ms(lambda: methods._kth_smallest(flat, k), iters=3, warmup=1)
+        kth = []
+        t_kth = _time_ms(lambda: kth.append(torch.kthvalue(flat, k).values), iters=1,
+                         warmup=0)
+        hflat = torch.cat([(host[n][key] - host["pre"][key]).reshape(-1)
+                           for key in host["pre"]]).abs()
+        t0 = time.perf_counter()
+        hthr = methods._kth_smallest(hflat, k)
+        t_host = time.perf_counter() - t0
+        equal = thr.item() == np.float32(hthr.item()) == kth[0].item()
+        print(f"[merge] TIES threshold of {n} over {flat.numel()} entries: card "
+              f"{thr.item():.9e} (by a sort {t_thr:.1f} ms; kthvalue {t_kth:.1f} ms; CUDA "
+              f"events), host float64 {hthr.item():.12e} (kthvalue {1e3 * t_host:.0f} ms); "
+              f"equal: {equal}")
+        if not equal:
+            raise AssertionError("TIES thresholds differ between the card and the host")
+        del flat, hflat
+    # the random mask over average: each model's kept share of its delta
+    for i, n in enumerate(("composer", "generation")):
+        masked = methods.mask_model_weights(trunks[n], trunks["pre"], seed=i)
+        kept = sum(int((masked[k] != trunks["pre"][k]).sum()) for k in masked)
+        moved = sum(int((trunks[n][k] != trunks["pre"][k]).sum()) for k in masked)
+        frac, sigma = kept / moved, (0.2 * 0.8 / moved) ** 0.5
+        print(f"[merge] random mask of {n} (seed {i}): kept {frac:.5f} of the {moved} "
+              f"moved entries against 1 - 0.8 = 0.2 (4 sigma {4 * sigma:.1e})")
+        if abs(frac - 0.2) > 4 * sigma + 1e-4:
+            raise AssertionError("the random mask's kept fraction is off")
+        del masked
+    del host, host32
+    # one RegMean batch under the profiler, with the allocator's history
+    batch = np.load(data)[:4].astype(np.int64)
+    log_dir = os.path.join(work, "trace")
+    with trace(log_dir, with_memory=True):
+        merge_cli._trunk_grams(cfg, trunks["composer"], [batch], "cuda")
+        torch.cuda.synchronize()
+    with open(os.path.join(log_dir, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k1_seen = any("flash_fwd_tf32_kernel" in nm for nm in names)
+    snap = os.path.getsize(os.path.join(log_dir, MEMORY_FILE)) / 2**20
+    print(f"[merge] trace of one RegMean batch: {len(names)} event names, K1 "
+          f"(flash_fwd_tf32_kernel) among them: {k1_seen}; memory snapshot {snap:.1f} MiB")
+    if not k1_seen or snap <= 0:
+        raise AssertionError("the trace lacks K1 or the memory snapshot")
+    del trunks
+    torch.cuda.empty_cache()
+
+    # the load form: the .msgpack at f32 against the merge in memory
+    sd = merged.pop(head_path)
+    x = torch.as_tensor(np.load(data)[:2].astype(np.int64), device="cuda")
+    mask = attention_mask_from_bars(x)
+    t0 = time.perf_counter()
+    loaded = load_inference_model(cfg, head_path, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    ref = PianoBartLM(cfg, device="cuda").eval()
+    ref.load_state_dict(sd)
+    with torch.no_grad():
+        diff = (loaded(x, x, mask, mask) - ref(x, x, mask, mask)).abs().max().item()
+    print(f"[merge] {os.path.getsize(head_path) / 2**30:.2f} GiB .msgpack loaded at f32 "
+          f"in {t_load:.2f} s: fused logits (B=2) against the merge in memory: |diff| {diff}")
+    if diff != 0.0:
+        raise AssertionError(f"the .msgpack loads other weights (|diff| {diff})")
+    del loaded, ref
+    # finetune --ckpt: the merged trunk grafted onto a classifier
+    clf = init_model(SequenceClassification, PianoBartConfig(dtype=torch.bfloat16),
+                     seed=SEED, device="cuda", train=True, class_num=8)
+    head0 = {k: v.clone() for k, v in clf.state_dict().items()
+             if not k.startswith(merge_cli.TRUNK)}
+
+    class Args:
+        ckpt, nopretrain = head_path, False
+    cli._load_init_ckpt(clf, Args)
+    got = clf.state_dict()
+    trunk_ok = all(torch.equal(got[k], v) for k, v in sd.items()
+                   if k.startswith(merge_cli.TRUNK))
+    head_ok = all(torch.equal(got[k], v) for k, v in head0.items())
+    print(f"[merge] finetune --ckpt the .msgpack: the classifier's trunk equals the "
+          f"merge's: {trunk_ok}; its head kept its draw: {head_ok}")
+    if not (trunk_ok and head_ok):
+        raise AssertionError("the merged trunk did not graft")
+    del clf, head0, got, sd
+    torch.cuda.empty_cache()
+
+    # serve --ckpt merged=<file> at the service's default (bf16 parameters)
+    here = os.getcwd()
+    try:
+        os.chdir(work)
+        app = create_app(ckpts={"merged": head_path}, device="cuda")
+        svc = app.services["merged"]
+        t0 = time.perf_counter()
+        svc._ensure()
+        torch.cuda.synchronize()
+        print(f"[merge] serve --ckpt merged=<.msgpack>: loaded with bf16 parameters in "
+              f"{time.perf_counter() - t0:.2f} s")
+        grids = []
+        decode = svc._decode_batch
+
+        def recording(intros, seeds):
+            out = decode(intros, seeds)
+            grids.extend(out)
+            return out
+        svc._decode_batch = recording
+
+        def written():
+            out = []
+            for g in grids:
+                if window_to_midi(g, "check.mid"):
+                    with open("check.mid", "rb") as f:
+                        out.append(f.read())
+            return out
+        rng = np.random.default_rng(SEED + 7)
+        names = []
+        for _ in range(2):
+            body = (b"--pbx\r\nContent-Disposition: form-data; name=\"file\"; "
+                    b"filename=\"s.mid\"\r\n\r\n" + midi_bytes(_song(rng))
+                    + b"\r\n--pbx--\r\n")
+            st, _, out = _wsgi(app, "POST", "/api/upload", body,
+                               "multipart/form-data; boundary=pbx")
+            if st != "200 OK":
+                raise AssertionError(f"upload answered {st}")
+            names.append(json.loads(out)["file"])
+        _reset_counts()
+        answers = {}
+
+        def client(fname):
+            t = time.perf_counter()
+            answers[fname] = (_wsgi(app, "GET", f"/api/generate/merged/{fname}"),
+                              time.perf_counter() - t)
+        threads = [threading.Thread(target=client, args=(f,)) for f in names]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a generate request never returned")
+        ends = []
+        for f, ((st, _, body), lat) in sorted(answers.items()):
+            kind, _ = _check_answer(app, st, body, written)
+            ends.append(kind)
+            print(f"[merge]   merged/{f}: {kind} in {lat:.3f} s")
+        batches = len(svc.batch_sizes_served)
+        k1 = flash_attention_fwd.launches
+        others = {n: c for n, c in _read_counts().items() if c and n != "flash_attention_fwd"}
+        print(f"[merge] {len(threads)} requests to the merged model: {ends.count('200')} x "
+              f"200, {ends.count('500')} x 500 (no notes); {batches} decode batches, K1 "
+              f"launches {k1} (expected {cfg.encoder_layers * batches})")
+        if k1 != cfg.encoder_layers * batches or others:
+            raise AssertionError(f"K1 launched {k1} times for {batches} decode batches; "
+                                 f"others {others}")
+        svc.model = None
+    finally:
+        os.chdir(here)
+    torch.cuda.empty_cache()
+    print(f"[merge] wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2150,7 +2601,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
-          ("serve_ckpt", phase_serve_ckpt))
+          ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge))
 
 
 if __name__ == "__main__":

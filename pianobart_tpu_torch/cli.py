@@ -16,12 +16,16 @@ JAX CLI's flags plus ``--device``:
     python -m pianobart_tpu_torch.cli serve --ckpt gen=result/finetune/generation_pianobart --warm
     python -m pianobart_tpu_torch.cli demo --input song.mid --output out.mid --ckpt gen.ckpt
 
-The training commands, ``eval-gen``, ``serve`` and ``demo`` run on CUDA
-unless ``--device cpu`` is given, and raise without a card otherwise; the
-data and checkpoint-conversion commands run on the host.  ``--ckpt`` takes
-a checkpoint directory of the port (a manager root or a payload directory)
-or a reference ``.ckpt``/``.pth`` file; a merged ``.msgpack`` raises until
-merging is ported (ROADMAP Queue A item 6b).  The JAX package's orbax
+    python -m pianobart_tpu_torch.cli merge --models result/finetune/composer_pianobart \
+        result/finetune/generation_pianobart --pretrained result/pretrain/pianobart \
+        --method ties_merging --head_from result/finetune/generation_pianobart
+
+The training commands, ``eval-gen``, ``merge``, ``serve`` and ``demo`` run
+on CUDA unless ``--device cpu`` is given, and raise without a card
+otherwise; the data and checkpoint-conversion commands run on the host.
+``--ckpt`` takes a checkpoint directory of the port (a manager root or a
+payload directory), a merged ``.msgpack`` (of this ``merge`` or the JAX
+package's) or a reference ``.ckpt``/``.pth`` file.  The JAX package's orbax
 checkpoints reach the port through the JAX CLI's ``export-ckpt``.
 """
 from __future__ import annotations
@@ -56,8 +60,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--ckpt", type=str, default=None,
                    help="checkpoint to initialize from (a checkpoint "
-                        "directory of the port, or a reference .ckpt/.pth); "
-                        "the entries the model shares are grafted")
+                        "directory of the port, a merged .msgpack, or a "
+                        "reference .ckpt/.pth); the entries the model shares "
+                        "are grafted")
     p.add_argument("--resume", action="store_true",
                    help="resume epoch/optimizer from the save dir")
     p.add_argument("--nopretrain", action="store_true")
@@ -98,14 +103,14 @@ def _cfg_from_args(args, **kw):
 def _load_init_ckpt(model, args):
     """--ckpt: graft the checkpoint's entries that the model shares (a
     pretrain trunk into a classifier, a finetune into an LM) onto the drawn
-    model.  A directory is a checkpoint of the port; a file a reference
-    ``.ckpt``/``.pth`` (its kind detected); a merged ``.msgpack`` raises
-    (ROADMAP Queue A item 6b)."""
+    model.  A directory is a checkpoint of the port; a ``.msgpack`` the
+    output of ``merge``; another file a reference ``.ckpt``/``.pth`` (its
+    kind detected)."""
     if not args.ckpt or args.nopretrain:
         return model
     from .decode import checkpoint_entries
     from .train.state import graft_
-    graft_(model, checkpoint_entries(args.ckpt, model.cfg), args.ckpt)
+    graft_(model, checkpoint_entries(args.ckpt, model.cfg, model=model), args.ckpt)
     return model
 
 
@@ -340,6 +345,12 @@ def cmd_eval_gen(args) -> int:
     return 0
 
 
+def cmd_merge(args) -> int:
+    from .merge.cli import run_merge
+    run_merge(args)
+    return 0
+
+
 def cmd_convert_ckpt(args) -> int:
     """A reference ``.ckpt``/``.pth`` -> a checkpoint directory of the port
     (a ``PianoBartLM``: the entries it lacks drawn from seed 0)."""
@@ -508,6 +519,35 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_flags(se)
     _add_train_flags(se)
     se.set_defaults(fn=cmd_eval_gen, batch_size=8)
+
+    sm = sub.add_parser("merge")
+    sm.add_argument("--models", nargs="+", required=True,
+                    help="finetuned checkpoints (checkpoint directories of "
+                         "the port or reference .ckpt/.pth files)")
+    sm.add_argument("--pretrained", type=str, default=None,
+                    help="pretrained backbone checkpoint")
+    sm.add_argument("--method", default="mask_merging",
+                    choices=["average_merging", "task_arithmetic",
+                             "ties_merging", "mask_merging",
+                             "fisher_merging", "regmean_merging"])
+    sm.add_argument("--data", type=str, default=None,
+                    help="pretrain .npy for fisher/regmean statistics")
+    sm.add_argument("--num_examples", type=int, default=32)
+    sm.add_argument("--mask_apply_method", default="average_merging")
+    sm.add_argument("--weight_mask_rate", type=float, default=0.8)
+    sm.add_argument("--use_weight_rescale",
+                    action=argparse.BooleanOptionalAction, default=True)
+    sm.add_argument("--mask_strategy", default="random",
+                    choices=["random", "magnitude"])
+    sm.add_argument("--scaling_coefficient", type=float, default=1.0)
+    sm.add_argument("--param_value_mask_rate", type=float, default=0.8)
+    sm.add_argument("--head_from", type=str, default=None,
+                    help="checkpoint whose LM head rides along in the merged "
+                         "output; without it the msgpack is trunk-only and "
+                         "consumers draw the head")
+    sm.add_argument("--output", type=str, default="merged_params.msgpack")
+    _add_device_flag(sm)
+    sm.set_defaults(fn=cmd_merge)
 
     scc = sub.add_parser("convert-ckpt")
     scc.add_argument("--ckpt", required=True, help="reference .ckpt/.pth")

@@ -6,6 +6,8 @@ The port's modules carry the flax module names (``layers_3`` becomes
 ``layers.3``), so the mapping is mechanical: Dense ``kernel (in, out)`` ->
 ``weight (out, in)``, LayerNorm ``scale`` -> ``weight``, and ``bias``,
 ``embed.table`` and ``embed_positions.embedding`` map across as they are.
+:func:`flax_tree_from_state_dict` maps back, for the flax msgpack a merge
+writes.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from ..models.heads import (AttentionPooling, Excitation, SequenceClassifierHead
                             TokenClassifierHead)
 from ..models.pianobart import PianoBartLM
 
-__all__ = ["lm_state_dict_from_jax", "init_lm", "init_model", "draw_params_"]
+__all__ = ["lm_state_dict_from_jax", "flax_tree_from_state_dict", "init_lm",
+           "init_model", "draw_params_"]
 
 # modules whose Linear layers flax builds with its default kernel init
 _LECUN = (LabelEmbedding, AttentionPooling, SequenceClassifierHead,
@@ -32,6 +35,8 @@ _LECUN = (LabelEmbedding, AttentionPooling, SequenceClassifierHead,
 
 
 def _to_tensor(leaf: Any) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):  # a leaf of compat/flax_msgpack.py
+        return leaf
     if hasattr(leaf, "unbox"):          # flax nn.Partitioned from model.init
         leaf = leaf.unbox()
     arr = np.asarray(leaf)
@@ -68,6 +73,24 @@ def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
         if len(found) != n:
             raise ValueError(f"params hold {len(found)} {part} layers, cfg says {n}")
     return sd
+
+
+def flax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`lm_state_dict_from_jax`: the port's names and
+    tensors -> a nested flax params dict (``layers.N`` -> ``layers_N``, a
+    2-D ``weight`` -> ``kernel`` transposed, a 1-D ``weight`` -> ``scale``),
+    in the state_dict's order.  Tensors stay on their device."""
+    tree: Dict[str, Any] = {}
+    for name, t in sd.items():
+        parts = re.sub(r"(^|\.)layers\.(\d+)(?=\.)", r"\1layers_\2", name).split(".")
+        leaf = parts[-1]
+        if leaf == "weight":
+            leaf, t = ("kernel", t.T) if t.dim() == 2 else ("scale", t)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree
 
 
 def draw_params_(model: nn.Module, seed: int = 0, skip=()) -> nn.Module:

@@ -29,7 +29,7 @@ from .models.embedding import OctupleEmbedding
 from .models.pianobart import PianoBartLM, attention_mask_from_bars
 from .ops.sampling import DEFAULT_TEMPERATURE, DEFAULT_TOP_P, sample_octuple
 
-__all__ = ["generate", "load_inference_model", "checkpoint_entries", "refuse_msgpack"]
+__all__ = ["generate", "load_inference_model", "checkpoint_entries"]
 
 
 def _generate_impl(model: PianoBartLM, encoder_ids, encoder_mask, generator,
@@ -119,24 +119,19 @@ def generate(
                               force_full)
 
 
-def refuse_msgpack(ckpt: Optional[str]) -> None:
-    """Raise for a merged ``.msgpack`` file: that load form comes with
-    merging (ROADMAP Queue A item 6b)."""
-    if ckpt and str(ckpt).endswith(".msgpack"):
-        raise NotImplementedError(
-            f"cannot load {ckpt!r}: merged .msgpack files load with merging "
-            f"(ROADMAP Queue A item 6b); the port loads its checkpoint "
-            f"directories and reference .ckpt/.pth files")
-
-
-def checkpoint_entries(ckpt: str, cfg: PianoBartConfig, kind: Optional[str] = None):
+def checkpoint_entries(ckpt: str, cfg: PianoBartConfig, kind: Optional[str] = None,
+                       model: Optional[torch.nn.Module] = None):
     """The port-named tensors of a checkpoint, on the host: a checkpoint
     directory of the port (a manager root or a payload directory; only the
-    weights are read, memory-mapped) or a reference ``.ckpt``/``.pth``
-    file (of ``kind``, detected when ``None``;
+    weights are read, memory-mapped), a merged ``.msgpack`` (the subtrees
+    ``model`` has, when given;
+    :func:`~.train.state.load_merged_msgpack`) or a reference
+    ``.ckpt``/``.pth`` file (of ``kind``, detected when ``None``;
     :func:`~.compat.torch_import.import_checkpoint`)."""
     import os
-    refuse_msgpack(ckpt)
+    if str(ckpt).endswith(".msgpack"):
+        from .train.state import load_merged_msgpack
+        return load_merged_msgpack(ckpt, cfg, model)
     if os.path.isdir(ckpt):
         from .train.state import CheckpointManager
         return CheckpointManager(ckpt).params()
@@ -157,14 +152,14 @@ def load_inference_model(cfg: PianoBartConfig, ckpt: Optional[str] = None,
     ``cfg.param_dtype``), and only the parameters it lacks (the LM head of a
     trunk-only checkpoint) are drawn, in module order from a generator
     seeded with ``seed`` (:func:`~.compat.from_jax.draw_params_`).  Without
-    ``ckpt``: ``init_lm(cfg, seed)``.  A merged ``.msgpack`` raises."""
+    ``ckpt``: ``init_lm(cfg, seed)``."""
     from .compat.from_jax import draw_params_, init_lm
     from .train.state import graft_
     device = resolve_device(device)
     if not ckpt:
         return init_lm(cfg, seed, device)
-    saved = checkpoint_entries(ckpt, cfg, kind)
     model = PianoBartLM(cfg, device="meta").to_empty(device=device)
+    saved = checkpoint_entries(ckpt, cfg, kind, model)
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, OctupleEmbedding):

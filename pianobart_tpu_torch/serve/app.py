@@ -40,7 +40,6 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..decode import refuse_msgpack
 from ..device import DeviceLike, resolve_device
 from .demo import midi_to_window, window_to_midi
 
@@ -121,9 +120,8 @@ class GenerationService:
     ``model`` defaults to a ``PianoBartLM`` of ``cfg`` (the flagship with
     bf16 weights by default) loaded from ``ckpt`` at first use, or with
     random weights from ``seed`` without one; ``device`` defaults to CUDA
-    and raises without it.  A merged ``.msgpack`` is refused here, before
-    any request.  ``generate_fn(midi_in, midi_out, seed) -> ok`` replaces
-    the whole MIDI path (a test hook, as in the JAX package).
+    and raises without it.  ``generate_fn(midi_in, midi_out, seed) -> ok``
+    replaces the whole MIDI path (a test hook, as in the JAX package).
     """
 
     def __init__(self, model=None, cfg=None, device: DeviceLike = None,
@@ -132,7 +130,6 @@ class GenerationService:
                  generate_fn: Optional[Callable] = None,
                  ckpt: Optional[str] = None):
         self.device = resolve_device(device)
-        refuse_msgpack(ckpt)
         self.ckpt = ckpt
         self._generate_fn = generate_fn
         self.model = model

@@ -14,6 +14,8 @@ in :func:`apply_gradients`).
 true resume of the model, the optimizer, the EMA shadow and a partial
 accumulation window; and, for a finetune or a server, the weights (or the
 EMA shadow) alone, grafted onto any model that shares their names.
+:func:`load_merged_msgpack` reads a merge's flax ``.msgpack`` (the port's
+``merge`` or the JAX package's) as the same port-named entries.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from torch import nn
 __all__ = ["TrainState", "make_schedule", "make_optimizer", "create_train_state",
            "apply_gradients", "gradient_step", "clip_by_global_norm_logged",
            "get_grad_norm",
-           "get_ema_params", "ema_applied", "CheckpointManager", "graft_"]
+           "get_ema_params", "ema_applied", "CheckpointManager", "graft_",
+           "load_merged_msgpack"]
 
 Schedule = Callable[[int], float]
 
@@ -570,6 +573,30 @@ def graft_(model: nn.Module, saved: Dict[str, torch.Tensor], source: str = "chec
             f"vs {next(iter(own), None)!r})")
     model.load_state_dict(matched, strict=False)
     return [k for k in own if k not in matched]
+
+
+def load_merged_msgpack(path: str, cfg, model: Optional[nn.Module] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The port-named tensors (on the host) of a ``merge`` output: a flax
+    msgpack of top-level subtrees (``pianobart``, ``lm_head``, ...) in flax
+    layout, written by the port's ``merge`` or the JAX package's ``pbx
+    merge``; its layer counts are checked against ``cfg``.  With ``model``,
+    only the subtrees the model has are returned, and a file none of whose
+    top-level keys the model has raises ``SystemExit``.  Shapes are checked
+    where the entries are grafted (:func:`graft_`)."""
+    from ..compat.flax_msgpack import read_msgpack
+    from ..compat.from_jax import lm_state_dict_from_jax
+    tree = read_msgpack(path)
+    if model is not None:
+        own = sorted({k.split(".", 1)[0] for k in model.state_dict()})
+        grafted = [k for k in tree if k in own]
+        if not grafted:
+            raise SystemExit(
+                f"{path} contains keys {sorted(tree)} but none match this "
+                f"model's parameter tree {own} — wrong architecture or not a "
+                f"`merge` output")
+        tree = {k: tree[k] for k in grafted}
+    return lm_state_dict_from_jax(tree, cfg)
 
 
 def _jsonable(v):

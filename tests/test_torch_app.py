@@ -3,7 +3,9 @@ against the JAX package's: every route test of tests/test_serve.py as a
 case over both packages' ``create_app`` (their JSON bodies agree, apart
 from ``latency_s`` and the upload's uuid prefix), the MIDI-file plumbing
 with the same fixed continuation, a tiny real model end to end on the CPU,
-and the refusals (checkpoint paths; no card without ``--device cpu``)."""
+a merged ``.msgpack`` through the App, the demo and the CLI, and the
+refusals (a ``.msgpack`` of another model; no card without ``--device
+cpu``)."""
 import json
 import os
 import re
@@ -448,25 +450,55 @@ def test_run_demo_retries_seeds_until_nonempty(tmp_path, monkeypatch, capsys):
         assert written[1] == (retries is None)
 
 
-# -- refusals ---------------------------------------------------------------
+# -- checkpoint paths and refusals -----------------------------------------
 
-def test_checkpoint_paths_are_refused(tmp_path, monkeypatch):
-    """A merged ``.msgpack`` (ROADMAP Queue A item 6b) is refused before any
-    request or decode; the forms that load are
+def test_checkpoint_paths_are_refused(tmp_path, monkeypatch, capsys):
+    """A merged ``.msgpack`` (the ``merge`` output) loads wherever a
+    checkpoint does: ``create_app(ckpt=...)`` and a named registry entry,
+    ``run_demo``, the ``demo`` and ``serve`` CLI; a ``.msgpack`` none of
+    whose top-level keys the model has is refused with the JAX package's
+    words before any decode.  The other load forms are
     ``tests/test_torch_serve_ckpt.py``'s."""
+    from pianobart_tpu_torch.compat.flax_msgpack import write_msgpack
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.merge.cli import save_merged
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        tapp.create_app(ckpt="ck.msgpack", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        tapp.create_app(ckpts={"a": None, "b": "ck_b.msgpack"}, device="cpu")
+    cfg = PianoBartConfig(d_model=128, encoder_layers=2, decoder_layers=2,
+                          ffn_dim=256, num_heads=2, max_len=64)
+    dims = ["--hs", "128", "--layers", "2", "--ffn_dims", "256", "--heads", "2",
+            "--max_seq_len", "64"]
+    weights = init_lm(cfg, seed=7, device="cpu").state_dict()
+    save_merged(weights, "ck.msgpack")
+    write_msgpack({"foo": {"bias": torch.zeros(2)}}, "wrong.msgpack")
+    for app, name in ((tapp.create_app(ckpt="ck.msgpack", device="cpu", cfg=cfg),
+                       "pianobart"),
+                      (tapp.create_app(ckpts={"a": None, "b": "ck.msgpack"},
+                                       device="cpu", cfg=cfg), "b")):
+        svc = app.services[name]
+        svc._ensure()
+        for k, v in svc.model.state_dict().items():
+            assert torch.equal(v, weights[k]), k
     make_song(np.random.default_rng(0), n_notes=30).dump("in.mid")
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        tdemo.run_demo("in.mid", "out.mid", ckpt="ck.msgpack", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        cli.main(["demo", "--input", "in.mid", "--ckpt", "ck.msgpack", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        cli.main(["serve", "--ckpt", "name=ck.msgpack", "--device", "cpu"])
-    assert not os.path.exists("out.mid")
+    tdemo.run_demo("in.mid", "out.mid", ckpt="ck.msgpack", device="cpu",
+                   max_seq_len=64, hs=128, layers=2, ffn_dims=256, heads=2)
+    assert cli.main(["demo", "--input", "in.mid", "--output", "out2.mid",
+                     "--ckpt", "ck.msgpack", "--device", "cpu"] + dims) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last in ("Saved to out2.mid", "Generate Fail! (empty)")
+    ran = []
+    monkeypatch.setattr(tapp.App, "run", lambda self, host, port: ran.append(port))
+    assert cli.main(["serve", "--ckpt", "name=ck.msgpack", "--device", "cpu"]) == 0
+    assert ran == [5000]
+    for path in ("out.mid", "out2.mid"):
+        if os.path.exists(path):
+            os.remove(path)
+    with pytest.raises(SystemExit, match="none match this model's parameter tree"):
+        tdemo.run_demo("in.mid", "out.mid", ckpt="wrong.msgpack", device="cpu",
+                       max_seq_len=64, hs=128, layers=2, ffn_dims=256, heads=2)
+    with pytest.raises(SystemExit, match="none match this model's parameter tree"):
+        cli.main(["demo", "--input", "in.mid", "--ckpt", "wrong.msgpack",
+                  "--device", "cpu"] + dims)
+    assert not os.path.exists("out.mid") and not os.path.exists("output.mid")
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):

@@ -1,8 +1,9 @@
 """The port's data and training CLI: ``tokenize``, ``concat``, ``check`` and
 ``make-dict`` write what the JAX CLI writes, byte for byte; ``pretrain``
 runs end to end on the CPU at a tiny width, then resumes; a preemption maps
-to exit 75; the refusals (a merged ``.msgpack`` checkpoint, a window length
-that differs from ``--max_seq_len``, no card without ``--device cpu``)."""
+to exit 75; ``--ckpt`` a merged ``.msgpack``; the refusals (a ``.msgpack``
+of another model, a window length that differs from ``--max_seq_len``, no
+card without ``--device cpu``)."""
 import json
 import os
 
@@ -102,20 +103,30 @@ def test_pretrain_end_to_end_then_resume(songs, tmp_path, monkeypatch):
 
 
 def test_pretrain_refusals(songs, tmp_path, monkeypatch):
-    """A merged ``.msgpack`` raises ``NotImplementedError`` naming Queue A
-    item 6b, unless ``--nopretrain``; a reference ``.ckpt`` that is not
-    there raises ``FileNotFoundError`` (loading one is
-    ``tests/test_torch_interop.py``'s); without a card and without
-    ``--device`` the command raises."""
+    """A merged ``.msgpack`` of the model's widths loads (its trunk and
+    head grafted); one none of whose top-level keys the model has raises
+    ``SystemExit`` with the JAX package's words, unless ``--nopretrain``; a
+    reference ``.ckpt`` that is not there raises ``FileNotFoundError``
+    (loading one is ``tests/test_torch_interop.py``'s); without a card and
+    without ``--device`` the command raises."""
+    from pianobart_tpu_torch.compat.flax_msgpack import write_msgpack
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.merge.cli import save_merged
+    from pianobart_tpu_torch.models import PianoBartConfig
     monkeypatch.chdir(tmp_path)
     data = str(tmp_path / "data")
     cli.main(["tokenize", "--dataset", songs, "--no_pad", "--out_root", data])
     base = ["pretrain", "--dataroot", data, "--datasets", "songs", "--epochs", "0"]
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        cli.main(base + TINY + ["--ckpt", "merged.msgpack"])
+    cfg = PianoBartConfig(d_model=64, encoder_layers=1, decoder_layers=1, ffn_dim=128,
+                          num_heads=2)
+    save_merged(init_lm(cfg, seed=4, device="cpu").state_dict(), "merged.msgpack")
+    assert cli.main(base + TINY + ["--ckpt", "merged.msgpack"]) == 0
+    write_msgpack({"foo": {"bias": torch.zeros(2)}}, "wrong.msgpack")
+    with pytest.raises(SystemExit, match="none match this model's parameter tree"):
+        cli.main(base + TINY + ["--ckpt", "wrong.msgpack"])
     with pytest.raises(FileNotFoundError):
         cli.main(base + TINY + ["--ckpt", "ref.ckpt"])
-    assert cli.main(base + TINY + ["--ckpt", "merged.msgpack", "--nopretrain"]) == 0
+    assert cli.main(base + TINY + ["--ckpt", "wrong.msgpack", "--nopretrain"]) == 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(base)

@@ -772,3 +772,111 @@ def test_loading_both_forms_on_the_card(cuda, tmp_path):
             logits.append(loaded(x, x, mask, mask))
         assert flash_attention_fwd.launches == before + 3
     assert torch.equal(logits[0], logits[1])
+
+
+def test_fisher_batch_launches_the_f32_kernels(cuda):
+    """One Fisher batch of ``merge`` (the LM loss's gradient with respect
+    to the trunk, f32 compute): K1, the delta kernel and K2 once per
+    attention, the f32 prep before each K1 and K2; RegMean's trunk forward
+    K1 and the prep once per attention.  The gradients are finite and the
+    head takes none."""
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.merge import cli as merge_cli
+    cfg = _flash_cfg().replace(dtype=torch.float32)
+    lm = init_lm(cfg, seed=2, device="cpu")
+    trunk = {k: v.to(cuda) for k, v in lm.pianobart.state_dict().items()}
+    head = {f"lm_head.{k}": v for k, v in lm.lm_head.state_dict().items()}
+    g = torch.Generator().manual_seed(0)
+    batch = torch.randint(0, 4, (4, 256, 8), generator=g).numpy()
+    grad_fn = merge_cli._lm_grad_fn(cfg, head, cuda)
+    before, split = _counts(), flash_attention_split.launches
+    grads = grad_fn(trunk, batch)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [3, 3, 3]
+    assert flash_attention_split.launches - split == 6
+    assert set(grads) == set(trunk) and all(torch.isfinite(v).all() for v in grads.values())
+    before, split = _counts(), flash_attention_split.launches
+    grams = merge_cli._trunk_grams(cfg, trunk, [batch], cuda)
+    assert [a - b for a, b in zip(_counts(), before)] == [3, 0, 0]
+    assert flash_attention_split.launches - split == 3
+    assert all(v.dtype == torch.float64 and v.is_cuda for v in grams.values())
+
+
+def test_merged_msgpack_loads_on_the_card(cuda, tmp_path):
+    """A merged ``.msgpack`` loads onto the card (built on the meta
+    device), every tensor the file's, with the logits of the same weights
+    loaded from a checkpoint directory (|diff| 0)."""
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.decode import load_inference_model
+    from pianobart_tpu_torch.merge.cli import save_merged
+    from pianobart_tpu_torch.train.state import CheckpointManager, create_train_state
+    cfg = _flash_cfg()
+    model = init_lm(cfg, seed=6, device="cpu")
+    save_merged(model.state_dict(), str(tmp_path / "m.msgpack"))
+    CheckpointManager(str(tmp_path / "run")).save(1, create_train_state(model), {}, True)
+    x = torch.randint(0, 4, (2, 256, 8), device=cuda)
+    mask = torch.ones(2, 256, device=cuda)
+    logits = []
+    for path in (str(tmp_path / "m.msgpack"), str(tmp_path / "run")):
+        loaded = load_inference_model(cfg, path, device=cuda)
+        for k, v in loaded.state_dict().items():
+            assert v.is_cuda and torch.equal(v.cpu(), model.state_dict()[k]), k
+        with torch.no_grad():
+            logits.append(loaded(x, x, mask, mask))
+    assert torch.equal(logits[0], logits[1])
+
+
+def test_trace_with_memory_on_the_card(cuda, tmp_path):
+    """``trace(with_memory=True)`` around a K1 launch writes a Chrome trace
+    naming the kernel and a memory snapshot."""
+    import json
+    import os
+
+    from pianobart_tpu_torch.utils.profiling import MEMORY_FILE, TRACE_FILE, trace
+    q, k, v, mask = _inputs(cuda, torch.bfloat16)
+    with trace(str(tmp_path)):
+        flash_attention_fwd(q, k, v, mask, False)
+        torch.cuda.synchronize()
+    with open(tmp_path / TRACE_FILE) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("flash_fwd_wgmma_kernel" in n for n in names), sorted(names)[:20]
+    assert os.path.getsize(tmp_path / MEMORY_FILE) > 0
+
+
+def test_kth_smallest_on_the_card_picks_numpys_element(cuda):
+    """The card's sort picks the element the host's ``kthvalue`` (and
+    ``np.partition``) picks, ties and all."""
+    import numpy as np
+
+    from pianobart_tpu_torch.merge.methods import _kth_smallest
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-50, 50, (3001, 7), generator=g).float() / 7
+    for k in (1, 2, 17, 10503, x.numel()):
+        want = np.partition(x.abs().numpy().ravel(), k - 1)[k - 1]
+        assert _kth_smallest(x.abs().to(cuda), k).item() == want
+        assert _kth_smallest(x.abs(), k).item() == want
+
+
+def test_merges_on_the_card_equal_the_host(cuda):
+    """The deterministic merges compute on the card what they compute on
+    the host, entry for entry: average, task arithmetic, TIES and both DARE
+    formats of the magnitude mask with its 1/(1-p) rescale."""
+    from pianobart_tpu_torch.merge import methods as M
+    g = torch.Generator().manual_seed(3)
+    shapes = {"a.weight": (64, 48), "a.bias": (64,), "b.weight": (33, 64)}
+    pre = {k: torch.randn(s, generator=g) * 0.02 for k, s in shapes.items()}
+    fins = [{k: v + torch.randn(v.shape, generator=g) * 1e-3 for k, v in pre.items()}
+            for _ in range(3)]
+
+    def on(dev):
+        p = {k: v.to(dev) for k, v in pre.items()}
+        f = [{k: v.to(dev) for k, v in m.items()} for m in fins]
+        return [M.average_merging(f), M.task_arithmetic(p, f, 0.7),
+                M.ties_merging(p, f, 0.6, 0.9),
+                M.mask_model_weights(f[0], p, "delta_weight", 0.8, True, "magnitude"),
+                M.mask_model_weights(f[1], None, "finetuned_weight", 0.7, True, "magnitude")]
+    names = ("average", "task arithmetic", "TIES", "magnitude mask (delta)",
+             "magnitude mask (weights)")
+    for name, card, host in zip(names, on(cuda), on("cpu")):
+        for k, v in host.items():
+            assert torch.equal(card[k].cpu(), v), (name, k)

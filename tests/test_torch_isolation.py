@@ -1,6 +1,6 @@
 """The port stands alone: no file of pianobart_tpu_torch/, nor chip_smoke.py,
-imports jax, flax, optax or the JAX package, and the package imports with
-those blocked."""
+imports jax, flax, optax, msgpack or the JAX package, and the package
+imports with those blocked."""
 import ast
 import pathlib
 import subprocess
@@ -9,7 +9,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pianobart_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pianobart_tpu", "msgpack")
 FILES = sorted((ROOT / "pianobart_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -51,4 +51,5 @@ def test_package_imports_with_jax_blocked():
         "tokenizer.segment", "serve.app", "serve.demo", "cli",
         "data", "data.datasets", "midi.native", "tokenizer.pipeline",
         "tokenizer.validate", "train.state", "train.runner", "utils.logging",
-        "utils.preemption")} <= mods
+        "utils.preemption", "merge", "merge.methods", "merge.cli",
+        "compat.flax_msgpack", "utils.profiling")} <= mods

@@ -3,8 +3,8 @@ checkpoint directory of the port and a reference ``.ckpt`` at first use,
 each model holding the checkpoint's weights (a trunk-only file: the LM head
 drawn from the seed, without drawing the rest), and answers ``GET
 /api/generate/<model>/<file>``; ``/api/health`` gives the JAX App's JSON for
-the same registry; ``demo --ckpt`` on the CPU; a merged ``.msgpack`` is
-refused by every entry point that takes a checkpoint."""
+the same registry; ``demo --ckpt`` on the CPU; a merged ``.msgpack`` loads
+through every entry point that takes a checkpoint."""
 import json
 import os
 
@@ -126,21 +126,38 @@ def test_demo_cli_loads_a_checkpoint(ckpts, tmp_path, monkeypatch, capsys):
     assert outs[0] == outs[1]
 
 
-def test_msgpack_is_refused_everywhere(tmp_path, monkeypatch):
-    """Merged ``.msgpack`` files load with merging (ROADMAP Queue A item
-    6b): the loader, the service, ``eval-gen --ckpt`` and the training
-    commands' ``--ckpt`` raise before any work."""
+def test_msgpack_is_refused_everywhere(ckpts, tmp_path, monkeypatch):
+    """A merged ``.msgpack`` (the ``merge`` output) loads everywhere a
+    checkpoint does: the loader, the service, ``eval-gen --ckpt`` and the
+    training commands' ``--ckpt``, every tensor the file's; a ``.msgpack``
+    none of whose top-level keys the model has is refused with the JAX
+    package's words before any work."""
+    from pianobart_tpu_torch.compat.flax_msgpack import write_msgpack
+    from pianobart_tpu_torch.merge.cli import save_merged
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        load_inference_model(CFG, "m.msgpack", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        tapp.GenerationService(ckpt="m.msgpack", device="cpu")
-    np.save("x_test.npy", np.zeros((1, 64, 8), np.int64))
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
-        cli.main(["eval-gen", "--dataroot", ".", "--datasets", "x", "--ckpt",
-                  "m.msgpack", "--device", "cpu"] + DEMO)
+    save_merged(ckpts["weights"], "m.msgpack")
+    write_msgpack({"foo": {"bias": torch.zeros(2)}}, "wrong.msgpack")
 
     class Args:      # what every training command grafts its --ckpt with
         ckpt, nopretrain = "m.msgpack", False
-    with pytest.raises(NotImplementedError, match="Queue A item 6b"):
+    svc = tapp.GenerationService(ckpt="m.msgpack", cfg=CFG, device="cpu")
+    svc._ensure()
+    for model in (load_inference_model(CFG, "m.msgpack", device="cpu"), svc.model,
+                  cli._load_init_ckpt(init_lm(CFG, seed=1, device="cpu"), Args)):
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, ckpts["weights"][k]), k
+    np.save("x_test.npy", np.zeros((1, 64, 8), np.int64))
+    assert cli.main(["eval-gen", "--dataroot", ".", "--datasets", "x", "--ckpt",
+                     "m.msgpack", "--device", "cpu", "--output", "gen.npy"] + DEMO) == 0
+    assert np.load("gen.npy").shape == (1, 64, 8)
+
+    Args.ckpt = "wrong.msgpack"
+    match = "none match this model's parameter tree"
+    with pytest.raises(SystemExit, match=match):
+        load_inference_model(CFG, "wrong.msgpack", device="cpu")
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["eval-gen", "--dataroot", ".", "--datasets", "x", "--ckpt",
+                  "wrong.msgpack", "--device", "cpu", "--output", "bad.npy"] + DEMO)
+    with pytest.raises(SystemExit, match=match):
         cli._load_init_ckpt(init_lm(CFG, device="cpu"), Args)
+    assert not os.path.exists("bad.npy")
