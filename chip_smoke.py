@@ -336,7 +336,9 @@ def phase_flash(state):
              (1, True, torch.bfloat16, 1024), (8, True, torch.bfloat16, 1024),
              (32, False, torch.bfloat16, 1024), (32, True, torch.bfloat16, 1024),
              (16, False, torch.bfloat16, 2048), (16, True, torch.bfloat16, 2048),
-             (2, False, f32, 1024), (2, True, f32, 1024), (8, False, f32, 1024)]
+             (2, False, f32, 1024), (2, True, f32, 1024), (8, False, f32, 1024),
+             # [merge]'s Fisher and RegMean batches
+             (4, False, f32, 1024), (4, True, f32, 1024)]
     for B, causal, dtype, S in cases:
         q, k, v, mask = _flash_case(B, causal, dtype, S=S)
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
@@ -577,6 +579,7 @@ def phase_flash_bwd(state):
              ("K2", 8, 1024, False, bf16, False), ("K2", 8, 1024, True, bf16, False),
              ("K2", 2, 1024, False, f32, False), ("K2", 2, 1024, True, f32, False),
              ("K2", 8, 1024, False, f32, False),
+             ("K2", 4, 1024, False, f32, False), ("K2", 4, 1024, True, f32, False),
              ("K2", 2, 320, False, bf16, False), ("K2", 2, 320, True, bf16, False),
              ("K2", 2, 320, False, bf16, True), ("K2", 2, 320, False, f32, False),
              ("K2", 2, 320, False, f32, True),
@@ -2190,6 +2193,71 @@ def _close(card, host, pre=None, rtol=1e-6, atol=1e-7):
     return worst, ok, apart, n
 
 
+def _rel_by_group(got, want):
+    """||got - want|| / ||want|| over each ``_grad_groups`` group, for
+    trunk-named state_dicts (a group's norm, as ``_grad_check`` takes it:
+    an entry whose exact value is 0, as a key bias's gradient is, carries
+    only rounding on both sides)."""
+    sums = {}
+    for k, w in want.items():
+        d, r = sums.setdefault(_grad_groups("pianobart." + k), [0.0, 0.0])
+        sums[_grad_groups("pianobart." + k)] = [
+            d + (got[k].double() - w.double()).square().sum().item(),
+            r + w.double().square().sum().item()]
+    return {g: (d / r) ** 0.5 for g, (d, r) in sums.items()}
+
+
+def _merge_stats_vs_plain(cfg, trunk, batch):
+    """One Fisher batch (the trunk's LM-loss gradients) and one RegMean
+    batch (its Dense-input Grams) at the merge's shape, f32, through the
+    kernels (K1, delta, K2 and the prep; K1 and the prep) against the same
+    trunk and batch on the plain attention path.  Both keep f32 accuracy
+    (3xTF32 products against f32 ones, TF32 off) and differ by summation
+    order, as in ``_grad_check``: tolerance 1e-3 on each group's relative
+    norm; a wrong tile, mask or lse moves an attention's output and
+    everything after it by far more.  The last window's last 200 rows
+    become PAD, as a song's end leaves them, so the masks are held too."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch import vocab as V
+    from pianobart_tpu_torch.merge import cli as merge_cli
+    batch = batch.copy()
+    batch[-1, -200:] = np.asarray(V.PAD)
+    head = merge_cli._template_head(cfg)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    real = (batch[..., 0] != V.PAD[0]).sum(axis=1).tolist()
+    out = {}
+    for what, c, fisher, gram in (
+            ("kernels", cfg, _counts(k1=n_attn, k2=n_attn, f32=True),
+             _counts(k1=n_attn, f32=True)),
+            ("plain", cfg.replace(use_flash_attention=False), _counts(), _counts())):
+        _reset_counts()
+        grads = merge_cli._lm_grad_fn(c, head, "cuda")(trunk, batch)
+        torch.cuda.synchronize()
+        got_f = tuple(_read_counts().values())
+        _reset_counts()
+        grams = merge_cli._trunk_grams(c, trunk, [batch], "cuda")
+        torch.cuda.synchronize()
+        got_g = tuple(_read_counts().values())
+        print(f"[merge] one Fisher and one RegMean batch via {what} (B={len(batch)}, S="
+              f"{batch.shape[1]}, real rows {real}): launches ({COUNT_NAMES}) {got_f} and "
+              f"{got_g}, expected {fisher} and {gram}")
+        if (got_f, got_g) != (fisher, gram):
+            raise AssertionError(f"the merge statistics via {what} launched {got_f}, {got_g}")
+        out[what] = (grads, grams)
+    tol = 1e-3
+    for i, name in enumerate(("Fisher gradients", "RegMean Grams")):
+        rels = _rel_by_group(out["kernels"][i], out["plain"][i])
+        print(f"[merge] {name}, kernels against plain attention: ||d||/||plain|| "
+              f"per group (tol {tol:g}):")
+        for g, rel in sorted(rels.items()):
+            print(f"[merge]   {g:28s} {rel:.3e}")
+        if not max(rels.values()) <= tol:
+            raise AssertionError(f"{name} through the kernels disagree with plain attention")
+    del out
+    torch.cuda.empty_cache()
+
+
 def phase_merge(state):
     """Model merging as a user runs it, at flagship width (f32 parameters
     and compute, as ``run_merge`` builds the model): [finetune]'s composer
@@ -2350,7 +2418,7 @@ def phase_merge(state):
         del card, want
     # TIES's trim thresholds: the k-th smallest |delta| of each model, k =
     # int(0.8 * total), on the card (a sort) against the host (kthvalue); the
-    # card's kthvalue timed for the record
+    # card's kthvalue and the host's sort timed for the record
     for n in ("composer", "generation"):
         flat = torch.cat([(trunks[n][k] - trunks["pre"][k]).reshape(-1)
                           for k in trunks["pre"]]).abs()
@@ -2366,10 +2434,16 @@ def phase_merge(state):
         hthr = methods._kth_smallest(hflat, k)
         t_host = time.perf_counter() - t0
         equal = thr.item() == np.float32(hthr.item()) == kth[0].item()
+        host_sort = ""
+        if n == "composer":      # why the host keeps kthvalue: a sort for the record
+            t0 = time.perf_counter()
+            equal = equal and torch.sort(hflat).values[k - 1].item() == hthr.item()
+            host_sort = (f"; a sort {1e3 * (time.perf_counter() - t0):.0f} ms, "
+                         f"{torch.get_num_threads()} threads")
         print(f"[merge] TIES threshold of {n} over {flat.numel()} entries: card "
               f"{thr.item():.9e} (by a sort {t_thr:.1f} ms; kthvalue {t_kth:.1f} ms; CUDA "
-              f"events), host float64 {hthr.item():.12e} (kthvalue {1e3 * t_host:.0f} ms); "
-              f"equal: {equal}")
+              f"events), host float64 {hthr.item():.12e} (kthvalue {1e3 * t_host:.0f} ms"
+              f"{host_sort}); equal: {equal}")
         if not equal:
             raise AssertionError("TIES thresholds differ between the card and the host")
         del flat, hflat
@@ -2399,6 +2473,7 @@ def phase_merge(state):
           f"(flash_fwd_tf32_kernel) among them: {k1_seen}; memory snapshot {snap:.1f} MiB")
     if not k1_seen or snap <= 0:
         raise AssertionError("the trace lacks K1 or the memory snapshot")
+    _merge_stats_vs_plain(cfg, trunks["composer"], batch)
     del trunks
     torch.cuda.empty_cache()
 

@@ -156,8 +156,11 @@ class GenerationService:
             # serving holds bf16 weights: the decode step then casts nothing
             self.cfg = self._cfg_arg or PianoBartConfig(
                 dtype=torch.bfloat16, param_dtype=torch.bfloat16)
-            self.model = load_inference_model(self.cfg, self.ckpt, self.seed,
-                                              self.device)
+            try:
+                self.model = load_inference_model(self.cfg, self.ckpt, self.seed,
+                                                  self.device)
+            except SystemExit as exc:   # a refused checkpoint: the App's 500
+                raise RuntimeError(str(exc)) from None
             self._ready = True
 
     @property

@@ -131,7 +131,8 @@ def test_msgpack_is_refused_everywhere(ckpts, tmp_path, monkeypatch):
     checkpoint does: the loader, the service, ``eval-gen --ckpt`` and the
     training commands' ``--ckpt``, every tensor the file's; a ``.msgpack``
     none of whose top-level keys the model has is refused with the JAX
-    package's words before any work."""
+    package's words before any work (the service's App with its JSON
+    500 at the first request)."""
     from pianobart_tpu_torch.compat.flax_msgpack import write_msgpack
     from pianobart_tpu_torch.merge.cli import save_merged
     monkeypatch.chdir(tmp_path)
@@ -161,3 +162,9 @@ def test_msgpack_is_refused_everywhere(ckpts, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match=match):
         cli._load_init_ckpt(init_lm(CFG, device="cpu"), Args)
     assert not os.path.exists("bad.npy")
+    # the service loads at the first request: the App answers its JSON 500
+    app = tapp.create_app(ckpts={"bad": "wrong.msgpack"}, device="cpu", cfg=CFG)
+    name, _ = _upload(app, _song())
+    status, j, _ = _call(app, "GET", f"/api/generate/bad/{name}")
+    assert status == "500 Internal Server Error" and match in j["error"]
+    assert not app.services["bad"].ready
