@@ -108,10 +108,23 @@ result line:
    and TIES's thresholds equal; the Fisher pass timed by ``StepTimer``, one RegMean batch traced
    with its memory snapshot; ``--head_from`` to a ``.msgpack`` loaded at
    f32 (logits |diff| 0 against the merge in memory), grafted onto a
-   classifier, and served at bf16 (2 songs, K1 8 per decode batch).
+   classifier, and served at bf16 (2 songs, K1 8 per decode batch);
+17. ``[parallel]``: the mesh over torch.distributed on this one card: ``pretrain
+   --dist_backend nccl`` with more ranks than cards refused before any process
+   group; four ranks spawned over gloo (all on cuda:0, ring blocks staged
+   through pinned host memory): ``ring_attention`` at sp = 2 and 4 over (B=4,
+   S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, against the
+   plain ring and dense ``flash_attention`` (a 3S/8 pad tail covering the
+   last shard at sp=4); the flagship mesh step (B=2, dropout 0) at 2x1x1,
+   1x1x2, 2x1x2, 1x2x2 (S=2048) and 1x1x2 (S=4096) against the dense step on
+   the same card (loss, clipped gradients per group, the same gradients on
+   every rank), each rank's launches per step checked, s per step and peak
+   memory per rank (ranks sharing one card); then ``torch.distributed.run``
+   of ``pretrain --mesh 1x1x2 --dist_backend gloo --max_seq_len 2048`` on
+   64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``.
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-pretrain_run, finetune, serve_ckpt, merge) is driven with every
+pretrain_run, finetune, serve_ckpt, merge, parallel) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2587,6 +2600,358 @@ def phase_merge(state):
     print(f"[merge] wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: the mesh over torch.distributed (ring attention, TP∘SP, dp)
+# ---------------------------------------------------------------------------
+
+# the flagship mesh steps of [parallel]: (dp, tp, sp), S; B=2
+PARALLEL_STEPS = (((2, 1, 1), 2048), ((1, 1, 2), 2048), ((2, 1, 2), 2048),
+                  ((1, 2, 2), 2048), ((1, 1, 2), 4096))
+
+
+def _mesh_cfg(cfg, shape):
+    dp, tp, sp = shape
+    if tp > 1:
+        return cfg.replace(ring_axis="sp", ring_tp_axis="tp", ring_tp_size=tp)
+    return cfg.replace(ring_axis="sp") if sp > 1 else cfg
+
+
+def _mesh_step_counts(shape, S, sp_index, n_layers=8):
+    """Expected launches of one rank's flagship step: K1 once per visible
+    ring block (encoder self and cross attention see both of 2 shards, the
+    causal decoder self attention the shards up to its own), then delta
+    once per attention and K2 (local shard <= 1024 rows) or K3a and K3b per
+    visible block; without a ring the dense step's 24 (K3 past 1024 rows)."""
+    if shape[1] == 1 and shape[2] == 1:
+        blocks = 3 * n_layers
+    else:
+        blocks = n_layers * (shape[2] + (1 + sp_index) + shape[2])
+    local = S // shape[2]
+    k2, k3 = (blocks, 0) if local <= 1024 else (0, blocks)
+    return (blocks, k2, k3, k3, 3 * n_layers, 0, 0, 0, 0, 0)
+
+
+def _ring_case(mesh, S, dtype, causal):
+    """``ring_attention`` over the sp axis of ``mesh`` at (B=4, S, H=8,
+    D=128) against the plain ring and against dense ``flash_attention`` on
+    the card, output and q/k/v gradients; sample 1 ends in S/8 pad rows,
+    sample 3 in 3S/8 (at sp=4 its whole last shard).  Returns this rank's
+    errors and times."""
+    import torch
+    from pianobart_tpu_torch.ops.flash import flash_attention
+    from pianobart_tpu_torch.ops.ring import ring_attention, ring_attention_reference
+    ax = mesh.axis("sp")
+    B, H, D = 4, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + S)
+    q, k, v, dout = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                     for _ in range(4))
+    q, k, v, dout = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), dout.to(dtype)
+    mask = torch.ones(B, S, device="cuda")
+    mask[1, S - S // 8:] = 0.0
+    mask[3, S - 3 * S // 8:] = 0.0
+    out = {}
+    for tag, fn in (("kernels", ring_attention), ("plain", ring_attention_reference)):
+        ql, kl, vl = (mesh.cols(x).detach().clone().requires_grad_() for x in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(ql, kl, vl, mesh.cols(mask), causal, ax)
+        o.backward(mesh.cols(dout))
+        torch.cuda.synchronize()
+        out[tag] = ([o.detach(), ql.grad, kl.grad, vl.grad], time.perf_counter() - t0)
+    qd, kd, vd = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    od = flash_attention(qd, kd, vd, mask, causal)
+    od.backward(dout)
+    dense = [mesh.cols(x) for x in (od.detach(), qd.grad, kd.grad, vd.grad)]
+    # Per tensor |d| <= atol*max|ref| + rtol*|ref| and ||d|| <= ntol*||ref||.
+    # Against the plain ring: the kernels' own backward tolerances ([flash_bwd],
+    # set at up to 2048 keys a row; f32 errors grow with the keys summed over,
+    # so the f32 one scales with S/2048).  Against dense attention: bf16
+    # rounds each block's output before the f32 merge (as the reference's
+    # ring), one rounding more than dense attention: twice the bf16
+    # tolerance; in f32 both sides are kernel results (K2 or K3 over the
+    # shard, K3 over S past 1024 rows): the sum of their norm tolerances,
+    # the per-element one as [flash]'s f32 (1e-4), each scaled as above.
+    f = S / 2048
+    tol_plain = ((1e-2, 1e-2, 1e-2) if dtype == torch.bfloat16
+                 else (1e-5 * f, 1e-5 * f, 1e-5 * f))
+    tol_dense = ((2e-2, 2e-2, 2e-2) if dtype == torch.bfloat16
+                 else (1e-4 * f, 1e-4 * f, 2e-5 * f))
+    e_plain, r_plain, ok_plain = _bwd_errors(out["kernels"][0], out["plain"][0], tol_plain)
+    e_dense, r_dense, ok_dense = _bwd_errors(out["kernels"][0], dense, tol_dense)
+    return {"sp": mesh.shape["sp"], "S": S, "dtype": str(dtype)[6:], "causal": causal,
+            "err_plain": e_plain, "rel_plain": r_plain, "ok_plain": ok_plain,
+            "err_dense": e_dense, "rel_dense": r_dense, "ok_dense": ok_dense,
+            "tol_plain": tol_plain, "tol_dense": tol_dense,
+            "s_kernels": out["kernels"][1], "s_plain": out["plain"][1]}
+
+
+def _rel_groups(got, want):
+    """||got - want|| / ||want|| per ``_grad_groups`` group of two
+    name -> gradient dicts of the LM."""
+    sums = {}
+    for n, w in want.items():
+        d, r = sums.get(_grad_groups(n), (0.0, 0.0))
+        sums[_grad_groups(n)] = (d + (got[n].double() - w.double()).square().sum().item(),
+                                 r + w.double().square().sum().item())
+    return {g: (d / r) ** 0.5 for g, (d, r) in sums.items()}
+
+
+def _parallel_rank(rank, world, out_dir):
+    """One of [parallel]'s four ranks, all on cuda:0 over gloo: the ring
+    checks at sp = 2 (a 2x1x2 mesh: two rings) and 4, then the flagship
+    mesh steps of ``PARALLEL_STEPS`` (rank 0 also runs the dense step on
+    the same weights and corruption, once per S, and holds each mesh's loss
+    and clipped gradients against it), each step's launches counted from 0 on this
+    rank, its seconds and peak memory."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig, PianoBartLM
+    from pianobart_tpu_torch.ops.noise import corrupt_batch
+    from pianobart_tpu_torch.ops.ring import transport
+    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.train.pretrain import _update
+    from pianobart_tpu_torch.train.pretrain_sp import make_sp_pretrain_step
+    from pianobart_tpu_torch.train.state import create_train_state
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    res = {"device": f"{dev} ({torch.cuda.get_device_name(0)})", "ring": [], "steps": []}
+    for sp in (2, 4):
+        mesh = make_mesh(world // sp, 1, sp, device=dev)
+        res["backend"] = mesh.backend
+        res[f"transport_sp{sp}"] = transport(mesh.axis("sp"), dev)
+        for S in (2048, 4096):
+            for dtype in (torch.bfloat16, torch.float32):
+                for causal in (False, True):
+                    res["ring"].append(_ring_case(mesh, S, dtype, causal))
+    torch.cuda.empty_cache()
+    cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0, max_len=4096)
+    sd = init_lm(cfg0, seed=SEED, device=dev, train=True).state_dict()
+    totals, dense_by_S = {}, {}
+    for shape, S in PARALLEL_STEPS:
+        mesh = make_mesh(*shape, device=dev)
+        if mesh is None:                    # ranks outside a 2-rank mesh
+            continue
+        cfg = _mesh_cfg(cfg0, shape)
+        batch = torch.as_tensor(_pretrain_batch(2, S, np.random.default_rng(SEED + S)),
+                                device=dev)
+        rec = {"shape": shape, "S": S, "coords": mesh.coords}
+        if rank == 0 and S not in dense_by_S:
+            # the dense step on the same weights and corruption, once per S
+            dense = PianoBartLM(cfg0, device=dev).train()
+            dense.load_state_dict(sd)
+            dstate = create_train_state(dense)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            corrupted, loss_mask = corrupt_batch(batch, gen)
+            m = _update(dstate, batch, corrupted, loss_mask, gen)
+            dense_by_S[S] = ({n: p.grad.detach().clone() for n, p in dense.named_parameters()},
+                             (m["loss"].item(), m["grad_norm"].item()))
+            del dense, dstate
+        if rank == 0:
+            want, rec["dense"] = dense_by_S[S]
+        model = PianoBartLM(cfg, device=dev).train()
+        model.load_state_dict(sd)
+        st = create_train_state(model)
+        step = make_sp_pretrain_step(cfg, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(2):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(st, batch, torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = _read_counts()
+            for kname, n in counts.items():
+                totals[kname] = totals.get(kname, 0) + n
+            if i == 0:
+                rec["counts"] = tuple(counts.values())
+                rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
+                got = {n: p.grad.detach() for n, p in model.named_parameters()}
+                rec["grad_sq"] = sum(float(g.double().square().sum()) for g in got.values())
+                if rank == 0:
+                    rec["rel"] = _rel_groups(got, want)
+        rec["s_per_step"] = times
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["steps"].append(rec)
+        del model, st, step, got
+        torch.cuda.empty_cache()
+    del dense_by_S
+    res["launches"] = totals
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _nccl_refusal():
+    """``pretrain --mesh 1x1x2 --dist_backend nccl`` as the second of two
+    ranks on this one card: the CLI exits with the reason before any
+    process group exists."""
+    import torch
+    from pianobart_tpu_torch import cli
+    n = torch.cuda.device_count() + 1
+    env = {k: os.environ.get(k) for k in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK")}
+    os.environ.update(WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n), RANK="1")
+    try:
+        cli.main(["pretrain", "--mesh", f"1x1x{n}", "--dist_backend", "nccl",
+                  "--batch_size", str(n), "--max_seq_len", str(1024 * n)])
+    except SystemExit as exc:
+        msg = str(exc)
+    else:
+        raise AssertionError("nccl with more ranks than cards was not refused")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if "one rank per card" not in msg or torch.distributed.is_initialized():
+        raise AssertionError(f"nccl refusal: {msg!r}")
+    print(f"[parallel] --dist_backend nccl, {n} ranks on {torch.cuda.device_count()} "
+          f"card(s): refused before any process group: {msg}")
+
+
+def _parallel_cli(tmp):
+    """The user path: 64 songs tokenized at 2048 by the CLI, then
+    ``torch.distributed.run --standalone --nproc_per_node 2 -m
+    pianobart_tpu_torch.cli pretrain --mesh 1x1x2 --dist_backend gloo
+    --max_seq_len 2048`` for one epoch at B=4; exit 0, a finite loss,
+    ``best/`` written once."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+    from pianobart_tpu_torch import cli
+    rng = np.random.default_rng(SEED + 13)
+    songs = os.path.join(tmp, "songs")
+    os.makedirs(songs)
+    for i in range(64):
+        _song(rng).dump(os.path.join(songs, f"song{i:02d}.mid"))
+    data = os.path.join(tmp, "Data")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(["tokenize", "--dataset", songs, "--no_pad", "--out_root", data,
+                       "--max_seq_len", "2048"])
+    if rc != 0:
+        raise AssertionError(f"tokenize at 2048: {log.getvalue()[-2000:]}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                      os.environ.get("PYTHONPATH")])), OMP_NUM_THREADS="2")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "pianobart_tpu_torch.cli", "pretrain",
+            "--dataroot", data, "--datasets", "songs", "--mesh", "1x1x2",
+            "--dist_backend", "gloo", "--max_seq_len", "2048", "--batch_size", "4",
+            "--epochs", "1"]
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "cli.log"), "w") as out:
+        proc = subprocess.Popen(argv, cwd=tmp, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=400)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "cli.log")) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith(("rank ", "train ", "Epoch", "Time cost", "Traceback")) \
+                or "Error" in line:
+            print(f"[parallel]   cli| {line[:300]}")
+    save = os.path.join(tmp, "result", "pretrain", "pianobart")
+    meta = _meta(save) or {}
+    events = _epoch_events(save) if os.path.exists(os.path.join(save, "metrics.jsonl")) else []
+    loss = events[0]["train"]["loss"] if events else float("nan")
+    print(f"[parallel] user path: torch.distributed.run pretrain --mesh 1x1x2 "
+          f"--dist_backend gloo --max_seq_len 2048, B=4, 1 epoch: exit {rc} in "
+          f"{wall:.1f} s (2 ranks sharing one card); train loss {loss}; meta best_step "
+          f"{meta.get('best_step')}, history {[h['step'] for h in meta.get('history', [])]}")
+    if rc != 0 or not math.isfinite(loss) or meta.get("best_step") != 1 or \
+            len(events) != 1 or not os.path.exists(os.path.join(save, "best", "state.pt")):
+        raise AssertionError("the mesh pretrain CLI did not end with exit 0, a finite "
+                             "loss and best/ written once:\n" + "\n".join(lines[-40:]))
+
+
+def phase_parallel(state):
+    """The mesh over torch.distributed on this one card: the NCCL refusal;
+    four ranks spawned over gloo (all on cuda:0) for the ring checks and the
+    flagship mesh steps (the main path: every count set to 0 on each rank
+    before each step, read after, summed over the ranks); then the CLI as
+    a user starts it under torch.distributed.run."""
+    import shutil
+    import tempfile
+
+    import torch
+    from pianobart_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _nccl_refusal()
+    tmp = tempfile.mkdtemp(prefix="pbt_parallel_")
+    state.setdefault("tmpdirs", []).append(tmp)
+    t0 = time.perf_counter()
+    spawn(_parallel_rank, 4, (tmp,), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    print(f"[parallel] 4 ranks spawned over {ranks[0]['backend']} in {spawn_s:.1f} s; "
+          f"devices {[r['device'] for r in ranks]}; ring transport at sp=2 "
+          f"{ranks[0]['transport_sp2']!r}, at sp=4 {ranks[0]['transport_sp4']!r}")
+    failed = []
+    for i, case in enumerate(ranks[0]["ring"]):
+        rows = [r["ring"][i] for r in ranks]
+        e_p = [max(x["err_plain"]) for x in rows]
+        e_d = [max(x["err_dense"]) for x in rows]
+        r_p = [max(x["rel_plain"]) for x in rows]
+        r_d = [max(x["rel_dense"]) for x in rows]
+        ok = all(x["ok_plain"] and x["ok_dense"] for x in rows)
+        name = (f"sp={case['sp']} S={case['S']} {case['dtype']}"
+                f"{' causal' if case['causal'] else ''}")
+        print(f"[parallel] ring {name}: vs plain ring max|d| {max(e_p):.3e} ||d||/||ref|| "
+              f"{max(r_p):.3e} (tol {case['tol_plain']}); vs dense flash_attention max|d| "
+              f"{max(e_d):.3e} ||d||/||ref|| {max(r_d):.3e} (tol {case['tol_dense']}); "
+              f"o, dq, dk, dv on every rank; fwd+bwd {max(x['s_kernels'] for x in rows):.3f} s "
+              f"kernels, {max(x['s_plain'] for x in rows):.3f} s plain (4 ranks sharing one "
+              f"card){'' if ok else '  FAILED'}")
+        if not ok:
+            failed.append(f"ring {name}")
+    for i, step in enumerate(ranks[0]["steps"]):
+        dp, tp, sp = step["shape"]
+        rows = [r["steps"][i] for r in ranks if i < len(r["steps"])
+                and r["steps"][i]["shape"] == step["shape"] and r["steps"][i]["S"] == step["S"]]
+        name = f"{dp}x{tp}x{sp} S={step['S']} B=2"
+        dloss, dnorm = step["dense"]
+        rel = step["rel"]
+        counts = [r["counts"] for r in rows]
+        expect = [_mesh_step_counts(step["shape"], step["S"], r["coords"]["sp"]) for r in rows]
+        print(f"[parallel] flagship step {name} ({len(rows)} ranks sharing one card): loss "
+              f"{step['loss']:.6f} vs dense {dloss:.6f}, grad_norm {step['grad_norm']:.6f} vs "
+              f"{dnorm:.6f}; s/step {[round(t, 3) for r in rows for t in r['s_per_step']]}; "
+              f"peak GiB per rank {[round(r['peak_gib'], 2) for r in rows]}")
+        print(f"[parallel]   launches per rank ({COUNT_NAMES}) {counts}, expected {expect}")
+        print(f"[parallel]   clipped grads against the dense step, ||d||/||dense|| per group "
+              f"(tol 5e-2): " + ", ".join(f"{g} {v:.2e}" for g, v in sorted(rel.items())))
+        same = len({r["grad_sq"] for r in rows}) == 1
+        if not (counts == expect and max(rel.values()) <= 5e-2 and same
+                and abs(step["loss"] - dloss) <= 1e-2 * abs(dloss)):
+            failed.append(f"step {name} (same grads on every rank: {same})")
+    launches = {}
+    for r in ranks:
+        for kname, n in r["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    state["launches"]["parallel"] = launches
+    print(f"[parallel] main path launches, all ranks ({COUNT_NAMES}) "
+          f"{tuple(launches.values())}")
+    if failed:
+        raise AssertionError(f"[parallel] failed: {failed}")
+    _parallel_cli(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[parallel] wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2676,7 +3041,8 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
-          ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge))
+          ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
+          ("parallel", phase_parallel))
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ JAX CLI's flags plus ``--device``:
     python -m pianobart_tpu_torch.cli tokenize --dataset songs/ --no_pad
     python -m pianobart_tpu_torch.cli pretrain --dataroot Data/output_pretrain --datasets songs
     python -m pianobart_tpu_torch.cli pretrain ... --resume
+    python -m torch.distributed.run --nproc_per_node 2 -m pianobart_tpu_torch.cli pretrain ... --mesh 1x1x2
     python -m pianobart_tpu_torch.cli finetune --task composer --dataset pianist8 --ckpt result/pretrain/pianobart
     python -m pianobart_tpu_torch.cli finetune-generation --dataroot ... --datasets maestro --fad
     python -m pianobart_tpu_torch.cli ablation --dataroot ... --datasets maestro
@@ -23,6 +24,9 @@ JAX CLI's flags plus ``--device``:
 The training commands, ``eval-gen``, ``merge``, ``serve`` and ``demo`` run
 on CUDA unless ``--device cpu`` is given, and raise without a card
 otherwise; the data and checkpoint-conversion commands run on the host.
+``pretrain --mesh dpxTPxSP`` runs one rank per process of a
+``torch.distributed.run`` job (``--dist_backend nccl``, one rank per card;
+``gloo`` for ranks that share a card or run on the CPU).
 ``--ckpt`` takes a checkpoint directory of the port (a manager root or a
 payload directory), a merged ``.msgpack`` (of this ``merge`` or the JAX
 package's) or a reference ``.ckpt``/``.pth`` file.  The JAX package's orbax
@@ -167,35 +171,97 @@ def _run_guarded(runner, epochs: int, resume: bool) -> int:
     return 0
 
 
+def _mesh_layout(args, cfg, world: int):
+    """(dp, tp, sp) of ``--mesh`` (default: every rank on dp) for a job of
+    ``world`` ranks, with the reference CLI's refusals
+    (``pianobart_tpu/cli.py:88-96, 240-269``)."""
+    from .parallel.mesh import parse_mesh
+    bs = args.batch_size
+    if args.mesh is None and bs % world:
+        raise SystemExit(
+            f"--batch_size {bs} is not divisible by the {world} ranks; pick "
+            f"--batch_size {max(1, bs // world) * world} / "
+            f"{(bs // world + 1) * world}, or pass an explicit --mesh (e.g. "
+            f"--mesh {world}x1x1)")
+    try:
+        dp, tp, sp = parse_mesh(args.mesh, world)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    if dp * tp * sp != world:
+        raise SystemExit(f"--mesh {dp}x{tp}x{sp} needs {dp * tp * sp} ranks; "
+                         f"the job has {world} (start it with "
+                         f"torch.distributed.run --nproc_per_node {dp * tp * sp})")
+    if bs % dp:
+        raise SystemExit(f"--batch_size {bs} must be divisible by the dp mesh "
+                         f"axis ({dp}); use --mesh to pick a layout")
+    if cfg.max_len % sp:
+        raise SystemExit(f"--max_seq_len {cfg.max_len} must be divisible by "
+                         f"the sp mesh axis ({sp})")
+    if cfg.num_heads % tp:
+        raise SystemExit(f"--heads {cfg.num_heads} must be divisible by the "
+                         f"tp mesh axis ({tp})")
+    return dp, tp, sp
+
+
 def cmd_pretrain(args) -> int:
     from .compat.from_jax import init_lm
     from .data import load_pretrain
     from .device import resolve_device
     from .train.runner import PretrainRunner
 
-    device = resolve_device(args.device)
     cfg = _cfg_from_args(args)
-    X_train, X_val = load_pretrain(args.dataroot, args.datasets,
-                                   seed=args.seed)
-    print(f"train {X_train.shape} valid {X_val.shape}")
-    if X_train.shape[1] != cfg.max_len:
-        raise SystemExit(
-            f"data windows are {X_train.shape[1]} tokens but --max_seq_len "
-            f"is {cfg.max_len}; re-tokenize with `tokenize --max_seq_len "
-            f"{cfg.max_len}` (long windows) or pass --max_seq_len "
-            f"{X_train.shape[1]}")
-    model = _load_init_ckpt(init_lm(cfg, seed=args.seed, device=device,
-                                    train=True), args)
-    state = _train_state(model, args)
-    save_dir = os.path.join("result", "pretrain", args.name)
-    runner = PretrainRunner(state, cfg, X_train, X_val, save_dir,
-                            batch_size=args.batch_size,
-                            mask_percent=args.mask_percent,
-                            patience=30, seed=args.seed,
-                            checkpoint_every_dispatches=(
-                                args.checkpoint_every_dispatches),
-                            lr_fn=_make_lr_fn(args, args.lr))
-    return _run_guarded(runner, args.epochs, args.resume)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    dp, tp, sp = _mesh_layout(args, cfg, world)
+    mesh = train_step_fn = eval_step_fn = put_batch = None
+    if world == 1:
+        device = resolve_device(args.device)
+    else:
+        # every rank holds the whole model; sp > 1 routes through the ring
+        # (TP∘SP with tp > 1; tp > 1 at sp = 1 is a ring of one)
+        from .parallel.mesh import init_from_env, put_batch_fn
+        from .train.pretrain_sp import make_sp_eval_step, make_sp_pretrain_step
+        try:
+            mesh = init_from_env(f"{dp}x{tp}x{sp}", args.dist_backend, args.device)
+        except ValueError as exc:
+            raise SystemExit(str(exc)) from None
+        device = mesh.device
+        if sp > 1 or tp > 1:
+            cfg = cfg.replace(ring_axis="sp")
+        if tp > 1:
+            cfg = cfg.replace(ring_tp_axis="tp", ring_tp_size=tp)
+        train_step_fn = make_sp_pretrain_step(cfg, mesh, args.mask_percent)
+        eval_step_fn = make_sp_eval_step(cfg, mesh, args.mask_percent)
+        put_batch = put_batch_fn(mesh)
+        print(f"rank {mesh.rank} of mesh {dp}x{tp}x{sp} at {mesh.coords} on "
+              f"{device} over {mesh.backend}")
+    try:
+        X_train, X_val = load_pretrain(args.dataroot, args.datasets,
+                                       seed=args.seed)
+        print(f"train {X_train.shape} valid {X_val.shape}")
+        if X_train.shape[1] != cfg.max_len:
+            raise SystemExit(
+                f"data windows are {X_train.shape[1]} tokens but --max_seq_len "
+                f"is {cfg.max_len}; re-tokenize with `tokenize --max_seq_len "
+                f"{cfg.max_len}` (long windows) or pass --max_seq_len "
+                f"{X_train.shape[1]}")
+        model = _load_init_ckpt(init_lm(cfg, seed=args.seed, device=device,
+                                        train=True), args)
+        state = _train_state(model, args)
+        save_dir = os.path.join("result", "pretrain", args.name)
+        runner = PretrainRunner(state, cfg, X_train, X_val, save_dir,
+                                batch_size=args.batch_size,
+                                mask_percent=args.mask_percent,
+                                patience=30, seed=args.seed,
+                                checkpoint_every_dispatches=(
+                                    args.checkpoint_every_dispatches),
+                                train_step_fn=train_step_fn,
+                                eval_step_fn=eval_step_fn,
+                                lr_fn=_make_lr_fn(args, args.lr),
+                                put_batch=put_batch, mesh=mesh)
+        return _run_guarded(runner, args.epochs, args.resume)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 def cmd_finetune(args) -> int:
@@ -471,6 +537,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="mid-epoch crash-safety saves every N dispatches "
                          "into the rotating safety/ slot (0 = off); "
                          "--resume restarts the interrupted epoch from it")
+    sp.add_argument("--mesh", type=str, default=None,
+                    help="dpxTPxSP over the ranks of a torch.distributed.run "
+                         "job, e.g. 2x1x2 (default: every rank on dp)")
+    sp.add_argument("--dist_backend", choices=["nccl", "gloo"], default="nccl",
+                    help="nccl: one rank per card; gloo: ranks that share a "
+                         "card, or --device cpu")
     _add_model_flags(sp)
     _add_train_flags(sp)
     sp.set_defaults(fn=cmd_pretrain)

@@ -27,7 +27,7 @@ from ..models.heads import (AttentionPooling, Excitation, SequenceClassifierHead
 from ..models.pianobart import PianoBartLM
 
 __all__ = ["lm_state_dict_from_jax", "flax_tree_from_state_dict", "init_lm",
-           "init_model", "draw_params_"]
+           "init_model", "draw_params_", "config_from_jax"]
 
 # modules whose Linear layers flax builds with its default kernel init
 _LECUN = (LabelEmbedding, AttentionPooling, SequenceClassifierHead,
@@ -73,6 +73,24 @@ def lm_state_dict_from_jax(params: Mapping, cfg: PianoBartConfig
         if len(found) != n:
             raise ValueError(f"params hold {len(found)} {part} layers, cfg says {n}")
     return sd
+
+
+def config_from_jax(jcfg: Any) -> PianoBartConfig:
+    """The port's config of a reference ``PianoBartConfig`` (duck-typed: the
+    JAX package is not imported): every field the port has, remat and the
+    ring/TP fields included, with the dtypes by name (``float32``,
+    ``bfloat16``).  A field the port lacks raises."""
+    import dataclasses
+    kw = {}
+    own = {f.name for f in dataclasses.fields(PianoBartConfig)}
+    for f in dataclasses.fields(jcfg):
+        if f.name not in own:
+            raise ValueError(f"the port's PianoBartConfig has no field {f.name!r}")
+        v = getattr(jcfg, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            v = getattr(torch, np.dtype(v).name)
+        kw[f.name] = v
+    return PianoBartConfig(**kw)
 
 
 def flax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

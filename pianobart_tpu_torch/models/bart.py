@@ -13,6 +13,14 @@ is in training mode (``self.training``); its bits come from the
 ``generator`` passed down the forward.  With ``cfg.fused_dropout_ln`` the
 sublayer tails run as the fused K4 kernels (``ops/fused_ln.py``), as the
 reference's ``PBX_FUSED_DROPLN=1`` does; off by default, as there.
+
+With ``cfg.ring_axis`` the model runs on this rank's sequence shard:
+attention is ring attention over that axis of the active mesh
+(``parallel/mesh.py:use_mesh``), positions start at the shard's global
+offset, and with ``cfg.ring_tp_axis`` each tp rank projects and attends its
+heads of the replicated weights (TP∘SP).  ``cfg.remat`` recomputes every
+layer in the backward, ``cfg.remat_ffn`` only the FFN
+(``torch.utils.checkpoint``); the recompute replays the generator's draws.
 """
 from __future__ import annotations
 
@@ -21,11 +29,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import PianoBartConfig
 from ..ops.attention import dot_product_attention
 from ..ops.dropout import dropout
 from ..ops.fused_ln import MAX_D, dropout_add_ln, fused_eligible
+from ..ops.ring import psum_out, replicated_in, ring_attention, tp_slice
+from ..parallel.mesh import axis
 
 KVCache = Dict[str, Any]
 Generator = Optional[torch.Generator]
@@ -45,6 +56,32 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
     mul = torch.rsqrt(var + LN_EPS) * weight
     return ((xf - mean) * mul + bias).to(dtype)
+
+
+def remat(fn, generator: Generator, *args):
+    """``fn(*args, generator)`` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant).  The recompute
+    replays the generator's draws: its state is set back to what it was
+    before the first run, then restored, so the recomputed dropout bits (and
+    fused-tail seeds) are the ones the forward used."""
+    if generator is None:
+        return checkpoint(fn, *args, None, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Dense(nn.Linear):
@@ -139,6 +176,9 @@ class MultiHeadAttention(nn.Module):
         cfg = self.cfg
         B, Sq, D = x_q.shape
         H, Dh = cfg.num_heads, cfg.head_dim
+        ring = cfg.ring_axis is not None and cache is None and cache_index is None
+        if ring and cfg.ring_tp_axis is not None:
+            return self._tp_ring(x_q, x_kv, kv_mask), None
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, Dh)
@@ -171,12 +211,50 @@ class MultiHeadAttention(nn.Module):
         elif use_cached_kv:
             new_cache = cache
 
-        out = dot_product_attention(
-            q, k, v, kv_mask=kv_mask,
-            causal=self.causal and cache_index is None,
-            dropout_rate=cfg.attention_dropout, deterministic=not self.training,
-            generator=generator, use_flash=cfg.use_flash_attention)
+        if ring:
+            # q, k, v hold this rank's sequence shard; keys and values
+            # rotate around the ring (no attention dropout, as the reference)
+            out = ring_attention(q, k, v, kv_mask, self.causal, axis(cfg.ring_axis))
+        else:
+            out = dot_product_attention(
+                q, k, v, kv_mask=kv_mask,
+                causal=self.causal and cache_index is None,
+                dropout_rate=cfg.attention_dropout, deterministic=not self.training,
+                generator=generator, use_flash=cfg.use_flash_attention)
         return self.out_proj(out.reshape(B, Sq, D)), new_cache
+
+    def _tp_ring(self, x_q, x_kv, kv_mask):
+        """TP∘SP: this tp rank projects and ring-attends its H/ntp heads:
+        column slices of the replicated q/k/v weights, a row slice of
+        out_proj's, the partial outputs summed over tp (``psum_out``), the
+        bias added once."""
+        cfg = self.cfg
+        tp = axis(cfg.ring_tp_axis)
+        ntp = cfg.ring_tp_size
+        if cfg.num_heads % ntp or tp.size != ntp:
+            raise ValueError(f"{cfg.num_heads} heads over a tp axis of {tp.size} "
+                             f"ranks (cfg.ring_tp_size {ntp})")
+        B, Sq, D = x_q.shape
+        Dh = cfg.head_dim
+        Hl = cfg.num_heads // ntp
+        DHl = Hl * Dh
+        start = tp.index * DHl
+        dt = cfg.dtype
+        xq_r = replicated_in(x_q, tp)
+        xkv_r = xq_r if x_kv is x_q else replicated_in(x_kv, tp)
+
+        def proj(x, lin):
+            y = F.linear(x.to(dt), tp_slice(lin.weight, start, DHl, 0, tp).to(dt),
+                         tp_slice(lin.bias, start, DHl, 0, tp).to(dt))
+            return y.view(y.shape[0], y.shape[1], Hl, Dh)
+
+        q = proj(xq_r, self.q_proj) * (Dh ** -0.5)
+        k = proj(xkv_r, self.k_proj)
+        v = proj(xkv_r, self.v_proj)
+        out = ring_attention(q, k, v, kv_mask, self.causal, axis(cfg.ring_axis))
+        partial = F.linear(out.reshape(B, Sq, DHl),
+                           tp_slice(self.out_proj.weight, start, DHl, 1, tp).to(dt))
+        return psum_out(partial, tp) + self.out_proj.bias.to(dt)
 
 
 class FeedForward(nn.Module):
@@ -191,9 +269,22 @@ class FeedForward(nn.Module):
         return self.fc2(dropout(h, self.rate, generator, not self.training))
 
 
-class EncoderLayer(nn.Module):
-    def __init__(self, cfg: PianoBartConfig, device=None):
+class _Layer(nn.Module):
+    def __init__(self, cfg: PianoBartConfig):
         super().__init__()
+        # the FFN alone recomputed, unless the whole layer is (reference
+        # _ffn_cls)
+        self.remat_ffn = cfg.remat_ffn and not cfg.remat
+
+    def _ffn(self, x, generator: Generator):
+        if self.remat_ffn and torch.is_grad_enabled():
+            return remat(self.ffn, generator, x)
+        return self.ffn(x, generator)
+
+
+class EncoderLayer(_Layer):
+    def __init__(self, cfg: PianoBartConfig, device=None):
+        super().__init__(cfg)
         self.self_attn = MultiHeadAttention(cfg, device=device)
         self.self_attn_layer_norm = ResidualDropoutLN(cfg, device)
         self.ffn = FeedForward(cfg, device)
@@ -202,12 +293,12 @@ class EncoderLayer(nn.Module):
     def forward(self, x, pad_mask, generator: Generator = None):
         h, _ = self.self_attn(x, x, kv_mask=pad_mask, generator=generator)
         x = self.self_attn_layer_norm(x, h, generator)
-        return self.final_layer_norm(x, self.ffn(x, generator), generator)
+        return self.final_layer_norm(x, self._ffn(x, generator), generator)
 
 
-class DecoderLayer(nn.Module):
+class DecoderLayer(_Layer):
     def __init__(self, cfg: PianoBartConfig, device=None):
-        super().__init__()
+        super().__init__(cfg)
         self.self_attn = MultiHeadAttention(cfg, causal=True, device=device)
         self.self_attn_layer_norm = ResidualDropoutLN(cfg, device)
         self.cross_attn = MultiHeadAttention(cfg, device=device)
@@ -227,7 +318,7 @@ class DecoderLayer(nn.Module):
             cache=None if cache is None else cache.get("cross"),
             generator=generator)
         x = self.cross_attn_layer_norm(x, h, generator)
-        x = self.final_layer_norm(x, self.ffn(x, generator), generator)
+        x = self.final_layer_norm(x, self._ffn(x, generator), generator)
         new_cache = None
         if new_self is not None or new_cross is not None:
             new_cache = {"self": new_self, "cross": new_cross}
@@ -241,11 +332,16 @@ class PositionalEmbedding(nn.Module):
         super().__init__()
         self.offset = cfg.pos_offset
         self.dtype = cfg.dtype
+        self.ring_axis = cfg.ring_axis
         self.embedding = nn.Parameter(torch.empty(
             cfg.max_len + cfg.pos_offset, cfg.d_model, dtype=cfg.param_dtype,
             device=device))
 
     def forward(self, seq_len: int, start: int = 0) -> torch.Tensor:
+        if self.ring_axis is not None:
+            # sequence parallel: this shard covers global positions
+            # [index * seq_len, ...)
+            start = start + axis(self.ring_axis).index * seq_len
         rows = self.embedding[self.offset + start:self.offset + start + seq_len]
         return rows.to(self.dtype)
 
@@ -254,6 +350,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
         self.rate = cfg.dropout
+        self.remat = cfg.remat
         self.embed_positions = PositionalEmbedding(cfg, device)
         self.layernorm_embedding = LayerNorm(cfg, device)
         self.layers = nn.ModuleList(EncoderLayer(cfg, device)
@@ -264,7 +361,10 @@ class Encoder(nn.Module):
         x = self.layernorm_embedding(x)
         x = dropout(x, self.rate, generator, not self.training)
         for layer in self.layers:
-            x = layer(x, pad_mask, generator)
+            if self.remat and torch.is_grad_enabled():
+                x = remat(layer, generator, x, pad_mask)
+            else:
+                x = layer(x, pad_mask, generator)
         return x
 
 
@@ -272,6 +372,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()
         self.rate = cfg.dropout
+        self.remat = cfg.remat
         self.embed_positions = PositionalEmbedding(cfg, device)
         self.layernorm_embedding = LayerNorm(cfg, device)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
@@ -285,9 +386,13 @@ class Decoder(nn.Module):
         x = dropout(x, self.rate, generator, not self.training)
         new_cache = {}
         for i, layer in enumerate(self.layers):
-            x, lc = layer(x, enc_out, self_mask, enc_mask,
-                          None if cache is None else cache.get(f"layers_{i}"),
-                          cache_index, generator)
+            if self.remat and cache is None and torch.is_grad_enabled():
+                x, lc = remat(layer, generator, x, enc_out, self_mask, enc_mask,
+                              None, None)
+            else:
+                x, lc = layer(x, enc_out, self_mask, enc_mask,
+                              None if cache is None else cache.get(f"layers_{i}"),
+                              cache_index, generator)
             if lc is not None:
                 new_cache[f"layers_{i}"] = lc
         return x, (new_cache or None)

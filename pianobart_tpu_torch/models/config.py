@@ -1,8 +1,7 @@
 """Model configuration: the dataclass of ``pianobart_tpu/models/config.py``
-with ``torch.dtype`` fields.  The ring/TP fields and remat come with the
-parallelism path that uses them;
-``fused_dropout_ln`` stands in for the reference's ``PBX_FUSED_DROPLN``
-environment switch.
+with ``torch.dtype`` fields, and the reference's defaults for remat and the
+ring/TP fields.  ``fused_dropout_ln`` stands in for the reference's
+``PBX_FUSED_DROPLN`` environment switch.
 
 Parameters are held in ``param_dtype`` and cast to ``dtype`` where they are
 used, as flax's ``Dense(dtype, param_dtype)`` does: f32 weights under bf16
@@ -48,6 +47,18 @@ class PianoBartConfig:
     # shapes: the counterpart of the reference's PBX_FUSED_DROPLN=1, which
     # is off by default there.  Read from the config, never the environment.
     fused_dropout_ln: bool = False
+    # Recompute every layer in the backward (torch.utils.checkpoint), or with
+    # remat_ffn only the FFN: memory for compute.  Dropout replays its bits.
+    remat: bool = False
+    remat_ffn: bool = False
+    # Sequence-parallel ring attention: the mesh axis ("sp") the sequence is
+    # sharded over (ops/ring.py), resolved to a process group of the mesh
+    # active around the forward (parallel/mesh.py:use_mesh).  None = dense.
+    ring_axis: Optional[str] = None
+    # TP∘SP: the tp mesh axis and its size; each tp rank projects and
+    # ring-attends num_heads / ring_tp_size heads of replicated weights.
+    ring_tp_axis: Optional[str] = None
+    ring_tp_size: int = 1
 
     @property
     def head_dim(self) -> int:

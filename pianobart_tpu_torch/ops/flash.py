@@ -144,11 +144,16 @@ def flash_attention_dkv_reference(q, k, v, kv_mask, causal, lse, delta, dout):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_reference(q, k, v, kv_mask, causal, out, lse, dout):
+def flash_attention_bwd_reference(q, k, v, kv_mask, causal, out, lse, dout,
+                                  delta=None):
     """Plain version of K2's arithmetic in f32: P from the forward's lse,
     dP = dO V^T, dS = P * (dP - delta), then dV = P^T dO, dQ = dS K,
-    dK = dS^T Q.  Returns ``(dq, dk, dv)`` in the input dtypes."""
-    p, ds = _probs_and_ds(q, k, v, kv_mask, causal, lse, _delta(dout, out), dout)
+    dK = dS^T Q.  ``delta`` is rowsum(dO * O) of ``out`` unless the caller
+    gives it (the ring's global delta; ``out`` may then be None).  Returns
+    ``(dq, dk, dv)`` in the input dtypes."""
+    if delta is None:
+        delta = _delta(dout, out)
+    p, ds = _probs_and_ds(q, k, v, kv_mask, causal, lse, delta, dout)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
@@ -480,7 +485,7 @@ def flash_attention_dkv(q, k, v, kv_mask, causal, lse, delta, dout
 flash_attention_dkv.launches = 0
 
 
-def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
+def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout, delta=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward: ``(dq, dk, dv)`` in the input dtype from the
     forward's inputs, its ``out`` and ``lse``, and ``dout``.
@@ -490,22 +495,28 @@ def flash_attention_bwd(q, k, v, kv_mask, causal, out, lse, dout
     then K3a (:func:`flash_attention_dq`) and K3b
     (:func:`flash_attention_dkv`), each counted on its own.  CPU tensors
     take the plain versions; CUDA tensors launch the kernels or raise.
+
+    With ``delta`` (``(B, H, Sq)`` f32) the caller's rowsum(dO * O) is used
+    and ``out`` is not read (it may be None): the reference's
+    ``_bwd_fused_call`` contract, as the ring backward calls it with the
+    merged lse and the delta of the merged output.
     """
-    if not _fused_eligible(q.shape[1], k.shape[1]):
+    if delta is None:
         delta = flash_attention_delta(dout, out)
+    if not _fused_eligible(q.shape[1], k.shape[1]):
         dq = flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout)
         dk, dv = flash_attention_dkv(q, k, v, kv_mask, causal, lse, delta, dout)
         return dq, dk, dv
     if not use_kernel(q, "flash attention"):
         return flash_attention_bwd_reference(q, k, v, kv_mask, causal, out,
-                                             lse, dout)
+                                             lse, dout, delta)
     _check_cuda_inputs(q, k, v, kv_mask, dout)
-    _check_bwd_rows(q, lse)
+    _check_bwd_rows(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("pbt_flash_bwd", q, k, v, kv_mask, causal, lse,
-                flash_attention_delta(dout, out), dout, [dq, dk, dv])
+    _launch_bwd("pbt_flash_bwd", q, k, v, kv_mask, causal, lse, delta, dout,
+                [dq, dk, dv])
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

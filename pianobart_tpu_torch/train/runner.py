@@ -16,6 +16,14 @@ seeded from ``(seed, batch index)``: distinct across batches, identical
 across epochs.  A resumed run replays the permutations of the epochs it
 skips, so a run preempted between epochs and resumed takes the same steps
 as one never interrupted.
+
+Over a mesh of several ranks (``mesh``; parameters replicated), every rank
+runs the same loop on the same global batches (``put_batch`` places them,
+the mesh's steps take each rank's block); rank 0 alone writes checkpoints
+and ``metrics.jsonl``, every save ends in a barrier, and the ranks agree on
+preemption: at each dispatch boundary they all-reduce the SIGTERM flag, so
+all of them stop at the same step (a rank that stopped alone would leave the
+others blocked in a collective).
 """
 from __future__ import annotations
 
@@ -49,20 +57,27 @@ class _EpochRunner:
     resume that replays the data order of the epochs it skips."""
 
     def __init__(self, state: TrainState, cfg: PianoBartConfig, save_dir: str,
-                 seed: int, preempt: Optional[PreemptionGuard]):
+                 seed: int, preempt: Optional[PreemptionGuard],
+                 put_batch: Optional[Callable] = None, mesh=None):
         self.state = state
         self.cfg = cfg
         self.device = next(state.model.parameters()).device
         self.seed = seed
         self.preempt = preempt
-        self.logger = MetricsLogger(save_dir)
-        self.ckpt = CheckpointManager(save_dir)
+        self.put_batch = put_batch
+        self.mesh = mesh
+        writer = mesh is None or mesh.rank == 0
+        self.logger = MetricsLogger(save_dir, enabled=writer)
+        self.ckpt = CheckpointManager(
+            save_dir, writer=writer, barrier=None if mesh is None else mesh.barrier)
         self.np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device)
         self._cur_epoch = 0  # set by run(); safety saves record it
         self._safety_at = None  # (epoch, step) the safety slot holds
 
     def _put(self, batch) -> torch.Tensor:
+        if self.put_batch is not None:
+            return self.put_batch(batch)
         return torch.as_tensor(np.asarray(batch), device=self.device)
 
     def _generator(self, kind: int, index: int) -> torch.Generator:
@@ -76,8 +91,13 @@ class _EpochRunner:
 
     def _check_preempt(self) -> None:
         """Graceful shutdown: save the safety slot, then bail.  Resume
-        restarts the interrupted epoch from it."""
-        if self.preempt is not None and self.preempt.requested:
+        restarts the interrupted epoch from it.  Over a mesh every rank
+        calls this at the same points and they agree (any rank's request
+        stops all)."""
+        requested = self.preempt is not None and self.preempt.requested
+        if self.mesh is not None:
+            requested = self.mesh.agree_any(requested)
+        if requested:
             self._save_safety()
             raise Preempted(
                 f"preempted at epoch {self._cur_epoch + 1}, optimizer step "
@@ -97,10 +117,14 @@ class _EpochRunner:
 class PretrainRunner(_EpochRunner):
     """Pretraining epochs (main.py:17-100).
 
-    The hooks replace the port's steps (the JAX runner's sequence-parallel path uses them):
+    The hooks replace the port's steps (the mesh steps of
+    ``train/pretrain_sp.py`` use them):
 
     * ``train_step_fn(state, batch, generator) -> (state, metrics)``
     * ``eval_step_fn(state, batch, generator, sample_weight) -> metrics``
+    * ``put_batch(numpy batch) -> tensor`` places each batch
+      (``parallel/mesh.py:put_batch_fn``; default: whole, on the model's
+      device), with ``mesh`` the ranks' agreement and rank 0's writes.
 
     ``lr_fn(state.step) -> float`` mirrors the optimizer's schedule on the
     host, for the epoch log only.  ``preempt`` is polled at dispatch
@@ -117,8 +141,9 @@ class PretrainRunner(_EpochRunner):
                  train_step_fn: Optional[Callable] = None,
                  eval_step_fn: Optional[Callable] = None,
                  lr_fn: Optional[Callable] = None,
-                 preempt: Optional[PreemptionGuard] = None):
-        super().__init__(state, cfg, save_dir, seed, preempt)
+                 preempt: Optional[PreemptionGuard] = None,
+                 put_batch: Optional[Callable] = None, mesh=None):
+        super().__init__(state, cfg, save_dir, seed, preempt, put_batch, mesh)
         self.train_data = train_data
         self.valid_data = valid_data
         self.batch_size = batch_size

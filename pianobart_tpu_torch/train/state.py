@@ -53,7 +53,10 @@ class TrainState:
       for the optimizer's constant rate;
     * ``accum_steps``: micro-steps per real update;
     * ``ema`` / ``ema_decay``: the Polyak shadow, one tensor per parameter
-      in ``model.parameters()`` order, or ``None``.
+      in ``model.parameters()`` order, or ``None``;
+    * ``grad_sync``: called with the gradients of each real update before
+      anything else reads them (the mesh steps' SUM all-reduce over the
+      (dp, sp) group), or ``None``.
     """
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -64,6 +67,7 @@ class TrainState:
     accum_steps: int = 1
     ema_decay: Optional[float] = None
     ema: Optional[List[torch.Tensor]] = None
+    grad_sync: Optional[Callable[[List[torch.Tensor]], None]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +202,9 @@ def apply_gradients(state: TrainState) -> bool:
     ``MultiSteps`` over the clip, AdamW and EMA chain does; return whether
     this call took a real update.
 
-    Every ``accum_steps``-th call averages the window's gradients (the
-    backward passes summed them into ``.grad``), clips the mean, takes the
+    Every ``accum_steps``-th call hands the window's gradients (the backward
+    passes summed them into ``.grad``) to ``grad_sync`` when the state has
+    one (once per window), averages them, clips the mean, takes the
     AdamW step with learning rate ``schedule(n)`` for real update n (n from
     0, as optax's ``scale_by_schedule`` reads its count before it
     increments), then moves the EMA shadow toward the new parameters.  The
@@ -210,6 +215,8 @@ def apply_gradients(state: TrainState) -> bool:
     if state.step % k:
         return False
     params = [p for p in state.model.parameters() if p.grad is not None]
+    if state.grad_sync is not None:
+        state.grad_sync(_grads(params))
     if k > 1:
         torch._foreach_div_(_grads(params), float(k))
     state.grad_norm = clip_by_global_norm_logged(params, state.clip_norm)
@@ -363,12 +370,23 @@ class CheckpointManager:
     Each payload directory holds ``state.pt``, written into ``<dir>.tmp``
     and renamed to ``<dir>`` once the old ``<dir>`` is renamed aside to
     ``<dir>.old``; ``*.tmp`` and ``*.old`` left by a killed save are swept.
+
+    In a job of several ranks (replicated parameters) only the ``writer``
+    (rank 0) writes; every rank's save ends in ``barrier``, so no rank reads
+    or resumes from a directory another is still writing.
     """
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 writer: bool = True, barrier: Optional[Callable[[], None]] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.writer = writer
+        self._barrier = barrier
+
+    def _sync(self) -> None:
+        if self._barrier is not None:
+            self._barrier()
 
     # -- meta -------------------------------------------------------------
     @property
@@ -400,6 +418,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metrics: Dict[str, Any],
              is_best: bool) -> None:
+        if self.writer:
+            self._save(step, state, metrics, is_best)
+        self._sync()
+
+    def _save(self, step: int, state: TrainState, metrics: Dict[str, Any],
+              is_best: bool) -> None:
         path = os.path.join(self.directory, f"step_{step}")
         self._write_payload(path, state)
         meta = self._read_meta()
@@ -440,10 +464,12 @@ class CheckpointManager:
         """Mid-epoch crash-safety save into the single rotating ``safety``
         slot.  ``epoch`` is the 0-based epoch in progress: resume restarts
         that epoch from this state."""
-        self._write_payload(os.path.join(self.directory, "safety"), state)
-        meta = self._read_meta()
-        meta["safety"] = {"epoch": epoch, "opt_step": int(state.step)}
-        self._write_meta(meta)
+        if self.writer:
+            self._write_payload(os.path.join(self.directory, "safety"), state)
+            meta = self._read_meta()
+            meta["safety"] = {"epoch": epoch, "opt_step": int(state.step)}
+            self._write_meta(meta)
+        self._sync()
 
     def restore(self, state: TrainState, step: Optional[int] = None,
                 best: bool = False) -> tuple:

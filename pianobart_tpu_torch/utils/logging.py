@@ -33,7 +33,11 @@ def _jsonable(v):
 
 class MetricsLogger:
     def __init__(self, directory: str, name: str = "metrics",
-                 echo: bool = True, tensorboard: bool = True):
+                 echo: bool = True, tensorboard: bool = True,
+                 enabled: bool = True):
+        # ``enabled=False``: the ranks of a job other than rank 0 write and
+        # print nothing
+        self.enabled = enabled
         os.makedirs(directory, exist_ok=True)
         self.jsonl_path = os.path.join(directory, f"{name}.jsonl")
         self.log_path = os.path.join(directory, "log")
@@ -42,7 +46,7 @@ class MetricsLogger:
         self._last_echo_q = 0
         # TensorBoard beside the jsonl when tensorboardX is importable
         self._tb = None
-        if tensorboard:
+        if tensorboard and enabled:
             try:
                 from tensorboardX import SummaryWriter
                 self._tb = SummaryWriter(os.path.join(directory, "tb"))
@@ -50,6 +54,8 @@ class MetricsLogger:
                 self._tb = None
 
     def log(self, event: str, **fields: Any) -> None:
+        if not self.enabled:
+            return
         rec = {"event": event, "t": round(time.time() - self._t0, 3)}
         rec.update({k: _jsonable(v) for k, v in fields.items()})
         with open(self.jsonl_path, "a") as f:
@@ -78,6 +84,8 @@ class MetricsLogger:
 
     def epoch_line(self, text: str) -> None:
         """Reference-style append-only epoch log (main.py:90-92)."""
+        if not self.enabled:
+            return
         with open(self.log_path, "a") as f:
             f.write(text + "\n")
         if self.echo:
@@ -90,7 +98,7 @@ class MetricsLogger:
         that rarely divide ``every``, hence the quotient.  A tensor value is
         read (a host sync) only when the line prints."""
         q = step // every
-        if self.echo and q > self._last_echo_q:
+        if self.enabled and self.echo and q > self._last_echo_q:
             self._last_echo_q = q
             loss = float(metrics.get("loss", np.nan))
             acc = metrics.get("weighted_acc")

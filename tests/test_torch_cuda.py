@@ -880,3 +880,84 @@ def test_merges_on_the_card_equal_the_host(cuda):
     for name, card, host in zip(names, on(cuda), on("cpu")):
         for k, v in host.items():
             assert torch.equal(card[k].cpu(), v), (name, k)
+
+
+# ---------------------------------------------------------------------------
+# The ring (ops/ring.py): K1, delta, K2 and K3 with the merged lse
+# ---------------------------------------------------------------------------
+
+def _ring_rank(rank, world, out_dir, S, dtype_name):
+    """One rank of a two-rank ring on cuda:0 (over gloo, blocks staged
+    through the host): the kernels' ring and the plain ring on this rank's
+    shard, their outputs and gradients, and the kernels' launches."""
+    import os
+    from pianobart_tpu_torch.ops.ring import ring_attention, ring_attention_reference
+    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, 1, world, device=dev)
+    ax = mesh.axis("sp")
+    q, k, v, mask = _inputs(dev, getattr(torch, dtype_name), B=2, S=S, H=2)
+    mask[0, S - S // 2 - 8:] = 0.0            # sample 0's last shard all padding
+    g = torch.Generator(device=dev).manual_seed(3)
+    dout = torch.randn(q.shape, device=dev, generator=g).to(q.dtype)
+    res = {}
+    for causal in (False, True):
+        for tag, fn in (("kernels", ring_attention), ("plain", ring_attention_reference)):
+            before = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+                      flash_attention_dq.launches, flash_attention_dkv.launches)
+            ql, kl, vl = (mesh.cols(x).detach().clone().requires_grad_() for x in (q, k, v))
+            o = fn(ql, kl, vl, mesh.cols(mask), causal, ax)
+            o.backward(mesh.cols(dout))
+            torch.cuda.synchronize()
+            after = (flash_attention_fwd.launches, flash_attention_bwd.launches,
+                     flash_attention_dq.launches, flash_attention_dkv.launches)
+            res[causal, tag] = ([t.detach().cpu() for t in (o, ql.grad, kl.grad, vl.grad)],
+                                tuple(a - b for a, b in zip(after, before)))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [512, 4096], ids=["K2", "K3"])
+def test_ring_kernels_with_merged_lse_match_the_plain_ring(cuda, tmp_path, S, dtype):
+    """Two ranks share the card: every visible block runs K1, and its
+    gradients come from the merged lse and the delta of the merged output
+    through K2 (local shard 256 rows) or K3a and K3b (2048 rows), against
+    the plain ring on the same shards, a wholly padded key shard included,
+    at the kernels' own tolerances (the output's as K1's, the gradients' as
+    K2's)."""
+    from pianobart_tpu_torch.parallel.launch import spawn
+    spawn(_ring_rank, 2, (str(tmp_path), S, str(dtype).split(".")[1]))
+    for rank in range(2):
+        res = torch.load(tmp_path / f"rank{rank}.pt")
+        for causal in (False, True):
+            (got, launches), (want, none) = res[causal, "kernels"], res[causal, "plain"]
+            blocks = 1 + rank if causal else 2
+            k2 = blocks if S == 512 else 0
+            assert launches == (blocks, k2, blocks - k2, blocks - k2) and none == (0,) * 4
+            atol, rtol, _ = TOL[dtype]
+            assert torch.isfinite(got[0]).all()
+            torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
+            assert_bwd_close(got[1:], want[1:], dtype)
+
+
+def test_ring_refuses_shards_the_kernels_do_not_take(cuda):
+    """A local shard of 192 rows on CUDA raises; the ring never falls back
+    to plain attention."""
+    from pianobart_tpu_torch.ops.ring import ring_attention
+    from pianobart_tpu_torch.parallel.mesh import single_device_mesh
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=192)
+    with pytest.raises(ValueError, match="local shards the flash kernels take"):
+        ring_attention(q, k, v, mask, False, single_device_mesh(cuda).axis("sp"))
+
+
+def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
+    """``init_from_env`` with nccl and more local ranks than cards raises
+    before any process group exists (NCCL would say "Duplicate GPU")."""
+    from pianobart_tpu_torch.parallel.mesh import init_from_env
+    n = torch.cuda.device_count() + 1
+    monkeypatch.setenv("WORLD_SIZE", str(n))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(n))
+    with pytest.raises(ValueError, match="one rank per card"):
+        init_from_env(f"1x1x{n}", "nccl")
+    assert not torch.distributed.is_initialized()

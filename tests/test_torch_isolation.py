@@ -45,11 +45,12 @@ def test_package_imports_with_jax_blocked():
     assert len(mods) >= 46
     # the serving path's MIDI modules, the demo and the CLI among them, and
     # the pretraining run's: datasets, native codec, tokenizer pipeline and
-    # validators, runner, logging, preemption
+    # validators, runner, logging, preemption; the mesh path's
     assert {f"pianobart_tpu_torch.{m}" for m in (
         "midi.events", "midi.parser", "midi.writer", "tokenizer.codec",
         "tokenizer.segment", "serve.app", "serve.demo", "cli",
         "data", "data.datasets", "midi.native", "tokenizer.pipeline",
         "tokenizer.validate", "train.state", "train.runner", "utils.logging",
         "utils.preemption", "merge", "merge.methods", "merge.cli",
-        "compat.flax_msgpack", "utils.profiling")} <= mods
+        "compat.flax_msgpack", "utils.profiling", "ops.ring", "parallel",
+        "parallel.mesh", "parallel.sp", "parallel.launch", "train.pretrain_sp")} <= mods
