@@ -82,10 +82,12 @@ result line:
    outside the checkout: 40 songs by 4 composers written by the port's MIDI
    writer and tokenized by its ``tokenize`` for every task; ``finetune
    --task composer --ckpt`` [pretrain_run]'s ``best/`` (the trunk grafted,
-   the head left as drawn, both checked), ``finetune --task velocity``,
-   ``finetune-generation --fad --ckpt`` the same ``best/``, one epoch each
-   in process (ms per train step, peak memory, a finite loss, ``best/``;
-   K1, delta and K2 24 per train step, K1 24 per eval batch); then melody,
+   the head left as drawn, both checked), ``finetune --task velocity`` under
+   ``PBX_FUSED_DROPLN=1`` (the fused tails from the CLI's environment: K4a
+   and K4b 40 per train step), ``finetune-generation --fad --ckpt`` the same
+   ``best/``, one epoch each in process (ms per train step, peak memory, a
+   finite loss, ``best/``; K1, delta and K2 24 per train step, K1 24 per
+   eval batch); then melody,
    emotion and the ablation one train and one eval step each through their
    step functions, and 4 more emotion train steps under the profiler (the
    device's busy share, the heaviest kernels, the clip and AdamW's share);
@@ -121,10 +123,23 @@ result line:
    every rank), each rank's launches per step checked, s per step and peak
    memory per rank (ranks sharing one card); then ``torch.distributed.run``
    of ``pretrain --mesh 1x1x2 --dist_backend gloo --max_seq_len 2048`` on
-   64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``.
+   64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``;
+18. ``[finetune_mesh]``: the finetunes over the mesh on this one card: four
+   ranks spawned over gloo (all on cuda:0); the composer, velocity and
+   generation steps at flagship width (bf16 compute, f32 parameters, B=8,
+   S=1024, dropout 0 and the heads' fixed 0.1 set to 0) on [pretrain_run]'s
+   ``best/``, at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, one train step and one eval
+   step each, against the dense step on the same card (loss, clipped
+   gradients per group, the same gradients on every rank, the eval step's
+   predictions gathered into the global batch), each rank's launches per
+   step checked; then ``torch.distributed.run`` of ``finetune --task
+   composer --mesh 2x1x1`` and ``finetune-generation --mesh 1x1x2 --fad`` on
+   [finetune]'s corpora with ``--ckpt`` [pretrain_run]'s ``best/``, one
+   epoch each: exit 0, ``best/`` once, ``test_outputs.npy`` of the
+   single-rank run's shape.
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-pretrain_run, finetune, serve_ckpt, merge, parallel) is driven with every
+pretrain_run, finetune, serve_ckpt, merge, parallel, finetune_mesh) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1783,12 +1798,14 @@ def phase_pretrain_run(state):
     print(f"[pretrain_run] wall {time.perf_counter() - t_phase:.1f} s")
 
 
-def _supervised_cli(tag, argv, n_attn):
+def _supervised_cli(tag, argv, n_attn, n_tails=0):
     """One training command of the finetune CLI in process: each train and
     eval step timed (synchronized), launches over the run, peak device
     memory.  Checks the launches (K1 per attention per train step and per
-    eval batch, delta and K2 per attention per train step), a finite loss
-    and ``best/``.  Returns (runner, train-step seconds, launches)."""
+    eval batch, delta and K2 per attention per train step, K4a and K4b per
+    sublayer tail per train step when ``n_tails``: a run under
+    ``PBX_FUSED_DROPLN=1``), a finite loss and ``best/``.  Returns (runner,
+    train-step seconds, launches)."""
     import contextlib
     import io
 
@@ -1835,7 +1852,8 @@ def _supervised_cli(tag, argv, n_attn):
         epoch = [e for e in map(json.loads, f) if e["event"] == "epoch"][-1]
     n_train, n_eval = len(steps[True]), len(steps[False])
     want = (-(-len(run.X_train) // 8), -(-len(run.X_val) // 8) + -(-len(run.X_test) // 8))
-    expect = _counts(k1=n_attn * (n_train + n_eval), k2=n_attn * n_train)
+    expect = _counts(k1=n_attn * (n_train + n_eval), k2=n_attn * n_train,
+                     k4=n_tails * n_train)
     ms = [round(1e3 * t, 1) for t in steps[True]]
     print(f"[finetune] {tag}: exit {rc} in {wall:.1f} s; {n_train} train steps "
           f"(ms each {ms}; {np.median(ms[1:]):.1f} ms/step after the first), "
@@ -1939,13 +1957,28 @@ def phase_finetune(state):
               f"kept their draw: {head_ok}")
         if not (trunk_ok and head_ok):
             raise AssertionError("the graft of the pretrain trunk is wrong")
-        _supervised_cli("velocity", [
-            "finetune", "--task", "velocity", "--dataroot", data["velocity"],
-            "--dataset", "songs", "--epochs", "1"], n_attn)
+        # the fused sublayer tails from the CLI's environment, as the JAX
+        # CLI's model reads it: K4a and K4b at all 40 tails a train step
+        os.environ["PBX_FUSED_DROPLN"] = "1"
+        try:
+            velocity, _, _ = _supervised_cli("velocity (PBX_FUSED_DROPLN=1)", [
+                "finetune", "--task", "velocity", "--dataroot", data["velocity"],
+                "--dataset", "songs", "--epochs", "1"], n_attn,
+                n_tails=2 * cfg.encoder_layers + 3 * cfg.decoder_layers)
+        finally:
+            os.environ.pop("PBX_FUSED_DROPLN")
+        if not velocity.cfg.fused_dropout_ln:
+            raise AssertionError("PBX_FUSED_DROPLN=1 did not reach the config")
+        del velocity
         gen, _, _ = _supervised_cli("generation", [
             "finetune-generation", "--dataroot", data["generate"], "--datasets",
             "songs", "--fad", "--epochs", "1", "--ckpt", pre_best], n_attn)
         state["gen_best"] = os.path.abspath(os.path.join(gen.save_dir, "best"))
+        # [finetune_mesh] runs the CLI over a mesh on these corpora and
+        # holds its test outputs against these runs'
+        state["finetune_data"] = data
+        state["finetune_runs"] = {"composer": os.path.abspath(composer.save_dir),
+                                  "generation": os.path.abspath(gen.save_dir)}
         # the two models [merge] merges, over [pretrain_run]'s best/
         state["merge_models"] = (os.path.abspath(os.path.join(composer.save_dir, "best")),
                                  state["gen_best"])
@@ -2812,6 +2845,32 @@ def _nccl_refusal():
           f"card(s): refused before any process group: {msg}")
 
 
+def _torchrun(argv, cwd, log):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    pianobart_tpu_torch.cli`` + ``argv`` in ``cwd`` (two ranks, as a user
+    starts a mesh job), its output into ``log``; the job and every process
+    it started are killed past 400 s.  Returns (exit code, seconds, the
+    output's lines)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                      os.environ.get("PYTHONPATH")])), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "pianobart_tpu_torch.cli"] + argv
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=400)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        return rc, wall, f.read().splitlines()
+
+
 def _parallel_cli(tmp):
     """The user path: 64 songs tokenized at 2048 by the CLI, then
     ``torch.distributed.run --standalone --nproc_per_node 2 -m
@@ -2836,27 +2895,10 @@ def _parallel_cli(tmp):
                        "--max_seq_len", "2048"])
     if rc != 0:
         raise AssertionError(f"tokenize at 2048: {log.getvalue()[-2000:]}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        filter(None, [os.path.dirname(os.path.abspath(__file__)),
-                      os.environ.get("PYTHONPATH")])), OMP_NUM_THREADS="2")
-    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", "2", "-m", "pianobart_tpu_torch.cli", "pretrain",
-            "--dataroot", data, "--datasets", "songs", "--mesh", "1x1x2",
-            "--dist_backend", "gloo", "--max_seq_len", "2048", "--batch_size", "4",
-            "--epochs", "1"]
-    t0 = time.perf_counter()
-    with open(os.path.join(tmp, "cli.log"), "w") as out:
-        proc = subprocess.Popen(argv, cwd=tmp, env=env, stdout=out,
-                                stderr=subprocess.STDOUT, start_new_session=True)
-        try:
-            rc = proc.wait(timeout=400)
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, 9)
-                proc.wait()
-    wall = time.perf_counter() - t0
-    with open(os.path.join(tmp, "cli.log")) as f:
-        lines = f.read().splitlines()
+    rc, wall, lines = _torchrun([
+        "pretrain", "--dataroot", data, "--datasets", "songs", "--mesh", "1x1x2",
+        "--dist_backend", "gloo", "--max_seq_len", "2048", "--batch_size", "4",
+        "--epochs", "1"], tmp, os.path.join(tmp, "cli.log"))
     for line in lines:
         if line.startswith(("rank ", "train ", "Epoch", "Time cost", "Traceback")) \
                 or "Error" in line:
@@ -2952,6 +2994,260 @@ def phase_parallel(state):
     print(f"[parallel] wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# [finetune_mesh]: the finetunes over the mesh (dp, tp, sp) on torch.distributed
+# ---------------------------------------------------------------------------
+
+FINETUNE_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 1, 2))
+FINETUNE_KINDS = ("composer", "velocity", "generation")
+
+
+def _empty_model(kind, cfg, dev):
+    """``kind``'s model at ``cfg``, built on the meta device with its storage
+    on ``dev`` (no draw; the octuple offsets set)."""
+    import torch
+    from pianobart_tpu_torch.models import (PianoBartLM, SequenceClassification,
+                                            TokenClassification)
+    from pianobart_tpu_torch.models.embedding import OctupleEmbedding
+    cls, kw = {"composer": (SequenceClassification, {"class_num": 8}),
+               "velocity": (TokenClassification, {"class_num": 8}),
+               "generation": (PianoBartLM, {})}[kind]
+    model = cls(cfg, device="meta", **kw).to_empty(device=dev)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, OctupleEmbedding):
+                mod.offsets.copy_(torch.tensor(cfg.field_offsets))
+    return model.train()
+
+
+def _finetune_step(kind, cfg, mesh=None):
+    """``kind``'s train step as the CLI builds it (the generation finetune in
+    its default ``intro`` mode): over ``mesh``, or dense without one."""
+    import functools
+    from pianobart_tpu_torch.train import finetune as ft
+    from pianobart_tpu_torch.train import finetune_sp as fsp
+    from pianobart_tpu_torch.train.generation import generation_step
+    if mesh is None:
+        return {"composer": ft.finetune_seq_step,
+                "velocity": functools.partial(ft.finetune_token_step, velocity=True),
+                "generation": generation_step}[kind]
+    if kind == "composer":
+        return fsp.make_sp_seq_step(cfg, mesh)
+    if kind == "velocity":
+        return fsp.make_sp_token_step(cfg, mesh, velocity=True)
+    return fsp.make_sp_generation_step(cfg, mesh)
+
+
+def _finetune_mesh_rank(rank, world, out_dir, ckpt):
+    """One of [finetune_mesh]'s four ranks, all on cuda:0 over gloo: for
+    the composer, velocity and generation finetunes at flagship width (bf16
+    compute, f32 parameters, dropout 0 and the heads' fixed 0.1 set to 0,
+    B=8, S=1024) on [pretrain_run]'s ``best/`` (the heads and the label
+    embedding drawn from the seed), the mesh step at each of
+    ``FINETUNE_MESHES`` once and one eval step, each step's launches
+    counted from 0 on this rank; rank 0 also runs the dense step once per
+    finetune and holds each mesh's loss and clipped gradients against it."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import draw_params_
+    from pianobart_tpu_torch.decode import checkpoint_entries
+    from pianobart_tpu_torch.models import PianoBartConfig, heads
+    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.train.state import create_train_state, graft_
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    heads.HEAD_DROPOUT = 0.0
+    dev = torch.device("cuda", 0)
+    meshes = [make_mesh(*shape, device=dev) for shape in FINETUNE_MESHES]
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.as_tensor(_pretrain_batch(8, 1024, rng), device=dev)
+    labels = {"composer": torch.as_tensor(rng.integers(0, 8, 8), device=dev),
+              "velocity": torch.as_tensor(rng.integers(0, 8, (8, 1024)), device=dev),
+              "generation": torch.as_tensor(_pretrain_batch(8, 1024, rng), device=dev)}
+    res, totals = {"steps": []}, {}
+    for kind in FINETUNE_KINDS:
+        cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0,
+                               decoder_label_vocab=8 if kind == "velocity" else None)
+        base = _empty_model(kind, cfg0, dev)
+        missing = graft_(base, checkpoint_entries(ckpt, cfg0, model=base), ckpt)
+        draw_params_(base, SEED, skip=set(base.state_dict()) - set(missing))
+        sd = base.state_dict()
+        del base
+        y, want = labels[kind], None
+        if rank == 0:
+            # the dense step on the same weights and batch, once per finetune
+            dense = _empty_model(kind, cfg0, dev)
+            dense.load_state_dict(sd)
+            dstate = create_train_state(dense)
+            _, m = _finetune_step(kind, cfg0)(
+                dstate, x, y, torch.Generator(device=dev).manual_seed(SEED), train=True)
+            want = {n: p.grad.detach().clone() for n, p in dense.named_parameters()}
+            dense_m = (m["loss"].item(), m["grad_norm"].item())
+            del dense, dstate
+            torch.cuda.empty_cache()
+        for shape, mesh in zip(FINETUNE_MESHES, meshes):
+            if mesh is None:                # ranks outside a 2-rank mesh
+                continue
+            cfg = _mesh_cfg(cfg0, shape)
+            model = _empty_model(kind, cfg, dev)
+            model.load_state_dict(sd)
+            st = create_train_state(model)
+            step = _finetune_step(kind, cfg, mesh)
+            rec = {"kind": kind, "shape": shape, "coords": mesh.coords, "counts": []}
+            if rank == 0:
+                rec["dense"] = dense_m
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for train in (True, False):
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = step(st, x, y, torch.Generator(device=dev).manual_seed(SEED)
+                            if train else None, train=train)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = _read_counts()
+                for kname, n in counts.items():
+                    totals[kname] = totals.get(kname, 0) + n
+                rec["counts"].append(tuple(counts.values()))
+                if train:
+                    rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
+                    got = {n: p.grad.detach() for n, p in model.named_parameters()}
+                    rec["grad_sq"] = sum(float(g.double().square().sum())
+                                         for g in got.values())
+                    if rank == 0:
+                        rec["rel"] = _rel_groups(got, want)
+                    del got
+                else:
+                    out = m.get("pred", m.get("outputs"))
+                    rec["eval"] = (m["loss"].item(), tuple(out.shape))
+            rec["s_per_step"] = times
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["steps"].append(rec)
+            del model, st, step
+            torch.cuda.empty_cache()
+        del sd, want
+    res["launches"] = totals
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _finetune_mesh_cli(tag, argv, cwd, want_outputs):
+    """A finetune command of the CLI under ``torch.distributed.run``
+    (:func:`_torchrun`) in ``cwd``, one epoch: exit 0 on both ranks, a
+    finite loss, ``best/`` written once and ``test_outputs.npy`` of the
+    shape of the single-rank run's (``want_outputs``)."""
+    import math
+
+    import numpy as np
+    rc, wall, lines = _torchrun(argv, cwd, os.path.join(cwd, f"{tag}.log"))
+    for line in lines:
+        if line.startswith(("rank ", "Epoch", "Traceback")) or "Error" in line:
+            print(f"[finetune_mesh]   {tag}| {line[:300]}")
+    save = os.path.join(cwd, "result", "finetune", f"{tag}_pianobart")
+    meta = _meta(save) or {}
+    events = _epoch_events(save) if os.path.exists(os.path.join(save, "metrics.jsonl")) else []
+    loss = events[0]["train"]["loss"] if events else float("nan")
+    path = os.path.join(save, "test_outputs.npy")
+    shape = np.load(path).shape if os.path.exists(path) else None
+    want = np.load(want_outputs).shape
+    print(f"[finetune_mesh] user path: torch.distributed.run {argv[0]} ... --mesh "
+          f"{argv[argv.index('--mesh') + 1]}, 1 epoch: exit {rc} in {wall:.1f} s "
+          f"(2 ranks sharing one card); "
+          f"train loss {loss}; valid {events[0]['valid'] if events else None}; "
+          f"meta best_step {meta.get('best_step')}; test_outputs {shape} (single-rank "
+          f"run's {want})")
+    if rc != 0 or not math.isfinite(loss) or meta.get("best_step") != 1 or \
+            len(events) != 1 or shape != want or \
+            not os.path.exists(os.path.join(save, "best", "state.pt")) or \
+            "\n".join(lines).count(" of mesh ") != 2:     # both ranks (one pipe: lines may merge)
+        raise AssertionError(f"the mesh {tag} CLI did not end with exit 0, a finite "
+                             f"loss, best/ once and the test outputs' shape:\n"
+                             + "\n".join(lines[-40:]))
+
+
+def phase_finetune_mesh(state):
+    """The finetunes over the mesh on this one card: four ranks spawned over
+    gloo (all on cuda:0) for the flagship composer, velocity and generation
+    steps at 2x1x1, 1x2x1, 1x1x2 and 2x1x2 against the dense step (the main
+    path: every count set to 0 on each rank before each step, read after,
+    summed over the ranks); then the CLI as a user starts it under
+    torch.distributed.run on [finetune]'s corpora: ``finetune --task
+    composer --mesh 2x1x1`` and ``finetune-generation --mesh 1x1x2 --fad``."""
+    import shutil
+    import tempfile
+
+    import torch
+    from pianobart_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pbt_finetune_mesh_")
+    state["tmpdirs"].append(tmp)
+    t0 = time.perf_counter()
+    spawn(_finetune_mesh_rank, 4, (tmp, state["pretrain_best"]), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    print(f"[finetune_mesh] 4 ranks spawned over gloo in {spawn_s:.1f} s; flagship "
+          f"width, bf16 compute, f32 parameters, dropout 0 (heads' 0.1 off), B=8, "
+          f"S=1024, [pretrain_run]'s best/")
+    failed = []
+    for i, step in enumerate(ranks[0]["steps"]):
+        dp, tp, sp = step["shape"]
+        rows = [r["steps"][i] for r in ranks if i < len(r["steps"])
+                and r["steps"][i]["shape"] == step["shape"]
+                and r["steps"][i]["kind"] == step["kind"]]
+        name = f"{step['kind']} {dp}x{tp}x{sp}"
+        dloss, dnorm = step["dense"]
+        rel = step["rel"]
+        counts = [r["counts"] for r in rows]
+        expect = []
+        for r in rows:
+            train = _mesh_step_counts(step["shape"], 1024, r["coords"]["sp"])
+            expect.append([train, (train[0],) + (0,) * 9])
+        print(f"[finetune_mesh] {name} ({len(rows)} ranks sharing one card): loss "
+              f"{step['loss']:.6f} vs dense {dloss:.6f}, grad_norm {step['grad_norm']:.6f} "
+              f"vs {dnorm:.6f}; s/step (train, eval) "
+              f"{[round(t, 3) for r in rows for t in r['s_per_step']]}; eval loss, "
+              f"gathered outputs {rows[0]['eval']}; peak GiB per rank "
+              f"{[round(r['peak_gib'], 2) for r in rows]}")
+        print(f"[finetune_mesh]   launches per rank (train, eval; {COUNT_NAMES}) "
+              f"{counts}, expected {expect}")
+        print(f"[finetune_mesh]   clipped grads against the dense step, ||d||/||dense|| "
+              f"per group (tol 5e-2): "
+              + ", ".join(f"{g} {v:.2e}" for g, v in sorted(rel.items())))
+        same = len({r["grad_sq"] for r in rows}) == 1
+        # the eval step's predictions, gathered into the global batch
+        n_out = {"composer": (8,), "velocity": (8, 1024),
+                 "generation": (8, 1024, 8)}[step["kind"]]
+        if not (counts == expect and max(rel.values()) <= 5e-2 and same
+                and abs(step["loss"] - dloss) <= 1e-2 * abs(dloss)
+                and all(r["eval"][1] == n_out for r in rows)):
+            failed.append(f"{name} (same grads on every rank: {same})")
+    launches = {}
+    for r in ranks:
+        for kname, n in r["launches"].items():
+            launches[kname] = launches.get(kname, 0) + n
+    state["launches"]["finetune_mesh"] = launches
+    print(f"[finetune_mesh] main path launches, all ranks ({COUNT_NAMES}) "
+          f"{tuple(launches.values())}")
+    if failed:
+        raise AssertionError(f"[finetune_mesh] failed: {failed}")
+    data, runs, pre_best = (state["finetune_data"], state["finetune_runs"],
+                            state["pretrain_best"])
+    _finetune_mesh_cli("composer", [
+        "finetune", "--task", "composer", "--dataroot", data["composer"], "--dataset",
+        "songs", "--epochs", "1", "--ckpt", pre_best, "--mesh", "2x1x1",
+        "--dist_backend", "gloo"], tmp, os.path.join(runs["composer"], "test_outputs.npy"))
+    _finetune_mesh_cli("generation", [
+        "finetune-generation", "--dataroot", data["generate"], "--datasets", "songs",
+        "--fad", "--epochs", "1", "--ckpt", pre_best, "--mesh", "1x1x2",
+        "--dist_backend", "gloo"], tmp, os.path.join(runs["generation"], "test_outputs.npy"))
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[finetune_mesh] wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3042,7 +3338,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
           ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
-          ("parallel", phase_parallel))
+          ("parallel", phase_parallel), ("finetune_mesh", phase_finetune_mesh))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ JAX CLI's flags plus ``--device``:
     python -m pianobart_tpu_torch.cli pretrain --dataroot Data/output_pretrain --datasets songs
     python -m pianobart_tpu_torch.cli pretrain ... --resume
     python -m torch.distributed.run --nproc_per_node 2 -m pianobart_tpu_torch.cli pretrain ... --mesh 1x1x2
+    python -m torch.distributed.run --nproc_per_node 2 -m pianobart_tpu_torch.cli finetune ... --mesh 2x1x1
     python -m pianobart_tpu_torch.cli finetune --task composer --dataset pianist8 --ckpt result/pretrain/pianobart
     python -m pianobart_tpu_torch.cli finetune-generation --dataroot ... --datasets maestro --fad
     python -m pianobart_tpu_torch.cli ablation --dataroot ... --datasets maestro
@@ -24,9 +25,12 @@ JAX CLI's flags plus ``--device``:
 The training commands, ``eval-gen``, ``merge``, ``serve`` and ``demo`` run
 on CUDA unless ``--device cpu`` is given, and raise without a card
 otherwise; the data and checkpoint-conversion commands run on the host.
-``pretrain --mesh dpxTPxSP`` runs one rank per process of a
+The training commands (``pretrain``, ``finetune``, ``finetune-generation``,
+``ablation``) take ``--mesh dpxTPxSP``: one rank per process of a
 ``torch.distributed.run`` job (``--dist_backend nccl``, one rank per card;
-``gloo`` for ranks that share a card or run on the CPU).
+``gloo`` for ranks that share a card or run on the CPU).  Under
+``PBX_FUSED_DROPLN=1`` their sublayer tails run the fused K4 kernels, as the
+JAX CLI's model reads that variable.
 ``--ckpt`` takes a checkpoint directory of the port (a manager root or a
 payload directory), a merged ``.msgpack`` (of this ``merge`` or the JAX
 package's) or a reference ``.ckpt``/``.pth`` file.  The JAX package's orbax
@@ -35,6 +39,7 @@ checkpoints reach the port through the JAX CLI's ``export-ckpt``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -90,11 +95,26 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     _add_device_flag(p)
 
 
-def _cfg_from_args(args, **kw):
+def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", type=str, default=None,
+                   help="dpxTPxSP over the ranks of a torch.distributed.run "
+                        "job, e.g. 2x1x2 (default: every rank on dp)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default="nccl",
+                   help="nccl: one rank per card; gloo: ranks that share a "
+                        "card, or --device cpu")
+
+
+def _cfg_from_args(args, train: bool = False, **kw):
     """``--dtype bf16`` (the default, also of the commands without the flag):
-    bf16 compute over f32 parameters."""
+    bf16 compute over f32 parameters.  ``train``: a training command, whose
+    sublayer tails run the fused K4 kernels (``fused_dropout_ln``) when
+    ``PBX_FUSED_DROPLN=1``, as the JAX CLI's model reads that variable; the
+    port's model reads its config only."""
     import torch
     from .models import PianoBartConfig
+    if train:
+        kw.setdefault("fused_dropout_ln",
+                      os.environ.get("PBX_FUSED_DROPLN", "0") == "1")
     dtype = (torch.bfloat16 if getattr(args, "dtype", "bf16") == "bf16"
              else torch.float32)
     return PianoBartConfig(
@@ -203,38 +223,50 @@ def _mesh_layout(args, cfg, world: int):
     return dp, tp, sp
 
 
-def cmd_pretrain(args) -> int:
-    from .compat.from_jax import init_lm
-    from .data import load_pretrain
+@contextlib.contextmanager
+def _mesh_run(args, cfg):
+    """The device, and under ``torch.distributed.run`` (``WORLD_SIZE`` > 1)
+    this rank's mesh of ``--mesh``, for a training command: yields ``(cfg,
+    device, mesh, put_batch)``; ``mesh`` and ``put_batch`` are None on one
+    rank.  Every rank holds the whole model; sp > 1 routes through the ring
+    (TP∘SP with tp > 1; tp > 1 at sp = 1 is a ring of one), so the yielded
+    ``cfg`` names the ring's axes.  The process group is torn down on the
+    way out."""
     from .device import resolve_device
-    from .train.runner import PretrainRunner
-
-    cfg = _cfg_from_args(args)
     world = int(os.environ.get("WORLD_SIZE", 1))
     dp, tp, sp = _mesh_layout(args, cfg, world)
-    mesh = train_step_fn = eval_step_fn = put_batch = None
     if world == 1:
-        device = resolve_device(args.device)
-    else:
-        # every rank holds the whole model; sp > 1 routes through the ring
-        # (TP∘SP with tp > 1; tp > 1 at sp = 1 is a ring of one)
-        from .parallel.mesh import init_from_env, put_batch_fn
-        from .train.pretrain_sp import make_sp_eval_step, make_sp_pretrain_step
-        try:
-            mesh = init_from_env(f"{dp}x{tp}x{sp}", args.dist_backend, args.device)
-        except ValueError as exc:
-            raise SystemExit(str(exc)) from None
-        device = mesh.device
+        yield cfg, resolve_device(args.device), None, None
+        return
+    from .parallel.mesh import init_from_env, put_batch_fn
+    try:
+        mesh = init_from_env(f"{dp}x{tp}x{sp}", args.dist_backend, args.device)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    try:
         if sp > 1 or tp > 1:
             cfg = cfg.replace(ring_axis="sp")
         if tp > 1:
             cfg = cfg.replace(ring_tp_axis="tp", ring_tp_size=tp)
-        train_step_fn = make_sp_pretrain_step(cfg, mesh, args.mask_percent)
-        eval_step_fn = make_sp_eval_step(cfg, mesh, args.mask_percent)
-        put_batch = put_batch_fn(mesh)
         print(f"rank {mesh.rank} of mesh {dp}x{tp}x{sp} at {mesh.coords} on "
-              f"{device} over {mesh.backend}")
-    try:
+              f"{mesh.device} over {mesh.backend}")
+        yield cfg, mesh.device, mesh, put_batch_fn(mesh)
+    finally:
+        mesh.close()
+
+
+def cmd_pretrain(args) -> int:
+    from .compat.from_jax import init_lm
+    from .data import load_pretrain
+    from .train.runner import PretrainRunner
+
+    with _mesh_run(args, _cfg_from_args(args, train=True)) as (cfg, device, mesh,
+                                                                put_batch):
+        train_step_fn = eval_step_fn = None
+        if mesh is not None:
+            from .train.pretrain_sp import make_sp_eval_step, make_sp_pretrain_step
+            train_step_fn = make_sp_pretrain_step(cfg, mesh, args.mask_percent)
+            eval_step_fn = make_sp_eval_step(cfg, mesh, args.mask_percent)
         X_train, X_val = load_pretrain(args.dataroot, args.datasets,
                                        seed=args.seed)
         print(f"train {X_train.shape} valid {X_val.shape}")
@@ -259,126 +291,129 @@ def cmd_pretrain(args) -> int:
                                 lr_fn=_make_lr_fn(args, args.lr),
                                 put_batch=put_batch, mesh=mesh)
         return _run_guarded(runner, args.epochs, args.resume)
-    finally:
-        if mesh is not None:
-            mesh.close()
 
 
 def cmd_finetune(args) -> int:
     import functools
     from .compat.from_jax import init_model
     from .data import load_finetune
-    from .device import resolve_device
     from .models import SequenceClassification, TokenClassification
     from .train.finetune import finetune_seq_step, finetune_token_step
+    from .train.finetune_sp import make_sp_seq_step, make_sp_token_step
     from .train.runner import SupervisedRunner
 
     class_num = args.class_num or {"melody": 4, "velocity": 7,
                                    "composer": 8, "emotion": 4}[args.task]
     seq = args.task in ("composer", "emotion")
     velocity = args.task == "velocity"
-    device = resolve_device(args.device)
     cfg = _cfg_from_args(
-        args, decoder_label_vocab=(class_num + 1 if velocity else None))
-    data = list(load_finetune(args.dataroot, args.dataset, args.task))
-    # token labels come out of the tokenizer as (N, S, 1)
-    for i in range(3, 6):
-        y = np.asarray(data[i])
-        if y.ndim == 3 and y.shape[-1] == 1:
-            data[i] = y.squeeze(-1)
-    # fail fast on out-of-range labels (a CE gather past the classes)
-    n_classes = class_num + (0 if seq else 1)
-    y_max = max(int(np.asarray(data[i]).max()) for i in range(3, 6))
-    if y_max >= n_classes:
-        raise SystemExit(
-            f"label id {y_max} out of range for --class_num {class_num} "
-            f"({n_classes} classes); pass --class_num {y_max + (1 if seq else 0)}")
-    model = init_model(SequenceClassification if seq else TokenClassification,
-                       cfg, seed=args.seed, device=device, train=True,
-                       class_num=n_classes)
-    state = _train_state(_load_init_ckpt(model, args), args)
-    save_dir = os.path.join("result", "finetune", f"{args.task}_{args.name}")
-    if seq:
-        step = functools.partial(finetune_seq_step, reg_weight=args.weight)
-    else:
-        step = functools.partial(finetune_token_step, velocity=velocity,
-                                 reg_weight=args.weight)
-    runner = SupervisedRunner(state, cfg, step, data, save_dir,
-                              batch_size=args.batch_size, patience=3,
-                              seed=args.seed, lr_fn=_make_lr_fn(args, args.lr))
-    return _run_guarded(runner, args.epochs, args.resume)
+        args, train=True, decoder_label_vocab=(class_num + 1 if velocity else None))
+    with _mesh_run(args, cfg) as (cfg, device, mesh, put_batch):
+        data = list(load_finetune(args.dataroot, args.dataset, args.task))
+        # token labels come out of the tokenizer as (N, S, 1)
+        for i in range(3, 6):
+            y = np.asarray(data[i])
+            if y.ndim == 3 and y.shape[-1] == 1:
+                data[i] = y.squeeze(-1)
+        # fail fast on out-of-range labels (a CE gather past the classes)
+        n_classes = class_num + (0 if seq else 1)
+        y_max = max(int(np.asarray(data[i]).max()) for i in range(3, 6))
+        if y_max >= n_classes:
+            raise SystemExit(
+                f"label id {y_max} out of range for --class_num {class_num} "
+                f"({n_classes} classes); pass --class_num {y_max + (1 if seq else 0)}")
+        model = init_model(SequenceClassification if seq else TokenClassification,
+                           cfg, seed=args.seed, device=device, train=True,
+                           class_num=n_classes)
+        state = _train_state(_load_init_ckpt(model, args), args)
+        save_dir = os.path.join("result", "finetune", f"{args.task}_{args.name}")
+        if mesh is not None:
+            step = (make_sp_seq_step(cfg, mesh, args.weight) if seq else
+                    make_sp_token_step(cfg, mesh, velocity, args.weight))
+        elif seq:
+            step = functools.partial(finetune_seq_step, reg_weight=args.weight)
+        else:
+            step = functools.partial(finetune_token_step, velocity=velocity,
+                                     reg_weight=args.weight)
+        runner = SupervisedRunner(state, cfg, step, data, save_dir,
+                                  batch_size=args.batch_size, patience=3,
+                                  seed=args.seed, lr_fn=_make_lr_fn(args, args.lr),
+                                  put_batch=put_batch, mesh=mesh)
+        return _run_guarded(runner, args.epochs, args.resume)
 
 
 def cmd_finetune_generation(args) -> int:
+    import functools
     from .compat.from_jax import init_lm
     from .data import load_finetune
-    from .device import resolve_device
+    from .train.finetune_sp import make_sp_generation_step
     from .train.generation import generation_step
     from .train.runner import SupervisedRunner
     from .utils.fad import generation_fad
 
-    device = resolve_device(args.device)
-    cfg = _cfg_from_args(args)
-    data = load_finetune(args.dataroot, args.datasets, "gen")
-    model = init_lm(cfg, seed=args.seed, device=device, train=True)
-    state = _train_state(_load_init_ckpt(model, args), args)
-    save_dir = os.path.join("result", "finetune", f"generation_{args.name}")
+    with _mesh_run(args, _cfg_from_args(args, train=True)) as (cfg, device, mesh,
+                                                                put_batch):
+        data = load_finetune(args.dataroot, args.datasets, "gen")
+        model = init_lm(cfg, seed=args.seed, device=device, train=True)
+        state = _train_state(_load_init_ckpt(model, args), args)
+        save_dir = os.path.join("result", "finetune", f"generation_{args.name}")
+        step_fn = (functools.partial(generation_step, decoder_mode=args.decoder_mode)
+                   if mesh is None else
+                   make_sp_generation_step(cfg, mesh, args.decoder_mode))
 
-    def step_fn(state, x, y, generator, train=True, weight=None):
-        return generation_step(state, x, y, generator,
-                               decoder_mode=args.decoder_mode, train=train,
-                               weight=weight)
+        def eval_hook(x, y, metrics):
+            if not args.fad:
+                return {}
+            fad, fad_bar = generation_fad(y, metrics["outputs"], metrics["attn_dec"],
+                                          jit_windows=args.fad_jit, device=device)
+            return {"fad": fad, "fad_bar": fad_bar}
 
-    def eval_hook(x, y, metrics):
-        if not args.fad:
-            return {}
-        fad, fad_bar = generation_fad(y, metrics["outputs"], metrics["attn_dec"],
-                                      jit_windows=args.fad_jit, device=device)
-        return {"fad": fad, "fad_bar": fad_bar}
-
-    runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
-                              batch_size=args.batch_size, patience=30,
-                              seed=args.seed, select="weighted_field_acc",
-                              eval_hook=eval_hook,
-                              lr_fn=_make_lr_fn(args, args.lr))
-    return _run_guarded(runner, args.epochs, args.resume)
+        runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
+                                  batch_size=args.batch_size, patience=30,
+                                  seed=args.seed, select="weighted_field_acc",
+                                  eval_hook=eval_hook,
+                                  lr_fn=_make_lr_fn(args, args.lr),
+                                  put_batch=put_batch, mesh=mesh)
+        return _run_guarded(runner, args.epochs, args.resume)
 
 
 def cmd_ablation(args) -> int:
     from .compat.from_jax import init_lm
-    from .device import resolve_device
+    from .train.finetune_sp import make_sp_ablation_step
     from .train.generation import ablation_step
     from .train.runner import SupervisedRunner
 
-    device = resolve_device(args.device)
-    cfg = _cfg_from_args(args)
-    # full sequences (Ablation.py:279-304), split 80/10/10 after a seeded
-    # shuffle
-    parts, looked = [], []
-    for split in ("train", "test", "valid"):
-        p = os.path.join(args.dataroot, f"{args.datasets}_{split}.npy")
-        looked.append(p)
-        if os.path.exists(p):
-            parts.append(np.load(p, allow_pickle=True))
-    if not parts:
-        raise SystemExit(f"no ablation data found; looked for: {looked}")
-    arr = np.concatenate(parts, axis=0)
-    arr = arr[np.random.default_rng(args.seed).permutation(len(arr))]
-    s1, s2 = int(len(arr) * 0.8), int(len(arr) * 0.9)
-    X_train, X_val, X_test = arr[:s1], arr[s1:s2], arr[s2:]
-    data = (X_train, X_val, X_test, X_train, X_val, X_test)
-    model = init_lm(cfg, seed=args.seed, device=device, train=True)
-    state = _train_state(_load_init_ckpt(model, args), args)
-    save_dir = os.path.join("result", "finetune", f"ablation_{args.name}")
+    with _mesh_run(args, _cfg_from_args(args, train=True)) as (cfg, device, mesh,
+                                                                put_batch):
+        # full sequences (Ablation.py:279-304), split 80/10/10 after a seeded
+        # shuffle
+        parts, looked = [], []
+        for split in ("train", "test", "valid"):
+            p = os.path.join(args.dataroot, f"{args.datasets}_{split}.npy")
+            looked.append(p)
+            if os.path.exists(p):
+                parts.append(np.load(p, allow_pickle=True))
+        if not parts:
+            raise SystemExit(f"no ablation data found; looked for: {looked}")
+        arr = np.concatenate(parts, axis=0)
+        arr = arr[np.random.default_rng(args.seed).permutation(len(arr))]
+        s1, s2 = int(len(arr) * 0.8), int(len(arr) * 0.9)
+        X_train, X_val, X_test = arr[:s1], arr[s1:s2], arr[s2:]
+        data = (X_train, X_val, X_test, X_train, X_val, X_test)
+        model = init_lm(cfg, seed=args.seed, device=device, train=True)
+        state = _train_state(_load_init_ckpt(model, args), args)
+        save_dir = os.path.join("result", "finetune", f"ablation_{args.name}")
+        step = ablation_step if mesh is None else make_sp_ablation_step(cfg, mesh)
 
-    def step_fn(state, x, y, generator, train=True, weight=None):
-        return ablation_step(state, x, generator, train=train, weight=weight)
+        def step_fn(state, x, y, generator, train=True, weight=None):
+            return step(state, x, generator, train=train, weight=weight)
 
-    runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
-                              batch_size=args.batch_size, patience=30,
-                              seed=args.seed, select="weighted_field_acc",
-                              lr_fn=_make_lr_fn(args, args.lr))
-    return _run_guarded(runner, args.epochs, args.resume)
+        runner = SupervisedRunner(state, cfg, step_fn, data, save_dir,
+                                  batch_size=args.batch_size, patience=30,
+                                  seed=args.seed, select="weighted_field_acc",
+                                  lr_fn=_make_lr_fn(args, args.lr),
+                                  put_batch=put_batch, mesh=mesh)
+        return _run_guarded(runner, args.epochs, args.resume)
 
 
 def cmd_eval_gen(args) -> int:
@@ -537,12 +572,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="mid-epoch crash-safety saves every N dispatches "
                          "into the rotating safety/ slot (0 = off); "
                          "--resume restarts the interrupted epoch from it")
-    sp.add_argument("--mesh", type=str, default=None,
-                    help="dpxTPxSP over the ranks of a torch.distributed.run "
-                         "job, e.g. 2x1x2 (default: every rank on dp)")
-    sp.add_argument("--dist_backend", choices=["nccl", "gloo"], default="nccl",
-                    help="nccl: one rank per card; gloo: ranks that share a "
-                         "card, or --device cpu")
+    _add_mesh_flags(sp)
     _add_model_flags(sp)
     _add_train_flags(sp)
     sp.set_defaults(fn=cmd_pretrain)
@@ -559,6 +589,7 @@ def build_parser() -> argparse.ArgumentParser:
     sf.add_argument("--error_correction", action="store_true",
                     help="accepted for reference-CLI parity; label squeeze "
                          "is automatic")
+    _add_mesh_flags(sf)
     _add_model_flags(sf)
     _add_train_flags(sf)
     sf.set_defaults(fn=cmd_finetune, batch_size=8, epochs=50)
@@ -573,6 +604,7 @@ def build_parser() -> argparse.ArgumentParser:
     sg.add_argument("--fad_jit", action="store_true",
                     help="window FAD in ONE batched call on the model's "
                          "device instead of the host per-sample loop")
+    _add_mesh_flags(sg)
     _add_model_flags(sg)
     _add_train_flags(sg)
     sg.set_defaults(fn=cmd_finetune_generation, batch_size=8, lr=2e-6)
@@ -580,6 +612,7 @@ def build_parser() -> argparse.ArgumentParser:
     sa = sub.add_parser("ablation")
     sa.add_argument("--datasets", type=str, default="maestro")
     sa.add_argument("--dataroot", type=str, default="Data/output_generation")
+    _add_mesh_flags(sa)
     _add_model_flags(sa)
     _add_train_flags(sa)
     sa.set_defaults(fn=cmd_ablation, batch_size=8)

@@ -12,7 +12,8 @@ Each module keeps the flax names (``attention.ws1``, ``dense1``, ...).  The
 pooling's and the gate's layers compute in the promoted type of their input
 and parameters, as a flax ``Dense`` without a ``dtype`` does; the MLPs in
 ``cfg.dtype``.  Dropout applies in training mode, from the ``generator``
-passed down the forward.
+passed down the forward.  Over a sequence-parallel mesh the sequence head
+gathers the shards; the token head runs on the shard as it is.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.dropout import dropout
+from ..parallel.mesh import axis, gather_shards
 from .bart import Dense
 from .config import PianoBartConfig
 
@@ -69,17 +71,26 @@ class AttentionPooling(nn.Module):
 
 
 class SequenceClassifierHead(nn.Module):
-    """Pooling, flatten, dropout 0.1, ``dense1`` (256) with ReLU, ``dense2``."""
+    """Pooling, flatten, dropout 0.1, ``dense1`` (256) with ReLU, ``dense2``.
+
+    With ``cfg.ring_axis`` the hidden state is this rank's sequence shard:
+    the shards are gathered first (:func:`~..parallel.mesh.gather_shards`,
+    whose backward sums the ranks' cotangents), so the pooling's softmax
+    spans the whole sequence, pads included, and every rank of the ring
+    computes the dense head on the whole rows."""
 
     def __init__(self, cfg: PianoBartConfig, class_num: int, da: int = 128,
                  r: int = 4, device=None):
         super().__init__()
+        self.ring_axis = cfg.ring_axis
         self.attention = AttentionPooling(cfg.d_model, da, r, cfg.param_dtype, device)
         self.dense1 = Dense(r * cfg.d_model, 256, cfg, device)
         self.dense2 = Dense(256, class_num, cfg, device)
 
     def forward(self, hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.ring_axis is not None:
+            hidden = gather_shards(hidden, axis(self.ring_axis))
         pooled = self.attention(hidden)
         x = dropout(pooled.reshape(pooled.shape[0], -1), HEAD_DROPOUT, generator,
                     not self.training)

@@ -123,10 +123,15 @@ class SequenceClassification(nn.Module):
         self.head = SequenceClassifierHead(cfg, class_num, device=device)
 
     def forward(self, encoder_ids, encoder_mask=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                head_generator: Optional[torch.Generator] = None):
+        """``head_generator`` (default ``generator``) draws the head's
+        dropout: the mesh steps pass one that every rank of a dp block
+        shares, as the pooled vector they all compute is one."""
         hidden = self.pianobart(encoder_ids, encoder_ids, encoder_mask,
                                 encoder_mask, generator)
-        return self.head(hidden, generator)  # (B, class_num)
+        return self.head(hidden, generator if head_generator is None
+                         else head_generator)  # (B, class_num)
 
 
 class TokenClassification(nn.Module):

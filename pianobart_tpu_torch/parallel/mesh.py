@@ -15,7 +15,7 @@ in row-major order, as ``make_mesh`` reshapes its device list:
 Every rank builds the same process groups in the same order: one per ``sp``
 ring, one per ``tp`` group, one per (dp, sp) gradient group (the ranks that
 share a tp coordinate; under TP∘SP each tp rank holds the whole gradient
-already).  A group of one rank is never built: its collectives are the
+already), and one of the whole mesh, over which its ranks agree.  A group of one rank is never built: its collectives are the
 identity.  Parameters stay replicated on every rank, as the reference's
 TP∘SP keeps them (``P()``).
 
@@ -37,12 +37,13 @@ import torch.distributed as dist
 
 __all__ = ["Axis", "Mesh", "make_mesh", "single_device_mesh", "init_from_env",
            "parse_mesh", "use_mesh", "active_mesh", "axis", "all_reduce_",
-           "all_reduce_grads_", "all_gather", "shard_batch", "put_batch_fn"]
+           "all_reduce_grads_", "all_gather", "gather_shards", "shard_batch",
+           "gather_batch", "put_batch_fn"]
 
 AXES = ("dp", "tp", "sp")
 # the process groups a mesh builds: the sp rings, the tp groups, the (dp, sp)
-# gradient groups
-_GROUPS = (("sp",), ("tp",), ("dp", "sp"))
+# gradient groups, and the whole mesh (its agreements)
+_GROUPS = (("sp",), ("tp",), ("dp", "sp"), AXES)
 AxisName = Union[str, Tuple[str, ...]]
 
 
@@ -112,29 +113,42 @@ class Mesh:
             x, torch.Tensor) else np.take(
                 x, range(self.coords["sp"] * n, (self.coords["sp"] + 1) * n), dim)
 
-    # -- agreement across the whole job --------------------------------------
+    # -- agreement across the mesh -------------------------------------------
     def _flag_device(self) -> torch.device:
         # NCCL reduces device tensors only; gloo takes host tensors as they are
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
     def agree_any(self, flag: bool) -> bool:
-        """True on every rank when ``flag`` is true on any rank of the job
-        (one all-reduce over the world): a SIGTERM that reached one rank
-        stops them all at the same step."""
-        if not self.distributed:
+        """True on every rank when ``flag`` is true on any rank of the mesh
+        (one all-reduce): a SIGTERM that reached one rank stops them all at
+        the same step."""
+        ax = self.axis(AXES)
+        if ax.size == 1:
             return flag
         t = torch.tensor([1 if flag else 0], dtype=torch.int32,
                          device=self._flag_device())
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=ax.group)
         return bool(t.item())
 
+    def agree(self, value: float) -> float:
+        """The mesh's first rank's ``value`` on every rank (one broadcast): a
+        decision taken from it (the best checkpoint, the patience count, an
+        early stop) is the same on every rank."""
+        ax = self.axis(AXES)
+        if ax.size == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self._flag_device())
+        dist.broadcast(t, src=ax.ranks[0], group=ax.group)
+        return float(t.item())
+
     def barrier(self) -> None:
-        if not self.distributed:
+        ax = self.axis(AXES)
+        if ax.size == 1:
             return
         if self.backend == "nccl":
-            dist.barrier(device_ids=[self.device.index or 0])
+            dist.barrier(group=ax.group, device_ids=[self.device.index or 0])
         else:
-            dist.barrier()
+            dist.barrier(group=ax.group)
 
     def close(self) -> None:
         """Tear the process group down (every rank, at the end of a run)."""
@@ -338,19 +352,48 @@ def all_reduce_grads_(grads: Sequence[torch.Tensor], ax: Axis) -> None:
             flat.split([g.numel() for g in gs]), gs)])
 
 
-def all_gather(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
-    """The members' tensors concatenated along ``dim`` in index order.
-    gloo gathers host tensors: a CUDA tensor goes through the host."""
+def _gather_parts(t: torch.Tensor, ax: Axis) -> List[torch.Tensor]:
+    """The members' tensors in index order, on ``t``'s device.  gloo
+    gathers host tensors: a CUDA tensor goes through the host."""
     if ax.size == 1:
-        return t
+        return [t]
     src = t.contiguous()
     staged = ax.backend == "gloo" and src.is_cuda
     if staged:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(ax.size)]
     dist.all_gather(parts, src, group=ax.group)
-    out = torch.cat(parts, dim)
-    return out.to(t.device) if staged else out
+    return [p.to(t.device) for p in parts] if staged else parts
+
+
+def all_gather(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """The members' tensors concatenated along ``dim`` in index order."""
+    if ax.size == 1:
+        return t
+    return torch.cat(_gather_parts(t, ax), dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = all_reduce_(g.contiguous().clone(), ctx.ax)
+        return full.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
+def gather_shards(x: torch.Tensor, ax: Axis, dim: int = 1) -> torch.Tensor:
+    """Every member's shard of ``x`` concatenated along ``dim`` (the whole
+    sequence on every rank of an sp ring), differentiably.  Forward: all-gather.
+    Backward: the cotangents SUMMED over ``ax``, then this rank's slice (a
+    reduce-scatter): the objective is the sum of the ranks' local losses, so
+    a value every member reads takes every member's cotangent."""
+    if ax.size == 1:
+        return x
+    return _GatherShards.apply(x, ax, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +405,18 @@ def shard_batch(mesh: Mesh, x):
     (numpy or torch), as ``put_batch_fn``'s sharding places them.  Every
     rank reads the same global batch in the same order (no sampler)."""
     return mesh.cols(mesh.rows(x))
+
+
+def gather_batch(mesh: Mesh, x: torch.Tensor, seq: bool = True) -> torch.Tensor:
+    """The global batch from every rank's block of a per-rank result (the
+    inverse of :func:`shard_batch`), in sample order: one all-gather over
+    the (dp, sp) group, whose members stand in (dp, sp) row-major order.
+    ``seq``: ``x`` is ``(B/dp, S/sp, ...)``; else ``(B/dp, ...)``, the same
+    on every sp rank of a dp block (sp rank 0's is taken)."""
+    parts = _gather_parts(x, mesh.axis(("dp", "sp")))
+    sp = mesh.shape["sp"]
+    return torch.cat([torch.cat(parts[d * sp:(d + 1) * sp], 1) if seq else parts[d * sp]
+                      for d in range(mesh.shape["dp"])], 0)
 
 
 def put_batch_fn(mesh: Mesh):

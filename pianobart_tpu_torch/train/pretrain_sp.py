@@ -87,12 +87,13 @@ def _blocks(mesh, batch, corrupted, loss_mask):
                                            enc_mask, dec_mask)]
 
 
-def dropout_generator(generator: torch.Generator, mesh: Mesh) -> torch.Generator:
+def dropout_generator(generator: torch.Generator, mesh: Mesh,
+                      axes: Tuple[str, ...] = ("dp", "sp")) -> torch.Generator:
     """This rank's dropout generator: seeded from the step generator's seed
-    and the rank's (dp, sp) coordinates (no host sync: the seed is the one
-    the runner set)."""
+    and the rank's coordinates on ``axes`` (no host sync: the seed is the
+    one the runner set).  Ranks that differ only on other axes draw alike."""
     seed = np.random.SeedSequence(
-        [generator.initial_seed(), mesh.coords["dp"], mesh.coords["sp"]])
+        [generator.initial_seed(), *(mesh.coords[a] for a in axes)])
     return torch.Generator(device=generator.device).manual_seed(
         int(seed.generate_state(1, np.uint64)[0]))
 

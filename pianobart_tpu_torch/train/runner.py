@@ -66,10 +66,11 @@ class _EpochRunner:
         self.preempt = preempt
         self.put_batch = put_batch
         self.mesh = mesh
-        writer = mesh is None or mesh.rank == 0
-        self.logger = MetricsLogger(save_dir, enabled=writer)
+        self.writer = mesh is None or mesh.rank == 0
+        self.logger = MetricsLogger(save_dir, enabled=self.writer)
         self.ckpt = CheckpointManager(
-            save_dir, writer=writer, barrier=None if mesh is None else mesh.barrier)
+            save_dir, writer=self.writer,
+            barrier=None if mesh is None else mesh.barrier)
         self.np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device)
         self._cur_epoch = 0  # set by run(); safety saves record it
@@ -314,6 +315,13 @@ class SupervisedRunner(_EpochRunner):
       batch (its real samples only); the epoch reports each name's mean.
     * The test split's predictions are saved to ``test_outputs.npy`` every
       epoch.
+    * Over a mesh (``put_batch``, ``mesh``; the steps of
+      ``train/finetune_sp.py``): every rank runs the loop on the same global
+      batches, labels and weights, and an eval step returns the global
+      batch's predictions; rank 0 alone runs ``eval_hook``, writes
+      ``test_outputs.npy``, checkpoints and the log, and the selection score
+      is rank 0's on every rank, so ``best/``, the patience count and the
+      early stop are decided alike everywhere.
     * ``select``: ``"scalar_acc"`` (accuracy, else minus the loss) or
       ``"weighted_field_acc"`` (the vocab-size-weighted field accuracy).  A
       score equal to the best refreshes ``best/`` (``>=``, as the
@@ -334,8 +342,9 @@ class SupervisedRunner(_EpochRunner):
                  seed: int = 2023, select: str = "scalar_acc",
                  eval_hook: Optional[Callable] = None,
                  lr_fn: Optional[Callable] = None,
-                 preempt: Optional[PreemptionGuard] = None):
-        super().__init__(state, cfg, save_dir, seed, preempt)
+                 preempt: Optional[PreemptionGuard] = None,
+                 put_batch: Optional[Callable] = None, mesh=None):
+        super().__init__(state, cfg, save_dir, seed, preempt, put_batch, mesh)
         self.step_fn = step_fn
         (self.X_train, self.X_val, self.X_test,
          self.y_train, self.y_val, self.y_test) = data
@@ -381,7 +390,7 @@ class SupervisedRunner(_EpochRunner):
                 field_accs.append(m["field_acc"])
             if "grad_norm" in m:
                 gnorms.append(m["grad_norm"])
-            if self.eval_hook is not None and not train:
+            if self.eval_hook is not None and not train and self.writer:
                 hm = dict(m)
                 for k in ("outputs", "attn_dec", "pred"):
                     if k in hm:
@@ -440,9 +449,11 @@ class SupervisedRunner(_EpochRunner):
             te = (self._eval_epoch(self.X_test, self.y_test, collect_outputs=True)
                   if run_test_each_epoch else {})
             test_outputs = te.pop("outputs", None)
-            if test_outputs is not None:
+            if test_outputs is not None and self.writer:
                 np.save(f"{self.save_dir}/test_outputs.npy", test_outputs)
             score = self._selection_score(va)
+            if self.mesh is not None:
+                score = self.mesh.agree(score)
             is_best = score >= self.best
             self.best = max(score, self.best)
             self.bad = 0 if is_best else self.bad + 1

@@ -1,8 +1,11 @@
-"""``pretrain --mesh`` of the port's CLI on the CPU over gloo.
+"""``pretrain --mesh`` and the finetunes' ``--mesh`` of the port's CLI on
+the CPU over gloo.
 
 * The refusals of the reference CLI (a batch dp does not divide, a length sp
   does not divide, heads tp does not divide, a mesh the job's ranks do not
-  fill) and NCCL on the CPU, each before any process group exists.
+  fill) and NCCL on the CPU, each before any process group exists, for
+  ``pretrain`` and for ``finetune``, ``finetune-generation`` and
+  ``ablation``.
 * ``--mesh 2x1x1`` on two ranks (each runs ``cli.main`` in its own process,
   the process group from the environment as ``torch.distributed.run`` sets
   it): a real SIGTERM to rank 1 alone after epoch 1's validation stops BOTH
@@ -11,7 +14,11 @@
   only rank 0 wrote ``metrics.jsonl``.
 * ``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
   pianobart_tpu_torch.cli pretrain --mesh 1x1x2``, as a user starts it: one
-  epoch through the ring, exit 0, ``best/`` written.
+  epoch through the ring, exit 0, ``best/`` written; and so ``finetune
+  --task composer --mesh 2x1x1`` on a composer corpus: exit 0, ``best/``
+  and ``test_outputs.npy`` of the single-rank run's shape.
+* ``PBX_FUSED_DROPLN=1`` reaches every training command's config (the fused
+  K4 tails), and unset leaves it off.
 
 The spawned ranks import this module and need torch only.
 """
@@ -149,3 +156,91 @@ def test_torch_distributed_run_with_the_ring(corpus, tmp_path):
     events = [json.loads(l) for l in (save / "metrics.jsonl").read_text().splitlines()]
     epochs = [e for e in events if e["event"] == "epoch"]
     assert len(epochs) == 1 and np.isfinite(epochs[0]["train"]["loss"])
+
+
+@pytest.mark.parametrize("cmd", ["finetune", "finetune-generation", "ablation"])
+@pytest.mark.parametrize("world,argv,msg", [
+    (2, ["--batch_size", "3"], "not divisible by the 2 ranks"),
+    (2, ["--mesh", "2x1x2"], "needs 4 ranks; the job has 2"),
+    (2, ["--mesh", "2x1x1", "--batch_size", "3"],
+     r"must be divisible by the dp mesh axis \(2\)"),
+    (3, ["--mesh", "1x1x3"], r"--max_seq_len 1024 must be divisible by the sp mesh axis \(3\)"),
+    (3, ["--mesh", "1x3x1", "--batch_size", "3"],
+     r"--heads 2 must be divisible by the tp mesh axis \(3\)"),
+    (2, ["--mesh", "1x1x2", "--dist_backend", "nccl"], "nccl backend runs on CUDA"),
+], ids=["batch_vs_ranks", "mesh_vs_ranks", "batch_vs_dp", "len_vs_sp", "heads_vs_tp",
+        "nccl_on_cpu"])
+def test_finetune_mesh_refusals(monkeypatch, cmd, world, argv, msg):
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    data = ["--task", "composer", "--dataset", "x"] if cmd == "finetune" else ["--datasets", "x"]
+    with pytest.raises(SystemExit, match=msg):
+        cli.main([cmd, "--dataroot", "nowhere"] + data + TINY + argv)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("cmd", ["pretrain", "finetune", "finetune-generation",
+                                 "ablation"])
+def test_fused_tail_from_the_environment(monkeypatch, cmd):
+    """``PBX_FUSED_DROPLN=1`` sets ``fused_dropout_ln`` in the config a
+    training command builds its model from; unset (or another value) leaves
+    it off; a command that does not train never reads it."""
+    seen = []
+
+    def stop(args, cfg):
+        seen.append(cfg.fused_dropout_ln)
+        raise SystemExit("stop")
+
+    monkeypatch.setattr(cli, "_mesh_run", stop)
+    data = ["--task", "composer", "--dataset", "x"] if cmd == "finetune" else ["--datasets", "x"]
+    for value in ("1", None, "0"):
+        if value is None:
+            monkeypatch.delenv("PBX_FUSED_DROPLN", raising=False)
+        else:
+            monkeypatch.setenv("PBX_FUSED_DROPLN", value)
+        with pytest.raises(SystemExit, match="stop"):
+            cli.main([cmd, "--dataroot", "nowhere"] + data + TINY)
+    assert seen == [True, False, False]
+    monkeypatch.setenv("PBX_FUSED_DROPLN", "1")
+    args = cli.build_parser().parse_args(["eval-gen", "--dataroot", "x"])
+    assert not cli._cfg_from_args(args).fused_dropout_ln
+
+
+@pytest.fixture(scope="module")
+def composer_corpus(tmp_path_factory):
+    """Songs by two composers tokenized for the composer task at 64-row
+    windows by the port's CLI."""
+    from tests.test_torch_cli_finetune import _song
+    root = tmp_path_factory.mktemp("mesh_ft")
+    rng = np.random.default_rng(11)
+    for comp in ("Bach", "Chopin"):
+        os.makedirs(root / "songs" / comp)
+        for i in range(5):
+            _song(rng, 80 + 20 * i).dump(str(root / "songs" / comp / f"p{i}.mid"))
+    assert cli.main(["tokenize", "--dataset", str(root / "songs"), "--task", "composer",
+                     "--out_root", str(root / "Data"), "--max_seq_len", "64"]) == 0
+    return str(root / "Data" / "songs")
+
+
+def test_torch_distributed_run_finetune(composer_corpus, tmp_path):
+    """``finetune --task composer --mesh 2x1x1`` under
+    ``torch.distributed.run``, as a user starts it: exit 0, two ranks,
+    ``best/`` written, a finite loss, and rank 0's ``test_outputs.npy``
+    holding one prediction per test window, as the single-rank run's."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [ROOT, os.environ.get("PYTHONPATH")])), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "pianobart_tpu_torch.cli", "finetune",
+         "--task", "composer", "--dataroot", composer_corpus, "--dataset", "songs",
+         "--class_num", "2", "--mesh", "2x1x1", "--max_seq_len", "64",
+         "--batch_size", "2", "--epochs", "1"] + TINY,
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert proc.stdout.count("of mesh 2x1x1") == 2
+    save = tmp_path / "result" / "finetune" / "composer_pianobart"
+    assert (save / "best" / "state.pt").exists()
+    events = [json.loads(l) for l in (save / "metrics.jsonl").read_text().splitlines()]
+    epochs = [e for e in events if e["event"] == "epoch"]
+    assert len(epochs) == 1 and np.isfinite(epochs[0]["train"]["loss"])
+    n_test = len(np.load(os.path.join(composer_corpus, "songs_test.npy"), allow_pickle=True))
+    assert np.load(save / "test_outputs.npy").shape == (n_test,)
