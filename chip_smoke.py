@@ -14,7 +14,8 @@ result line:
    counts of the wgmma kernels' SASS (an HMMA., or no HGMMA or UTMALDG, fails);
 3. ``[flash]``: K1 against its plain PyTorch version at the serving
    shapes (every decode bucket, B = 1, 2, 4, 8), the training shapes and
-   the long-context shape (B=16, S=2048), with times
+   the long-context shape (B=16, S=2048), [finetune_mesh]'s tp ranks (B=8,
+   4 of 8 heads from ``tp_slice``'d projections, bf16 and f32), with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -29,6 +30,7 @@ result line:
    (B=8, S=1024, bf16, causal and not) and in f32, and K3a and K3b
    at the long-context shape (B=16, S=2048, bf16, causal and not), each
    also at B=2, S=320 (half a CTA past S) and with a fully masked sample,
+   and K2 at [finetune_mesh]'s tp ranks (as in ``[flash]``),
    with the same times (the yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times;
@@ -125,14 +127,17 @@ result line:
    of ``pretrain --mesh 1x1x2 --dist_backend gloo --max_seq_len 2048`` on
    64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``;
 18. ``[finetune_mesh]``: the finetunes over the mesh on this one card: four
-   ranks spawned over gloo (all on cuda:0); the composer, velocity and
-   generation steps at flagship width (bf16 compute, f32 parameters, B=8,
-   S=1024, dropout 0 and the heads' fixed 0.1 set to 0) on [pretrain_run]'s
-   ``best/``, at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, one train step and one eval
-   step each, against the dense step on the same card (loss, clipped
-   gradients per group, the same gradients on every rank, the eval step's
-   predictions gathered into the global batch), each rank's launches per
-   step checked; then ``torch.distributed.run`` of ``finetune --task
+   ranks spawned over gloo (all on cuda:0); ``ring_attention`` at this
+   phase's blocks (B=8, S=1024, sp=2, bf16, causal and not) against the
+   plain ring and dense attention; the composer, velocity and generation
+   steps at flagship width (bf16 compute, f32 parameters, B=8, S=1024,
+   dropout 0 and the heads' fixed 0.1 set to 0) on [pretrain_run]'s
+   ``best/``, at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, and velocity's in f32 at
+   2x1x1, 1x2x1 and 1x1x2, one eval step and one train step each, against the
+   dense steps on the same card (eval loss and the gathered predictions
+   away from ties, train loss, clipped gradients per group, the same
+   gradients on every rank), each rank's launches per step checked; then
+   ``torch.distributed.run`` of ``finetune --task
    composer --mesh 2x1x1`` and ``finetune-generation --mesh 1x1x2 --fad`` on
    [finetune]'s corpora with ``--ckpt`` [pretrain_run]'s ``best/``, one
    epoch each: exit 0, ``best/`` once, ``test_outputs.npy`` of the
@@ -317,6 +322,34 @@ def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
     return q.to(dtype), k.to(dtype), v.to(dtype), mask
 
 
+def _tp_flash_case(B, causal, dtype, S=1024, H=8, D=128, tp=2):
+    """q, k, v as the last of ``tp`` ranks makes them under TP∘SP
+    (``models/bart.py:_tp_ring``): ``tp_slice``'s row slices of q, k and v
+    projections (weight and bias) applied to a (B, S, H*D) activation,
+    (B, S, H/tp, D) views of the products, q scaled; the pad mask of
+    :func:`_flash_case`."""
+    import torch
+    import torch.nn.functional as F
+    from pianobart_tpu_torch.ops.ring import tp_slice
+    from pianobart_tpu_torch.parallel.mesh import single_device_mesh
+    g = torch.Generator(device="cuda").manual_seed(SEED + B)
+    x = torch.randn(B, S, H * D, device="cuda", generator=g).to(dtype)
+    n, start = H // tp * D, (tp - 1) * (H // tp) * D
+    ax = single_device_mesh("cuda").axis("tp")   # the forward alone: no collective
+
+    def proj():
+        w = torch.randn(H * D, H * D, device="cuda", generator=g) * (H * D) ** -0.5
+        b = torch.randn(H * D, device="cuda", generator=g) * 0.1
+        y = F.linear(x, tp_slice(w, start, n, 0, ax).to(dtype),
+                     tp_slice(b, start, n, 0, ax).to(dtype))
+        return y.view(B, S, H // tp, D)
+
+    q, k, v = proj() * D ** -0.5, proj(), proj()
+    mask = torch.ones(B, S, device="cuda")
+    mask[-1, S - 200:] = 0.0
+    return q, k, v, mask
+
+
 def _attn_flops(q, mask, causal, products):
     """``products`` products of 2*D FLOPs per kept (row, key) pair per head."""
     import torch
@@ -366,9 +399,12 @@ def phase_flash(state):
              (16, False, torch.bfloat16, 2048), (16, True, torch.bfloat16, 2048),
              (2, False, f32, 1024), (2, True, f32, 1024), (8, False, f32, 1024),
              # [merge]'s Fisher and RegMean batches
-             (4, False, f32, 1024), (4, True, f32, 1024)]
-    for B, causal, dtype, S in cases:
-        q, k, v, mask = _flash_case(B, causal, dtype, S=S)
+             (4, False, f32, 1024), (4, True, f32, 1024),
+             # [finetune_mesh]'s tp ranks: 4 of 8 heads, tp_slice'd projections
+             (8, False, torch.bfloat16, 1024, "tp"), (8, True, torch.bfloat16, 1024, "tp"),
+             (8, False, f32, 1024, "tp"), (8, True, f32, 1024, "tp")]
+    for B, causal, dtype, S, *tp in cases:
+        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(B, causal, dtype, S=S)
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, mask, causal)
@@ -383,7 +419,8 @@ def phase_flash(state):
         lib_ms = _sdpa_ms(q, k, v, mask, causal)
         bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 2, 4, 1)
         tflops = _attn_flops(q, mask, causal, 2) / ms / 1e9
-        name = f"B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
+        name = (f"B={B} S={S} H={q.shape[2]} D=128 {str(dtype)[6:]} causal={causal}"
+                + (" (tp rank 1 of 2)" if tp else ""))
         if dtype == f32:
             bound_by += ", 3xTF32"
         print(f"[flash] {name}: max|dO|={err_o:.3e} (tol {atol:g} + {rtol:g}|O|) "
@@ -393,7 +430,7 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if (B, causal, dtype) in ((32, False, torch.bfloat16), (8, False, f32)):
+        if not tp and (B, causal, dtype) in ((32, False, torch.bfloat16), (8, False, f32)):
             # the train shapes ([train], [train_f32])
             state["k1" if dtype == torch.bfloat16 else "k1_f32"] = dict(
                 max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -614,17 +651,21 @@ def phase_flash_bwd(state):
              ("K3", 16, 2048, False, bf16, False), ("K3", 16, 2048, True, bf16, False),
              ("K3", 2, 2048, False, f32, False), ("K3", 2, 2048, True, f32, False),
              ("K3", 2, 320, False, bf16, False), ("K3", 2, 320, True, bf16, False),
-             ("K3", 2, 320, False, bf16, True)]
-    for kid, B, S, causal, dtype, masked in cases:
-        q, k, v, mask = _flash_case(B, causal, dtype, S=S)
+             ("K3", 2, 320, False, bf16, True),
+             # [finetune_mesh]'s tp ranks: 4 of 8 heads, tp_slice'd projections
+             ("K2", 8, 1024, False, bf16, False, "tp"), ("K2", 8, 1024, True, bf16, False, "tp"),
+             ("K2", 8, 1024, False, f32, False, "tp"), ("K2", 8, 1024, True, f32, False, "tp")]
+    for kid, B, S, causal, dtype, masked, *tp in cases:
+        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(B, causal, dtype, S=S)
         mask[0, S - 300:] = 0.0      # a second pad tail
         if masked:
             mask[0] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-        name = (f"{kid} B={B} S={S} H=8 D=128 {str(dtype)[6:]} causal={causal}"
-                + (", sample 0 fully masked" if masked else ""))
+        name = (f"{kid} B={B} S={S} H={q.shape[2]} D=128 {str(dtype)[6:]} causal={causal}"
+                + (", sample 0 fully masked" if masked else "")
+                + (" (tp rank 1 of 2)" if tp else ""))
         # delta: both sides sum exact f32 products, in another order
         got_d, want_d = flash_attention_delta(dout, out), _delta(dout, out)
         torch.cuda.synchronize()
@@ -640,13 +681,14 @@ def phase_flash_bwd(state):
               f"plain {d_plain:.4f} ms")
         if not ok_d:
             raise AssertionError(f"the delta kernel disagrees with its plain version: {name}")
-        if (B, causal, dtype, masked) == (32, False, bf16, False):
+        if not tp and (B, causal, dtype, masked) == (32, False, bf16, False):
             state["delta"] = dict(max_abs_err=err_d, ms=d_ms, plain_ms=d_plain,
                                   bound_ms=d_bound[0], bound_by=d_bound[1],
                                   library_ms=None)
         del got_d, want_d
         if dtype == f32 and not causal:
-            _split_row(state, name, q, (kid, B, S, masked) == ("K2", 8, 1024, False),
+            _split_row(state, name, q,
+                       not tp and (kid, B, S, masked) == ("K2", 8, 1024, False),
                        flash_attention_split, flash_attention_split_reference)
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
@@ -691,8 +733,8 @@ def phase_flash_bwd(state):
               f"(tol {ntol:g}), {times}, sdpa bwd {lib_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
-        if (B, causal, dtype, masked) in ((32, False, bf16, False),
-                                          (16, False, bf16, False), (8, False, f32, False)):
+        if not tp and (B, causal, dtype, masked) in (
+                (32, False, bf16, False), (16, False, bf16, False), (8, False, f32, False)):
             # the train shapes ([train], [train_long], [train_f32])
             keys = (["k2" if dtype == bf16 else "k2_f32"] if kid == "K2"
                     else ["k3a", "k3b"])
@@ -2649,23 +2691,25 @@ def _mesh_cfg(cfg, shape):
     return cfg.replace(ring_axis="sp") if sp > 1 else cfg
 
 
-def _mesh_step_counts(shape, S, sp_index, n_layers=8):
+def _mesh_step_counts(shape, S, sp_index, n_layers=8, f32=False):
     """Expected launches of one rank's flagship step: K1 once per visible
     ring block (encoder self and cross attention see both of 2 shards, the
     causal decoder self attention the shards up to its own), then delta
     once per attention and K2 (local shard <= 1024 rows) or K3a and K3b per
-    visible block; without a ring the dense step's 24 (K3 past 1024 rows)."""
+    visible block; without a ring the dense step's 24 (K3 past 1024 rows);
+    in f32 one tf32 prep launch per K1, K2, K3a and K3b."""
     if shape[1] == 1 and shape[2] == 1:
         blocks = 3 * n_layers
     else:
         blocks = n_layers * (shape[2] + (1 + sp_index) + shape[2])
     local = S // shape[2]
     k2, k3 = (blocks, 0) if local <= 1024 else (0, blocks)
-    return (blocks, k2, k3, k3, 3 * n_layers, 0, 0, 0, 0, 0)
+    split = blocks + k2 + 2 * k3 if f32 else 0
+    return (blocks, k2, k3, k3, 3 * n_layers, split, 0, 0, 0, 0)
 
 
-def _ring_case(mesh, S, dtype, causal):
-    """``ring_attention`` over the sp axis of ``mesh`` at (B=4, S, H=8,
+def _ring_case(mesh, S, dtype, causal, B=4):
+    """``ring_attention`` over the sp axis of ``mesh`` at (B, S, H=8,
     D=128) against the plain ring and against dense ``flash_attention`` on
     the card, output and q/k/v gradients; sample 1 ends in S/8 pad rows,
     sample 3 in 3S/8 (at sp=4 its whole last shard).  Returns this rank's
@@ -2674,7 +2718,7 @@ def _ring_case(mesh, S, dtype, causal):
     from pianobart_tpu_torch.ops.flash import flash_attention
     from pianobart_tpu_torch.ops.ring import ring_attention, ring_attention_reference
     ax = mesh.axis("sp")
-    B, H, D = 4, 8, 128
+    H, D = 8, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + S)
     q, k, v, dout = (torch.randn(B, S, H, D, device="cuda", generator=g)
                      for _ in range(4))
@@ -2711,7 +2755,8 @@ def _ring_case(mesh, S, dtype, causal):
                  else (1e-4 * f, 1e-4 * f, 2e-5 * f))
     e_plain, r_plain, ok_plain = _bwd_errors(out["kernels"][0], out["plain"][0], tol_plain)
     e_dense, r_dense, ok_dense = _bwd_errors(out["kernels"][0], dense, tol_dense)
-    return {"sp": mesh.shape["sp"], "S": S, "dtype": str(dtype)[6:], "causal": causal,
+    return {"sp": mesh.shape["sp"], "B": B, "S": S, "dtype": str(dtype)[6:],
+            "causal": causal,
             "err_plain": e_plain, "rel_plain": r_plain, "ok_plain": ok_plain,
             "err_dense": e_dense, "rel_dense": r_dense, "ok_dense": ok_dense,
             "tol_plain": tol_plain, "tol_dense": tol_dense,
@@ -2917,6 +2962,36 @@ def _parallel_cli(tmp):
                              "loss and best/ written once:\n" + "\n".join(lines[-40:]))
 
 
+def _step_rows(ranks, step, keys):
+    """Every rank's record of rank 0's ``step`` (the ranks of its mesh):
+    the one that agrees with it on ``keys``."""
+    return [rec for r in ranks for rec in r["steps"]
+            if all(rec[k] == step[k] for k in keys)]
+
+
+def _ring_report(tag, ranks):
+    """Print each ring case of the ranks' results; the names of the failed."""
+    failed = []
+    for i, case in enumerate(ranks[0]["ring"]):
+        rows = [r["ring"][i] for r in ranks]
+        e_p = [max(x["err_plain"]) for x in rows]
+        e_d = [max(x["err_dense"]) for x in rows]
+        r_p = [max(x["rel_plain"]) for x in rows]
+        r_d = [max(x["rel_dense"]) for x in rows]
+        ok = all(x["ok_plain"] and x["ok_dense"] for x in rows)
+        name = (f"sp={case['sp']} B={case['B']} S={case['S']} {case['dtype']}"
+                f"{' causal' if case['causal'] else ''}")
+        print(f"[{tag}] ring {name}: vs plain ring max|d| {max(e_p):.3e} ||d||/||ref|| "
+              f"{max(r_p):.3e} (tol {case['tol_plain']}); vs dense flash_attention max|d| "
+              f"{max(e_d):.3e} ||d||/||ref|| {max(r_d):.3e} (tol {case['tol_dense']}); "
+              f"o, dq, dk, dv on every rank; fwd+bwd {max(x['s_kernels'] for x in rows):.3f} s "
+              f"kernels, {max(x['s_plain'] for x in rows):.3f} s plain (4 ranks sharing one "
+              f"card){'' if ok else '  FAILED'}")
+        if not ok:
+            failed.append(f"ring {name}")
+    return failed
+
+
 def phase_parallel(state):
     """The mesh over torch.distributed on this one card: the NCCL refusal;
     four ranks spawned over gloo (all on cuda:0) for the ring checks and the
@@ -2942,28 +3017,10 @@ def phase_parallel(state):
     print(f"[parallel] 4 ranks spawned over {ranks[0]['backend']} in {spawn_s:.1f} s; "
           f"devices {[r['device'] for r in ranks]}; ring transport at sp=2 "
           f"{ranks[0]['transport_sp2']!r}, at sp=4 {ranks[0]['transport_sp4']!r}")
-    failed = []
-    for i, case in enumerate(ranks[0]["ring"]):
-        rows = [r["ring"][i] for r in ranks]
-        e_p = [max(x["err_plain"]) for x in rows]
-        e_d = [max(x["err_dense"]) for x in rows]
-        r_p = [max(x["rel_plain"]) for x in rows]
-        r_d = [max(x["rel_dense"]) for x in rows]
-        ok = all(x["ok_plain"] and x["ok_dense"] for x in rows)
-        name = (f"sp={case['sp']} S={case['S']} {case['dtype']}"
-                f"{' causal' if case['causal'] else ''}")
-        print(f"[parallel] ring {name}: vs plain ring max|d| {max(e_p):.3e} ||d||/||ref|| "
-              f"{max(r_p):.3e} (tol {case['tol_plain']}); vs dense flash_attention max|d| "
-              f"{max(e_d):.3e} ||d||/||ref|| {max(r_d):.3e} (tol {case['tol_dense']}); "
-              f"o, dq, dk, dv on every rank; fwd+bwd {max(x['s_kernels'] for x in rows):.3f} s "
-              f"kernels, {max(x['s_plain'] for x in rows):.3f} s plain (4 ranks sharing one "
-              f"card){'' if ok else '  FAILED'}")
-        if not ok:
-            failed.append(f"ring {name}")
-    for i, step in enumerate(ranks[0]["steps"]):
+    failed = _ring_report("parallel", ranks)
+    for step in ranks[0]["steps"]:
         dp, tp, sp = step["shape"]
-        rows = [r["steps"][i] for r in ranks if i < len(r["steps"])
-                and r["steps"][i]["shape"] == step["shape"] and r["steps"][i]["S"] == step["S"]]
+        rows = _step_rows(ranks, step, ("shape", "S"))
         name = f"{dp}x{tp}x{sp} S={step['S']} B=2"
         dloss, dnorm = step["dense"]
         rel = step["rel"]
@@ -2977,7 +3034,8 @@ def phase_parallel(state):
         print(f"[parallel]   clipped grads against the dense step, ||d||/||dense|| per group "
               f"(tol 5e-2): " + ", ".join(f"{g} {v:.2e}" for g, v in sorted(rel.items())))
         same = len({r["grad_sq"] for r in rows}) == 1
-        if not (counts == expect and max(rel.values()) <= 5e-2 and same
+        if not (counts == expect and len(rows) == dp * tp * sp
+                and max(rel.values()) <= 5e-2 and same
                 and abs(step["loss"] - dloss) <= 1e-2 * abs(dloss)):
             failed.append(f"step {name} (same grads on every rank: {same})")
     launches = {}
@@ -2999,7 +3057,27 @@ def phase_parallel(state):
 # ---------------------------------------------------------------------------
 
 FINETUNE_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 1, 2))
-FINETUNE_KINDS = ("composer", "velocity", "generation")
+# (finetune, compute dtype, meshes): the three finetunes in bf16 at every
+# mesh; velocity again in f32, where its bf16 decoder positions part from
+# the dense step by 4e-2 (on the ring of one under tp, and under sp), so
+# that rounding, which shrinks with the compute type, and a fault of the
+# label decoder's mesh path, which does not, can be told apart; 2x1x1
+# (only the order of the sums changes) gives the f32 floor, and the dense
+# step on weights moved by one ulp the gradients' own sensitivity
+FINETUNE_RUNS = (("composer", "bf16", FINETUNE_MESHES),
+                 ("velocity", "bf16", FINETUNE_MESHES),
+                 ("generation", "bf16", FINETUNE_MESHES),
+                 ("velocity", "f32", ((2, 1, 1), (1, 2, 1), (1, 1, 2))))
+# Against the dense step: the train and eval losses (relative), and the
+# clipped gradients per group (||d||/||dense||): a bound for every group
+# and the groups' own.  bf16: [parallel]'s bounds.  f32 (both sides f32
+# GEMMs and the 3xTF32 kernels, summed in other orders): _grad_check's f32
+# bound, and for velocity's decoder positions, which read 0.96e-3 and
+# 1.28e-3 at 1x2x1 and 1x1x2 on an H100 where the other groups read <=
+# 2.7e-4 (and 4.07e-2 / 4.03e-2 in bf16: the gap shrinks with the compute
+# type as the other groups' do), 5e-3.
+FINETUNE_TOL = {"bf16": (1e-2, 5e-2, {}),
+                "f32": (1e-4, 1e-3, {"decoder.embed_positions": 5e-3})}
 
 
 def _empty_model(kind, cfg, dev):
@@ -3038,15 +3116,61 @@ def _finetune_step(kind, cfg, mesh=None):
     return fsp.make_sp_generation_step(cfg, mesh)
 
 
+def _dense_eval(kind, cfg, state, x, y):
+    """The dense eval step: its loss, its predictions (``pred`` or
+    ``outputs``) and where they are away from a tie: the top-two margin of
+    the logits they were read from (a forward hook) at least |top1|/16 (and
+    1/16), past the rounding that bf16 logits of either step carry."""
+    import torch
+    from pianobart_tpu_torch.models.heads import split_fields
+    seen = []
+    hook = state.model.register_forward_hook(lambda mod, inp, out: seen.append(out))
+    try:
+        _, m = _finetune_step(kind, cfg)(state, x, y, None, train=False)
+    finally:
+        hook.remove()
+    logits = seen[0].float()
+    fields = split_fields(logits, cfg) if kind == "generation" else [logits]
+    decided = []
+    for f in fields:
+        top = f.topk(2, dim=-1).values
+        decided.append(top[..., 0] - top[..., 1] >= top[..., 0].abs().clamp(min=1.0) / 16)
+    decided = torch.stack(decided, -1) if kind == "generation" else decided[0]
+    return m["loss"].item(), m.get("pred", m.get("outputs")), decided
+
+
+def _ulp_gaps(kind, cfg, sd, x, y, want):
+    """The dense train step again, on the weights ``sd`` each moved by one
+    ulp up or down (a seeded draw): its clipped gradients against ``want``
+    per group, the gradients' own sensitivity to a rounding-level change
+    of the activations, which a mesh makes where it splits a sum."""
+    import torch
+    from pianobart_tpu_torch.train.state import create_train_state
+    dev = x.device
+    model = _empty_model(kind, cfg, dev)
+    model.load_state_dict(sd)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            sign = torch.randint(0, 2, p.shape, device=dev, generator=g) * 2 - 1
+            p.mul_(1 + sign * 2.0 ** -23)
+    _finetune_step(kind, cfg)(create_train_state(model), x, y,
+                              torch.Generator(device=dev).manual_seed(SEED), train=True)
+    return _rel_groups({n: p.grad for n, p in model.named_parameters()}, want)
+
+
 def _finetune_mesh_rank(rank, world, out_dir, ckpt):
-    """One of [finetune_mesh]'s four ranks, all on cuda:0 over gloo: for
-    the composer, velocity and generation finetunes at flagship width (bf16
-    compute, f32 parameters, dropout 0 and the heads' fixed 0.1 set to 0,
-    B=8, S=1024) on [pretrain_run]'s ``best/`` (the heads and the label
-    embedding drawn from the seed), the mesh step at each of
-    ``FINETUNE_MESHES`` once and one eval step, each step's launches
-    counted from 0 on this rank; rank 0 also runs the dense step once per
-    finetune and holds each mesh's loss and clipped gradients against it."""
+    """One of [finetune_mesh]'s four ranks, all on cuda:0 over gloo.  First
+    the ring at this phase's blocks (B=8, S=1024 over sp=2: the 2x1x2
+    mesh's two rings).  Then each of ``FINETUNE_RUNS`` at flagship width
+    (f32 parameters, dropout 0 and the heads' fixed 0.1 set to 0, B=8,
+    S=1024) on [pretrain_run]'s ``best/`` (the heads and the label
+    embedding drawn from the seed): at each of its meshes one eval step,
+    then one train step, each step's launches counted from 0 on this rank;
+    rank 0 also runs the dense eval and train steps once per run and holds
+    each mesh's eval loss and predictions, its train loss and its clipped
+    gradients against them, and in f32 the gradients' own sensitivity to
+    a one-ulp change of the weights (:func:`_ulp_gaps`)."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import draw_params_
@@ -3058,15 +3182,19 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
     torch.backends.cuda.matmul.allow_tf32 = False
     heads.HEAD_DROPOUT = 0.0
     dev = torch.device("cuda", 0)
-    meshes = [make_mesh(*shape, device=dev) for shape in FINETUNE_MESHES]
+    meshes = {shape: make_mesh(*shape, device=dev) for shape in FINETUNE_MESHES}
+    res, totals = {"steps": [], "ring": []}, {}
+    for causal in (False, True):
+        res["ring"].append(_ring_case(meshes[2, 1, 2], 1024, torch.bfloat16, causal, B=8))
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 14)
     x = torch.as_tensor(_pretrain_batch(8, 1024, rng), device=dev)
     labels = {"composer": torch.as_tensor(rng.integers(0, 8, 8), device=dev),
               "velocity": torch.as_tensor(rng.integers(0, 8, (8, 1024)), device=dev),
               "generation": torch.as_tensor(_pretrain_batch(8, 1024, rng), device=dev)}
-    res, totals = {"steps": []}, {}
-    for kind in FINETUNE_KINDS:
-        cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0,
+    for kind, dname, shapes in FINETUNE_RUNS:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+        cfg0 = PianoBartConfig(dtype=dtype, dropout=0.0,
                                decoder_label_vocab=8 if kind == "velocity" else None)
         base = _empty_model(kind, cfg0, dev)
         missing = graft_(base, checkpoint_entries(ckpt, cfg0, model=base), ckpt)
@@ -3075,17 +3203,20 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
         del base
         y, want = labels[kind], None
         if rank == 0:
-            # the dense step on the same weights and batch, once per finetune
+            # the dense steps on the same weights and batch, once per run
             dense = _empty_model(kind, cfg0, dev)
             dense.load_state_dict(sd)
             dstate = create_train_state(dense)
+            dense_eval = _dense_eval(kind, cfg0, dstate, x, y)
             _, m = _finetune_step(kind, cfg0)(
                 dstate, x, y, torch.Generator(device=dev).manual_seed(SEED), train=True)
             want = {n: p.grad.detach().clone() for n, p in dense.named_parameters()}
-            dense_m = (m["loss"].item(), m["grad_norm"].item())
+            dense_m = (m["loss"].item(), m["grad_norm"].item(), dense_eval[0])
             del dense, dstate
+            ulp = _ulp_gaps(kind, cfg0, sd, x, y, want) if dname == "f32" else None
             torch.cuda.empty_cache()
-        for shape, mesh in zip(FINETUNE_MESHES, meshes):
+        for shape in shapes:
+            mesh = meshes[shape]
             if mesh is None:                # ranks outside a 2-rank mesh
                 continue
             cfg = _mesh_cfg(cfg0, shape)
@@ -3093,13 +3224,15 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
             model.load_state_dict(sd)
             st = create_train_state(model)
             step = _finetune_step(kind, cfg, mesh)
-            rec = {"kind": kind, "shape": shape, "coords": mesh.coords, "counts": []}
+            rec = {"kind": kind, "dtype": dname, "shape": shape, "coords": mesh.coords,
+                   "counts": []}
             if rank == 0:
-                rec["dense"] = dense_m
+                rec["dense"], rec["ulp"] = dense_m, ulp
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             times = []
-            for train in (True, False):
+            # eval first: on the weights the dense eval step saw
+            for train in (False, True):
                 _reset_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3122,12 +3255,21 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
                 else:
                     out = m.get("pred", m.get("outputs"))
                     rec["eval"] = (m["loss"].item(), tuple(out.shape))
+                    if rank == 0:
+                        # the gathered predictions in the dense step's sample order
+                        _, d_out, decided = dense_eval
+                        same = out == d_out
+                        rec["agree"] = (float(same.float().mean()),
+                                        float(decided.float().mean()),
+                                        int((decided & ~same).sum()))
             rec["s_per_step"] = times
             rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             res["steps"].append(rec)
             del model, st, step
             torch.cuda.empty_cache()
         del sd, want
+        if rank == 0:
+            del dense_eval
     res["launches"] = totals
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
@@ -3168,10 +3310,12 @@ def _finetune_mesh_cli(tag, argv, cwd, want_outputs):
 
 def phase_finetune_mesh(state):
     """The finetunes over the mesh on this one card: four ranks spawned over
-    gloo (all on cuda:0) for the flagship composer, velocity and generation
-    steps at 2x1x1, 1x2x1, 1x1x2 and 2x1x2 against the dense step (the main
-    path: every count set to 0 on each rank before each step, read after,
-    summed over the ranks); then the CLI as a user starts it under
+    gloo (all on cuda:0) for the ring at B=8 against the plain ring and
+    dense attention, then the flagship composer, velocity and generation
+    eval and train steps at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, and velocity's
+    in f32 at 2x1x1, 1x2x1 and 1x1x2, against the dense steps (the main path:
+    every count set to 0 on each rank before each step, read after, summed
+    over the ranks); then the CLI as a user starts it under
     torch.distributed.run on [finetune]'s corpora: ``finetune --task
     composer --mesh 2x1x1`` and ``finetune-generation --mesh 1x1x2 --fad``."""
     import shutil
@@ -3190,40 +3334,52 @@ def phase_finetune_mesh(state):
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(4)]
     print(f"[finetune_mesh] 4 ranks spawned over gloo in {spawn_s:.1f} s; flagship "
-          f"width, bf16 compute, f32 parameters, dropout 0 (heads' 0.1 off), B=8, "
-          f"S=1024, [pretrain_run]'s best/")
-    failed = []
-    for i, step in enumerate(ranks[0]["steps"]):
+          f"width, f32 parameters, dropout 0 (heads' 0.1 off), B=8, S=1024, "
+          f"[pretrain_run]'s best/")
+    failed = _ring_report("finetune_mesh", ranks)
+    for step in ranks[0]["steps"]:
         dp, tp, sp = step["shape"]
-        rows = [r["steps"][i] for r in ranks if i < len(r["steps"])
-                and r["steps"][i]["shape"] == step["shape"]
-                and r["steps"][i]["kind"] == step["kind"]]
-        name = f"{step['kind']} {dp}x{tp}x{sp}"
-        dloss, dnorm = step["dense"]
+        rows = _step_rows(ranks, step, ("kind", "dtype", "shape"))
+        name = f"{step['kind']} {step['dtype']} {dp}x{tp}x{sp}"
+        dloss, dnorm, deval = step["dense"]
+        tol_loss, tol_grad, tol_group = FINETUNE_TOL[step["dtype"]]
         rel = step["rel"]
         counts = [r["counts"] for r in rows]
         expect = []
         for r in rows:
-            train = _mesh_step_counts(step["shape"], 1024, r["coords"]["sp"])
-            expect.append([train, (train[0],) + (0,) * 9])
+            train = _mesh_step_counts(step["shape"], 1024, r["coords"]["sp"],
+                                      f32=step["dtype"] == "f32")
+            expect.append([(train[0],) + (0,) * 4 + (train[0] if train[5] else 0,)
+                           + (0,) * 4, train])
+        agree, decided, wrong = step["agree"]
         print(f"[finetune_mesh] {name} ({len(rows)} ranks sharing one card): loss "
               f"{step['loss']:.6f} vs dense {dloss:.6f}, grad_norm {step['grad_norm']:.6f} "
-              f"vs {dnorm:.6f}; s/step (train, eval) "
-              f"{[round(t, 3) for r in rows for t in r['s_per_step']]}; eval loss, "
-              f"gathered outputs {rows[0]['eval']}; peak GiB per rank "
+              f"vs {dnorm:.6f}; s/step (eval, train) "
+              f"{[round(t, 3) for r in rows for t in r['s_per_step']]}; peak GiB per rank "
               f"{[round(r['peak_gib'], 2) for r in rows]}")
-        print(f"[finetune_mesh]   launches per rank (train, eval; {COUNT_NAMES}) "
+        print(f"[finetune_mesh]   eval: loss {step['eval'][0]:.6f} vs dense {deval:.6f} "
+              f"(tol rel {tol_loss:g}); gathered predictions {step['eval'][1]} equal to the "
+              f"dense step's at {100 * agree:.3f}%, {wrong} unequal of the "
+              f"{100 * decided:.3f}% away from a tie (tol 0)")
+        print(f"[finetune_mesh]   launches per rank (eval, train; {COUNT_NAMES}) "
               f"{counts}, expected {expect}")
         print(f"[finetune_mesh]   clipped grads against the dense step, ||d||/||dense|| "
-              f"per group (tol 5e-2): "
+              f"per group (tol {tol_grad:g}"
+              + "".join(f", {g} {t:g}" for g, t in tol_group.items()) + "): "
               + ", ".join(f"{g} {v:.2e}" for g, v in sorted(rel.items())))
+        if step["ulp"] is not None:
+            print(f"[finetune_mesh]   the dense step on weights moved by one ulp, against "
+                  f"the dense step, ||d||/||dense|| per group: "
+                  + ", ".join(f"{g} {v:.2e}" for g, v in sorted(step["ulp"].items())))
         same = len({r["grad_sq"] for r in rows}) == 1
         # the eval step's predictions, gathered into the global batch
         n_out = {"composer": (8,), "velocity": (8, 1024),
                  "generation": (8, 1024, 8)}[step["kind"]]
-        if not (counts == expect and max(rel.values()) <= 5e-2 and same
-                and abs(step["loss"] - dloss) <= 1e-2 * abs(dloss)
-                and all(r["eval"][1] == n_out for r in rows)):
+        if not (counts == expect and len(rows) == dp * tp * sp
+                and all(v <= tol_group.get(g, tol_grad) for g, v in rel.items()) and same
+                and abs(step["loss"] - dloss) <= tol_loss * abs(dloss)
+                and abs(step["eval"][0] - deval) <= tol_loss * abs(deval)
+                and wrong == 0 and all(r["eval"][1] == n_out for r in rows)):
             failed.append(f"{name} (same grads on every rank: {same})")
     launches = {}
     for r in ranks:

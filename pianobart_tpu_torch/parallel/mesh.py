@@ -15,9 +15,11 @@ in row-major order, as ``make_mesh`` reshapes its device list:
 Every rank builds the same process groups in the same order: one per ``sp``
 ring, one per ``tp`` group, one per (dp, sp) gradient group (the ranks that
 share a tp coordinate; under TP∘SP each tp rank holds the whole gradient
-already), and one of the whole mesh, over which its ranks agree.  A group of one rank is never built: its collectives are the
-identity.  Parameters stay replicated on every rank, as the reference's
-TP∘SP keeps them (``P()``).
+already), and one of the whole mesh, over which its ranks agree.  A group
+of one rank is never built: its collectives are the identity; nor is one
+of the whole world: its collectives run over the default group.
+Parameters stay replicated on every rank, as the reference's TP∘SP keeps
+them (``P()``).
 
 :func:`use_mesh` is the counterpart of ``shard_map``'s axis environment: a
 model whose config names a ring axis resolves it to a group of the active
@@ -50,8 +52,9 @@ AxisName = Union[str, Tuple[str, ...]]
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """A mesh axis (or a product of axes) as one rank sees it: its process
-    group (None for a group of one), its size, this rank's index in it, the
-    global ranks of the group in index order, and the backend."""
+    group (None for a group of one, or for the default group), its size,
+    this rank's index in it, the global ranks of the group in index order,
+    and the backend."""
     name: str
     group: Optional[dist.ProcessGroup]
     size: int
@@ -206,7 +209,9 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1,
     axes: Dict[Tuple[str, ...], Axis] = {}
     for key in _GROUPS:
         for members in _group_ranks(shape, key):
-            group = dist.new_group(members) if len(members) > 1 else None
+            # a group of one, or of the whole world: the default group (None)
+            build = 1 < len(members) < world
+            group = dist.new_group(members) if build else None
             if rank in members:
                 axes[key] = Axis("x".join(key), group, len(members),
                                  members.index(rank), tuple(members), backend)

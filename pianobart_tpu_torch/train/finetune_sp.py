@@ -36,32 +36,21 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.nn import functional as F
 
 from .. import vocab as V
 from ..models.config import PianoBartConfig
 from ..ops.sampling import greedy_octuple
 from ..parallel.mesh import (Mesh, all_reduce_, all_reduce_grads_, gather_batch,
                              shard_batch, use_mesh)
-from .finetune import Metrics, _l2_penalty, _token_decoder_inputs, run_step
+from .finetune import (Metrics, _bar_mask, _l2_penalty, _token_decoder_inputs,
+                       run_step)
 from .generation import _ablation_prepare
-from .objective import GENERATION_FIELD_WEIGHTS, shift_right
+from .objective import GENERATION_FIELD_WEIGHTS, nll, shift_right
 from .pretrain_sp import _check, _local_ce_sums, _per_field, dropout_generator
 from .state import TrainState
 
 __all__ = ["make_sp_seq_step", "make_sp_token_step", "make_sp_generation_step",
            "make_sp_ablation_step"]
-
-_BAR_PAD = V.PAD[0]
-
-
-def _bar_mask(x: torch.Tensor) -> torch.Tensor:
-    return (x[..., 0] != _BAR_PAD).float()
-
-
-def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    logp = F.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
 
 
 class _Mesh:
@@ -137,7 +126,7 @@ def make_sp_seq_step(cfg: PianoBartConfig, mesh: Mesh,
 
         def loss_fn(gen):
             logits = model(xs, ms, generator=gen, head_generator=head_gen)
-            loss = m.mean((_nll(logits, ys) * ws).sum(), ws.sum(), reg_weight, model)
+            loss = m.mean((nll(logits, ys) * ws).sum(), ws.sum(), reg_weight, model)
             return loss, (logits,)
 
         loss, (logits,), norm = m.run(state, loss_fn, train, generator)
@@ -168,7 +157,7 @@ def make_sp_token_step(cfg: PianoBartConfig, mesh: Mesh, velocity: bool = False,
 
         def loss_fn(gen):
             logits = model(xs, ds, ms, dms, generator=gen)
-            loss = m.mean((_nll(logits, ys) * lms).sum(), lms.sum(), reg_weight, model)
+            loss = m.mean((nll(logits, ys) * lms).sum(), lms.sum(), reg_weight, model)
             return loss, (logits,)
 
         loss, (logits,), norm = m.run(state, loss_fn, train, generator)

@@ -24,7 +24,8 @@ from ..models.config import PianoBartConfig
 from ..models.heads import split_fields
 
 __all__ = ["GENERATION_FIELD_WEIGHTS", "masked_field_ce", "masked_field_accuracy",
-           "weighted_average_accuracy", "shift_right", "token_ce", "sequence_ce"]
+           "weighted_average_accuracy", "shift_right", "nll", "token_ce",
+           "sequence_ce"]
 
 #: The generation finetune's per-field loss weights: Program, TimeSig and
 #: Tempo 0.3, Pitch 1.5 (reference ``finetune_generation.py:241-246``).
@@ -94,13 +95,18 @@ def shift_right(ids: torch.Tensor, sos_row: Sequence[int]) -> torch.Tensor:
     return torch.cat([sos, ids[:, :-1]], dim=1)
 
 
+def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-element negative log-likelihood of ``targets (...)`` under
+    ``logits (..., C)``, the softmax in f32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
 def token_ce(logits: torch.Tensor, targets: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
     """Pad-masked token-level CE: ``logits (B, S, C)``, ``targets (B, S)``,
     ``mask (B, S)`` (reference ``finetune.py:125-130``)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll(logits, targets) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def sequence_ce(logits: torch.Tensor, targets: torch.Tensor,
@@ -108,8 +114,7 @@ def sequence_ce(logits: torch.Tensor, targets: torch.Tensor,
     """Mean sequence-level CE (reference ``finetune.py:131-132``);
     ``weight (B,)`` zeroes the padded samples of a tail batch, so that every
     sample of a split counts once."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[:, None].long())[:, 0]
+    per_sample = nll(logits, targets)
     if weight is None:
-        return nll.mean()
-    return (nll * weight).sum() / weight.sum().clamp(min=1.0)
+        return per_sample.mean()
+    return (per_sample * weight).sum() / weight.sum().clamp(min=1.0)
