@@ -15,7 +15,9 @@ result line:
 3. ``[flash]``: K1 against its plain PyTorch version at the serving
    shapes (every decode bucket, B = 1, 2, 4, 8), the training shapes and
    the long-context shape (B=16, S=2048), [finetune_mesh]'s tp ranks (B=8,
-   4 of 8 heads from ``tp_slice``'d projections, bf16 and f32), with times
+   4 of 8 heads from ``tp_slice``'d projections, bf16 and f32), and at head
+   width 256 (``--heads 4``: B=32 bf16 and B=8 f32, causal and not, the tp
+   ranks' 2 of 4 heads, B=2 S=320 and a wholly masked sample), with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -30,10 +32,12 @@ result line:
    (B=8, S=1024, bf16, causal and not) and in f32, and K3a and K3b
    at the long-context shape (B=16, S=2048, bf16, causal and not), each
    also at B=2, S=320 (half a CTA past S) and with a fully masked sample,
-   and K2 at [finetune_mesh]'s tp ranks (as in ``[flash]``),
+   and K2 at [finetune_mesh]'s tp ranks (as in ``[flash]``), and the same
+   at head width 256 (K2 B=32 bf16 and B=8 f32, K3a/K3b B=16 S=2048 bf16 and
+   B=2 f32, the tp ranks', S=320, wholly masked samples),
    with the same times (the yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
-   version, with its times;
+   version, with its times, and in f32 the tf32 prep (D = 128 and 256);
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
    Philox bits, at the flagship's N=32768 rows of D=1024 in bf16, at a
    small N in f32, and at N=8192 rows wider than one warp takes (D = 1152,
@@ -69,7 +73,13 @@ result line:
 12. ``[train_f32]``: the flagship step as ``PianoBartConfig()`` stands (f32
    compute and parameters): gradients through K1+K2 against plain attention
    at B=2, then 3 warm-up and 5 timed steps at B=8 (K1, K2 24 each);
-13. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
+13. ``[train_h256]``: ``--heads 4`` (head width 256, the flagship's H*D):
+   gradients through K1+K2 against plain attention at B=4 in bf16 and f32,
+   the timed steps at B=32 (K1, delta, K2 24 each), at S=2048 B=16 (K1,
+   delta, K3a, K3b 24 each) and in f32 at B=2 (K1, delta, K2 24 each, no
+   prep), then the encoder of a --heads 4 serving model via K1 against
+   plain attention and a ``GenerationService`` decode batch (K1 8);
+14. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
    width (bf16 compute, f32 parameters), in a temporary directory outside
    the checkout: 64 two-track songs tokenized by the native codec
    (``tokenize --no_pad``) and checked (``check --packed``), ``pretrain``
@@ -79,7 +89,7 @@ result line:
    re-scores ``best_acc`` to 1e-5, and a fourth epoch (``run(4,
    resume=True)``) launches K1 24 per train step and per validation batch,
    K2 24 per train step; tokens/s per epoch and each save's seconds;
-14. ``[finetune]``: the finetunes as a user runs them, at flagship width
+15. ``[finetune]``: the finetunes as a user runs them, at flagship width
    (bf16 compute, f32 parameters, dropout 0.1, B=8), in a temporary directory
    outside the checkout: 40 songs by 4 composers written by the port's MIDI
    writer and tokenized by its ``tokenize`` for every task; ``finetune
@@ -93,7 +103,7 @@ result line:
    emotion and the ablation one train and one eval step each through their
    step functions, and 4 more emotion train steps under the profiler (the
    device's busy share, the heaviest kernels, the clip and AdamW's share);
-15. ``[serve_ckpt]``: the generation finetune's ``best/`` exported by
+16. ``[serve_ckpt]``: the generation finetune's ``best/`` exported by
    ``export-ckpt`` to a reference ``.ckpt`` and converted back by
    ``convert-ckpt`` (weights equal), ``create_app`` over the directory and
    the file (each load's seconds), each loaded model's logits against the
@@ -102,7 +112,7 @@ result line:
    uploaded songs generated by
    both models at once (a 200 whose MIDI parses back, or the 500 "no
    notes"; K1 8 launches per decode batch);
-16. ``[merge]``: [finetune]'s composer and generation ``best/`` merged over
+17. ``[merge]``: [finetune]'s composer and generation ``best/`` merged over
    [pretrain_run]'s ``best/`` by the ``merge`` CLI in process at flagship
    width (f32), every method (average, task arithmetic, TIES, the random
    and magnitude masks, Fisher and RegMean on 32 windows of
@@ -113,20 +123,22 @@ result line:
    with its memory snapshot; ``--head_from`` to a ``.msgpack`` loaded at
    f32 (logits |diff| 0 against the merge in memory), grafted onto a
    classifier, and served at bf16 (2 songs, K1 8 per decode batch);
-17. ``[parallel]``: the mesh over torch.distributed on this one card: ``pretrain
+18. ``[parallel]``: the mesh over torch.distributed on this one card: ``pretrain
    --dist_backend nccl`` with more ranks than cards refused before any process
    group; four ranks spawned over gloo (all on cuda:0, ring blocks staged
    through pinned host memory): ``ring_attention`` at sp = 2 and 4 over (B=4,
-   S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, against the
+   S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, and at sp=2
+   over (B=4, S=2048, H=4, D=256) bf16, against the
    plain ring and dense ``flash_attention`` (a 3S/8 pad tail covering the
-   last shard at sp=4); the flagship mesh step (B=2, dropout 0) at 2x1x1,
-   1x1x2, 2x1x2, 1x2x2 (S=2048) and 1x1x2 (S=4096) against the dense step on
+   last shard at sp=4); the flagship mesh step (B=2, dropout 0, one step a
+   mesh) at 2x1x1, 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
+   with --heads 4 (S=2048) against the dense step on
    the same card (loss, clipped gradients per group, the same gradients on
    every rank), each rank's launches per step checked, s per step and peak
    memory per rank (ranks sharing one card); then ``torch.distributed.run``
    of ``pretrain --mesh 1x1x2 --dist_backend gloo --max_seq_len 2048`` on
    64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``;
-18. ``[finetune_mesh]``: the finetunes over the mesh on this one card: four
+19. ``[finetune_mesh]``: the finetunes over the mesh on this one card: four
    ranks spawned over gloo (all on cuda:0); ``ring_attention`` at this
    phase's blocks (B=8, S=1024, sp=2, bf16, causal and not) against the
    plain ring and dense attention; the composer, velocity and generation
@@ -144,7 +156,8 @@ result line:
    single-rank run's shape.
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-pretrain_run, finetune, serve_ckpt, merge, parallel, finetune_mesh) is driven with every
+train_h256, train_h256_long, train_h256_f32, serve_h256, pretrain_run, finetune,
+serve_ckpt, merge, parallel, finetune_mesh) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -249,7 +262,7 @@ def _cuobjdump():
     return None
 
 
-# K1's kernel template flash_fwd_wgmma_kernel<KT, SPLIT_P>, by its flags
+# K1's kernel template flash_fwd_wgmma_kernel<KT, SPLIT_P, D>, by its flags
 FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded",
                  ("1", "1"): "L1, P split"}
 
@@ -257,24 +270,29 @@ FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded"
 def _sass_label(name):
     """``flash_..._kernel<flags> (role)`` from a kernel's mangled name."""
     label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
-    flags = re.match(r"ILb([01])E(?:Lb([01])E)?", name[name.index(label) + len(label):])
+    flags = re.match(r"ILb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?",
+                     name[name.index(label) + len(label):])
     if not flags:
         return label
     if label.startswith("flash_bwd"):
         return label + ("<true> (dK/dV)" if flags.group(1) == "1" else "<false> (dQ)")
-    kt, split = flags.groups()
+    kt, split, d = flags.groups()
     tf = {"0": "false", "1": "true"}
-    return f"{label}<{tf[kt]}, {tf[split]}> ({FWD_INSTANCES[kt, split]})"
+    return (f"{label}<{tf[kt]}, {tf[split]}, {d}> ({FWD_INSTANCES[kt, split]}"
+            f"{', D=' + d if d != '128' else ''})")
 
 
 def phase_build(state):
     """All sources built together (one nvcc per source, started at once),
-    then what the wgmma kernels (K1's bf16 and f32 kernels, the lab's three
-    instances of K1's template, K2/K3's dK/dV and dQ kernels in both types)
-    compiled to: Hopper's products (HGMMA), tensor loads (UTMALDG) and any
-    older tensor-core product (HMMA.) in their SASS.  Fails if one of them
-    has an HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or
-    any other, come back)."""
+    then what the wgmma kernels (K1's bf16 instances at D = 128 and 256 and
+    its f32 kernel, the lab's three instances of K1's template, K2/K3's
+    dK/dV and dQ kernels in both types and the bf16 ones at D=256) compiled
+    to: Hopper's products (HGMMA), tensor loads (UTMALDG) and any older
+    tensor-core product (HMMA.) in their SASS.  Fails if one of them has an
+    HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or any
+    other, come back).  The f32 kernels at D=256 are mma.sync by design
+    (``flash_*_d256_mma_kernel``): their HMMA counts are printed, and one
+    without an HMMA fails."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -291,22 +309,35 @@ def phase_build(state):
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
-    for lib, expect in (("flash_fwd", 2), ("flash_bwd", 4), ("flash_lab", 3)):
+    for lib, expect, expect_mma in (("flash_fwd", 3, 1), ("flash_bwd", 6, 2),
+                                    ("flash_lab", 3, 0)):
         sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
                               text=True, timeout=120, check=True).stdout
-        found = 0
+        found = found_mma = 0
         for kernel in sass.split("Function : ")[1:]:
             name = kernel.split("\n", 1)[0].strip()
+            counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
             if re.search(r"flash_\w+_(wgmma|tf32)_kernel", name):
                 found += 1
-                counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
                 label = _sass_label(name)
                 print(f"[build] {lib} SASS of {label}: "
                       + ", ".join(f"{op} {n}" for op, n in counts.items()))
                 if counts["HMMA."] or not (counts["HGMMA"] and counts["UTMALDG"]):
                     raise AssertionError(f"{label} is not a TMA + wgmma kernel: {counts}")
-        if found != expect:
-            raise AssertionError(f"{lib}: {found} wgmma kernels in its SASS, not {expect}")
+            elif re.search(r"flash_\w+_d256_mma_kernel", name):
+                found_mma += 1
+                label = _sass_label(name)
+                print(f"[build] {lib} SASS of {label} (3xTF32 mma.sync): "
+                      + ", ".join(f"{op} {n}" for op, n in counts.items()))
+                if not counts["HMMA."]:
+                    raise AssertionError(f"{label} has no mma.sync product: {counts}")
+        if (found, found_mma) != (expect, expect_mma):
+            raise AssertionError(f"{lib}: {found} wgmma and {found_mma} mma.sync kernels "
+                                 f"in its SASS, not {expect} and {expect_mma}")
+
+
+# --heads 4: the flagship's width (H*D = 1024) at head width 256
+H256 = dict(H=4, D=256)
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -391,6 +422,7 @@ def phase_flash(state):
     # relative), ex2.approx and the summation order.
     tol = {torch.bfloat16: (1e-2, 1e-2, 1e-3), torch.float32: (1e-4, 1e-4, 1e-4)}
     f32 = torch.float32
+    bf16 = torch.bfloat16
     # B = 1, 2, 4 and 8 are the serving paths' decode buckets
     cases = [(1, False, torch.bfloat16, 1024), (2, False, torch.bfloat16, 1024),
              (4, False, torch.bfloat16, 1024), (8, False, torch.bfloat16, 1024),
@@ -402,9 +434,23 @@ def phase_flash(state):
              (4, False, f32, 1024), (4, True, f32, 1024),
              # [finetune_mesh]'s tp ranks: 4 of 8 heads, tp_slice'd projections
              (8, False, torch.bfloat16, 1024, "tp"), (8, True, torch.bfloat16, 1024, "tp"),
-             (8, False, f32, 1024, "tp"), (8, True, f32, 1024, "tp")]
-    for B, causal, dtype, S, *tp in cases:
-        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(B, causal, dtype, S=S)
+             (8, False, f32, 1024, "tp"), (8, True, f32, 1024, "tp"),
+             # --heads 4 (D=256): [train_h256]'s shapes, the tp ranks' (2 of 4
+             # heads), a ragged tile (S=320) and a wholly masked sample
+             (32, False, bf16, 1024, "h256"), (32, True, bf16, 1024, "h256"),
+             (8, False, f32, 1024, "h256"), (8, True, f32, 1024, "h256"),
+             (8, False, bf16, 1024, "h256 tp"), (8, True, bf16, 1024, "h256 tp"),
+             (8, False, f32, 1024, "h256 tp"), (8, True, f32, 1024, "h256 tp"),
+             (2, False, bf16, 320, "h256"), (2, True, bf16, 320, "h256"),
+             (2, False, f32, 320, "h256"), (2, True, f32, 320, "h256"),
+             (2, False, bf16, 320, "h256 masked"), (2, False, f32, 320, "h256 masked")]
+    for B, causal, dtype, S, *kind in cases:
+        kind = kind[0] if kind else ""
+        tp, h256 = "tp" in kind, "h256" in kind
+        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(
+            B, causal, dtype, S=S, **(H256 if h256 else {}))
+        if "masked" in kind:
+            mask[0] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, mask, causal)
@@ -419,8 +465,9 @@ def phase_flash(state):
         lib_ms = _sdpa_ms(q, k, v, mask, causal)
         bound_ms, bound_by = _attn_bound_ms(q, mask, causal, 2, 4, 1)
         tflops = _attn_flops(q, mask, causal, 2) / ms / 1e9
-        name = (f"B={B} S={S} H={q.shape[2]} D=128 {str(dtype)[6:]} causal={causal}"
-                + (" (tp rank 1 of 2)" if tp else ""))
+        name = (f"B={B} S={S} H={q.shape[2]} D={q.shape[3]} {str(dtype)[6:]} "
+                f"causal={causal}" + (", sample 0 fully masked" if "masked" in kind else "")
+                + (f" (tp rank 1 of 2, {2 * q.shape[2]} heads)" if tp else ""))
         if dtype == f32:
             bound_by += ", 3xTF32"
         print(f"[flash] {name}: max|dO|={err_o:.3e} (tol {atol:g} + {rtol:g}|O|) "
@@ -430,11 +477,13 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if not tp and (B, causal, dtype) in ((32, False, torch.bfloat16), (8, False, f32)):
-            # the train shapes ([train], [train_f32])
-            state["k1" if dtype == torch.bfloat16 else "k1_f32"] = dict(
-                max_abs_err=err_o, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by.split(",")[0], library_ms=lib_ms)
+        if kind in ("", "h256") and (B, causal, dtype) in ((32, False, bf16),
+                                                           (8, False, f32)):
+            # the train shapes ([train], [train_f32]; [train_h256]'s)
+            key = "k1" + ("_h256" if h256 else "") + ("_f32" if dtype == f32 else "")
+            state[key] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by.split(",")[0],
+                              library_ms=lib_ms)
 
 
 def _sdpa_ms(q, k, v, mask, causal):
@@ -654,18 +703,38 @@ def phase_flash_bwd(state):
              ("K3", 2, 320, False, bf16, True),
              # [finetune_mesh]'s tp ranks: 4 of 8 heads, tp_slice'd projections
              ("K2", 8, 1024, False, bf16, False, "tp"), ("K2", 8, 1024, True, bf16, False, "tp"),
-             ("K2", 8, 1024, False, f32, False, "tp"), ("K2", 8, 1024, True, f32, False, "tp")]
-    for kid, B, S, causal, dtype, masked, *tp in cases:
-        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(B, causal, dtype, S=S)
+             ("K2", 8, 1024, False, f32, False, "tp"), ("K2", 8, 1024, True, f32, False, "tp"),
+             # --heads 4 (D=256): [train_h256]'s shapes (K2 at B=32 bf16 and
+             # B=8 f32, K3 at B=16 S=2048 bf16 and B=2 f32), the tp ranks' (2 of
+             # 4 heads), ragged tiles and a wholly masked sample
+             ("K2", 32, 1024, False, bf16, False, "h256"), ("K2", 32, 1024, True, bf16, False, "h256"),
+             ("K2", 8, 1024, False, f32, False, "h256"), ("K2", 8, 1024, True, f32, False, "h256"),
+             ("K3", 16, 2048, False, bf16, False, "h256"), ("K3", 16, 2048, True, bf16, False, "h256"),
+             ("K3", 2, 2048, False, f32, False, "h256"), ("K3", 2, 2048, True, f32, False, "h256"),
+             ("K2", 8, 1024, False, bf16, False, "h256 tp"),
+             ("K2", 8, 1024, True, bf16, False, "h256 tp"),
+             ("K2", 8, 1024, False, f32, False, "h256 tp"),
+             ("K2", 8, 1024, True, f32, False, "h256 tp"),
+             ("K2", 2, 320, False, bf16, False, "h256"), ("K2", 2, 320, True, bf16, False, "h256"),
+             ("K2", 2, 320, False, bf16, True, "h256"), ("K2", 2, 320, False, f32, False, "h256"),
+             ("K2", 2, 320, False, f32, True, "h256"),
+             ("K3", 2, 320, False, bf16, False, "h256"), ("K3", 2, 320, True, bf16, False, "h256"),
+             ("K3", 2, 320, False, bf16, True, "h256"), ("K3", 2, 320, True, f32, False, "h256"),
+             ("K3", 2, 320, False, f32, True, "h256")]
+    for kid, B, S, causal, dtype, masked, *kind in cases:
+        kind = kind[0] if kind else ""
+        tp, h256 = "tp" in kind, "h256" in kind
+        q, k, v, mask = (_tp_flash_case if tp else _flash_case)(
+            B, causal, dtype, S=S, **(H256 if h256 else {}))
         mask[0, S - 300:] = 0.0      # a second pad tail
         if masked:
             mask[0] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
         dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-        name = (f"{kid} B={B} S={S} H={q.shape[2]} D=128 {str(dtype)[6:]} causal={causal}"
-                + (", sample 0 fully masked" if masked else "")
-                + (" (tp rank 1 of 2)" if tp else ""))
+        name = (f"{kid} B={B} S={S} H={q.shape[2]} D={q.shape[3]} {str(dtype)[6:]} "
+                f"causal={causal}" + (", sample 0 fully masked" if masked else "")
+                + (f" (tp rank 1 of 2, {2 * q.shape[2]} heads)" if tp else ""))
         # delta: both sides sum exact f32 products, in another order
         got_d, want_d = flash_attention_delta(dout, out), _delta(dout, out)
         torch.cuda.synchronize()
@@ -682,13 +751,13 @@ def phase_flash_bwd(state):
         if not ok_d:
             raise AssertionError(f"the delta kernel disagrees with its plain version: {name}")
         if not tp and (B, causal, dtype, masked) == (32, False, bf16, False):
-            state["delta"] = dict(max_abs_err=err_d, ms=d_ms, plain_ms=d_plain,
-                                  bound_ms=d_bound[0], bound_by=d_bound[1],
-                                  library_ms=None)
+            state["delta_h256" if h256 else "delta"] = dict(
+                max_abs_err=err_d, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
+                bound_by=d_bound[1], library_ms=None)
         del got_d, want_d
         if dtype == f32 and not causal:
             _split_row(state, name, q,
-                       not tp and (kid, B, S, masked) == ("K2", 8, 1024, False),
+                       kind == "" and (kid, B, S, masked) == ("K2", 8, 1024, False),
                        flash_attention_split, flash_attention_split_reference)
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
@@ -735,9 +804,11 @@ def phase_flash_bwd(state):
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
         if not tp and (B, causal, dtype, masked) in (
                 (32, False, bf16, False), (16, False, bf16, False), (8, False, f32, False)):
-            # the train shapes ([train], [train_long], [train_f32])
+            # the train shapes ([train], [train_long], [train_f32]; [train_h256]'s)
             keys = (["k2" if dtype == bf16 else "k2_f32"] if kid == "K2"
                     else ["k3a", "k3b"])
+            if h256:
+                keys = ["k2_h256_f32" if key == "k2_f32" else key + "_h256" for key in keys]
             err_of = [max(errs)] if kid == "K2" else [errs[0], max(errs[1:])]
             for key, e, t, (bm, bb), p in zip(keys, err_of, ms, bounds, plain_ms):
                 state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
@@ -881,14 +952,45 @@ def _check_outputs(outs, S):
             raise AssertionError("special id inside a content row")
 
 
+def _encoder_vs_plain(tag, model, rng):
+    """The encoder of a serving model through K1 against the same weights on
+    the plain attention path, on two intros."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartLM
+    from pianobart_tpu_torch.models.pianobart import attention_mask_from_bars
+    cfg = model.cfg
+    plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda").eval()
+    plain.load_state_dict(model.state_dict())
+    ids = torch.as_tensor(np.stack(_intros(2, cfg.max_len, rng)), device="cuda")
+    mask = attention_mask_from_bars(ids)
+    _reset_counts()
+    with torch.inference_mode():
+        e_flash = model.encode(ids, mask).float()
+        launches = _read_counts()["flash_attention_fwd"]
+        e_plain = plain.encode(ids, mask).float()
+    del plain
+    rows = mask.bool()
+    diff = e_flash[rows] - e_plain[rows]
+    err = diff.abs().max().item()
+    rel = (diff.norm() / e_plain[rows].norm()).item()
+    # both paths round to bf16 at different places (scores, P) in each of 8
+    # layers of unit-scale LayerNorm outputs
+    print(f"[{tag}] encoder via K1 ({launches} launches) vs plain attention (bf16, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, non-pad rows): max|d|={err:.3e} "
+          f"(tol 0.5), |d|/|plain|={rel:.3e} (tol 2e-2)")
+    if not (err <= 0.5 and rel <= 2e-2 and torch.isfinite(e_flash).all()
+            and launches == cfg.encoder_layers):
+        raise AssertionError("encoder output through K1 disagrees")
+
+
 def phase_serve(state):
     import numpy as np
     import torch
     from pianobart_tpu_torch import vocab as V
     from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.decode import generate
-    from pianobart_tpu_torch.models import PianoBartConfig, PianoBartLM
-    from pianobart_tpu_torch.models.pianobart import attention_mask_from_bars
+    from pianobart_tpu_torch.models import PianoBartConfig
     from pianobart_tpu_torch.ops.flash import flash_attention_fwd
     from pianobart_tpu_torch.serve.app import GenerationService
 
@@ -906,26 +1008,7 @@ def phase_serve(state):
           f"init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED)
     S = cfg.max_len
-
-    # encoder through K1 vs the same weights on the plain attention path
-    plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda").eval()
-    plain.load_state_dict(model.state_dict())
-    ids = torch.as_tensor(np.stack(_intros(2, S, rng)), device="cuda")
-    mask = attention_mask_from_bars(ids)
-    with torch.inference_mode():
-        e_flash = model.encode(ids, mask).float()
-        e_plain = plain.encode(ids, mask).float()
-    del plain
-    rows = mask.bool()
-    diff = e_flash[rows] - e_plain[rows]
-    err = diff.abs().max().item()
-    rel = (diff.norm() / e_plain[rows].norm()).item()
-    # both paths round to bf16 at different places (scores, P) in each of 8
-    # layers of unit-scale LayerNorm outputs
-    print(f"[serve] encoder via K1 vs plain attention (bf16, non-pad rows): "
-          f"max|d|={err:.3e} (tol 0.5), |d|/|plain|={rel:.3e} (tol 2e-2)")
-    if not (err <= 0.5 and rel <= 2e-2 and torch.isfinite(e_flash).all()):
-        raise AssertionError("encoder output through K1 disagrees")
+    _encoder_vs_plain("serve", model, rng)
 
     svc = GenerationService(model=model, device="cuda", max_batch=8)
     before = flash_attention_fwd.launches
@@ -1358,10 +1441,11 @@ def _flash_vs_plain(tag, cfg, rng, gen, B, expect):
                 f"via {kernels} vs plain attention, dropout off")
 
 
-def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10):
+def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True):
     """``pretrain_step`` at batch B: warm-up, then timed steps with the
     launches of every kernel per step (each as ``expect`` says), ms/step,
-    tokens/s, model-FLOP MFU, peak device memory, and a profiled window."""
+    tokens/s, model-FLOP MFU, peak device memory, and (``profile``) a
+    profiled window."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import init_lm
@@ -1375,7 +1459,8 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10):
     model = init_lm(cfg, seed=SEED, device="cuda", train=True)
     st = create_train_state(model)
     batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
-    print(f"[{tag}] flagship width B={B} S={S} {str(cfg.dtype)[6:]} compute, "
+    print(f"[{tag}] flagship width ({cfg.num_heads} heads of {cfg.head_dim}) B={B} S={S} "
+          f"{str(cfg.dtype)[6:]} compute, "
           f"{str(cfg.param_dtype)[6:]} params, dropout {cfg.dropout}, "
           f"fused_dropout_ln={cfg.fused_dropout_ln}, AdamW lr 2e-5; "
           f"init {time.perf_counter() - t0:.1f} s")
@@ -1416,8 +1501,9 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10):
         raise AssertionError("non-finite loss or grad_norm")
     if any(k != expect for k in per_step):
         raise AssertionError(f"launches per step {per_step}, expected {expect}")
-    _profile_window(tag, f"2 pretrain steps at B={B}",
-                    lambda: [pretrain_step(st, batch, gen) for _ in range(2)], 2)
+    if profile:
+        _profile_window(tag, f"2 pretrain steps at B={B}",
+                        lambda: [pretrain_step(st, batch, gen) for _ in range(2)], 2)
     return state_launches, dict(ms=1e3 * step_s, peak_gib=peak, mfu=mfu,
                                 tokens_s=B * S / step_s)
 
@@ -1614,6 +1700,83 @@ def phase_train_f32(state):
           f"{res['ms']:.1f} vs {base['ms']:.1f} ms/step, {res['tokens_s']:.0f} vs "
           f"{base['tokens_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} vs "
           f"{base['peak_gib']:.2f} GiB")
+
+
+def phase_train_h256(state):
+    """``--heads 4`` (head width 256, the flagship's H*D = 1024): gradients
+    through K1 and K2 against the plain attention path at B=4 in bf16 and in
+    f32; the timed pretrain steps at B=32 (bf16 compute, f32 parameters,
+    dropout 0.1: K1, delta, K2 24 each), at ``max_len=2048``, B=16 (K1,
+    delta, K3a, K3b 24 each) and in f32 at B=2 (K1, delta, K2 24 each, no
+    prep: the D=256 f32 kernels split as they load); then the serving path:
+    the encoder via K1 against plain attention and one ``GenerationService``
+    decode batch of two concurrent requests (K1 8 launches)."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.serve.app import GenerationService
+
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, num_heads=4)
+    if cfg.head_dim != 256:
+        raise AssertionError(f"--heads 4 gives head width {cfg.head_dim}")
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k2=n_attn)     # f32 too: no prep at D=256
+    _flash_vs_plain("train_h256", cfg.replace(dropout=0.0), rng, gen, 4, expect)
+    _flash_vs_plain("train_h256", PianoBartConfig(num_heads=4, dropout=0.0), rng, gen, 4,
+                    expect)
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_h256", cfg, 32, rng, gen, expect)
+    state["launches"]["train_h256"] = launches
+    state["train_h256"] = res
+    base = state["train"]
+    print(f"[train_h256] beside [train] of this run (8 heads of 128): {res['ms']:.1f} vs "
+          f"{base['ms']:.1f} ms/step ({100 * (res['ms'] / base['ms'] - 1):+.1f}%), "
+          f"MFU {res['mfu']:.2f} vs {base['mfu']:.2f}%, peak {res['peak_gib']:.2f} vs "
+          f"{base['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h256_long", cfg.replace(max_len=2048), 16, rng, gen,
+                               _counts(k1=n_attn, k3=n_attn), warmup=2, steps=3,
+                               profile=False)
+    state["launches"]["train_h256_long"] = launches
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h256_f32", PianoBartConfig(num_heads=4), 2, rng, gen,
+                               expect, warmup=1, steps=2, profile=False)
+    state["launches"]["train_h256_f32"] = launches
+    torch.cuda.empty_cache()
+
+    # serving a --heads 4 model (bf16 parameters, as GenerationService holds them)
+    scfg = PianoBartConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16, num_heads=4)
+    model = init_lm(scfg, seed=SEED, device="cuda")
+    _encoder_vs_plain("train_h256", model, rng)
+    svc = GenerationService(model=model, device="cuda", max_batch=8)
+    intros = _intros(2, scfg.max_len, rng)
+    results = [None] * len(intros)
+
+    def client(i):
+        results[i] = svc.submit(intros[i], seed=i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(intros))]
+    _reset_counts()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    counts = _read_counts()
+    state["launches"]["serve_h256"] = counts
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise AssertionError("a --heads 4 request was not served")
+    _check_outputs(results, scfg.max_len)
+    batches = svc.batch_sizes_served
+    want = _counts(k1=scfg.encoder_layers * len(batches))
+    print(f"[train_h256] --heads 4 GenerationService: {len(intros)} concurrent requests "
+          f"served as batches {batches}; launches ({COUNT_NAMES}) "
+          f"{tuple(counts.values())}, expected {want}")
+    if tuple(counts.values()) != want:
+        raise AssertionError("K1 did not run 8 times a --heads 4 decode batch")
 
 
 def _meta(save_dir):
@@ -2506,7 +2669,8 @@ def phase_merge(state):
         del card, want
     # TIES's trim thresholds: the k-th smallest |delta| of each model, k =
     # int(0.8 * total), on the card (a sort) against the host (kthvalue); the
-    # card's kthvalue and the host's sort timed for the record
+    # card's kthvalue timed for the record (PR 12 timed the host's sort too:
+    # 30 s, which is why the host keeps kthvalue)
     for n in ("composer", "generation"):
         flat = torch.cat([(trunks[n][k] - trunks["pre"][k]).reshape(-1)
                           for k in trunks["pre"]]).abs()
@@ -2522,16 +2686,10 @@ def phase_merge(state):
         hthr = methods._kth_smallest(hflat, k)
         t_host = time.perf_counter() - t0
         equal = thr.item() == np.float32(hthr.item()) == kth[0].item()
-        host_sort = ""
-        if n == "composer":      # why the host keeps kthvalue: a sort for the record
-            t0 = time.perf_counter()
-            equal = equal and torch.sort(hflat).values[k - 1].item() == hthr.item()
-            host_sort = (f"; a sort {1e3 * (time.perf_counter() - t0):.0f} ms, "
-                         f"{torch.get_num_threads()} threads")
         print(f"[merge] TIES threshold of {n} over {flat.numel()} entries: card "
               f"{thr.item():.9e} (by a sort {t_thr:.1f} ms; kthvalue {t_kth:.1f} ms; CUDA "
-              f"events), host float64 {hthr.item():.12e} (kthvalue {1e3 * t_host:.0f} ms"
-              f"{host_sort}); equal: {equal}")
+              f"events), host float64 {hthr.item():.12e} (kthvalue {1e3 * t_host:.0f} "
+              f"ms); equal: {equal}")
         if not equal:
             raise AssertionError("TIES thresholds differ between the card and the host")
         del flat, hflat
@@ -2680,8 +2838,10 @@ def phase_merge(state):
 # ---------------------------------------------------------------------------
 
 # the flagship mesh steps of [parallel]: (dp, tp, sp), S; B=2
-PARALLEL_STEPS = (((2, 1, 1), 2048), ((1, 1, 2), 2048), ((2, 1, 2), 2048),
-                  ((1, 2, 2), 2048), ((1, 1, 2), 4096))
+# (mesh, S, heads): the flagship's 8 heads of 128, and --heads 4 (head
+# width 256) at 1x1x2
+PARALLEL_STEPS = (((2, 1, 1), 2048, 8), ((1, 1, 2), 2048, 8), ((2, 1, 2), 2048, 8),
+                  ((1, 2, 2), 2048, 8), ((1, 1, 2), 4096, 8), ((1, 1, 2), 2048, 4))
 
 
 def _mesh_cfg(cfg, shape):
@@ -2708,17 +2868,16 @@ def _mesh_step_counts(shape, S, sp_index, n_layers=8, f32=False):
     return (blocks, k2, k3, k3, 3 * n_layers, split, 0, 0, 0, 0)
 
 
-def _ring_case(mesh, S, dtype, causal, B=4):
-    """``ring_attention`` over the sp axis of ``mesh`` at (B, S, H=8,
-    D=128) against the plain ring and against dense ``flash_attention`` on
-    the card, output and q/k/v gradients; sample 1 ends in S/8 pad rows,
-    sample 3 in 3S/8 (at sp=4 its whole last shard).  Returns this rank's
-    errors and times."""
+def _ring_case(mesh, S, dtype, causal, B=4, H=8, D=128):
+    """``ring_attention`` over the sp axis of ``mesh`` at (B, S, H, D)
+    against the plain ring and against dense ``flash_attention`` on the
+    card, output and q/k/v gradients; sample 1 ends in S/8 pad rows, sample
+    3 in 3S/8 (at sp=4 its whole last shard).  Returns this rank's errors
+    and times."""
     import torch
     from pianobart_tpu_torch.ops.flash import flash_attention
     from pianobart_tpu_torch.ops.ring import ring_attention, ring_attention_reference
     ax = mesh.axis("sp")
-    H, D = 8, 128
     g = torch.Generator(device="cuda").manual_seed(SEED + S)
     q, k, v, dout = (torch.randn(B, S, H, D, device="cuda", generator=g)
                      for _ in range(4))
@@ -2755,8 +2914,8 @@ def _ring_case(mesh, S, dtype, causal, B=4):
                  else (1e-4 * f, 1e-4 * f, 2e-5 * f))
     e_plain, r_plain, ok_plain = _bwd_errors(out["kernels"][0], out["plain"][0], tol_plain)
     e_dense, r_dense, ok_dense = _bwd_errors(out["kernels"][0], dense, tol_dense)
-    return {"sp": mesh.shape["sp"], "B": B, "S": S, "dtype": str(dtype)[6:],
-            "causal": causal,
+    return {"sp": mesh.shape["sp"], "B": B, "S": S, "H": H, "D": D,
+            "dtype": str(dtype)[6:], "causal": causal,
             "err_plain": e_plain, "rel_plain": r_plain, "ok_plain": ok_plain,
             "err_dense": e_dense, "rel_dense": r_dense, "ok_dense": ok_dense,
             "tol_plain": tol_plain, "tol_dense": tol_dense,
@@ -2776,11 +2935,12 @@ def _rel_groups(got, want):
 
 def _parallel_rank(rank, world, out_dir):
     """One of [parallel]'s four ranks, all on cuda:0 over gloo: the ring
-    checks at sp = 2 (a 2x1x2 mesh: two rings) and 4, then the flagship
-    mesh steps of ``PARALLEL_STEPS`` (rank 0 also runs the dense step on
-    the same weights and corruption, once per S, and holds each mesh's loss
-    and clipped gradients against it), each step's launches counted from 0 on this
-    rank, its seconds and peak memory."""
+    checks at sp = 2 (a 2x1x2 mesh: two rings; also at head width 256, bf16)
+    and 4, then the flagship mesh steps of ``PARALLEL_STEPS`` (rank 0 also
+    runs the dense step on the same weights and corruption, once per S and
+    head count, and holds each mesh's loss and clipped gradients against
+    it), one step each, its launches counted from 0 on this rank, its
+    seconds and peak memory."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import init_lm
@@ -2803,61 +2963,63 @@ def _parallel_rank(rank, world, out_dir):
             for dtype in (torch.bfloat16, torch.float32):
                 for causal in (False, True):
                     res["ring"].append(_ring_case(mesh, S, dtype, causal))
+        if sp == 2:      # --heads 4: K1 and K2 at D=256 on shards of 1024
+            for causal in (False, True):
+                res["ring"].append(_ring_case(mesh, 2048, torch.bfloat16, causal, **H256))
     torch.cuda.empty_cache()
     cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0, max_len=4096)
     sd = init_lm(cfg0, seed=SEED, device=dev, train=True).state_dict()
-    totals, dense_by_S = {}, {}
-    for shape, S in PARALLEL_STEPS:
+    totals, dense_by = {}, {}
+    for shape, S, heads in PARALLEL_STEPS:
         mesh = make_mesh(*shape, device=dev)
         if mesh is None:                    # ranks outside a 2-rank mesh
             continue
-        cfg = _mesh_cfg(cfg0, shape)
+        # --heads 4 has the flagship's parameter shapes: the same weights
+        base = cfg0.replace(num_heads=heads)
+        cfg = _mesh_cfg(base, shape)
         batch = torch.as_tensor(_pretrain_batch(2, S, np.random.default_rng(SEED + S)),
                                 device=dev)
-        rec = {"shape": shape, "S": S, "coords": mesh.coords}
-        if rank == 0 and S not in dense_by_S:
-            # the dense step on the same weights and corruption, once per S
-            dense = PianoBartLM(cfg0, device=dev).train()
+        rec = {"shape": shape, "S": S, "heads": heads, "coords": mesh.coords}
+        if rank == 0 and (S, heads) not in dense_by:
+            # the dense step on the same weights and corruption, once per S and heads
+            dense = PianoBartLM(base, device=dev).train()
             dense.load_state_dict(sd)
             dstate = create_train_state(dense)
             gen = torch.Generator(device=dev).manual_seed(SEED)
             corrupted, loss_mask = corrupt_batch(batch, gen)
             m = _update(dstate, batch, corrupted, loss_mask, gen)
-            dense_by_S[S] = ({n: p.grad.detach().clone() for n, p in dense.named_parameters()},
-                             (m["loss"].item(), m["grad_norm"].item()))
+            dense_by[S, heads] = (
+                {n: p.grad.detach().clone() for n, p in dense.named_parameters()},
+                (m["loss"].item(), m["grad_norm"].item()))
             del dense, dstate
         if rank == 0:
-            want, rec["dense"] = dense_by_S[S]
+            want, rec["dense"] = dense_by[S, heads]
         model = PianoBartLM(cfg, device=dev).train()
         model.load_state_dict(sd)
         st = create_train_state(model)
         step = make_sp_pretrain_step(cfg, mesh)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i in range(2):
-            _reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, m = step(st, batch, torch.Generator(device=dev).manual_seed(SEED))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            counts = _read_counts()
-            for kname, n in counts.items():
-                totals[kname] = totals.get(kname, 0) + n
-            if i == 0:
-                rec["counts"] = tuple(counts.values())
-                rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
-                got = {n: p.grad.detach() for n, p in model.named_parameters()}
-                rec["grad_sq"] = sum(float(g.double().square().sum()) for g in got.values())
-                if rank == 0:
-                    rec["rel"] = _rel_groups(got, want)
-        rec["s_per_step"] = times
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(st, batch, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        rec["s_per_step"] = [time.perf_counter() - t0]
+        counts = _read_counts()
+        for kname, n in counts.items():
+            totals[kname] = totals.get(kname, 0) + n
+        rec["counts"] = tuple(counts.values())
+        rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
+        got = {n: p.grad.detach() for n, p in model.named_parameters()}
+        rec["grad_sq"] = sum(float(g.double().square().sum()) for g in got.values())
+        if rank == 0:
+            rec["rel"] = _rel_groups(got, want)
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res["steps"].append(rec)
         del model, st, step, got
         torch.cuda.empty_cache()
-    del dense_by_S
+    del dense_by
     res["launches"] = totals
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
@@ -2979,8 +3141,8 @@ def _ring_report(tag, ranks):
         r_p = [max(x["rel_plain"]) for x in rows]
         r_d = [max(x["rel_dense"]) for x in rows]
         ok = all(x["ok_plain"] and x["ok_dense"] for x in rows)
-        name = (f"sp={case['sp']} B={case['B']} S={case['S']} {case['dtype']}"
-                f"{' causal' if case['causal'] else ''}")
+        name = (f"sp={case['sp']} B={case['B']} S={case['S']} H={case['H']} "
+                f"D={case['D']} {case['dtype']}{' causal' if case['causal'] else ''}")
         print(f"[{tag}] ring {name}: vs plain ring max|d| {max(e_p):.3e} ||d||/||ref|| "
               f"{max(r_p):.3e} (tol {case['tol_plain']}); vs dense flash_attention max|d| "
               f"{max(e_d):.3e} ||d||/||ref|| {max(r_d):.3e} (tol {case['tol_dense']}); "
@@ -3020,8 +3182,9 @@ def phase_parallel(state):
     failed = _ring_report("parallel", ranks)
     for step in ranks[0]["steps"]:
         dp, tp, sp = step["shape"]
-        rows = _step_rows(ranks, step, ("shape", "S"))
-        name = f"{dp}x{tp}x{sp} S={step['S']} B=2"
+        rows = _step_rows(ranks, step, ("shape", "S", "heads"))
+        name = (f"{dp}x{tp}x{sp} S={step['S']} B=2"
+                + (f" --heads {step['heads']}" if step["heads"] != 8 else ""))
         dloss, dnorm = step["dense"]
         rel = step["rel"]
         counts = [r["counts"] for r in rows]
@@ -3463,6 +3626,22 @@ KERNEL_RECORDS = (
     # cast its f32 operands for single bf16 passes)
     ("tf32_split", "split", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
      "flash_attention_split", "train_f32"),
+    # head width 256 (--heads 4): the same entries' D=256 kernels, on
+    # [train_h256]'s paths (the f32 ones split as they load: no prep there)
+    ("flash_fwd_h256", "k1_h256", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h256"),
+    ("flash_bwd_h256", "k2_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h256"),
+    ("flash_dq_h256", "k3a_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:276",
+     "flash_attention_dq", "train_h256_long"),
+    ("flash_dkv_h256", "k3b_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
+     "flash_attention_dkv", "train_h256_long"),
+    ("flash_delta_h256", "delta_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
+     "flash_attention_delta", "train_h256"),
+    ("flash_fwd_h256_f32", "k1_h256_f32", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h256_f32"),
+    ("flash_bwd_h256_f32", "k2_h256_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h256_f32"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",
@@ -3492,6 +3671,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("serve_http", phase_serve_http),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
+          ("train_h256", phase_train_h256),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
           ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
           ("parallel", phase_parallel), ("finetune_mesh", phase_finetune_mesh))

@@ -2,6 +2,11 @@
 // backward (flash_bwd.cu) and lab (flash_lab.cu) kernels: constants, bf16
 // packing, accumulators as A fragments, exp2.
 //
+// Head widths: the kernels take D = 128 and D = 256.  Each kernel has its
+// width as a template parameter or a constant of its own design (the
+// shared-memory layouts and accumulator sizes follow from it); the C
+// entries take D at run time and pick the instance.
+//
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
 // from registers:
@@ -15,7 +20,6 @@
 
 namespace pbt {
 
-constexpr int HEAD_DIM = 128;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -31,6 +35,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// The n-th 128-column half of a 64-row wgmma accumulator of N/2 columns
+// (d[4j + e] holds column 8j + 2t + (e & 1), so each 128 columns are a
+// contiguous run of 64): the accumulator of one m64n128 product of a
+// 256-wide result.
+template <int N>
+__device__ __forceinline__ float (&acc_half(float (&acc)[N], int n))[64] {
+  return *reinterpret_cast<float(*)[64]>(acc + 64 * n);
 }
 
 // 2^x by the special-function unit (ex2.approx, flush-to-zero): the

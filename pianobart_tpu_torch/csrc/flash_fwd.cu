@@ -1,9 +1,10 @@
 // Flash attention forward for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
 // Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:_fwd_kernel
-// (launched by _fwd). Same contract:
-//   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32:
-//             by the prep); q is already scaled by D**-0.5 by the caller.
+// (launched by _fwd). Same contract, at head width D = 128 or 256:
+//   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32 at
+//             D = 128: by the prep); q is already scaled by D**-0.5 by the
+//             caller.
 //   kv_mask   (B, Skv) int32, nonzero = attend.  causal: keep row >= col.
 //   o         (B, Sq, H, D) contiguous, input dtype.
 //   lse       (B, H, Sq) f32 row logsumexp (natural log).
@@ -38,8 +39,25 @@
 // a tile run one after the other in each of the two consumer warpgroups.
 // Bound: 3 x 4*B*H*Sq*Skv*D FLOPs at 495 TFLOP/s tf32 (0.047 ms at B=2,
 // S=1024, H=8 with the smoke run's pad tail).
+//
+// At D = 256 the bf16 kernel is the same template's instance <false,
+// false, 256> (flash_fwd_bf16.cuh: kv tiles of 64 rows in 2 stages).  The
+// f32 layout above does not fit there (Q's two planes alone would take
+// 256 KB), so f32 at D = 256 is a simpler kernel at the same accuracy,
+// flash_fwd_d256_mma_kernel: 3xTF32 by mma.sync m16n8k8, the pre-Hopper
+// tensor-core product, with no prep.  One CTA of 8 warps per (128 q rows,
+// head, batch), each warp 16 rows; the CTA copies Q (128 x 256 f32) once and
+// K and V 32 rows at a time into shared memory (rows padded to 260 floats,
+// so every fragment load is free of bank conflicts), and each warp splits
+// its fragments into tf32 hi and lo as it loads them, runs S = Q K^T
+// (16 x 32, 32 k8 steps) and O += P V (16 x 256, 4 k8 steps, P split from
+// its accumulators) as three mma each, hi.hi' + hi.lo' + lo.hi', every k8
+// step's three into a zeroed partial added to the sum in f32.  The online
+// softmax is K1's.  Simple before fast: one buffer, loads by the threads,
+// a barrier a tile; 8 warps an SM (200 KB of shared memory a CTA).
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
+#include "flash_mma_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -47,9 +65,10 @@ namespace {
 using namespace pbt;
 
 // ----------------------------------------------------- f32 / 3xTF32 wgmma
+constexpr int F_D = 128;                 // the head width of this design
 constexpr int F_BN = 64;                 // kv rows per tile
 constexpr int F_SLOTS = 3;               // ring of plane tiles
-constexpr int F_PLANE = F_BN * 4 * HEAD_DIM;   // 64 rows x 128 f32 (or 128 x 64): 32 KB
+constexpr int F_PLANE = F_BN * 4 * F_D;  // 64 rows x 128 f32 (or 128 x 64): 32 KB
 
 // Shared memory, in bytes from a 1024-aligned base.  Q's hi and lo planes
 // (4 boxes of 128 rows each), then the ring: per kv tile four planes go
@@ -57,23 +76,23 @@ constexpr int F_PLANE = F_BN * 4 * HEAD_DIM;   // 64 rows x 128 f32 (or 128 x 64
 // (2 boxes of 128 d rows); the kv mask rides with K hi.
 struct K1F32Smem {
   static constexpr int QHI = 0;
-  static constexpr int QLO = QHI + K1_BM * 4 * HEAD_DIM;
-  static constexpr int SLOT = QLO + K1_BM * 4 * HEAD_DIM;
+  static constexpr int QLO = QHI + K1_BM * 4 * F_D;
+  static constexpr int SLOT = QLO + K1_BM * 4 * F_D;
   static constexpr int MASK = SLOT + F_SLOTS * F_PLANE;         // per slot F_BN int32
   static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;         // Q, full[S], free[S]
   static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS) * 8 + 1024;
 };
 
 // Masks (the causal one, DIAG, only where the diagonal crosses the
-// warpgroup's rows; mk the tile's F_BN mask entries), then the
-// online-softmax update of rows `row` and `row + 8` as in softmax_tile.
-template <bool DIAG>
-__device__ __forceinline__ void softmax_tile_f32(float (&sc)[F_BN / 2], const int* mk,
+// rows; mk the tile's BN mask entries), then the online-softmax update of
+// rows `row` and `row + 8` as in softmax_tile.
+template <bool DIAG, int BN>
+__device__ __forceinline__ void softmax_tile_f32(float (&sc)[BN / 2], const int* mk,
                                                  float (&m_i)[2], float (&l_i)[2],
                                                  float (&corr)[2], int row, int kv0, int t) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int nt = 0; nt < F_BN / 8; ++nt) {
+  for (int nt = 0; nt < BN / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
     const int2 keep = *reinterpret_cast<const int2*>(mk + c);
 #pragma unroll
@@ -97,7 +116,7 @@ __device__ __forceinline__ void softmax_tile_f32(float (&sc)[F_BN / 2], const in
     l_i[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < F_BN / 2; ++i) {
+  for (int i = 0; i < BN / 2; ++i) {
     sc[i] = exp2_approx(fmaf(sc[i], cl[(i >> 1) & 1], -ml[(i >> 1) & 1]));
     l_i[(i >> 1) & 1] += sc[i];
   }
@@ -146,7 +165,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // ---- producer warpgroup: one thread keeps the ring full
     setmaxnreg_dec<24>();
     if (threadIdx.x == 128 * NWG) {
-      mbar_arrive_expect_tx(bar_q, 2 * BM * 4 * HEAD_DIM);
+      mbar_arrive_expect_tx(bar_q, 2 * BM * 4 * F_D);
       for (int pl = 0; pl < 2; ++pl)
         for (int x = 0; x < 4; ++x)
           tma_load_4d(sm + (pl ? L::QLO : L::QHI) + x * BM * ROW, &tq, bar_q, FBOX * x, q0,
@@ -163,7 +182,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         } else {                                         // V^T hi or lo: 2 boxes of 128 rows
           mbar_arrive_expect_tx(bar_full + s, F_PLANE);
           for (int x = 0; x < 2; ++x)
-            tma_load_4d(dst + x * HEAD_DIM * ROW, &tv, bar_full + s, kv0 + FBOX * x, 0, bh,
+            tma_load_4d(dst + x * F_D * ROW, &tv, bar_full + s, kv0 + FBOX * x, 0, bh,
                         kind - 2);
         }
       }
@@ -183,9 +202,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     auto wait_plane = [&](int p) { mbar_wait(bar_full + p % NS, (p / NS) & 1); };
     auto release = [&](int p) { if (lane == 0) mbar_arrive(bar_free + p % NS); };
 
-    float acc[HEAD_DIM / 2];                         // O, 64 rows x 128 per warpgroup
+    float acc[F_D / 2];                              // O, 64 rows x 128 per warpgroup
 #pragma unroll
-    for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < F_D / 2; ++i) acc[i] = 0.f;
     float m_i[2] = {NEG_INF, NEG_INF};               // score domain
     float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
     float sc[BN / 2], corr[2];
@@ -202,14 +221,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       // the small terms first, while the accumulator is small: the tensor
       // cores round each step toward zero, by up to an ulp of the sum
 #pragma unroll
-      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+      for (int kk = 0; kk < F_D / 8; ++kk) {
         const uint32_t qo = ((kk / 4) * BM * ROW + (kk % 4) * 32) / 16;
         const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
         wgmma_ss_tf32_n64(sc, dqh + qo, dkl + ko, kk > 0);
         wgmma_ss_tf32_n64(sc, dql + qo, dkh + ko, 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+      for (int kk = 0; kk < F_D / 8; ++kk) {
         const uint32_t qo = ((kk / 4) * BM * ROW + (kk % 4) * 32) / 16;
         const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
         wgmma_ss_tf32_n64(sc, dqh + qo, dkh + ko, 1);
@@ -219,14 +238,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
       const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);
       if (causal && kv0 + BN - 1 > wrow0)
-        softmax_tile_f32<true>(sc, mk, m_i, l_i, corr, row, kv0, t);
+        softmax_tile_f32<true, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       else
-        softmax_tile_f32<false>(sc, mk, m_i, l_i, corr, row, kv0, t);
+        softmax_tile_f32<false, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       fence_regs(sc);                                // p computed before the release
       release(p);
       release(p + 1);
 #pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
+      for (int dt = 0; dt < F_D / 8; ++dt) {
         acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
         acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
       }
@@ -241,7 +260,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 8; ++kk) {
-        const uint32_t vo = ((kk / 4) * HEAD_DIM * ROW + (kk % 4) * 32) / 16;
+        const uint32_t vo = ((kk / 4) * F_D * ROW + (kk % 4) * 32) / 16;
         wgmma_rs_tf32_n128(acc, ph[kk], dvh + vo);
         wgmma_rs_tf32_n128(acc, ph[kk], dvl + vo);
         wgmma_rs_tf32_n128(acc, pl[kk], dvh + vo);
@@ -266,10 +285,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      float* orow = o + (((long long)b * Sq + rr) * H + h) * HEAD_DIM;
+      float* orow = o + (((long long)b * Sq + rr) * H + h) * F_D;
       const float inv = 1.f / l_i[r];
 #pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
+      for (int dt = 0; dt < F_D / 8; ++dt)
         *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
             make_float2(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
       if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
@@ -277,37 +296,138 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------- f32 at D = 256 / 3xTF32 mma.sync
+constexpr int M_WARPS = 8;               // 16 q rows each
+constexpr int M_BM = 16 * M_WARPS;       // q rows per CTA
+constexpr int M_BN = 32;                 // kv rows per tile
+constexpr int M_SMEM = (M_BM + 2 * M_BN) * M_LD * 4 + M_BN * 4;
+
+// The f32 forward at D = 256 (see the header): q, k, v read through their
+// strides, o (B, Sq, H, 256) f32 contiguous, lse (B, H, Sq).
+__global__ void __launch_bounds__(32 * M_WARPS, 1)
+flash_fwd_d256_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ mask,
+                          float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
+                          int H, int causal, long long qsb, long long qss, long long qsh,
+                          long long ksb, long long kss, long long ksh, long long vsb,
+                          long long vss, long long vsh) {
+  extern __shared__ float4 smem_f4[];
+  float* sq = reinterpret_cast<float*>(smem_f4);
+  float* sk = sq + M_BM * M_LD;
+  float* sv = sk + M_BN * M_LD;
+  int* smk = reinterpret_cast<int*>(sv + M_BN * M_LD);
+  const int q0 = blockIdx.x * M_BM, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;                       // the warp's rows in the tile
+  const int row = q0 + wr + g;                    // this thread's rows: row, row + 8
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+  load_rows_f32(sq, q + b * qsb + h * qsh, qss, q0, M_BM, Sq, 32 * M_WARPS);
+
+  float acc[M_D / 8][4];                          // O: 16 rows x 256 a warp
+#pragma unroll
+  for (int i = 0; i < M_D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF};
+  float l_i[2] = {0.f, 0.f};
+  int n_tiles = Skv / M_BN;
+  if (causal) n_tiles = min(n_tiles, (q0 + M_BM - 1) / M_BN + 1);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * M_BN;
+    __syncthreads();                              // the last tile's reads are done
+    load_rows_f32(sk, kb, kss, kv0, M_BN, Skv, 32 * M_WARPS);
+    load_rows_f32(sv, vb, vss, kv0, M_BN, Skv, 32 * M_WARPS);
+    if (threadIdx.x < M_BN) smk[threadIdx.x] = mask[(long long)b * Skv + kv0 + threadIdx.x];
+    __syncthreads();
+    float sc[M_BN / 8][4];                        // S: 16 x 32 a warp
+#pragma unroll
+    for (int i = 0; i < M_BN / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < M_D / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      a_frag_3x(ah, al, sq + (wr + g) * M_LD + kk * 8 + t);
+      mma_abt(sc, ah, al, sk + g * M_LD + kk * 8 + t);
+    }
+    float(&s)[M_BN / 2] = *reinterpret_cast<float(*)[M_BN / 2]>(&sc[0][0]);
+    float corr[2];
+    if (causal && kv0 + M_BN - 1 > q0 + wr)
+      softmax_tile_f32<true, M_BN>(s, smk, m_i, l_i, corr, row, kv0, t);
+    else
+      softmax_tile_f32<false, M_BN>(s, smk, m_i, l_i, corr, row, kv0, t);
+#pragma unroll
+    for (int nt = 0; nt < M_D / 8; ++nt) {
+      acc[nt][0] *= corr[0]; acc[nt][1] *= corr[0];
+      acc[nt][2] *= corr[1]; acc[nt][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < M_BN / 8; ++kk)      // O += P V, P split a slice at a time
+      mma_acc_b(acc, sc[kk], sv + (kk * 8 + 2 * t) * M_LD + g);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    if (l_i[r] == 0.f) l_i[r] = 1.f;   // l_safe
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= Sq) continue;
+    float* orow = o + (((long long)b * Sq + rr) * H + h) * M_D;
+    const float inv = 1.f / l_i[r];
+#pragma unroll
+    for (int nt = 0; nt < M_D / 8; ++nt)
+      *reinterpret_cast<float2*>(orow + nt * 8 + 2 * t) =
+          make_float2(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
+    if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bf16: q, k, v (B, S, H, 128) at
-// element strides for the (B, S, H) axes (the D axis contiguous).  f32: q
-// and k are the natural split planes of pbt_tf32_split (flash_bwd.cu) and v
-// its transposed planes; the strides are not read.  Returns
-// cudaGetLastError(), or 1000 + the CUresult of a tensor map the driver
-// refused (1000 alone where the driver offers no encoder).
+// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16, and f32 at
+// D = 256: q, k, v (B, S, H, D) at element strides for the (B, S, H) axes
+// (the D axis contiguous).  f32 at D = 128: q and k are the natural split
+// planes of pbt_tf32_split (flash_bwd.cu) and v its transposed planes; the
+// strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
+// a tensor map the driver refused (1000 alone where the driver offers no
+// encoder), or cudaErrorInvalidValue for another D.
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse,
-                             int B, int Sq, int Skv, int H, int dtype, int causal,
+                             int B, int Sq, int Skv, int H, int D, int dtype, int causal,
                              long long qsb, long long qss, long long qsh,
                              long long ksb, long long kss, long long ksh,
                              long long vsb, long long vss, long long vsh,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == M_D) {
+    cudaFuncSetAttribute(flash_fwd_d256_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         M_SMEM);
+    dim3 grid((Sq + M_BM - 1) / M_BM, H, B);
+    flash_fwd_d256_mma_kernel<<<grid, 32 * M_WARPS, M_SMEM, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (float*)o,
+        (float*)lse, Sq, Skv, H, causal, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
+    return (int)cudaGetLastError();
+  }
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
   CUtensorMap tq, tk, tv, tm;
   if (dtype == 1) {
-    CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
-    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
-    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
-    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, K1_BN);
+    const int bn = D == 128 ? K1Tiles<128>::BN : K1Tiles<256>::BN;
+    CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM, D);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, bn, D);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, bn, D);
+    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, bn);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
-    return launch_fwd_bf16<false, false>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
-                                         K1_UNITS, st);
+    if (D == 256)
+      return launch_fwd_bf16<false, false, 256>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
+                                                K1_UNITS, st);
+    return launch_fwd_bf16<false, false, 128>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
+                                              K1_UNITS, st);
   } else {
-    CUresult r = plane_map(enc, &tq, q, B * H, Sq, HEAD_DIM, K1_BM);
-    if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, HEAD_DIM, F_BN);
-    if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, B * H, HEAD_DIM, Skv, HEAD_DIM);
+    CUresult r = plane_map(enc, &tq, q, B * H, Sq, F_D, K1_BM);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, F_D, F_BN);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, B * H, F_D, Skv, F_D);
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, F_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     cudaFuncSetAttribute(flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,11 +1,12 @@
 // K1's bf16 flash forward for Hopper (sm_90a) as one kernel template,
-// flash_fwd_wgmma_kernel<KT, SPLIT_P>: K1 itself (flash_fwd.cu) is
-// <false, false>, and the kernel lab (flash_lab.cu) changes one option of it
-// at a time, so that the lab measures the option and nothing else.
+// flash_fwd_wgmma_kernel<KT, SPLIT_P, D>: K1 itself (flash_fwd.cu) is
+// <false, false, D> at head width D = 128 or 256, and the kernel lab
+// (flash_lab.cu) changes one option of the D = 128 instance at a time, so
+// that the lab measures the option and nothing else.
 //
-// Contract (K1's): q, k, v (B, S, H, 128) bf16 through their strides, q
+// Contract (K1's): q, k, v (B, S, H, D) bf16 through their strides, q
 // pre-scaled by the caller; kv_mask (B, Skv) int32, nonzero = attend; causal
-// keeps row >= col; o (B, Sq, H, 128) bf16 contiguous; lse (B, H, Sq) f32.
+// keeps row >= col; o (B, Sq, H, D) bf16 contiguous; lse (B, H, Sq) f32.
 // Masked scores are the finite -1e30 (not -inf), so fully masked rows stay
 // finite; l == 0 is guarded (l_safe).
 //
@@ -28,6 +29,15 @@
 // Keys past Skv in a ragged last tile arrive as TMA's zeros and take p = 0;
 // rows past Sq are not stored.  No atomics: the same inputs give the same
 // bits.
+//
+// At D = 256 (K1Tiles<256>) the same schedule runs on kv tiles of 64 rows
+// in 2 stages: Q (128 x 256) is 64 KB and a stage of K and V 64 KB, 193 KB
+// in all, where the D = 128 layout (3 stages of 128 kv rows) would take
+// 448 KB.  Each 256-wide row is four 64-column boxes.  S = Q K^T is wgmma
+// m64n64k16 over 16 k16 steps; O += P V is two m64n128k16 products a k16
+// step, one for each half of the head, into the two halves of the
+// accumulator (128 f32 a consumer thread for O, 32 for S, 16 for P's
+// fragments, within setmaxnreg's 240).
 //
 // The template's options (the TPU lab's, scripts/kernel_lab.py):
 //   KT       K arrives as K^T, (B, H*128, Skv) with Skv contiguous (the
@@ -78,20 +88,28 @@ namespace pbt {
 
 constexpr int K1_WG = 2;                // consumer warpgroups, 64 q rows each
 constexpr int K1_BM = 64 * K1_WG;
-constexpr int K1_BN = 128;              // kv rows per stage
-constexpr int K1_STAGES = 3;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LOG2E_BF16 = 1.4453125f;   // bf16(log2 e)
 
+// kv rows per stage and stages at head width D
+template <int D>
+struct K1Tiles {
+  static_assert(D == 128 || D == 256, "K1 takes head widths 128 and 256");
+  static constexpr int BN = D == 128 ? 128 : 64;
+  static constexpr int STAGES = D == 128 ? 3 : 2;
+};
+constexpr int K1_BN = K1Tiles<128>::BN;   // the lab's (D = 128) kv rows per stage
+
 // Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
+template <int D>
 struct K1Smem {
-  static constexpr int BM = K1_BM;
-  static constexpr int Q = 0;                                   // 2 boxes of BM rows
-  static constexpr int K = Q + BM * 2 * HEAD_DIM;               // per stage 2 boxes of BN rows
-  static constexpr int V = K + K1_STAGES * K1_BN * 2 * HEAD_DIM;
-  static constexpr int MASK = V + K1_STAGES * K1_BN * 2 * HEAD_DIM;  // per stage BN int32
-  static constexpr int BAR = MASK + K1_STAGES * K1_BN * 4;      // Q, K[S], V[S], free[S]
-  static constexpr int ALLOC = BAR + (1 + 3 * K1_STAGES) * 8 + 1024;
+  static constexpr int BM = K1_BM, BN = K1Tiles<D>::BN, NS = K1Tiles<D>::STAGES;
+  static constexpr int Q = 0;                                   // D/64 boxes of BM rows
+  static constexpr int K = Q + BM * 2 * D;                      // per stage D/64 boxes of BN rows
+  static constexpr int V = K + NS * BN * 2 * D;
+  static constexpr int MASK = V + NS * BN * 2 * D;              // per stage BN int32
+  static constexpr int BAR = MASK + NS * BN * 4;                // Q, K[S], V[S], free[S]
+  static constexpr int ALLOC = BAR + (1 + 3 * NS) * 8 + 1024;
 };
 
 // The run-time options of the lab's instances (see the header); K1's
@@ -104,43 +122,55 @@ struct SoftmaxUnits {
 constexpr SoftmaxUnits K1_UNITS = {LOG2E, 0, 0};
 
 // P's A fragments: hi = bf16(p) always, lo = bf16(p - hi) under SPLIT_P
-template <bool SPLIT_P>
+template <bool SPLIT_P, int BN>
 struct PFrags {
-  uint32_t hi[K1_BN / 16][4];
-  uint32_t lo[SPLIT_P ? K1_BN / 16 : 1][4];
+  uint32_t hi[BN / 16][4];
+  uint32_t lo[SPLIT_P ? BN / 16 : 1][4];
 };
 
-// S = Q K^T for one kv tile: 8 k16 steps over the head dim, issued and
+// S = Q K^T for one kv tile: D/16 k16 steps over the head dim, issued and
 // committed, not waited for.  K: K-major, 4 steps in each 64-column box; K^T
-// (KT): MN-major, 16 d rows a step.
-template <bool KT>
-__device__ __forceinline__ void issue_qk(float (&sc)[K1_BN / 2], uint64_t dq,
+// (KT, D = 128 only): MN-major, 16 d rows a step.  A tile of 128 kv rows is
+// one m64n128k16 a step, of 64 rows one m64n64k16.
+template <bool KT, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[K1Tiles<D>::BN / 2], uint64_t dq,
                                          const unsigned char* kt) {
-  const uint64_t dk = smem_desc_sw128(kt, KT ? HEAD_DIM * ROW : 16);
+  constexpr int BN = K1Tiles<D>::BN;
+  static_assert(!KT || D == 128, "K^T tiles are the lab's, at D = 128");
+  const uint64_t dk = smem_desc_sw128(kt, KT ? D * ROW : 16);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HEAD_DIM / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t da = dq + ((kk / 4) * K1_BM * ROW + (kk % 4) * 32) / 16;
     if constexpr (KT)
       wgmma_ss_n128_tb(sc, da, dk + kk * 16 * ROW / 16, kk > 0);
+    else if constexpr (BN == 128)
+      wgmma_ss_n128(sc, da, dk + ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16, kk > 0);
     else
-      wgmma_ss_n128(sc, da, dk + ((kk / 4) * K1_BN * ROW + (kk % 4) * 32) / 16, kk > 0);
+      wgmma_ss_n64(sc, da, dk + ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16, kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P V for one kv tile (hi, then lo under SPLIT_P, at each k16 step);
-// V's tile is MN-major for this product (d along its rows); issued and
-// committed, not waited for
-template <bool SPLIT_P>
-__device__ __forceinline__ void issue_pv(float (&acc)[HEAD_DIM / 2], const PFrags<SPLIT_P>& p,
+// V's tile is MN-major for this product (d along its rows), one m64n128k16
+// for each 128 columns of the head (its two boxes: LBO to the next box);
+// issued and committed, not waited for
+template <bool SPLIT_P, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const PFrags<SPLIT_P, K1Tiles<D>::BN>& p,
                                          const unsigned char* vt) {
-  const uint64_t dv = smem_desc_sw128(vt, K1_BN * ROW);
+  constexpr int BN = K1Tiles<D>::BN;
+  const uint64_t dv = smem_desc_sw128(vt, BN * ROW);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < K1_BN / 16; ++kk) {
-    wgmma_rs_n128_tb(acc, p.hi[kk], dv + kk * 16 * ROW / 16);
-    if constexpr (SPLIT_P) wgmma_rs_n128_tb(acc, p.lo[kk], dv + kk * 16 * ROW / 16);
+  for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < D / 128; ++n) {
+      const uint64_t db = dv + (n * 2 * BN * ROW + kk * 16 * ROW) / 16;
+      wgmma_rs_n128_tb(acc_half(acc, n), p.hi[kk], db);
+      if constexpr (SPLIT_P) wgmma_rs_n128_tb(acc_half(acc, n), p.lo[kk], db);
+    }
   }
   wgmma_commit();
 }
@@ -149,12 +179,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HEAD_DIM / 2], const PFrag
 // warpgroup's rows; selects, no branches), then the online-softmax update
 // of rows `row` and `row + 8`: sc becomes p, and corr the factor for the O
 // accumulated so far.
-template <bool DIAG>
-__device__ __forceinline__ void softmax_tile(float (&sc)[K1_BN / 2], const int* mk,
+template <bool DIAG, int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const int* mk,
                                              float (&m_i)[2], float (&l_i)[2],
                                              float (&corr)[2], int row, int kv0, int Skv,
                                              int t, float c) {
-  constexpr int BN = K1_BN;
   const bool ragged = kv0 + BN > Skv;               // keys past Skv: TMA's zeros
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -204,10 +233,10 @@ __device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x, 
 }
 
 // p as the A fragments of O += P V: rounded to bf16, or split (SPLIT_P)
-template <bool SPLIT_P>
-__device__ __forceinline__ void pack_p(PFrags<SPLIT_P>& p, const float (&sc)[K1_BN / 2]) {
+template <bool SPLIT_P, int BN>
+__device__ __forceinline__ void pack_p(PFrags<SPLIT_P, BN>& p, const float (&sc)[BN / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < K1_BN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     const float* lo = &sc[8 * kk];
     const float* hi = &sc[8 * kk + 4];
     if constexpr (SPLIT_P) {
@@ -222,7 +251,7 @@ __device__ __forceinline__ void pack_p(PFrags<SPLIT_P>& p, const float (&sc)[K1_
 }
 
 // bf16(q * 1.4453125) in place over this warpgroup's 64 rows of both of
-// Q's boxes (16 bytes a thread per step; elementwise, so the swizzle does
+// Q's boxes (the lab's, D = 128) (16 bytes a thread per step; elementwise, so the swizzle does
 // not matter), then visible to wgmma: the async-proxy fence and the
 // warpgroup's 128 threads at named barrier 1 + wg
 __device__ __forceinline__ void scale_q_log2e_bf16(unsigned char* q_tile, int wg, int tid) {
@@ -249,7 +278,7 @@ __device__ __forceinline__ void scale_q_log2e_bf16(unsigned char* q_tile, int wg
     named_barrier_sync<2>(128);
 }
 
-template <bool KT, bool SPLIT_P>
+template <bool KT, bool SPLIT_P, int D>
 __global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -257,9 +286,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tm,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int Sq, int Skv, int H, int causal, SoftmaxUnits u) {
-  using L = K1Smem;
+  using L = K1Smem<D>;
   constexpr int NWG = K1_WG;
-  constexpr int BM = L::BM, BN = K1_BN, NS = K1_STAGES;
+  constexpr int BM = L::BM, BN = L::BN, NS = L::NS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -274,6 +303,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float c = LAB ? u.c : LOG2E;
   const bool lse_log2 = LAB && u.lse_log2;
   const bool q_log2e_bf16 = LAB && u.q_log2e_bf16;
+  static_assert(!LAB || D == 128, "the lab's instances are at D = 128");
   const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int wg = threadIdx.x / 128;
   int n_tiles = (Skv + BN - 1) / BN;
@@ -294,31 +324,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // ---- producer warpgroup: one thread keeps the ring full
     setmaxnreg_dec<24>();
     if (threadIdx.x == 128 * NWG) {
-      mbar_arrive_expect_tx(bar_q, BM * 2 * HEAD_DIM);
-      tma_load_4d(sm + L::Q, &tq, bar_q, 0, h, q0, b);
-      tma_load_4d(sm + L::Q + BM * ROW, &tq, bar_q, BOX, h, q0, b);
+      mbar_arrive_expect_tx(bar_q, BM * 2 * D);
+#pragma unroll
+      for (int x = 0; x < D / BOX; ++x)
+        tma_load_4d(sm + L::Q + x * BM * ROW, &tq, bar_q, x * BOX, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % NS, kv0 = j * BN;
         mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
-        unsigned char* kt = sm + L::K + s * BN * 2 * HEAD_DIM;
-        unsigned char* vt = sm + L::V + s * BN * 2 * HEAD_DIM;
+        unsigned char* kt = sm + L::K + s * BN * 2 * D;
+        unsigned char* vt = sm + L::V + s * BN * 2 * D;
         if constexpr (KT) {
           // K^T: 64 kv columns of the 128 d rows a box.  A box wholly past
           // Skv is not loaded: its columns of S are masked (the mask's zero
           // fill) and take p = 0 whatever they hold.
           const bool second = kv0 + BOX < Skv;
-          mbar_arrive_expect_tx(bar_k + s, (second ? 2 : 1) * HEAD_DIM * ROW + BN * 4);
+          mbar_arrive_expect_tx(bar_k + s, (second ? 2 : 1) * D * ROW + BN * 4);
           tma_load_4d(kt, &tk, bar_k + s, kv0, 0, h, b);
-          if (second) tma_load_4d(kt + HEAD_DIM * ROW, &tk, bar_k + s, kv0 + BOX, 0, h, b);
+          if (second) tma_load_4d(kt + D * ROW, &tk, bar_k + s, kv0 + BOX, 0, h, b);
         } else {                      // K: 64 d columns of the BN kv rows a box
-          mbar_arrive_expect_tx(bar_k + s, BN * 2 * HEAD_DIM + BN * 4);
-          tma_load_4d(kt, &tk, bar_k + s, 0, h, kv0, b);
-          tma_load_4d(kt + BN * ROW, &tk, bar_k + s, BOX, h, kv0, b);
+          mbar_arrive_expect_tx(bar_k + s, BN * 2 * D + BN * 4);
+#pragma unroll
+          for (int x = 0; x < D / BOX; ++x)
+            tma_load_4d(kt + x * BN * ROW, &tk, bar_k + s, x * BOX, h, kv0, b);
         }
         tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_k + s, kv0, b);
-        mbar_arrive_expect_tx(bar_v + s, BN * 2 * HEAD_DIM);
-        tma_load_4d(vt, &tv, bar_v + s, 0, h, kv0, b);
-        tma_load_4d(vt + BN * ROW, &tv, bar_v + s, BOX, h, kv0, b);
+        mbar_arrive_expect_tx(bar_v + s, BN * 2 * D);
+#pragma unroll
+        for (int x = 0; x < D / BOX; ++x)
+          tma_load_4d(vt + x * BN * ROW, &tv, bar_v + s, x * BOX, h, kv0, b);
       }
     }
   } else {
@@ -331,40 +364,41 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int wrow0 = q0 + wg * 64;
     const int row = wrow0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
     const uint64_t dq = smem_desc_sw128(sm + L::Q + wg * 64 * ROW, 16);
-    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * HEAD_DIM; };
-    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * HEAD_DIM; };
+    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * D; };
+    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * D; };
     auto m_tile = [&](int s) { return reinterpret_cast<const int*>(sm + L::MASK + s * BN * 4); };
 
-    float acc[HEAD_DIM / 2];                         // O, 64 rows x 128 per warpgroup
+    float acc[D / 2];                                // O, 64 rows x D per warpgroup
 #pragma unroll
-    for (int i = 0; i < HEAD_DIM / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m_i[2] = {NEG_INF, NEG_INF};               // score domain
     float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
     float sc[BN / 2], corr[2];
-    PFrags<SPLIT_P> pa;                              // P as A fragments
+    PFrags<SPLIT_P, BN> pa;                          // P as A fragments
 
     mbar_wait(bar_q, 0);
-    if (q_log2e_bf16) scale_q_log2e_bf16(sm + L::Q, wg, tid);
+    if constexpr (LAB)
+      if (q_log2e_bf16) scale_q_log2e_bf16(sm + L::Q, wg, tid);
     mbar_wait(bar_k, 0);
-    issue_qk<KT>(sc, dq, k_tile(0));
+    issue_qk<KT, D>(sc, dq, k_tile(0));
     wgmma_wait<0>();
     fence_regs(sc);
     // the causal mask where the diagonal crosses this warpgroup's rows
     auto softmax = [&](int s, int kv0) {
       if (causal && kv0 + BN - 1 > wrow0)
-        softmax_tile<true>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t, c);
+        softmax_tile<true, BN>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t, c);
       else
-        softmax_tile<false>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t, c);
+        softmax_tile<false, BN>(sc, m_tile(s), m_i, l_i, corr, row, kv0, Skv, t, c);
     };
     softmax(0, 0);
     pack_p(pa, sc);
     for (int j = 1; j < n_tiles; ++j) {
       const int s = j % NS, sp = (j - 1) % NS;
       mbar_wait(bar_k + s, (j / NS) & 1);
-      issue_qk<KT>(sc, dq, k_tile(s));
+      issue_qk<KT, D>(sc, dq, k_tile(s));
       mbar_wait(bar_v + sp, ((j - 1) / NS) & 1);
       fence_regs(acc);
-      issue_pv(acc, pa, v_tile(sp));
+      issue_pv<SPLIT_P, D>(acc, pa, v_tile(sp));
       wgmma_wait<1>();                               // S of tile j is in
       fence_regs(sc);
       softmax(s, j * BN);
@@ -373,7 +407,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
       if (lane == 0) mbar_arrive(bar_free + sp);     // stage j-1 may be refilled
 #pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
         acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
       }
@@ -382,7 +416,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int last = (n_tiles - 1) % NS;
     mbar_wait(bar_v + last, ((n_tiles - 1) / NS) & 1);
     fence_regs(acc);
-    issue_pv(acc, pa, v_tile(last));
+    issue_pv<SPLIT_P, D>(acc, pa, v_tile(last));
     wgmma_wait<0>();
     fence_regs(acc);
 
@@ -397,10 +431,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * HEAD_DIM;
+      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * D;
       const float inv = 1.f / l_i[r];
 #pragma unroll
-      for (int dt = 0; dt < HEAD_DIM / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
         *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
             pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
       if (t == 0) {   // a fully masked row keeps the -1e30 sentinel under lse_log2
@@ -411,17 +445,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// One launch of flash_fwd_wgmma_kernel<KT, SPLIT_P> over the maps of q
-// (boxes of K1_BM rows), k or K^T, v (K1_BN rows) and the mask (K1_BN
-// keys); returns cudaGetLastError().
-template <bool KT, bool SPLIT_P>
+// One launch of flash_fwd_wgmma_kernel<KT, SPLIT_P, D> over the maps of q
+// (boxes of K1_BM rows), k or K^T, v (K1Tiles<D>::BN rows) and the mask
+// (K1Tiles<D>::BN keys); returns cudaGetLastError().
+template <bool KT, bool SPLIT_P, int D = 128>
 inline int launch_fwd_bf16(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                            const CUtensorMap& tm, void* o, void* lse, int B, int Sq, int Skv,
                            int H, int causal, SoftmaxUnits u, cudaStream_t st) {
-  auto kernel = flash_fwd_wgmma_kernel<KT, SPLIT_P>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1Smem::ALLOC);
+  auto kernel = flash_fwd_wgmma_kernel<KT, SPLIT_P, D>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1Smem<D>::ALLOC);
   dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
-  kernel<<<grid, 128 * (K1_WG + 1), K1Smem::ALLOC, st>>>(
+  kernel<<<grid, 128 * (K1_WG + 1), K1Smem<D>::ALLOC, st>>>(
       tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal, u);
   return (int)cudaGetLastError();
 }

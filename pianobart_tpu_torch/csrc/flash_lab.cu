@@ -9,8 +9,9 @@
 //   L2  hl_fwd's kernel: K1's layout, always with f32 operands; option exp2.
 //
 // Each is K1's own kernel (flash_fwd_bf16.cuh, flash_fwd_wgmma_kernel<KT,
-// SPLIT_P>; K1 is <false, false>) with the option changed, so that the lab
-// measures the option and nothing else:
+// SPLIT_P, 128>; K1 is <false, false, D>) with the option changed, so that
+// the lab measures the option and nothing else (at the lab's head width,
+// LAB_D = 128):
 //   L2                   <false, true>   P split into two bf16 products
 //   L1, upcast           <true, true>    K^T through the transpose bit, P split
 //   L1, no upcast        <true, false>   K^T through the transpose bit
@@ -37,14 +38,16 @@ namespace {
 
 using namespace pbt;
 
+constexpr int LAB_D = 128;              // the lab's head width
+
 // The maps of q, v and the mask, K's built by the caller into tk; returns
 // 0, or TMAP_ERROR + the CUresult of a map the driver refused.
 int qv_mask_maps(EncodeTiled enc, CUtensorMap* tq, CUtensorMap* tv, CUtensorMap* tm,
                  const void* q, const void* v, const void* mask, int B, int Sq, int Skv, int H,
                  long long qsb, long long qss, long long qsh,
                  long long vsb, long long vss, long long vsh) {
-  CUresult r = qkv_map(enc, tq, q, B, Sq, H, qsb, qss, qsh, K1_BM);
-  if (r == CUDA_SUCCESS) r = qkv_map(enc, tv, v, B, Skv, H, vsb, vss, vsh, K1_BN);
+  CUresult r = qkv_map(enc, tq, q, B, Sq, H, qsb, qss, qsh, K1_BM, LAB_D);
+  if (r == CUDA_SUCCESS) r = qkv_map(enc, tv, v, B, Skv, H, vsb, vss, vsh, K1_BN, LAB_D);
   if (r == CUDA_SUCCESS) r = mask_map(enc, tm, mask, B, Skv, K1_BN);
   return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + (int)r;
 }
@@ -71,7 +74,7 @@ extern "C" int pbt_kt_fwd(const void* q, const void* kt, const void* v,
   int rc = qv_mask_maps(enc, &tq, &tv, &tm, q, v, mask, B, Sq, Skv, H, qsb, qss, qsh,
                         vsb, vss, vsh);
   if (rc) return rc;
-  const CUresult r = kt_map(enc, &tk, kt, B, Skv, H, ktsb, ktsh, ktsd);
+  const CUresult r = kt_map(enc, &tk, kt, B, Skv, H, ktsb, ktsh, ktsd, LAB_D);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   const int bf16_scale = exp2 && !upcast;
   const SoftmaxUnits u = {bf16_scale ? 1.f : LOG2E, exp2, bf16_scale};
@@ -96,7 +99,7 @@ extern "C" int pbt_hl_fwd(const void* q, const void* k, const void* v,
   int rc = qv_mask_maps(enc, &tq, &tv, &tm, q, v, mask, B, Sq, Skv, H, qsb, qss, qsh,
                         vsb, vss, vsh);
   if (rc) return rc;
-  const CUresult r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN);
+  const CUresult r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN, LAB_D);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   const SoftmaxUnits u = {LOG2E, exp2, 0};
   return launch_fwd_bf16<false, true>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, u,

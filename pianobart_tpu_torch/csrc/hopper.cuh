@@ -355,15 +355,14 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// (B, S, H, 128) bf16 at element strides (sb, ss, sh) as a 4-D map over
-// (D, H, S, B); a box is 64 columns of `rows` rows of one head, swizzled.
-// Rows past S arrive as zeros.
+// (B, S, H, D) bf16 at element strides (sb, ss, sh) as a 4-D map over
+// (D, H, S, B); a box is 64 columns of `rows` rows of one head, swizzled (a
+// row of D columns takes D / 64 boxes).  Rows past S arrive as zeros.
 inline CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int S, int H,
-                        long long sb, long long ss, long long sh, int rows) {
-  if (H == 1) sh = HEAD_DIM;   // an axis of size 1 is addressed by no stride:
+                        long long sb, long long ss, long long sh, int rows, int D) {
+  if (H == 1) sh = D;          // an axis of size 1 is addressed by no stride:
   if (B == 1) sb = ss * S;     // give it the packed one
-  const cuuint64_t dims[4] = {(cuuint64_t)HEAD_DIM, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
@@ -372,18 +371,18 @@ inline CUresult qkv_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, i
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// K^T, (B, H*128, Skv) bf16 with Skv contiguous, at element strides (sb,
-// sh, sd) for the batch, the head (128 d rows) and the d row, as a 4-D map
-// over (Skv, D, H, B); a box is 64 kv columns of the 128 d rows of one
-// head, swizzled.  Keys past Skv arrive as zeros.
+// K^T, (B, H*D, Skv) bf16 with Skv contiguous, at element strides (sb,
+// sh, sd) for the batch, the head (D d rows) and the d row, as a 4-D map
+// over (Skv, D, H, B); a box is 64 kv columns of the D d rows of one head
+// (D <= 256, TMA's longest box side), swizzled.  Keys past Skv arrive as
+// zeros.
 inline CUresult kt_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv, int H,
-                       long long sb, long long sh, long long sd) {
-  if (H == 1) sh = sd * HEAD_DIM;   // axes of size 1: the packed stride
+                       long long sb, long long sh, long long sd, int D) {
+  if (H == 1) sh = sd * D;   // axes of size 1: the packed stride
   if (B == 1) sb = sh * H;
-  const cuuint64_t dims[4] = {(cuuint64_t)Skv, (cuuint64_t)HEAD_DIM, (cuuint64_t)H,
-                              (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)Skv, (cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sd * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {BOX, HEAD_DIM, 1, 1};
+  const cuuint32_t box[4] = {BOX, (cuuint32_t)D, 1, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
              one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -407,7 +406,7 @@ inline CUresult rows_map(EncodeTiled enc, CUtensorMap* m, const void* p, int row
 // The split planes of pbt_tf32_split, (2, B*H, rows, cols) f32 packed
 // (hi, then lo), as a 4-D map over (cols, rows, B*H, 2); a box is 32
 // columns of `box_rows` rows of one (b, h) and one plane, swizzled.
-// Natural planes: rows = S, cols = 128; transposed: rows = 128, cols = S.
+// Natural planes: rows = S, cols = D; transposed: rows = D, cols = S.
 // Rows past `rows` arrive as zeros.
 inline CUresult plane_map(EncodeTiled enc, CUtensorMap* m, const void* p, int BH, int rows,
                           int cols, int box_rows) {

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from .flash import HEAD_DIM, flash_attention
+from .flash import HEAD_DIMS, flash_attention
 
 __all__ = ["dot_product_attention"]
 
@@ -62,12 +62,13 @@ def _plain_attention(q, k, v, kv_mask, causal, bias, dropout_rate=0.0,
 
 
 def _flash_eligible(q, k, bias) -> bool:
-    # what the kernel takes: 128-row multiples of at least 256 (the
-    # reference's tiling rule) and the one head width the kernel has
+    # what the kernels take: 128-row multiples of at least 256 (the
+    # reference's tiling rule) and the head widths they have (the
+    # reference's any multiple of 128; 384 and more is not ported yet)
     return (bias is None
             and q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
             and q.shape[1] >= 256 and k.shape[1] >= 256
-            and q.shape[3] == HEAD_DIM)
+            and q.shape[3] in HEAD_DIMS)
 
 
 def dot_product_attention(

@@ -30,20 +30,22 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_FLASH_BWD_TAIL = [_I] * 6 + [_L] * 12 + [_P]   # B, Sq, Skv, H, dtype, causal; strides; stream
+_FLASH_BWD_TAIL = [_I] * 7 + [_L] * 12 + [_P]   # B, Sq, Skv, H, D, dtype, causal; strides; stream
 # library -> (source, headers it includes, {C entry point: argtypes})
 KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh", "hopper.cuh"), {
-        "pbt_flash_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P]}),
-    "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh",
+                                   "flash_mma_f32.cuh", "hopper.cuh"), {
+        # q, k, v, mask, o, lse; B, Sq, Skv, H, D, dtype, causal; strides; stream
+        "pbt_flash_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]}),
+    "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "flash_mma_f32.cuh", "hopper.cuh"), {
         # q, k, v, dout, qt, kt, ot, mask, lse, delta, then the outputs
         "pbt_flash_bwd": [_P] * 13 + _FLASH_BWD_TAIL,
         "pbt_flash_dq": [_P] * 11 + _FLASH_BWD_TAIL,
         "pbt_flash_dkv": [_P] * 12 + _FLASH_BWD_TAIL,
-        # dout, out, delta; B, S, H, dtype; dout's and out's strides; stream
-        "pbt_flash_delta": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_P],
-        # the operands (a SplitArgs); n, B, H; stream
-        "pbt_tf32_split": [_P] + [_I] * 3 + [_P]}),
+        # dout, out, delta; B, S, H, D, dtype; dout's and out's strides; stream
+        "pbt_flash_delta": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
+        # the operands (a SplitArgs); n, B, H, D; stream
+        "pbt_tf32_split": [_P] + [_I] * 4 + [_P]}),
     "fused_ln": ("fused_ln.cu", (), {
         # h, res, gamma, beta, seed, out, mean, rstd; N, D, dtype; threshold,
         # keep scale, eps; stream

@@ -28,13 +28,18 @@ K2's entry runs the same two CUDA kernels as K3b then K3a: a 1024 x 1024
 block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
 the start.  K2 and K3 differ in entry point and contract, not in algorithm.
 
+The kernels take head widths D = 128 and 256 (:data:`HEAD_DIMS`), as the
+reference's take any multiple of 128 (``_flash_eligible``); 384 and more is
+not ported yet.
+
 Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
 (B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs over the kept pairs, 0.1381 ms
 at B=32 with ``chip_smoke.py``'s pad tail; K2 at the flagship train shape
 (32, 1024, 8, 128) bf16 ``10*B*H*S^2*D`` FLOPs, 0.347 ms per call unmasked,
 about half causal (its two kernels do seven products, not five: 0.49 ms at
 best); K3a (3 products) and K3b (4) at the long-context shape
-(16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.
+(16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.  At ``--heads 4``
+(D = 256, H = 4) H*D is the same 1024, and so is every bound.
 
 The bf16 kernels of K1, K2 and K3 are designed for Hopper (the sources
 have the details), with the primitives of ``csrc/hopper.cuh``: a producer
@@ -51,16 +56,25 @@ next tile's S and dP under dQ += dS K.  Left for later: ping-pong scheduling
 of the consumer warpgroups, a persistent schedule, TMA multicast across a
 cluster, and a one-pass K2.
 
+At D = 256 the same designs are re-tiled to fit a CTA's 227 KB and a
+thread's 240 registers: K1 streams kv tiles of 64 rows in 2 stages; the
+backward owns 64 fixed rows a CTA, dV and dK in a warpgroup each (S^T
+computed by both), and dQ's kv tiles alternate between the two warpgroups,
+whose partial dQs are summed in shared memory at the end.
+
 The f32 kernels (the default ``PianoBartConfig``'s path) run the same
 schedules on the tensor cores at f32 accuracy as 3xTF32: each operand x is
 split into hi = x rounded to tf32 and lo = x - hi, and each product is
 hi.hi' + hi.lo' + lo.hi' (about 2^-22 relative; one tf32 pass keeps three
 decimal digits, the TPU's f32 kernels single bf16 passes).  tf32 ``wgmma``
-reads its shared-memory operands K-major only, so a prep kernel
+reads its shared-memory operands K-major only, so at D = 128 a prep kernel
 (:func:`flash_attention_split`, its own launch count) makes the hi and lo
 planes once per call, and transposed planes of the operands a product
-contracts over S with.  Bound: three tf32 products per f32 product at 495
-TFLOP/s.
+contracts over S with.  At D = 256 those planes do not fit a CTA, and the
+f32 kernels are simpler ones at the same accuracy: 3xTF32 by ``mma.sync``
+on plain f32 rows in shared memory, each fragment split as it is loaded,
+so they take q, k, v, dO as they are and no prep runs.  Bound: three tf32
+products per f32 product at 495 TFLOP/s.
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -80,10 +94,11 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_split", "flash_attention_reference",
            "flash_attention_bwd_reference", "flash_attention_dq_reference",
            "flash_attention_dkv_reference", "flash_attention_split_reference",
-           "HEAD_DIM"]
+           "HEAD_DIM", "HEAD_DIMS"]
 
 NEG_INF = -1e30
-HEAD_DIM = 128     # the one head width the kernels take
+HEAD_DIMS = (128, 256)   # the head widths the kernels take
+HEAD_DIM = 128     # the flagship's head width, the one the kernel lab takes
 TILE = 64          # the kernels' q/kv tile rows: Sq and Skv must divide by it
 FUSED_BWD_MAX = 1024   # the reference's single-block backward cap (_BWD_BLOCK)
 
@@ -218,8 +233,8 @@ def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
             raise ValueError(f"{name} must match q's device and dtype")
         if x.shape != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
-    if D != HEAD_DIM:
-        raise ValueError(f"flash kernel takes head_dim {HEAD_DIM}, got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim 128 or 256, got {D}")
     if Sq % TILE or Skv % TILE:
         raise ValueError(f"flash kernel needs Sq, Skv multiples of {TILE}, "
                          f"got {Sq}, {Skv}")
@@ -266,20 +281,22 @@ class _SplitArgs(ctypes.Structure):
 
 def _split_launch(specs: Sequence[Tuple[torch.Tensor, bool, bool]]):
     """One launch of the prep kernel for the ``(x, natural, transposed)``
-    operands of one call (CUDA tensors of one (B, *, H, 128) family);
-    returns their ``(nat, tr)`` pairs."""
-    B, _, H, _ = specs[0][0].shape
+    operands of one call (CUDA tensors of one (B, *, H, D) family, D in
+    :data:`HEAD_DIMS`); returns their ``(nat, tr)`` pairs."""
+    B, _, H, D = specs[0][0].shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"tf32 split takes head_dim 128 or 256, got {D}")
     args, outs = _SplitArgs(), []
     for i, (x, natural, transposed) in enumerate(specs):
         S = x.shape[1]
         if (x.dtype != torch.float32 or x.dim() != 4 or x.shape[0] != B or x.shape[2] != H
-                or x.shape[3] != HEAD_DIM or S % TILE):
-            raise ValueError(f"tf32 split takes f32 ({B}, S, {H}, {HEAD_DIM}) with S a "
+                or x.shape[3] != D or S % TILE):
+            raise ValueError(f"tf32 split takes f32 ({B}, S, {H}, {D}) with S a "
                              f"multiple of {TILE}, got {x.dtype} {tuple(x.shape)}")
         _check_rows_layout("x", x)
-        nat = (torch.empty((2, B, H, S, HEAD_DIM), dtype=torch.float32, device=x.device)
+        nat = (torch.empty((2, B, H, S, D), dtype=torch.float32, device=x.device)
                if natural else None)
-        tr = (torch.empty((2, B, H, HEAD_DIM, S), dtype=torch.float32, device=x.device)
+        tr = (torch.empty((2, B, H, D, S), dtype=torch.float32, device=x.device)
               if transposed else None)
         args.x[i] = x.data_ptr()
         args.nat[i] = None if nat is None else nat.data_ptr()
@@ -291,7 +308,7 @@ def _split_launch(specs: Sequence[Tuple[torch.Tensor, bool, bool]]):
     lib = build_kernel("flash_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.pbt_tf32_split(ctypes.addressof(args), len(specs), B, H, stream)
+        rc = lib.pbt_tf32_split(ctypes.addressof(args), len(specs), B, H, D, stream)
     _raise_for("pbt_tf32_split", rc)
     flash_attention_split.launches += 1
     return outs
@@ -301,20 +318,21 @@ def flash_attention_split(x, natural: bool = True, transposed: bool = False):
     """The f32 kernels' prep: every f32 operand x of a product is split into
     hi = x rounded to tf32 and lo = x - hi (exact in f32), so the tensor
     cores take its products as hi.hi' + hi.lo' + lo.hi' at f32 accuracy
-    (3xTF32).  From ``x (B, S, H, 128)`` f32 (read through its strides)
-    returns ``(nat, tr)``: ``nat (2, B, H, S, 128)`` the natural hi and lo
-    planes, ``tr (2, B, H, 128, S)`` the transposed ones (the operand of a
-    product that contracts over S, which tf32 ``wgmma`` reads from shared
-    memory only with S along the rows), whose S runs in the order 0 2 4 6 1
-    3 5 7 within each 8 (the k order of an A fragment made from an f32
-    accumulator); each None where not asked for.
+    (3xTF32).  From ``x (B, S, H, D)`` f32 (read through its strides, D in
+    :data:`HEAD_DIMS`) returns ``(nat, tr)``: ``nat (2, B, H, S, D)`` the
+    natural hi and lo planes, ``tr (2, B, H, D, S)`` the transposed ones
+    (the operand of a product that contracts over S, which tf32 ``wgmma``
+    reads from shared memory only with S along the rows), whose S runs in
+    the order 0 2 4 6 1 3 5 7 within each 8 (the k order of an A fragment
+    made from an f32 accumulator); each None where not asked for.
 
     No Pallas kernel: the TPU kernels took their f32 dots as single bf16
     passes.  CPU tensors take :func:`flash_attention_split_reference`; CUDA
     tensors launch ``csrc/flash_bwd.cu``'s prep kernel (counted in
     ``flash_attention_split.launches``) or raise.  The f32 attention
-    wrappers split all the operands of a call in one launch.  Bound by
-    bytes: x read once, each plane written once.
+    wrappers split all the operands of a call in one launch at D = 128; the
+    D = 256 f32 kernels split their fragments as they load them and call no
+    prep.  Bound by bytes: x read once, each plane written once.
     """
     if not use_kernel(x, "flash attention"):
         return flash_attention_split_reference(x, natural, transposed)
@@ -342,7 +360,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ops = (q, k, v)
-    if q.dtype == torch.float32:   # Q's and K's planes, V's transposed
+    if q.dtype == torch.float32 and D == 128:   # Q's and K's planes, V's transposed
         (qn, _), (kn, _), (_, vt) = _split_launch(
             [(q, True, False), (k, True, False), (v, False, True)])
         ops = (qn, kn, vt)
@@ -351,7 +369,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.pbt_flash_fwd(
             *(x.data_ptr() for x in ops), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H,
+            out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, D,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     _raise_for("flash_fwd", rc)
@@ -377,8 +395,8 @@ def flash_attention_delta(dout, out) -> torch.Tensor:
         raise TypeError(f"delta kernel takes bf16 or f32, got {dout.dtype}")
     if out.shape != dout.shape or out.dtype != dout.dtype or out.device != dout.device:
         raise ValueError("out must match dout's shape, dtype and device")
-    if D != HEAD_DIM:
-        raise ValueError(f"delta kernel takes head_dim {HEAD_DIM}, got {D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"delta kernel takes head_dim 128 or 256, got {D}")
     _check_rows_layout("dout", dout)
     _check_rows_layout("out", out)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dout.device)
@@ -386,7 +404,7 @@ def flash_attention_delta(dout, out) -> torch.Tensor:
     with torch.cuda.device(dout.device):
         stream = torch.cuda.current_stream(dout.device).cuda_stream
         rc = lib.pbt_flash_delta(dout.data_ptr(), out.data_ptr(), delta.data_ptr(),
-                                 B, S, H, 1 if dout.dtype == torch.bfloat16 else 0,
+                                 B, S, H, D, 1 if dout.dtype == torch.bfloat16 else 0,
                                  *dout.stride()[:3], *out.stride()[:3], stream)
     _raise_for("pbt_flash_delta", rc)
     flash_attention_delta.launches += 1
@@ -413,14 +431,15 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
     """Launch one backward C entry of ``flash_bwd.cu`` on the current
     stream; ``outs`` are its output tensors in the entry's order.  The
     kernels read the mask, lse and delta by TMA: each is made contiguous and
-    16-byte aligned first.  f32 operands go to the kernels as the prep's
-    planes (:func:`flash_attention_split`, one launch for the four)."""
-    B, Sq, H, _ = q.shape
+    16-byte aligned first.  f32 operands at D = 128 go to the kernels as the
+    prep's planes (:func:`flash_attention_split`, one launch for the four);
+    at D = 256 as they are."""
+    B, Sq, H, D = q.shape
     Skv = k.shape[1]
     mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     lse, delta = _tma_ready(lse), _tma_ready(delta)
     ops, trs = (q, k, v, dout), (None, None, None)
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 and D == 128:
         tq, tk, to = _TRANSPOSED[entry]
         (qn, qt), (kn, kt), (vn, _), (on, ot) = _split_launch(
             [(q, True, tq), (k, True, tk), (v, True, False), (dout, True, to)])
@@ -432,7 +451,7 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
             *(x.data_ptr() for x in ops),
             *(None if x is None else x.data_ptr() for x in trs),
             mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(o.data_ptr() for o in outs), B, Sq, Skv, H,
+            *(o.data_ptr() for o in outs), B, Sq, Skv, H, D,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], stream)

@@ -29,7 +29,7 @@ block is staged through pinned host buffers (the transport ``rotate``
 reports); the kernels and all the arithmetic stay on the device.
 
 On CUDA the local shard must be a shape the kernels take (128-row multiples
-of at least 256, head width 128): another raises, it never drops to plain
+of at least 256, head width 128 or 256): another raises, it never drops to plain
 attention.  On the CPU the wrappers run their plain versions, and
 :func:`ring_attention_reference` runs the plain versions on any device.
 
@@ -200,7 +200,7 @@ def ring_attention(q, k, v, kv_mask: Optional[torch.Tensor], causal: bool,
     if q.is_cuda and not _flash_eligible(q, k, None):
         raise ValueError(
             f"ring attention on CUDA needs local shards the flash kernels take "
-            f"(128-row multiples of at least 256, head width 128); got q "
+            f"(128-row multiples of at least 256, head width 128 or 256); got q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}")
     return _ring(q, k, v, kv_mask, causal, ax, _KERNELS)
 

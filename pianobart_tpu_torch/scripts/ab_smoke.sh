@@ -13,6 +13,12 @@
 # lab's variants and its two sweeps (ms per chain), the SASS counts of the
 # wgmma kernels, decode, ms/step, [train]'s losses) are printed.  Exits
 # non-zero if any run did.
+#
+# AB_PHASES (optional) names the phases to run, in chip_smoke.py's order,
+# e.g. "device build flash lab flash_bwd fused_ln train train_long
+# train_fused train_f32": each tree's chip_smoke.py is imported and its
+# PHASES cut to those (a phase a tree lacks is skipped), so the comparison
+# costs the kernel and train phases alone.
 set -u
 parent=$(cd "$1" && pwd)
 out=$(mkdir -p "${2:-build/ab}" && cd "${2:-build/ab}" && pwd)
@@ -23,7 +29,19 @@ for who in parent change change parent; do
   i=$((i + 1))
   if [ "$who" = parent ]; then d=$parent; else d=$change; fi
   log=$out/ab_${i}_$who.log
-  (cd "$d" && python3 chip_smoke.py) > "$log" 2>&1
+  if [ -n "${AB_PHASES:-}" ]; then
+    (cd "$d" && AB_PHASES="$AB_PHASES" python3 -c '
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as c
+keep = os.environ["AB_PHASES"].split()
+c.PHASES = tuple(p for p in c.PHASES if p[0] in keep)
+c.KERNEL_RECORDS = tuple(r for r in c.KERNEL_RECORDS
+                         if r[5] in keep or r[5].rsplit("_", 1)[0] in keep)
+sys.exit(c.main())') > "$log" 2>&1
+  else
+    (cd "$d" && python3 chip_smoke.py) > "$log" 2>&1
+  fi
   rc=$?
   [ $rc -eq 0 ] || status=1
   echo "run $i $who rc=$rc"

@@ -106,6 +106,8 @@ def _check_lab_inputs(q, k, v, kv_mask):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the lab's kernels take bf16 only, got {q.dtype} "
                         "(K1's f32 kernel is the f32 check of the algorithm)")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the lab's kernels take head_dim {HEAD_DIM}, got {q.shape[-1]}")
     _check_cuda_inputs(q, k, v, kv_mask)
 
 

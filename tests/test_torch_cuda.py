@@ -409,6 +409,126 @@ def test_k3_kernels_refuse_what_they_do_not_take(cuda):
         flash_attention_dkv(q, k, v, None, False, rows, rows[:, :, :64], q)
 
 
+# ---- head width 256 (--heads 4): the same checks at D=256, same tolerances.
+# bf16: K1's <false, false, 256> instance and the backward's D=256 wgmma
+# kernels; f32: the mma.sync 3xTF32 kernels, which take q, k, v, dO as they
+# are (no prep launch).
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, False),
+    (2, 2, 192, 320, True), (12, 4, 320, 320, True), (1, 2, 2048, 2048, True)],
+    ids=["256", "256-causal", "192x320", "192x320-causal", "320-causal-wide",
+         "2048-causal"])
+def test_flash_kernel_d256_matches_reference(cuda, B, H, Sq, Skv, causal, dtype):
+    q, k, v, mask = _inputs(cuda, dtype, B=B, H=H, S=Sq, Skv=Skv, D=256)
+    f0, s0 = flash_attention_fwd.launches, flash_attention_split.launches
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0, flash_attention_split.launches - s0) == (1, 0)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[dtype]
+    assert out.shape == q.shape and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Skv", [256, 320])
+def test_flash_kernel_d256_fully_masked_sample(cuda, Skv, dtype):
+    q, k, v, mask = _inputs(cuda, dtype, S=Skv, D=256)
+    mask[0] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, False)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, False)
+    atol, rtol, ltol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, True),
+    (2, 2, 320, 192, False), (12, 4, 320, 320, True), (1, 2, 64, 64, True)],
+    ids=["256", "256-causal", "192x320-causal", "320x192", "320-causal-wide",
+         "64-causal"])
+def test_flash_bwd_kernels_d256_match_reference(cuda, kernel, B, H, Sq, Skv, causal,
+                                                dtype):
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, True,
+                                           B=B, H=H, S=Sq, Skv=Skv, D=256)
+    s0 = flash_attention_split.launches
+    got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+    torch.cuda.synchronize()
+    assert flash_attention_split.launches == s0
+    assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_bwd_kernels_d256_fully_masked_sample_and_strides(cuda, kernel, dtype):
+    """Sample 0 wholly masked (P = 1 on every key), q/k/v as views of one
+    fused projection and dO a view: the D=256 kernels read the strides."""
+    B, S, H, D = 2, 320, 2, 256
+    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=dtype)
+    qkv[:, :, 0] *= D ** -0.5
+    q, k, v = qkv.unbind(2)
+    mask = torch.ones(B, S, device=cuda)
+    mask[0] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, False)
+    assert (lse[0] == -1e30).all()
+    dout = torch.randn(B, S, 2, H, D, device=cuda, dtype=dtype)[:, :, 0]
+    got, want = _bwd(kernel, q, k, v, mask, False, out, lse, dout)
+    assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_kernels_d256_are_deterministic(cuda, kernel, dtype):
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, True, True, S=1024, D=256)
+    o2, l2 = flash_attention_fwd(q, k, v, m, True)
+    assert torch.equal(out, o2) and torch.equal(lse, l2)
+    a, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    b, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_delta_and_split_kernels_d256_match_reference(cuda, dtype):
+    B, S, H, D = 3, 320, 2, 256
+    g = torch.Generator(device=cuda).manual_seed(3)
+    both = torch.randn(B, S, 2, H, D, device=cuda, generator=g).to(dtype)
+    dout, out = both.unbind(2)
+    got = flash_attention_delta(dout, out)
+    torch.testing.assert_close(got, _delta(dout, out), atol=1e-4, rtol=1e-5)
+    if dtype == torch.float32:
+        for a, b in zip(flash_attention_split(out, True, True),
+                        flash_attention_split_reference(out, True, True)):
+            assert torch.equal(a, b)
+
+
+def test_flash_autograd_d256_runs_the_kernels(cuda):
+    """flash_attention's gradient at D=256: K1 then delta and K2 (S=1024),
+    or delta, K3a and K3b (S=2048), once each, in both types."""
+    counters = (flash_attention_fwd, flash_attention_delta, flash_attention_bwd,
+                flash_attention_dq, flash_attention_dkv, flash_attention_split)
+    for dtype in DTYPES:
+        for S, want in ((1024, [1, 1, 1, 0, 0, 0]), (2048, [1, 1, 0, 1, 1, 0])):
+            q, k, v, mask = (x.requires_grad_() if x.dim() == 4 else x
+                             for x in _inputs(cuda, dtype, S=S, D=256))
+            before = [c.launches for c in counters]
+            flash_attention(q, k, v, mask, True).float().square().sum().backward()
+            torch.cuda.synchronize()
+            assert [c.launches - b for c, b in zip(counters, before)] == want
+            assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+def test_flash_kernels_refuse_head_width_384(cuda):
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, D=384)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_delta(q, q)
+
+
 def _ln_case(dev, dtype, N=256, D=1024, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn(N, D, device=dev, generator=g).to(dtype)

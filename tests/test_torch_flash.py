@@ -248,8 +248,9 @@ def test_flash_attention_differentiates_through_the_function():
     ((2, 128, 2, 128), False, False),     # too short
     ((2, 320, 2, 128), False, False),     # not a 128 multiple
     ((2, 256, 2, 64), False, False),      # head width the kernel lacks
-    ((2, 256, 2, 256), False, False),
+    ((2, 256, 2, 256), False, True),      # the kernels' second width, as the reference's rule
     ((2, 256, 2, 128), True, False),      # extra bias
+    ((2, 256, 2, 384), False, False),     # a width the reference takes, not ported yet
 ])
 def test_flash_eligibility(shape, bias, eligible):
     q = torch.zeros(shape)

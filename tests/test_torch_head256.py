@@ -1,0 +1,382 @@
+"""Head width 256 (``--heads 4`` at d_model 1024): the port's flash path
+against the JAX package's, whose Pallas kernels take any lane-aligned head
+width and run here in interpret mode, as ``tests/test_torch_flash.py`` runs
+them at 128.
+
+* K1, K2, K3a, K3b and delta: the port's plain versions (what its wrappers
+  run on CPU tensors) against ``_fwd``, ``_bwd_fused_call``, ``_dq_call``,
+  ``_dkv_call`` and ``_delta`` at D=256, and ``dot_product_attention`` (which
+  now routes D=256 to ``flash_attention``) against JAX's ``flash_attention``
+  and its vjp.  f32, tolerance 2e-5 (summation order), as at D=128.
+* The ring: ``ring_attention`` on two gloo ranks against
+  ``ring_attention_sharded`` on two of conftest's virtual devices, at
+  ``tests/test_torch_ring.py``'s tolerances (3e-5 forward, 4e-4 gradients).
+* The slice small: d_model 256, one head of 256, 2+2 layers, FFN 512, S=256,
+  B=2, f32, dropout 0, JAX's weights through ``compat/from_jax.py`` and
+  JAX's corruption: the port's dense ``_forward_loss`` gradients against
+  ``jax.grad`` of JAX's (``tests/test_torch_train.py``'s tolerances), and a
+  1x1x2 mesh step on two gloo ranks against the same JAX dense step
+  (``tests/test_torch_sp_train.py``'s).
+
+JAX is imported inside the tests: the spawned ranks import this module and
+need torch only.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pianobart_tpu_torch.ops import attention as port_attention
+from pianobart_tpu_torch.ops import flash as port_flash
+from pianobart_tpu_torch.parallel.launch import spawn
+
+torch.set_num_threads(2)
+
+B, S, H, D = 2, 256, 2, 256
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed=0, b=B, s=S, h=H):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, s, h, D)) * 0.3 * (128 / D) ** 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, s, h, D)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((b, s, h, D)).astype(np.float32)
+    mask = np.ones((b, s), np.float32)
+    mask[-1, s - 40:] = 0.0
+    return q, k, v, mask
+
+
+def _t(*xs):
+    return [None if x is None else torch.from_numpy(np.array(x)) for x in xs]
+
+
+def test_kernels_take_head_width_256():
+    """D=256 is a width the kernels take; the reference's 384 is not yet."""
+    assert port_flash.HEAD_DIMS == (128, 256)
+    for d, ok in ((256, True), (384, False)):
+        q = torch.zeros(1, 256, 1, d)
+        assert port_attention._flash_eligible(q, q, None) is ok
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_fwd_reference_matches_jax_kernel(causal, use_mask):
+    """flash_attention_fwd on CPU tensors (K1's plain version) == the Pallas
+    ``_fwd`` at D=256: O and lse."""
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import _fwd
+    q, k, v, mask = _inputs()
+    m = mask if use_mask else None
+    j_out, j_lse, _ = _fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           None if m is None else jnp.asarray(m), causal, 128, 128)
+    before = port_flash.flash_attention_fwd.launches
+    t_out, t_lse = port_flash.flash_attention_fwd(*_t(q, k, v, m), causal)
+    np.testing.assert_allclose(t_out.numpy().reshape(B, S, H * D), np.asarray(j_out),
+                               **TOL)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), **TOL)
+    assert port_flash.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_bwd_reference_matches_jax_kernel(causal, use_mask):
+    """flash_attention_bwd on CPU tensors (K2's plain version, delta
+    included) == the Pallas ``_bwd_fused_call`` at D=256 on the same q, k,
+    v, O, lse and dO."""
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import _bwd_fused_call, _delta, _fwd
+    q, k, v, mask = _inputs(seed=5)
+    m = mask if use_mask else None
+    dout = np.random.default_rng(6).standard_normal((B, S, H, D)).astype(np.float32)
+    out, lse, (qf, kf, vf, maskf) = _fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if m is None else jnp.asarray(m), causal, None, None)
+    dof = jnp.asarray(dout).reshape(B, S, H * D)
+    want = _bwd_fused_call(qf, kf, vf, maskf, dof, lse, _delta(dof, out, H), causal,
+                           None, None, H)
+    before = port_flash.flash_attention_bwd.launches
+    got = port_flash.flash_attention_bwd(
+        *_t(q, k, v, m), causal, torch.from_numpy(np.array(out)).reshape(B, S, H, D),
+        *_t(lse, dout))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy().reshape(B, S, H * D), np.asarray(b),
+                                   err_msg=f"d{name}", **TOL)
+    assert port_flash.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_dq_dkv_reference_match_jax_kernels(causal, use_mask):
+    """flash_attention_dq and flash_attention_dkv on CPU tensors (K3a's and
+    K3b's plain versions) == the Pallas ``_dq_call`` and ``_dkv_call`` at
+    Sq = Skv = 1152 (past the single 1024-row block, so the reference's
+    ``_bwd_impl`` takes them; its blocks resolve to 576 here), B = H = 1,
+    D=256, from the same external lse and delta."""
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import _delta, _dkv_call, _dq_call, _fwd
+    Sl = 1152
+    q, k, v, mask = _inputs(seed=8, b=1, s=Sl, h=1)
+    m = mask if use_mask else None
+    dout = np.random.default_rng(9).standard_normal((1, Sl, 1, D)).astype(np.float32)
+    out, lse, (qf, kf, vf, maskf) = _fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if m is None else jnp.asarray(m), causal, None, None)
+    dof = jnp.asarray(dout).reshape(1, Sl, D)
+    delta = _delta(dof, out, 1)
+    jax_args = (qf, kf, vf, maskf, dof, lse, delta, causal, None, None, 1)
+    port_args = (*_t(q, k, v, m), causal, *_t(lse, delta, dout))
+    assert not port_flash._fused_eligible(Sl, Sl)
+    np.testing.assert_allclose(port_flash.flash_attention_dq(*port_args).numpy()
+                               .reshape(1, Sl, D), np.asarray(_dq_call(*jax_args)),
+                               err_msg="dq", **TOL)
+    for name, a, b in zip(("dk", "dv"), port_flash.flash_attention_dkv(*port_args),
+                          _dkv_call(*jax_args)):
+        np.testing.assert_allclose(a.numpy().reshape(1, Sl, D), np.asarray(b),
+                                   err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_delta_matches_jax(dtype):
+    """flash_attention_delta on CPU tensors == JAX's ``_delta`` at D=256,
+    rowsum(dO * O) in f32 from inputs of either type, (B, H, S)."""
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import _delta
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(10)
+    dout, out = (np.asarray(jnp.asarray(rng.standard_normal((B, S, H, D)), jdt))
+                 .astype(np.float32) for _ in range(2))
+    want = _delta(jnp.asarray(dout, jdt).reshape(B, S, H * D),
+                  jnp.asarray(out, jdt).reshape(B, S, H * D), H)
+    got = port_flash.flash_attention_delta(torch.from_numpy(dout).to(tdt),
+                                           torch.from_numpy(out).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_plain_versions_are_width_generic():
+    """The plain versions the wrappers run on the CPU (and the card's checks
+    compare with) take D=256 as they are: the split's planes are hi + lo of
+    the input exactly, at (2, B, H, S, 256) and (2, B, H, 256, S)."""
+    q, _, _, _ = _inputs(seed=11)
+    x = torch.from_numpy(q)
+    nat, tr = port_flash.flash_attention_split_reference(x, True, True)
+    assert nat.shape == (2, B, H, S, D) and tr.shape == (2, B, H, D, S)
+    torch.testing.assert_close(nat[0] + nat[1], x.permute(0, 2, 1, 3), rtol=0, atol=0)
+    order = torch.arange(S).view(-1, 4, 2).transpose(1, 2).reshape(-1)
+    torch.testing.assert_close(tr[0] + tr[1], x.permute(0, 2, 3, 1)[..., order],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_dot_product_attention_matches_jax_flash(causal, use_mask):
+    """dot_product_attention on CPU tensors routes D=256 to flash_attention
+    (its plain versions here) and equals JAX's ``flash_attention`` (Pallas
+    K1, then K2 in interpret mode): output and q, k, v gradients."""
+    import jax
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import flash_attention as jax_flash_attention
+    q, k, v, mask = _inputs(seed=3)
+    m = mask if use_mask else None
+    dout = np.random.default_rng(4).standard_normal((B, S, H, D)).astype(np.float32)
+    out, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash_attention(
+            q_, k_, v_, None if m is None else jnp.asarray(m), causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = port_attention.dot_product_attention(
+        tq, tk, tv, kv_mask=None if m is None else torch.from_numpy(m), causal=causal)
+    assert type(got.grad_fn).__name__ == "_FlashAttentionBackward"
+    got.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
+    for name, a, b in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=f"d{name}", **TOL)
+
+
+# ---------------------------------------------------------------- the ring
+RING_SP = 2
+RING_CASES = {"non_causal": False, "causal": True}
+
+
+def _ring_worker(rank, world, out_dir):
+    """Each case on this rank's shard: output and q/k/v gradients of
+    sum(o * sin(o)) through ``ring_attention`` (its blocks take the plain
+    versions of K1, delta, K2 on the CPU)."""
+    from pianobart_tpu_torch.ops.ring import ring_attention
+    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1, 1, world)
+    ax = mesh.axis("sp")
+    res = {}
+    for i, (name, causal) in enumerate(RING_CASES.items()):
+        q, k, v, m = (torch.from_numpy(x) for x in _inputs(20 + i))
+        ql, kl, vl = (mesh.cols(x).clone().requires_grad_() for x in (q, k, v))
+        o = ring_attention(ql, kl, vl, mesh.cols(m), causal, ax)
+        (o * torch.sin(o)).sum().backward()
+        res[name] = [t.detach() for t in (o, ql.grad, kl.grad, vl.grad)]
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+@pytest.fixture(scope="module")
+def port_ring(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("ring256"))
+    spawn(_ring_worker, RING_SP, (out,), threads=1)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(RING_SP)]
+    return {name: [torch.cat([r[name][j] for r in ranks], dim=1).numpy()
+                   for j in range(4)] for name in RING_CASES}
+
+
+@pytest.mark.parametrize("name", list(RING_CASES))
+def test_ring_matches_jax(port_ring, name):
+    """The port's ring at sp=2, D=256 (shards of 128 rows) against
+    ``ring_attention_sharded`` on the same inputs: forward 3e-5, gradients
+    4e-4 (JAX's own ring tolerances)."""
+    import jax
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.ring import ring_attention_sharded
+    from pianobart_tpu.parallel.mesh import make_mesh
+    causal = RING_CASES[name]
+    q, k, v, m = (jnp.asarray(x) for x in _inputs(20 + list(RING_CASES).index(name)))
+    mesh = make_mesh(dp=1, tp=1, sp=RING_SP, devices=jax.devices()[:RING_SP])
+
+    def loss(q, k, v):
+        o = ring_attention_sharded(q, k, v, m, causal=causal, mesh=mesh)
+        return (o * jnp.sin(o)).sum(), o
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                                 has_aux=True))(q, k, v)
+    got = port_ring[name]
+    np.testing.assert_allclose(got[0], np.asarray(out), rtol=3e-5, atol=3e-5)
+    for g, want, which in zip(got[1:], grads, "qkv"):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=4e-4, atol=4e-4,
+                                   err_msg=f"d{which} ({name})")
+
+
+# ------------------------------------------------------ the slice, small
+SLICE = dict(d_model=256, num_heads=1, max_len=256, encoder_layers=2, decoder_layers=2,
+             ffn_dim=512, use_flash_attention=True, dropout=0.0)
+SLICE_B = 2
+
+
+def _slice_batch():
+    from pianobart_tpu_torch import vocab as V
+    rng = np.random.default_rng(2024)
+    x = np.zeros((SLICE_B, SLICE["max_len"], 8), dtype=np.int32)
+    for f in range(8):
+        x[..., f] = rng.integers(0, V.TOKEN_BOUNDARY[f], x.shape[:2])
+    x[..., 0] = np.sort(x[..., 0], axis=1)
+    x[:, -1] = V.EOS
+    return x
+
+
+def _flat_grads(model):
+    grads = dict((n, p.grad) for n, p in model.named_parameters())
+    return torch.cat([grads[n].reshape(-1) for n in sorted(grads)]).numpy()
+
+
+def _mesh_worker(rank, world, d):
+    """One 1x1x2 mesh step (the ring over sp) from JAX's weights and
+    corruption; SGD(lr=1) after a clip that never scales, so ``.grad`` keeps
+    the all-reduced gradients."""
+    from pianobart_tpu_torch.models import PianoBartLM
+    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.train.pretrain_sp import make_sp_pretrain_step
+    from pianobart_tpu_torch.train.state import TrainState
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    cfg = inp["cfg"].replace(ring_axis="sp")
+    model = PianoBartLM(cfg, device="cpu").train()
+    model.load_state_dict(inp["sd"])
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1.0),
+                       clip_norm=float("inf"))
+    step = make_sp_pretrain_step(cfg, make_mesh(1, 1, world))
+    c, m = (torch.from_numpy(x) for x in inp["corruption"])
+    metrics = step.update(state, torch.from_numpy(inp["batch"]).long(), c.long(), m,
+                          torch.Generator().manual_seed(0))
+    torch.save((metrics["loss"].item(), _flat_grads(model)),
+               os.path.join(d, f"rank{rank}.pt"))
+
+
+@pytest.fixture(scope="module")
+def slice_runs(tmp_path_factory):
+    """JAX's dense loss and gradients (its Pallas kernels in interpret mode,
+    ``PBX_FLASH_INTERPRET=1``) on one corruption of the batch; the port's
+    dense ``_forward_loss`` on the same weights and corruption; then the
+    1x1x2 mesh step on two ranks."""
+    import jax
+    import jax.numpy as jnp
+    from pianobart_tpu.models import PianoBartLM as JaxLM
+    from pianobart_tpu.models import tiny_config as jax_tiny_config
+    from pianobart_tpu.ops.noise import corrupt_batch
+    from pianobart_tpu.train.pretrain import _forward_loss as jax_forward_loss
+    from pianobart_tpu.train.state import create_train_state as jax_create_train_state
+    from pianobart_tpu_torch.compat.from_jax import config_from_jax, lm_state_dict_from_jax
+    from pianobart_tpu_torch.models import PianoBartLM, tiny_config
+    from pianobart_tpu_torch.train.pretrain import _forward_loss
+
+    d = tmp_path_factory.mktemp("slice256")
+    jcfg, cfg = jax_tiny_config(**SLICE), tiny_config(**SLICE)
+    assert cfg.head_dim == 256
+    batch = _slice_batch()
+    Sl = SLICE["max_len"]
+    ids, ones = jnp.zeros((SLICE_B, Sl, 8), jnp.int32), jnp.ones((SLICE_B, Sl))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PBX_FLASH_INTERPRET", "1")
+        jstate = jax_create_train_state(JaxLM(jcfg), jcfg, jax.random.PRNGKey(0),
+                                        (ids, ids, ones, ones), learning_rate=2e-5)
+        corrupted, loss_mask = corrupt_batch(jax.random.PRNGKey(7), jnp.asarray(batch),
+                                             0.15)
+        (jloss, _), jgrads = jax.jit(lambda p: jax.value_and_grad(
+            jax_forward_loss, has_aux=True)(p, jstate.apply_fn, jnp.asarray(batch),
+                                            corrupted, loss_mask, jcfg,
+                                            jax.random.PRNGKey(1), False))(jstate.params)
+    sd = lm_state_dict_from_jax(jstate.params, jcfg)
+    want = {n: g.numpy() for n, g in lm_state_dict_from_jax(jgrads, jcfg).items()}
+    model = PianoBartLM(cfg, device="cpu").train()
+    model.load_state_dict(sd)
+    xb = torch.from_numpy(batch.astype(np.int64))
+    pc = torch.from_numpy(np.asarray(corrupted).astype(np.int64))
+    pm = torch.from_numpy(np.array(loss_mask))
+    launches = port_flash.flash_attention_fwd.launches
+    calls = []
+    real = port_flash.flash_attention_reference
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_flash, "flash_attention_reference",
+                   lambda *a: calls.append(1) or real(*a))
+        total, _ = _forward_loss(model, xb, pc, pm, torch.Generator().manual_seed(3))
+        total.backward()
+    dense = (total.item(), {n: p.grad.numpy() for n, p in model.named_parameters()},
+             len(calls), port_flash.flash_attention_fwd.launches - launches)
+    torch.save({"cfg": config_from_jax(jcfg), "batch": batch, "sd": sd,
+                "corruption": (np.array(corrupted), np.array(loss_mask))}, d / "inputs.pt")
+    spawn(_mesh_worker, 2, (str(d),), threads=1)
+    mesh = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    flat_want = np.concatenate([want[n].ravel() for n in sorted(want)])
+    return float(jloss), want, flat_want, dense, mesh
+
+
+def test_slice_dense_step_matches_jax(slice_runs):
+    """The port's dense loss and every gradient at head width 256 against
+    ``jax.grad`` of JAX's ``_forward_loss``: loss rtol 1e-5, |d| <= 1e-7 +
+    1e-4*|g| (f32 summation order; ``tests/test_torch_train.py``'s bounds).
+    Each of the 6 attentions of the forward (2 encoder self, 2 decoder self,
+    2 cross) went through the flash dispatch (its plain version on the CPU,
+    no launch counted)."""
+    jloss, want, _, (loss, grads, n_flash, launched), _ = slice_runs
+    assert n_flash == 6 and launched == 0
+    assert loss == pytest.approx(jloss, rel=1e-5)
+    assert set(grads) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(grads[name], g, rtol=1e-4, atol=1e-7, err_msg=name)
+
+
+def test_slice_mesh_1x1x2_step_matches_jax_dense(slice_runs):
+    """One 1x1x2 mesh step (ring attention over two gloo ranks, shards of
+    128 rows at D=256) against JAX's dense step on the same weights and
+    corruption, on both ranks: loss rel 2e-5, gradients rtol 2e-4 / atol
+    2e-5 (``tests/test_torch_sp_train.py``'s bounds)."""
+    jloss, _, flat_want, _, mesh = slice_runs
+    for loss, grads in mesh:
+        assert loss == pytest.approx(jloss, rel=2e-5)
+        np.testing.assert_allclose(grads, flat_want, rtol=2e-4, atol=2e-5)
