@@ -76,9 +76,10 @@ result line:
 13. ``[train_h256]``: ``--heads 4`` (head width 256, the flagship's H*D):
    gradients through K1+K2 against plain attention at B=4 in bf16 and f32,
    the timed steps at B=32 (K1, delta, K2 24 each), at S=2048 B=16 (K1,
-   delta, K3a, K3b 24 each) and in f32 at B=2 (K1, delta, K2 24 each, no
-   prep), then the encoder of a --heads 4 serving model via K1 against
-   plain attention and a ``GenerationService`` decode batch (K1 8);
+   delta, K3a, K3b 24 each) and in f32 at B=8 (K1, delta, K2 24 each, the
+   prep 48: the f32 kernels at D=256 are CTA pairs over the prep's planes),
+   then the encoder of a --heads 4 serving model via K1 against plain
+   attention and a ``GenerationService`` decode batch (K1 8);
 14. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
    width (bf16 compute, f32 parameters), in a temporary directory outside
    the checkout: 64 two-track songs tokenized by the native codec
@@ -270,12 +271,18 @@ FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded"
 def _sass_label(name):
     """``flash_..._kernel<flags> (role)`` from a kernel's mangled name."""
     label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
-    flags = re.match(r"ILb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?",
-                     name[name.index(label) + len(label):])
+    tail = name[name.index(label) + len(label):]
+    width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
+    if width:
+        return f"{label}<{width.group(1)}>" + (" (CTA pair)" if width.group(1) == "256" else "")
+    flags = re.match(r"ILb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?", tail)
     if not flags:
         return label
     if label.startswith("flash_bwd"):
-        return label + ("<true> (dK/dV)" if flags.group(1) == "1" else "<false> (dQ)")
+        d = flags.group(3)
+        return label + (f"<true{', ' + d if d else ''}> (dK/dV" if flags.group(1) == "1"
+                        else f"<false{', ' + d if d else ''}> (dQ") + (
+                            ", CTA pair)" if d == "256" else ")")
     kt, split, d = flags.groups()
     tf = {"0": "false", "1": "true"}
     return (f"{label}<{tf[kt]}, {tf[split]}, {d}> ({FWD_INSTANCES[kt, split]}"
@@ -290,9 +297,8 @@ def phase_build(state):
     to: Hopper's products (HGMMA), tensor loads (UTMALDG) and any older
     tensor-core product (HMMA.) in their SASS.  Fails if one of them has an
     HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or any
-    other, come back).  The f32 kernels at D=256 are mma.sync by design
-    (``flash_*_d256_mma_kernel``): their HMMA counts are printed, and one
-    without an HMMA fails."""
+    other, come back), and so do the f32 kernels' D=256 instances (CTA
+    pairs, ``<256>`` and ``<*, 256>``)."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -309,11 +315,10 @@ def phase_build(state):
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
-    for lib, expect, expect_mma in (("flash_fwd", 3, 1), ("flash_bwd", 6, 2),
-                                    ("flash_lab", 3, 0)):
+    for lib, expect in (("flash_fwd", 4), ("flash_bwd", 8), ("flash_lab", 3)):
         sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
                               text=True, timeout=120, check=True).stdout
-        found = found_mma = 0
+        found = 0
         for kernel in sass.split("Function : ")[1:]:
             name = kernel.split("\n", 1)[0].strip()
             counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
@@ -324,16 +329,8 @@ def phase_build(state):
                       + ", ".join(f"{op} {n}" for op, n in counts.items()))
                 if counts["HMMA."] or not (counts["HGMMA"] and counts["UTMALDG"]):
                     raise AssertionError(f"{label} is not a TMA + wgmma kernel: {counts}")
-            elif re.search(r"flash_\w+_d256_mma_kernel", name):
-                found_mma += 1
-                label = _sass_label(name)
-                print(f"[build] {lib} SASS of {label} (3xTF32 mma.sync): "
-                      + ", ".join(f"{op} {n}" for op, n in counts.items()))
-                if not counts["HMMA."]:
-                    raise AssertionError(f"{label} has no mma.sync product: {counts}")
-        if (found, found_mma) != (expect, expect_mma):
-            raise AssertionError(f"{lib}: {found} wgmma and {found_mma} mma.sync kernels "
-                                 f"in its SASS, not {expect} and {expect_mma}")
+        if found != expect:
+            raise AssertionError(f"{lib}: {found} wgmma kernels in its SASS, not {expect}")
 
 
 # --heads 4: the flagship's width (H*D = 1024) at head width 256
@@ -414,7 +411,8 @@ def _attn_bound_ms(q, mask, causal, products, arrays, row_vectors):
 def phase_flash(state):
     import torch
     from pianobart_tpu_torch.ops.flash import (flash_attention_fwd,
-                                               flash_attention_reference)
+                                               flash_attention_reference,
+                                               flash_attention_split)
     # Per element |dO| <= atol + rtol*|O_ref|, and |dlse| <= lse_tol.
     # bf16: the kernel rounds P to bf16 before P.V and O to bf16 at the end
     # (2^-9 relative each; rows that see few keys carry |O| up to ~4); the
@@ -451,8 +449,13 @@ def phase_flash(state):
             B, causal, dtype, S=S, **(H256 if h256 else {}))
         if "masked" in kind:
             mask[0] = 0.0
+        s0 = flash_attention_split.launches
         out, lse = flash_attention_fwd(q, k, v, mask, causal)
         torch.cuda.synchronize()
+        # f32 at D = 128 and 256: one prep launch (Q's, K's and V^T's planes)
+        preps = flash_attention_split.launches - s0
+        if preps != (dtype == f32):
+            raise AssertionError(f"K1 ran {preps} prep launches, not {int(dtype == f32)}")
         ref_out, ref_lse = flash_attention_reference(q, k, v, mask, causal)
         d_o = (out.float() - ref_out.float()).abs()
         err_o = d_o.max().item()
@@ -756,12 +759,23 @@ def phase_flash_bwd(state):
                 bound_by=d_bound[1], library_ms=None)
         del got_d, want_d
         if dtype == f32 and not causal:
-            _split_row(state, name, q,
-                       kind == "" and (kid, B, S, masked) == ("K2", 8, 1024, False),
+            train = kind in ("", "h256") and (kid, B, S, masked) == ("K2", 8, 1024, False)
+            _split_row(state, name, q, ("split_h256" if h256 else "split") if train else None,
                        flash_attention_split, flash_attention_split_reference)
+        s0 = flash_attention_split.launches
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
-            torch.cuda.synchronize()
+        else:
+            delta = _delta(dout, out)
+            args = (q, k, v, mask, causal, lse, delta, dout)
+            got = (flash_attention_dq(*args), *flash_attention_dkv(*args))
+        torch.cuda.synchronize()
+        # f32 at D = 128 and 256: one prep launch a backward entry (K2; K3a, K3b)
+        preps = flash_attention_split.launches - s0
+        want_preps = (dtype == f32) * (1 if kid == "K2" else 2)
+        if preps != want_preps:
+            raise AssertionError(f"{kid} ran {preps} prep launches, not {want_preps}")
+        if kid == "K2":
             want = flash_attention_bwd_reference(q, k, v, mask, causal, out, lse, dout)
             errs, rels, ok = _bwd_errors(got, want, tol[dtype])
             del want
@@ -772,10 +786,6 @@ def phase_flash_bwd(state):
             # S, dP, dV, dQ, dK; q, k, v, dO read and dQ, dK, dV written; lse, delta
             bounds = [_attn_bound_ms(q, mask, causal, 5, 7, 2)]
         else:
-            delta = _delta(dout, out)
-            args = (q, k, v, mask, causal, lse, delta, dout)
-            got = (flash_attention_dq(*args), *flash_attention_dkv(*args))
-            torch.cuda.synchronize()
             want = (flash_attention_dq_reference(*args),
                     *flash_attention_dkv_reference(*args))
             errs, rels, ok = _bwd_errors(got, want, tol[dtype])
@@ -817,10 +827,11 @@ def phase_flash_bwd(state):
         torch.cuda.empty_cache()
 
 
-def _split_row(state, name, x, record, split, reference):
+def _split_row(state, name, x, key, split, reference):
     """The f32 kernels' prep on ``x`` (natural and transposed planes, as the
     backward asks for q) against its plain version, bit for bit, with its
-    times and bytes bound (x read once, four planes written once)."""
+    times and bytes bound (x read once, four planes written once); kept
+    under ``state[key]`` unless ``key`` is None."""
     import torch
     from pianobart_tpu_torch.utils.flops import PEAK_F32_H100, roofline_ms
     got, want = split(x, True, True), reference(x, True, True)
@@ -834,9 +845,9 @@ def _split_row(state, name, x, record, split, reference):
           f"({bound[1]}), plain {plain_ms:.4f} ms")
     if not same:
         raise AssertionError(f"the tf32 split kernel disagrees with its plain version: {name}")
-    if record:
-        state["split"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                              bound_by=bound[1], library_ms=None)
+    if key:
+        state[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1], library_ms=None)
 
 
 def _ln_bound_ms(N, D, itemsize, backward):
@@ -1707,8 +1718,9 @@ def phase_train_h256(state):
     through K1 and K2 against the plain attention path at B=4 in bf16 and in
     f32; the timed pretrain steps at B=32 (bf16 compute, f32 parameters,
     dropout 0.1: K1, delta, K2 24 each), at ``max_len=2048``, B=16 (K1,
-    delta, K3a, K3b 24 each) and in f32 at B=2 (K1, delta, K2 24 each, no
-    prep: the D=256 f32 kernels split as they load); then the serving path:
+    delta, K3a, K3b 24 each) and in f32 at B=8, [train_f32]'s batch (K1,
+    delta, K2 24 each, the prep 48: the f32 kernels' CTA pairs read the
+    prep's planes); then the serving path:
     the encoder via K1 against plain attention and one ``GenerationService``
     decode batch of two concurrent requests (K1 8 launches)."""
     import numpy as np
@@ -1724,10 +1736,11 @@ def phase_train_h256(state):
     rng = np.random.default_rng(SEED + 4)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
-    expect = _counts(k1=n_attn, k2=n_attn)     # f32 too: no prep at D=256
+    expect = _counts(k1=n_attn, k2=n_attn)
+    expect_f32 = _counts(k1=n_attn, k2=n_attn, f32=True)
     _flash_vs_plain("train_h256", cfg.replace(dropout=0.0), rng, gen, 4, expect)
     _flash_vs_plain("train_h256", PianoBartConfig(num_heads=4, dropout=0.0), rng, gen, 4,
-                    expect)
+                    expect_f32)
     torch.cuda.empty_cache()
     launches, res = _train_steps("train_h256", cfg, 32, rng, gen, expect)
     state["launches"]["train_h256"] = launches
@@ -1739,13 +1752,18 @@ def phase_train_h256(state):
           f"{base['peak_gib']:.2f} GiB")
     torch.cuda.empty_cache()
     launches, _ = _train_steps("train_h256_long", cfg.replace(max_len=2048), 16, rng, gen,
-                               _counts(k1=n_attn, k3=n_attn), warmup=2, steps=3,
+                               _counts(k1=n_attn, k3=n_attn), warmup=1, steps=3,
                                profile=False)
     state["launches"]["train_h256_long"] = launches
     torch.cuda.empty_cache()
-    launches, _ = _train_steps("train_h256_f32", PianoBartConfig(num_heads=4), 2, rng, gen,
-                               expect, warmup=1, steps=2, profile=False)
+    launches, res = _train_steps("train_h256_f32", PianoBartConfig(num_heads=4), 8, rng, gen,
+                                 expect_f32, warmup=2, steps=3, profile=False)
     state["launches"]["train_h256_f32"] = launches
+    base = state["train_f32"]
+    print(f"[train_h256_f32] beside [train_f32] of this run (8 heads of 128): "
+          f"{res['ms']:.1f} vs {base['ms']:.1f} ms/step, {res['tokens_s']:.0f} vs "
+          f"{base['tokens_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} vs "
+          f"{base['peak_gib']:.2f} GiB")
     torch.cuda.empty_cache()
 
     # serving a --heads 4 model (bf16 parameters, as GenerationService holds them)
@@ -3627,7 +3645,7 @@ KERNEL_RECORDS = (
     ("tf32_split", "split", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
      "flash_attention_split", "train_f32"),
     # head width 256 (--heads 4): the same entries' D=256 kernels, on
-    # [train_h256]'s paths (the f32 ones split as they load: no prep there)
+    # [train_h256]'s paths (the f32 ones CTA pairs over the prep's planes)
     ("flash_fwd_h256", "k1_h256", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
      "flash_attention_fwd", "train_h256"),
     ("flash_bwd_h256", "k2_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
@@ -3642,6 +3660,8 @@ KERNEL_RECORDS = (
      "flash_attention_fwd", "train_h256_f32"),
     ("flash_bwd_h256_f32", "k2_h256_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
      "flash_attention_bwd", "train_h256_f32"),
+    ("tf32_split_h256", "split_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
+     "flash_attention_split", "train_h256_f32"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",

@@ -88,16 +88,15 @@
 // planes of the prep kernel (pbt_tf32_split), every product three tf32
 // wgmma.  Bound: 3 x the bf16 FLOPs at 495 TFLOP/s tf32.
 //
-// At D = 256 neither layout fits a CTA; the kernels of that width are
-// flash_bwd_d256_wgmma_kernel (bf16: 64 fixed rows, dK and dV in warpgroups
-// of their own, dQ's kv tiles alternating between the warpgroups) and
-// flash_bwd_d256_mma_kernel (f32: 3xTF32 by mma.sync on plain f32 rows,
-// flash_mma_f32.cuh, no prep), described where they are defined.  Bounds
-// at the --heads 4 shapes equal the D = 128 ones above (H*D = 1024 in
-// both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b 0.5474 ms at
-// B=16, S=2048.
+// At D = 256 neither layout fits a CTA.  The bf16 kernels of that width are
+// flash_bwd_d256_wgmma_kernel (64 fixed rows, dK and dV in warpgroups of
+// their own, dQ's kv tiles alternating between the warpgroups); the f32 ones
+// are flash_bwd_tf32_kernel<DKV, 256>, the D = 128 kernel run as a cluster
+// of two CTAs, one per 128-column half of the head, that sum S and dP
+// across the pair (described where it is defined).  Bounds at the --heads 4
+// shapes equal the D = 128 ones above (H*D = 1024 in both): K2 0.3421 ms at
+// B=32, S=1024; K3a 0.4105 and K3b 0.5474 ms at B=16, S=2048.
 #include "flash_common.cuh"
-#include "flash_mma_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -201,6 +200,19 @@ __device__ __forceinline__ void probs_t_p(float (&s)[N / 2], const float* lse,
       const float x = kp ? s[4 * j + e] : NEG_INF;
       s[4 * j + e] = exp2_approx((x - ((e & 1) ? l.y : l.x)) * LOG2E);
     }
+  }
+}
+
+// dS^T from P^T in p and dP^T in dp (dK/dV, one q tile): dp becomes
+// P^T (dP^T - delta), probs_t's arithmetic, with the tile's N delta entries
+template <int N = TILE>
+__device__ __forceinline__ void ds_t(float (&dp)[N / 2], const float (&p)[N / 2],
+                                     const float* delta, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 d = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
   }
 }
 
@@ -790,9 +802,9 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
 // made from accumulators: hopper.cuh:split_acc_tf32).  One launch takes
 // every operand of a call (up to SPLIT_MAX, all (B, *, H, D)); one CTA
 // per 32 rows of one (b, h) of one operand; bound by bytes (x read once,
-// each plane written once).  D = 128 (the f32 kernels' operands) or 256
-// (the planes alone: the D = 256 f32 kernels split as they load); the
-// transposing tile is static shared memory, 33 KB at D = 256.
+// each plane written once).  D = 128 or 256 (a CTA pair of the f32
+// kernels reads its 128-column half of each plane); the transposing tile is
+// static shared memory, 33 KB at D = 256.
 constexpr int SPLIT_ROWS = 32;
 constexpr int SPLIT_MAX = 4;
 
@@ -864,6 +876,26 @@ tf32_split_kernel(const SplitArgs a, int B, int H) {
 // shared memory), dO^T hi, lo (dV += P^T dO, P^T from registers), Q^T hi,
 // lo (dK += dS^T Q); dQ K hi, lo, V hi, lo (S and dP), K^T hi, lo
 // (dQ += dS K).  The products run one after another.
+//
+// At D = 256 (DW = 256) the fixed operands' planes alone would take 256 KB,
+// so the kernel runs as a cluster of two CTAs along x (blockIdx.x / 2 the
+// fixed tile, the cluster rank the half of D), each the D = 128 kernel on
+// its 128 columns of every plane: the fixed operands' halves, the swept
+// ones' halves (natural: columns c0 .. c0 + 127; transposed: d rows c0 ..
+// c0 + 127), its halves of dK and dV (or dQ) stored.  S^T and dP^T (S and
+// dP) sum over all of D, so a CTA stores its partials into the peer's slot
+// of a lo plane the peer has just finished reading, and adds the peer's
+// from its own (hopper.cuh:pair_open .. pair_add): the dQ pair both at once
+// after both products (V lo's slot, 32 KB each way a tile), the dK/dV pair
+// each after its product (Q lo's and dO lo's slots, 16 KB each way).  P and
+// dS are then the same in both CTAs to the bit.  The dK/dV pair takes its
+// planes in the order Q, dO^T, dO, Q^T and runs dV += P^T dO before dP^T =
+// V dO^T: P^T is its hi and lo fragments during that product (hi + lo is
+// P^T exactly again after it), so the warpgroup never holds dK, dV, S^T,
+// dP^T and fragments at once, and holds no more than 192 accumulator and
+// fragment floats at an exchange (the D = 128 order peaks at 224 and
+// spills).  A pair reads what one D = 128 CTA reads: the same L2 traffic,
+// the same FLOPs and the same bound at the same B.
 constexpr int T_D = 128;                // the head width of this design
 constexpr int T_SLOTS = 3;
 constexpr int T_PLANE = TILE * 4 * T_D;  // 64 rows x 128 f32 (or 128 x 64): 32 KB
@@ -876,14 +908,15 @@ constexpr int T_PLANE = TILE * 4 * T_D;  // 64 rows x 128 f32 (or 128 x 64): 32 
 constexpr int T_FLUSH = 2;
 
 // acc (this thread's part of 64 rows x 128, rows `row` and row + 8) into
-// the (B, S, H, 128) output: stored (add = false) or added to it; acc is
-// zeroed.
+// columns c0 .. c0 + 127 of the (B, S, H, DW) output: stored (add = false)
+// or added to it; acc is zeroed.
+template <int DW>
 __device__ __forceinline__ void flush_rows(float* __restrict__ out, float (&acc)[T_D / 2],
                                            int b, int S, int row, int H, int h, int t,
-                                           bool add) {
+                                           bool add, int c0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * T_D + 2 * t;
+    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * DW + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < T_D / 8; ++dt) {
       float2 v = make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
@@ -908,15 +941,18 @@ struct BwdTf32Smem {
   static constexpr int FIXV = SLOT + T_SLOTS * T_PLANE;   // fixed rows' mask, or lse and delta
   static constexpr int SIDE = FIXV + 2 * TILE * 4;   // 2 per-tile entries: lse and delta, or mask
   static constexpr int SIDE_STAGE = 2 * TILE * 4;
-  static constexpr int BAR = SIDE + 2 * SIDE_STAGE;  // fix, full[S], free[S], sfull[2], sfree[2]
-  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4) * 8 + 1024;
+  // fix, full[S], free[S], sfull[2], sfree[2], and for a pair the exchange's
+  // ready and full
+  static constexpr int BAR = SIDE + 2 * SIDE_STAGE;
+  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4 + 2) * 8 + 1024;
 };
 
 // Tensor maps: tq, tk, tv, to the natural planes of q, k, v, dO in boxes of
 // TILE rows; tt1, tt2 transposed planes in boxes of 128 rows (DKV: dO^T, Q^T;
 // dQ: K^T, K^T); tm the mask in boxes of TILE keys; tl, td lse and delta in
 // boxes of TILE entries.  DKV: dK into out1, dV into out2; else dQ into out1.
-template <bool DKV>
+// DW, the head width: 128, or 256 as CTA pairs (see above).
+template <bool DKV, int DW>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -930,6 +966,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       float* __restrict__ out1, float* __restrict__ out2,
                       int Sq, int Skv, int H, int causal) {
   using L = BwdTf32Smem;
+  constexpr bool PAIR = DW == 2 * T_D;
   constexpr int NP = DKV ? 8 : 6;       // planes per swept tile
   constexpr int NS = T_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -940,8 +977,13 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
   uint64_t* side_full = bar_free + NS;  // side entry e landed
   uint64_t* side_free = side_full + 2;  // side entry e read
+  uint64_t* x_ready = side_free + 2;    // pair: the peer's slot takes this CTA's S, dP
+  uint64_t* x_full = x_ready + 1;       // pair: the peer's S, dP landed in this CTA's slot
 
-  const int f0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
+  uint32_t rank = 0;                    // pair: which half of D
+  if constexpr (PAIR) rank = cluster_ctarank();
+  const int c0 = rank * T_D;            // this CTA's first column of the head
+  const int f0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * TILE, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int s_fixed = DKV ? Skv : Sq;
   // swept tiles i0 .. n-1, as in the bf16 kernel (64 fixed rows here)
@@ -961,9 +1003,14 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(side_full + e, 1);
       mbar_init(side_free + e, 4);
     }
+    if constexpr (PAIR) {
+      mbar_init(x_ready, 4);              // each of the peer's consumer warps
+      mbar_init(x_full, 128);             // each of the peer's consumer threads
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (PAIR) cluster_sync();     // both CTAs' barriers ready
+  else __syncthreads();
 
   if (threadIdx.x >= 128) {
     // ---- producer warpgroup: one thread keeps the rings full
@@ -973,10 +1020,10 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive_expect_tx(bar_fix, 4 * T_PLANE + (DKV ? TILE * 4 : 2 * TILE * 4));
       for (int pl = 0; pl < 2; ++pl)
         for (int x = 0; x < 4; ++x) {
-          tma_load_4d(sm + (pl ? L::A1L : L::A1H) + x * TILE * ROW, ta1, bar_fix, FBOX * x, f0,
-                      bh, pl);
-          tma_load_4d(sm + (pl ? L::A2L : L::A2H) + x * TILE * ROW, ta2, bar_fix, FBOX * x, f0,
-                      bh, pl);
+          tma_load_4d(sm + (pl ? L::A1L : L::A1H) + x * TILE * ROW, ta1, bar_fix,
+                      c0 + FBOX * x, f0, bh, pl);
+          tma_load_4d(sm + (pl ? L::A2L : L::A2H) + x * TILE * ROW, ta2, bar_fix,
+                      c0 + FBOX * x, f0, bh, pl);
         }
       if (DKV) {
         tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
@@ -998,17 +1045,20 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         }
         for (int q = 0; q < NP; ++q) {
           const int p = j * NP + q, s = p % NS;
+          // the plane's kind in the order above (the dK/dV pair takes dO^T
+          // before dO)
+          const int k = PAIR && DKV && q >= 2 && q < 6 ? q ^ 6 : q;
           mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
           unsigned char* dst = sm + L::SLOT + s * T_PLANE;
           mbar_arrive_expect_tx(bar_full + s, T_PLANE);
-          if (q < 4) {                                   // natural: 4 boxes of TILE rows
-            const CUtensorMap* m = q < 2 ? (DKV ? &tq : &tk) : (DKV ? &to : &tv);
+          if (k < 4) {                                   // natural: 4 boxes of TILE rows
+            const CUtensorMap* m = k < 2 ? (DKV ? &tq : &tk) : (DKV ? &to : &tv);
             for (int x = 0; x < 4; ++x)
-              tma_load_4d(dst + x * TILE * ROW, m, bar_full + s, FBOX * x, r0, bh, q % 2);
+              tma_load_4d(dst + x * TILE * ROW, m, bar_full + s, c0 + FBOX * x, r0, bh, q % 2);
           } else {                                       // transposed: 2 boxes of 128 rows
-            const CUtensorMap* m = q < 6 && DKV ? &tt1 : &tt2;
+            const CUtensorMap* m = k < 6 && DKV ? &tt1 : &tt2;
             for (int x = 0; x < 2; ++x)
-              tma_load_4d(dst + x * T_D * ROW, m, bar_full + s, r0 + FBOX * x, 0, bh,
+              tma_load_4d(dst + x * T_D * ROW, m, bar_full + s, r0 + FBOX * x, c0, bh,
                           q % 2);
           }
         }
@@ -1045,7 +1095,8 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
     // d = A B^T over the head dim, A fixed (planes ah, al), B the planes p,
     // p + 1: 16 k8 steps of three products; then the planes are released
-    auto first = [&](float (&d)[TILE / 2], uint64_t ah, uint64_t al, int p) {
+    // (p + 1 only if rel2)
+    auto first = [&](float (&d)[TILE / 2], uint64_t ah, uint64_t al, int p, bool rel2) {
       wait_plane(p);
       wait_plane(p + 1);
       const uint64_t dbh = smem_desc_sw128(plane(p), 16);
@@ -1067,7 +1118,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(d);
       release(p);
-      release(p + 1);
+      if (rel2) release(p + 1);
     };
     // acc += X B with X (64 x TILE) from registers as hi and lo fragments,
     // B the transposed planes p, p + 1: 8 k8 steps of three products
@@ -1097,180 +1148,84 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       release(p + 1);
     };
 
+    // pair: the `parts` (TILE / 2 floats of this thread each) over this
+    // CTA's half of D go to the peer's slot of plane ps, the peer's parts
+    // come into this CTA's and are added, so each holds the sum over all of
+    // D; the slot goes back to the ring.  x counts the exchanges (parity).
+    auto pair_sum = [&](int ps, int x, auto&... parts) {
+      unsigned char* xs = plane(ps);
+      const uint32_t peer = cluster_ctarank() ^ 1;
+      const uint32_t dst = pair_open(xs, x_ready, peer, x & 1, lane == 0);
+      int k0 = 0;
+      ((pair_put(dst, parts, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+      pair_close(x_full, peer, x & 1);
+      k0 = 0;
+      ((pair_add(parts, xs, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+      fence_proxy_async();                           // read before the slot's next TMA write
+      __syncwarp();
+      release(ps);
+    };
+
     for (int i = i0; i < n; ++i) {
       const int j = i - i0, p = j * NP, r0 = i * TILE, e = j % 2;
       float sc[TILE / 2], dp[TILE / 2];
       uint32_t xh[TILE / 8][4], xl[TILE / 8][4];
-      first(sc, da1h, da1l, p);                      // S^T = K Q^T, or S = Q K^T
-      first(dp, da2h, da2l, p + 2);                  // dP^T = V dO^T, or dP = dO V^T
-      mbar_wait(side_full + e, (j / 2) & 1);
-      const unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
-      if (DKV) {
-        const float* lv = reinterpret_cast<const float*>(sv);
+      if constexpr (PAIR && DKV) {
+        first(sc, da1h, da1l, p, false);             // S^T = K Q^T over this half
+        pair_sum(p + 1, 2 * j, sc);
+        mbar_wait(side_full + e, (j / 2) & 1);
+        const float* lv = reinterpret_cast<const float*>(sm + L::SIDE + e * L::SIDE_STAGE);
         if (causal && r0 < f0 + 63)
-          probs_t<true>(sc, dp, lv, lv + TILE, keep, row, r0, t);
+          probs_t_p<true>(sc, lv, keep, row, r0, t);
         else
-          probs_t<false>(sc, dp, lv, lv + TILE, keep, row, r0, t);
-      } else {
-        const int* mk = reinterpret_cast<const int*>(sv);
-        if (causal && r0 + 63 > f0)
-          probs<true>(sc, dp, mk, lse_r, dl_r, row, r0, t);
-        else
-          probs<false>(sc, dp, mk, lse_r, dl_r, row, r0, t);
-      }
-      if (lane == 0) mbar_arrive(side_free + e);
-      if (DKV) {
+          probs_t_p<false>(sc, lv, keep, row, r0, t);
         split_acc_tf32(xh, xl, sc);
-        last(acc2, xh, xl, p + 4);                   // dV += P^T dO
+        last(acc2, xh, xl, p + 2);                   // dV += P^T dO
+        join_acc_tf32(sc, xh, xl);                   // P^T, exactly
+        first(dp, da2h, da2l, p + 4, false);         // dP^T = V dO^T over this half
+        pair_sum(p + 5, 2 * j + 1, dp);
+        ds_t(dp, sc, lv + TILE, t);
+        if (lane == 0) mbar_arrive(side_free + e);
+        split_acc_tf32(xh, xl, dp);
+        last(acc1, xh, xl, p + 6);                   // dK += dS^T Q
+      } else {
+        first(sc, da1h, da1l, p, true);                // S^T = K Q^T, or S = Q K^T
+        first(dp, da2h, da2l, p + 2, !PAIR);           // dP^T = V dO^T, or dP = dO V^T
+        if constexpr (PAIR) pair_sum(p + 3, j, sc, dp);   // dQ: over this half, then all of D
+        mbar_wait(side_full + e, (j / 2) & 1);
+        const unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
+        if (DKV) {
+          const float* lv = reinterpret_cast<const float*>(sv);
+          if (causal && r0 < f0 + 63)
+            probs_t<true>(sc, dp, lv, lv + TILE, keep, row, r0, t);
+          else
+            probs_t<false>(sc, dp, lv, lv + TILE, keep, row, r0, t);
+        } else {
+          const int* mk = reinterpret_cast<const int*>(sv);
+          if (causal && r0 + 63 > f0)
+            probs<true>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+          else
+            probs<false>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+        }
+        if (lane == 0) mbar_arrive(side_free + e);
+        if (DKV) {
+          split_acc_tf32(xh, xl, sc);
+          last(acc2, xh, xl, p + 4);                   // dV += P^T dO
+        }
+        split_acc_tf32(xh, xl, dp);
+        last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
       }
-      split_acc_tf32(xh, xl, dp);
-      last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
       if (j % T_FLUSH == T_FLUSH - 1 || i == n - 1) {
-        flush_rows(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH);
-        if (DKV) flush_rows(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH);
+        flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
+        if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
       }
     }
     if (i0 == n) {                                   // no tile: zero gradients
-      flush_rows(out1, acc1, b, s_fixed, row, H, h, t, false);
-      if (DKV) flush_rows(out2, acc2, b, s_fixed, row, H, h, t, false);
+      flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, false, c0);
+      if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, false, c0);
     }
   }
-}
-
-// ------------------------------------------- f32 at D = 256 / 3xTF32 mma.sync
-// The D = 128 f32 kernel above keeps the fixed operands' hi and lo planes
-// (4 x 32 KB) and dK and dV in one warpgroup: at D = 256 that is 256 KB and
-// 256 registers a thread.  Here f32 rows stay plain in shared memory and
-// each warp splits its fragments as it loads them (flash_mma_f32.cuh):
-//   dK/dV: one CTA of 8 warps per (64 kv rows, head, batch); K and V (64 x
-//     256) copied once, Q, dO and their lse and delta 32 rows a tile (200 KB
-//     in all).  Warps 0-3 own dV of 16 kv rows each (S^T = K Q^T, P^T,
-//     dV += P^T dO), warps 4-7 dK (S^T, dP^T = V dO^T, dS^T, dK += dS^T Q):
-//     S^T twice, as in the bf16 kernel, so that a thread holds one 16 x 256
-//     accumulator (128 f32).
-//   dQ: one CTA of 4 warps per (64 q rows, head, batch); Q and dO copied
-//     once, K, V and the mask 32 rows a tile; S, dP, dS, dQ += dS K.
-// Every k8 step's three products go into a zeroed partial added in f32, so
-// the long sums over the swept tiles are f32 sums (no flush as above).
-// Simple before fast: one buffer, loads by the threads, a barrier a tile.
-constexpr int MB_FIX = 64;              // fixed rows per CTA
-constexpr int MB_TILE = 32;             // swept rows per tile
-constexpr int MB_SMEM = (2 * MB_FIX + 2 * MB_TILE) * M_LD * 4 + 2 * MB_TILE * 4;
-
-// DKV: dK (out1) and dV (out2) of 64 kv rows; else dQ (out1) of 64 q rows;
-// (B, S, H, 256) f32 contiguous.  q, k, v, dO read through their strides.
-template <bool DKV>
-__global__ void __launch_bounds__(DKV ? 256 : 128, 1)
-flash_bwd_d256_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const int* __restrict__ mask, const float* __restrict__ lse,
-                          const float* __restrict__ delta, float* __restrict__ out1,
-                          float* __restrict__ out2, int Sq, int Skv, int H, int causal,
-                          long long qsb, long long qss, long long qsh, long long ksb,
-                          long long kss, long long ksh, long long vsb, long long vss,
-                          long long vsh, long long osb, long long oss, long long osh) {
-  constexpr int NT = DKV ? 256 : 128;               // threads
-  extern __shared__ float4 smem_f4[];
-  float* fa1 = reinterpret_cast<float*>(smem_f4);   // fixed: K (dK/dV) or Q (dQ)
-  float* fa2 = fa1 + MB_FIX * M_LD;                 // fixed: V or dO
-  float* sb1 = fa2 + MB_FIX * M_LD;                 // swept: Q or K
-  float* sb2 = sb1 + MB_TILE * M_LD;                // swept: dO or V
-  float* side = sb2 + MB_TILE * M_LD;               // swept: lse and delta, or the mask
-  const int f0 = blockIdx.x * MB_FIX, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * H + h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const bool dv_warp = DKV && warp < 4;             // P^T and dV alone
-  const int wr = (warp % 4) * 16;                   // the warp's fixed rows in the CTA
-  const int row = f0 + wr + g;                      // this thread's rows: row, row + 8
-  const int s_fixed = DKV ? Skv : Sq, s_swept = DKV ? Sq : Skv;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-  const float* ob = dout + b * osb + h * osh;
-  load_rows_f32(fa1, DKV ? kb : qb, DKV ? kss : qss, f0, MB_FIX, s_fixed, NT);
-  load_rows_f32(fa2, DKV ? vb : ob, DKV ? vss : oss, f0, MB_FIX, s_fixed, NT);
-  bool keep[2];
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (DKV) {
-      keep[r] = mask[(long long)b * Skv + row + 8 * r] != 0;
-    } else {
-      lse_r[r] = lse[bh * Sq + row + 8 * r];
-      dl_r[r] = delta[bh * Sq + row + 8 * r];
-    }
-  }
-  // swept tiles i0 .. n-1, as in the wgmma kernels
-  int i0 = 0, n = s_swept / MB_TILE;
-  if (causal) {
-    if (DKV) i0 = min(f0 / MB_TILE, n);
-    else n = min(n, (f0 + MB_FIX - 1) / MB_TILE + 1);
-  }
-
-  float acc[M_D / 8][4];                            // dV, dK or dQ: 16 rows x 256 a warp
-#pragma unroll
-  for (int i = 0; i < M_D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int i = i0; i < n; ++i) {
-    const int r0 = i * MB_TILE;
-    __syncthreads();                                // the last tile's reads are done
-    load_rows_f32(sb1, DKV ? qb : kb, DKV ? qss : kss, r0, MB_TILE, s_swept, NT);
-    load_rows_f32(sb2, DKV ? ob : vb, DKV ? oss : vss, r0, MB_TILE, s_swept, NT);
-    if (threadIdx.x < MB_TILE) {
-      if (DKV) {
-        side[threadIdx.x] = lse[bh * Sq + r0 + threadIdx.x];
-        side[MB_TILE + threadIdx.x] = delta[bh * Sq + r0 + threadIdx.x];
-      } else {
-        reinterpret_cast<int*>(side)[threadIdx.x] = mask[(long long)b * Skv + r0 + threadIdx.x];
-      }
-    }
-    __syncthreads();
-    // S^T = K Q^T (or S = Q K^T) and, but in the dV warps, dP^T = V dO^T
-    // (or dP = dO V^T): 16 x 32 a warp, 32 k8 steps
-    float sc[MB_TILE / 8][4], dp[MB_TILE / 8][4];
-#pragma unroll
-    for (int j = 0; j < MB_TILE / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < M_D / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      a_frag_3x(ah, al, fa1 + (wr + g) * M_LD + kk * 8 + t);
-      mma_abt(sc, ah, al, sb1 + g * M_LD + kk * 8 + t);
-      if (!dv_warp) {
-        a_frag_3x(ah, al, fa2 + (wr + g) * M_LD + kk * 8 + t);
-        mma_abt(dp, ah, al, sb2 + g * M_LD + kk * 8 + t);
-      }
-    }
-    float(&s)[MB_TILE / 2] = *reinterpret_cast<float(*)[MB_TILE / 2]>(&sc[0][0]);
-    float(&d)[MB_TILE / 2] = *reinterpret_cast<float(*)[MB_TILE / 2]>(&dp[0][0]);
-    if constexpr (DKV) {
-      const bool diag = causal && r0 < f0 + MB_FIX - 1;
-      if (dv_warp) {
-        if (diag) probs_t_p<true, MB_TILE>(s, side, keep, row, r0, t);
-        else probs_t_p<false, MB_TILE>(s, side, keep, row, r0, t);
-      } else {
-        if (diag) probs_t<true, MB_TILE>(s, d, side, side + MB_TILE, keep, row, r0, t);
-        else probs_t<false, MB_TILE>(s, d, side, side + MB_TILE, keep, row, r0, t);
-      }
-    } else {
-      const int* mk = reinterpret_cast<const int*>(side);
-      if (causal && r0 + MB_TILE - 1 > f0) probs<true, MB_TILE>(s, d, mk, lse_r, dl_r, row, r0, t);
-      else probs<false, MB_TILE>(s, d, mk, lse_r, dl_r, row, r0, t);
-    }
-    // dV += P^T dO, dK += dS^T Q, or dQ += dS K: 4 k8 steps over the tile
-    const float* bt = dv_warp ? sb2 : sb1;
-#pragma unroll
-    for (int kk = 0; kk < MB_TILE / 8; ++kk)
-      mma_acc_b(acc, dv_warp ? sc[kk] : dp[kk], bt + (kk * 8 + 2 * t) * M_LD + g);
-  }
-  float* out = dv_warp ? out2 : out1;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float* at = out + (((long long)b * s_fixed + row + 8 * r) * H + h) * M_D + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < M_D / 8; ++nt)
-      *reinterpret_cast<float2*>(at + nt * 8) = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
-  }
+  if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
 }
 
 typedef long long ll;
@@ -1320,14 +1275,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The f32 kernel of one pass from the prep's planes (D = 128): q, k, v,
+// The f32 kernel of one pass at width D from the prep's planes: q, k, v,
 // dout natural, qt, kt, ot transposed (those the pass reads; the others
 // may be null).
 template <bool DKV>
 int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
                 const void* qt, const void* kt, const void* ot, const void* mask,
                 const void* lse, const void* delta, void* out1, void* out2, int B, int Sq,
-                int Skv, int H, int causal, cudaStream_t st) {
+                int Skv, int H, int D, int causal, cudaStream_t st) {
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
   const int BH = B * H;
@@ -1335,38 +1290,28 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
   const void* t2 = DKV ? qt : kt;
   const int t_cols = DKV ? Sq : Skv;
   CUtensorMap tq, tk, tv, to, tt1, tt2, tm, tl, td;
-  CUresult r = plane_map(enc, &tq, q, BH, Sq, T_D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &to, dout, BH, Sq, T_D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, BH, Skv, T_D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, BH, Skv, T_D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt1, t1, BH, T_D, t_cols, T_D);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt2, t2, BH, T_D, t_cols, T_D);
+  CUresult r = plane_map(enc, &tq, q, BH, Sq, D, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &to, dout, BH, Sq, D, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, BH, Skv, D, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, BH, Skv, D, TILE);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt1, t1, BH, D, t_cols, T_D);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tt2, t2, BH, D, t_cols, T_D);
   if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, TILE);
   if (r == CUDA_SUCCESS)
     r = rows_map(enc, &tl, lse, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r == CUDA_SUCCESS)
     r = rows_map(enc, &td, delta, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
-  cudaFuncSetAttribute(flash_bwd_tf32_kernel<DKV>,
+  const int tiles = (DKV ? Skv : Sq) / TILE;
+  if (D == 256)
+    return (int)launch_pair(flash_bwd_tf32_kernel<DKV, 256>, dim3(2 * tiles, H, B), 256,
+                            BwdTf32Smem::ALLOC, st, tq, tk, tv, to, tt1, tt2, tm, tl, td,
+                            (float*)out1, (float*)out2, Sq, Skv, H, causal);
+  cudaFuncSetAttribute(flash_bwd_tf32_kernel<DKV, 128>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdTf32Smem::ALLOC);
-  dim3 grid((DKV ? Skv : Sq) / TILE, H, B);
-  flash_bwd_tf32_kernel<DKV><<<grid, 256, BwdTf32Smem::ALLOC, st>>>(
+  dim3 grid(tiles, H, B);
+  flash_bwd_tf32_kernel<DKV, 128><<<grid, 256, BwdTf32Smem::ALLOC, st>>>(
       tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2, Sq, Skv, H, causal);
-  return (int)cudaGetLastError();
-}
-
-// The f32 kernel of one pass at D = 256 from q, k, v, dout themselves.
-template <bool DKV>
-int launch_mma256(const void* q, const void* k, const void* v, const void* dout,
-                  const void* mask, const void* lse, const void* delta, void* out1, void* out2,
-                  int B, int Sq, int Skv, int H, int causal, PBT_STRIDES, cudaStream_t st) {
-  cudaFuncSetAttribute(flash_bwd_d256_mma_kernel<DKV>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, MB_SMEM);
-  dim3 grid((DKV ? Skv : Sq) / MB_FIX, H, B);
-  flash_bwd_d256_mma_kernel<DKV><<<grid, DKV ? 256 : 128, MB_SMEM, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const int*)mask,
-      (const float*)lse, (const float*)delta, (float*)out1, (float*)out2, Sq, Skv, H, causal,
-      PBT_STRIDE_ARGS);
   return (int)cudaGetLastError();
 }
 
@@ -1385,20 +1330,17 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
     return launch_wgmma<DKV, 256>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H,
                                   causal, PBT_STRIDE_ARGS, st);
   }
-  if (D == 128)
-    return launch_tf32<DKV>(q, k, v, dout, DKV ? qt : nullptr, DKV ? nullptr : kt,
-                            DKV ? ot : nullptr, mask, lse, delta, out1, out2, B, Sq, Skv, H,
-                            causal, st);
-  return launch_mma256<DKV>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H, causal,
-                            PBT_STRIDE_ARGS, st);
+  return launch_tf32<DKV>(q, k, v, dout, DKV ? qt : nullptr, DKV ? nullptr : kt,
+                          DKV ? ot : nullptr, mask, lse, delta, out1, out2, B, Sq, Skv, H, D,
+                          causal, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16, and f32 at
-// D = 256: q, k, v, dO (B, S, H, D) at element strides for their (B, S, H)
-// axes (the D axis contiguous); qt, kt, ot are not read.  f32 at D = 128:
-// q, k, v, dO are the natural split planes of pbt_tf32_split and qt, kt, ot
+// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16: q, k, v, dO (B,
+// S, H, D) at element strides for their (B, S, H) axes (the D axis
+// contiguous); qt, kt, ot are not read.  f32: q, k, v, dO are the natural
+// split planes of pbt_tf32_split and qt, kt, ot
 // the transposed planes of q, k and dO (each entry reads the ones its
 // kernels use: K2 qt, kt, ot; K3a kt; K3b qt, ot); the strides are not
 // read.  Each entry launches on `stream` and returns the first nonzero of

@@ -24,8 +24,8 @@
 // 3-stage TMA ring of 128 kv rows full, two consumer warpgroups running
 // S = Q K^T and O += P V as wgmma, tile j's softmax under tile j-1's P V.
 //
-// f32 design (3xTF32, the default PianoBartConfig's path): the same
-// schedule on the tensor cores at f32 accuracy.  tf32 wgmma reads its
+// f32 design (3xTF32, the default PianoBartConfig's path, D = 128): the
+// same schedule on the tensor cores at f32 accuracy.  tf32 wgmma reads its
 // shared-memory operands K-major only, so the wrapper's prep
 // (flash_bwd.cu:pbt_tf32_split) hands the kernel Q's and K's planes of
 // hi = x rounded to tf32 and lo = x - hi, and V's transposed (d along the
@@ -43,21 +43,20 @@
 // At D = 256 the bf16 kernel is the same template's instance <false,
 // false, 256> (flash_fwd_bf16.cuh: kv tiles of 64 rows in 2 stages).  The
 // f32 layout above does not fit there (Q's two planes alone would take
-// 256 KB), so f32 at D = 256 is a simpler kernel at the same accuracy,
-// flash_fwd_d256_mma_kernel: 3xTF32 by mma.sync m16n8k8, the pre-Hopper
-// tensor-core product, with no prep.  One CTA of 8 warps per (128 q rows,
-// head, batch), each warp 16 rows; the CTA copies Q (128 x 256 f32) once and
-// K and V 32 rows at a time into shared memory (rows padded to 260 floats,
-// so every fragment load is free of bank conflicts), and each warp splits
-// its fragments into tf32 hi and lo as it loads them, runs S = Q K^T
-// (16 x 32, 32 k8 steps) and O += P V (16 x 256, 4 k8 steps, P split from
-// its accumulators) as three mma each, hi.hi' + hi.lo' + lo.hi', every k8
-// step's three into a zeroed partial added to the sum in f32.  The online
-// softmax is K1's.  Simple before fast: one buffer, loads by the threads,
-// a barrier a tile; 8 warps an SM (200 KB of shared memory a CTA).
+// 256 KB), so the f32 kernel runs at D = 256 as a cluster of two CTAs, one
+// per 128-column half of the head (flash_fwd_tf32_kernel<256>): each CTA is
+// the D = 128 kernel on its half of the planes (Q's half fixed, K's and
+// V^T's halves streamed, O's half stored), and S = Q K^T, which sums over
+// all of D, is summed across the pair: after its S products a CTA releases
+// K hi's slot to the ring, stores its partial S into the peer's K lo slot
+// (distributed shared memory; the peer's warps have said that slot is free)
+// and adds the peer's partial from its own (hopper.cuh:pair_open .. pair_add;
+// 32 KB each way a tile).  Both CTAs add the same two numbers, so both hold
+// the same S, softmax, P and lse to the bit; rank 0 stores lse.  The pair
+// reads what one D = 128 CTA reads, so the L2 traffic and the FLOPs a CTA
+// equal the D = 128 kernel's at the same B, and so does the bound.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
-#include "flash_mma_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -79,8 +78,9 @@ struct K1F32Smem {
   static constexpr int QLO = QHI + K1_BM * 4 * F_D;
   static constexpr int SLOT = QLO + K1_BM * 4 * F_D;
   static constexpr int MASK = SLOT + F_SLOTS * F_PLANE;         // per slot F_BN int32
-  static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;         // Q, full[S], free[S]
-  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS) * 8 + 1024;
+  // Q, full[S], free[S], and for a pair the exchange's ready and full
+  static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;
+  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS + 2) * 8 + 1024;
 };
 
 // Masks (the causal one, DIAG, only where the diagonal crosses the
@@ -126,7 +126,9 @@ __device__ __forceinline__ void softmax_tile_f32(float (&sc)[BN / 2], const int*
 // wrapper's prep (pbt_tf32_split) hands it Q's and K's hi and lo planes and
 // V's transposed ones.  tq: Q planes in boxes of K1_BM rows; tk: K planes in
 // boxes of F_BN rows; tv: V^T planes in boxes of 128 d rows; tm: the mask in
-// boxes of F_BN keys.
+// boxes of F_BN keys.  DW, the head width: 128, or 256 as CTA pairs along x
+// (blockIdx.x / 2 the q tile, the cluster rank the half of D).
+template <int DW>
 __global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -135,6 +137,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       float* __restrict__ o, float* __restrict__ lse,
                       int Sq, int Skv, int H, int causal) {
   using L = K1F32Smem;
+  constexpr bool PAIR = DW == 2 * F_D;
   constexpr int NWG = K1_WG;
   constexpr int BM = K1_BM, BN = F_BN, NS = F_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -143,8 +146,13 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);
   uint64_t* bar_full = bar_q + 1;       // plane of slot s landed
   uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
+  uint64_t* x_ready = bar_free + NS;    // pair: the peer's slot takes this CTA's S
+  uint64_t* x_full = x_ready + 1;       // pair: the peer's S landed in this CTA's slot
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  uint32_t rank = 0;                    // pair: which half of D
+  if constexpr (PAIR) rank = cluster_ctarank();
+  const int c0 = rank * F_D;            // this CTA's first column of the head
+  const int q0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * BM, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
   int n_tiles = Skv / BN;
@@ -157,9 +165,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
+    if constexpr (PAIR) {
+      mbar_init(x_ready, 4 * NWG);        // each of the peer's consumer warps
+      mbar_init(x_full, 128 * NWG);       // each of the peer's consumer threads
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (PAIR) cluster_sync();     // both CTAs' barriers ready
+  else __syncthreads();
 
   if (wg == NWG) {
     // ---- producer warpgroup: one thread keeps the ring full
@@ -168,8 +181,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive_expect_tx(bar_q, 2 * BM * 4 * F_D);
       for (int pl = 0; pl < 2; ++pl)
         for (int x = 0; x < 4; ++x)
-          tma_load_4d(sm + (pl ? L::QLO : L::QHI) + x * BM * ROW, &tq, bar_q, FBOX * x, q0,
-                      bh, pl);
+          tma_load_4d(sm + (pl ? L::QLO : L::QHI) + x * BM * ROW, &tq, bar_q, c0 + FBOX * x,
+                      q0, bh, pl);
       for (int p = 0; p < n_planes; ++p) {
         const int s = p % NS, kv0 = (p / 4) * BN, kind = p % 4;
         mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
@@ -177,12 +190,12 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         if (kind < 2) {                                  // K hi or lo: 4 boxes of BN rows
           mbar_arrive_expect_tx(bar_full + s, F_PLANE + (kind == 0 ? BN * 4 : 0));
           for (int x = 0; x < 4; ++x)
-            tma_load_4d(dst + x * BN * ROW, &tk, bar_full + s, FBOX * x, kv0, bh, kind);
+            tma_load_4d(dst + x * BN * ROW, &tk, bar_full + s, c0 + FBOX * x, kv0, bh, kind);
           if (kind == 0) tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_full + s, kv0, b);
         } else {                                         // V^T hi or lo: 2 boxes of 128 rows
           mbar_arrive_expect_tx(bar_full + s, F_PLANE);
           for (int x = 0; x < 2; ++x)
-            tma_load_4d(dst + x * F_D * ROW, &tv, bar_full + s, kv0 + FBOX * x, 0, bh,
+            tma_load_4d(dst + x * F_D * ROW, &tv, bar_full + s, kv0 + FBOX * x, c0, bh,
                         kind - 2);
         }
       }
@@ -236,14 +249,28 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
+      if constexpr (PAIR) {
+        // S over this CTA's half of D: K hi's slot goes back to the ring, K
+        // lo's takes the peer's partial S, and the sum is S over all of D
+        release(p);
+        const uint32_t dst = pair_open(plane(p + 1), x_ready, rank ^ 1, j & 1, lane == 0);
+        pair_put(dst, sc, 0, 128 * NWG, threadIdx.x);
+        pair_close(x_full, rank ^ 1, j & 1);
+        pair_add(sc, plane(p + 1), 0, 128 * NWG, threadIdx.x);
+        fence_proxy_async();               // read before the slot's next TMA write
+        __syncwarp();
+        release(p + 1);
+      }
       const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);
       if (causal && kv0 + BN - 1 > wrow0)
         softmax_tile_f32<true, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       else
         softmax_tile_f32<false, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       fence_regs(sc);                                // p computed before the release
-      release(p);
-      release(p + 1);
+      if constexpr (!PAIR) {
+        release(p);
+        release(p + 1);
+      }
 #pragma unroll
       for (int dt = 0; dt < F_D / 8; ++dt) {
         acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
@@ -285,110 +312,24 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      float* orow = o + (((long long)b * Sq + rr) * H + h) * F_D;
+      float* orow = o + (((long long)b * Sq + rr) * H + h) * DW + c0;
       const float inv = 1.f / l_i[r];
 #pragma unroll
       for (int dt = 0; dt < F_D / 8; ++dt)
         *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
             make_float2(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
-      if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+      if (t == 0 && rank == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
     }
   }
-}
-
-// ------------------------------------------- f32 at D = 256 / 3xTF32 mma.sync
-constexpr int M_WARPS = 8;               // 16 q rows each
-constexpr int M_BM = 16 * M_WARPS;       // q rows per CTA
-constexpr int M_BN = 32;                 // kv rows per tile
-constexpr int M_SMEM = (M_BM + 2 * M_BN) * M_LD * 4 + M_BN * 4;
-
-// The f32 forward at D = 256 (see the header): q, k, v read through their
-// strides, o (B, Sq, H, 256) f32 contiguous, lse (B, H, Sq).
-__global__ void __launch_bounds__(32 * M_WARPS, 1)
-flash_fwd_d256_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const int* __restrict__ mask,
-                          float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
-                          int H, int causal, long long qsb, long long qss, long long qsh,
-                          long long ksb, long long kss, long long ksh, long long vsb,
-                          long long vss, long long vsh) {
-  extern __shared__ float4 smem_f4[];
-  float* sq = reinterpret_cast<float*>(smem_f4);
-  float* sk = sq + M_BM * M_LD;
-  float* sv = sk + M_BN * M_LD;
-  int* smk = reinterpret_cast<int*>(sv + M_BN * M_LD);
-  const int q0 = blockIdx.x * M_BM, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;                       // the warp's rows in the tile
-  const int row = q0 + wr + g;                    // this thread's rows: row, row + 8
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-  load_rows_f32(sq, q + b * qsb + h * qsh, qss, q0, M_BM, Sq, 32 * M_WARPS);
-
-  float acc[M_D / 8][4];                          // O: 16 rows x 256 a warp
-#pragma unroll
-  for (int i = 0; i < M_D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_i[2] = {NEG_INF, NEG_INF};
-  float l_i[2] = {0.f, 0.f};
-  int n_tiles = Skv / M_BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + M_BM - 1) / M_BN + 1);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * M_BN;
-    __syncthreads();                              // the last tile's reads are done
-    load_rows_f32(sk, kb, kss, kv0, M_BN, Skv, 32 * M_WARPS);
-    load_rows_f32(sv, vb, vss, kv0, M_BN, Skv, 32 * M_WARPS);
-    if (threadIdx.x < M_BN) smk[threadIdx.x] = mask[(long long)b * Skv + kv0 + threadIdx.x];
-    __syncthreads();
-    float sc[M_BN / 8][4];                        // S: 16 x 32 a warp
-#pragma unroll
-    for (int i = 0; i < M_BN / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < M_D / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      a_frag_3x(ah, al, sq + (wr + g) * M_LD + kk * 8 + t);
-      mma_abt(sc, ah, al, sk + g * M_LD + kk * 8 + t);
-    }
-    float(&s)[M_BN / 2] = *reinterpret_cast<float(*)[M_BN / 2]>(&sc[0][0]);
-    float corr[2];
-    if (causal && kv0 + M_BN - 1 > q0 + wr)
-      softmax_tile_f32<true, M_BN>(s, smk, m_i, l_i, corr, row, kv0, t);
-    else
-      softmax_tile_f32<false, M_BN>(s, smk, m_i, l_i, corr, row, kv0, t);
-#pragma unroll
-    for (int nt = 0; nt < M_D / 8; ++nt) {
-      acc[nt][0] *= corr[0]; acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1]; acc[nt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < M_BN / 8; ++kk)      // O += P V, P split a slice at a time
-      mma_acc_b(acc, sc[kk], sv + (kk * 8 + 2 * t) * M_LD + g);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    if (l_i[r] == 0.f) l_i[r] = 1.f;   // l_safe
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    if (rr >= Sq) continue;
-    float* orow = o + (((long long)b * Sq + rr) * H + h) * M_D;
-    const float inv = 1.f / l_i[r];
-#pragma unroll
-    for (int nt = 0; nt < M_D / 8; ++nt)
-      *reinterpret_cast<float2*>(orow + nt * 8 + 2 * t) =
-          make_float2(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
-    if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
-  }
+  if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16, and f32 at
-// D = 256: q, k, v (B, S, H, D) at element strides for the (B, S, H) axes
-// (the D axis contiguous).  f32 at D = 128: q and k are the natural split
-// planes of pbt_tf32_split (flash_bwd.cu) and v its transposed planes; the
-// strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
+// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16: q, k, v (B, S,
+// H, D) at element strides for the (B, S, H) axes (the D axis contiguous).
+// f32: q and k are the natural split planes of pbt_tf32_split (flash_bwd.cu)
+// and v its transposed planes; the strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
 // a tensor map the driver refused (1000 alone where the driver offers no
 // encoder), or cudaErrorInvalidValue for another D.
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
@@ -400,15 +341,6 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == M_D) {
-    cudaFuncSetAttribute(flash_fwd_d256_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         M_SMEM);
-    dim3 grid((Sq + M_BM - 1) / M_BM, H, B);
-    flash_fwd_d256_mma_kernel<<<grid, 32 * M_WARPS, M_SMEM, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)mask, (float*)o,
-        (float*)lse, Sq, Skv, H, causal, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
-    return (int)cudaGetLastError();
-  }
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
   CUtensorMap tq, tk, tv, tm;
@@ -425,15 +357,20 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     return launch_fwd_bf16<false, false, 128>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
                                               K1_UNITS, st);
   } else {
-    CUresult r = plane_map(enc, &tq, q, B * H, Sq, F_D, K1_BM);
-    if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, F_D, F_BN);
-    if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, B * H, F_D, Skv, F_D);
+    CUresult r = plane_map(enc, &tq, q, B * H, Sq, D, K1_BM);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, B * H, Skv, D, F_BN);
+    if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, B * H, D, Skv, F_D);
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, F_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
-    cudaFuncSetAttribute(flash_fwd_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const int tiles = (Sq + K1_BM - 1) / K1_BM;
+    if (D == 256)
+      return (int)launch_pair(flash_fwd_tf32_kernel<256>, dim3(2 * tiles, H, B),
+                              128 * (K1_WG + 1), K1F32Smem::ALLOC, st, tq, tk, tv, tm,
+                              (float*)o, (float*)lse, Sq, Skv, H, causal);
+    cudaFuncSetAttribute(flash_fwd_tf32_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          K1F32Smem::ALLOC);
-    dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
-    flash_fwd_tf32_kernel<<<grid, 128 * (K1_WG + 1), K1F32Smem::ALLOC, st>>>(
+    dim3 grid(tiles, H, B);
+    flash_fwd_tf32_kernel<128><<<grid, 128 * (K1_WG + 1), K1F32Smem::ALLOC, st>>>(
         tq, tk, tv, tm, (float*)o, (float*)lse, Sq, Skv, H, causal);
   }
   return (int)cudaGetLastError();

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and products (bf16 and
-// tf32), the 3xTF32 split, setmaxnreg, the async-proxy fence and named
-// barriers, and on the host the tensor maps the flash kernels load through.
+// Hopper (sm_90a) building blocks for the port's kernels: mbarriers, a CTA
+// pair's distributed shared memory (cluster rank, mapa, remote stores and
+// arrivals, the pair's sum), TMA tensor loads, wgmma shared-memory
+// descriptors and products (bf16 and tf32), the 3xTF32 split, setmaxnreg,
+// the async-proxy fence and named barriers, and on the host the tensor maps
+// the flash kernels load through.
 //
 // Shared-memory tiles here are what a TMA load with 128-byte swizzle leaves:
 // rows of 128 bytes (64 bf16), 16-byte chunk c of row r stored at chunk
@@ -31,6 +33,8 @@
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 #include "flash_common.cuh"
 
@@ -77,6 +81,103 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(a), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ------------------------------------------------------------------ clusters
+// A cluster of two CTAs (the f32 kernels at D = 256 run one per 128-column
+// half of the head): each CTA reaches the other's shared memory through
+// shared::cluster addresses (mapa) and arrives on the other's mbarriers.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster; orders shared-memory writes
+// (the barriers' initialisation) before the other CTAs' later accesses
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of the byte at `addr` (a shared::cta address
+// of this CTA's layout) in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c,
+                                              float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+// arrive on an mbarrier of another CTA (addr from mapa), releasing this
+// thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: what the other CTA wrote before
+// its arrival is visible after
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The sum across a CTA pair of accumulator parts that both CTAs hold for the
+// same elements (each its own 128 columns' share of a product over D),
+// through one 32 KB ring slot of each CTA that the products have finished
+// reading (`slot`, at the same offset in both).  Thread `tid` of `threads`
+// writers owns 16-byte chunks k * threads + tid (a warp's stores are
+// consecutive), the same in both CTAs.  pair_open tells the peer that this
+// CTA's slot is free (one arrival per warp on the peer's `ready`), waits for
+// the peer's word and returns the peer slot's address; pair_put stores
+// parts there; pair_close arrives on the peer's `full` (every writer) and
+// waits on this CTA's; pair_add then adds the peer's parts.  Both CTAs add
+// the same two numbers, so both hold the same sums to the bit.  `parity`
+// is that of the exchange's index.
+__device__ __forceinline__ uint32_t pair_open(unsigned char* slot, uint64_t* ready,
+                                              uint32_t peer, uint32_t parity, bool lane0) {
+  if (lane0) mbar_arrive_cluster(mapa(smem_u32(ready), peer));
+  mbar_wait_cluster(ready, parity);
+  return mapa(smem_u32(slot), peer);
+}
+
+template <int N>
+__device__ __forceinline__ void pair_put(uint32_t dst, const float (&v)[N], int k0,
+                                         int threads, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k)
+    st_cluster_v4(dst + ((k0 + k) * threads + tid) * 16, v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                  v[4 * k + 3]);
+}
+
+__device__ __forceinline__ void pair_close(uint64_t* full, uint32_t peer, uint32_t parity) {
+  mbar_arrive_cluster(mapa(smem_u32(full), peer));
+  mbar_wait_cluster(full, parity);
+}
+
+template <int N>
+__device__ __forceinline__ void pair_add(float (&v)[N], const unsigned char* slot, int k0,
+                                         int threads, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const float4 w = *reinterpret_cast<const float4*>(slot + ((k0 + k) * threads + tid) * 16);
+    v[4 * k] += w.x;
+    v[4 * k + 1] += w.y;
+    v[4 * k + 2] += w.z;
+    v[4 * k + 3] += w.w;
+  }
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -327,6 +428,20 @@ __device__ __forceinline__ void split_acc_tf32(uint32_t (&hi)[KS][4], uint32_t (
   }
 }
 
+// split_acc_tf32's inverse: v = hi + lo, which is exactly the f32 value
+// that was split
+template <int KS>
+__device__ __forceinline__ void join_acc_tf32(float (&v)[4 * KS], const uint32_t (&hi)[KS][4],
+                                              const uint32_t (&lo)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    v[4 * kk] = __uint_as_float(hi[kk][0]) + __uint_as_float(lo[kk][0]);
+    v[4 * kk + 2] = __uint_as_float(hi[kk][1]) + __uint_as_float(lo[kk][1]);
+    v[4 * kk + 1] = __uint_as_float(hi[kk][2]) + __uint_as_float(lo[kk][2]);
+    v[4 * kk + 3] = __uint_as_float(hi[kk][3]) + __uint_as_float(lo[kk][3]);
+  }
+}
+
 // ------------------------------------------------------- host: tensor maps
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -423,6 +538,31 @@ inline CUresult plane_map(EncodeTiled enc, CUtensorMap* m, const void* p, int BH
 inline CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, int Skv,
                          int box) {
   return rows_map(enc, m, p, B, Skv, box, CU_TENSOR_MAP_DATA_TYPE_INT32);
+}
+
+// ------------------------------------------------------ host: a pair launch
+// `kernel` on `grid` (gridDim.x even) as clusters of two CTAs along x, so
+// that CTAs 2i and 2i + 1 run at once, on SMs of one GPC, with each other's
+// shared memory in reach; returns the launch's error.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                               cudaStream_t st, Args&&... args) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  const cudaError_t last = cudaGetLastError();   // also clears e, reported here
+  return e != cudaSuccess ? e : last;
 }
 
 }  // namespace pbt

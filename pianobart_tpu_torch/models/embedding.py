@@ -3,8 +3,8 @@
 The 8 per-field tables are one ``(1280, emb_size)`` table indexed by
 ``ids + field_offset``: one gather, then the √emb_size scale and the
 ``fusion`` projection to d_model.  The gather's gradient is PyTorch's own
-``index`` backward (the reference's one-hot backward is an XLA product, not
-a Pallas kernel).
+(the reference's one-hot backward is an XLA product, not a Pallas kernel):
+``index``'s on the card, ``embedding``'s on the CPU (:func:`_rows`).
 
 :class:`LabelEmbedding` is the velocity finetune's decoder input: label ids
 through a ``(vocab, 64)`` table, scaled by √64, projected to d_model.
@@ -14,10 +14,24 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .bart import Dense
 from .config import PianoBartConfig
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  On the CPU through ``F.embedding``, whose backward
+    sums a table row's repeated ids in the order they come: an index's
+    backward there (``index_put_`` accumulating) adds them with atomic adds
+    from every thread, in an order that varies from run to run, so the
+    table's gradient would differ in its last bits between two runs and a
+    resumed run would not end bit-equal to an uninterrupted one.  CUDA
+    tensors keep the index, the card's path."""
+    if table.device.type == "cpu":
+        return F.embedding(ids, table)
+    return table[ids]
 
 
 class OctupleEmbedding(nn.Module):
@@ -36,7 +50,7 @@ class OctupleEmbedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        emb = self.table[ids + self.offsets]                   # (B, S, 8, E)
+        emb = _rows(self.table, ids + self.offsets)            # (B, S, 8, E)
         emb = emb.to(cfg.dtype) * math.sqrt(cfg.emb_size)
         emb = emb.reshape(*ids.shape[:-1], cfg.n_fields * cfg.emb_size)
         return self.fusion(emb)
@@ -58,5 +72,5 @@ class LabelEmbedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        emb = self.table[ids].to(cfg.dtype) * math.sqrt(cfg.decoder_label_dim)
+        emb = _rows(self.table, ids).to(cfg.dtype) * math.sqrt(cfg.decoder_label_dim)
         return self.proj(emb)

@@ -33,11 +33,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FLASH_BWD_TAIL = [_I] * 7 + [_L] * 12 + [_P]   # B, Sq, Skv, H, D, dtype, causal; strides; stream
 # library -> (source, headers it includes, {C entry point: argtypes})
 KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh",
-                                   "flash_mma_f32.cuh", "hopper.cuh"), {
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh", "hopper.cuh"), {
         # q, k, v, mask, o, lse; B, Sq, Skv, H, D, dtype, causal; strides; stream
         "pbt_flash_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]}),
-    "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "flash_mma_f32.cuh", "hopper.cuh"), {
+    "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {
         # q, k, v, dout, qt, kt, ot, mask, lse, delta, then the outputs
         "pbt_flash_bwd": [_P] * 13 + _FLASH_BWD_TAIL,
         "pbt_flash_dq": [_P] * 11 + _FLASH_BWD_TAIL,

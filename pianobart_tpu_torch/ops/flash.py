@@ -56,7 +56,7 @@ next tile's S and dP under dQ += dS K.  Left for later: ping-pong scheduling
 of the consumer warpgroups, a persistent schedule, TMA multicast across a
 cluster, and a one-pass K2.
 
-At D = 256 the same designs are re-tiled to fit a CTA's 227 KB and a
+At D = 256 the same bf16 designs are re-tiled to fit a CTA's 227 KB and a
 thread's 240 registers: K1 streams kv tiles of 64 rows in 2 stages; the
 backward owns 64 fixed rows a CTA, dV and dK in a warpgroup each (S^T
 computed by both), and dQ's kv tiles alternate between the two warpgroups,
@@ -67,14 +67,14 @@ schedules on the tensor cores at f32 accuracy as 3xTF32: each operand x is
 split into hi = x rounded to tf32 and lo = x - hi, and each product is
 hi.hi' + hi.lo' + lo.hi' (about 2^-22 relative; one tf32 pass keeps three
 decimal digits, the TPU's f32 kernels single bf16 passes).  tf32 ``wgmma``
-reads its shared-memory operands K-major only, so at D = 128 a prep kernel
+reads its shared-memory operands K-major only, so a prep kernel
 (:func:`flash_attention_split`, its own launch count) makes the hi and lo
 planes once per call, and transposed planes of the operands a product
-contracts over S with.  At D = 256 those planes do not fit a CTA, and the
-f32 kernels are simpler ones at the same accuracy: 3xTF32 by ``mma.sync``
-on plain f32 rows in shared memory, each fragment split as it is loaded,
-so they take q, k, v, dO as they are and no prep runs.  Bound: three tf32
-products per f32 product at 495 TFLOP/s.
+contracts over S with.  At D = 256 a CTA cannot hold a 64-row operand's
+two planes beside the ring, so each f32 kernel runs as a cluster of two
+CTAs, one per 128-column half of every plane, that sum the score products
+(S, dP), which run over all of D, through each other's shared memory.
+Bound: three tf32 products per f32 product at 495 TFLOP/s.
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -330,9 +330,8 @@ def flash_attention_split(x, natural: bool = True, transposed: bool = False):
     passes.  CPU tensors take :func:`flash_attention_split_reference`; CUDA
     tensors launch ``csrc/flash_bwd.cu``'s prep kernel (counted in
     ``flash_attention_split.launches``) or raise.  The f32 attention
-    wrappers split all the operands of a call in one launch at D = 128; the
-    D = 256 f32 kernels split their fragments as they load them and call no
-    prep.  Bound by bytes: x read once, each plane written once.
+    wrappers split all the operands of a call in one launch, at D = 128 and
+    256.  Bound by bytes: x read once, each plane written once.
     """
     if not use_kernel(x, "flash attention"):
         return flash_attention_split_reference(x, natural, transposed)
@@ -360,7 +359,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ops = (q, k, v)
-    if q.dtype == torch.float32 and D == 128:   # Q's and K's planes, V's transposed
+    if q.dtype == torch.float32:                # Q's and K's planes, V's transposed
         (qn, _), (kn, _), (_, vt) = _split_launch(
             [(q, True, False), (k, True, False), (v, False, True)])
         ops = (qn, kn, vt)
@@ -431,15 +430,14 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
     """Launch one backward C entry of ``flash_bwd.cu`` on the current
     stream; ``outs`` are its output tensors in the entry's order.  The
     kernels read the mask, lse and delta by TMA: each is made contiguous and
-    16-byte aligned first.  f32 operands at D = 128 go to the kernels as the
-    prep's planes (:func:`flash_attention_split`, one launch for the four);
-    at D = 256 as they are."""
+    16-byte aligned first.  f32 operands go to the kernels as the prep's
+    planes (:func:`flash_attention_split`, one launch for the four)."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     mask = _tma_ready(_int_mask(kv_mask, B, Skv, q.device))
     lse, delta = _tma_ready(lse), _tma_ready(delta)
     ops, trs = (q, k, v, dout), (None, None, None)
-    if q.dtype == torch.float32 and D == 128:
+    if q.dtype == torch.float32:
         tq, tk, to = _TRANSPOSED[entry]
         (qn, qt), (kn, kt), (vn, _), (on, ot) = _split_launch(
             [(q, True, tq), (k, True, tk), (v, True, False), (dout, True, to)])

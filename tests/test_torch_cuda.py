@@ -411,8 +411,9 @@ def test_k3_kernels_refuse_what_they_do_not_take(cuda):
 
 # ---- head width 256 (--heads 4): the same checks at D=256, same tolerances.
 # bf16: K1's <false, false, 256> instance and the backward's D=256 wgmma
-# kernels; f32: the mma.sync 3xTF32 kernels, which take q, k, v, dO as they
-# are (no prep launch).
+# kernels; f32: the 3xTF32 wgmma kernels run as CTA pairs, one per
+# 128-column half of the head, over the prep's planes (one prep launch a
+# K1, K2, K3a or K3b call).
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, False),
@@ -424,7 +425,8 @@ def test_flash_kernel_d256_matches_reference(cuda, B, H, Sq, Skv, causal, dtype)
     f0, s0 = flash_attention_fwd.launches, flash_attention_split.launches
     out, lse = flash_attention_fwd(q, k, v, mask, causal)
     torch.cuda.synchronize()
-    assert (flash_attention_fwd.launches - f0, flash_attention_split.launches - s0) == (1, 0)
+    assert (flash_attention_fwd.launches - f0, flash_attention_split.launches - s0) == (
+        1, int(dtype == torch.float32))
     ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
     atol, rtol, ltol = TOL[dtype]
     assert out.shape == q.shape and lse.shape == (B, H, Sq)
@@ -458,7 +460,8 @@ def test_flash_bwd_kernels_d256_match_reference(cuda, kernel, B, H, Sq, Skv, cau
     s0 = flash_attention_split.launches
     got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
     torch.cuda.synchronize()
-    assert flash_attention_split.launches == s0
+    preps = (1 if kernel == "K2" else 2) if dtype == torch.float32 else 0
+    assert flash_attention_split.launches == s0 + preps
     assert_bwd_close(got, want, dtype)
 
 
@@ -489,6 +492,72 @@ def test_flash_kernels_d256_are_deterministic(cuda, kernel, dtype):
     a, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
     b, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    if dtype == torch.float32:
+        # the pair: q, k, v and dO whose two 128-column halves are equal give
+        # O, dQ, dK and dV whose halves are equal to the bit only if both
+        # CTAs of a pair hold the same P and dS (their S and dP sums)
+        def twin(x):
+            return torch.cat([x[..., :128], x[..., :128]], -1).contiguous()
+        q, k, v, dout = (twin(x) for x in (q, k, v, dout))
+        out, lse = flash_attention_fwd(q, k, v, m, True)
+        got, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+        for name, x in zip(("o", "dq", "dk", "dv"), (out, *got)):
+            assert torch.equal(x[..., :128], x[..., 128:]), name
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("B,H,S,causal", [
+    (2, 2, 320, False), (2, 2, 320, True), (1, 1, 64, False), (1, 1, 64, True),
+    (1, 1, 128, True)],
+    ids=["320", "320-causal", "one-pair", "one-pair-causal", "one-pair-128-causal"])
+def test_f32_pair_kernels_d256_odd_tiles_and_one_pair(cuda, kernel, B, H, S, causal):
+    """The f32 CTA pairs at D=256 over an odd number of 64-row tiles (S=320:
+    K1's last 128-row pair half past S) and on a grid of one pair (B = H = 1,
+    one tile), against the plain versions."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.float32, causal, True, B=B, H=H,
+                                           S=S, D=256)
+    if kernel == "K1":
+        ref, ref_lse = flash_attention_reference(q, k, v, m, causal)
+        atol, rtol, ltol = TOL[torch.float32]
+        torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+        torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+        return
+    got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+    assert_bwd_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_pair_kernels_d256_read_a_tp_rank_s_projections(cuda, kernel, causal):
+    """q, k, v as the last of two tp ranks makes them at --heads 4 (2 of 4
+    heads): views of ``tp_slice``'d projections of one activation, at their
+    strides; the pairs' K1 and backward against the plain versions."""
+    import torch.nn.functional as F
+    from pianobart_tpu_torch.ops.ring import tp_slice
+    from pianobart_tpu_torch.parallel.mesh import single_device_mesh
+    B, S, H, D, tp = 2, 256, 4, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(B, S, H * D, device=cuda, generator=g)
+    n, start = H // tp * D, (tp - 1) * (H // tp) * D
+    ax = single_device_mesh("cuda").axis("tp")
+
+    def proj():
+        w = torch.randn(H * D, H * D, device=cuda, generator=g) * (H * D) ** -0.5
+        b = torch.randn(H * D, device=cuda, generator=g) * 0.1
+        return F.linear(x, tp_slice(w, start, n, 0, ax), tp_slice(b, start, n, 0, ax)).view(
+            B, S, H // tp, D)
+
+    q, k, v = proj() * D ** -0.5, proj(), proj()
+    mask = torch.ones(B, S, device=cuda)
+    mask[-1, S - 40:] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[torch.float32]
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+    dout = torch.randn(B, S, H // tp, D, device=cuda, generator=g)
+    got, want = _bwd(kernel, q, k, v, mask, causal, out, lse, dout)
+    assert_bwd_close(got, want, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -507,11 +576,13 @@ def test_delta_and_split_kernels_d256_match_reference(cuda, dtype):
 
 def test_flash_autograd_d256_runs_the_kernels(cuda):
     """flash_attention's gradient at D=256: K1 then delta and K2 (S=1024),
-    or delta, K3a and K3b (S=2048), once each, in both types."""
+    or delta, K3a and K3b (S=2048), once each, in both types; in f32 one
+    prep launch before each of K1, K2, K3a and K3b."""
     counters = (flash_attention_fwd, flash_attention_delta, flash_attention_bwd,
                 flash_attention_dq, flash_attention_dkv, flash_attention_split)
     for dtype in DTYPES:
-        for S, want in ((1024, [1, 1, 1, 0, 0, 0]), (2048, [1, 1, 0, 1, 1, 0])):
+        f32 = dtype == torch.float32
+        for S, want in ((1024, [1, 1, 1, 0, 0, 2 * f32]), (2048, [1, 1, 0, 1, 1, 3 * f32])):
             q, k, v, mask = (x.requires_grad_() if x.dim() == 4 else x
                              for x in _inputs(cuda, dtype, S=S, D=256))
             before = [c.launches for c in counters]

@@ -152,3 +152,31 @@ def test_incremental_decode_matches_full_forward(tiny):
             steps.append(logits[:, 0])
     np.testing.assert_allclose(full.numpy(), torch.stack(steps, 1).numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_embedding_gradient_is_the_same_every_run():
+    """The tables' gradients on the CPU are bit-equal from run to run with
+    several threads (``models/embedding.py:_rows``): a batch of 4 x 1024
+    windows repeats ids across 32,768 rows, where an index's backward adds
+    them with atomic adds in an order that changes between runs; the
+    label table too."""
+    from pianobart_tpu_torch.models.embedding import LabelEmbedding, OctupleEmbedding
+    cfg = tiny_config()
+    rng = np.random.default_rng(12)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        for module, ids in (
+                (OctupleEmbedding(cfg, device="cpu"),
+                 torch.from_numpy(_ids(rng, 4, 1024)).long()),
+                (LabelEmbedding(cfg.replace(decoder_label_vocab=16), device="cpu"),
+                 torch.from_numpy(rng.integers(0, 16, (64, 1024))).long())):
+            torch.nn.init.normal_(module.table)
+            grads = []
+            for _ in range(8):
+                module.zero_grad()
+                module(ids).square().sum().backward()
+                grads.append(module.table.grad.clone())
+            assert all(torch.equal(grads[0], g) for g in grads[1:]), type(module).__name__
+    finally:
+        torch.set_num_threads(threads)
