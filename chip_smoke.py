@@ -38,6 +38,8 @@ result line:
    with the same times (the yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times, and in f32 the tf32 prep (D = 128 and 256);
+   last, [train_h256]'s bf16 K2 call and its S=2048 step's K3a and K3b
+   under the profiler, by kernel (delta, dK/dV, dQ);
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
    Philox bits, at the flagship's N=32768 rows of D=1024 in bf16, at a
    small N in f32, and at N=8192 rows wider than one warp takes (D = 1152,
@@ -280,7 +282,11 @@ def _sass_label(name):
         return label
     if label.startswith("flash_bwd"):
         d = flags.group(3)
-        return label + (f"<true{', ' + d if d else ''}> (dK/dV" if flags.group(1) == "1"
+        dkv = flags.group(1) == "1"
+        if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 D=256 designs
+            return label + ("<true> (dK/dV, S^T once, P^T handed over)" if dkv
+                            else "<false> (dQ, 128 rows, K and V through 3 slots)")
+        return label + (f"<true{', ' + d if d else ''}> (dK/dV" if dkv
                         else f"<false{', ' + d if d else ''}> (dQ") + (
                             ", CTA pair)" if d == "256" else ")")
     kt, split, d = flags.groups()
@@ -298,19 +304,35 @@ def phase_build(state):
     tensor-core product (HMMA.) in their SASS.  Fails if one of them has an
     HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or any
     other, come back), and so do the f32 kernels' D=256 instances (CTA
-    pairs, ``<256>`` and ``<*, 256>``)."""
+    pairs, ``<256>`` and ``<*, 256>``).  Fails too if the bf16 D=256
+    backward (``flash_bwd_d256_wgmma_kernel``, 128 accumulators a thread)
+    spills, or if ptxas serializes its wgmma (its "Potential Performance
+    Loss" remark)."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
     print(f"[build] {', '.join(libs)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
+    spilled = []
     for name, lib in libs.items():
         print(f"[build] {name}: {os.path.relpath(lib.path)}")
+        entry = ""
         with open(lib.path + ".log") as f:
             for line in f:
                 if ("registers" in line or "spill" in line or "Compiling" in line
-                        or "warning" in line or line.startswith("nvcc")):
+                        or "warning" in line or "Performance Loss" in line
+                        or line.startswith("nvcc")):
                     print(f"[build]   {line.strip()}")
+                if "Compiling entry function" in line:
+                    entry = line
+                elif ("spill stores" in line and "flash_bwd_d256_wgmma_kernel" in entry
+                      and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
+                    spilled.append(f"{_sass_label(entry)}: {line.strip()}")
+                elif "serialized" in line and "flash_bwd_d256_wgmma_kernel" in line:
+                    spilled.append(line.strip())
+    if spilled:   # 128 accumulators a thread; products that must overlap
+        raise AssertionError(f"the D=256 bf16 backward spills or runs its wgmma "
+                             f"serialized: {spilled}")
     tool = _cuobjdump()
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
@@ -824,6 +846,32 @@ def phase_flash_bwd(state):
                 state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
                                   bound_by=bb, library_ms=lib_ms)
         del q, k, v, out, lse, dout, got
+        torch.cuda.empty_cache()
+    # The D=256 bf16 calls of [train_h256] (K2) and its S=2048 step (K3a, K3b)
+    # by kernel: delta, dK/dV, dQ.  Last, as the host launches more slowly
+    # after a profiler window, and the small rows above are host bound.
+    for kid, B, S in (("K2", 32, 1024), ("K3", 16, 2048)):
+        q, k, v, mask = _flash_case(B, False, bf16, S=S, **H256)
+        mask[0, S - 300:] = 0.0
+        out, lse = flash_attention_fwd(q, k, v, mask, False)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        dout = torch.randn(out.shape, device="cuda", generator=g).to(bf16)
+        if kid == "K2":
+            def call():
+                flash_attention_bwd(q, k, v, mask, False, out, lse, dout)
+        else:
+            args = (q, k, v, mask, False, lse, _delta(dout, out), dout)
+
+            def call():
+                flash_attention_dq(*args)
+                flash_attention_dkv(*args)
+        call()
+        _profile_window("flash_bwd", f"5 calls of {kid} B={B} S={S} H=4 D=256 bfloat16",
+                        lambda: [call() for _ in range(5)], 5, groups={
+                            "delta": lambda n: "flash_delta_kernel" in n,
+                            "dK/dV": lambda n: "d256_wgmma_kernel<true>" in n,
+                            "dQ": lambda n: "d256_wgmma_kernel<false>" in n})
+        del q, k, v, mask, out, lse, dout
         torch.cuda.empty_cache()
 
 

@@ -186,6 +186,7 @@ def _run_guarded(runner, epochs: int, resume: bool) -> int:
         print(f"[preempt] {exc}", file=sys.stderr)
         return EXIT_PREEMPTED
     finally:
+        runner.logger.close()
         if guard is not None:
             guard.uninstall()
     return 0

@@ -89,13 +89,15 @@
 // wgmma.  Bound: 3 x the bf16 FLOPs at 495 TFLOP/s tf32.
 //
 // At D = 256 neither layout fits a CTA.  The bf16 kernels of that width are
-// flash_bwd_d256_wgmma_kernel (64 fixed rows, dK and dV in warpgroups of
-// their own, dQ's kv tiles alternating between the warpgroups); the f32 ones
-// are flash_bwd_tf32_kernel<DKV, 256>, the D = 128 kernel run as a cluster
-// of two CTAs, one per 128-column half of the head, that sum S and dP
-// across the pair (described where it is defined).  Bounds at the --heads 4
-// shapes equal the D = 128 ones above (H*D = 1024 in both): K2 0.3421 ms at
-// B=32, S=1024; K3a 0.4105 and K3b 0.5474 ms at B=16, S=2048.
+// flash_bwd_d256_wgmma_kernel<DKV> (dK/dV: 64 kv rows a CTA, S^T computed
+// once by one warpgroup, which hands P^T to the other, dV in the first and
+// dK in the second; dQ: 128 q rows a CTA, 64 a warpgroup, K and V through
+// three 32 KB slots); the f32 ones are flash_bwd_tf32_kernel<DKV, 256>, the
+// D = 128 kernel run as a cluster of two CTAs, one per 128-column half of
+// the head, that sum S and dP across the pair (both described where they
+// are defined).  Bounds at the --heads 4 shapes equal the D = 128 ones above
+// (H*D = 1024 in both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b
+// 0.5474 ms at B=16, S=2048.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -489,44 +491,192 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ------------------------------------------------ bf16 / wgmma at D = 256
 // The products above at head width 256, where their layout does not fit:
 // a thread's dK and dV would take 256 registers (setmaxnreg gives 240), and
-// the fixed K and V of 128 rows with 4 stages of 64 would take 512 KB.  One
-// CTA per (64 fixed rows, head, batch), two consumer warpgroups and the
-// producer; the fixed operands loaded once (64 rows x 256: 32 KB each), the
-// swept ones through 2 stages of 64 rows (64 KB a stage): 193 KB in all.
-// Each 256-wide row is four 64-column boxes; S and dP are m64n64k16 over
-// 16 k16 steps, the last product two m64n128k16 a k16 step (one for each
-// half of the head).
-//   dK/dV: both warpgroups read every swept tile.  Warpgroup 0 owns dV
-//     (S^T = K Q^T, P^T, dV += P^T dO), warpgroup 1 dK (S^T and
-//     dP^T = V dO^T, dS^T, dK += dS^T Q): S^T is computed twice (five
-//     products a tile where four are needed) so that a thread holds one
-//     64 x 256 accumulator (128 f32) beside S^T and dP^T (32 + 32).
-//   dQ: the swept kv tiles alternate between the warpgroups (tile i in
-//     stage i % 2, read by warpgroup i % 2 alone), each running S, dP, dS
-//     and dQ += dS K into a dQ of its own: three products a tile.  At the
-//     end warpgroup 1 hands its dQ to warpgroup 0 through the stages, idle
-//     by then, which adds it in f32 and stores.
-// A warpgroup's tiles run one after the other.  No atomics.
+// the fixed K and V of 128 rows with 4 stages of 64 would take 512 KB.  Each
+// 256-wide row is four 64-column boxes; S and dP are m64n64k16 over 16 k16
+// steps, the last products m64n128k16 (one for each 128-column half of the
+// head).  Two consumer warpgroups and the producer, as above.
+//
+// What bounds these kernels on the card is not the tensor cores alone: an
+// m64n64k16 product from shared memory reads its 2 KB of A and 2 KB of B in
+// the 32 cycles the tensor cores take for it, the SM's whole shared-memory
+// bandwidth (128 bytes a cycle), beside the TMA writes of the swept tiles.
+// And the rings have room for 2 tiles of 64 KB only, so a tile's load hides
+// under the tile before it only if each tile is released as soon as it is
+// done with: issuing the next tile's score products before this tile's last
+// product (as the D = 128 dQ kernel does) holds two tiles and leaves the
+// third's load exposed (it cost these kernels 25-50%).  What overlaps
+// instead is a tile's own elementwise work and its last product: both run in
+// two parts of 32 columns (the product's k16 steps 0-1 and 2-3), part 0's
+// half of the product issued before part 1's elementwise work.
+//
+//   dK/dV: one CTA per (64 kv rows, head, batch); K and V loaded once (32 KB
+//     each), Q, dO and their lse and delta rows through 2 stages of 64 q rows
+//     (64 KB a stage).  Warpgroup 0 runs S^T = K Q^T, makes P^T in f32 and
+//     hands it to warpgroup 1 through shared memory (16 KB, two buffers so
+//     that it can run a tile ahead), and runs dV += P^T dO; warpgroup 1 runs
+//     dP^T = V dO^T meanwhile, forms dS^T = P^T (dP^T - delta) from the P^T
+//     it is handed and runs dK += dS^T Q.  Four products a tile where computing
+//     S^T in both warpgroups runs five, two in each warpgroup; each
+//     thread holds one 64 x 256 accumulator (128 f32) beside one score tile
+//     (32).  P^T is the value warpgroup 1 would have computed itself, and
+//     the products sum in the same order, so dK and dV are those of the
+//     five-product schedule to the bit.
+//   dQ: one CTA per (128 q rows, head, batch), each warpgroup 64 of them
+//     with its own 64 x 256 dQ (128 f32), so a warpgroup runs S = Q K^T,
+//     dP = dO V^T, P and dS in registers and dQ += dS K on its rows with no
+//     handoff; Q and dO loaded once (64 KB each), the kv tiles' V and K
+//     (with its 64 mask entries) through a ring of 3 slots of 32 KB, in the
+//     order V0 K0 V1 K1 ...: V's slot is free once dP has read it and K's
+//     once dQ += dS K has, so both of the next tile's operands load under
+//     this tile.  Both warpgroups read every tile, which so feeds twice the
+//     rows a CTA of 64 q rows would (whose two warpgroups would take the
+//     tiles in turn, each waiting out its own stage's reload: on the card
+//     ~1,200 cycles a tile).
+// A handoff is a pair of named barriers per buffer: the writer arrives on
+// "full" after its stores, the reader syncs on it; the reader arrives on
+// "empty" after its loads, the writer syncs on it before it writes the
+// buffer again.  A thread's values sit at 16-byte chunk k * 128 + tid, so a
+// warp's accesses are consecutive and the reader's thread tid, whose
+// accumulator layout is the writer's, reads what thread tid wrote.  A
+// product's fence, issue and commit stay on one path: a wgmma whose
+// warpgroup-arrive ptxas must place on a divergent path makes it serialize
+// every product of the kernel.  No atomics.
 constexpr int W_D = 256;
-constexpr int W_FIX = 64;               // fixed rows per CTA
+constexpr int W_FIX = 64;               // dK/dV: fixed kv rows per CTA
 constexpr int W_STAGES = 2;
 constexpr int W_OPND = 2 * W_D;         // bytes per row of a (rows, 256) bf16 operand
+constexpr int W_SCORES = TILE * TILE * 4;   // a 64 x 64 f32 score tile: 16 KB
+constexpr int Q_FIX = 128;              // dQ: fixed q rows per CTA
+constexpr int Q_SLOTS = 3;
 
-struct Bwd256Smem {
-  static constexpr int A1 = 0;                          // fixed: K (dK/dV) or Q (dQ)
-  static constexpr int A2 = A1 + W_FIX * W_OPND;        // fixed: V or dO
-  static constexpr int B = A2 + W_FIX * W_OPND;         // per stage: B1 (Q or K), B2 (dO or V)
+struct Dkv256Smem {
+  static constexpr int A1 = 0;                          // K, fixed
+  static constexpr int A2 = A1 + W_FIX * W_OPND;        // V, fixed
+  static constexpr int B = A2 + W_FIX * W_OPND;         // per stage: Q, then dO
   static constexpr int STAGE = 2 * TILE * W_OPND;
-  static constexpr int FIXV = B + W_STAGES * STAGE;     // fixed rows' mask, or lse and delta
-  static constexpr int STV = FIXV + 2 * W_FIX * 4;      // per stage: lse and delta, or mask
+  static constexpr int HAND = B + W_STAGES * STAGE;     // P^T, two buffers
+  static constexpr int FIXV = HAND + 2 * W_SCORES;      // the kv rows' mask
+  static constexpr int STV = FIXV + W_FIX * 4;          // per stage: lse and delta
   static constexpr int STV_STAGE = 2 * TILE * 4;
   static constexpr int BAR = STV + W_STAGES * STV_STAGE;  // fix, full[S], free[S]
   static constexpr int ALLOC = BAR + (1 + 2 * W_STAGES) * 8 + 1024;
 };
 
-// DKV: dK (out1) and dV (out2) of 64 kv rows; else dQ (out1) of 64 q rows.
-// Tensor maps: q, k, v, dO in boxes of 64 rows, the mask, lse and delta in
-// boxes of 64 entries.
+struct Dq256Smem {
+  static constexpr int A1 = 0;                          // Q, fixed: boxes of 128 rows
+  static constexpr int A2 = A1 + Q_FIX * W_OPND;        // dO, fixed
+  static constexpr int RING = A2 + Q_FIX * W_OPND;      // slots of one 64-row K or V tile
+  static constexpr int SLOT = TILE * W_OPND;
+  static constexpr int SIDE = RING + Q_SLOTS * SLOT;    // per slot: a K tile's mask entries
+  static constexpr int SIDE_SLOT = TILE * 4;
+  static constexpr int FIXV = SIDE + Q_SLOTS * SIDE_SLOT;   // the q rows' lse, then delta
+  static constexpr int BAR = FIXV + 2 * Q_FIX * 4;      // fix, full[SLOTS], free[SLOTS]
+  static constexpr int ALLOC = BAR + (1 + 2 * Q_SLOTS) * 8 + 1024;
+};
+static_assert(Dkv256Smem::ALLOC <= 232448 && Dq256Smem::ALLOC <= 232448,
+              "a CTA's shared memory");
+
+// this thread's 32 scores (a 64 x 64 f32 accumulator) into a handoff buffer
+__device__ __forceinline__ void put_scores(float* buf, const float (&v)[TILE / 2], int tid) {
+#pragma unroll
+  for (int k = 0; k < TILE / 8; ++k)
+    reinterpret_cast<float4*>(buf)[k * 128 + tid] =
+        make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+}
+
+// A tile's elementwise work and its last product run in two parts: part h
+// is the tile's columns 32 h .. 32 h + 31 (8-column groups 4 h .. 4 h + 3
+// of the accumulator), which are the last product's k16 steps 2 h, 2 h + 1.
+// Part 0's half of the product is issued before part 1's elementwise work,
+// and runs under it.
+constexpr int PART_J = TILE / 16;       // 8-column groups a part
+constexpr int PART_K = TILE / 32;       // k16 steps a part
+
+// dK/dV, part h of one q tile: s holds S^T and becomes P^T (probs_t's
+// arithmetic without dP^T); lse the tile's 64 entries
+template <bool DIAG>
+__device__ __forceinline__ void probs_t_p_part(float (&s)[TILE / 2], const float* lse,
+                                               const bool (&keep)[2], int kvrow, int q0, int t,
+                                               int h) {
+#pragma unroll
+  for (int jj = 0; jj < PART_J; ++jj) {
+    const int j = PART_J * h + jj, c = 8 * j + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool kp = keep[e >> 1];
+      if (DIAG) kp &= q0 + c + (e & 1) >= kvrow + (e >= 2 ? 8 : 0);
+      const float x = kp ? s[4 * j + e] : NEG_INF;
+      s[4 * j + e] = exp2_approx((x - ((e & 1) ? l.y : l.x)) * LOG2E);
+    }
+  }
+}
+
+// dQ, part h of one kv tile: probs' arithmetic (s becomes P, dp dS)
+template <bool DIAG>
+__device__ __forceinline__ void probs_part(float (&s)[TILE / 2], float (&dp)[TILE / 2],
+                                           const int* mk, const float (&lse)[2],
+                                           const float (&delta)[2], int row, int kv0, int t,
+                                           int h) {
+#pragma unroll
+  for (int jj = 0; jj < PART_J; ++jj) {
+    const int j = PART_J * h + jj, c = 8 * j + 2 * t;
+    const int2 keep = *reinterpret_cast<const int2*>(mk + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool kp = ((e & 1) ? keep.y : keep.x) != 0;
+      if (DIAG) kp &= row + (e >= 2 ? 8 : 0) >= kv0 + c + (e & 1);
+      const float x = kp ? s[4 * j + e] : NEG_INF;
+      const float p = exp2_approx((x - lse[e >> 1]) * LOG2E);
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - delta[e >> 1]);
+    }
+  }
+}
+
+// dK/dV, part h of one q tile: dp holds dP^T and becomes dS^T = P^T (dP^T -
+// delta), P^T read from warpgroup 0's handoff buffer (ds_t's arithmetic),
+// with the tile's 64 delta entries
+__device__ __forceinline__ void ds_t_handed(float (&dp)[TILE / 2], const float* pt,
+                                            const float* delta, int t, int tid, int h) {
+#pragma unroll
+  for (int jj = 0; jj < PART_J; ++jj) {
+    const int j = PART_J * h + jj;
+    const float4 p = reinterpret_cast<const float4*>(pt)[j * 128 + tid];
+    const float2 d = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+    dp[4 * j] = p.x * (dp[4 * j] - d.x);
+    dp[4 * j + 1] = p.y * (dp[4 * j + 1] - d.y);
+    dp[4 * j + 2] = p.z * (dp[4 * j + 2] - d.x);
+    dp[4 * j + 3] = p.w * (dp[4 * j + 3] - d.y);
+  }
+}
+
+// part h of pack_a: the A fragments of k16 steps 2 h, 2 h + 1
+__device__ __forceinline__ void pack_a_part(uint32_t (&x)[TILE / 16][4], const float (&v)[TILE / 2],
+                                            int h) {
+#pragma unroll
+  for (int kk = PART_K * h; kk < PART_K * h + PART_K; ++kk)
+    acc_to_a(x[kk], &v[8 * kk], &v[8 * kk + 4]);
+}
+
+// part h of issue_rs: acc += X B over k16 steps 2 h, 2 h + 1.  Issued, not
+// fenced or committed.
+template <int D>
+__device__ __forceinline__ void issue_rs_part(float (&acc)[D / 2],
+                                              const uint32_t (&x)[TILE / 16][4],
+                                              const unsigned char* b, int h) {
+  const uint64_t db = smem_desc_sw128(b, TILE * ROW);
+#pragma unroll
+  for (int kk = PART_K * h; kk < PART_K * h + PART_K; ++kk)
+#pragma unroll
+    for (int n = 0; n < D / 128; ++n)
+      wgmma_rs_n128_tb(acc_half(acc, n), x[kk], db + (n * 2 * TILE * ROW + kk * 16 * ROW) / 16);
+}
+
+// DKV: dK (out1) and dV (out2) of 64 kv rows; else dQ (out1) of 128 q rows.
+// Tensor maps: k, v in boxes of 64 rows; q, dO in boxes of 64 (DKV) or 128
+// rows; the mask in boxes of 64 keys; lse and delta in boxes of 64 (DKV) or
+// 128 entries.
 template <bool DKV>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -539,205 +689,268 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             __nv_bfloat16* __restrict__ out1,
                             __nv_bfloat16* __restrict__ out2,
                             int Sq, int Skv, int H, int causal) {
-  using L = Bwd256Smem;
-  constexpr int NS = W_STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
-  uint64_t* bar_full = bar_fix + 1;     // stage s landed
-  uint64_t* bar_free = bar_full + NS;   // stage s read by its consumer warps
-
-  const int f0 = blockIdx.x * W_FIX, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
-  const int s_fixed = DKV ? Skv : Sq;
-  // swept tiles i0 .. n-1: under causal, dK/dV starts at the q tile of row
-  // f0, dQ ends at the kv tile of key f0 (tiles and fixed rows both 64)
-  int i0 = 0, n = (DKV ? Sq : Skv) / TILE;
-  if (causal) {
-    if (DKV) i0 = min(f0 / TILE, n);
-    else n = min(n, f0 / TILE + 1);
-  }
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int t = lane % 4;
 
-  if (threadIdx.x == 0) {
-    mbar_init(bar_fix, 1);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(bar_full + s, 1);
-      mbar_init(bar_free + s, DKV ? 4 * NWG : 4);   // dQ: one warpgroup a stage
+  if constexpr (DKV) {
+    using L = Dkv256Smem;
+    constexpr int NS = W_STAGES;
+    uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
+    uint64_t* bar_full = bar_fix + 1;     // stage s landed
+    uint64_t* bar_free = bar_full + NS;   // stage s read by every consumer warp
+    const int f0 = blockIdx.x * W_FIX;
+    // q tiles i0 .. n-1: under causal, from the tile of row f0
+    const int n = Sq / TILE;
+    const int i0 = causal ? min(f0 / TILE, n) : 0;
+
+    if (threadIdx.x == 0) {
+      mbar_init(bar_fix, 1);
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(bar_full + s, 1);
+        mbar_init(bar_free + s, 4 * NWG);
+      }
+      mbar_fence_init();
     }
-    mbar_fence_init();
-  }
-  __syncthreads();
+    __syncthreads();
 
-  if (wg == NWG) {
-    // ---- producer warpgroup: one thread keeps the ring full
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 128 * NWG) {
-      const CUtensorMap* ta1 = DKV ? &tk : &tq;
-      const CUtensorMap* ta2 = DKV ? &tv : &to;
-      const CUtensorMap* tb1 = DKV ? &tq : &tk;
-      const CUtensorMap* tb2 = DKV ? &to : &tv;
-      mbar_arrive_expect_tx(bar_fix, 2 * W_FIX * W_OPND + (DKV ? W_FIX * 4 : 2 * W_FIX * 4));
-#pragma unroll
-      for (int x = 0; x < W_D / BOX; ++x) {
-        tma_load_4d(sm + L::A1 + x * W_FIX * ROW, ta1, bar_fix, x * BOX, h, f0, b);
-        tma_load_4d(sm + L::A2 + x * W_FIX * ROW, ta2, bar_fix, x * BOX, h, f0, b);
-      }
-      if (DKV) {
-        tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
-      } else {
-        tma_load_2d(sm + L::FIXV, &tl, bar_fix, f0, bh);
-        tma_load_2d(sm + L::FIXV + W_FIX * 4, &td, bar_fix, f0, bh);
-      }
-      for (int i = i0; i < n; ++i) {
-        const int j = i - i0, s = j % NS, r0 = i * TILE;
-        mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
-        unsigned char* st = sm + L::B + s * L::STAGE;
-        unsigned char* sv = sm + L::STV + s * L::STV_STAGE;
-        mbar_arrive_expect_tx(bar_full + s, L::STAGE + (DKV ? 2 * TILE * 4 : TILE * 4));
+    if (wg == NWG) {
+      // ---- producer warpgroup: one thread keeps the ring full
+      setmaxnreg_dec<24>();
+      if (threadIdx.x == 128 * NWG) {
+        mbar_arrive_expect_tx(bar_fix, 2 * W_FIX * W_OPND + W_FIX * 4);
 #pragma unroll
         for (int x = 0; x < W_D / BOX; ++x) {
-          tma_load_4d(st + x * TILE * ROW, tb1, bar_full + s, x * BOX, h, r0, b);
-          tma_load_4d(st + TILE * W_OPND + x * TILE * ROW, tb2, bar_full + s, x * BOX, h, r0,
-                      b);
+          tma_load_4d(sm + L::A1 + x * W_FIX * ROW, &tk, bar_fix, x * BOX, h, f0, b);
+          tma_load_4d(sm + L::A2 + x * W_FIX * ROW, &tv, bar_fix, x * BOX, h, f0, b);
         }
-        if (DKV) {
+        tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
+        for (int i = i0; i < n; ++i) {
+          const int j = i - i0, s = j % NS, r0 = i * TILE;
+          mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
+          unsigned char* st = sm + L::B + s * L::STAGE;
+          unsigned char* sv = sm + L::STV + s * L::STV_STAGE;
+          mbar_arrive_expect_tx(bar_full + s, L::STAGE + 2 * TILE * 4);
+#pragma unroll
+          for (int x = 0; x < W_D / BOX; ++x) {
+            tma_load_4d(st + x * TILE * ROW, &tq, bar_full + s, x * BOX, h, r0, b);
+            tma_load_4d(st + TILE * W_OPND + x * TILE * ROW, &to, bar_full + s, x * BOX, h,
+                        r0, b);
+          }
           tma_load_2d(sv, &tl, bar_full + s, r0, bh);
           tma_load_2d(sv + TILE * 4, &td, bar_full + s, r0, bh);
-        } else {
-          tma_load_2d(sv, &tm, bar_full + s, r0, b);
         }
       }
+      return;
     }
-  } else {
-    // ---- consumer warpgroup wg: the CTA's 64 fixed rows f0 .. f0 + 63
+    // ---- consumer warpgroup wg: the CTA's 64 kv rows f0 .. f0 + 63
     setmaxnreg_inc<240>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int t = lane % 4;
     const int fr = warp * 16 + lane / 4;             // this thread's rows: fr, fr + 8 of the CTA
     const int row = f0 + fr;
-    const unsigned char* a1 = sm + L::A1;
-    const unsigned char* a2 = sm + L::A2;
-
-    float acc[W_D / 2];                              // dV (wg 0) or dK (wg 1); or a dQ
+    float acc[W_D / 2];                              // dV (wg 0) or dK (wg 1)
 #pragma unroll
     for (int i = 0; i < W_D / 2; ++i) acc[i] = 0.f;
-
     mbar_wait(bar_fix, 0);
     bool keep[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      keep[r] = reinterpret_cast<const int*>(sm + L::FIXV)[fr + 8 * r] != 0;
+
+    // P^T of the j-th tile in buffer j % 2; named barriers 1 + j % 2
+    // ("full") and 3 + j % 2 ("empty") over both warpgroups
+    float* hand = reinterpret_cast<float*>(sm + L::HAND);
+    const int count = n - i0;
+    for (int i = i0; i < n; ++i) {
+      const int j = i - i0, s = j % NS, r0 = i * TILE;
+      const unsigned char* st = sm + L::B + s * L::STAGE;
+      const float* lv = reinterpret_cast<const float*>(sm + L::STV + s * L::STV_STAGE);
+      float* pt = hand + (j & 1) * (TILE * TILE);
+      float sc[TILE / 2];
+      uint32_t x[TILE / 16][4];
+      mbar_wait(bar_full + s, (j / NS) & 1);
+      // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1)
+      wgmma_fence();
+      issue_ss<W_D, W_FIX>(sc, sm + (wg == 0 ? L::A1 : L::A2), st + wg * TILE * W_OPND);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const unsigned char* bt = st + (wg == 0 ? TILE * W_OPND : 0);
+      auto last_part = [&](int h) {                  // part h of dV += P^T dO, or dK += dS^T Q
+        fence_regs(sc);
+        pack_a_part(x, sc, h);
+        fence_regs(acc);
+        fence_regs(x);
+        wgmma_fence();
+        issue_rs_part<W_D>(acc, x, bt, h);
+        wgmma_commit();
+      };
+      if (wg == 0) {                                 // P^T, handed over
+        const bool dg = causal && r0 < f0 + W_FIX - 1;
+        if (dg) probs_t_p_part<true>(sc, lv, keep, row, r0, t, 0);
+        else probs_t_p_part<false>(sc, lv, keep, row, r0, t, 0);
+        last_part(0);
+        if (dg) probs_t_p_part<true>(sc, lv, keep, row, r0, t, 1);
+        else probs_t_p_part<false>(sc, lv, keep, row, r0, t, 1);
+        if (j >= 2) {
+          if (j & 1) named_barrier_sync<4>(128 * NWG);
+          else named_barrier_sync<3>(128 * NWG);
+        }
+        put_scores(pt, sc, tid);
+        if (j & 1) named_barrier_arrive<2>(128 * NWG);
+        else named_barrier_arrive<1>(128 * NWG);
+      } else {                                       // dS^T from the P^T handed over
+        if (j & 1) named_barrier_sync<2>(128 * NWG);
+        else named_barrier_sync<1>(128 * NWG);
+        ds_t_handed(sc, pt, lv + TILE, t, tid, 0);
+        last_part(0);
+        ds_t_handed(sc, pt, lv + TILE, t, tid, 1);
+        if (j + 2 < count) {
+          if (j & 1) named_barrier_arrive<4>(128 * NWG);
+          else named_barrier_arrive<3>(128 * NWG);
+        }
+      }
+      last_part(1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(x);
+      if (lane == 0) mbar_arrive(bar_free + s);      // stage s may be refilled
+    }
+    __nv_bfloat16* out = wg == 0 ? out2 : out1;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long at = (((long long)b * Skv + row + 8 * r) * H + h) * W_D;
+#pragma unroll
+      for (int dt = 0; dt < W_D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(out + at + dt * 8 + 2 * t) =
+            pack_bf16(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
+    }
+  } else {
+    using L = Dq256Smem;
+    uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
+    uint64_t* bar_full = bar_fix + 1;         // slot s landed
+    uint64_t* bar_free = bar_full + Q_SLOTS;  // slot s read by every consumer warp
+    const int f0 = blockIdx.x * Q_FIX;
+    // kv tiles 0 .. n-1 (under causal, to the tile of key f0 + 127), tile i
+    // as items 2i (K and its mask entries) and 2i + 1 (V) of the ring
+    int n = Skv / TILE;
+    if (causal) n = min(n, (f0 + Q_FIX - 1) / TILE + 1);
+
+    if (threadIdx.x == 0) {
+      mbar_init(bar_fix, 1);
+      for (int s = 0; s < Q_SLOTS; ++s) {
+        mbar_init(bar_full + s, 1);
+        mbar_init(bar_free + s, 4 * NWG);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (wg == NWG) {
+      setmaxnreg_dec<24>();
+      if (threadIdx.x == 128 * NWG) {
+        mbar_arrive_expect_tx(bar_fix, 2 * Q_FIX * W_OPND + 2 * Q_FIX * 4);
+#pragma unroll
+        for (int x = 0; x < W_D / BOX; ++x) {
+          tma_load_4d(sm + L::A1 + x * Q_FIX * ROW, &tq, bar_fix, x * BOX, h, f0, b);
+          tma_load_4d(sm + L::A2 + x * Q_FIX * ROW, &to, bar_fix, x * BOX, h, f0, b);
+        }
+        tma_load_2d(sm + L::FIXV, &tl, bar_fix, f0, bh);
+        tma_load_2d(sm + L::FIXV + Q_FIX * 4, &td, bar_fix, f0, bh);
+        for (int k = 0; k < 2 * n; ++k) {
+          const int s = k % Q_SLOTS, r0 = (k / 2) * TILE;
+          const bool is_k = (k & 1) == 1;
+          mbar_wait(bar_free + s, ((k / Q_SLOTS) & 1) ^ 1);   // the first round passes
+          unsigned char* st = sm + L::RING + s * L::SLOT;
+          mbar_arrive_expect_tx(bar_full + s, L::SLOT + (is_k ? TILE * 4 : 0));
+#pragma unroll
+          for (int x = 0; x < W_D / BOX; ++x)
+            tma_load_4d(st + x * TILE * ROW, is_k ? &tk : &tv, bar_full + s, x * BOX, h, r0, b);
+          if (is_k) tma_load_2d(sm + L::SIDE + s * L::SIDE_SLOT, &tm, bar_full + s, r0, b);
+        }
+      }
+      return;
+    }
+    // ---- consumer warpgroup wg: q rows w0 .. w0 + 63
+    setmaxnreg_inc<240>();
+    const int w0 = f0 + wg * 64;
+    const int fr = wg * 64 + warp * 16 + lane / 4;   // this thread's rows: fr, fr + 8 of the CTA
+    const int row = f0 + fr;
+    // S is a multiple of 64: the warpgroup's rows lie all below S or all
+    // past it (TMA's zeros); it works on tiles 0 .. ie-1 and only waits for
+    // and releases the others
+    int ie = w0 < Sq ? n : 0;
+    if (causal && w0 < Sq) ie = min(n, w0 / TILE + 1);
+    float acc[W_D / 2];
+#pragma unroll
+    for (int i = 0; i < W_D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(bar_fix, 0);
     float lse_r[2], dl_r[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (DKV) {
-        keep[r] = reinterpret_cast<const int*>(sm + L::FIXV)[fr + 8 * r] != 0;
-      } else {
-        lse_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[fr + 8 * r];
-        dl_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[W_FIX + fr + 8 * r];
-      }
+      lse_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[fr + 8 * r];
+      dl_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[Q_FIX + fr + 8 * r];
     }
-    auto swept = [&](int i) { return sm + L::B + ((i - i0) % NS) * L::STAGE; };
-    auto side = [&](int i) { return sm + L::STV + ((i - i0) % NS) * L::STV_STAGE; };
-    auto wait_full = [&](int i) { mbar_wait(bar_full + (i - i0) % NS, ((i - i0) / NS) & 1); };
-    auto release = [&](int i) {                      // stage of tile i may be refilled
-      if (lane == 0) mbar_arrive(bar_free + (i - i0) % NS);
+    const unsigned char* a1 = sm + L::A1 + wg * 64 * ROW;
+    const unsigned char* a2 = sm + L::A2 + wg * 64 * ROW;
+    auto slot = [&](int k) { return sm + L::RING + (k % Q_SLOTS) * L::SLOT; };
+    auto wait_item = [&](int k) { mbar_wait(bar_full + k % Q_SLOTS, (k / Q_SLOTS) & 1); };
+    auto release = [&](int k) {                      // item k's slot may be refilled
+      if (lane == 0) mbar_arrive(bar_free + k % Q_SLOTS);
     };
-    // acc += X B for the tile's last product, then wait for it
-    auto last = [&](const uint32_t (&x)[TILE / 16][4], const unsigned char* bt) {
-      fence_regs(acc);
+    for (int i = 0; i < n; ++i) {
+      const int kv = 2 * i, kk = 2 * i + 1, r0 = i * TILE;
+      if (i >= ie) {
+        wait_item(kv);
+        release(kv);
+        wait_item(kk);
+        release(kk);
+        continue;
+      }
+      float sc[TILE / 2], dp[TILE / 2];
+      uint32_t x[TILE / 16][4];
+      wait_item(kk);
       wgmma_fence();
-      issue_rs<W_D>(acc, x, bt);
+      issue_ss<W_D, Q_FIX>(sc, a1, slot(kk));       // S = Q K^T
+      wgmma_commit();
+      wait_item(kv);
+      wgmma_fence();
+      issue_ss<W_D, Q_FIX>(dp, a2, slot(kv));       // dP = dO V^T
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(acc);
-    };
-
-    if constexpr (DKV) {
-      for (int i = i0; i < n; ++i) {
-        wait_full(i);
-        const int r0 = i * TILE;
-        const bool diag = causal && r0 < f0 + W_FIX - 1;
-        const float* lv = reinterpret_cast<const float*>(side(i));
-        float sc[TILE / 2];
-        uint32_t x[TILE / 16][4];
-        if (wg == 0) {                               // dV += P^T dO
-          wgmma_fence();
-          issue_ss<W_D, W_FIX>(sc, a1, swept(i));   // S^T = K Q^T
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(sc);
-          if (diag)
-            probs_t_p<true>(sc, lv, keep, row, r0, t);
-          else
-            probs_t_p<false>(sc, lv, keep, row, r0, t);
-          fence_regs(sc);
-          pack_a(x, sc);
-          last(x, swept(i) + TILE * W_OPND);
-        } else {                                     // dK += dS^T Q
-          float dp[TILE / 2];
-          wgmma_fence();
-          issue_ss<W_D, W_FIX>(sc, a1, swept(i));   // S^T = K Q^T
-          issue_ss<W_D, W_FIX>(dp, a2, swept(i) + TILE * W_OPND);   // dP^T = V dO^T
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(sc);
-          fence_regs(dp);
-          if (diag)
-            probs_t<true>(sc, dp, lv, lv + TILE, keep, row, r0, t);
-          else
-            probs_t<false>(sc, dp, lv, lv + TILE, keep, row, r0, t);
-          fence_regs(dp);
-          pack_a(x, dp);
-          last(x, swept(i));
-        }
-        release(i);
-      }
-    } else {
-      for (int i = wg; i < n; i += NWG) {            // i0 = 0: tile i in stage i % 2
-        wait_full(i);
-        const int r0 = i * TILE;
-        const int* mk = reinterpret_cast<const int*>(side(i));
-        float sc[TILE / 2], dp[TILE / 2];
-        uint32_t x[TILE / 16][4];
+      fence_regs(sc);
+      fence_regs(dp);
+      release(kv);
+      const int* mk = reinterpret_cast<const int*>(sm + L::SIDE + (kk % Q_SLOTS) * L::SIDE_SLOT);
+      const bool dg = causal && r0 + TILE - 1 > w0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {                  // dQ += dS K, part by part
+        if (dg) probs_part<true>(sc, dp, mk, lse_r, dl_r, row, r0, t, h);
+        else probs_part<false>(sc, dp, mk, lse_r, dl_r, row, r0, t, h);
+        fence_regs(dp);
+        pack_a_part(x, dp, h);
+        fence_regs(acc);
+        fence_regs(x);
         wgmma_fence();
-        issue_ss<W_D, W_FIX>(sc, a1, swept(i));     // S = Q K^T
-        issue_ss<W_D, W_FIX>(dp, a2, swept(i) + TILE * W_OPND);   // dP = dO V^T
+        issue_rs_part<W_D>(acc, x, slot(kk), h);
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        fence_regs(dp);
-        if (causal && r0 + TILE - 1 > f0)
-          probs<true>(sc, dp, mk, lse_r, dl_r, row, r0, t);
-        else
-          probs<false>(sc, dp, mk, lse_r, dl_r, row, r0, t);
-        fence_regs(dp);
-        pack_a(x, dp);
-        last(x, swept(i));                           // dQ += dS K
-        release(i);
       }
-      // warpgroup 1's dQ into warpgroup 0's through the stages: every tile
-      // was consumed before the first barrier, so no load lands there
-      float* red = reinterpret_cast<float*>(sm + L::B);
-      named_barrier_sync<1>(128 * NWG);
-      if (wg == 1) {
-#pragma unroll
-        for (int i = 0; i < W_D / 2; ++i) red[i * 128 + tid] = acc[i];
-      }
-      named_barrier_sync<2>(128 * NWG);
-      if (wg == 0) {
-#pragma unroll
-        for (int i = 0; i < W_D / 2; ++i) acc[i] += red[i * 128 + tid];
-      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(x);
+      release(kk);
     }
-
-    if (DKV || wg == 0) {
-      __nv_bfloat16* out = DKV && wg == 0 ? out2 : out1;
+    if (w0 < Sq) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = (((long long)b * s_fixed + row + 8 * r) * H + h) * W_D;
+        const long long at = (((long long)b * Sq + row + 8 * r) * H + h) * W_D;
 #pragma unroll
         for (int dt = 0; dt < W_D / 8; ++dt)
-          *reinterpret_cast<uint32_t*>(out + at + dt * 8 + 2 * t) =
+          *reinterpret_cast<uint32_t*>(out1 + at + dt * 8 + 2 * t) =
               pack_bf16(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
       }
     }
@@ -1244,8 +1457,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  cudaStream_t st) {
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
-  // D = 128: 128 fixed rows, 64 swept; D = 256: 64 and 64
-  const int fix = D == 128 ? FIX : W_FIX;
+  // fixed rows a CTA (swept tiles are 64): D = 128 128; D = 256 64 kv
+  // rows (dK/dV) or 128 q rows (dQ)
+  const int fix = D == 128 ? FIX : DKV ? W_FIX : Q_FIX;
   const int q_rows = DKV ? TILE : fix, kv_rows = DKV ? fix : TILE;
   CUtensorMap tq, tk, tv, to, tm, tl, td;
   CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, q_rows, D);
@@ -1266,9 +1480,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
         tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H,
         causal);
   } else {
+    constexpr int smem = DKV ? Dkv256Smem::ALLOC : Dq256Smem::ALLOC;
     cudaFuncSetAttribute(flash_bwd_d256_wgmma_kernel<DKV>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd256Smem::ALLOC);
-    flash_bwd_d256_wgmma_kernel<DKV><<<grid, 128 * (NWG + 1), Bwd256Smem::ALLOC, st>>>(
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    flash_bwd_d256_wgmma_kernel<DKV><<<grid, 128 * (NWG + 1), smem, st>>>(
         tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H,
         causal);
   }

@@ -269,6 +269,14 @@ __device__ __forceinline__ void named_barrier_sync(int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "r"(threads) : "memory");
 }
 
+// arrive on named barrier ID without waiting: this thread's earlier
+// shared-memory accesses are performed for the threads that bar.sync on it
+// (a producer warpgroup's half of a handoff to a consumer that syncs)
+template <int ID>
+__device__ __forceinline__ void named_barrier_arrive(int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "r"(threads) : "memory");
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B from shared memory, both
 // K-major; scale_d = 0 overwrites D
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,

@@ -56,11 +56,16 @@ next tile's S and dP under dQ += dS K.  Left for later: ping-pong scheduling
 of the consumer warpgroups, a persistent schedule, TMA multicast across a
 cluster, and a one-pass K2.
 
-At D = 256 the same bf16 designs are re-tiled to fit a CTA's 227 KB and a
-thread's 240 registers: K1 streams kv tiles of 64 rows in 2 stages; the
-backward owns 64 fixed rows a CTA, dV and dK in a warpgroup each (S^T
-computed by both), and dQ's kv tiles alternate between the two warpgroups,
-whose partial dQs are summed in shared memory at the end.
+At D = 256 the bf16 designs are re-tiled to fit a CTA's 227 KB and a
+thread's 240 registers: K1 streams kv tiles of 64 rows in 2 stages.  The
+dK/dV kernel owns 64 kv rows a CTA: one warpgroup computes S^T and P^T once
+and hands P^T to the other through shared memory, dV in the first and dK in
+the second (four products a tile, dK and dV to the bit those of computing
+S^T in both).  The dQ kernel owns 128 q rows a CTA, 64 a warpgroup each with
+its own full-width dQ, and streams V and K through a ring of three 32 KB
+slots, so every kv tile feeds both warpgroups.  In both, a tile's last
+product runs in two halves, the first under the elementwise work of the
+second.
 
 The f32 kernels (the default ``PianoBartConfig``'s path) run the same
 schedules on the tensor cores at f32 accuracy as 3xTF32: each operand x is

@@ -18,7 +18,10 @@
 # e.g. "device build flash lab flash_bwd fused_ln train train_long
 # train_fused train_f32": each tree's chip_smoke.py is imported and its
 # PHASES cut to those (a phase a tree lacks is skipped), so the comparison
-# costs the kernel and train phases alone.
+# costs the kernel and train phases alone.  Its kernels line then holds the
+# records this run filled: a record needs both its kernel phase's row
+# (e.g. [fused_ln]'s for k4a) and its main path's launch counts
+# ([train_fused]'s), and one whose phase did not run is left out.
 set -u
 parent=$(cd "$1" && pwd)
 out=$(mkdir -p "${2:-build/ab}" && cd "${2:-build/ab}" && pwd)
@@ -35,9 +38,10 @@ import os, sys
 sys.path.insert(0, os.getcwd())
 import chip_smoke as c
 keep = os.environ["AB_PHASES"].split()
-c.PHASES = tuple(p for p in c.PHASES if p[0] in keep)
-c.KERNEL_RECORDS = tuple(r for r in c.KERNEL_RECORDS
-                         if r[5] in keep or r[5].rsplit("_", 1)[0] in keep)
+def filled(state):
+    c.KERNEL_RECORDS = tuple(r for r in c.KERNEL_RECORDS
+                             if r[1] in state and r[5] in state["launches"])
+c.PHASES = tuple(p for p in c.PHASES if p[0] in keep) + (("records", filled),)
 sys.exit(c.main())') > "$log" 2>&1
   else
     (cd "$d" && python3 chip_smoke.py) > "$log" 2>&1

@@ -82,6 +82,15 @@ class MetricsLogger:
                 emit(k, v)
         self._tb.flush()
 
+    def close(self) -> None:
+        """Close the TensorBoard writer.  Left to tensorboardX's exit hook,
+        its close runs in a spawned rank after multiprocessing's own exit
+        handling has stopped the event queue's feeder thread, and blocks for
+        good once the queue holds its 10 unwritten events."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
     def epoch_line(self, text: str) -> None:
         """Reference-style append-only epoch log (main.py:90-92)."""
         if not self.enabled:

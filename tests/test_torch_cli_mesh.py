@@ -28,13 +28,14 @@ import signal
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 
 from pianobart_tpu_torch import cli
-from pianobart_tpu_torch.parallel.launch import spawn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--device", "cpu", "--dist_backend", "gloo", "--hs", "64", "--layers", "1",
@@ -107,10 +108,29 @@ def _cli_rank(rank, world, cwd, argv, port, sigterm_rank):
         f.write(str(rc))
 
 
+# A job's two ranks take seconds.  Rank 0's process has hung at exit after
+# both had written their exit code (tensorboardX closing its writer from an
+# exit hook; the CLI now closes it itself), and an unbounded join then held
+# the whole test run: past this limit the job fails instead.
+JOB_LIMIT = 300
+
+
+def _rank(rank, cwd, argv, port, sigterm_rank):
+    torch.set_num_threads(2)
+    _cli_rank(rank, 2, cwd, argv, port, sigterm_rank)
+
+
 def _job(cwd, argv, sigterm_rank=-1):
     os.makedirs(cwd, exist_ok=True)
-    spawn(_cli_rank, 2, (str(cwd), argv, _free_port(), sigterm_rank), backend=None,
-          threads=2)
+    ranks = mp.spawn(_rank, args=(str(cwd), argv, _free_port(), sigterm_rank), nprocs=2,
+                     join=False)
+    deadline = time.monotonic() + JOB_LIMIT
+    while not ranks.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ranks.processes:
+                p.kill()
+                p.join()
+            pytest.fail(f"the job's ranks did not exit within {JOB_LIMIT} s")
     return [int(open(os.path.join(cwd, f"rc{r}")).read()) for r in range(2)]
 
 

@@ -133,19 +133,29 @@ def test_pretrain_refusals(songs, tmp_path, monkeypatch):
 
 
 def test_run_guarded_maps_preempted_to_75(capsys):
+    class Logger:
+        closed = False
+
+        def close(self):
+            self.closed = True
+
     class Runner:
         preempt = None
 
         def __init__(self, exc=None):
             self.exc = exc
+            self.logger = Logger()
 
         def run(self, epochs, resume=False):
             assert self.preempt is not None   # the guard reached the runner
             if self.exc:
                 raise self.exc
 
-    assert cli._run_guarded(Runner(Preempted("saved")), 1, False) == EXIT_PREEMPTED == 75
+    runners = [Runner(Preempted("saved")), Runner(), Runner(ValueError("boom"))]
+    assert cli._run_guarded(runners[0], 1, False) == EXIT_PREEMPTED == 75
     assert "[preempt] saved" in capsys.readouterr().err
-    assert cli._run_guarded(Runner(), 1, True) == 0
+    assert cli._run_guarded(runners[1], 1, True) == 0
     with pytest.raises(ValueError):
-        cli._run_guarded(Runner(ValueError("boom")), 1, False)
+        cli._run_guarded(runners[2], 1, False)
+    # every way out closes the run's TensorBoard writer
+    assert all(r.logger.closed for r in runners)

@@ -560,6 +560,72 @@ def test_f32_pair_kernels_d256_read_a_tp_rank_s_projections(cuda, kernel, causal
     assert_bwd_close(got, want, torch.float32)
 
 
+# The bf16 backward at D=256: dK/dV with S^T computed once and P^T handed
+# between the warpgroups (64 kv rows a CTA); dQ with 128 q rows a CTA, 64 a
+# warpgroup, K and V through a ring of three slots.
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("S,causal,masked", [
+    (1024, False, False), (2048, True, False), (320, False, True), (320, True, False)],
+    ids=["1024", "2048-causal", "320-masked", "320-causal"])
+def test_bf16_d256_backward_is_deterministic(cuda, kernel, S, causal, masked):
+    """dQ, dK and dV of the D=256 bf16 kernels are the same bits on every
+    call (no atomics; the handoffs through shared memory order nothing)."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, causal, True, S=S, D=256)
+    if masked:
+        m[0] = 0.0
+        out, lse = flash_attention_fwd(q, k, v, m, causal)
+    runs = [_bwd(kernel, q, k, v, m, causal, out, lse, dout)[0] for _ in range(3)]
+    for got in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], got))
+
+
+# (B, H, Sq, Skv): an odd number of 64-row blocks (the dQ kernel's last CTA
+# with its second warpgroup past S), one block, Sq != Skv both ways, causal
+# (a dQ warpgroup that waits for and releases the tile past its diagonal)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (1, 1, 64, 64, False), (1, 1, 64, 64, True), (2, 2, 192, 192, True),
+    (2, 2, 320, 320, False), (3, 2, 448, 448, True), (2, 2, 192, 320, False),
+    (2, 2, 320, 192, True), (2, 3, 576, 576, True)],
+    ids=["64", "64-causal", "192-causal", "320", "448-causal", "192x320", "320x192-causal",
+         "576-causal"])
+def test_bf16_d256_backward_odd_blocks(cuda, kernel, B, H, Sq, Skv, causal):
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, causal, True, B=B, H=H,
+                                           S=Sq, Skv=Skv, D=256)
+    got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+    assert_bwd_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_d256_backward_reads_a_tp_rank_s_projections(cuda, kernel, causal):
+    """q, k, v as the last of two tp ranks makes them at --heads 4 in bf16
+    (2 of 4 heads from ``tp_slice``'d projections, an odd number of fixed
+    blocks): the D=256 bf16 backward against its plain versions."""
+    import torch.nn.functional as F
+    from pianobart_tpu_torch.ops.ring import tp_slice
+    from pianobart_tpu_torch.parallel.mesh import single_device_mesh
+    B, S, H, D, tp = 2, 320, 4, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(B, S, H * D, device=cuda, generator=g).bfloat16()
+    n, start = H // tp * D, (tp - 1) * (H // tp) * D
+    ax = single_device_mesh("cuda").axis("tp")
+
+    def proj():
+        w = torch.randn(H * D, H * D, device=cuda, generator=g) * (H * D) ** -0.5
+        b = torch.randn(H * D, device=cuda, generator=g) * 0.1
+        return F.linear(x, tp_slice(w, start, n, 0, ax).bfloat16(),
+                        tp_slice(b, start, n, 0, ax).bfloat16()).view(B, S, H // tp, D)
+
+    q, k, v = proj() * D ** -0.5, proj(), proj()
+    mask = torch.ones(B, S, device=cuda)
+    mask[-1, S - 40:] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    dout = torch.randn(B, S, H // tp, D, device=cuda, generator=g).bfloat16()
+    got, want = _bwd(kernel, q, k, v, mask, causal, out, lse, dout)
+    assert_bwd_close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_delta_and_split_kernels_d256_match_reference(cuda, dtype):
     B, S, H, D = 3, 320, 2, 256
