@@ -17,7 +17,9 @@ result line:
    the long-context shape (B=16, S=2048), [finetune_mesh]'s tp ranks (B=8,
    4 of 8 heads from ``tp_slice``'d projections, bf16 and f32), and at head
    width 256 (``--heads 4``: B=32 bf16 and B=8 f32, causal and not, the tp
-   ranks' 2 of 4 heads, B=2 S=320 and a wholly masked sample), with times
+   ranks' 2 of 4 heads, the bf16 decode buckets B = 1, 2, 4, 8, B=2 S=320,
+   S=192 (a ragged kv tile of the bf16 kernel's 128 rows) and a wholly
+   masked sample), with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -273,6 +275,8 @@ FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded"
 def _sass_label(name):
     """``flash_..._kernel<flags> (role)`` from a kernel's mangled name."""
     label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
+    if label == "flash_fwd_d256_wgmma_kernel":   # the bf16 D=256 forward
+        return label + " (K1, D=256, 128-row kv tiles, ping-pong)"
     tail = name[name.index(label) + len(label):]
     width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
     if width:
@@ -283,7 +287,7 @@ def _sass_label(name):
     if label.startswith("flash_bwd"):
         d = flags.group(3)
         dkv = flags.group(1) == "1"
-        if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 D=256 designs
+        if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 D=256 backward
             return label + ("<true> (dK/dV, S^T once, P^T handed over)" if dkv
                             else "<false> (dQ, 128 rows, K and V through 3 slots)")
         return label + (f"<true{', ' + d if d else ''}> (dK/dV" if dkv
@@ -304,10 +308,11 @@ def phase_build(state):
     tensor-core product (HMMA.) in their SASS.  Fails if one of them has an
     HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or any
     other, come back), and so do the f32 kernels' D=256 instances (CTA
-    pairs, ``<256>`` and ``<*, 256>``).  Fails too if the bf16 D=256
-    backward (``flash_bwd_d256_wgmma_kernel``, 128 accumulators a thread)
-    spills, or if ptxas serializes its wgmma (its "Potential Performance
-    Loss" remark)."""
+    pairs, ``<256>`` and ``<*, 256>``).  Fails too if a bf16 D=256 kernel
+    (K1's ``flash_fwd_d256_wgmma_kernel`` and the backward's
+    ``flash_bwd_d256_wgmma_kernel``, 128 accumulators a thread) spills, or
+    if ptxas serializes its wgmma (its "Potential Performance Loss"
+    remark)."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -325,13 +330,13 @@ def phase_build(state):
                     print(f"[build]   {line.strip()}")
                 if "Compiling entry function" in line:
                     entry = line
-                elif ("spill stores" in line and "flash_bwd_d256_wgmma_kernel" in entry
+                elif ("spill stores" in line and "d256_wgmma_kernel" in entry
                       and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
                     spilled.append(f"{_sass_label(entry)}: {line.strip()}")
-                elif "serialized" in line and "flash_bwd_d256_wgmma_kernel" in line:
+                elif "serialized" in line and "d256_wgmma_kernel" in line:
                     spilled.append(line.strip())
     if spilled:   # 128 accumulators a thread; products that must overlap
-        raise AssertionError(f"the D=256 bf16 backward spills or runs its wgmma "
+        raise AssertionError(f"a D=256 bf16 kernel spills or runs its wgmma "
                              f"serialized: {spilled}")
     tool = _cuobjdump()
     if tool is None:
@@ -456,11 +461,16 @@ def phase_flash(state):
              (8, False, torch.bfloat16, 1024, "tp"), (8, True, torch.bfloat16, 1024, "tp"),
              (8, False, f32, 1024, "tp"), (8, True, f32, 1024, "tp"),
              # --heads 4 (D=256): [train_h256]'s shapes, the tp ranks' (2 of 4
-             # heads), a ragged tile (S=320) and a wholly masked sample
+             # heads), ragged tiles (S=320; S=192, 64 past a 128-row kv tile)
+             # and a wholly masked sample
              (32, False, bf16, 1024, "h256"), (32, True, bf16, 1024, "h256"),
              (8, False, f32, 1024, "h256"), (8, True, f32, 1024, "h256"),
              (8, False, bf16, 1024, "h256 tp"), (8, True, bf16, 1024, "h256 tp"),
              (8, False, f32, 1024, "h256 tp"), (8, True, f32, 1024, "h256 tp"),
+             # the bf16 decode buckets of a --heads 4 server ([train_h256]'s)
+             (1, False, bf16, 1024, "h256"), (2, False, bf16, 1024, "h256"),
+             (4, False, bf16, 1024, "h256"), (8, False, bf16, 1024, "h256"),
+             (2, False, bf16, 192, "h256"),
              (2, False, bf16, 320, "h256"), (2, True, bf16, 320, "h256"),
              (2, False, f32, 320, "h256"), (2, True, f32, 320, "h256"),
              (2, False, bf16, 320, "h256 masked"), (2, False, f32, 320, "h256 masked")]

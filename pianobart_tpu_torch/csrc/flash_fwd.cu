@@ -40,11 +40,12 @@
 // Bound: 3 x 4*B*H*Sq*Skv*D FLOPs at 495 TFLOP/s tf32 (0.047 ms at B=2,
 // S=1024, H=8 with the smoke run's pad tail).
 //
-// At D = 256 the bf16 kernel is the same template's instance <false,
-// false, 256> (flash_fwd_bf16.cuh: kv tiles of 64 rows in 2 stages).  The
-// f32 layout above does not fit there (Q's two planes alone would take
-// 256 KB), so the f32 kernel runs at D = 256 as a cluster of two CTAs, one
-// per 128-column half of the head (flash_fwd_tf32_kernel<256>): each CTA is
+// At D = 256 the bf16 kernel is flash_fwd_d256.cuh's
+// flash_fwd_d256_wgmma_kernel (kv tiles of 128 rows through a ring of 32 KB
+// half-D slots, the two consumer warpgroups in ping-pong).  The f32 layout
+// above does not fit there (Q's two planes alone would take 256 KB), so the
+// f32 kernel runs at D = 256 as a cluster of two CTAs, one per 128-column
+// half of the head (flash_fwd_tf32_kernel<256>): each CTA is
 // the D = 128 kernel on its half of the planes (Q's half fixed, K's and
 // V^T's halves streamed, O's half stored), and S = Q K^T, which sums over
 // all of D, is summed across the pair: after its S products a CTA releases
@@ -57,6 +58,7 @@
 // equal the D = 128 kernel's at the same B, and so does the bound.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
+#include "flash_fwd_d256.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -345,15 +347,15 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
   if (!enc) return TMAP_ERROR;
   CUtensorMap tq, tk, tv, tm;
   if (dtype == 1) {
-    const int bn = D == 128 ? K1Tiles<128>::BN : K1Tiles<256>::BN;
+    // kv tiles of 128 rows at both widths (K1_BN, K1W_BN)
+    static_assert(K1W_BN == K1_BN, "one map of k, v and the mask for both widths");
     CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, K1_BM, D);
-    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, bn, D);
-    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, bn, D);
-    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, bn);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tk, k, B, Skv, H, ksb, kss, ksh, K1_BN, D);
+    if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN, D);
+    if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, K1_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     if (D == 256)
-      return launch_fwd_bf16<false, false, 256>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
-                                                K1_UNITS, st);
+      return launch_fwd_d256(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, st);
     return launch_fwd_bf16<false, false, 128>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
                                               K1_UNITS, st);
   } else {

@@ -1,8 +1,9 @@
 // K1's bf16 flash forward for Hopper (sm_90a) as one kernel template,
 // flash_fwd_wgmma_kernel<KT, SPLIT_P, D>: K1 itself (flash_fwd.cu) is
-// <false, false, D> at head width D = 128 or 256, and the kernel lab
-// (flash_lab.cu) changes one option of the D = 128 instance at a time, so
-// that the lab measures the option and nothing else.
+// <false, false, 128>, and the kernel lab (flash_lab.cu) changes one option
+// of it at a time, so that the lab measures the option and nothing else.
+// The template is at head width D = 128; K1 at D = 256 is a kernel of its
+// own design, flash_fwd_d256.cuh.
 //
 // Contract (K1's): q, k, v (B, S, H, D) bf16 through their strides, q
 // pre-scaled by the caller; kv_mask (B, Skv) int32, nonzero = attend; causal
@@ -29,15 +30,6 @@
 // Keys past Skv in a ragged last tile arrive as TMA's zeros and take p = 0;
 // rows past Sq are not stored.  No atomics: the same inputs give the same
 // bits.
-//
-// At D = 256 (K1Tiles<256>) the same schedule runs on kv tiles of 64 rows
-// in 2 stages: Q (128 x 256) is 64 KB and a stage of K and V 64 KB, 193 KB
-// in all, where the D = 128 layout (3 stages of 128 kv rows) would take
-// 448 KB.  Each 256-wide row is four 64-column boxes.  S = Q K^T is wgmma
-// m64n64k16 over 16 k16 steps; O += P V is two m64n128k16 products a k16
-// step, one for each half of the head, into the two halves of the
-// accumulator (128 f32 a consumer thread for O, 32 for S, 16 for P's
-// fragments, within setmaxnreg's 240).
 //
 // The template's options (the TPU lab's, scripts/kernel_lab.py):
 //   KT       K arrives as K^T, (B, H*128, Skv) with Skv contiguous (the
@@ -94,9 +86,9 @@ constexpr float LOG2E_BF16 = 1.4453125f;   // bf16(log2 e)
 // kv rows per stage and stages at head width D
 template <int D>
 struct K1Tiles {
-  static_assert(D == 128 || D == 256, "K1 takes head widths 128 and 256");
-  static constexpr int BN = D == 128 ? 128 : 64;
-  static constexpr int STAGES = D == 128 ? 3 : 2;
+  static_assert(D == 128, "the template's head width; D = 256 is flash_fwd_d256.cuh");
+  static constexpr int BN = 128;
+  static constexpr int STAGES = 3;
 };
 constexpr int K1_BN = K1Tiles<128>::BN;   // the lab's (D = 128) kv rows per stage
 
@@ -128,15 +120,13 @@ struct PFrags {
   uint32_t lo[SPLIT_P ? BN / 16 : 1][4];
 };
 
-// S = Q K^T for one kv tile: D/16 k16 steps over the head dim, issued and
-// committed, not waited for.  K: K-major, 4 steps in each 64-column box; K^T
-// (KT, D = 128 only): MN-major, 16 d rows a step.  A tile of 128 kv rows is
-// one m64n128k16 a step, of 64 rows one m64n64k16.
+// S = Q K^T for one kv tile: D/16 k16 steps over the head dim, one
+// m64n128k16 each, issued and committed, not waited for.  K: K-major, 4
+// steps in each 64-column box; K^T (KT): MN-major, 16 d rows a step.
 template <bool KT, int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[K1Tiles<D>::BN / 2], uint64_t dq,
                                          const unsigned char* kt) {
   constexpr int BN = K1Tiles<D>::BN;
-  static_assert(!KT || D == 128, "K^T tiles are the lab's, at D = 128");
   const uint64_t dk = smem_desc_sw128(kt, KT ? D * ROW : 16);
   wgmma_fence();
 #pragma unroll
@@ -144,10 +134,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[K1Tiles<D>::BN / 2], uint64
     const uint64_t da = dq + ((kk / 4) * K1_BM * ROW + (kk % 4) * 32) / 16;
     if constexpr (KT)
       wgmma_ss_n128_tb(sc, da, dk + kk * 16 * ROW / 16, kk > 0);
-    else if constexpr (BN == 128)
-      wgmma_ss_n128(sc, da, dk + ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16, kk > 0);
     else
-      wgmma_ss_n64(sc, da, dk + ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16, kk > 0);
+      wgmma_ss_n128(sc, da, dk + ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16, kk > 0);
   }
   wgmma_commit();
 }

@@ -33,7 +33,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FLASH_BWD_TAIL = [_I] * 7 + [_L] * 12 + [_P]   # B, Sq, Skv, H, D, dtype, causal; strides; stream
 # library -> (source, headers it includes, {C entry point: argtypes})
 KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh", "hopper.cuh"), {
+    "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh",
+                                   "flash_fwd_d256.cuh", "hopper.cuh"), {
         # q, k, v, mask, o, lse; B, Sq, Skv, H, D, dtype, causal; strides; stream
         "pbt_flash_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]}),
     "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {

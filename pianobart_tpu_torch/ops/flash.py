@@ -57,7 +57,11 @@ of the consumer warpgroups, a persistent schedule, TMA multicast across a
 cluster, and a one-pass K2.
 
 At D = 256 the bf16 designs are re-tiled to fit a CTA's 227 KB and a
-thread's 240 registers: K1 streams kv tiles of 64 rows in 2 stages.  The
+thread's 240 registers.  K1 keeps 128-row kv tiles and streams K and V
+through a ring of four 32 KB slots, each half of the head's columns of a
+tile (K lo, K hi, V lo, V hi); a warpgroup holds O and S, P takes S's
+registers, and the two warpgroups take turns to issue S = Q K^T
+(ping-pong), so that one's softmax runs under the other's products.  The
 dK/dV kernel owns 64 kv rows a CTA: one warpgroup computes S^T and P^T once
 and hands P^T to the other through shared memory, dV in the first and dK in
 the second (four products a tile, dK and dV to the bit those of computing

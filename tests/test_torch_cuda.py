@@ -410,16 +410,21 @@ def test_k3_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # ---- head width 256 (--heads 4): the same checks at D=256, same tolerances.
-# bf16: K1's <false, false, 256> instance and the backward's D=256 wgmma
-# kernels; f32: the 3xTF32 wgmma kernels run as CTA pairs, one per
+# bf16: K1's D=256 kernel (128-row kv tiles through half-D slots, the
+# consumer warpgroups in ping-pong) and the backward's D=256 wgmma kernels;
+# f32: the 3xTF32 wgmma kernels run as CTA pairs, one per
 # 128-column half of the head, over the prep's planes (one prep launch a
 # K1, K2, K3a or K3b call).
+# Skv 64 past a multiple of 128 (192, 576: a ragged last kv tile of the
+# bf16 kernel's 128 rows) and the decode buckets B = 1 and 8 at S=1024
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, False),
-    (2, 2, 192, 320, True), (12, 4, 320, 320, True), (1, 2, 2048, 2048, True)],
+    (2, 2, 192, 320, True), (12, 4, 320, 320, True), (1, 2, 2048, 2048, True),
+    (2, 2, 192, 192, False), (2, 3, 576, 576, True), (2, 2, 320, 576, False),
+    (1, 4, 1024, 1024, False), (8, 4, 1024, 1024, False)],
     ids=["256", "256-causal", "192x320", "192x320-causal", "320-causal-wide",
-         "2048-causal"])
+         "2048-causal", "192", "576-causal", "320x576", "decode-B1", "decode-B8"])
 def test_flash_kernel_d256_matches_reference(cuda, B, H, Sq, Skv, causal, dtype):
     q, k, v, mask = _inputs(cuda, dtype, B=B, H=H, S=Sq, Skv=Skv, D=256)
     f0, s0 = flash_attention_fwd.launches, flash_attention_split.launches
@@ -463,6 +468,54 @@ def test_flash_bwd_kernels_d256_match_reference(cuda, kernel, B, H, Sq, Skv, cau
     preps = (1 if kernel == "K2" else 2) if dtype == torch.float32 else 0
     assert flash_attention_split.launches == s0 + preps
     assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_d256_running_max_moves(cuda, causal):
+    """Keys whose scores outgrow every earlier tile's by far (the last kv
+    tile's keys scaled by 4): the bf16 D=256 kernel moves its running max
+    (and rescales O) past the first tile, against the plain version."""
+    q, k, v, mask = _inputs(cuda, torch.bfloat16, S=576, D=256)
+    k[:, 512:] *= 4
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_d256_reads_a_tp_rank_s_projections(cuda, causal):
+    """q, k, v as the last of two tp ranks makes them at --heads 4 in bf16
+    (2 of 4 heads from ``tp_slice``'d projections of one activation; S=320,
+    a ragged q and kv tile): K1's D=256 bf16 kernel against its plain
+    version."""
+    import torch.nn.functional as F
+    from pianobart_tpu_torch.ops.ring import tp_slice
+    from pianobart_tpu_torch.parallel.mesh import single_device_mesh
+    B, S, H, D, tp = 2, 320, 4, 256, 2
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(B, S, H * D, device=cuda, generator=g).bfloat16()
+    n, start = H // tp * D, (tp - 1) * (H // tp) * D
+    ax = single_device_mesh("cuda").axis("tp")
+
+    def proj():
+        w = torch.randn(H * D, H * D, device=cuda, generator=g) * (H * D) ** -0.5
+        b = torch.randn(H * D, device=cuda, generator=g) * 0.1
+        return F.linear(x, tp_slice(w, start, n, 0, ax).bfloat16(),
+                        tp_slice(b, start, n, 0, ax).bfloat16()).view(B, S, H // tp, D)
+
+    q, k, v = proj() * D ** -0.5, proj(), proj()
+    mask = torch.ones(B, S, device=cuda)
+    mask[-1, S - 40:] = 0.0
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
