@@ -139,8 +139,12 @@ result line:
    mesh) at 2x1x1, 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
    with --heads 4 (S=2048) against the dense step on
    the same card (loss, clipped gradients per group, the same gradients on
-   every rank), each rank's launches per step checked, s per step and peak
-   memory per rank (ranks sharing one card); then ``torch.distributed.run``
+   every rank), the parameters placed by ``shard_params`` (at 1x2x2 each rank
+   holds its slices of the qkv, mlp and vocab leaves and their AdamW state;
+   its gradient shards are gathered whole for the checks and must be its
+   slices of them), each rank's launches per step checked, s per step and,
+   per rank, the parameter elements held, the memory allocated after the
+   step and the peak (ranks sharing one card); then ``torch.distributed.run``
    of ``pretrain --mesh 1x1x2 --dist_backend gloo --max_seq_len 2048`` on
    64 songs tokenized at 2048, one epoch: exit 0, a finite loss, ``best/``;
 19. ``[finetune_mesh]``: the finetunes over the mesh on this one card: four
@@ -153,7 +157,10 @@ result line:
    2x1x1, 1x2x1 and 1x1x2, one eval step and one train step each, against the
    dense steps on the same card (eval loss and the gathered predictions
    away from ties, train loss, clipped gradients per group, the same
-   gradients on every rank), each rank's launches per step checked; then
+   gradients on every rank), the parameters placed by ``shard_params`` as in
+   18 (at 1x2x1 each rank holds its slices), each rank's launches per step
+   checked, and per rank the parameter elements held, the memory allocated
+   after the train step and the peak; then
    ``torch.distributed.run`` of ``finetune --task
    composer --mesh 2x1x1`` and ``finetune-generation --mesh 1x1x2 --fad`` on
    [finetune]'s corpora with ``--ckpt`` [pretrain_run]'s ``best/``, one
@@ -3009,21 +3016,56 @@ def _rel_groups(got, want):
     return {g: (d / r) ** 0.5 for g, (d, r) in sums.items()}
 
 
+def _held(model):
+    """What this rank holds right after a step, read before anything else
+    allocates: its parameter elements, ``memory_allocated`` and the peak
+    since the step's window opened, in GiB."""
+    import torch
+    return {"params_held": sum(p.numel() for p in model.parameters()),
+            "alloc_gib": torch.cuda.memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _whole_grads(model, mesh):
+    """The whole gradients by name (tp shards gathered over the mesh's tp
+    axis), and whether each shard this rank holds is this rank's slice of
+    the gathered one."""
+    import torch
+    from pianobart_tpu_torch.parallel.mesh import (gather_state_dict, shard_slice,
+                                                   sharded_dims)
+    own = {n: p.grad.detach() for n, p in model.named_parameters()}
+    dims, tp = sharded_dims(model), mesh.axis("tp")
+    got = gather_state_dict(own, dims, tp)
+    ok = all(torch.equal(own[n], shard_slice(got[n], tp.size, tp.index, d))
+             for n, d in dims.items())
+    return got, ok
+
+
+def _held_line(rows):
+    """Per rank: parameter elements held, GiB allocated after the step, peak."""
+    return (f"per rank: parameter elements held {[r['params_held'] for r in rows]}, "
+            f"allocated after the step GiB {[round(r['alloc_gib'], 3) for r in rows]}, "
+            f"peak GiB {[round(r['peak_gib'], 3) for r in rows]}")
+
+
 def _parallel_rank(rank, world, out_dir):
     """One of [parallel]'s four ranks, all on cuda:0 over gloo: the ring
     checks at sp = 2 (a 2x1x2 mesh: two rings; also at head width 256, bf16)
     and 4, then the flagship mesh steps of ``PARALLEL_STEPS`` (rank 0 also
     runs the dense step on the same weights and corruption, once per S and
     head count, and holds each mesh's loss and clipped gradients against
-    it), one step each, its launches counted from 0 on this rank, its
-    seconds and peak memory."""
+    it), one step each on the parameters ``shard_params`` placed (tp > 1:
+    this rank's slices of the qkv, mlp and vocab leaves), its launches
+    counted from 0 on this rank, its seconds, the parameter elements it
+    holds, its memory allocated after the step and its peak; the gradient
+    shards gathered whole for the comparisons."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.models import PianoBartConfig, PianoBartLM
     from pianobart_tpu_torch.ops.noise import corrupt_batch
     from pianobart_tpu_torch.ops.ring import transport
-    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.parallel.mesh import make_mesh, shard_params
     from pianobart_tpu_torch.train.pretrain import _update
     from pianobart_tpu_torch.train.pretrain_sp import make_sp_pretrain_step
     from pianobart_tpu_torch.train.state import create_train_state
@@ -3072,7 +3114,8 @@ def _parallel_rank(rank, world, out_dir):
             want, rec["dense"] = dense_by[S, heads]
         model = PianoBartLM(cfg, device=dev).train()
         model.load_state_dict(sd)
-        st = create_train_state(model)
+        # tp > 1: this rank keeps its slices of the qkv, mlp and vocab leaves
+        st = create_train_state(shard_params(model, mesh))
         step = make_sp_pretrain_step(cfg, mesh)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3086,12 +3129,12 @@ def _parallel_rank(rank, world, out_dir):
         for kname, n in counts.items():
             totals[kname] = totals.get(kname, 0) + n
         rec["counts"] = tuple(counts.values())
+        rec.update(_held(model))
         rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
-        got = {n: p.grad.detach() for n, p in model.named_parameters()}
+        got, rec["shards_ok"] = _whole_grads(model, mesh)
         rec["grad_sq"] = sum(float(g.double().square().sum()) for g in got.values())
         if rank == 0:
             rec["rel"] = _rel_groups(got, want)
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         res["steps"].append(rec)
         del model, st, step, got
         torch.cuda.empty_cache()
@@ -3267,16 +3310,18 @@ def phase_parallel(state):
         expect = [_mesh_step_counts(step["shape"], step["S"], r["coords"]["sp"]) for r in rows]
         print(f"[parallel] flagship step {name} ({len(rows)} ranks sharing one card): loss "
               f"{step['loss']:.6f} vs dense {dloss:.6f}, grad_norm {step['grad_norm']:.6f} vs "
-              f"{dnorm:.6f}; s/step {[round(t, 3) for r in rows for t in r['s_per_step']]}; "
-              f"peak GiB per rank {[round(r['peak_gib'], 2) for r in rows]}")
+              f"{dnorm:.6f}; s/step {[round(t, 3) for r in rows for t in r['s_per_step']]}")
+        print(f"[parallel]   {_held_line(rows)}")
         print(f"[parallel]   launches per rank ({COUNT_NAMES}) {counts}, expected {expect}")
         print(f"[parallel]   clipped grads against the dense step, ||d||/||dense|| per group "
               f"(tol 5e-2): " + ", ".join(f"{g} {v:.2e}" for g, v in sorted(rel.items())))
         same = len({r["grad_sq"] for r in rows}) == 1
+        shards = all(r["shards_ok"] for r in rows)
         if not (counts == expect and len(rows) == dp * tp * sp
-                and max(rel.values()) <= 5e-2 and same
+                and max(rel.values()) <= 5e-2 and same and shards
                 and abs(step["loss"] - dloss) <= 1e-2 * abs(dloss)):
-            failed.append(f"step {name} (same grads on every rank: {same})")
+            failed.append(f"step {name} (same grads on every rank: {same}, each "
+                          f"rank's shards its slices of them: {shards})")
     launches = {}
     for r in ranks:
         for kname, n in r["launches"].items():
@@ -3409,13 +3454,17 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
     rank 0 also runs the dense eval and train steps once per run and holds
     each mesh's eval loss and predictions, its train loss and its clipped
     gradients against them, and in f32 the gradients' own sensitivity to
-    a one-ulp change of the weights (:func:`_ulp_gaps`)."""
+    a one-ulp change of the weights (:func:`_ulp_gaps`).  Each mesh model's
+    parameters are placed by ``shard_params`` (tp > 1: this rank's slices
+    of the qkv, mlp and vocab leaves); the gradient shards are gathered
+    whole for the comparisons, and the parameter elements held and the
+    memory allocated after the train step are read with the peak."""
     import numpy as np
     import torch
     from pianobart_tpu_torch.compat.from_jax import draw_params_
     from pianobart_tpu_torch.decode import checkpoint_entries
     from pianobart_tpu_torch.models import PianoBartConfig, heads
-    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.parallel.mesh import make_mesh, shard_params
     from pianobart_tpu_torch.train.state import create_train_state, graft_
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3461,7 +3510,7 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
             cfg = _mesh_cfg(cfg0, shape)
             model = _empty_model(kind, cfg, dev)
             model.load_state_dict(sd)
-            st = create_train_state(model)
+            st = create_train_state(shard_params(model, mesh))
             step = _finetune_step(kind, cfg, mesh)
             rec = {"kind": kind, "dtype": dname, "shape": shape, "coords": mesh.coords,
                    "counts": []}
@@ -3484,8 +3533,9 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
                     totals[kname] = totals.get(kname, 0) + n
                 rec["counts"].append(tuple(counts.values()))
                 if train:
+                    rec.update(_held(model))
                     rec["loss"], rec["grad_norm"] = m["loss"].item(), m["grad_norm"].item()
-                    got = {n: p.grad.detach() for n, p in model.named_parameters()}
+                    got, rec["shards_ok"] = _whole_grads(model, mesh)
                     rec["grad_sq"] = sum(float(g.double().square().sum())
                                          for g in got.values())
                     if rank == 0:
@@ -3502,7 +3552,6 @@ def _finetune_mesh_rank(rank, world, out_dir, ckpt):
                                         float(decided.float().mean()),
                                         int((decided & ~same).sum()))
             rec["s_per_step"] = times
-            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             res["steps"].append(rec)
             del model, st, step
             torch.cuda.empty_cache()
@@ -3594,8 +3643,8 @@ def phase_finetune_mesh(state):
         print(f"[finetune_mesh] {name} ({len(rows)} ranks sharing one card): loss "
               f"{step['loss']:.6f} vs dense {dloss:.6f}, grad_norm {step['grad_norm']:.6f} "
               f"vs {dnorm:.6f}; s/step (eval, train) "
-              f"{[round(t, 3) for r in rows for t in r['s_per_step']]}; peak GiB per rank "
-              f"{[round(r['peak_gib'], 2) for r in rows]}")
+              f"{[round(t, 3) for r in rows for t in r['s_per_step']]}")
+        print(f"[finetune_mesh]   {_held_line(rows)} (eval and train)")
         print(f"[finetune_mesh]   eval: loss {step['eval'][0]:.6f} vs dense {deval:.6f} "
               f"(tol rel {tol_loss:g}); gathered predictions {step['eval'][1]} equal to the "
               f"dense step's at {100 * agree:.3f}%, {wrong} unequal of the "
@@ -3611,15 +3660,17 @@ def phase_finetune_mesh(state):
                   f"the dense step, ||d||/||dense|| per group: "
                   + ", ".join(f"{g} {v:.2e}" for g, v in sorted(step["ulp"].items())))
         same = len({r["grad_sq"] for r in rows}) == 1
+        shards = all(r["shards_ok"] for r in rows)
         # the eval step's predictions, gathered into the global batch
         n_out = {"composer": (8,), "velocity": (8, 1024),
                  "generation": (8, 1024, 8)}[step["kind"]]
         if not (counts == expect and len(rows) == dp * tp * sp
                 and all(v <= tol_group.get(g, tol_grad) for g, v in rel.items()) and same
-                and abs(step["loss"] - dloss) <= tol_loss * abs(dloss)
+                and shards and abs(step["loss"] - dloss) <= tol_loss * abs(dloss)
                 and abs(step["eval"][0] - deval) <= tol_loss * abs(deval)
                 and wrong == 0 and all(r["eval"][1] == n_out for r in rows)):
-            failed.append(f"{name} (same grads on every rank: {same})")
+            failed.append(f"{name} (same grads on every rank: {same}, each rank's "
+                          f"shards its slices of them: {shards})")
     launches = {}
     for r in ranks:
         for kname, n in r["launches"].items():

@@ -138,8 +138,16 @@ def _load_init_ckpt(model, args):
     return model
 
 
-def _train_state(model, args):
+def _train_state(model, args, mesh=None):
+    """AdamW (and the EMA shadow) over ``model``'s parameters.  Under a
+    mesh the parameters are placed first (``shard_params``: each tp rank
+    keeps its slices of the qkv, mlp and vocab leaves, as the JAX CLI's
+    ``_init_state`` places them), after any ``--ckpt`` graft and before
+    ``--resume``, so the optimizer and the shadow hold the slices."""
     from .train.state import create_train_state
+    if mesh is not None:
+        from .parallel.mesh import shard_params
+        shard_params(model, mesh)
     return create_train_state(model, args.lr, schedule=args.lr_schedule,
                               warmup_steps=args.warmup_steps,
                               decay_steps=args.decay_steps,
@@ -229,10 +237,11 @@ def _mesh_run(args, cfg):
     """The device, and under ``torch.distributed.run`` (``WORLD_SIZE`` > 1)
     this rank's mesh of ``--mesh``, for a training command: yields ``(cfg,
     device, mesh, put_batch)``; ``mesh`` and ``put_batch`` are None on one
-    rank.  Every rank holds the whole model; sp > 1 routes through the ring
-    (TP∘SP with tp > 1; tp > 1 at sp = 1 is a ring of one), so the yielded
-    ``cfg`` names the ring's axes.  The process group is torn down on the
-    way out."""
+    rank.  Every rank draws the whole model, and :func:`_train_state` then
+    keeps each tp rank's slices of the tp-sharded parameters; sp > 1 routes
+    through the ring (TP∘SP with tp > 1; tp > 1 at sp = 1 is a ring of
+    one), so the yielded ``cfg`` names the ring's axes.  The process group
+    is torn down on the way out."""
     from .device import resolve_device
     world = int(os.environ.get("WORLD_SIZE", 1))
     dp, tp, sp = _mesh_layout(args, cfg, world)
@@ -279,7 +288,7 @@ def cmd_pretrain(args) -> int:
                 f"{X_train.shape[1]}")
         model = _load_init_ckpt(init_lm(cfg, seed=args.seed, device=device,
                                         train=True), args)
-        state = _train_state(model, args)
+        state = _train_state(model, args, mesh)
         save_dir = os.path.join("result", "pretrain", args.name)
         runner = PretrainRunner(state, cfg, X_train, X_val, save_dir,
                                 batch_size=args.batch_size,
@@ -326,7 +335,7 @@ def cmd_finetune(args) -> int:
         model = init_model(SequenceClassification if seq else TokenClassification,
                            cfg, seed=args.seed, device=device, train=True,
                            class_num=n_classes)
-        state = _train_state(_load_init_ckpt(model, args), args)
+        state = _train_state(_load_init_ckpt(model, args), args, mesh)
         save_dir = os.path.join("result", "finetune", f"{args.task}_{args.name}")
         if mesh is not None:
             step = (make_sp_seq_step(cfg, mesh, args.weight) if seq else
@@ -356,7 +365,7 @@ def cmd_finetune_generation(args) -> int:
                                                                 put_batch):
         data = load_finetune(args.dataroot, args.datasets, "gen")
         model = init_lm(cfg, seed=args.seed, device=device, train=True)
-        state = _train_state(_load_init_ckpt(model, args), args)
+        state = _train_state(_load_init_ckpt(model, args), args, mesh)
         save_dir = os.path.join("result", "finetune", f"generation_{args.name}")
         step_fn = (functools.partial(generation_step, decoder_mode=args.decoder_mode)
                    if mesh is None else
@@ -402,7 +411,7 @@ def cmd_ablation(args) -> int:
         X_train, X_val, X_test = arr[:s1], arr[s1:s2], arr[s2:]
         data = (X_train, X_val, X_test, X_train, X_val, X_test)
         model = init_lm(cfg, seed=args.seed, device=device, train=True)
-        state = _train_state(_load_init_ckpt(model, args), args)
+        state = _train_state(_load_init_ckpt(model, args), args, mesh)
         save_dir = os.path.join("result", "finetune", f"ablation_{args.name}")
         step = ablation_step if mesh is None else make_sp_ablation_step(cfg, mesh)
 

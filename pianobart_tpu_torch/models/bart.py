@@ -18,7 +18,9 @@ With ``cfg.ring_axis`` the model runs on this rank's sequence shard:
 attention is ring attention over that axis of the active mesh
 (``parallel/mesh.py:use_mesh``), positions start at the shard's global
 offset, and with ``cfg.ring_tp_axis`` each tp rank projects and attends its
-heads of the replicated weights (TP∘SP).  ``cfg.remat`` recomputes every
+heads with its shards of the q/k/v/out weights (TP∘SP; the parameters placed
+by ``parallel/mesh.py:shard_params``).  A tp-sharded FFN or LM-head weight
+is gathered over tp where a ``Dense`` uses it (``gather_param``).  ``cfg.remat`` recomputes every
 layer in the backward, ``cfg.remat_ffn`` only the FFN
 (``torch.utils.checkpoint``); the recompute replays the generator's draws.
 """
@@ -36,7 +38,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.dropout import dropout
 from ..ops.fused_ln import MAX_D, dropout_add_ln, fused_eligible
 from ..ops.ring import psum_out, replicated_in, ring_attention, tp_slice
-from ..parallel.mesh import axis
+from ..parallel.mesh import axis, gather_param
 
 KVCache = Dict[str, Any]
 Generator = Optional[torch.Generator]
@@ -87,7 +89,9 @@ def remat(fn, generator: Generator, *args):
 class Dense(nn.Linear):
     """``nn.Linear`` with weights in ``param_dtype``, computing in ``dtype``
     (flax ``Dense(dtype, param_dtype)``): input, weight and bias are cast to
-    ``dtype`` at use; a cast to the dtype a tensor already has is free."""
+    ``dtype`` at use; a cast to the dtype a tensor already has is free.  A
+    weight that ``shard_params`` cut to its tp slice is all-gathered over
+    the active mesh's tp axis after the cast (:func:`gather_param`)."""
 
     def __init__(self, d_in: int, d_out: int, cfg: PianoBartConfig, device=None):
         super().__init__(d_in, d_out, dtype=cfg.param_dtype, device=device)
@@ -95,7 +99,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), gather_param(self.weight, dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -224,10 +228,12 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(B, Sq, D)), new_cache
 
     def _tp_ring(self, x_q, x_kv, kv_mask):
-        """TP∘SP: this tp rank projects and ring-attends its H/ntp heads:
-        column slices of the replicated q/k/v weights, a row slice of
-        out_proj's, the partial outputs summed over tp (``psum_out``), the
-        bias added once."""
+        """TP∘SP: this tp rank projects and ring-attends its H/ntp heads with
+        its shards of the q/k/v weights (their rows) and of out_proj's (its
+        columns), as ``shard_params`` placed them: no collective touches
+        them.  The replicated biases are sliced by ``tp_slice``; the partial
+        outputs are summed over tp (``psum_out``), out_proj's bias added
+        once."""
         cfg = self.cfg
         tp = axis(cfg.ring_tp_axis)
         ntp = cfg.ring_tp_size
@@ -240,11 +246,18 @@ class MultiHeadAttention(nn.Module):
         DHl = Hl * Dh
         start = tp.index * DHl
         dt = cfg.dtype
+        for lin, dim in ((self.q_proj, 0), (self.k_proj, 0), (self.v_proj, 0),
+                         (self.out_proj, 1)):
+            if getattr(lin.weight, "tp_dim", None) != dim or lin.weight.shape[dim] != DHl:
+                raise ValueError(
+                    f"TP∘SP takes this rank's tp shards of the attention weights "
+                    f"(parallel.mesh.shard_params before the optimizer); got a "
+                    f"weight of shape {tuple(lin.weight.shape)}")
         xq_r = replicated_in(x_q, tp)
         xkv_r = xq_r if x_kv is x_q else replicated_in(x_kv, tp)
 
         def proj(x, lin):
-            y = F.linear(x.to(dt), tp_slice(lin.weight, start, DHl, 0, tp).to(dt),
+            y = F.linear(x.to(dt), lin.weight.to(dt),
                          tp_slice(lin.bias, start, DHl, 0, tp).to(dt))
             return y.view(y.shape[0], y.shape[1], Hl, Dh)
 
@@ -252,8 +265,7 @@ class MultiHeadAttention(nn.Module):
         k = proj(xkv_r, self.k_proj)
         v = proj(xkv_r, self.v_proj)
         out = ring_attention(q, k, v, kv_mask, self.causal, axis(cfg.ring_axis))
-        partial = F.linear(out.reshape(B, Sq, DHl),
-                           tp_slice(self.out_proj.weight, start, DHl, 1, tp).to(dt))
+        partial = F.linear(out.reshape(B, Sq, DHl), self.out_proj.weight.to(dt))
         return psum_out(partial, tp) + self.out_proj.bias.to(dt)
 
 

@@ -56,7 +56,8 @@ class PianoBartConfig:
     # active around the forward (parallel/mesh.py:use_mesh).  None = dense.
     ring_axis: Optional[str] = None
     # TP∘SP: the tp mesh axis and its size; each tp rank projects and
-    # ring-attends num_heads / ring_tp_size heads of replicated weights.
+    # ring-attends num_heads / ring_tp_size heads with its shards of the
+    # attention weights (parallel/mesh.py:shard_params).
     ring_tp_axis: Optional[str] = None
     ring_tp_size: int = 1
 

@@ -4,7 +4,9 @@ The 8 per-field tables are one ``(1280, emb_size)`` table indexed by
 ``ids + field_offset``: one gather, then the √emb_size scale and the
 ``fusion`` projection to d_model.  The gather's gradient is PyTorch's own
 (the reference's one-hot backward is an XLA product, not a Pallas kernel):
-``index``'s on the card, ``embedding``'s on the CPU (:func:`_rows`).
+``index``'s on the card, ``embedding``'s on the CPU (:func:`_rows`).  A
+table cut to its tp rows by ``parallel/mesh.py:shard_params`` is gathered
+whole over tp before the lookup, in its own dtype (``gather_param``).
 
 :class:`LabelEmbedding` is the velocity finetune's decoder input: label ids
 through a ``(vocab, 64)`` table, scaled by √64, projected to d_model.
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import gather_param
 from .bart import Dense
 from .config import PianoBartConfig
 
@@ -50,7 +53,9 @@ class OctupleEmbedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        emb = _rows(self.table, ids + self.offsets)            # (B, S, 8, E)
+        # gathered in the param dtype: the rows' gradient then sums in f32
+        table = gather_param(self.table, self.table.dtype)
+        emb = _rows(table, ids + self.offsets)                 # (B, S, 8, E)
         emb = emb.to(cfg.dtype) * math.sqrt(cfg.emb_size)
         emb = emb.reshape(*ids.shape[:-1], cfg.n_fields * cfg.emb_size)
         return self.fusion(emb)

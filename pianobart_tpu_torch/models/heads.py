@@ -43,7 +43,9 @@ def _promoted_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class OctupleLMHead(nn.Module):
-    """The 8 per-field output layers as one ``(d_model, 1280)`` Linear."""
+    """The 8 per-field output layers as one ``(d_model, 1280)`` Linear
+    (under tp its weight may be this rank's vocab rows, gathered where the
+    ``Dense`` uses it)."""
 
     def __init__(self, cfg: PianoBartConfig, device=None):
         super().__init__()

@@ -266,7 +266,8 @@ def psum_out(x: torch.Tensor, ax: Axis) -> torch.Tensor:
 
 def tp_slice(w: torch.Tensor, start: int, size: int, dim: int, ax: Axis
              ) -> torch.Tensor:
-    """This tp rank's slice of a replicated parameter.  Forward: ``narrow``.
+    """This tp rank's slice of a replicated parameter (the TP∘SP
+    projections' biases; their weights are tp shards).  Forward: ``narrow``.
     Backward: the slice's cotangent scattered into zeros of the full shape,
     SUM over ``ax``: every tp rank holds the whole gradient, as for the
     parameters used replicated, so the (dp, sp) all-reduce needs no tp

@@ -8,18 +8,26 @@ in row-major order, as ``make_mesh`` reshapes its device list:
 
 * ``dp`` — data parallel: each rank takes its rows of the global batch;
 * ``tp`` — tensor parallel: heads of every attention (TP∘SP, the
-  reference's ``cfg.ring_tp_axis``);
+  reference's ``cfg.ring_tp_axis``), and the storage of the parameters
+  whose logical axes :data:`LOGICAL_RULES` map to it;
 * ``sp`` — sequence parallel: ring attention over the sequence axis
   (``ops/ring.py``).
 
 Every rank builds the same process groups in the same order: one per ``sp``
 ring, one per ``tp`` group, one per (dp, sp) gradient group (the ranks that
-share a tp coordinate; under TP∘SP each tp rank holds the whole gradient
-already), and one of the whole mesh, over which its ranks agree.  A group
-of one rank is never built: its collectives are the identity; nor is one
-of the whole world: its collectives run over the default group.
-Parameters stay replicated on every rank, as the reference's TP∘SP keeps
-them (``P()``).
+share a tp coordinate: the same shard of each tp-sharded parameter), and
+one of the whole mesh, over which its ranks agree.  A group of one rank is
+never built: its collectives are the identity; nor is one of the whole
+world: its collectives run over the default group.
+
+:func:`shard_params` places the parameters as the reference's
+``shard_params`` does: each rank of a tp group stores only its slice of
+the ``qkv``, ``mlp`` and ``vocab`` leaves (:data:`TP_PARAMS`), so their
+gradients, AdamW moments and EMA shadow are slices too; every other
+parameter is replicated.  The TP∘SP attention projects with its heads'
+shards as they are; the FFN, the octuple table and the LM head gather
+theirs where they are used (:func:`gather_param`), as the reference's
+``shard_map`` takes the parameters as ``P()``.
 
 :func:`use_mesh` is the counterpart of ``shard_map``'s axis environment: a
 model whose config names a ring axis resolves it to a group of the active
@@ -40,7 +48,9 @@ import torch.distributed as dist
 __all__ = ["Axis", "Mesh", "make_mesh", "single_device_mesh", "init_from_env",
            "parse_mesh", "use_mesh", "active_mesh", "axis", "all_reduce_",
            "all_reduce_grads_", "all_gather", "gather_shards", "shard_batch",
-           "gather_batch", "put_batch_fn"]
+           "gather_batch", "put_batch_fn", "LOGICAL_RULES", "TP_PARAMS",
+           "tp_layout", "shard_slice", "shard_params", "sharded_dims",
+           "gather_param", "gather_state_dict", "shard_state_dict"]
 
 AXES = ("dp", "tp", "sp")
 # the process groups a mesh builds: the sp rings, the tp groups, the (dp, sp)
@@ -439,3 +449,145 @@ def put_batch_fn(mesh: Mesh):
         return torch.as_tensor(b, device=mesh.device)
 
     return put
+
+
+# ---------------------------------------------------------------------------
+# Parameters over tp (the counterpart of shard_params)
+# ---------------------------------------------------------------------------
+
+#: logical axis name -> mesh axis (None = replicate), the reference's rules
+LOGICAL_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
+    ("batch", "dp"),
+    ("seq", "sp"),
+    ("embed", None),
+    ("fused", None),
+    ("qkv", "tp"),
+    ("mlp", "tp"),
+    ("vocab", "tp"),
+)
+
+#: Every parameter the reference annotates with logical axes: (the class
+#: name of the module that owns it, its name under that module, the axes in
+#: the torch tensor's dim order).  A flax ``Dense`` kernel ``(in, out)`` is
+#: the torch ``weight (out, in)``, so its axes are swapped here.  The
+#: parameters not listed carry no annotation there and are replicated: every
+#: bias, the LayerNorms, ``LabelEmbedding`` (its ``table`` shares a name with
+#: the octuple table), the classifier heads and the squeeze-excitation gate
+#: (its ``fc1``/``fc2`` share names with the FFN's).
+TP_PARAMS: Tuple[Tuple[str, str, Tuple[Optional[str], ...]], ...] = (
+    ("MultiHeadAttention", "q_proj.weight", ("qkv", "embed")),
+    ("MultiHeadAttention", "k_proj.weight", ("qkv", "embed")),
+    ("MultiHeadAttention", "v_proj.weight", ("qkv", "embed")),
+    ("MultiHeadAttention", "out_proj.weight", ("embed", "qkv")),
+    ("FeedForward", "fc1.weight", ("mlp", "embed")),
+    ("FeedForward", "fc2.weight", ("embed", "mlp")),
+    ("OctupleEmbedding", "table", ("vocab", None)),
+    ("OctupleEmbedding", "fusion.weight", ("embed", "fused")),
+    ("PositionalEmbedding", "embedding", (None, "embed")),
+    ("OctupleLMHead", "proj.weight", ("vocab", "embed")),
+)
+
+
+def tp_layout(model: torch.nn.Module) -> Dict[str, int]:
+    """Parameter name -> the dim that :data:`LOGICAL_RULES` put on ``tp``,
+    for every parameter of ``model`` that the rules shard (the modules
+    matched by class, never by a parameter's name alone)."""
+    rules = dict(LOGICAL_RULES)
+    by_class: Dict[str, List[Tuple[str, int]]] = {}
+    for cls, leaf, axes in TP_PARAMS:
+        dims = [i for i, a in enumerate(axes) if a is not None and rules[a] == "tp"]
+        if dims:
+            by_class.setdefault(cls, []).append((leaf, dims[0]))
+    out = {}
+    for prefix, mod in model.named_modules():
+        for leaf, dim in by_class.get(type(mod).__name__, ()):
+            out[f"{prefix}.{leaf}" if prefix else leaf] = dim
+    return out
+
+
+def shard_slice(t: torch.Tensor, size: int, index: int, dim: int,
+                name: str = "tensor") -> torch.Tensor:
+    """Member ``index`` of ``size``'s contiguous slice of ``t`` along ``dim``
+    (a ``NamedSharding``'s even split), a view; a dim that ``size`` does
+    not divide raises, naming ``name``."""
+    if t.shape[dim] % size:
+        raise ValueError(f"{name}: dim {dim} of shape {tuple(t.shape)} is not "
+                         f"divisible by the tp mesh axis ({size})")
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n)
+
+
+def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """Replace every parameter of ``model`` that :func:`tp_layout` lists by
+    this rank's contiguous tp slice (a new ``nn.Parameter`` holding a copy;
+    the whole tensor is freed), marked with the dim it is split on
+    (``tp_dim``).  Call it after any graft and before the optimizer and the
+    EMA shadow are made, so they hold slices too.  At tp = 1 the model is
+    returned as it is; a dim tp does not divide raises, naming the leaf."""
+    tp = mesh.axis("tp")
+    if tp.size == 1:
+        return model
+    layout = tp_layout(model)
+    # every leaf checked before any is replaced
+    cut = {name: shard_slice(model.get_parameter(name).detach(), tp.size, tp.index,
+                             dim, name) for name, dim in layout.items()}
+    for name, view in cut.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        q = torch.nn.Parameter(view.clone(),
+                               requires_grad=getattr(mod, leaf).requires_grad)
+        q.tp_dim = layout[name]
+        setattr(mod, leaf, q)
+    return model
+
+
+def sharded_dims(model: torch.nn.Module) -> Dict[str, int]:
+    """Name -> split dim of the parameters :func:`shard_params` replaced
+    (empty for a whole model)."""
+    return {n: p.tp_dim for n, p in model.named_parameters()
+            if getattr(p, "tp_dim", None) is not None}
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, w.shape[dim]
+        return all_gather(w, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a copy, also of a contiguous slice: the parameter's .grad must not
+        # keep the whole gradient's storage alive
+        return (g.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n)
+                .clone(memory_format=torch.contiguous_format), None, None)
+
+
+def gather_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p`` in ``dtype`` where a module uses it.  A tp shard
+    (:func:`shard_params`) is cast first, then all-gathered over the active
+    mesh's ``tp`` axis into the whole tensor; its backward is this rank's
+    slice of the whole gradient, with no reduce: every tp rank computes the
+    same replicated activations, so each already holds the whole gradient.
+    A whole parameter is only cast."""
+    dim = getattr(p, "tp_dim", None)
+    if dim is None:
+        return p.to(dtype)
+    return _GatherParam.apply(p.to(dtype), axis("tp"), dim)
+
+
+def gather_state_dict(sd: Dict[str, torch.Tensor], dims: Dict[str, int], ax: Axis
+                      ) -> Dict[str, torch.Tensor]:
+    """``sd`` with each entry named in ``dims`` all-gathered over ``ax``
+    along its dim (the whole tensor, as on one rank), in ``sd``'s order;
+    the others as they are.  A collective: every member of ``ax`` calls it
+    with the same names."""
+    return {name: all_gather(t, ax, dims[name]) if name in dims else t
+            for name, t in sd.items()}
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], dims: Dict[str, int], size: int,
+                     index: int) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`gather_state_dict`: each entry named in
+    ``dims`` cut to member ``index`` of ``size``'s slice (a view)."""
+    return {name: shard_slice(t, size, index, dims[name], name) if name in dims else t
+            for name, t in sd.items()}

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .. import vocab as V
+from ..parallel.mesh import gather_param
 from .objective import sequence_ce, token_ce
 from .state import TrainState, gradient_step
 
@@ -35,7 +36,9 @@ Metrics = Dict[str, Any]
 
 
 def _l2_penalty(model: torch.nn.Module) -> torch.Tensor:
-    return sum(torch.linalg.vector_norm(p.float().reshape(-1))
+    """The sum of every parameter's 2-norm; a tp shard's over the whole
+    parameter, gathered over the active mesh's tp axis (``gather_param``)."""
+    return sum(torch.linalg.vector_norm(gather_param(p, torch.float32).reshape(-1))
                for p in model.parameters())
 
 

@@ -9,8 +9,9 @@ under ``--mesh`` as GSPMD partitions of its dense steps).
   split and loss span.  Each rank then takes its block (``shard_batch``); a
   shift done per shard would be wrong at every shard boundary.
 * The model runs on the block: ring attention over ``sp``, TP∘SP heads over
-  ``tp`` (``cfg.ring_axis``, ``cfg.ring_tp_axis``), the shard's positions;
-  the sequence head gathers the shards (``models/heads.py``).
+  ``tp`` (``cfg.ring_axis``, ``cfg.ring_tp_axis``) with the parameters as
+  ``shard_params`` placed them, the shard's positions; the sequence head
+  gathers the shards (``models/heads.py``).
 * Each loss is a local (numerator, denominator) pair over denominators
   summed over (dp, sp) without gradient first, so the local losses add up
   to the dense objective, also where a dp rank holds only the zero-weight
@@ -20,7 +21,8 @@ under ``--mesh`` as GSPMD partitions of its dense steps).
   the first rank of the gradient group alone, so that the summing
   all-reduce takes it once.
 * ONE SUM all-reduce of the gradients over (dp, sp) before the clip
-  (``TrainState.grad_sync``); the clip and AdamW on every rank alike.
+  (``TrainState.grad_sync``); the clip, over the whole gradient, and AdamW
+  on every rank, each on its slices of the tp-sharded parameters.
 * Dropout: the trunk's from ``dropout_generator`` (the step's seed, the
   rank's dp and sp coordinates), the sequence head's from the step's seed
   and the dp coordinate, the same on every rank of a dp block.

@@ -8,12 +8,18 @@ GSPMD step: one step serves every mesh).
   rows and, with ``cfg.ring_axis``, its sp columns.
 * The model runs on the block: ring attention over ``sp`` (``ops/ring.py``),
   the shard's positional offset, TP∘SP heads with ``cfg.ring_tp_axis``.
+  Under tp the model holds this rank's slices of the tp-sharded parameters
+  (``parallel/mesh.py:shard_params``, called before the optimizer is
+  made): the attention uses its shards as they are, the FFN, the octuple
+  table and the LM head gather theirs over tp where they are used.
 * Each rank's masked CE is a local (numerator, denominator) pair per field;
   the denominators are summed over (dp, sp) without gradient first, so the
   local losses add up to the dense objective exactly.
 * After the backward, ONE SUM all-reduce of the flattened gradients over the
   (dp, sp) group (``TrainState.grad_sync``, before the clip; once per window
-  under accumulation), then the clip and AdamW on every rank alike.  Not
+  under accumulation), then the clip (its norm over the whole gradient:
+  the shards' squares summed over tp) and AdamW on every rank, each on
+  what it holds.  Not
   DDP: DDP averages per-rank means, which is not the global masked mean when
   the ranks' mask counts differ.
 * Dropout: each rank draws from a generator seeded from (the step's seed,

@@ -17,13 +17,15 @@ across epochs.  A resumed run replays the permutations of the epochs it
 skips, so a run preempted between epochs and resumed takes the same steps
 as one never interrupted.
 
-Over a mesh of several ranks (``mesh``; parameters replicated), every rank
+Over a mesh of several ranks (``mesh``; under tp each rank holds its slices
+of the tp-sharded parameters, ``parallel/mesh.py:shard_params``), every rank
 runs the same loop on the same global batches (``put_batch`` places them,
 the mesh's steps take each rank's block); rank 0 alone writes checkpoints
-and ``metrics.jsonl``, every save ends in a barrier, and the ranks agree on
+(whole tensors: under tp every rank joins a save's gathers) and
+``metrics.jsonl``, every save ends in a barrier, and the ranks agree on
 preemption: at each dispatch boundary they all-reduce the SIGTERM flag, so
-all of them stop at the same step (a rank that stopped alone would leave the
-others blocked in a collective).
+all of them stop at the same step and save together (a rank that stopped
+alone would leave the others blocked in a collective).
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class _EpochRunner:
         self.logger = MetricsLogger(save_dir, enabled=self.writer)
         self.ckpt = CheckpointManager(
             save_dir, writer=self.writer,
-            barrier=None if mesh is None else mesh.barrier)
+            barrier=None if mesh is None else mesh.barrier,
+            tp=None if mesh is None else mesh.axis("tp"))
         self.np_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device)
         self._cur_epoch = 0  # set by run(); safety saves record it

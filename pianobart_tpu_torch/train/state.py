@@ -13,7 +13,10 @@ in :func:`apply_gradients`).
 (``step_N/``, ``best/``, the ``safety/`` slot) with a ``torch.save`` payload:
 true resume of the model, the optimizer, the EMA shadow and a partial
 accumulation window; and, for a finetune or a server, the weights (or the
-EMA shadow) alone, grafted onto any model that shares their names.
+EMA shadow) alone, grafted onto any model that shares their names.  Over a
+tp mesh whose parameters ``shard_params`` cut (``parallel/mesh.py``), a save
+gathers every sharded tensor whole first and a restore cuts each rank's
+slices back out, so the files are those of a single-rank run.
 :func:`load_merged_msgpack` reads a merge's flax ``.msgpack`` (the port's
 ``merge`` or the JAX package's) as the same port-named entries.
 """
@@ -30,6 +33,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.mesh import (Axis, all_gather, all_reduce_, axis, shard_slice,
+                             sharded_dims)
 
 __all__ = ["TrainState", "make_schedule", "make_optimizer", "create_train_state",
            "apply_gradients", "gradient_step", "clip_by_global_norm_logged",
@@ -188,10 +194,24 @@ def clip_by_global_norm_logged(params: Iterable[torch.Tensor],
     optax's formula: ``g if norm < max_norm else g / norm * max_norm``.
     ``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)``
     and is not the same function.  A few launches for all the gradients:
-    one fused norm, one fused multiply by 1 or ``max_norm / norm``."""
+    one fused norm, one fused multiply by 1 or ``max_norm / norm``.
+
+    Gradients of tp shards (parameters cut by ``shard_params``) enter with
+    their squared norms summed over the active mesh's tp axis, in one
+    all-reduce of one element, and the replicated ones once: the norm of
+    the whole gradient, as on one rank."""
+    params = [p for p in params if p.grad is not None]
     grads = _grads(params)
-    norm = torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(grads)]))
+    norms = [n.float() for n in torch._foreach_norm(grads)]
+    shard = [getattr(p, "tp_dim", None) is not None for p in params]
+    if any(shard):
+        def sq(keep):
+            parts = [n for n, s in zip(norms, shard) if s == keep]
+            return (torch.stack(parts).square().sum() if parts
+                    else torch.zeros((), device=norms[0].device)).reshape(1)
+        norm = torch.sqrt(sq(False) + all_reduce_(sq(True), axis("tp")))[0]
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -320,10 +340,15 @@ def _to_cpu(obj):
     return obj
 
 
-def _payload(state: TrainState) -> Dict[str, Any]:
+def _payload(state: TrainState, tp: Optional[Axis] = None) -> Dict[str, Any]:
+    """What a checkpoint holds, on the host.  With ``tp`` (a model cut by
+    ``shard_params``), every tensor of a tp-sharded parameter (the
+    parameter, its AdamW moments, its EMA shadow, its window's gradient) is
+    all-gathered whole and put on the host as it comes, one tensor at a
+    time: a collective that every member of ``tp`` joins in one order."""
     params = list(state.model.parameters())
     partial = state.step % state.accum_steps
-    return _to_cpu({
+    payload = {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema": state.ema,
@@ -333,7 +358,36 @@ def _payload(state: TrainState) -> Dict[str, Any]:
         "grad_norm": state.grad_norm,
         "step": state.step,
         "structure": _structure(state),
-    })
+    }
+    if tp is not None:
+        payload = _per_param(payload, state.model,
+                             lambda t, d: all_gather(t.detach(), tp, d).cpu())
+    return _to_cpu(payload)
+
+
+def _per_param(payload: Dict[str, Any], model: nn.Module, fn) -> Dict[str, Any]:
+    """``payload`` with ``fn(tensor, dim)`` applied to every tensor shaped as
+    a tp-sharded parameter of ``model`` (split on ``dim``): the model's
+    entry, the optimizer state's non-scalar entries, the EMA shadow, the
+    window's gradients; in that order, parameter by parameter."""
+    dims = [getattr(p, "tp_dim", None) for p in model.parameters()]
+    names = sharded_dims(model)
+    out = dict(payload)
+    out["model"] = {k: fn(v, names[k]) if k in names else v
+                    for k, v in payload["model"].items()}
+    opt = payload["optimizer"]
+    out["optimizer"] = {**opt, "state": {
+        i: {k: fn(v, dims[i]) if dims[i] is not None and v.dim() > 0 else v
+            for k, v in st.items()}
+        for i, st in opt["state"].items()}}
+
+    def each(ts):
+        return None if ts is None else [
+            t if t is None or d is None else fn(t, d) for t, d in zip(ts, dims)]
+
+    out["ema"] = each(payload["ema"])
+    out["accum"] = {**payload["accum"], "grads": each(payload["accum"]["grads"])}
+    return out
 
 
 def _link_or_copy(src: str, dst: str) -> None:
@@ -371,18 +425,24 @@ class CheckpointManager:
     and renamed to ``<dir>`` once the old ``<dir>`` is renamed aside to
     ``<dir>.old``; ``*.tmp`` and ``*.old`` left by a killed save are swept.
 
-    In a job of several ranks (replicated parameters) only the ``writer``
-    (rank 0) writes; every rank's save ends in ``barrier``, so no rank reads
-    or resumes from a directory another is still writing.
+    In a job of several ranks only the ``writer`` (rank 0) writes; every
+    rank's save ends in ``barrier``, so no rank reads or resumes from a
+    directory another is still writing.  With ``tp`` (the mesh's tp axis)
+    and a model cut by ``shard_params``, every rank joins the gathers of a
+    save (so every rank must save at the same point, as the runner's
+    agreement arranges) and the writer writes whole tensors; a restore
+    reads the whole file on every rank and keeps its slices.
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 writer: bool = True, barrier: Optional[Callable[[], None]] = None):
+                 writer: bool = True, barrier: Optional[Callable[[], None]] = None,
+                 tp: Optional[Axis] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.writer = writer
         self._barrier = barrier
+        self.tp = tp if tp is not None and tp.size > 1 else None
 
     def _sync(self) -> None:
         if self._barrier is not None:
@@ -409,17 +469,38 @@ class CheckpointManager:
         return self._read_meta()
 
     # -- save/load ---------------------------------------------------------
+    def _tp_of(self, state: TrainState) -> Optional[Axis]:
+        """The tp axis when ``state``'s model is cut by ``shard_params``
+        (raises if the manager was not given it), else None."""
+        if not sharded_dims(state.model):
+            return None
+        if self.tp is None:
+            raise ValueError("a model cut by shard_params saves and restores "
+                             "through a CheckpointManager given the mesh's tp axis")
+        return self.tp
+
+    def _join_gathers(self, state: TrainState) -> None:
+        """On a rank that does not write: join the writer's gathers of the
+        payload, when the model is cut over tp."""
+        tp = self._tp_of(state)
+        if tp is not None:
+            _payload(state, tp)
+
     def _write_payload(self, path: str, state: TrainState) -> None:
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_payload(state), os.path.join(tmp, PAYLOAD))
+        tp = self._tp_of(state)
+        torch.save(_payload(state) if tp is None else _payload(state, tp),
+                   os.path.join(tmp, PAYLOAD))
         _swap_in(tmp, path)
 
     def save(self, step: int, state: TrainState, metrics: Dict[str, Any],
              is_best: bool) -> None:
         if self.writer:
             self._save(step, state, metrics, is_best)
+        else:
+            self._join_gathers(state)
         self._sync()
 
     def _save(self, step: int, state: TrainState, metrics: Dict[str, Any],
@@ -469,6 +550,8 @@ class CheckpointManager:
             meta = self._read_meta()
             meta["safety"] = {"epoch": epoch, "opt_step": int(state.step)}
             self._write_meta(meta)
+        else:
+            self._join_gathers(state)
         self._sync()
 
     def restore(self, state: TrainState, step: Optional[int] = None,
@@ -499,7 +582,9 @@ class CheckpointManager:
         shadow's tensors are the ones the state already holds, on its
         device, so the optimizer's parameter references stay valid.  The run's own
         hyperparameters (learning rate, weight decay) stay; the moments,
-        counts, shadow and partial window come from the checkpoint."""
+        counts, shadow and partial window come from the checkpoint.  The
+        file holds whole tensors; a model cut by ``shard_params`` takes this
+        rank's tp slice of each sharded one."""
         params = list(state.model.parameters())
         device = params[0].device
         # read on the host: the copies below land in the state's own tensors
@@ -510,6 +595,10 @@ class CheckpointManager:
             raise ValueError(
                 f"{path}: optimizer state {payload['structure']} != this "
                 f"run's {_structure(state)}\n\n{_HINT}")
+        tp = self._tp_of(state)
+        if tp is not None:
+            payload = _per_param(payload, state.model, lambda t, d: shard_slice(
+                t, tp.size, tp.index, d, path).clone())
         state.model.load_state_dict(payload["model"])
         hyper = [{k: v for k, v in g.items() if k != "params"}
                  for g in state.optimizer.param_groups]

@@ -6,12 +6,13 @@ the CPU over gloo.
   fill) and NCCL on the CPU, each before any process group exists, for
   ``pretrain`` and for ``finetune``, ``finetune-generation`` and
   ``ablation``.
-* ``--mesh 2x1x1`` on two ranks (each runs ``cli.main`` in its own process,
-  the process group from the environment as ``torch.distributed.run`` sets
-  it): a real SIGTERM to rank 1 alone after epoch 1's validation stops BOTH
-  ranks at the top of epoch 2 with exit 75 (they agree at each dispatch
-  boundary); ``--resume`` then ends bit-equal to an uninterrupted run, and
-  only rank 0 wrote ``metrics.jsonl``.
+* ``--mesh 2x1x1`` and ``1x2x1`` (parameters sharded over tp) on two ranks
+  (each runs ``cli.main`` in its own process, the process group from the
+  environment as ``torch.distributed.run`` sets it): a real SIGTERM to rank
+  1 alone after epoch 1's validation stops BOTH ranks at the top of epoch 2
+  with exit 75 (they agree at each dispatch boundary); ``--resume`` then
+  ends bit-equal to an uninterrupted run, and only rank 0 wrote
+  ``metrics.jsonl``.
 * ``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
   pianobart_tpu_torch.cli pretrain --mesh 1x1x2``, as a user starts it: one
   epoch through the ring, exit 0, ``best/`` written; and so ``finetune
@@ -145,8 +146,13 @@ def _weights(cwd, step):
     return torch.load(path, weights_only=True)["model"]
 
 
-def test_sigterm_on_one_rank_stops_both_and_resume_matches(corpus, tmp_path):
-    argv = ["pretrain", "--dataroot", corpus, "--datasets", "songs", "--mesh", "2x1x1",
+@pytest.mark.parametrize("mesh", ["2x1x1", "1x2x1"])
+def test_sigterm_on_one_rank_stops_both_and_resume_matches(corpus, tmp_path, mesh):
+    """At 1x2x1 each rank holds its tp slices of the sharded parameters and
+    their AdamW state: the safety save gathers them whole on both ranks,
+    the resume cuts each rank's slices back out, and the run still ends
+    bit-equal, its ``step_3/state.pt`` holding the dense shapes."""
+    argv = ["pretrain", "--dataroot", corpus, "--datasets", "songs", "--mesh", mesh,
             "--batch_size", "2", "--epochs", "3"] + TINY
     assert _job(tmp_path / "ref", argv) == [0, 0]
     assert _job(tmp_path / "run", argv, sigterm_rank=1) == [75, 75]
@@ -158,6 +164,11 @@ def test_sigterm_on_one_rank_stops_both_and_resume_matches(corpus, tmp_path):
     assert want.keys() == got.keys()
     for k in want:
         assert torch.equal(want[k], got[k]), k
+    from pianobart_tpu_torch.models import PianoBartConfig, PianoBartLM
+    dense = PianoBartLM(PianoBartConfig(d_model=64, encoder_layers=1, decoder_layers=1,
+                                        num_heads=2, ffn_dim=128), device="meta")
+    assert {k: v.shape for k, v in got.items()} == {
+        k: v.shape for k, v in dense.state_dict().items()}
 
 
 def test_torch_distributed_run_with_the_ring(corpus, tmp_path):

@@ -12,8 +12,10 @@ CPU devices as the JAX CLI runs them (``with mesh,
 nn.logical_axis_rules(LOGICAL_RULES)``, parameters placed by
 ``shard_params``, batches by ``put_batch_fn``).  Four ranks are then spawned
 over gloo on the CPU (``parallel/launch.py``); each carries JAX's weights
-and runs every step at 2x1x1, 1x2x1, 1x1x2, 2x1x2 and 1x2x2, the L2 step at
-2x1x2, and (ranks 0 and 1) a two-epoch ``SupervisedRunner`` at 2x1x1 whose
+and runs every step at 2x1x1, 1x2x1, 1x1x2, 2x1x2 and 1x2x2 (under tp with
+the parameters placed by ``shard_params``, the gradient shards gathered
+whole before they are compared), the L2 step at 2x1x2 and 1x2x2, and (ranks
+0 and 1) a two-epoch ``SupervisedRunner`` at 2x1x1 whose
 files the parent holds against the single-rank runner's (rank 2, meanwhile).
 
 Dropout 0 on both sides, with the heads' fixed 0.1 patched to 0 as
@@ -158,7 +160,9 @@ def _run_runner(d, mesh=None, put_batch=None):
 
 def _worker(rank, world, d):
     from pianobart_tpu_torch.models import heads
-    from pianobart_tpu_torch.parallel.mesh import make_mesh, put_batch_fn
+    from pianobart_tpu_torch.parallel.mesh import (gather_state_dict, make_mesh,
+                                                   put_batch_fn, shard_params,
+                                                   sharded_dims)
     inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
     heads.HEAD_DROPOUT = 0.0
     data = {k: None if v is None else torch.from_numpy(v).long()
@@ -171,7 +175,7 @@ def _worker(rank, world, d):
         labels, w = KINDS[kind]
         model = _port_model(kind, cfg).train()
         model.load_state_dict(inp["sd"][kind])
-        state = _sgd_state(model)
+        state = _sgd_state(shard_params(model, mesh))
         step = _port_step(kind, cfg, mesh, reg_weight)
         x, y = data["x"], data.get(labels)
         out = {}
@@ -180,7 +184,9 @@ def _worker(rank, world, d):
             out["eval"] = _host(em)
         _, m = step(state, x, y, torch.Generator().manual_seed(0), train=True,
                     weight=None if w is None else torch.tensor(w, dtype=torch.float32))
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        # a tp shard's gradient gathered whole
+        grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()},
+                                  sharded_dims(model), mesh.axis("tp"))
         out["loss"], out["grads"] = m["loss"].item(), _flat(grads)
         out["metrics"] = sorted(m)
         return out
@@ -193,6 +199,8 @@ def _worker(rank, world, d):
             res[kind, shape] = run(kind, shape, mesh)
         if shape == (2, 1, 2):
             res["reg"] = run("composer", shape, mesh, REG)
+        if shape == (1, 2, 2):
+            res["reg_tp"] = run("composer", shape, mesh, REG)
     mesh = make_mesh(2, 1, 1)
     if mesh is not None:
         res["runner"] = _run_runner(os.path.join(d, "mesh_run"), mesh, put_batch_fn(mesh))
@@ -342,6 +350,18 @@ def test_l2_term_enters_once(runs):
     for res in ranks:
         assert res["reg"]["loss"] == pytest.approx(wloss, rel=2e-5)
         np.testing.assert_allclose(res["reg"]["grads"], wgrads, rtol=2e-4, atol=2e-5)
+
+
+def test_l2_term_over_tp_shards(runs):
+    """``--weight`` at 1x2x2, with the parameters placed by ``shard_params``:
+    each sharded parameter's norm is the whole parameter's (gathered over
+    tp), its gradient this rank's slice of the whole one, as JAX's dense
+    step has them."""
+    want, ranks, _ = runs
+    wloss, wgrads = want["reg"]
+    for res in ranks:
+        assert res["reg_tp"]["loss"] == pytest.approx(wloss, rel=2e-5)
+        np.testing.assert_allclose(res["reg_tp"]["grads"], wgrads, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("kind", ["composer", "velocity"])

@@ -45,16 +45,20 @@ def _mesh_cfg(base, shape):
     return base.replace(ring_axis="sp") if sp > 1 else base
 
 
-def _flat_grads(model):
-    """Every gradient, flattened in the order of the parameters' names."""
+def _flat_grads(model, mesh=None):
+    """Every gradient, flattened in the order of the parameters' names; a
+    tp shard's gathered whole over the mesh's tp axis first."""
+    from pianobart_tpu_torch.parallel.mesh import gather_state_dict, sharded_dims
     grads = dict((n, p.grad) for n, p in model.named_parameters())
+    if mesh is not None:
+        grads = gather_state_dict(grads, sharded_dims(model), mesh.axis("tp"))
     return torch.cat([grads[n].reshape(-1) for n in sorted(grads)]).numpy()
 
 
 def _sp_worker(rank, world, d):
     from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.models import PianoBartLM
-    from pianobart_tpu_torch.parallel.mesh import make_mesh
+    from pianobart_tpu_torch.parallel.mesh import make_mesh, shard_params
     from pianobart_tpu_torch.train.pretrain_sp import (make_sp_eval_step,
                                                        make_sp_pretrain_step)
     from pianobart_tpu_torch.train.state import TrainState
@@ -63,9 +67,10 @@ def _sp_worker(rank, world, d):
     batch = torch.from_numpy(inp["batch"]).long()
     res = {}
 
-    def model_for(cfg):
+    def model_for(cfg, mesh):
         model = PianoBartLM(cfg, device="cpu").train()
         model.load_state_dict(inp["sd"])
+        shard_params(model, mesh)
         # SGD(lr=1) after a clip that never scales: .grad keeps the
         # all-reduced gradients
         return TrainState(model, torch.optim.SGD(model.parameters(), lr=1.0),
@@ -76,15 +81,15 @@ def _sp_worker(rank, world, d):
         if mesh is None:       # 2x1x1 and 1x2x1 run on ranks 0 and 1
             continue
         cfg = _mesh_cfg(base, shape)
-        state = model_for(cfg)
+        state = model_for(cfg, mesh)
         step = make_sp_pretrain_step(cfg, mesh)
         c, m = (torch.from_numpy(x) for x in inp["train_corruption"])
         metrics = step.update(state, batch, c.long(), m, torch.Generator().manual_seed(0))
-        res[shape] = (metrics["loss"].item(), _flat_grads(state.model))
+        res[shape] = (metrics["loss"].item(), _flat_grads(state.model, mesh))
     mesh = make_mesh(2, 1, 2)
     cfg = _mesh_cfg(base, (2, 1, 2))
     c, m = (torch.from_numpy(x) for x in inp["eval_corruption"])
-    ev = make_sp_eval_step(cfg, mesh).evaluate(model_for(cfg), batch, c.long(), m)
+    ev = make_sp_eval_step(cfg, mesh).evaluate(model_for(cfg, mesh), batch, c.long(), m)
     res["eval"] = {k: v.numpy() for k, v in ev.items()}
     # remat: the same step at dropout 0.1 from one seed, three ways
     for what in ("plain", "remat", "remat_ffn"):
@@ -168,7 +173,9 @@ def test_mesh_step_matches_jax(runs, shape):
     """Loss and the all-reduced gradients of one step on every rank of the
     mesh against JAX's sp step (2x1x2, 1x2x2) or dense step (2x1x1; and
     1x2x1, the tp heads on a ring of one, where JAX's CLI takes its dense
-    GSPMD step) on the same weights and corruption."""
+    GSPMD step) on the same weights and corruption.  Under tp the
+    parameters are placed by ``shard_params`` and each rank's gradient
+    shards gathered whole before the comparison."""
     want, ranks = runs
     wloss, wgrads = want[shape]
     n = 4 if shape[2] == 2 else 2
