@@ -19,7 +19,10 @@ result line:
    width 256 (``--heads 4``: B=32 bf16 and B=8 f32, causal and not, the tp
    ranks' 2 of 4 heads, the bf16 decode buckets B = 1, 2, 4, 8, B=2 S=320,
    S=192 (a ragged kv tile of the bf16 kernel's 128 rows) and a wholly
-   masked sample), with times
+   masked sample), and at the wide heads, clusters of D/128 CTAs (``--heads
+   2``, D=512: B=32 bf16 and B=8 f32, causal and not, B=8 and 16 at S=2048,
+   the tp ranks' 1 of 2 heads, S=320, a wholly masked sample; 4 heads of 384;
+   1 head of 1024), then which kernels SDPA ran at D = 384, 512, 1024, with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -36,12 +39,14 @@ result line:
    also at B=2, S=320 (half a CTA past S) and with a fully masked sample,
    and K2 at [finetune_mesh]'s tp ranks (as in ``[flash]``), and the same
    at head width 256 (K2 B=32 bf16 and B=8 f32, K3a/K3b B=16 S=2048 bf16 and
-   B=2 f32, the tp ranks', S=320, wholly masked samples),
-   with the same times (the yardstick is SDPA's backward); at each case the
+   B=2 f32, the tp ranks', S=320, wholly masked samples) and at the wide
+   heads (D=512 at [train_h512]'s shapes, its tp ranks', S=320, a wholly
+   masked sample; D=384; D=1024), with the same times (the yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times, and in f32 the tf32 prep (D = 128 and 256);
-   last, [train_h256]'s bf16 K2 call and its S=2048 step's K3a and K3b
-   under the profiler, by kernel (delta, dK/dV, dQ);
+   last, [train_h256]'s and [train_h512]'s bf16 K2 calls and their S=2048
+   steps' K3a and K3b under the profiler, by kernel (delta, dK/dV, dQ), and
+   the kernels SDPA's backward ran at the wide heads;
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
    Philox bits, at the flagship's N=32768 rows of D=1024 in bf16, at a
    small N in f32, and at N=8192 rows wider than one warp takes (D = 1152,
@@ -84,6 +89,13 @@ result line:
    prep 48: the f32 kernels at D=256 are CTA pairs over the prep's planes),
    then the encoder of a --heads 4 serving model via K1 against plain
    attention and a ``GenerationService`` decode batch (K1 8);
+13b. ``[train_h512]``: ``--heads 2`` (head width 512, every attention on
+   clusters of 4 CTAs) as 13 runs ``--heads 4``: gradients through the
+   kernels against plain attention (B=4 bf16, B=2 f32), 10 timed steps at
+   B=32 (K1, delta, K2 24 each) beside [train] and beside the plain route's
+   3 steps (its ms/step and peak), 2 at S=2048 B=16 (K1, delta, K3a, K3b 24
+   each), 3 in f32 at B=8 (the prep 48), the encoder of a --heads 2 server
+   via K1 against plain attention and a decode batch (K1 8);
 14. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
    width (bf16 compute, f32 parameters), in a temporary directory outside
    the checkout: 64 two-track songs tokenized by the native codec
@@ -133,11 +145,11 @@ result line:
    group; four ranks spawned over gloo (all on cuda:0, ring blocks staged
    through pinned host memory): ``ring_attention`` at sp = 2 and 4 over (B=4,
    S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, and at sp=2
-   over (B=4, S=2048, H=4, D=256) bf16, against the
+   over (B=4, S=2048, H=4, D=256) and (H=2, D=512) bf16, against the
    plain ring and dense ``flash_attention`` (a 3S/8 pad tail covering the
    last shard at sp=4); the flagship mesh step (B=2, dropout 0, one step a
    mesh) at 2x1x1, 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
-   with --heads 4 (S=2048) against the dense step on
+   with --heads 4 and with --heads 2 (S=2048) against the dense step on
    the same card (loss, clipped gradients per group, the same gradients on
    every rank), the parameters placed by ``shard_params`` (at 1x2x2 each rank
    holds its slices of the qkv, mlp and vocab leaves and their AdamW state;
@@ -168,7 +180,8 @@ result line:
    single-rank run's shape.
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
-train_h256, train_h256_long, train_h256_f32, serve_h256, pretrain_run, finetune,
+train_h256, train_h256_long, train_h256_f32, serve_h256, train_h512, train_h512_long,
+train_h512_f32, serve_h512, pretrain_run, finetune,
 serve_ckpt, merge, parallel, finetune_mesh) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
@@ -285,9 +298,10 @@ def _sass_label(name):
     if label == "flash_fwd_d256_wgmma_kernel":   # the bf16 D=256 forward
         return label + " (K1, D=256, 128-row kv tiles, ping-pong)"
     tail = name[name.index(label) + len(label):]
+    cluster = {"256": " (CTA pair)", "0": " (clusters of D/128 CTAs, D = 384 .. 1024)"}
     width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
     if width:
-        return f"{label}<{width.group(1)}>" + (" (CTA pair)" if width.group(1) == "256" else "")
+        return f"{label}<{width.group(1)}>" + cluster.get(width.group(1), "")
     flags = re.match(r"ILb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?", tail)
     if not flags:
         return label
@@ -299,11 +313,11 @@ def _sass_label(name):
                             else "<false> (dQ, 128 rows, K and V through 3 slots)")
         return label + (f"<true{', ' + d if d else ''}> (dK/dV" if dkv
                         else f"<false{', ' + d if d else ''}> (dQ") + (
-                            ", CTA pair)" if d == "256" else ")")
+                            cluster[d].replace(" (", ", ") if d in cluster else ")")
     kt, split, d = flags.groups()
     tf = {"0": "false", "1": "true"}
     return (f"{label}<{tf[kt]}, {tf[split]}, {d}> ({FWD_INSTANCES[kt, split]}"
-            f"{', D=' + d if d != '128' else ''})")
+            + (cluster[d].replace(" (", ", ") if d in cluster else ")"))
 
 
 def phase_build(state):
@@ -349,7 +363,7 @@ def phase_build(state):
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
-    for lib, expect in (("flash_fwd", 4), ("flash_bwd", 8), ("flash_lab", 3)):
+    for lib, expect in (("flash_fwd", 6), ("flash_bwd", 12), ("flash_lab", 3)):
         sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
                               text=True, timeout=120, check=True).stdout
         found = 0
@@ -369,6 +383,20 @@ def phase_build(state):
 
 # --heads 4: the flagship's width (H*D = 1024) at head width 256
 H256 = dict(H=4, D=256)
+# the wide heads, clusters of D/128 CTAs: --heads 2 at the flagship's width
+# (D=512, H*D = 1024), --hs 1536's width as 4 heads of 384, and 1 head of
+# 1024 (n = 8, the card's largest portable cluster)
+WIDTHS = {"h256": H256, "h384": dict(H=4, D=384), "h512": dict(H=2, D=512),
+          "h1024": dict(H=1, D=1024)}
+
+
+def _width(kind):
+    """The (name, H and D) of a case's width tag ("h256", "h512 tp", ...):
+    ("", {}) for the flagship's 8 heads of 128."""
+    for tag in kind.split():
+        if tag in WIDTHS:
+            return tag, WIDTHS[tag]
+    return "", {}
 
 
 def _flash_case(B, causal, dtype, S=1024, H=8, D=128):
@@ -480,12 +508,26 @@ def phase_flash(state):
              (2, False, bf16, 192, "h256"),
              (2, False, bf16, 320, "h256"), (2, True, bf16, 320, "h256"),
              (2, False, f32, 320, "h256"), (2, True, f32, 320, "h256"),
-             (2, False, bf16, 320, "h256 masked"), (2, False, f32, 320, "h256 masked")]
+             (2, False, bf16, 320, "h256 masked"), (2, False, f32, 320, "h256 masked"),
+             # the wide heads (clusters of D/128 CTAs): --heads 2 (D=512) at
+             # [train_h512]'s shapes, its decode bucket B=8, its tp ranks' (1 of
+             # 2 heads), S=320 and a wholly masked sample; 4 heads of 384 (an
+             # odd cluster); 1 head of 1024 (a cluster of 8)
+             (32, False, bf16, 1024, "h512"), (32, True, bf16, 1024, "h512"),
+             (8, False, f32, 1024, "h512"), (8, True, f32, 1024, "h512"),
+             (8, False, bf16, 1024, "h512"), (16, False, bf16, 2048, "h512"),
+             (8, False, bf16, 1024, "h512 tp"), (8, True, f32, 1024, "h512 tp"),
+             (2, True, bf16, 320, "h512"), (2, False, bf16, 320, "h512 masked"),
+             (2, False, f32, 320, "h512 masked"),
+             (8, False, bf16, 1024, "h384"), (8, True, bf16, 1024, "h384"),
+             (8, False, f32, 1024, "h384"),
+             (4, True, bf16, 1024, "h1024"), (2, False, f32, 1024, "h1024")]
     for B, causal, dtype, S, *kind in cases:
         kind = kind[0] if kind else ""
-        tp, h256 = "tp" in kind, "h256" in kind
+        tp = "tp" in kind
+        wname, width = _width(kind)
         q, k, v, mask = (_tp_flash_case if tp else _flash_case)(
-            B, causal, dtype, S=S, **(H256 if h256 else {}))
+            B, causal, dtype, S=S, **width)
         if "masked" in kind:
             mask[0] = 0.0
         s0 = flash_attention_split.launches
@@ -519,13 +561,45 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if kind in ("", "h256") and (B, causal, dtype) in ((32, False, bf16),
-                                                           (8, False, f32)):
-            # the train shapes ([train], [train_f32]; [train_h256]'s)
-            key = "k1" + ("_h256" if h256 else "") + ("_f32" if dtype == f32 else "")
+        if kind in ("", "h256", "h512") and (B, causal, dtype, S) in (
+                (32, False, bf16, 1024), (8, False, f32, 1024)):
+            # the train shapes ([train], [train_f32]; [train_h256]'s, [train_h512]'s)
+            key = "k1" + (f"_{wname}" if wname else "") + ("_f32" if dtype == f32 else "")
             state[key] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by.split(",")[0],
                               library_ms=lib_ms)
+    _sdpa_kernels("flash", ("h384", "h512", "h1024"))
+
+
+def _sdpa_kernels(tag, widths, backward=False):
+    """Which kernels ``scaled_dot_product_attention`` (with its backward)
+    ran at each width (its flash backend stops at D=256), by name, the
+    longest first, at B=8, S=1024 with the pad mask, bf16 and f32.  Last in
+    a phase: the host launches more slowly after a profiler window."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for wname in widths:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, mask = _flash_case(8, False, dtype, **WIDTHS[wname])
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(backward)
+                          for x in (q, k, v))
+            keep = (mask != 0)[:, None, None, :]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=1.0)
+                if backward:
+                    torch.autograd.grad(o, (qt, kt, vt), torch.ones_like(o))
+                torch.cuda.synchronize()
+            per = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+            top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+            print(f"[{tag}] sdpa{' fwd+bwd' if backward else ''} at B=8 S=1024 "
+                  f"H={q.shape[2]} D={q.shape[3]} {str(dtype)[6:]} ran: "
+                  + "; ".join(f"{n[:70]} ({us / 1e3:.3f} ms)" for n, us in top))
+            del q, k, v, mask, qt, kt, vt, o
 
 
 def _sdpa_ms(q, k, v, mask, causal):
@@ -762,12 +836,29 @@ def phase_flash_bwd(state):
              ("K2", 2, 320, False, f32, True, "h256"),
              ("K3", 2, 320, False, bf16, False, "h256"), ("K3", 2, 320, True, bf16, False, "h256"),
              ("K3", 2, 320, False, bf16, True, "h256"), ("K3", 2, 320, True, f32, False, "h256"),
-             ("K3", 2, 320, False, f32, True, "h256")]
+             ("K3", 2, 320, False, f32, True, "h256"),
+             # the wide heads (clusters of D/128 CTAs): --heads 2 (D=512) at
+             # [train_h512]'s shapes (K2 B=32 bf16 and B=8 f32, K3 B=16 S=2048
+             # bf16 and B=2 f32), its tp ranks' (1 of 2 heads), S=320 and a
+             # wholly masked sample; 4 heads of 384; 1 head of 1024
+             ("K2", 32, 1024, False, bf16, False, "h512"), ("K2", 32, 1024, True, bf16, False, "h512"),
+             ("K2", 8, 1024, False, f32, False, "h512"), ("K2", 8, 1024, True, f32, False, "h512"),
+             ("K3", 16, 2048, False, bf16, False, "h512"), ("K3", 16, 2048, True, bf16, False, "h512"),
+             ("K3", 2, 2048, False, f32, False, "h512"), ("K3", 2, 2048, True, f32, False, "h512"),
+             ("K2", 8, 1024, True, bf16, False, "h512 tp"),
+             ("K2", 8, 1024, False, f32, False, "h512 tp"),
+             ("K2", 2, 320, True, bf16, False, "h512"), ("K2", 2, 320, False, bf16, True, "h512"),
+             ("K2", 2, 320, False, f32, True, "h512"), ("K3", 2, 320, True, f32, False, "h512"),
+             ("K3", 2, 320, False, bf16, True, "h512"),
+             ("K2", 8, 1024, False, bf16, False, "h384"), ("K2", 8, 1024, True, bf16, False, "h384"),
+             ("K2", 8, 1024, False, f32, False, "h384"), ("K3", 2, 2048, True, bf16, False, "h384"),
+             ("K2", 4, 1024, True, bf16, False, "h1024"), ("K2", 2, 1024, False, f32, False, "h1024")]
     for kid, B, S, causal, dtype, masked, *kind in cases:
         kind = kind[0] if kind else ""
-        tp, h256 = "tp" in kind, "h256" in kind
+        tp = "tp" in kind
+        wname, width = _width(kind)
         q, k, v, mask = (_tp_flash_case if tp else _flash_case)(
-            B, causal, dtype, S=S, **(H256 if h256 else {}))
+            B, causal, dtype, S=S, **width)
         mask[0, S - 300:] = 0.0      # a second pad tail
         if masked:
             mask[0] = 0.0
@@ -792,15 +883,17 @@ def phase_flash_bwd(state):
               f"plain {d_plain:.4f} ms")
         if not ok_d:
             raise AssertionError(f"the delta kernel disagrees with its plain version: {name}")
-        if not tp and (B, causal, dtype, masked) == (32, False, bf16, False):
-            state["delta_h256" if h256 else "delta"] = dict(
+        if kind in ("", "h256", "h512") and (B, causal, dtype, masked) == (32, False, bf16,
+                                                                          False):
+            state["delta" + (f"_{wname}" if wname else "")] = dict(
                 max_abs_err=err_d, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
                 bound_by=d_bound[1], library_ms=None)
         del got_d, want_d
         if dtype == f32 and not causal:
-            train = kind in ("", "h256") and (kid, B, S, masked) == ("K2", 8, 1024, False)
-            _split_row(state, name, q, ("split_h256" if h256 else "split") if train else None,
-                       flash_attention_split, flash_attention_split_reference)
+            train = kind in ("", "h256", "h512") and (kid, B, S, masked) == ("K2", 8, 1024,
+                                                                             False)
+            _split_row(state, name, q, ("split" + (f"_{wname}" if wname else "")) if train
+                       else None, flash_attention_split, flash_attention_split_reference)
         s0 = flash_attention_split.launches
         if kid == "K2":
             got = flash_attention_bwd(q, k, v, mask, causal, out, lse, dout)
@@ -851,13 +944,15 @@ def phase_flash_bwd(state):
               f"(tol {ntol:g}), {times}, sdpa bwd {lib_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
-        if not tp and (B, causal, dtype, masked) in (
+        if kind in ("", "h256", "h512") and (B, causal, dtype, masked) in (
                 (32, False, bf16, False), (16, False, bf16, False), (8, False, f32, False)):
-            # the train shapes ([train], [train_long], [train_f32]; [train_h256]'s)
+            # the train shapes ([train], [train_long], [train_f32]; [train_h256]'s
+            # and [train_h512]'s)
             keys = (["k2" if dtype == bf16 else "k2_f32"] if kid == "K2"
                     else ["k3a", "k3b"])
-            if h256:
-                keys = ["k2_h256_f32" if key == "k2_f32" else key + "_h256" for key in keys]
+            if wname:
+                keys = [f"k2_{wname}_f32" if key == "k2_f32" else f"{key}_{wname}"
+                        for key in keys]
             err_of = [max(errs)] if kid == "K2" else [errs[0], max(errs[1:])]
             for key, e, t, (bm, bb), p in zip(keys, err_of, ms, bounds, plain_ms):
                 state[key] = dict(max_abs_err=e, ms=t, plain_ms=p, bound_ms=bm,
@@ -865,10 +960,12 @@ def phase_flash_bwd(state):
         del q, k, v, out, lse, dout, got
         torch.cuda.empty_cache()
     # The D=256 bf16 calls of [train_h256] (K2) and its S=2048 step (K3a, K3b)
-    # by kernel: delta, dK/dV, dQ.  Last, as the host launches more slowly
-    # after a profiler window, and the small rows above are host bound.
-    for kid, B, S in (("K2", 32, 1024), ("K3", 16, 2048)):
-        q, k, v, mask = _flash_case(B, False, bf16, S=S, **H256)
+    # by kernel: delta, dK/dV, dQ, and the same of [train_h512] (D=512, the
+    # clusters).  Last, as the host launches more slowly after a profiler
+    # window, and the small rows above are host bound.
+    for kid, B, S, wname in (("K2", 32, 1024, "h256"), ("K3", 16, 2048, "h256"),
+                             ("K2", 32, 1024, "h512"), ("K3", 16, 2048, "h512")):
+        q, k, v, mask = _flash_case(B, False, bf16, S=S, **WIDTHS[wname])
         mask[0, S - 300:] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, False)
         g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -883,13 +980,16 @@ def phase_flash_bwd(state):
                 flash_attention_dq(*args)
                 flash_attention_dkv(*args)
         call()
-        _profile_window("flash_bwd", f"5 calls of {kid} B={B} S={S} H=4 D=256 bfloat16",
-                        lambda: [call() for _ in range(5)], 5, groups={
-                            "delta": lambda n: "flash_delta_kernel" in n,
-                            "dK/dV": lambda n: "d256_wgmma_kernel<true>" in n,
-                            "dQ": lambda n: "d256_wgmma_kernel<false>" in n})
+        kern = ("d256_wgmma_kernel<{}>" if wname == "h256"
+                else "flash_bwd_wgmma_kernel<{}, 0>")
+        _profile_window("flash_bwd", f"5 calls of {kid} B={B} S={S} H={q.shape[2]} "
+                        f"D={q.shape[3]} bfloat16", lambda: [call() for _ in range(5)], 5,
+                        groups={"delta": lambda n: "flash_delta" in n,
+                                "dK/dV": lambda n: kern.format("true") in n,
+                                "dQ": lambda n: kern.format("false") in n})
         del q, k, v, mask, out, lse, dout
         torch.cuda.empty_cache()
+    _sdpa_kernels("flash_bwd", ("h384", "h512", "h1024"), backward=True)
 
 
 def _split_row(state, name, x, key, split, reference):
@@ -1860,6 +1960,97 @@ def phase_train_h256(state):
           f"{tuple(counts.values())}, expected {want}")
     if tuple(counts.values()) != want:
         raise AssertionError("K1 did not run 8 times a --heads 4 decode batch")
+
+
+def phase_train_h512(state):
+    """``--heads 2`` (head width 512, the flagship's H*D = 1024; every
+    attention on clusters of 4 CTAs): gradients through K1 and K2 against
+    the plain attention path at B=4 in bf16 and B=2 in f32; the timed
+    pretrain steps at B=32 (bf16 compute, f32 parameters, dropout 0.1: K1,
+    delta, K2 24 each) beside [train] of this run and beside the plain
+    route's (``use_flash_attention=False``, the path such a width took
+    before) ms/step and peak; at ``max_len=2048``, B=16 (K1, delta, K3a,
+    K3b 24 each); in f32 at B=8 (K1, delta, K2 24 each, the prep 48); then
+    the serving path: the encoder via K1 against plain attention and one
+    ``GenerationService`` decode batch of two concurrent requests (K1 8)."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.serve.app import GenerationService
+
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, num_heads=2)
+    if cfg.head_dim != 512:
+        raise AssertionError(f"--heads 2 gives head width {cfg.head_dim}")
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k2=n_attn)
+    expect_f32 = _counts(k1=n_attn, k2=n_attn, f32=True)
+    _flash_vs_plain("train_h512", cfg.replace(dropout=0.0), rng, gen, 4, expect)
+    _flash_vs_plain("train_h512", PianoBartConfig(num_heads=2, dropout=0.0), rng, gen, 2,
+                    expect_f32)
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_h512", cfg, 32, rng, gen, expect, profile=False)
+    state["launches"]["train_h512"] = launches
+    state["train_h512"] = res
+    torch.cuda.empty_cache()
+    _, plain = _train_steps("train_h512_plain", cfg.replace(use_flash_attention=False), 32,
+                            rng, gen, _counts(), warmup=1, steps=3, profile=False)
+    base = state["train"]
+    print(f"[train_h512] beside [train] of this run (8 heads of 128) and the plain route "
+          f"at D=512: {res['ms']:.1f} vs {base['ms']:.1f} vs {plain['ms']:.1f} ms/step, "
+          f"MFU {res['mfu']:.2f} vs {base['mfu']:.2f} vs {plain['mfu']:.2f}%, peak "
+          f"{res['peak_gib']:.2f} vs {base['peak_gib']:.2f} vs {plain['peak_gib']:.2f} GiB")
+    if "train_h256" in state:
+        print(f"[train_h512] beside [train_h256] of this run (4 heads of 256): "
+              f"{res['ms']:.1f} vs {state['train_h256']['ms']:.1f} ms/step")
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h512_long", cfg.replace(max_len=2048), 16, rng, gen,
+                               _counts(k1=n_attn, k3=n_attn), warmup=1, steps=2,
+                               profile=False)
+    state["launches"]["train_h512_long"] = launches
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_h512_f32", PianoBartConfig(num_heads=2), 8, rng, gen,
+                                 expect_f32, warmup=2, steps=3, profile=False)
+    state["launches"]["train_h512_f32"] = launches
+    base = state["train_f32"]
+    print(f"[train_h512_f32] beside [train_f32] of this run (8 heads of 128): "
+          f"{res['ms']:.1f} vs {base['ms']:.1f} ms/step, {res['tokens_s']:.0f} vs "
+          f"{base['tokens_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} vs "
+          f"{base['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # serving a --heads 2 model (bf16 parameters, as GenerationService holds them)
+    scfg = PianoBartConfig(dtype=torch.bfloat16, param_dtype=torch.bfloat16, num_heads=2)
+    model = init_lm(scfg, seed=SEED, device="cuda")
+    _encoder_vs_plain("train_h512", model, rng)
+    svc = GenerationService(model=model, device="cuda", max_batch=8)
+    intros = _intros(2, scfg.max_len, rng)
+    results = [None] * len(intros)
+
+    def client(i):
+        results[i] = svc.submit(intros[i], seed=i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(intros))]
+    _reset_counts()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    counts = _read_counts()
+    state["launches"]["serve_h512"] = counts
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise AssertionError("a --heads 2 request was not served")
+    _check_outputs(results, scfg.max_len)
+    batches = svc.batch_sizes_served
+    want = _counts(k1=scfg.encoder_layers * len(batches))
+    print(f"[train_h512] --heads 2 GenerationService: {len(intros)} concurrent requests "
+          f"served as batches {batches}; launches ({COUNT_NAMES}) "
+          f"{tuple(counts.values())}, expected {want}")
+    if tuple(counts.values()) != want:
+        raise AssertionError("K1 did not run 8 times a --heads 2 decode batch")
 
 
 def _meta(save_dir):
@@ -2924,7 +3115,8 @@ def phase_merge(state):
 # (mesh, S, heads): the flagship's 8 heads of 128, and --heads 4 (head
 # width 256) at 1x1x2
 PARALLEL_STEPS = (((2, 1, 1), 2048, 8), ((1, 1, 2), 2048, 8), ((2, 1, 2), 2048, 8),
-                  ((1, 2, 2), 2048, 8), ((1, 1, 2), 4096, 8), ((1, 1, 2), 2048, 4))
+                  ((1, 2, 2), 2048, 8), ((1, 1, 2), 4096, 8), ((1, 1, 2), 2048, 4),
+                  ((1, 1, 2), 2048, 2))
 
 
 def _mesh_cfg(cfg, shape):
@@ -3081,9 +3273,10 @@ def _parallel_rank(rank, world, out_dir):
             for dtype in (torch.bfloat16, torch.float32):
                 for causal in (False, True):
                     res["ring"].append(_ring_case(mesh, S, dtype, causal))
-        if sp == 2:      # --heads 4: K1 and K2 at D=256 on shards of 1024
-            for causal in (False, True):
-                res["ring"].append(_ring_case(mesh, 2048, torch.bfloat16, causal, **H256))
+        if sp == 2:      # --heads 4 and 2: K1 and K2 at D=256 and 512 on shards of 1024
+            for width in (H256, WIDTHS["h512"]):
+                for causal in (False, True):
+                    res["ring"].append(_ring_case(mesh, 2048, torch.bfloat16, causal, **width))
     torch.cuda.empty_cache()
     cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0, max_len=4096)
     sd = init_lm(cfg0, seed=SEED, device=dev, train=True).state_dict()
@@ -3771,6 +3964,25 @@ KERNEL_RECORDS = (
      "flash_attention_bwd", "train_h256_f32"),
     ("tf32_split_h256", "split_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
      "flash_attention_split", "train_h256_f32"),
+    # head widths 384 .. 1024 (--heads 2 is D=512): the cluster instances
+    # (D/128 CTAs, the same instance at every such width), on [train_h512]'s
+    # paths
+    ("flash_fwd_h512", "k1_h512", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h512"),
+    ("flash_bwd_h512", "k2_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h512"),
+    ("flash_dq_h512", "k3a_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:276",
+     "flash_attention_dq", "train_h512_long"),
+    ("flash_dkv_h512", "k3b_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
+     "flash_attention_dkv", "train_h512_long"),
+    ("flash_delta_h512", "delta_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
+     "flash_attention_delta", "train_h512"),
+    ("flash_fwd_h512_f32", "k1_h512_f32", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h512_f32"),
+    ("flash_bwd_h512_f32", "k2_h512_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h512_f32"),
+    ("tf32_split_h512", "split_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
+     "flash_attention_split", "train_h512_f32"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",
@@ -3800,7 +4012,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("serve_http", phase_serve_http),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
-          ("train_h256", phase_train_h256),
+          ("train_h256", phase_train_h256), ("train_h512", phase_train_h512),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
           ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
           ("parallel", phase_parallel), ("finetune_mesh", phase_finetune_mesh))

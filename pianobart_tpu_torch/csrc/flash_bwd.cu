@@ -7,7 +7,7 @@
 //   pbt_flash_dq   K3a, :276 _dq_kernel (launched by _dq_call where S > 1024
 //                  and by the ring backward): the dQ kernel;
 //   pbt_flash_dkv  K3b, :312 _dkv_kernel (_dkv_call): the dK/dV kernel.
-// Same contract as the Pallas calls, at head width D = 128 or 256:
+// Same contract as the Pallas calls, at head width D = 128 n up to 1024:
 //   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides (f32
 //                at D = 128: by the prep); q is already scaled by D**-0.5 by
 //                the caller.
@@ -98,6 +98,14 @@
 // are defined).  Bounds at the --heads 4 shapes equal the D = 128 ones above
 // (H*D = 1024 in both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b
 // 0.5474 ms at B=16, S=2048.
+//
+// At D = 384 .. 1024 (D = 128 n) both types run as clusters of n CTAs, one
+// per 128 columns of the head, each the D = 128 kernel on its columns:
+// bf16 flash_bwd_wgmma_kernel<DKV, CLUSTER_D>, f32 flash_bwd_tf32_kernel<DKV,
+// CLUSTER_D>, which sum S and dP across the cluster (hopper.cuh:cluster_sum;
+// both described where they are defined), the delta kernel a warp a row
+// and the prep 8 rows a CTA.  Bounds at --heads 2 (D = 512, H = 2) equal the
+// D = 128 ones above.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -114,17 +122,28 @@ constexpr int STAGES = 4;
 constexpr int OPND = 2 * BWD_D;         // bytes per row of a (rows, 128) bf16 operand
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
+// Shared memory, in bytes from a 1024-aligned base (the swizzle atom), at
+// D = 128 or for a cluster's CTA (CLUSTER_D, below).
+template <int D>
 struct BwdSmem {
+  static constexpr bool WIDE = D == CLUSTER_D;
+  static constexpr int NS = WIDE ? 2 : STAGES;          // stages of the ring
   static constexpr int A1 = 0;                          // fixed: K (dK/dV) or Q (dQ)
   static constexpr int A2 = A1 + FIX * OPND;            // fixed: V or dO
   static constexpr int B = A2 + FIX * OPND;             // per stage: B1 (Q or K), B2 (dO or V)
   static constexpr int STAGE = 2 * TILE * OPND;
-  static constexpr int FIXV = B + STAGES * STAGE;       // fixed rows' mask, or lse and delta
+  static constexpr int FIXV = B + NS * STAGE;           // fixed rows' mask, or lse and delta
   static constexpr int STV = FIXV + 2 * FIX * 4;        // per stage: lse and delta, or mask
   static constexpr int STV_STAGE = 2 * TILE * 4;
-  static constexpr int BAR = STV + STAGES * STV_STAGE;  // fix, full[S], free[S]
-  static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;
+  // a cluster's exchange: per consumer warpgroup a region of its S and dP
+  // (2 x 64 x TILE f32)
+  static constexpr int X_UNITS = 2 * TILE / 8 * 128;
+  static constexpr int X = STV + NS * STV_STAGE;
+  static constexpr int X_REGION = cluster_region_units(X_UNITS) * 16;
+  // fix, full[S], free[S]; a cluster's four a warpgroup (cluster_sum_init)
+  static constexpr int BAR = X + (WIDE ? NWG * X_REGION : 0);
+  static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? 4 * NWG : 0)) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "a CTA's shared memory");
 };
 
 // acc = A B^T over the head dim D: A the warpgroup's 64 fixed rows (its
@@ -244,8 +263,23 @@ __device__ __forceinline__ void probs(float (&s)[N / 2], float (&dp)[N / 2],
 // DKV: dK (out1) and dV (out2) of 128 kv rows; else dQ (out1) of 128 q
 // rows.  Tensor maps: q and dO in boxes of TILE rows (DKV) or FIX, k and v
 // in FIX (DKV) or TILE, the mask in boxes of FIX (DKV) or TILE keys, lse and
-// delta in boxes of TILE (DKV) or FIX entries.
-template <bool DKV>
+// delta in boxes of TILE (DKV) or FIX entries.  D: 128, or CLUSTER_D for
+// the wide heads (D = 128 n, n = 3..8) as clusters of n CTAs along x
+// (blockIdx.x / n the fixed tile, the cluster rank r the columns 128 r ..
+// 128 r + 127 of the head), each this kernel on its columns of every
+// operand, storing its columns of dK and dV (or dQ).  S and dP (S^T and
+// dP^T) sum over all of D: once both products of a tile are in, each
+// consumer warpgroup sums them across the cluster with the same warpgroup
+// of every peer (hopper.cuh:cluster_sum through a 32 KB region of its own,
+// 64 floats a thread; the dK/dV kernel sums S^T before it issues dP^T, so
+// that around that exchange it holds one score tile beside dK and dV, not
+// two, and spills less), so P and dS are the same in every CTA to the bit,
+// and the last products stay column-local.  The two regions take 64 KB,
+// so the ring keeps 2 stages of 64 rows where D = 128 keeps 4.  The dQ
+// kernel's exchange runs under dQ += dS K of the tile before, as its
+// elementwise work does.  A cluster reads what n CTAs of the D = 128
+// kernel read at the same H * D and does their FLOPs: the same bound.
+template <bool DKV, int D>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -256,15 +290,22 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap td,
                        __nv_bfloat16* __restrict__ out1, __nv_bfloat16* __restrict__ out2,
                        int Sq, int Skv, int H, int causal) {
-  using L = BwdSmem;
+  using L = BwdSmem<D>;
+  constexpr bool WIDE = L::WIDE;
+  constexpr int STAGES = L::NS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
   uint64_t* bar_full = bar_fix + 1;     // stage s landed
   uint64_t* bar_free = bar_full + STAGES;  // stage s read by every consumer warp
+  uint64_t* bar_x = bar_free + STAGES;     // a cluster: four a consumer warpgroup
 
-  const int f0 = blockIdx.x * FIX, h = blockIdx.y, b = blockIdx.z;
+  ClusterSum cs = {1, 0, 0, 0};
+  if constexpr (WIDE) cs = cluster_sum_shape(L::X_UNITS, 128, threadIdx.x % 128);
+  const int c0 = cs.rank * BWD_D;       // a cluster's CTA: its first column of the head
+  const int f0 = (WIDE ? blockIdx.x / cs.n : blockIdx.x) * FIX;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
   const int s_fixed = DKV ? Skv : Sq;
@@ -282,9 +323,12 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
+    if constexpr (WIDE)
+      for (int g = 0; g < NWG; ++g) cluster_sum_init(bar_x + 4 * g, cs.n, 128);
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (WIDE) cluster_sync();   // every CTA's barriers ready
+  else __syncthreads();
 
   if (wg == NWG) {
     // ---- producer warpgroup: one thread keeps the ring full
@@ -295,10 +339,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const CUtensorMap* tb1 = DKV ? &tq : &tk;
       const CUtensorMap* tb2 = DKV ? &to : &tv;
       mbar_arrive_expect_tx(bar_fix, 2 * FIX * OPND + (DKV ? FIX * 4 : 2 * FIX * 4));
-      tma_load_4d(sm + L::A1, ta1, bar_fix, 0, h, f0, b);
-      tma_load_4d(sm + L::A1 + FIX * ROW, ta1, bar_fix, BOX, h, f0, b);
-      tma_load_4d(sm + L::A2, ta2, bar_fix, 0, h, f0, b);
-      tma_load_4d(sm + L::A2 + FIX * ROW, ta2, bar_fix, BOX, h, f0, b);
+      tma_load_4d(sm + L::A1, ta1, bar_fix, c0, h, f0, b);
+      tma_load_4d(sm + L::A1 + FIX * ROW, ta1, bar_fix, c0 + BOX, h, f0, b);
+      tma_load_4d(sm + L::A2, ta2, bar_fix, c0, h, f0, b);
+      tma_load_4d(sm + L::A2 + FIX * ROW, ta2, bar_fix, c0 + BOX, h, f0, b);
       if (DKV) {
         tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
       } else {
@@ -311,10 +355,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         unsigned char* st = sm + L::B + s * L::STAGE;
         unsigned char* sv = sm + L::STV + s * L::STV_STAGE;
         mbar_arrive_expect_tx(bar_full + s, L::STAGE + (DKV ? 2 * TILE * 4 : TILE * 4));
-        tma_load_4d(st, tb1, bar_full + s, 0, h, r0, b);
-        tma_load_4d(st + TILE * ROW, tb1, bar_full + s, BOX, h, r0, b);
-        tma_load_4d(st + TILE * OPND, tb2, bar_full + s, 0, h, r0, b);
-        tma_load_4d(st + TILE * OPND + TILE * ROW, tb2, bar_full + s, BOX, h, r0, b);
+        tma_load_4d(st, tb1, bar_full + s, c0, h, r0, b);
+        tma_load_4d(st + TILE * ROW, tb1, bar_full + s, c0 + BOX, h, r0, b);
+        tma_load_4d(st + TILE * OPND, tb2, bar_full + s, c0, h, r0, b);
+        tma_load_4d(st + TILE * OPND + TILE * ROW, tb2, bar_full + s, c0 + BOX, h, r0, b);
         if (DKV) {
           tma_load_2d(sv, &tl, bar_full + s, r0, bh);
           tma_load_2d(sv + TILE * 4, &td, bar_full + s, r0, bh);
@@ -406,6 +450,15 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);                                 // computed before any wait
       fence_regs(dp);
     };
+    // a cluster: S and dP (S^T and dP^T) over this CTA's columns become
+    // those over all of D (this warpgroup's region and barriers; x counts
+    // its exchanges)
+    uint32_t x = 0;
+    auto sum_over_d = [&](auto&... parts) {
+      if constexpr (WIDE)
+        cluster_sum(cs, sm + L::X + wg * L::X_REGION, bar_x + 4 * wg, x++ & 1, 128, tid,
+                    true, parts...);
+    };
 
     if constexpr (DKV) {
       // The dK/dV kernel runs its tiles one after the other: its warpgroup
@@ -416,10 +469,28 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         if (i >= ib && i < ie) {
           Scores sc, dp;
           Frags xs, xd;
-          issue_first(i, sc, dp);
-          wgmma_wait<0>();
-          fence_regs(sc);
-          fence_regs(dp);
+          if constexpr (WIDE) {
+            // S^T summed across the cluster before dP^T is issued, dP^T
+            // after: around the first exchange the warpgroup holds dK, dV
+            // and one score tile, not two
+            wgmma_fence();
+            issue_ss<BWD_D, FIX>(sc, a1, swept(i));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(sc);
+            sum_over_d(sc);
+            wgmma_fence();
+            issue_ss<BWD_D, FIX>(dp, a2, swept(i) + TILE * OPND);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dp);
+            sum_over_d(dp);
+          } else {
+            issue_first(i, sc, dp);
+            wgmma_wait<0>();
+            fence_regs(sc);
+            fence_regs(dp);
+          }
           elementwise(i, sc, dp);
           pack_a(xs, sc);
           pack_a(xd, dp);
@@ -445,6 +516,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
+        sum_over_d(sc, dp);
         elementwise(ib, sc, dp);
         pack_a(xd, dp);
         for (int i = ib + 1; i < ie; ++i) {
@@ -454,6 +526,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_wait<1>();                            // S and dP of tile i are in
           fence_regs(sc);
           fence_regs(dp);
+          sum_over_d(sc, dp);
           elementwise(i, sc, dp);
           wgmma_wait<0>();                            // tile i-1's product is in
           fence_regs(acc1);
@@ -472,9 +545,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     if (active) {
+      const int dw = WIDE ? (int)cs.n * BWD_D : BWD_D;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = (((long long)b * s_fixed + row + 8 * r) * H + h) * BWD_D;
+        const long long at = (((long long)b * s_fixed + row + 8 * r) * H + h) * dw + c0;
 #pragma unroll
         for (int dt = 0; dt < BWD_D / 8; ++dt) {
           *reinterpret_cast<uint32_t*>(out1 + at + dt * 8 + 2 * t) =
@@ -486,6 +560,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+  if constexpr (WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
 }
 
 // ------------------------------------------------ bf16 / wgmma at D = 256
@@ -1006,6 +1081,33 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (r < rows && l == 0) delta[(b * H + h) * S + s] = acc;
 }
 
+// The same at D = 384 .. 1024: a warp a row, each lane 8 elements of every
+// 256 columns.
+template <typename T>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_delta_wide_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+                        float* __restrict__ delta, int S, int H, int D, long long rows,
+                        long long osb, long long oss, long long osh,
+                        long long tsb, long long tss, long long tsh) {
+  const long long r = (long long)blockIdx.x * (DELTA_THREADS / 32) + threadIdx.x / 32;
+  const int l = threadIdx.x % 32;
+  const int h = (int)(r % H), s = (int)((r / H) % S);
+  const long long b = r / H / S;
+  float acc = 0.f;
+  if (r < rows) {
+    for (int c = l * 8; c < D; c += 256) {
+      float x[8], y[8];
+      load8(dout + b * osb + s * oss + h * osh + c, x);
+      load8(out + b * tsb + s * tss + h * tsh + c, y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(x[i], y[i], acc);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (r < rows && l == 0) delta[(b * H + h) * S + s] = acc;
+}
+
 // ------------------------------------------------------------- tf32 prep
 // The f32 kernels' operands, made once per call: x (B, S, H, D) f32 read
 // through its strides becomes hi = x rounded to tf32 and lo = x - hi
@@ -1017,8 +1119,12 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
 // per 32 rows of one (b, h) of one operand; bound by bytes (x read once,
 // each plane written once).  D = 128 or 256 (a CTA pair of the f32
 // kernels reads its 128-column half of each plane); the transposing tile is
-// static shared memory, 33 KB at D = 256.
+// static shared memory, 33 KB at D = 256.  D = 384 .. 1024 (a cluster's
+// CTA reads its 128 columns): tf32_split_wide_kernel, D at run time and 8
+// rows a CTA (one k group of the transposed order), a tile of 32 KB at
+// D = 1024 under the 48 KB of static shared memory.
 constexpr int SPLIT_ROWS = 32;
+constexpr int SPLIT_WIDE_ROWS = 8;
 constexpr int SPLIT_MAX = 4;
 
 // The operands of one launch: null nat or tr where not asked for.  The
@@ -1076,6 +1182,51 @@ tf32_split_kernel(const SplitArgs a, int B, int H) {
   }
 }
 
+__global__ void __launch_bounds__(256)
+tf32_split_wide_kernel(const SplitArgs a, int B, int H, int D) {
+  constexpr int R = SPLIT_WIDE_ROWS;
+  __shared__ float tile[R][MAX_HEAD_DIM + 1];
+  const int op = blockIdx.z / B, b = blockIdx.z % B, h = blockIdx.y;
+  const int s0 = blockIdx.x * R, S = a.S[op];
+  if (s0 >= S) return;
+  const float* __restrict__ x = a.x[op];
+  float* __restrict__ nat = a.nat[op];
+  float* __restrict__ tr = a.tr[op];
+  const long long sb = a.sb[op], ss = a.ss[op], sh = a.sh[op];
+  const long long plane = (long long)B * H * S * D;
+  const long long bh = (long long)b * H + h;
+  for (int i = threadIdx.x; i < R * D / 4; i += 256) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    const float4 v = *reinterpret_cast<const float4*>(x + b * sb + (s0 + r) * ss + h * sh + c);
+    if (nat) {
+      uint32_t hi[4], lo[4];
+      tf32_split(v.x, hi[0], lo[0]);
+      tf32_split(v.y, hi[1], lo[1]);
+      tf32_split(v.z, hi[2], lo[2]);
+      tf32_split(v.w, hi[3], lo[3]);
+      const long long at = (bh * S + s0 + r) * D + c;
+      *reinterpret_cast<uint4*>(nat + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(nat + plane + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    if (tr) {
+      tile[r][c] = v.x;
+      tile[r][c + 1] = v.y;
+      tile[r][c + 2] = v.z;
+      tile[r][c + 3] = v.w;
+    }
+  }
+  if (!tr) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * R; i += 256) {
+    const int d = i / R, k = i % R;
+    uint32_t hi, lo;
+    tf32_split(tile[k < 4 ? 2 * k : 2 * k - 7][d], hi, lo);
+    const long long at = (bh * D + d) * S + s0 + k;
+    tr[at] = __uint_as_float(hi);
+    tr[plane + at] = __uint_as_float(lo);
+  }
+}
+
 // ----------------------------------------------------- f32 / 3xTF32 wgmma
 // The f32 dK/dV (DKV) and dQ kernels: the bf16 template's schedule with one
 // consumer warpgroup of 64 fixed rows, every operand from the prep's hi
@@ -1121,15 +1272,15 @@ constexpr int T_PLANE = TILE * 4 * T_D;  // 64 rows x 128 f32 (or 128 x 64): 32 
 constexpr int T_FLUSH = 2;
 
 // acc (this thread's part of 64 rows x 128, rows `row` and row + 8) into
-// columns c0 .. c0 + 127 of the (B, S, H, DW) output: stored (add = false)
+// columns c0 .. c0 + 127 of the (B, S, H, dw) output: stored (add = false)
 // or added to it; acc is zeroed.
 template <int DW>
 __device__ __forceinline__ void flush_rows(float* __restrict__ out, float (&acc)[T_D / 2],
                                            int b, int S, int row, int H, int h, int t,
-                                           bool add, int c0) {
+                                           bool add, int c0, int dw = DW) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * DW + c0 + 2 * t;
+    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * dw + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < T_D / 8; ++dt) {
       float2 v = make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
@@ -1155,16 +1306,19 @@ struct BwdTf32Smem {
   static constexpr int SIDE = FIXV + 2 * TILE * 4;   // 2 per-tile entries: lse and delta, or mask
   static constexpr int SIDE_STAGE = 2 * TILE * 4;
   // fix, full[S], free[S], sfull[2], sfree[2], and for a pair the exchange's
-  // ready and full
+  // ready and full (for a wider cluster its four, hopper.cuh:cluster_sum_init)
   static constexpr int BAR = SIDE + 2 * SIDE_STAGE;
-  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4 + 2) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4 + 4) * 8 + 1024;
 };
 
 // Tensor maps: tq, tk, tv, to the natural planes of q, k, v, dO in boxes of
 // TILE rows; tt1, tt2 transposed planes in boxes of 128 rows (DKV: dO^T, Q^T;
 // dQ: K^T, K^T); tm the mask in boxes of TILE keys; tl, td lse and delta in
 // boxes of TILE entries.  DKV: dK into out1, dV into out2; else dQ into out1.
-// DW, the head width: 128, or 256 as CTA pairs (see above).
+// DW, the head width: 128, or 256 as CTA pairs (see above), or CLUSTER_D as
+// clusters of n = D / 128 CTAs (blockIdx.x / n the fixed tile, the rank the
+// 128 columns), whose exchanges are those of the pair, each a cluster_sum
+// through the same slot.
 template <bool DKV, int DW>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1180,6 +1334,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       int Sq, int Skv, int H, int causal) {
   using L = BwdTf32Smem;
   constexpr bool PAIR = DW == 2 * T_D;
+  constexpr bool WIDE = DW == CLUSTER_D;
   constexpr int NP = DKV ? 8 : 6;       // planes per swept tile
   constexpr int NS = T_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -1193,10 +1348,19 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* x_ready = side_free + 2;    // pair: the peer's slot takes this CTA's S, dP
   uint64_t* x_full = x_ready + 1;       // pair: the peer's S, dP landed in this CTA's slot
 
+  // the exchanges of a wider cluster: dQ's S and dP (64 floats a thread),
+  // dK/dV's S^T or dP^T (32)
+  constexpr int X_THREADS = 128, X_UNITS = (DKV ? 1 : 2) * TILE / 8 * X_THREADS;
+  static_assert(cluster_region_units(X_UNITS) * 16 <= T_PLANE, "the exchange fits a slot");
+  ClusterSum cs = {1, 0, 0, 0};
+  if constexpr (WIDE) cs = cluster_sum_shape(X_UNITS, X_THREADS, threadIdx.x);
   uint32_t rank = 0;                    // pair: which half of D
   if constexpr (PAIR) rank = cluster_ctarank();
+  if constexpr (WIDE) rank = cs.rank;   // which 128 columns
   const int c0 = rank * T_D;            // this CTA's first column of the head
-  const int f0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * TILE, h = blockIdx.y, b = blockIdx.z;
+  const int dw = WIDE ? (int)cs.n * T_D : DW;
+  const int f0 = (PAIR ? blockIdx.x >> 1 : WIDE ? blockIdx.x / cs.n : blockIdx.x) * TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int s_fixed = DKV ? Skv : Sq;
   // swept tiles i0 .. n-1, as in the bf16 kernel (64 fixed rows here)
@@ -1220,9 +1384,10 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(x_ready, 4);              // each of the peer's consumer warps
       mbar_init(x_full, 128);             // each of the peer's consumer threads
     }
+    if constexpr (WIDE) cluster_sum_init(x_ready, cs.n, 128);
     mbar_fence_init();
   }
-  if constexpr (PAIR) cluster_sync();     // both CTAs' barriers ready
+  if constexpr (PAIR || WIDE) cluster_sync();   // every CTA's barriers ready
   else __syncthreads();
 
   if (threadIdx.x >= 128) {
@@ -1260,7 +1425,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
           const int p = j * NP + q, s = p % NS;
           // the plane's kind in the order above (the dK/dV pair takes dO^T
           // before dO)
-          const int k = PAIR && DKV && q >= 2 && q < 6 ? q ^ 6 : q;
+          const int k = (PAIR || WIDE) && DKV && q >= 2 && q < 6 ? q ^ 6 : q;
           mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
           unsigned char* dst = sm + L::SLOT + s * T_PLANE;
           mbar_arrive_expect_tx(bar_full + s, T_PLANE);
@@ -1365,15 +1530,20 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // CTA's half of D go to the peer's slot of plane ps, the peer's parts
     // come into this CTA's and are added, so each holds the sum over all of
     // D; the slot goes back to the ring.  x counts the exchanges (parity).
+    // A wider cluster sums them the same way over n CTAs (cluster_sum).
     auto pair_sum = [&](int ps, int x, auto&... parts) {
       unsigned char* xs = plane(ps);
-      const uint32_t peer = cluster_ctarank() ^ 1;
-      const uint32_t dst = pair_open(xs, x_ready, peer, x & 1, lane == 0);
-      int k0 = 0;
-      ((pair_put(dst, parts, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
-      pair_close(x_full, peer, x & 1);
-      k0 = 0;
-      ((pair_add(parts, xs, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+      if constexpr (WIDE) {
+        cluster_sum(cs, xs, x_ready, x & 1, 128, threadIdx.x, false, parts...);
+      } else {
+        const uint32_t peer = cluster_ctarank() ^ 1;
+        const uint32_t dst = pair_open(xs, x_ready, peer, x & 1, lane == 0);
+        int k0 = 0;
+        ((pair_put(dst, parts, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+        pair_close(x_full, peer, x & 1);
+        k0 = 0;
+        ((pair_add(parts, xs, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+      }
       fence_proxy_async();                           // read before the slot's next TMA write
       __syncwarp();
       release(ps);
@@ -1383,7 +1553,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       const int j = i - i0, p = j * NP, r0 = i * TILE, e = j % 2;
       float sc[TILE / 2], dp[TILE / 2];
       uint32_t xh[TILE / 8][4], xl[TILE / 8][4];
-      if constexpr (PAIR && DKV) {
+      if constexpr ((PAIR || WIDE) && DKV) {
         first(sc, da1h, da1l, p, false);             // S^T = K Q^T over this half
         pair_sum(p + 1, 2 * j, sc);
         mbar_wait(side_full + e, (j / 2) & 1);
@@ -1403,8 +1573,8 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         last(acc1, xh, xl, p + 6);                   // dK += dS^T Q
       } else {
         first(sc, da1h, da1l, p, true);                // S^T = K Q^T, or S = Q K^T
-        first(dp, da2h, da2l, p + 2, !PAIR);           // dP^T = V dO^T, or dP = dO V^T
-        if constexpr (PAIR) pair_sum(p + 3, j, sc, dp);   // dQ: over this half, then all of D
+        first(dp, da2h, da2l, p + 2, !(PAIR || WIDE));   // dP^T = V dO^T, or dP = dO V^T
+        if constexpr (PAIR || WIDE) pair_sum(p + 3, j, sc, dp);   // dQ: then over all of D
         mbar_wait(side_full + e, (j / 2) & 1);
         const unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
         if (DKV) {
@@ -1429,16 +1599,16 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
       }
       if (j % T_FLUSH == T_FLUSH - 1 || i == n - 1) {
-        flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
-        if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
+        flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0, dw);
+        if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0, dw);
       }
     }
     if (i0 == n) {                                   // no tile: zero gradients
-      flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, false, c0);
-      if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, false, c0);
+      flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, false, c0, dw);
+      if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, false, c0, dw);
     }
   }
-  if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
+  if constexpr (PAIR || WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
 }
 
 typedef long long ll;
@@ -1449,17 +1619,18 @@ typedef long long ll;
 
 // The bf16 kernel of one pass at head width D (DKV: dK and dV into out1,
 // out2; else dQ into out1) on `st`; returns 1000 + the CUresult of a
-// refused tensor map, or cudaGetLastError().
-template <bool DKV, int D>
+// refused tensor map, launch_cluster's code past D = 256, or
+// cudaGetLastError().
+template <bool DKV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const void* mask, const void* lse, const void* delta, void* out1,
-                 void* out2, int B, int Sq, int Skv, int H, int causal, PBT_STRIDES,
+                 void* out2, int B, int Sq, int Skv, int H, int D, int causal, PBT_STRIDES,
                  cudaStream_t st) {
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
-  // fixed rows a CTA (swept tiles are 64): D = 128 128; D = 256 64 kv
-  // rows (dK/dV) or 128 q rows (dQ)
-  const int fix = D == 128 ? FIX : DKV ? W_FIX : Q_FIX;
+  // fixed rows a CTA (swept tiles are 64): D = 128 (and a cluster's CTA)
+  // 128; D = 256 64 kv rows (dK/dV) or 128 q rows (dQ)
+  const int fix = D != 256 ? FIX : DKV ? W_FIX : Q_FIX;
   const int q_rows = DKV ? TILE : fix, kv_rows = DKV ? fix : TILE;
   CUtensorMap tq, tk, tv, to, tm, tl, td;
   CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, q_rows, D);
@@ -1473,10 +1644,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
     r = rows_map(enc, &td, delta, B * H, Sq, q_rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   dim3 grid(((DKV ? Skv : Sq) + fix - 1) / fix, H, B);
-  if constexpr (D == 128) {
-    cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DKV>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::ALLOC);
-    flash_bwd_wgmma_kernel<DKV><<<grid, 128 * (NWG + 1), BwdSmem::ALLOC, st>>>(
+  if (D > 256) {
+    const int n = D / BWD_D;
+    grid.x *= n;
+    return launch_cluster(flash_bwd_wgmma_kernel<DKV, CLUSTER_D>, n, grid, 128 * (NWG + 1),
+                          BwdSmem<CLUSTER_D>::ALLOC, st, tq, tk, tv, to, tm, tl, td,
+                          (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H, causal);
+  }
+  if (D == 128) {
+    cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DKV, 128>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<128>::ALLOC);
+    flash_bwd_wgmma_kernel<DKV, 128><<<grid, 128 * (NWG + 1), BwdSmem<128>::ALLOC, st>>>(
         tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H,
         causal);
   } else {
@@ -1518,10 +1696,12 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
     r = rows_map(enc, &td, delta, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   const int tiles = (DKV ? Skv : Sq) / TILE;
-  if (D == 256)
-    return (int)launch_pair(flash_bwd_tf32_kernel<DKV, 256>, dim3(2 * tiles, H, B), 256,
-                            BwdTf32Smem::ALLOC, st, tq, tk, tv, to, tt1, tt2, tm, tl, td,
-                            (float*)out1, (float*)out2, Sq, Skv, H, causal);
+  if (D > 128)    // a pair at D = 256, a cluster of D / 128 CTAs past it
+    return launch_cluster(D == 256 ? flash_bwd_tf32_kernel<DKV, 256>
+                                   : flash_bwd_tf32_kernel<DKV, CLUSTER_D>,
+                          D / T_D, dim3(D / T_D * tiles, H, B), 256, BwdTf32Smem::ALLOC, st,
+                          tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2,
+                          Sq, Skv, H, causal);
   cudaFuncSetAttribute(flash_bwd_tf32_kernel<DKV, 128>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdTf32Smem::ALLOC);
   dim3 grid(tiles, H, B);
@@ -1537,14 +1717,10 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
                 const void* qt, const void* kt, const void* ot, const void* mask,
                 const void* lse, const void* delta, void* out1, void* out2, int B, int Sq,
                 int Skv, int H, int D, int dtype, int causal, PBT_STRIDES, cudaStream_t st) {
-  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    if (D == 128)
-      return launch_wgmma<DKV, 128>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H,
-                                    causal, PBT_STRIDE_ARGS, st);
-    return launch_wgmma<DKV, 256>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H,
-                                  causal, PBT_STRIDE_ARGS, st);
-  }
+  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return launch_wgmma<DKV>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H, D,
+                             causal, PBT_STRIDE_ARGS, st);
   return launch_tf32<DKV>(q, k, v, dout, DKV ? qt : nullptr, DKV ? nullptr : kt,
                           DKV ? ot : nullptr, mask, lse, delta, out1, out2, B, Sq, Skv, H, D,
                           causal, st);
@@ -1552,7 +1728,7 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16: q, k, v, dO (B,
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..8.  bf16: q, k, v, dO (B,
 // S, H, D) at element strides for their (B, S, H) axes (the D axis
 // contiguous); qt, kt, ot are not read.  f32: q, k, v, dO are the natural
 // split planes of pbt_tf32_split and qt, kt, ot
@@ -1561,7 +1737,8 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
 // read.  Each entry launches on `stream` and returns the first nonzero of
 // its kernels' codes: cudaGetLastError(), 1000 + the CUresult of a tensor
 // map the driver refused (1000 alone where the driver offers no encoder),
-// or cudaErrorInvalidValue for another D.
+// CLUSTER_ERROR + n where the card cannot hold a cluster of n = D / 128
+// CTAs of a kernel (D >= 256), or cudaErrorInvalidValue for another D.
 
 // K2: the dK/dV kernel, then the dQ kernel.
 extern "C" int pbt_flash_bwd(const void* q, const void* k, const void* v,
@@ -1603,14 +1780,26 @@ extern "C" int pbt_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // delta = rowsum(dO * O) into (B, H, S) f32; dO's and O's strides in
-// elements for the (B, S, H) axes; D 128 or 256.
+// elements for the (B, S, H) axes; D 128 n, n = 1..8.
 extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, int B,
                                int S, int H, int D, int dtype, long long osb, long long oss,
                                long long osh, long long tsb, long long tss,
                                long long tsh, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * S * H;
+  if (D > 256) {
+    const dim3 grid((unsigned)((rows + DELTA_THREADS / 32 - 1) / (DELTA_THREADS / 32)));
+    if (dtype == 1)
+      flash_delta_wide_kernel<__nv_bfloat16><<<grid, DELTA_THREADS, 0, st>>>(
+          (const __nv_bfloat16*)dout, (const __nv_bfloat16*)out, (float*)delta, S, H, D, rows,
+          osb, oss, osh, tsb, tss, tsh);
+    else
+      flash_delta_wide_kernel<float><<<grid, DELTA_THREADS, 0, st>>>(
+          (const float*)dout, (const float*)out, (float*)delta, S, H, D, rows, osb, oss, osh,
+          tsb, tss, tsh);
+    return (int)cudaGetLastError();
+  }
   const int per_block = DELTA_THREADS / (D / 8);
   const dim3 grid((unsigned)((rows + per_block - 1) / per_block));
   auto bf16 = [&](auto kernel) {
@@ -1635,14 +1824,19 @@ extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, i
 // (a host SplitArgs) describes: each x (B, S, H, D) f32 at element strides
 // for its (B, S, H) axes (the D axis contiguous, 16-byte aligned rows) into
 // natural planes nat (2, B, H, S, D) and transposed planes tr (2, B, H, D,
-// S), either of which may be null.  Each S a multiple of 32; D 128 or 256.
+// S), either of which may be null.  Each S a multiple of 32; D 128 n, n =
+// 1..8.
 extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void* stream) {
-  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
   const SplitArgs a = *reinterpret_cast<const SplitArgs*>(args);
   int s_max = 0;
   for (int i = 0; i < n; ++i) s_max = max(s_max, a.S[i]);
-  const dim3 grid(s_max / SPLIT_ROWS, H, B * n);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D > 256) {
+    tf32_split_wide_kernel<<<dim3(s_max / SPLIT_WIDE_ROWS, H, B * n), 256, 0, st>>>(a, B, H, D);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(s_max / SPLIT_ROWS, H, B * n);
   if (D == 128)
     tf32_split_kernel<128><<<grid, 256, 0, st>>>(a, B, H);
   else

@@ -2,10 +2,13 @@
 // backward (flash_bwd.cu) and lab (flash_lab.cu) kernels: constants, bf16
 // packing, accumulators as A fragments, exp2.
 //
-// Head widths: the kernels take D = 128 and D = 256.  Each kernel has its
-// width as a template parameter or a constant of its own design (the
-// shared-memory layouts and accumulator sizes follow from it); the C
-// entries take D at run time and pick the instance.
+// Head widths: the kernels take every D = 128 n up to MAX_HEAD_DIM.  Each
+// kernel has its width as a template parameter or a constant of its own
+// design (the shared-memory layouts and accumulator sizes follow from it);
+// the C entries take D at run time and pick the instance.  D = 128 and 256
+// have instances of their own; D = 384 .. 1024 run the instances of width
+// CLUSTER_D, clusters of n = D / 128 CTAs, one per 128 columns of the head,
+// that sum the products over D across the cluster (hopper.cuh:cluster_sum).
 //
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
@@ -21,6 +24,11 @@
 namespace pbt {
 
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_HEAD_DIM = 1024;   // 8 CTAs: the card's largest portable cluster
+constexpr int CLUSTER_D = 0;         // the template width of the cluster instances
+
+// D = 128 n with n = 1 .. 8
+inline bool head_dim_taken(int D) { return D % 128 == 0 && D >= 128 && D <= MAX_HEAD_DIM; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -1,7 +1,7 @@
 // Flash attention forward for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
 // Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:_fwd_kernel
-// (launched by _fwd). Same contract, at head width D = 128 or 256:
+// (launched by _fwd). Same contract, at head width D = 128 n up to 1024:
 //   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32 at
 //             D = 128: by the prep); q is already scaled by D**-0.5 by the
 //             caller.
@@ -56,6 +56,16 @@
 // the same S, softmax, P and lse to the bit; rank 0 stores lse.  The pair
 // reads what one D = 128 CTA reads, so the L2 traffic and the FLOPs a CTA
 // equal the D = 128 kernel's at the same B, and so does the bound.
+//
+// At D = 384 .. 1024 (D = 128 n) both types run as clusters of n CTAs, one
+// per 128 columns of the head: bf16 the template's instance <false, false,
+// CLUSTER_D> (flash_fwd_bf16.cuh), f32 flash_fwd_tf32_kernel<CLUSTER_D>, the
+// pair's design with its exchange generalised (hopper.cuh:cluster_sum: a
+// reduce-scatter then an all-gather of S through K lo's slot).  A cluster
+// does the FLOPs and reads the bytes of n D = 128 CTAs at the same H * D:
+// the bound is the D = 128 one (--heads 2, D = 512 H = 2, has the
+// flagship's H * D).  The card holds clusters of up to 8 CTAs portably;
+// launch_cluster refuses a cluster it cannot hold.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
 #include "flash_fwd_d256.cuh"
@@ -80,9 +90,10 @@ struct K1F32Smem {
   static constexpr int QLO = QHI + K1_BM * 4 * F_D;
   static constexpr int SLOT = QLO + K1_BM * 4 * F_D;
   static constexpr int MASK = SLOT + F_SLOTS * F_PLANE;         // per slot F_BN int32
-  // Q, full[S], free[S], and for a pair the exchange's ready and full
+  // Q, full[S], free[S], and for a pair the exchange's ready and full (for
+  // a wider cluster its four, hopper.cuh:cluster_sum_init)
   static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;
-  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS + 2) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS + 4) * 8 + 1024;
 };
 
 // Masks (the causal one, DIAG, only where the diagonal crosses the
@@ -129,7 +140,10 @@ __device__ __forceinline__ void softmax_tile_f32(float (&sc)[BN / 2], const int*
 // V's transposed ones.  tq: Q planes in boxes of K1_BM rows; tk: K planes in
 // boxes of F_BN rows; tv: V^T planes in boxes of 128 d rows; tm: the mask in
 // boxes of F_BN keys.  DW, the head width: 128, or 256 as CTA pairs along x
-// (blockIdx.x / 2 the q tile, the cluster rank the half of D).
+// (blockIdx.x / 2 the q tile, the cluster rank the half of D), or CLUSTER_D
+// as clusters of n = D / 128 CTAs (blockIdx.x / n the q tile, the rank the
+// 128 columns), whose S sums across the cluster through K lo's slot
+// (cluster_sum: 32 KB of S a CTA).
 template <int DW>
 __global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
@@ -140,6 +154,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       int Sq, int Skv, int H, int causal) {
   using L = K1F32Smem;
   constexpr bool PAIR = DW == 2 * F_D;
+  constexpr bool WIDE = DW == CLUSTER_D;
   constexpr int NWG = K1_WG;
   constexpr int BM = K1_BM, BN = F_BN, NS = F_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -151,10 +166,18 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* x_ready = bar_free + NS;    // pair: the peer's slot takes this CTA's S
   uint64_t* x_full = x_ready + 1;       // pair: the peer's S landed in this CTA's slot
 
+  // the exchange of a wider cluster: S, 32 floats a consumer thread
+  constexpr int X_THREADS = 128 * NWG, X_UNITS = BN / 8 * X_THREADS;
+  static_assert(cluster_region_units(X_UNITS) * 16 <= F_PLANE, "S fits K lo's slot");
+  ClusterSum cs = {1, 0, 0, 0};
+  if constexpr (WIDE) cs = cluster_sum_shape(X_UNITS, X_THREADS, threadIdx.x);
   uint32_t rank = 0;                    // pair: which half of D
   if constexpr (PAIR) rank = cluster_ctarank();
+  if constexpr (WIDE) rank = cs.rank;   // which 128 columns
   const int c0 = rank * F_D;            // this CTA's first column of the head
-  const int q0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * BM, h = blockIdx.y, b = blockIdx.z;
+  const int dw = WIDE ? (int)cs.n * F_D : DW;
+  const int q0 = (PAIR ? blockIdx.x >> 1 : WIDE ? blockIdx.x / cs.n : blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
   int n_tiles = Skv / BN;
@@ -171,9 +194,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(x_ready, 4 * NWG);        // each of the peer's consumer warps
       mbar_init(x_full, 128 * NWG);       // each of the peer's consumer threads
     }
+    if constexpr (WIDE) cluster_sum_init(x_ready, cs.n, 128 * NWG);
     mbar_fence_init();
   }
-  if constexpr (PAIR) cluster_sync();     // both CTAs' barriers ready
+  if constexpr (PAIR || WIDE) cluster_sync();   // every CTA's barriers ready
   else __syncthreads();
 
   if (wg == NWG) {
@@ -263,13 +287,22 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         __syncwarp();
         release(p + 1);
       }
+      if constexpr (WIDE) {
+        // the same over n CTAs: K lo's slot takes the reduce-scatter and the
+        // all-gather of S over all of D
+        release(p);
+        cluster_sum(cs, plane(p + 1), x_ready, j & 1, 128 * NWG, threadIdx.x, false, sc);
+        fence_proxy_async();               // read before the slot's next TMA write
+        __syncwarp();
+        release(p + 1);
+      }
       const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);
       if (causal && kv0 + BN - 1 > wrow0)
         softmax_tile_f32<true, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       else
         softmax_tile_f32<false, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       fence_regs(sc);                                // p computed before the release
-      if constexpr (!PAIR) {
+      if constexpr (!PAIR && !WIDE) {
         release(p);
         release(p + 1);
       }
@@ -314,7 +347,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      float* orow = o + (((long long)b * Sq + rr) * H + h) * DW + c0;
+      float* orow = o + (((long long)b * Sq + rr) * H + h) * dw + c0;
       const float inv = 1.f / l_i[r];
 #pragma unroll
       for (int dt = 0; dt < F_D / 8; ++dt)
@@ -323,17 +356,32 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       if (t == 0 && rank == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
     }
   }
-  if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
+  if constexpr (PAIR || WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
+}
+
+// K1 at D = 128 n (n = 3..8) as clusters of n CTAs, over maps of the whole
+// width (each CTA loads its 128 columns); returns launch_cluster's code.
+inline int launch_fwd_bf16_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                                const CUtensorMap& tv, const CUtensorMap& tm, void* o,
+                                void* lse, int B, int Sq, int Skv, int H, int D, int causal,
+                                cudaStream_t st) {
+  const int n = D / 128;
+  return launch_cluster(flash_fwd_wgmma_kernel<false, false, CLUSTER_D>, n,
+                        dim3(n * ((Sq + K1_BM - 1) / K1_BM), H, B), 128 * (K1_WG + 1),
+                        K1Smem<CLUSTER_D>::ALLOC, st, tq, tk, tv, tm, (__nv_bfloat16*)o,
+                        (float*)lse, Sq, Skv, H, causal, K1_UNITS);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 or 256.  bf16: q, k, v (B, S,
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..8.  bf16: q, k, v (B, S,
 // H, D) at element strides for the (B, S, H) axes (the D axis contiguous).
 // f32: q and k are the natural split planes of pbt_tf32_split (flash_bwd.cu)
 // and v its transposed planes; the strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
 // a tensor map the driver refused (1000 alone where the driver offers no
-// encoder), or cudaErrorInvalidValue for another D.
+// encoder), CLUSTER_ERROR + n where the card cannot hold a cluster of n =
+// D / 128 CTAs of the kernel (D >= 384), or cudaErrorInvalidValue for
+// another D.
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int D, int dtype, int causal,
@@ -342,7 +390,7 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              long long vsb, long long vss, long long vsh,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
   CUtensorMap tq, tk, tv, tm;
@@ -356,6 +404,8 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     if (D == 256)
       return launch_fwd_d256(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, st);
+    if (D > 256)
+      return launch_fwd_bf16_wide(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, D, causal, st);
     return launch_fwd_bf16<false, false, 128>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
                                               K1_UNITS, st);
   } else {
@@ -365,10 +415,12 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, F_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     const int tiles = (Sq + K1_BM - 1) / K1_BM;
-    if (D == 256)
-      return (int)launch_pair(flash_fwd_tf32_kernel<256>, dim3(2 * tiles, H, B),
-                              128 * (K1_WG + 1), K1F32Smem::ALLOC, st, tq, tk, tv, tm,
-                              (float*)o, (float*)lse, Sq, Skv, H, causal);
+    if (D > 128)    // a pair at D = 256, a cluster of D / 128 CTAs past it
+      return launch_cluster(D == 256 ? flash_fwd_tf32_kernel<256>
+                                     : flash_fwd_tf32_kernel<CLUSTER_D>,
+                            D / F_D, dim3(D / F_D * tiles, H, B), 128 * (K1_WG + 1),
+                            K1F32Smem::ALLOC, st, tq, tk, tv, tm, (float*)o, (float*)lse,
+                            Sq, Skv, H, causal);
     cudaFuncSetAttribute(flash_fwd_tf32_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          K1F32Smem::ALLOC);
     dim3 grid(tiles, H, B);

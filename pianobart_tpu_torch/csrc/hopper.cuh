@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, a CTA
-// pair's distributed shared memory (cluster rank, mapa, remote stores and
-// arrivals, the pair's sum), TMA tensor loads, wgmma shared-memory
+// cluster's distributed shared memory (cluster rank, mapa, remote stores and
+// arrivals, the pair's sum and the sum across n CTAs), TMA tensor loads,
+// wgmma shared-memory
 // descriptors and products (bf16 and tf32), the 3xTF32 split, setmaxnreg,
 // the async-proxy fence and named barriers, and on the host the tensor maps
 // the flash kernels load through.
@@ -178,6 +179,233 @@ __device__ __forceinline__ void pair_add(float (&v)[N], const unsigned char* slo
     v[4 * k + 2] += w.z;
     v[4 * k + 3] += w.w;
   }
+}
+
+// The sum across a cluster of n CTAs (2..8, %cluster_nctarank: the wide
+// heads, one CTA per 128 columns of D) of accumulator parts that every CTA
+// holds for the same elements, through one region of each CTA's shared
+// memory (at the same offset in all), as a reduce-scatter then an
+// all-gather.  The parts are U = C * T 16-byte units (C chunks of 4 floats
+// a thread, T threads of the exchange group, tid its thread): unit
+// u = k * T + tid, pair_put's layout.  Rank q owns the units [q R, (q + 1) R),
+// R = ceil(U / n) rounded up to 32, so that a warp's 32 units of a chunk have
+// one owner and no warp diverges:
+//   1. open: every warp tells every peer that this CTA's region is free and
+//      waits until every peer's is (barrier `ready`);
+//   2. scatter: each thread stores its units that a peer owns into that
+//      owner's region, sender s's R units at (s < q ? s : s - 1) * R;
+//   3. reduce: once its units have landed (`rs_full`), the owner adds their
+//      n parts in rank order, its own in its place; every warp then tells
+//      every peer that it has read its region (`rs_done`);
+//   4. gather: once every peer has read its own, each owner stores its sums
+//      into every peer's region at unit u, and each CTA reads the units it
+//      does not own once they have landed (`ag_full`).
+// Every CTA so holds the same sums to the bit.  A CTA sends (n - 1) / n of
+// its parts twice, under 2 U * 16 bytes whatever n is.  The region holds
+// max((n - 1) R, U) units (cluster_region_units).  The four barriers are
+// consecutive (cluster_sum_init); `parity` is that of the exchange's index.
+//
+// The data goes by st.async, each 16-byte store counted on the receiver's
+// rs_full or ag_full as transaction bytes (the receiver expects its bytes
+// there, the TMA's way), so a sender neither fences nor arrives; ready and
+// rs_done only order reads before the next writes, so their arrivals are
+// relaxed, one a warp, lane l's on the l-th peer after this rank, all at
+// once.  (Stores by st.shared::cluster, each thread then arriving on every
+// peer's barrier with release semantics, wait out a round trip an arrival:
+// K1 bf16 at D=512 ran at 7x the D=128 kernel's time that way, 3.5x this
+// way.)  What bounds the exchange is its traffic, 1.5x the partials a tile
+// (scripts/cluster_probe.py prints its phases' cycles).  A region of the
+// caller's own (not a ring slot that products read first) is given back at
+// the end of an exchange instead of the start of the next (`own_region`),
+// so that opening costs no round trip.
+struct ClusterSum {
+  uint32_t n, rank;   // the cluster's size and this CTA's rank
+  int range;          // R, the units a rank owns
+  uint64_t owners;    // the owner of this thread's chunk k in bits 4k .. 4k + 3
+};
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__host__ __device__ constexpr int cluster_range(int units, int n) {
+  return ((units + n - 1) / n + 31) / 32 * 32;
+}
+
+// units a region must hold for an exchange of `units` at every n = 2..8
+__host__ __device__ constexpr int cluster_region_units(int units, int n = 2) {
+  return n > 8 ? units
+               : (n - 1) * cluster_range(units, n) > cluster_region_units(units, n + 1)
+                     ? (n - 1) * cluster_range(units, n)
+                     : cluster_region_units(units, n + 1);
+}
+
+// The cluster's shape for an exchange of `units` over T threads, as thread
+// tid sees it (its chunks' owners computed once, not at every exchange).
+__device__ __forceinline__ ClusterSum cluster_sum_shape(int units, int T, int tid) {
+  ClusterSum c;
+  c.n = cluster_nctarank();
+  c.rank = cluster_ctarank();
+  c.range = cluster_range(units, (int)c.n);
+  c.owners = 0;
+  for (int k = 0; k < units / T; ++k)
+    c.owners |= (uint64_t)((k * T + tid) / c.range) << (4 * k);
+  return c;
+}
+
+// ready, rs_full, rs_done, ag_full of one exchange group of `threads`
+__device__ __forceinline__ void cluster_sum_init(uint64_t* xb, uint32_t n, int threads) {
+  mbar_init(xb, (n - 1) * (threads / 32));
+  mbar_init(xb + 1, 1);                  // the receiver's expect_tx
+  mbar_init(xb + 2, (n - 1) * (threads / 32));
+  mbar_init(xb + 3, 1);
+}
+
+// 16 bytes into another CTA's shared memory (addr from mapa), counted as
+// transaction bytes on its mbarrier `bar` (same CTA, from mapa)
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n"
+      :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
+}
+
+// one relaxed arrival of this warp on `bar` of every peer, lane l's on the
+// l-th peer after this rank, after the warp's reads so far
+__device__ __forceinline__ void cluster_arrive_peers(const ClusterSum& c, uint64_t* bar,
+                                                     int lane) {
+  __syncwarp();
+  if (lane < (int)c.n - 1) {
+    const uint32_t q = c.rank + 1 + lane;
+    asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n"
+                 :: "r"(mapa(smem_u32(bar), q < c.n ? q : q - c.n)) : "memory");
+  }
+}
+
+// the units rank q owns
+__device__ __forceinline__ int cluster_owned(const ClusterSum& c, int units, uint32_t q) {
+  const int left = units - (int)q * c.range;
+  return left < 0 ? 0 : left < c.range ? left : c.range;
+}
+
+template <int N>
+__device__ __forceinline__ void cluster_scatter(const ClusterSum& c, uint32_t region,
+                                                uint32_t bar, const float (&v)[N], int k0,
+                                                int T, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const int u = (k0 + k) * T + tid;
+    const uint32_t q = (uint32_t)(c.owners >> (4 * (k0 + k))) & 15u;
+    if (q != c.rank) {
+      const int at = (c.rank < q ? c.rank : c.rank - 1) * c.range + u - (int)q * c.range;
+      st_async_v4(mapa(region + at * 16, q), v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                  v[4 * k + 3], mapa(bar, q));
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cluster_reduce(const ClusterSum& c, const unsigned char* region,
+                                               float (&v)[N], int k0, int T, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    if (((c.owners >> (4 * (k0 + k))) & 15u) == c.rank) {
+      // sender s's part at slot s (s < rank) or s - 1 (s > rank): the slots
+      // before this rank's, its own part, then the slots after, in rank order
+      // (loops not unrolled: the kernels around them are short of registers,
+      // and unrolled loads spilled)
+      const unsigned char* at = region + ((k0 + k) * T + tid - (int)c.rank * c.range) * 16;
+      const int stride = c.range * 16;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      auto add = [&](float4 w) { a.x += w.x; a.y += w.y; a.z += w.z; a.w += w.w; };
+#pragma unroll 1
+      for (uint32_t s = 0; s < c.rank; ++s)
+        add(*reinterpret_cast<const float4*>(at + s * stride));
+      add(make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]));
+#pragma unroll 1
+      for (uint32_t s = c.rank; s + 1 < c.n; ++s)
+        add(*reinterpret_cast<const float4*>(at + s * stride));
+      v[4 * k] = a.x;
+      v[4 * k + 1] = a.y;
+      v[4 * k + 2] = a.z;
+      v[4 * k + 3] = a.w;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cluster_gather_put(const ClusterSum& c, uint32_t region,
+                                                   uint32_t bar, const float (&v)[N], int k0,
+                                                   int T, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const int u = (k0 + k) * T + tid;
+    if (((c.owners >> (4 * (k0 + k))) & 15u) == c.rank)
+#pragma unroll 1
+      for (uint32_t q = 0; q < c.n; ++q)
+        if (q != c.rank)
+          st_async_v4(mapa(region + u * 16, q), v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                      v[4 * k + 3], mapa(bar, q));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cluster_gather_get(const ClusterSum& c,
+                                                   const unsigned char* region, float (&v)[N],
+                                                   int k0, int T, int tid) {
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const int u = (k0 + k) * T + tid;
+    if (((c.owners >> (4 * (k0 + k))) & 15u) != c.rank) {
+      const float4 w = *reinterpret_cast<const float4*>(region + u * 16);
+      v[4 * k] = w.x;
+      v[4 * k + 1] = w.y;
+      v[4 * k + 2] = w.z;
+      v[4 * k + 3] = w.w;
+    }
+  }
+}
+
+// The exchange above over `parts` (float arrays of this thread, in order),
+// region `region`, barriers xb[0..3]; T threads take part, tid this one's.
+// own_region: the region is the exchange's alone, given back to the peers
+// as soon as this CTA has read it.
+template <typename... Parts>
+__device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* region,
+                                            uint64_t* xb, uint32_t parity, int T, int tid,
+                                            bool own_region, Parts&... parts) {
+  constexpr int C = (0 + ... + (int)(sizeof(Parts) / 16));
+  const int units = C * T, mine = cluster_owned(c, units, c.rank);
+  const int lane = tid & 31;
+  const uint32_t reg = smem_u32(region);
+  if (tid == 0) {     // the bytes that land here: n - 1 parts of its units, then the rest
+    mbar_arrive_expect_tx(xb + 1, (c.n - 1) * mine * 16);
+    mbar_arrive_expect_tx(xb + 3, (units - mine) * 16);
+  }
+  if (own_region) {
+    mbar_wait_cluster(xb, parity ^ 1);     // the first exchange's passes
+  } else {
+    cluster_arrive_peers(c, xb, lane);     // this warp has read its slot
+    mbar_wait_cluster(xb, parity);
+  }
+  int k0 = 0;
+  ((cluster_scatter(c, reg, smem_u32(xb + 1), parts, k0, T, tid),
+    k0 += (int)(sizeof(parts) / 16)), ...);
+  mbar_wait_cluster(xb + 1, parity);
+  k0 = 0;
+  ((cluster_reduce(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
+  cluster_arrive_peers(c, xb + 2, lane);
+  mbar_wait_cluster(xb + 2, parity);
+  k0 = 0;
+  ((cluster_gather_put(c, reg, smem_u32(xb + 3), parts, k0, T, tid),
+    k0 += (int)(sizeof(parts) / 16)), ...);
+  mbar_wait_cluster(xb + 3, parity);
+  k0 = 0;
+  ((cluster_gather_get(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
+  if (own_region) cluster_arrive_peers(c, xb, lane);
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -548,17 +776,40 @@ inline CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, 
   return rows_map(enc, m, p, B, Skv, box, CU_TENSOR_MAP_DATA_TYPE_INT32);
 }
 
-// ------------------------------------------------------ host: a pair launch
-// `kernel` on `grid` (gridDim.x even) as clusters of two CTAs along x, so
-// that CTAs 2i and 2i + 1 run at once, on SMs of one GPC, with each other's
-// shared memory in reach; returns the launch's error.
+// --------------------------------------------------- host: a cluster launch
+// what a C entry returns for a cluster the card cannot schedule: this plus
+// the cluster's size
+constexpr int CLUSTER_ERROR = 2000;
+
+// cudaOccupancyMaxActiveClusters of `kernel` at `cfg`, asked once for each
+// kernel and cluster size (the answer depends on the kernel's resources
+// and the size only)
+template <typename... Params>
+inline int max_active_clusters(void (*kernel)(Params...), int n,
+                               const cudaLaunchConfig_t& cfg) {
+  static struct { const void* kernel; int n, active; } seen[64];
+  static int n_seen = 0;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].kernel == (const void*)kernel && seen[i].n == n) return seen[i].active;
+  int active = 0;
+  if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) != cudaSuccess) active = 0;
+  cudaGetLastError();
+  if (n_seen < 64) seen[n_seen++] = {(const void*)kernel, n, active};
+  return active;
+}
+
+// `kernel` on `grid` (gridDim.x a multiple of n) as clusters of n CTAs
+// along x, so that CTAs n i .. n i + n - 1 run at once, on SMs of one GPC,
+// with each other's shared memory in reach; returns the launch's error, or
+// CLUSTER_ERROR + n where the card can hold no such cluster at all (its
+// first launch asks cudaOccupancyMaxActiveClusters).
 template <typename... Params, typename... Args>
-inline cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                               cudaStream_t st, Args&&... args) {
+inline int launch_cluster(void (*kernel)(Params...), int n, dim3 grid, int threads, int smem,
+                          cudaStream_t st, Args&&... args) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.x = n;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -568,9 +819,10 @@ inline cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, int threads
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (max_active_clusters(kernel, n, cfg) < 1) return CLUSTER_ERROR + n;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   const cudaError_t last = cudaGetLastError();   // also clears e, reported here
-  return e != cudaSuccess ? e : last;
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace pbt

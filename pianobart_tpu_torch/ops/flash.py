@@ -28,9 +28,9 @@ K2's entry runs the same two CUDA kernels as K3b then K3a: a 1024 x 1024
 block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
 the start.  K2 and K3 differ in entry point and contract, not in algorithm.
 
-The kernels take head widths D = 128 and 256 (:data:`HEAD_DIMS`), as the
-reference's take any multiple of 128 (``_flash_eligible``); 384 and more is
-not ported yet.
+The kernels take every head width D that is a multiple of 128 up to
+:data:`MAX_HEAD_DIM` = 1024 (:data:`HEAD_DIMS`), as the reference's take any
+multiple of 128 (``_flash_eligible``); wider heads are not ported yet.
 
 Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
 (B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs over the kept pairs, 0.1381 ms
@@ -39,7 +39,8 @@ at B=32 with ``chip_smoke.py``'s pad tail; K2 at the flagship train shape
 about half causal (its two kernels do seven products, not five: 0.49 ms at
 best); K3a (3 products) and K3b (4) at the long-context shape
 (16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.  At ``--heads 4``
-(D = 256, H = 4) H*D is the same 1024, and so is every bound.
+(D = 256, H = 4) and ``--heads 2`` (D = 512, H = 2) H*D is the same 1024,
+and so is every bound.
 
 The bf16 kernels of K1, K2 and K3 are designed for Hopper (the sources
 have the details), with the primitives of ``csrc/hopper.cuh``: a producer
@@ -85,6 +86,18 @@ CTAs, one per 128-column half of every plane, that sum the score products
 (S, dP), which run over all of D, through each other's shared memory.
 Bound: three tf32 products per f32 product at 495 TFLOP/s.
 
+At D = 384 .. 1024 (D = 128 n) every kernel runs as clusters of n CTAs, one
+per 128 columns of the head, each the D = 128 design on its columns of every
+operand (bf16: K1's and the backward's D = 128 kernels with 2 ring stages
+where they keep 3 and 4; f32: the 3xTF32 kernels).  The products over all of
+D (S in the forward; S and dP in the backward) are summed across the
+cluster through distributed shared memory, a reduce-scatter then an
+all-gather, so every CTA holds the same sums to the bit and P, dS and lse
+agree across the cluster; O, dQ, dK and dV stay column-local.  The card
+schedules a cluster of up to 8 CTAs portably, hence ``MAX_HEAD_DIM``; a
+kernel whose cluster the card cannot hold raises.  The delta kernel takes
+a warp a row there, the prep 8 rows a CTA.
+
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
 :mod:`.build` at first use, never at import.
@@ -103,10 +116,14 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_split", "flash_attention_reference",
            "flash_attention_bwd_reference", "flash_attention_dq_reference",
            "flash_attention_dkv_reference", "flash_attention_split_reference",
-           "HEAD_DIM", "HEAD_DIMS"]
+           "HEAD_DIM", "HEAD_DIMS", "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (128, 256)   # the head widths the kernels take
+# the head widths the kernels take: D = 128 and 256 have designs of their
+# own, D = 384 .. 1024 run as clusters of D/128 CTAs (csrc/hopper.cuh:
+# launch_cluster; 8 CTAs is the card's largest portable cluster)
+MAX_HEAD_DIM = 1024
+HEAD_DIMS = tuple(range(128, MAX_HEAD_DIM + 1, 128))
 HEAD_DIM = 128     # the flagship's head width, the one the kernel lab takes
 TILE = 64          # the kernels' q/kv tile rows: Sq and Skv must divide by it
 FUSED_BWD_MAX = 1024   # the reference's single-block backward cap (_BWD_BLOCK)
@@ -243,7 +260,8 @@ def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
         if x.shape != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim 128 or 256, got {D}")
+        raise ValueError(f"flash kernel takes head_dim a multiple of 128 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
     if Sq % TILE or Skv % TILE:
         raise ValueError(f"flash kernel needs Sq, Skv multiples of {TILE}, "
                          f"got {Sq}, {Skv}")
@@ -268,8 +286,13 @@ def _tma_ready(x):
 
 
 def _raise_for(entry, rc):
-    """The C entries' codes: 1000 + the CUresult of a refused tensor map,
-    else a CUDA error."""
+    """The C entries' codes: 2000 + n where the card cannot hold a cluster
+    of n CTAs of the kernel (``hopper.cuh:launch_cluster``), 1000 + the
+    CUresult of a refused tensor map, else a CUDA error."""
+    if rc >= 2000:
+        raise RuntimeError(f"{entry}: the card cannot schedule a cluster of {rc - 2000} "
+                           f"CTAs of this kernel (cudaOccupancyMaxActiveClusters is 0), "
+                           f"which head width {128 * (rc - 2000)} needs")
     if rc >= 1000:
         raise RuntimeError(f"{entry}: the driver refused a TMA tensor map "
                            f"(CUresult {rc - 1000}; 0 = no encoder)")
@@ -294,7 +317,8 @@ def _split_launch(specs: Sequence[Tuple[torch.Tensor, bool, bool]]):
     :data:`HEAD_DIMS`); returns their ``(nat, tr)`` pairs."""
     B, _, H, D = specs[0][0].shape
     if D not in HEAD_DIMS:
-        raise ValueError(f"tf32 split takes head_dim 128 or 256, got {D}")
+        raise ValueError(f"tf32 split takes head_dim a multiple of 128 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
     args, outs = _SplitArgs(), []
     for i, (x, natural, transposed) in enumerate(specs):
         S = x.shape[1]
@@ -339,8 +363,8 @@ def flash_attention_split(x, natural: bool = True, transposed: bool = False):
     passes.  CPU tensors take :func:`flash_attention_split_reference`; CUDA
     tensors launch ``csrc/flash_bwd.cu``'s prep kernel (counted in
     ``flash_attention_split.launches``) or raise.  The f32 attention
-    wrappers split all the operands of a call in one launch, at D = 128 and
-    256.  Bound by bytes: x read once, each plane written once.
+    wrappers split all the operands of a call in one launch, at every
+    width.  Bound by bytes: x read once, each plane written once.
     """
     if not use_kernel(x, "flash attention"):
         return flash_attention_split_reference(x, natural, transposed)
@@ -404,7 +428,8 @@ def flash_attention_delta(dout, out) -> torch.Tensor:
     if out.shape != dout.shape or out.dtype != dout.dtype or out.device != dout.device:
         raise ValueError("out must match dout's shape, dtype and device")
     if D not in HEAD_DIMS:
-        raise ValueError(f"delta kernel takes head_dim 128 or 256, got {D}")
+        raise ValueError(f"delta kernel takes head_dim a multiple of 128 up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
     _check_rows_layout("dout", dout)
     _check_rows_layout("out", out)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dout.device)

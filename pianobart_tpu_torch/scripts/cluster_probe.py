@@ -1,0 +1,180 @@
+"""The wide heads' cluster kernels on the card: their times at ``--heads 2``
+(D = 512, H = 2) beside the D = 128 kernels at the same H * D, and where a
+warp's time goes in the score exchange that the clusters add
+(``csrc/hopper.cuh:cluster_sum``).
+
+    python -m pianobart_tpu_torch.scripts.cluster_probe
+
+Prints the card's name and power limit, then:
+
+* CUDA-event means of K1, K3a (the dQ kernel) and K3b (the dK/dV kernel) at
+  B=32, S=1024 in bf16 and B=8 in f32, with the pad mask of ``chip_smoke.py``,
+  at D = 128 (H = 8), 512 (H = 2) and 1024 (H = 1), through the shipped
+  library;
+* for the same D = 512 calls, the cycles a warp spends in each phase of one
+  exchange (open, scatter, waiting for its units, reduce, waiting for the
+  peers' reads, gather, waiting for the sums, reading them), from a copy of
+  ``csrc`` built into ``build/cluster_probe`` whose ``cluster_sum`` adds
+  ``clock64()`` differences into a ``__device__`` array (read back by an
+  extra C entry, ``pbt_xprof_read``); the counters cost the kernel a few
+  percent and stay out of the shipped source.
+
+Needs a card and the CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import torch
+
+from ..ops import build, flash
+
+NVCC = "/usr/local/cuda/bin/nvcc"
+PHASES = ("open", "scatter", "units wait", "reduce", "reads wait", "gather",
+          "sums wait", "read sums")
+OUT = os.path.join(os.path.dirname(build._BUILD_DIR), "cluster_probe")
+
+# (line of cluster_sum, the same with t[i] = clock64() at its phase's end)
+_MARKS = (
+    ("  const uint32_t reg = smem_u32(region);\n",
+     "  const uint32_t reg = smem_u32(region);\n  long long t[9];\n  t[0] = clock64();\n"),
+    ("    mbar_wait_cluster(xb, parity);\n  }\n",
+     "    mbar_wait_cluster(xb, parity);\n  }\n  t[1] = clock64();\n"),
+    ("  mbar_wait_cluster(xb + 1, parity);\n",
+     "  t[2] = clock64();\n  mbar_wait_cluster(xb + 1, parity);\n  t[3] = clock64();\n"),
+    ("  cluster_arrive_peers(c, xb + 2, lane);\n  mbar_wait_cluster(xb + 2, parity);\n",
+     "  t[4] = clock64();\n  cluster_arrive_peers(c, xb + 2, lane);\n"
+     "  mbar_wait_cluster(xb + 2, parity);\n  t[5] = clock64();\n"),
+    ("  mbar_wait_cluster(xb + 3, parity);\n",
+     "  t[6] = clock64();\n  mbar_wait_cluster(xb + 3, parity);\n  t[7] = clock64();\n"),
+    ("  if (own_region) cluster_arrive_peers(c, xb, lane);\n}\n",
+     "  if (own_region) cluster_arrive_peers(c, xb, lane);\n  t[8] = clock64();\n"
+     "  if (lane == 0) {\n    for (int i = 0; i < 8; ++i)\n"
+     "      atomicAdd(&pbt_xprof[i], (unsigned long long)(t[i + 1] - t[i]));\n"
+     "    atomicAdd(&pbt_xprof[8], 1ull);\n  }\n}\n"))
+
+
+def _counted_copy() -> str:
+    """``csrc`` copied to OUT/csrc with cluster_sum's phases counted."""
+    src = os.path.join(OUT, "csrc")
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build._CSRC, src)
+    path = os.path.join(src, "hopper.cuh")
+    with open(path) as f:
+        text = f.read()
+    start = text.index("__device__ __forceinline__ void cluster_sum(")
+    end = text.index("\n}\n", start) + 3
+    body = text[start:end]
+    for line, counted in _MARKS:
+        if body.count(line) != 1:
+            raise RuntimeError(f"cluster_sum has changed: {line!r} not found once")
+        body = body.replace(line, counted)
+    text = (text[:start].replace("struct ClusterSum {", "__device__ unsigned long long "
+                                 "pbt_xprof[16];\nstruct ClusterSum {", 1)
+            + body + text[end:])
+    with open(path, "w") as f:
+        f.write(text)
+    read = ('\nextern "C" int pbt_xprof_read(void* out) {\n'
+            "  cudaMemcpyFromSymbol(out, pbt::pbt_xprof, sizeof(unsigned long long) * 16);\n"
+            "  unsigned long long z[16] = {0};\n"
+            "  cudaMemcpyToSymbol(pbt::pbt_xprof, z, sizeof(z));\n"
+            "  return (int)cudaGetLastError();\n}\n")
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        with open(os.path.join(src, name), "a") as f:
+            f.write(read)
+    return src
+
+
+def _counted_libs():
+    src = _counted_copy()
+    procs = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        so = os.path.join(OUT, f"{name}_counted.so")
+        procs[name] = (so, subprocess.Popen(
+            [NVCC, *build._NVCC_FLAGS, "-o", so, os.path.join(src, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the counted {name}:\n{err[-4000:]}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in build.KERNELS[name][2].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.pbt_xprof_read.argtypes = [ctypes.c_void_p]
+        libs[name] = lib
+    return libs
+
+
+def _case(B, dtype, H, D, S=1024):
+    """chip_smoke.py's _flash_case: q pre-scaled, a pad tail in the last sample."""
+    g = torch.Generator(device="cuda").manual_seed(B)
+    q = torch.randn(B, S, H, D, device="cuda", generator=g) * D ** -0.5
+    k = torch.randn(B, S, H, D, device="cuda", generator=g)
+    v = torch.randn(B, S, H, D, device="cuda", generator=g)
+    mask = torch.ones(B, S, device="cuda")
+    mask[-1, S - 200:] = 0.0
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    out, lse = flash.flash_attention_fwd(q, k, v, mask, False)
+    dout = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+    return (q, k, v, mask, False, lse, flash._delta(dout, out), dout)
+
+
+def _ms(fn, iters=20):
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(smi)
+    os.makedirs(OUT, exist_ok=True)
+    calls = {"K1": lambda a: flash.flash_attention_fwd(*a[:5]),
+             "K3a (dQ)": lambda a: flash.flash_attention_dq(*a),
+             "K3b (dK/dV)": lambda a: flash.flash_attention_dkv(*a)}
+    for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
+        for H, D in ((8, 128), (2, 512), (1, 1024)):
+            args = _case(B, dtype, H, D)
+            times = ", ".join(f"{name} {_ms(lambda: fn(args)):.4f} ms"
+                              for name, fn in calls.items())
+            print(f"[cluster_probe] B={B} H={H} D={D} {str(dtype)[6:]}: {times}", flush=True)
+    libs = _counted_libs()
+    real = flash.build_kernel
+    flash.build_kernel = lambda name: libs.get(name) or real(name)
+    buf = (ctypes.c_ulonglong * 16)()
+    try:
+        for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
+            args = _case(B, dtype, 2, 512)
+            for name, fn in calls.items():
+                lib = libs["flash_fwd" if name == "K1" else "flash_bwd"]
+                fn(args)
+                torch.cuda.synchronize()
+                lib.pbt_xprof_read(buf)
+                fn(args)
+                torch.cuda.synchronize()
+                lib.pbt_xprof_read(buf)
+                n = max(buf[8], 1)
+                total = sum(buf[i] for i in range(8)) / n
+                print(f"[cluster_probe] {name} B={B} H=2 D=512 {str(dtype)[6:]}: {buf[8]} "
+                      f"warp-exchanges, cycles each: "
+                      + ", ".join(f"{p} {buf[i] / n:.0f}" for i, p in enumerate(PHASES))
+                      + f"; total {total:.0f}", flush=True)
+    finally:
+        flash.build_kernel = real
+
+
+if __name__ == "__main__":
+    main()

@@ -712,11 +712,21 @@ def test_flash_autograd_d256_runs_the_kernels(cuda):
 
 
 def test_flash_kernels_refuse_head_width_384(cuda):
+    """D=384 is taken now (a cluster of three CTAs: one launch, no refusal);
+    the kernels refuse the widths they still lack, past MAX_HEAD_DIM (the
+    message states the range) and off the 128 grid."""
     q, k, v, _ = _inputs(cuda, torch.bfloat16, D=384)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(q, k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_delta(q, q)
+    before = flash_attention_fwd.launches
+    flash_attention_fwd(q, k, v)
+    flash_attention_delta(q, q)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    for d in (1152, 320):
+        q, k, v, _ = _inputs(cuda, torch.bfloat16, D=d)
+        with pytest.raises(ValueError, match="head_dim a multiple of 128 up to 1024"):
+            flash_attention_fwd(q, k, v)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention_delta(q, q)
 
 
 def _ln_case(dev, dtype, N=256, D=1024, seed=0):
@@ -1271,3 +1281,122 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
     with pytest.raises(ValueError, match="one rank per card"):
         init_from_env(f"1x1x{n}", "nccl")
     assert not torch.distributed.is_initialized()
+
+
+# Head widths 384 .. 1024: every kernel as clusters of D/128 CTAs (one per
+# 128 columns of the head) that sum S and dP across the cluster
+# (hopper.cuh:cluster_sum); the same tolerances as at D = 128.
+WIDE_DS = [384, 512, 1024]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", WIDE_DS)
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, False),
+    (3, 2, 320, 320, True), (1, 1, 64, 64, False)],
+    ids=["256", "256-causal", "192x320", "320-causal", "one-cluster"])
+def test_flash_kernel_wide_matches_reference(cuda, B, H, Sq, Skv, causal, D, dtype):
+    q, k, v, mask = _inputs(cuda, dtype, B=B, H=H, S=Sq, Skv=Skv, D=D)
+    f0, s0 = flash_attention_fwd.launches, flash_attention_split.launches
+    out, lse = flash_attention_fwd(q, k, v, mask, causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - f0, flash_attention_split.launches - s0) == (
+        1, int(dtype == torch.float32))
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, causal)
+    atol, rtol, ltol = TOL[dtype]
+    assert out.shape == q.shape and lse.shape == (B, H, Sq)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", WIDE_DS)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("B,H,Sq,Skv,causal", [
+    (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, True),
+    (2, 2, 320, 192, False), (1, 1, 64, 64, True)],
+    ids=["256", "256-causal", "192x320-causal", "320x192", "one-cluster"])
+def test_flash_bwd_kernels_wide_match_reference(cuda, kernel, D, B, H, Sq, Skv, causal,
+                                                dtype):
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, True,
+                                           B=B, H=H, S=Sq, Skv=Skv, D=D)
+    counters = (flash_attention_bwd, flash_attention_dq, flash_attention_dkv,
+                flash_attention_split)
+    before = [c.launches for c in counters]
+    got, want = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+    torch.cuda.synchronize()
+    preps = (1 if kernel == "K2" else 2) if dtype == torch.float32 else 0
+    want_counts = [1, 0, 0, preps] if kernel == "K2" else [0, 1, 1, preps]
+    assert [c.launches - b for c, b in zip(counters, before)] == want_counts
+    assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_kernels_wide_fully_masked_sample_and_strides(cuda, kernel, dtype):
+    """Sample 0 wholly masked (P = 1 on every key), q/k/v as views of one
+    fused projection and dO a view: the D=512 clusters read the strides."""
+    B, S, H, D = 2, 320, 2, 512
+    qkv = torch.randn(B, S, 3, H, D, device=cuda, dtype=dtype)
+    qkv[:, :, 0] *= D ** -0.5
+    q, k, v = qkv.unbind(2)
+    mask = torch.ones(B, S, device=cuda)
+    mask[0] = 0.0
+    out, lse = flash_attention_fwd(q, k, v, mask, False)
+    assert (lse[0] == -1e30).all()
+    ref, ref_lse = flash_attention_reference(q, k, v, mask, False)
+    atol, rtol, ltol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    dout = torch.randn(B, S, 2, H, D, device=cuda, dtype=dtype)[:, :, 0]
+    got, want = _bwd(kernel, q, k, v, mask, False, out, lse, dout)
+    assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
+    """Two runs give the same bits, and every CTA of a cluster holds the
+    same sums: q, k, v and dO whose D/128 column blocks are equal give O,
+    dQ, dK and dV whose blocks are equal to the bit only if every CTA holds
+    the same P and dS (the lse rank 0 stores is then every CTA's)."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, True, True, S=1024, D=D)
+    o2, l2 = flash_attention_fwd(q, k, v, m, True)
+    assert torch.equal(out, o2) and torch.equal(lse, l2)
+    a, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    b, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    n = D // 128
+
+    def twin(x):
+        return torch.cat([x[..., :128]] * n, -1).contiguous()
+
+    q, k, v, dout = (twin(x) for x in (q, k, v, dout))
+    out, lse = flash_attention_fwd(q, k, v, m, True)
+    got, _ = _bwd(kernel, q, k, v, m, True, out, lse, dout)
+    for name, x in zip(("o", "dq", "dk", "dv"), (out, *got)):
+        for r in range(1, n):
+            assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (name, r)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", WIDE_DS)
+def test_delta_and_split_kernels_wide_match_reference(cuda, D, dtype):
+    """delta (a warp a row past D = 256) against its plain version on views
+    of a wider tensor, and in f32 the prep (8 rows a CTA) bit for bit."""
+    B, S, H = 2, 320, 2
+    g = torch.Generator(device=cuda).manual_seed(3)
+    both = torch.randn(B, S, 2, H, D, device=cuda, generator=g).to(dtype)
+    dout, out = both.unbind(2)
+    before = flash_attention_delta.launches
+    got = flash_attention_delta(dout, out)
+    torch.cuda.synchronize()
+    assert flash_attention_delta.launches == before + 1
+    torch.testing.assert_close(got, _delta(dout, out), atol=1e-4, rtol=1e-5)
+    if dtype == torch.float32:
+        for natural, transposed in [(True, False), (False, True), (True, True)]:
+            for a, b in zip(flash_attention_split(out, natural, transposed),
+                            flash_attention_split_reference(out, natural, transposed)):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)
+

@@ -250,7 +250,8 @@ def test_flash_attention_differentiates_through_the_function():
     ((2, 256, 2, 64), False, False),      # head width the kernel lacks
     ((2, 256, 2, 256), False, True),      # the kernels' second width, as the reference's rule
     ((2, 256, 2, 128), True, False),      # extra bias
-    ((2, 256, 2, 384), False, False),     # a width the reference takes, not ported yet
+    ((2, 256, 2, 384), False, True),      # a cluster of 3 CTAs, as the reference's rule
+    ((2, 256, 2, 1152), False, False),    # past MAX_HEAD_DIM: not ported yet
 ])
 def test_flash_eligibility(shape, bias, eligible):
     q = torch.zeros(shape)
