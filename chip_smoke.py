@@ -10,8 +10,12 @@ result line:
 2. build the four kernel sources with ``nvcc`` (flash forward K1, flash
    backward K2/K3a/K3b, fused dropout+residual+LayerNorm K4a/K4b, the
    kernel lab's L1/L2, instances of K1's kernel template), one process per
-   source, with ptxas's registers and spills and the HGMMA/UTMALDG/HMMA
-   counts of the wgmma kernels' SASS (an HMMA., or no HGMMA or UTMALDG, fails);
+   source, with ptxas's registers and spills, the HGMMA/UTMALDG/HMMA
+   counts of the wgmma kernels' SASS (an HMMA., or no HGMMA or UTMALDG,
+   fails) and each one's SASS held against the parent's (:data:`PARENT_SASS`:
+   a kernel this tree did not redesign that compiles to other code fails),
+   and how many clusters of each cluster kernel the card holds at once at
+   every cluster size it launches;
 3. ``[flash]``: K1 against its plain PyTorch version at the serving
    shapes (every decode bucket, B = 1, 2, 4, 8), the training shapes and
    the long-context shape (B=16, S=2048), [finetune_mesh]'s tp ranks (B=8,
@@ -19,7 +23,8 @@ result line:
    width 256 (``--heads 4``: B=32 bf16 and B=8 f32, causal and not, the tp
    ranks' 2 of 4 heads, the bf16 decode buckets B = 1, 2, 4, 8, B=2 S=320,
    S=192 (a ragged kv tile of the bf16 kernel's 128 rows) and a wholly
-   masked sample), and at the wide heads, clusters of D/128 CTAs (``--heads
+   masked sample), and at the wide heads, clusters (bf16 K1 of
+   ceil(D/256) CTAs of its D=256 design, the other kernels of D/128; ``--heads
    2``, D=512: B=32 bf16 and B=8 f32, causal and not, B=8 and 16 at S=2048,
    the tp ranks' 1 of 2 heads, S=320, a wholly masked sample; 4 heads of 384;
    1 head of 1024), then which kernels SDPA ran at D = 384, 512, 1024, with times
@@ -90,7 +95,7 @@ result line:
    then the encoder of a --heads 4 serving model via K1 against plain
    attention and a ``GenerationService`` decode batch (K1 8);
 13b. ``[train_h512]``: ``--heads 2`` (head width 512, every attention on
-   clusters of 4 CTAs) as 13 runs ``--heads 4``: gradients through the
+   clusters: bf16 K1 of 2 CTAs, the others of 4) as 13 runs ``--heads 4``: gradients through the
    kernels against plain attention (B=4 bf16, B=2 f32), 10 timed steps at
    B=32 (K1, delta, K2 24 each) beside [train] and beside the plain route's
    3 steps (its ms/step and peak), 2 at S=2048 B=16 (K1, delta, K3a, K3b 24
@@ -295,9 +300,15 @@ FWD_INSTANCES = {("0", "0"): "K1", ("0", "1"): "L2", ("1", "0"): "L1, P rounded"
 def _sass_label(name):
     """``flash_..._kernel<flags> (role)`` from a kernel's mangled name."""
     label = re.search(r"\d(flash_\w+?_kernel)", name).group(1)
-    if label == "flash_fwd_d256_wgmma_kernel":   # the bf16 D=256 forward
-        return label + " (K1, D=256, 128-row kv tiles, ping-pong)"
     tail = name[name.index(label) + len(label):]
+    if label == "flash_fwd_d256_wgmma_kernel":   # the bf16 forward at D = 256 and past it
+        if tail.startswith("ILb1E"):
+            return label + ("<true> (K1, D = 384 .. 1024, clusters of ceil(D/256) "
+                            "CTAs of the D=256 design)")
+        return label + "<false> (K1, D=256, 128-row kv tiles, ping-pong)"
+    if label == "flash_bwd_wide_tf32_kernel":    # the f32 backward past D = 256
+        return label + ("<true> (dK/dV" if tail.startswith("ILb1E") else "<false> (dQ") + (
+            ", clusters of D/128 CTAs, two warpgroups on 32-row tiles)")
     cluster = {"256": " (CTA pair)", "0": " (clusters of D/128 CTAs, D = 384 .. 1024)"}
     width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
     if width:
@@ -320,6 +331,90 @@ def _sass_label(name):
             + (cluster[d].replace(" (", ", ") if d in cluster else ")"))
 
 
+# The SASS of every wgmma kernel this tree did not redesign, as the parent
+# tree compiled it with the card machine's toolkit (CUDA 12.8;
+# :func:`_sass_digest`): the D = 128 and D = 256 kernels, the lab's, and the
+# f32 forward's and bf16 backward's clusters.  A kernel redesigned on purpose
+# leaves this table with its parent's row.
+PARENT_SASS = {
+    "flash_fwd_tf32_kernel<128>": "15bc73290d4b8edf",
+    "flash_fwd_tf32_kernel<256> (CTA pair)": "b8dfd789d8abda8c",
+    "flash_fwd_tf32_kernel<0> (clusters of D/128 CTAs, D = 384 .. 1024)": "6f3eed42aa8b0663",
+    "flash_fwd_wgmma_kernel<false, false, 128> (K1)": "fef3bd7947d43eeb",
+    "flash_fwd_d256_wgmma_kernel<false> (K1, D=256, 128-row kv tiles, ping-pong)":
+        "f9a85d7f89bd862e",
+    "flash_bwd_tf32_kernel<false, 128> (dQ)": "a64802d4da19cafd",
+    "flash_bwd_tf32_kernel<true, 128> (dK/dV)": "eced7122153a00ce",
+    "flash_bwd_tf32_kernel<false, 256> (dQ, CTA pair)": "1e41d06a05c17859",
+    "flash_bwd_tf32_kernel<true, 256> (dK/dV, CTA pair)": "8f20f3dba3c64edb",
+    "flash_bwd_d256_wgmma_kernel<false> (dQ, 128 rows, K and V through 3 slots)":
+        "54ab1bd849f85e34",
+    "flash_bwd_d256_wgmma_kernel<true> (dK/dV, S^T once, P^T handed over)": "a6af41efd301b88c",
+    "flash_bwd_wgmma_kernel<false, 128> (dQ)": "be3f4a52b753c4b0",
+    "flash_bwd_wgmma_kernel<true, 128> (dK/dV)": "da23dd626c6dd53e",
+    "flash_bwd_wgmma_kernel<false, 0> (dQ, clusters of D/128 CTAs, D = 384 .. 1024)":
+        "d86d74089bd4b171",
+    "flash_bwd_wgmma_kernel<true, 0> (dK/dV, clusters of D/128 CTAs, D = 384 .. 1024)":
+        "518b5747b0f848c5",
+    "flash_fwd_wgmma_kernel<false, true, 128> (L2)": "e270d98249afc44e",
+    "flash_fwd_wgmma_kernel<true, false, 128> (L1, P rounded)": "a8c8a6b545c191cc",
+    "flash_fwd_wgmma_kernel<true, true, 128> (L1, P split)": "5576364b937ec2f3",
+}
+
+
+def _sass_digest(sass):
+    """A kernel's SASS instructions (addresses, encodings and label numbers
+    left out) as a short sha256: equal for code equal instruction for
+    instruction."""
+    import hashlib
+    labels = {}
+
+    def label(m):
+        return labels.setdefault(m.group(0), f".L{len(labels)}")
+    lines = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", sass)
+    text = re.sub(r"\.L_x_\d+", label, "\n".join(lines))
+    return hashlib.sha256(text.encode()).hexdigest()[:16], len(lines)
+
+
+def _sass_by_label(tool, path):
+    """{label: (digest, instructions, HGMMA/UTMALDG/HMMA counts)} of the wgmma
+    kernels in a built library."""
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    found = {}
+    for kernel in sass.split("Function : ")[1:]:
+        name = kernel.split("\n", 1)[0].strip()
+        if re.search(r"flash_\w+_(wgmma|tf32)_kernel", name):
+            counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
+            found[_sass_label(name)] = (*_sass_digest(kernel), counts)
+    return found
+
+
+def _cluster_occupancy(libs):
+    """[build]'s lines: cudaOccupancyMaxActiveClusters of every cluster
+    kernel at each cluster size it launches (D = 256 .. 1024), from the
+    libraries' ``pbt_cluster_occupancy``; fails where the card holds none."""
+    import ctypes
+    kernels = (("flash_fwd", 1, 0, "K1 bf16"), ("flash_fwd", 0, 0, "K1 f32"),
+               ("flash_bwd", 1, 1, "dK/dV bf16"), ("flash_bwd", 1, 0, "dQ bf16"),
+               ("flash_bwd", 0, 1, "dK/dV f32"), ("flash_bwd", 0, 0, "dQ f32"))
+    rows = {}
+    for lib, dtype, which, what in kernels:
+        by_n = {}
+        for D in range(256, 1025, 128):
+            n = ctypes.c_int(0)
+            active = libs[lib].pbt_cluster_occupancy(D, dtype, which, ctypes.byref(n))
+            if n.value > 1:
+                by_n.setdefault(n.value, [active, []])[1].append(D)
+        rows[what] = by_n
+        print(f"[build] clusters held at once, {what}: " + "; ".join(
+            f"n={n} (D={'/'.join(map(str, ds))}) {a} ({a * n} SMs)"
+            for n, (a, ds) in sorted(by_n.items())))
+        if any(a < 1 for a, _ in by_n.values()):
+            raise AssertionError(f"the card holds no cluster of some size of {what}: {by_n}")
+    return rows
+
+
 def phase_build(state):
     """All sources built together (one nvcc per source, started at once),
     then what the wgmma kernels (K1's bf16 instances at D = 128 and 256 and
@@ -333,7 +428,9 @@ def phase_build(state):
     (K1's ``flash_fwd_d256_wgmma_kernel`` and the backward's
     ``flash_bwd_d256_wgmma_kernel``, 128 accumulators a thread) spills, or
     if ptxas serializes its wgmma (its "Potential Performance Loss"
-    remark)."""
+    remark); and if a wgmma kernel of :data:`PARENT_SASS` compiles to other
+    code than its parent's.  Then prints how many clusters of each cluster
+    kernel the card holds at once, at every size it launches."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
     libs = build_kernels()
@@ -352,6 +449,7 @@ def phase_build(state):
                 if "Compiling entry function" in line:
                     entry = line
                 elif ("spill stores" in line and "d256_wgmma_kernel" in entry
+                      and "fwd_d256_wgmma_kernelILb1E" not in entry   # D = 256 only
                       and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
                     spilled.append(f"{_sass_label(entry)}: {line.strip()}")
                 elif "serialized" in line and "d256_wgmma_kernel" in line:
@@ -359,33 +457,40 @@ def phase_build(state):
     if spilled:   # 128 accumulators a thread; products that must overlap
         raise AssertionError(f"a D=256 bf16 kernel spills or runs its wgmma "
                              f"serialized: {spilled}")
+    _cluster_occupancy(libs)
     tool = _cuobjdump()
     if tool is None:
         print("[build] cuobjdump not found: SASS not inspected")
         return
+    changed, seen = [], set()
     for lib, expect in (("flash_fwd", 6), ("flash_bwd", 12), ("flash_lab", 3)):
-        sass = subprocess.run([tool, "-sass", libs[lib].path], capture_output=True,
-                              text=True, timeout=120, check=True).stdout
-        found = 0
-        for kernel in sass.split("Function : ")[1:]:
-            name = kernel.split("\n", 1)[0].strip()
-            counts = {op: kernel.count(op) for op in ("HGMMA", "UTMALDG", "HMMA.")}
-            if re.search(r"flash_\w+_(wgmma|tf32)_kernel", name):
-                found += 1
-                label = _sass_label(name)
-                print(f"[build] {lib} SASS of {label}: "
-                      + ", ".join(f"{op} {n}" for op, n in counts.items()))
-                if counts["HMMA."] or not (counts["HGMMA"] and counts["UTMALDG"]):
-                    raise AssertionError(f"{label} is not a TMA + wgmma kernel: {counts}")
-        if found != expect:
-            raise AssertionError(f"{lib}: {found} wgmma kernels in its SASS, not {expect}")
+        found = _sass_by_label(tool, libs[lib].path)
+        seen |= set(found)
+        for label, (digest, n_ins, counts) in found.items():
+            parent = PARENT_SASS.get(label)
+            same = ("" if parent is None else ", the parent's" if parent == digest
+                    else f", NOT the parent's ({parent})")
+            print(f"[build] {lib} SASS of {label}: "
+                  + ", ".join(f"{op} {n}" for op, n in counts.items())
+                  + f"; {n_ins} instructions, {digest}{same}")
+            if counts["HMMA."] or not (counts["HGMMA"] and counts["UTMALDG"]):
+                raise AssertionError(f"{label} is not a TMA + wgmma kernel: {counts}")
+            if parent is not None and parent != digest:
+                changed.append(label)
+        if len(found) != expect:
+            raise AssertionError(f"{lib}: {len(found)} wgmma kernels in its SASS, not {expect}")
+    missing = set(PARENT_SASS) - seen
+    if changed or missing:
+        raise AssertionError(f"kernels not redesigned here compile to other code than their "
+                             f"parent's: {changed}; gone: {sorted(missing)}")
 
 
 # --heads 4: the flagship's width (H*D = 1024) at head width 256
 H256 = dict(H=4, D=256)
-# the wide heads, clusters of D/128 CTAs: --heads 2 at the flagship's width
-# (D=512, H*D = 1024), --hs 1536's width as 4 heads of 384, and 1 head of
-# 1024 (n = 8, the card's largest portable cluster)
+# the wide heads, clusters (bf16 K1 of ceil(D/256) CTAs, the others of D/128):
+# --heads 2 at the flagship's width (D=512, H*D = 1024), --hs 1536's width as
+# 4 heads of 384 (bf16 K1: a pair whose second CTA's upper half lies past D),
+# and 1 head of 1024 (n = 8, the card's largest portable cluster)
 WIDTHS = {"h256": H256, "h384": dict(H=4, D=384), "h512": dict(H=2, D=512),
           "h1024": dict(H=1, D=1024)}
 
@@ -509,10 +614,11 @@ def phase_flash(state):
              (2, False, bf16, 320, "h256"), (2, True, bf16, 320, "h256"),
              (2, False, f32, 320, "h256"), (2, True, f32, 320, "h256"),
              (2, False, bf16, 320, "h256 masked"), (2, False, f32, 320, "h256 masked"),
-             # the wide heads (clusters of D/128 CTAs): --heads 2 (D=512) at
-             # [train_h512]'s shapes, its decode bucket B=8, its tp ranks' (1 of
-             # 2 heads), S=320 and a wholly masked sample; 4 heads of 384 (an
-             # odd cluster); 1 head of 1024 (a cluster of 8)
+             # the wide heads (clusters: bf16 of 2 CTAs at 384 and 512, 4 at
+             # 1024; f32 of D/128): --heads 2 (D=512) at [train_h512]'s shapes,
+             # its decode bucket B=8, its tp ranks' (1 of 2 heads), S=320 and a
+             # wholly masked sample; 4 heads of 384 (a half-empty CTA in bf16,
+             # an odd cluster in f32); 1 head of 1024
              (32, False, bf16, 1024, "h512"), (32, True, bf16, 1024, "h512"),
              (8, False, f32, 1024, "h512"), (8, True, f32, 1024, "h512"),
              (8, False, bf16, 1024, "h512"), (16, False, bf16, 2048, "h512"),
@@ -837,7 +943,8 @@ def phase_flash_bwd(state):
              ("K3", 2, 320, False, bf16, False, "h256"), ("K3", 2, 320, True, bf16, False, "h256"),
              ("K3", 2, 320, False, bf16, True, "h256"), ("K3", 2, 320, True, f32, False, "h256"),
              ("K3", 2, 320, False, f32, True, "h256"),
-             # the wide heads (clusters of D/128 CTAs): --heads 2 (D=512) at
+             # the wide heads (clusters of D/128 CTAs; f32 two warpgroups a
+             # CTA): --heads 2 (D=512) at
              # [train_h512]'s shapes (K2 B=32 bf16 and B=8 f32, K3 B=16 S=2048
              # bf16 and B=2 f32), its tp ranks' (1 of 2 heads), S=320 and a
              # wholly masked sample; 4 heads of 384; 1 head of 1024
@@ -1964,7 +2071,7 @@ def phase_train_h256(state):
 
 def phase_train_h512(state):
     """``--heads 2`` (head width 512, the flagship's H*D = 1024; every
-    attention on clusters of 4 CTAs): gradients through K1 and K2 against
+    attention on clusters, bf16 K1 of 2 CTAs, the others of 4): gradients through K1 and K2 against
     the plain attention path at B=4 in bf16 and B=2 in f32; the timed
     pretrain steps at B=32 (bf16 compute, f32 parameters, dropout 0.1: K1,
     delta, K2 24 each) beside [train] of this run and beside the plain
@@ -3965,8 +4072,7 @@ KERNEL_RECORDS = (
     ("tf32_split_h256", "split_h256", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
      "flash_attention_split", "train_h256_f32"),
     # head widths 384 .. 1024 (--heads 2 is D=512): the cluster instances
-    # (D/128 CTAs, the same instance at every such width), on [train_h512]'s
-    # paths
+    # (the same instance at every such width), on [train_h512]'s paths
     ("flash_fwd_h512", "k1_h512", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
      "flash_attention_fwd", "train_h512"),
     ("flash_bwd_h512", "k2_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",

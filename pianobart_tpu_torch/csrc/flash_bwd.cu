@@ -100,12 +100,13 @@
 // 0.5474 ms at B=16, S=2048.
 //
 // At D = 384 .. 1024 (D = 128 n) both types run as clusters of n CTAs, one
-// per 128 columns of the head, each the D = 128 kernel on its columns:
-// bf16 flash_bwd_wgmma_kernel<DKV, CLUSTER_D>, f32 flash_bwd_tf32_kernel<DKV,
-// CLUSTER_D>, which sum S and dP across the cluster (hopper.cuh:cluster_sum;
-// both described where they are defined), the delta kernel a warp a row
-// and the prep 8 rows a CTA.  Bounds at --heads 2 (D = 512, H = 2) equal the
-// D = 128 ones above.
+// per 128 columns of the head, summing S and dP across the cluster
+// (hopper.cuh:cluster_sum): bf16 flash_bwd_wgmma_kernel<DKV, CLUSTER_D>,
+// each CTA the D = 128 kernel on its columns, f32
+// flash_bwd_wide_tf32_kernel<DKV>, two consumer warpgroups on alternate
+// swept tiles of 32 rows over the fixed rows' planes (both described where
+// they are defined); the delta kernel a warp a row and the prep 8 rows a
+// CTA.  Bounds at --heads 2 (D = 512, H = 2) equal the D = 128 ones above.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -1272,15 +1273,15 @@ constexpr int T_PLANE = TILE * 4 * T_D;  // 64 rows x 128 f32 (or 128 x 64): 32 
 constexpr int T_FLUSH = 2;
 
 // acc (this thread's part of 64 rows x 128, rows `row` and row + 8) into
-// columns c0 .. c0 + 127 of the (B, S, H, dw) output: stored (add = false)
+// columns c0 .. c0 + 127 of the (B, S, H, DW) output: stored (add = false)
 // or added to it; acc is zeroed.
 template <int DW>
 __device__ __forceinline__ void flush_rows(float* __restrict__ out, float (&acc)[T_D / 2],
                                            int b, int S, int row, int H, int h, int t,
-                                           bool add, int c0, int dw = DW) {
+                                           bool add, int c0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * dw + c0 + 2 * t;
+    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * DW + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < T_D / 8; ++dt) {
       float2 v = make_float2(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
@@ -1306,19 +1307,16 @@ struct BwdTf32Smem {
   static constexpr int SIDE = FIXV + 2 * TILE * 4;   // 2 per-tile entries: lse and delta, or mask
   static constexpr int SIDE_STAGE = 2 * TILE * 4;
   // fix, full[S], free[S], sfull[2], sfree[2], and for a pair the exchange's
-  // ready and full (for a wider cluster its four, hopper.cuh:cluster_sum_init)
+  // ready and full
   static constexpr int BAR = SIDE + 2 * SIDE_STAGE;
-  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4 + 4) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * T_SLOTS + 4 + 2) * 8 + 1024;
 };
 
 // Tensor maps: tq, tk, tv, to the natural planes of q, k, v, dO in boxes of
 // TILE rows; tt1, tt2 transposed planes in boxes of 128 rows (DKV: dO^T, Q^T;
 // dQ: K^T, K^T); tm the mask in boxes of TILE keys; tl, td lse and delta in
 // boxes of TILE entries.  DKV: dK into out1, dV into out2; else dQ into out1.
-// DW, the head width: 128, or 256 as CTA pairs (see above), or CLUSTER_D as
-// clusters of n = D / 128 CTAs (blockIdx.x / n the fixed tile, the rank the
-// 128 columns), whose exchanges are those of the pair, each a cluster_sum
-// through the same slot.
+// DW, the head width: 128, or 256 as CTA pairs (see above).
 template <bool DKV, int DW>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1334,7 +1332,6 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       int Sq, int Skv, int H, int causal) {
   using L = BwdTf32Smem;
   constexpr bool PAIR = DW == 2 * T_D;
-  constexpr bool WIDE = DW == CLUSTER_D;
   constexpr int NP = DKV ? 8 : 6;       // planes per swept tile
   constexpr int NS = T_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -1348,19 +1345,10 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* x_ready = side_free + 2;    // pair: the peer's slot takes this CTA's S, dP
   uint64_t* x_full = x_ready + 1;       // pair: the peer's S, dP landed in this CTA's slot
 
-  // the exchanges of a wider cluster: dQ's S and dP (64 floats a thread),
-  // dK/dV's S^T or dP^T (32)
-  constexpr int X_THREADS = 128, X_UNITS = (DKV ? 1 : 2) * TILE / 8 * X_THREADS;
-  static_assert(cluster_region_units(X_UNITS) * 16 <= T_PLANE, "the exchange fits a slot");
-  ClusterSum cs = {1, 0, 0, 0};
-  if constexpr (WIDE) cs = cluster_sum_shape(X_UNITS, X_THREADS, threadIdx.x);
   uint32_t rank = 0;                    // pair: which half of D
   if constexpr (PAIR) rank = cluster_ctarank();
-  if constexpr (WIDE) rank = cs.rank;   // which 128 columns
   const int c0 = rank * T_D;            // this CTA's first column of the head
-  const int dw = WIDE ? (int)cs.n * T_D : DW;
-  const int f0 = (PAIR ? blockIdx.x >> 1 : WIDE ? blockIdx.x / cs.n : blockIdx.x) * TILE;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int f0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * TILE, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int s_fixed = DKV ? Skv : Sq;
   // swept tiles i0 .. n-1, as in the bf16 kernel (64 fixed rows here)
@@ -1384,10 +1372,9 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(x_ready, 4);              // each of the peer's consumer warps
       mbar_init(x_full, 128);             // each of the peer's consumer threads
     }
-    if constexpr (WIDE) cluster_sum_init(x_ready, cs.n, 128);
     mbar_fence_init();
   }
-  if constexpr (PAIR || WIDE) cluster_sync();   // every CTA's barriers ready
+  if constexpr (PAIR) cluster_sync();     // both CTAs' barriers ready
   else __syncthreads();
 
   if (threadIdx.x >= 128) {
@@ -1425,7 +1412,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
           const int p = j * NP + q, s = p % NS;
           // the plane's kind in the order above (the dK/dV pair takes dO^T
           // before dO)
-          const int k = (PAIR || WIDE) && DKV && q >= 2 && q < 6 ? q ^ 6 : q;
+          const int k = PAIR && DKV && q >= 2 && q < 6 ? q ^ 6 : q;
           mbar_wait(bar_free + s, ((p / NS) & 1) ^ 1);   // the first round passes
           unsigned char* dst = sm + L::SLOT + s * T_PLANE;
           mbar_arrive_expect_tx(bar_full + s, T_PLANE);
@@ -1530,20 +1517,15 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // CTA's half of D go to the peer's slot of plane ps, the peer's parts
     // come into this CTA's and are added, so each holds the sum over all of
     // D; the slot goes back to the ring.  x counts the exchanges (parity).
-    // A wider cluster sums them the same way over n CTAs (cluster_sum).
     auto pair_sum = [&](int ps, int x, auto&... parts) {
       unsigned char* xs = plane(ps);
-      if constexpr (WIDE) {
-        cluster_sum(cs, xs, x_ready, x & 1, 128, threadIdx.x, false, parts...);
-      } else {
-        const uint32_t peer = cluster_ctarank() ^ 1;
-        const uint32_t dst = pair_open(xs, x_ready, peer, x & 1, lane == 0);
-        int k0 = 0;
-        ((pair_put(dst, parts, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
-        pair_close(x_full, peer, x & 1);
-        k0 = 0;
-        ((pair_add(parts, xs, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
-      }
+      const uint32_t peer = cluster_ctarank() ^ 1;
+      const uint32_t dst = pair_open(xs, x_ready, peer, x & 1, lane == 0);
+      int k0 = 0;
+      ((pair_put(dst, parts, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
+      pair_close(x_full, peer, x & 1);
+      k0 = 0;
+      ((pair_add(parts, xs, k0, 128, threadIdx.x), k0 += TILE / 8), ...);
       fence_proxy_async();                           // read before the slot's next TMA write
       __syncwarp();
       release(ps);
@@ -1553,7 +1535,7 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       const int j = i - i0, p = j * NP, r0 = i * TILE, e = j % 2;
       float sc[TILE / 2], dp[TILE / 2];
       uint32_t xh[TILE / 8][4], xl[TILE / 8][4];
-      if constexpr ((PAIR || WIDE) && DKV) {
+      if constexpr (PAIR && DKV) {
         first(sc, da1h, da1l, p, false);             // S^T = K Q^T over this half
         pair_sum(p + 1, 2 * j, sc);
         mbar_wait(side_full + e, (j / 2) & 1);
@@ -1573,8 +1555,8 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         last(acc1, xh, xl, p + 6);                   // dK += dS^T Q
       } else {
         first(sc, da1h, da1l, p, true);                // S^T = K Q^T, or S = Q K^T
-        first(dp, da2h, da2l, p + 2, !(PAIR || WIDE));   // dP^T = V dO^T, or dP = dO V^T
-        if constexpr (PAIR || WIDE) pair_sum(p + 3, j, sc, dp);   // dQ: then over all of D
+        first(dp, da2h, da2l, p + 2, !PAIR);           // dP^T = V dO^T, or dP = dO V^T
+        if constexpr (PAIR) pair_sum(p + 3, j, sc, dp);   // dQ: over this half, then all of D
         mbar_wait(side_full + e, (j / 2) & 1);
         const unsigned char* sv = sm + L::SIDE + e * L::SIDE_STAGE;
         if (DKV) {
@@ -1599,16 +1581,393 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
       }
       if (j % T_FLUSH == T_FLUSH - 1 || i == n - 1) {
-        flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0, dw);
-        if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0, dw);
+        flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
+        if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, j >= T_FLUSH, c0);
       }
     }
     if (i0 == n) {                                   // no tile: zero gradients
-      flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, false, c0, dw);
-      if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, false, c0, dw);
+      flush_rows<DW>(out1, acc1, b, s_fixed, row, H, h, t, false, c0);
+      if (DKV) flush_rows<DW>(out2, acc2, b, s_fixed, row, H, h, t, false, c0);
     }
   }
-  if constexpr (PAIR || WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
+  if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
+}
+
+// ------------------------------------------- f32 / 3xTF32 at D = 384 .. 1024
+// The f32 dK/dV (DKV) and dQ kernels at D = 128 n, n = 3..8, as clusters of
+// n CTAs along x (blockIdx.x / n the fixed tile of 64 rows, the cluster
+// rank r the columns 128 r .. 128 r + 127 of the head), each CTA the
+// products of the kernel above on its 128 columns of every plane, S^T and
+// dP^T (S and dP) summed over all of D across the cluster by
+// hopper.cuh:cluster_sum, so that every CTA holds the same P and dS to the
+// bit, and its columns of dK and dV (or dQ) stored.
+//
+// What held the kernel above when run at these widths (one consumer warpgroup,
+// 64-row swept tiles) at 2x SDPA: its one warpgroup waited out every
+// exchange (two a tile in dK/dV, 8,118 cycles each at D = 512; one of
+// 9,421 in dQ) and, with 3 slots of which each product reads 2, the load of
+// nearly every plane; the tensor cores had nothing else to do.  So here two
+// consumer warpgroups share the fixed rows' four planes (128 KB) and take
+// alternate swept tiles of 32 rows (TW_ROWS), each with a ring of its own
+// (3 slots of 16 KB, fed by a producer thread of its own), side entries and
+// exchange barriers of its own: one warpgroup's exchanges and loads run
+// under the other's products.  Half-height swept tiles are what lets the
+// second ring fit beside the fixed planes (227 KB in all); the score
+// products become m64n32k8, and per swept row the exchanges move what they
+// moved.  At 32 rows a warpgroup holds both score tiles (16 + 16 floats a
+// thread) beside dK and dV, so dK/dV exchanges S^T and dP^T at once, as dQ
+// exchanges S and dP: one exchange a tile where the kernel above takes two.  Per tile:
+// S^T = K Q^T and dP^T = V dO^T (S = Q K^T and dP = dO V^T), one exchange of
+// both through dO lo's (V lo's) slot, then dV += P^T dO and dK += dS^T Q
+// (dQ += dS K), planes in that order: Q, dO, dO^T, Q^T (K, V, K^T).
+//
+// Both warpgroups accumulate the same fixed rows: each flushes its dK and dV
+// (or dQ) into the output every TW_FLUSH of its tiles (48 steps a chain, as
+// T_FLUSH's) at the end of each window of 2 TW_FLUSH swept tiles, in two
+// phases, each warpgroup on one accumulator (dQ: one 64-column half) at a
+// time, the other's in the other phase: dV warpgroup 0 then 1, dK 1 then 0
+// (dQ's halves likewise), ordered by named barriers 1 and 2, so every sum
+// is taken in one order every run.  The first writer of the first window
+// stores; every later add is a reduction in L2 (red.global.add), which
+// returns nothing, so a flush waits for no load: the kernel above's load,
+// add and store took ~10,000 cycles a tile here (clock64 counters, D=512),
+// a third of the dK/dV kernel's time.  A warpgroup without a tile in a
+// window flushes its zeros.  A cluster reads what n CTAs of the D = 128 kernel read at the same
+// H * D, does their FLOPs, and has the same bound.
+constexpr int TW_ROWS = 32;                      // swept rows a tile
+constexpr int TW_PLANE = TW_ROWS * 4 * T_D;      // 32 rows x 128 f32 (or 128 x 32): 16 KB
+constexpr int TW_SLOTS = 3;                      // a consumer warpgroup's ring
+constexpr int TW_FLUSH = 4;                      // own tiles a chain: 4 x 12 steps
+
+// acc (this thread's part of 64 rows x 128, rows `row` and row + 8), or its
+// 64-column half `half` (0, 1; -1 for all), into columns c0 .. of the (B, S,
+// H, dw) output: stored, or added by reductions in L2 (add), 16 bytes each:
+// of two 8-column slices, the even lane of a pair (t, t ^ 1) takes 4
+// columns of the first and the odd lane 4 of the second, swapping halves
+// with its partner; those entries of acc are zeroed.
+__device__ __forceinline__ void flush_red(float* __restrict__ out, float (&acc)[T_D / 2],
+                                          int b, int S, int row, int H, int h, int t,
+                                          bool add, int c0, int dw, int half) {
+  const bool odd = t & 1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* at = out + (((long long)b * S + row + 8 * r) * H + h) * dw + c0 + 2 * (t & ~1);
+#pragma unroll
+    for (int m = 0; m < T_D / 16; ++m) {
+      if (half >= 0 && m / (T_D / 32) != half) continue;
+      const int i = 8 * m + 2 * r;                  // columns 16 m + 2 t, + 1; then 8 on
+      const float sx = __shfl_xor_sync(0xffffffffu, odd ? acc[i] : acc[i + 4], 1);
+      const float sy = __shfl_xor_sync(0xffffffffu, odd ? acc[i + 1] : acc[i + 5], 1);
+      const float4 v = odd ? make_float4(sx, sy, acc[i + 4], acc[i + 5])
+                           : make_float4(acc[i], acc[i + 1], sx, sy);
+      float4* dst = reinterpret_cast<float4*>(at + 16 * m + (odd ? 8 : 0));
+      if (add)
+        atomicAdd(dst, v);
+      else
+        *dst = v;
+      acc[i] = acc[i + 1] = acc[i + 4] = acc[i + 5] = 0.f;
+    }
+  }
+}
+
+struct BwdTf32WideSmem {
+  static constexpr int A1H = 0;                      // fixed: K (dK/dV) or Q (dQ), hi
+  static constexpr int A1L = A1H + T_PLANE;          //   and lo
+  static constexpr int A2H = A1L + T_PLANE;          // fixed: V or dO
+  static constexpr int A2L = A2H + T_PLANE;
+  static constexpr int RING = A2L + T_PLANE;         // warpgroup w's slots at RING + w RING_BYTES
+  static constexpr int RING_BYTES = TW_SLOTS * TW_PLANE;
+  static constexpr int FIXV = RING + 2 * RING_BYTES; // fixed rows' mask, or lse and delta
+  static constexpr int SIDE = FIXV + 2 * TILE * 4;   // warpgroup w's 2 stages at SIDE + 2 w SIDE_STAGE
+  static constexpr int SIDE_STAGE = 2 * TW_ROWS * 4; // lse and delta, or the mask, of a tile
+  // a warpgroup's full[S], free[S], sfull[2], sfree[2] and the exchange's four
+  static constexpr int WG_BARS = 2 * TW_SLOTS + 4 + 4;
+  static constexpr int BAR = SIDE + 4 * SIDE_STAGE;  // fix, then each warpgroup's
+  static constexpr int ALLOC = BAR + (1 + 2 * WG_BARS) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "a CTA's shared memory");
+};
+
+// Tensor maps: the fixed operands' natural planes (DKV tk, tv; dQ tq, to)
+// in boxes of TILE rows, the swept ones' (DKV tq, to; dQ tk, tv) in boxes of
+// TW_ROWS; tt1, tt2 transposed planes in boxes of 128 rows (DKV: dO^T, Q^T;
+// dQ: K^T, K^T); tm the mask and tl, td lse and delta in boxes of TILE
+// (fixed) or TW_ROWS (swept) entries.  DKV: dK into out1, dV into out2; else
+// dQ into out1.
+template <bool DKV>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap to,
+                           const __grid_constant__ CUtensorMap tt1,
+                           const __grid_constant__ CUtensorMap tt2,
+                           const __grid_constant__ CUtensorMap tm,
+                           const __grid_constant__ CUtensorMap tl,
+                           const __grid_constant__ CUtensorMap td,
+                           float* __restrict__ out1, float* __restrict__ out2,
+                           int Sq, int Skv, int H, int causal) {
+  using L = BwdTf32WideSmem;
+  constexpr int NP = DKV ? 8 : 6;       // planes per swept tile
+  constexpr int NS = TW_SLOTS, TR = TW_ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
+
+  // a warpgroup's exchange: S and dP, or S^T and dP^T (32 floats a thread),
+  // through a slot of its ring
+  constexpr int X_UNITS = 2 * TR / 8 * 128;
+  static_assert(cluster_region_units(X_UNITS) * 16 <= TW_PLANE, "the exchange fits a slot");
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const ClusterSum cs = cluster_sum_shape(X_UNITS, 128, tid);
+  const int c0 = cs.rank * T_D, dw = cs.n * T_D;   // this CTA's columns, the head's
+  const int f0 = blockIdx.x / cs.n * TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int s_fixed = DKV ? Skv : Sq;
+  // swept tiles i0 .. n-1 (skipped as in the kernel above, at 32 rows);
+  // warpgroup w takes the j-th of them for j = w, w + 2, ...
+  int i0 = 0, n = (DKV ? Sq : Skv) / TR;
+  if (causal) {
+    if (DKV) i0 = min(f0 / TR, n);
+    else n = min(n, (f0 + TILE - 1) / TR + 1);
+  }
+  const int N = n - i0;
+  const int windows = max(1, (N + 2 * TW_FLUSH - 1) / (2 * TW_FLUSH));
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_fix, 1);
+    for (int w = 0; w < 2; ++w) {
+      uint64_t* wb = bar_fix + 1 + w * L::WG_BARS;
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(wb + s, 1);
+        mbar_init(wb + NS + s, 4);
+      }
+      for (int e = 0; e < 2; ++e) {
+        mbar_init(wb + 2 * NS + e, 1);
+        mbar_init(wb + 2 * NS + 2 + e, 4);
+      }
+      cluster_sum_init(wb + 2 * NS + 4, cs.n, 128);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();                       // every CTA's barriers ready
+
+  if (wg == 2) {
+    // ---- producer warpgroup: thread 32 w (lane 0 of warp w) keeps
+    // warpgroup w's ring full; warp 0's also loads the fixed rows
+    setmaxnreg_dec<24>();
+    const int w = tid / 32;
+    if (tid % 32 == 0 && w < 2) {
+      uint64_t* wb = bar_fix + 1 + w * L::WG_BARS;
+      uint64_t* full = wb;
+      uint64_t* free_ = wb + NS;
+      uint64_t* sfull = wb + 2 * NS;
+      uint64_t* sfree = sfull + 2;
+      unsigned char* ring = sm + L::RING + w * L::RING_BYTES;
+      unsigned char* side = sm + L::SIDE + w * 2 * L::SIDE_STAGE;
+      if (w == 0) {
+        const CUtensorMap* ta1 = DKV ? &tk : &tq;
+        const CUtensorMap* ta2 = DKV ? &tv : &to;
+        mbar_arrive_expect_tx(bar_fix, 4 * T_PLANE + (DKV ? TILE * 4 : 2 * TILE * 4));
+        for (int pl = 0; pl < 2; ++pl)
+          for (int x = 0; x < 4; ++x) {
+            tma_load_4d(sm + (pl ? L::A1L : L::A1H) + x * TILE * ROW, ta1, bar_fix,
+                        c0 + FBOX * x, f0, bh, pl);
+            tma_load_4d(sm + (pl ? L::A2L : L::A2H) + x * TILE * ROW, ta2, bar_fix,
+                        c0 + FBOX * x, f0, bh, pl);
+          }
+        if (DKV) {
+          tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
+        } else {
+          tma_load_2d(sm + L::FIXV, &tl, bar_fix, f0, bh);
+          tma_load_2d(sm + L::FIXV + TILE * 4, &td, bar_fix, f0, bh);
+        }
+      }
+      for (int c = 0, j = w; j < N; ++c, j += 2) {
+        const int e = c % 2, r0 = (i0 + j) * TR;
+        mbar_wait(sfree + e, ((c / 2) & 1) ^ 1);
+        unsigned char* sv = side + e * L::SIDE_STAGE;
+        if (DKV) {
+          mbar_arrive_expect_tx(sfull + e, 2 * TR * 4);
+          tma_load_2d(sv, &tl, sfull + e, r0, bh);
+          tma_load_2d(sv + TR * 4, &td, sfull + e, r0, bh);
+        } else {
+          mbar_arrive_expect_tx(sfull + e, TR * 4);
+          tma_load_2d(sv, &tm, sfull + e, r0, b);
+        }
+        for (int q = 0; q < NP; ++q) {
+          const int p = c * NP + q, s = p % NS;
+          mbar_wait(free_ + s, ((p / NS) & 1) ^ 1);     // the first round passes
+          unsigned char* dst = ring + s * TW_PLANE;
+          mbar_arrive_expect_tx(full + s, TW_PLANE);
+          if (q < 4) {                                   // natural: 4 boxes of TR rows
+            const CUtensorMap* m = q < 2 ? (DKV ? &tq : &tk) : (DKV ? &to : &tv);
+            for (int x = 0; x < 4; ++x)
+              tma_load_4d(dst + x * TR * ROW, m, full + s, c0 + FBOX * x, r0, bh, q % 2);
+          } else {                                       // transposed: a box of 128 rows
+            tma_load_4d(dst, q < 6 && DKV ? &tt1 : &tt2, full + s, r0, c0, bh, q % 2);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: fixed rows f0 .. f0 + 63, swept tiles
+    // j = wg, wg + 2, ... (c counts them)
+    setmaxnreg_inc<240>();
+    const int warp = tid / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int fr = warp * 16 + lane / 4;             // this thread's rows: fr, fr + 8
+    const int row = f0 + fr;
+    uint64_t* wb = bar_fix + 1 + wg * L::WG_BARS;
+    uint64_t* full = wb;
+    uint64_t* free_ = wb + NS;
+    uint64_t* sfull = wb + 2 * NS;
+    uint64_t* sfree = sfull + 2;
+    uint64_t* xb = sfree + 2;
+    unsigned char* ring = sm + L::RING + wg * L::RING_BYTES;
+    const unsigned char* side = sm + L::SIDE + wg * 2 * L::SIDE_STAGE;
+    const uint64_t da1h = smem_desc_sw128(sm + L::A1H, 16), da1l = smem_desc_sw128(sm + L::A1L, 16);
+    const uint64_t da2h = smem_desc_sw128(sm + L::A2H, 16), da2l = smem_desc_sw128(sm + L::A2L, 16);
+    auto plane = [&](int p) { return ring + (p % NS) * TW_PLANE; };
+    auto wait_plane = [&](int p) { mbar_wait(full + p % NS, (p / NS) & 1); };
+    auto release = [&](int p) { if (lane == 0) mbar_arrive(free_ + p % NS); };
+
+    float acc1[T_D / 2], acc2[T_D / 2];             // dK and dV, or dQ alone
+#pragma unroll
+    for (int i = 0; i < T_D / 2; ++i) acc1[i] = acc2[i] = 0.f;
+
+    mbar_wait(bar_fix, 0);
+    bool keep[2];
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (DKV) {
+        keep[r] = reinterpret_cast<const int*>(sm + L::FIXV)[fr + 8 * r] != 0;
+      } else {
+        lse_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[fr + 8 * r];
+        dl_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[TILE + fr + 8 * r];
+      }
+    }
+
+    // d = A B^T over this CTA's 128 columns, A fixed (planes ah, al), B the
+    // swept planes p, p + 1 (TR rows): 16 k8 steps of three m64n32k8, the
+    // small terms first; then p is released (p + 1 only if rel2)
+    auto first = [&](float (&d)[TR / 2], uint64_t ah, uint64_t al, int p, bool rel2) {
+      wait_plane(p);
+      wait_plane(p + 1);
+      const uint64_t dbh = smem_desc_sw128(plane(p), 16);
+      const uint64_t dbl = smem_desc_sw128(plane(p + 1), 16);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < T_D / 8; ++kk) {
+        const uint32_t oa = ((kk / 4) * TILE * ROW + (kk % 4) * 32) / 16;
+        const uint32_t ob = ((kk / 4) * TR * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n32(d, ah + oa, dbl + ob, kk > 0);
+        wgmma_ss_tf32_n32(d, al + oa, dbh + ob, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < T_D / 8; ++kk) {
+        const uint32_t oa = ((kk / 4) * TILE * ROW + (kk % 4) * 32) / 16;
+        const uint32_t ob = ((kk / 4) * TR * ROW + (kk % 4) * 32) / 16;
+        wgmma_ss_tf32_n32(d, ah + oa, dbh + ob, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      release(p);
+      if (rel2) release(p + 1);
+    };
+    // acc += X B with X (64 x TR) from registers as hi and lo fragments, B
+    // the transposed planes p, p + 1 (one box of 128 rows): 4 k8 steps of
+    // three m64n128k8
+    auto last = [&](float (&acc)[T_D / 2], uint32_t (&xh)[TR / 8][4],
+                    uint32_t (&xl)[TR / 8][4], int p) {
+      wait_plane(p);
+      wait_plane(p + 1);
+      const uint64_t dbh = smem_desc_sw128(plane(p), 16);
+      const uint64_t dbl = smem_desc_sw128(plane(p + 1), 16);
+      fence_regs(acc);
+      fence_regs(xh);
+      fence_regs(xl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TR / 8; ++kk) {
+        wgmma_rs_tf32_n128(acc, xh[kk], dbh + kk * 2);
+        wgmma_rs_tf32_n128(acc, xh[kk], dbl + kk * 2);
+        wgmma_rs_tf32_n128(acc, xl[kk], dbh + kk * 2);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(xh);
+      fence_regs(xl);
+      release(p);
+      release(p + 1);
+    };
+    // the `parts` over this CTA's columns become their sums over all of D,
+    // through the slot of plane ps, which then goes back to the ring; x
+    // counts this warpgroup's exchanges
+    auto sum = [&](int ps, int x, auto&... parts) {
+      cluster_sum(cs, plane(ps), xb, x & 1, 128, tid, false, parts...);
+      fence_proxy_async();                           // read before the slot's next TMA write
+      __syncwarp();
+      release(ps);
+    };
+    // window w's flush, in two phases: warpgroup wg ^ phase's accumulator
+    // (dK/dV: 0 dV, 1 dK; dQ: the half); acc1 and acc2 are zeroed
+    auto flush = [&](int w) {
+      if (w > 0) named_barrier_sync<1>(256);         // both warpgroups' window w - 1 is in
+#pragma unroll
+      for (int phase = 0; phase < 2; ++phase) {
+        const int which = wg ^ phase;
+        const bool add = w > 0 || phase == 1;
+        if (!DKV)
+          flush_red(out1, acc1, b, s_fixed, row, H, h, t, add, c0, dw, which);
+        else if (which)
+          flush_red(out1, acc1, b, s_fixed, row, H, h, t, add, c0, dw, -1);
+        else
+          flush_red(out2, acc2, b, s_fixed, row, H, h, t, add, c0, dw, -1);
+        __threadfence();                             // performed in L2 before the other's
+        if (phase == 0) named_barrier_sync<2>(256);
+      }
+    };
+
+    int c = 0;
+    for (int j = wg; j < N; j += 2, ++c) {
+      const int p = c * NP, r0 = (i0 + j) * TR, e = c % 2;
+      float sc[TR / 2], dp[TR / 2];
+      uint32_t xh[TR / 8][4], xl[TR / 8][4];
+      first(sc, da1h, da1l, p, true);                // S^T = K Q^T, or S = Q K^T
+      first(dp, da2h, da2l, p + 2, false);           // dP^T = V dO^T, or dP = dO V^T
+      sum(p + 3, c, sc, dp);                         // both over all of D
+      mbar_wait(sfull + e, (c / 2) & 1);
+      const unsigned char* sv = side + e * L::SIDE_STAGE;
+      if (DKV) {
+        const float* lv = reinterpret_cast<const float*>(sv);
+        if (causal && r0 < f0 + TILE - 1)
+          probs_t<true, TR>(sc, dp, lv, lv + TR, keep, row, r0, t);
+        else
+          probs_t<false, TR>(sc, dp, lv, lv + TR, keep, row, r0, t);
+      } else {
+        const int* mk = reinterpret_cast<const int*>(sv);
+        if (causal && r0 + TR - 1 > f0)
+          probs<true, TR>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+        else
+          probs<false, TR>(sc, dp, mk, lse_r, dl_r, row, r0, t);
+      }
+      if (lane == 0) mbar_arrive(sfree + e);
+      if (DKV) {
+        split_acc_tf32(xh, xl, sc);
+        last(acc2, xh, xl, p + 4);                   // dV += P^T dO
+      }
+      split_acc_tf32(xh, xl, dp);
+      last(acc1, xh, xl, p + NP - 2);                // dK += dS^T Q, or dQ += dS K
+      if (c % TW_FLUSH == TW_FLUSH - 1 || j + 2 >= N) flush(c / TW_FLUSH);
+    }
+    for (int w = (c + TW_FLUSH - 1) / TW_FLUSH; w < windows; ++w) flush(w);
+  }
+  cluster_sync();                       // no CTA leaves while a peer may reach it
 }
 
 typedef long long ll;
@@ -1682,29 +2041,34 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
   const void* t1 = DKV ? ot : kt;
   const void* t2 = DKV ? qt : kt;
   const int t_cols = DKV ? Sq : Skv;
+  // rows a box: TILE, but the swept operands' TW_ROWS past D = 256
+  const int swept = D > 256 ? TW_ROWS : TILE;
+  const int q_rows = DKV ? swept : TILE, kv_rows = DKV ? TILE : swept;
   CUtensorMap tq, tk, tv, to, tt1, tt2, tm, tl, td;
-  CUresult r = plane_map(enc, &tq, q, BH, Sq, D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &to, dout, BH, Sq, D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, BH, Skv, D, TILE);
-  if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, BH, Skv, D, TILE);
+  CUresult r = plane_map(enc, &tq, q, BH, Sq, D, q_rows);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &to, dout, BH, Sq, D, q_rows);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tk, k, BH, Skv, D, kv_rows);
+  if (r == CUDA_SUCCESS) r = plane_map(enc, &tv, v, BH, Skv, D, kv_rows);
   if (r == CUDA_SUCCESS) r = plane_map(enc, &tt1, t1, BH, D, t_cols, T_D);
   if (r == CUDA_SUCCESS) r = plane_map(enc, &tt2, t2, BH, D, t_cols, T_D);
-  if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, TILE);
+  if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, kv_rows);
   if (r == CUDA_SUCCESS)
-    r = rows_map(enc, &tl, lse, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    r = rows_map(enc, &tl, lse, BH, Sq, q_rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r == CUDA_SUCCESS)
-    r = rows_map(enc, &td, delta, BH, Sq, TILE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    r = rows_map(enc, &td, delta, BH, Sq, q_rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   const int tiles = (DKV ? Skv : Sq) / TILE;
-  if (D > 128)    // a pair at D = 256, a cluster of D / 128 CTAs past it
-    return launch_cluster(D == 256 ? flash_bwd_tf32_kernel<DKV, 256>
-                                   : flash_bwd_tf32_kernel<DKV, CLUSTER_D>,
-                          D / T_D, dim3(D / T_D * tiles, H, B), 256, BwdTf32Smem::ALLOC, st,
-                          tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2,
+  const dim3 grid(D / T_D * tiles, H, B);
+  if (D > 256)    // a cluster of D / 128 CTAs
+    return launch_cluster(flash_bwd_wide_tf32_kernel<DKV>, D / T_D, grid, 384,
+                          BwdTf32WideSmem::ALLOC, st, tq, tk, tv, to, tt1, tt2, tm, tl, td,
+                          (float*)out1, (float*)out2, Sq, Skv, H, causal);
+  if (D == 256)   // a pair
+    return launch_cluster(flash_bwd_tf32_kernel<DKV, 256>, 2, grid, 256, BwdTf32Smem::ALLOC,
+                          st, tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2,
                           Sq, Skv, H, causal);
   cudaFuncSetAttribute(flash_bwd_tf32_kernel<DKV, 128>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, BwdTf32Smem::ALLOC);
-  dim3 grid(tiles, H, B);
   flash_bwd_tf32_kernel<DKV, 128><<<grid, 256, BwdTf32Smem::ALLOC, st>>>(
       tq, tk, tv, to, tt1, tt2, tm, tl, td, (float*)out1, (float*)out2, Sq, Skv, H, causal);
   return (int)cudaGetLastError();
@@ -1842,4 +2206,29 @@ extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void
   else
     tf32_split_kernel<256><<<grid, 256, 0, st>>>(a, B, H);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of the backward's dK/dV (which = 1) or dQ (which = 0)
+// kernel at head width D (256 .. 1024) and type `dtype` the card holds at
+// once (cudaOccupancyMaxActiveClusters, 0 where it holds none); the
+// cluster's size into *size (1 where the kernel runs no cluster, and the
+// answer is then 0).
+extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
+  int* n = static_cast<int*>(size);
+  *n = 1;
+  if (!head_dim_taken(D) || D < 256 || (dtype == 1 && D == 256)) return 0;
+  *n = D / T_D;
+  auto ask = [&](auto kernel, int threads, int smem) {
+    return max_active_clusters(kernel, *n, threads, smem);
+  };
+  if (dtype == 1)
+    return which ? ask(flash_bwd_wgmma_kernel<true, CLUSTER_D>, 128 * (NWG + 1),
+                       BwdSmem<CLUSTER_D>::ALLOC)
+                 : ask(flash_bwd_wgmma_kernel<false, CLUSTER_D>, 128 * (NWG + 1),
+                       BwdSmem<CLUSTER_D>::ALLOC);
+  if (D == 256)
+    return which ? ask(flash_bwd_tf32_kernel<true, 256>, 256, BwdTf32Smem::ALLOC)
+                 : ask(flash_bwd_tf32_kernel<false, 256>, 256, BwdTf32Smem::ALLOC);
+  return which ? ask(flash_bwd_wide_tf32_kernel<true>, 384, BwdTf32WideSmem::ALLOC)
+               : ask(flash_bwd_wide_tf32_kernel<false>, 384, BwdTf32WideSmem::ALLOC);
 }

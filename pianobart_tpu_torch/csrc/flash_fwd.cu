@@ -57,15 +57,16 @@
 // reads what one D = 128 CTA reads, so the L2 traffic and the FLOPs a CTA
 // equal the D = 128 kernel's at the same B, and so does the bound.
 //
-// At D = 384 .. 1024 (D = 128 n) both types run as clusters of n CTAs, one
-// per 128 columns of the head: bf16 the template's instance <false, false,
-// CLUSTER_D> (flash_fwd_bf16.cuh), f32 flash_fwd_tf32_kernel<CLUSTER_D>, the
-// pair's design with its exchange generalised (hopper.cuh:cluster_sum: a
-// reduce-scatter then an all-gather of S through K lo's slot).  A cluster
-// does the FLOPs and reads the bytes of n D = 128 CTAs at the same H * D:
-// the bound is the D = 128 one (--heads 2, D = 512 H = 2, has the
-// flagship's H * D).  The card holds clusters of up to 8 CTAs portably;
-// launch_cluster refuses a cluster it cannot hold.
+// At D = 384 .. 1024 (D = 128 n) both types run as clusters: bf16 of
+// ceil(D / 256) CTAs of the D = 256 design, each on 256 columns of the head
+// (flash_fwd_d256.cuh, flash_fwd_d256_wgmma_kernel<true>), f32 of n CTAs,
+// one per 128 columns, flash_fwd_tf32_kernel<CLUSTER_D>, the pair's design
+// with its exchange generalised; both sum S across the cluster
+// (hopper.cuh:cluster_sum: a reduce-scatter then an all-gather).  A cluster
+// does the FLOPs and reads the bytes of the CTAs of the narrower design at
+// the same H * D: the bound is the D = 128 one (--heads 2, D = 512 H = 2,
+// has the flagship's H * D).  The card holds clusters of up to 8 CTAs
+// portably; launch_cluster refuses a cluster it cannot hold.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
 #include "flash_fwd_d256.cuh"
@@ -359,19 +360,6 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   if constexpr (PAIR || WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
 }
 
-// K1 at D = 128 n (n = 3..8) as clusters of n CTAs, over maps of the whole
-// width (each CTA loads its 128 columns); returns launch_cluster's code.
-inline int launch_fwd_bf16_wide(const CUtensorMap& tq, const CUtensorMap& tk,
-                                const CUtensorMap& tv, const CUtensorMap& tm, void* o,
-                                void* lse, int B, int Sq, int Skv, int H, int D, int causal,
-                                cudaStream_t st) {
-  const int n = D / 128;
-  return launch_cluster(flash_fwd_wgmma_kernel<false, false, CLUSTER_D>, n,
-                        dim3(n * ((Sq + K1_BM - 1) / K1_BM), H, B), 128 * (K1_WG + 1),
-                        K1Smem<CLUSTER_D>::ALLOC, st, tq, tk, tv, tm, (__nv_bfloat16*)o,
-                        (float*)lse, Sq, Skv, H, causal, K1_UNITS);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..8.  bf16: q, k, v (B, S,
@@ -379,9 +367,9 @@ inline int launch_fwd_bf16_wide(const CUtensorMap& tq, const CUtensorMap& tk,
 // f32: q and k are the natural split planes of pbt_tf32_split (flash_bwd.cu)
 // and v its transposed planes; the strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
 // a tensor map the driver refused (1000 alone where the driver offers no
-// encoder), CLUSTER_ERROR + n where the card cannot hold a cluster of n =
-// D / 128 CTAs of the kernel (D >= 384), or cudaErrorInvalidValue for
-// another D.
+// encoder), CLUSTER_ERROR + n where the card cannot hold a cluster of n
+// CTAs of the kernel (D >= 256: f32 n = D / 128, bf16 ceil(D / 256) past
+// 256), or cudaErrorInvalidValue for another D.
 extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int D, int dtype, int causal,
@@ -402,10 +390,8 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     if (r == CUDA_SUCCESS) r = qkv_map(enc, &tv, v, B, Skv, H, vsb, vss, vsh, K1_BN, D);
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, K1_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
-    if (D == 256)
-      return launch_fwd_d256(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal, st);
-    if (D > 256)
-      return launch_fwd_bf16_wide(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, D, causal, st);
+    if (D >= 256)
+      return launch_fwd_d256(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, D, causal, st);
     return launch_fwd_bf16<false, false, 128>(tq, tk, tv, tm, o, lse, B, Sq, Skv, H, causal,
                                               K1_UNITS, st);
   } else {
@@ -428,4 +414,25 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
         tq, tk, tv, tm, (float*)o, (float*)lse, Sq, Skv, H, causal);
   }
   return (int)cudaGetLastError();
+}
+
+// How many clusters of K1's kernel at head width D (D = 256 .. 1024) and
+// type `dtype` the card holds at once (cudaOccupancyMaxActiveClusters, 0
+// where it holds none); the cluster's size into *size (1 where the kernel runs
+// no cluster, and the answer is then 0).
+extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
+  int* n = static_cast<int*>(size);
+  (void)which;
+  *n = 1;
+  if (!head_dim_taken(D) || D < 256) return 0;
+  if (dtype == 1) {
+    if (D == 256) return 0;
+    *n = (D + K1W_D - 1) / K1W_D;
+    return max_active_clusters(flash_fwd_d256_wgmma_kernel<true>, *n, 128 * (K1_WG + 1),
+                               K1D256Smem<true>::ALLOC);
+  }
+  *n = D / F_D;
+  return max_active_clusters(D == 256 ? flash_fwd_tf32_kernel<256>
+                                      : flash_fwd_tf32_kernel<CLUSTER_D>,
+                             *n, 128 * (K1_WG + 1), K1F32Smem::ALLOC);
 }

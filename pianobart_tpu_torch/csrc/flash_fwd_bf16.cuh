@@ -3,8 +3,8 @@
 // <false, false, 128>, and the kernel lab (flash_lab.cu) changes one option
 // of it at a time, so that the lab measures the option and nothing else.
 // The template is at head width D = 128; K1 at D = 256 is a kernel of its
-// own design, flash_fwd_d256.cuh, and K1 at D = 384 .. 1024 is the
-// template's instance <false, false, CLUSTER_D> (below).
+// own design, flash_fwd_d256.cuh, which also runs D = 384 .. 1024 as
+// clusters of its CTAs.
 //
 // Contract (K1's): q, k, v (B, S, H, D) bf16 through their strides, q
 // pre-scaled by the caller; kv_mask (B, Skv) int32, nonzero = attend; causal
@@ -73,23 +73,6 @@
 // third product is its own extra cost, not the function's.  Left on the
 // table: ping-pong scheduling of the two consumer warpgroups, a persistent
 // schedule, a TMA store of O, clusters with TMA multicast of K and V.
-//
-// Wide heads (D = 128 n, n = 3..8): the instance <false, false, CLUSTER_D>
-// runs as clusters of n CTAs along x (blockIdx.x / n the q tile, the
-// cluster rank r the columns 128 r .. 128 r + 127 of the head), each the
-// D = 128 kernel above on its columns of Q, K and V, storing its columns of
-// O.  S = Q K^T sums over all of D: after S of a tile is in, each consumer
-// warpgroup sums its 64 x 128 f32 S (32 KB) across the cluster with the
-// same warpgroup of every peer (hopper.cuh:cluster_sum, a reduce-scatter
-// then an all-gather through a 32 KB region of its own), so every CTA
-// holds the same S, softmax, P and lse to the bit; rank 0 stores lse.  The
-// exchange waits for O += P V of the tile before, so that P's fragments and
-// O's accumulators are not held around it (fewer spills); the other
-// consumer warpgroup's products run under it.  The two regions take 64 KB,
-// so the ring keeps 2 stages of 128 kv rows where the D = 128 instance
-// keeps 3 (kv tiles of 64 rows would keep 3 stages but halve each
-// product's width and double the exchanges).  A cluster reads what n CTAs of the D = 128 kernel read at
-// the same H * D, and does their FLOPs: the same bound.
 #pragma once
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -101,34 +84,25 @@ constexpr int K1_BM = 64 * K1_WG;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LOG2E_BF16 = 1.4453125f;   // bf16(log2 e)
 
-// kv rows per stage and stages at head width D (CLUSTER_D: a cluster's CTA)
+// kv rows per stage and stages at head width D
 template <int D>
 struct K1Tiles {
-  static_assert(D == 128 || D == CLUSTER_D,
-                "the template's head width; D = 256 is flash_fwd_d256.cuh");
+  static_assert(D == 128, "the template's head width; D = 256 is flash_fwd_d256.cuh");
   static constexpr int BN = 128;
-  static constexpr int STAGES = D == CLUSTER_D ? 2 : 3;
+  static constexpr int STAGES = 3;
 };
 constexpr int K1_BN = K1Tiles<128>::BN;   // the lab's (D = 128) kv rows per stage
 
 // Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
 template <int D>
 struct K1Smem {
-  static constexpr bool WIDE = D == CLUSTER_D;
-  static constexpr int W = WIDE ? 128 : D;                      // head columns a CTA
   static constexpr int BM = K1_BM, BN = K1Tiles<D>::BN, NS = K1Tiles<D>::STAGES;
-  static constexpr int Q = 0;                                   // W/64 boxes of BM rows
-  static constexpr int K = Q + BM * 2 * W;                      // per stage W/64 boxes of BN rows
-  static constexpr int V = K + NS * BN * 2 * W;
-  static constexpr int MASK = V + NS * BN * 2 * W;              // per stage BN int32
-  // a cluster's exchange: per consumer warpgroup a region of its S (64 x BN f32)
-  static constexpr int X_UNITS = BN / 8 * 128;
-  static constexpr int X = MASK + NS * BN * 4;
-  static constexpr int X_REGION = cluster_region_units(X_UNITS) * 16;
-  // Q, K[S], V[S], free[S]; a cluster's four a warpgroup (cluster_sum_init)
-  static constexpr int BAR = X + (WIDE ? K1_WG * X_REGION : 0);
-  static constexpr int ALLOC = BAR + (1 + 3 * NS + (WIDE ? 4 * K1_WG : 0)) * 8 + 1024;
-  static_assert(ALLOC <= 232448, "a CTA's shared memory");
+  static constexpr int Q = 0;                                   // D/64 boxes of BM rows
+  static constexpr int K = Q + BM * 2 * D;                      // per stage D/64 boxes of BN rows
+  static constexpr int V = K + NS * BN * 2 * D;
+  static constexpr int MASK = V + NS * BN * 2 * D;              // per stage BN int32
+  static constexpr int BAR = MASK + NS * BN * 4;                // Q, K[S], V[S], free[S]
+  static constexpr int ALLOC = BAR + (1 + 3 * NS) * 8 + 1024;
 };
 
 // The run-time options of the lab's instances (see the header); K1's
@@ -304,8 +278,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using L = K1Smem<D>;
   constexpr int NWG = K1_WG;
   constexpr int BM = L::BM, BN = L::BN, NS = L::NS;
-  constexpr bool WIDE = L::WIDE;
-  constexpr int W = L::W;                // head columns of this CTA
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -321,11 +293,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const bool lse_log2 = LAB && u.lse_log2;
   const bool q_log2e_bf16 = LAB && u.q_log2e_bf16;
   static_assert(!LAB || D == 128, "the lab's instances are at D = 128");
-  ClusterSum cs = {1, 0, 0, 0};
-  if constexpr (WIDE) cs = cluster_sum_shape(L::X_UNITS, 128, threadIdx.x % 128);
-  const int c0 = cs.rank * W;            // a cluster's CTA: its first column of the head
-  const int q0 = (WIDE ? blockIdx.x / cs.n : blockIdx.x) * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int wg = threadIdx.x / 128;
   int n_tiles = (Skv + BN - 1) / BN;
   if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // skip tiles above the diagonal
@@ -337,26 +305,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_v + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
-    if constexpr (WIDE)
-      for (int g = 0; g < NWG; ++g) cluster_sum_init(bar_free + NS + 4 * g, cs.n, 128);
     mbar_fence_init();
   }
-  if constexpr (WIDE) cluster_sync();    // every CTA's barriers ready
-  else __syncthreads();
+  __syncthreads();
 
   if (wg == NWG) {
     // ---- producer warpgroup: one thread keeps the ring full
     setmaxnreg_dec<24>();
     if (threadIdx.x == 128 * NWG) {
-      mbar_arrive_expect_tx(bar_q, BM * 2 * W);
+      mbar_arrive_expect_tx(bar_q, BM * 2 * D);
 #pragma unroll
-      for (int x = 0; x < W / BOX; ++x)
-        tma_load_4d(sm + L::Q + x * BM * ROW, &tq, bar_q, c0 + x * BOX, h, q0, b);
+      for (int x = 0; x < D / BOX; ++x)
+        tma_load_4d(sm + L::Q + x * BM * ROW, &tq, bar_q, x * BOX, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % NS, kv0 = j * BN;
         mbar_wait(bar_free + s, ((j / NS) & 1) ^ 1);   // the first round passes
-        unsigned char* kt = sm + L::K + s * BN * 2 * W;
-        unsigned char* vt = sm + L::V + s * BN * 2 * W;
+        unsigned char* kt = sm + L::K + s * BN * 2 * D;
+        unsigned char* vt = sm + L::V + s * BN * 2 * D;
         if constexpr (KT) {
           // K^T: 64 kv columns of the 128 d rows a box.  A box wholly past
           // Skv is not loaded: its columns of S are masked (the mask's zero
@@ -366,16 +331,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           tma_load_4d(kt, &tk, bar_k + s, kv0, 0, h, b);
           if (second) tma_load_4d(kt + D * ROW, &tk, bar_k + s, kv0 + BOX, 0, h, b);
         } else {                      // K: 64 d columns of the BN kv rows a box
-          mbar_arrive_expect_tx(bar_k + s, BN * 2 * W + BN * 4);
+          mbar_arrive_expect_tx(bar_k + s, BN * 2 * D + BN * 4);
 #pragma unroll
-          for (int x = 0; x < W / BOX; ++x)
-            tma_load_4d(kt + x * BN * ROW, &tk, bar_k + s, c0 + x * BOX, h, kv0, b);
+          for (int x = 0; x < D / BOX; ++x)
+            tma_load_4d(kt + x * BN * ROW, &tk, bar_k + s, x * BOX, h, kv0, b);
         }
         tma_load_2d(sm + L::MASK + s * BN * 4, &tm, bar_k + s, kv0, b);
-        mbar_arrive_expect_tx(bar_v + s, BN * 2 * W);
+        mbar_arrive_expect_tx(bar_v + s, BN * 2 * D);
 #pragma unroll
-        for (int x = 0; x < W / BOX; ++x)
-          tma_load_4d(vt + x * BN * ROW, &tv, bar_v + s, c0 + x * BOX, h, kv0, b);
+        for (int x = 0; x < D / BOX; ++x)
+          tma_load_4d(vt + x * BN * ROW, &tv, bar_v + s, x * BOX, h, kv0, b);
       }
     }
   } else {
@@ -388,34 +353,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int wrow0 = q0 + wg * 64;
     const int row = wrow0 + warp * 16 + lane / 4;   // this thread's rows: row, row + 8
     const uint64_t dq = smem_desc_sw128(sm + L::Q + wg * 64 * ROW, 16);
-    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * W; };
-    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * W; };
+    auto k_tile = [&](int s) { return sm + L::K + s * BN * 2 * D; };
+    auto v_tile = [&](int s) { return sm + L::V + s * BN * 2 * D; };
     auto m_tile = [&](int s) { return reinterpret_cast<const int*>(sm + L::MASK + s * BN * 4); };
 
-    float acc[W / 2];                                // O, 64 rows x W per warpgroup
+    float acc[D / 2];                                // O, 64 rows x D per warpgroup
 #pragma unroll
-    for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m_i[2] = {NEG_INF, NEG_INF};               // score domain
     float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
     float sc[BN / 2], corr[2];
     PFrags<SPLIT_P, BN> pa;                          // P as A fragments
-    // a cluster: S over this CTA's columns becomes S over all of D (this
-    // warpgroup's region and barriers; x counts its exchanges)
-    uint32_t x = 0;
-    auto sum_s = [&]() {
-      if constexpr (WIDE)
-        cluster_sum(cs, sm + L::X + wg * L::X_REGION, bar_free + NS + 4 * wg, x++ & 1, 128,
-                    tid, true, sc);
-    };
 
     mbar_wait(bar_q, 0);
     if constexpr (LAB)
       if (q_log2e_bf16) scale_q_log2e_bf16(sm + L::Q, wg, tid);
     mbar_wait(bar_k, 0);
-    issue_qk<KT, W>(sc, dq, k_tile(0));
+    issue_qk<KT, D>(sc, dq, k_tile(0));
     wgmma_wait<0>();
     fence_regs(sc);
-    sum_s();
     // the causal mask where the diagonal crosses this warpgroup's rows
     auto softmax = [&](int s, int kv0) {
       if (causal && kv0 + BN - 1 > wrow0)
@@ -428,24 +384,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int j = 1; j < n_tiles; ++j) {
       const int s = j % NS, sp = (j - 1) % NS;
       mbar_wait(bar_k + s, (j / NS) & 1);
-      issue_qk<KT, W>(sc, dq, k_tile(s));
+      issue_qk<KT, D>(sc, dq, k_tile(s));
       mbar_wait(bar_v + sp, ((j - 1) / NS) & 1);
       fence_regs(acc);
-      issue_pv<SPLIT_P, W>(acc, pa, v_tile(sp));
-      // S of tile j is in (a cluster's CTA also waits for O of tile j-1,
-      // whose P fragments and accumulators then stay out of the registers
-      // its exchange needs)
-      wgmma_wait<WIDE ? 0 : 1>();
+      issue_pv<SPLIT_P, D>(acc, pa, v_tile(sp));
+      wgmma_wait<1>();                               // S of tile j is in
       fence_regs(sc);
-      if constexpr (WIDE) fence_regs(acc);
-      sum_s();
       softmax(s, j * BN);
       fence_regs(sc);                                // p computed before the wait
       wgmma_wait<0>();                               // O of tile j-1 is in
       fence_regs(acc);
       if (lane == 0) mbar_arrive(bar_free + sp);     // stage j-1 may be refilled
 #pragma unroll
-      for (int dt = 0; dt < W / 8; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
         acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
       }
@@ -454,7 +405,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int last = (n_tiles - 1) % NS;
     mbar_wait(bar_v + last, ((n_tiles - 1) / NS) & 1);
     fence_regs(acc);
-    issue_pv<SPLIT_P, W>(acc, pa, v_tile(last));
+    issue_pv<SPLIT_P, D>(acc, pa, v_tile(last));
     wgmma_wait<0>();
     fence_regs(acc);
 
@@ -469,26 +420,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      __nv_bfloat16* orow =
-          o + (((long long)b * Sq + rr) * H + h) * (WIDE ? (int)cs.n * W : D) + c0;
+      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * D;
       const float inv = 1.f / l_i[r];
 #pragma unroll
-      for (int dt = 0; dt < W / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt)
         *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
             pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
-      if (t == 0 && cs.rank == 0) {   // a fully masked row keeps the -1e30 sentinel under lse_log2
+      if (t == 0) {   // a fully masked row keeps the -1e30 sentinel under lse_log2
         const float m = lse_log2 && m_i[r] != NEG_INF ? m_i[r] * c : m_i[r];
         lse[((long long)b * H + h) * Sq + rr] = m + (lse_log2 ? log2f(l_i[r]) : logf(l_i[r]));
       }
     }
   }
-  if constexpr (WIDE) cluster_sync();    // no CTA leaves while a peer may reach it
 }
 
 // One launch of flash_fwd_wgmma_kernel<KT, SPLIT_P, D> over the maps of q
 // (boxes of K1_BM rows), k or K^T, v (K1Tiles<D>::BN rows) and the mask
-// (K1Tiles<D>::BN keys); returns cudaGetLastError().  D = 128 (K1's
-// instance and the lab's); K1's wide heads: flash_fwd.cu:launch_fwd_bf16_wide.
+// (K1Tiles<D>::BN keys); returns cudaGetLastError().
 template <bool KT, bool SPLIT_P, int D = 128>
 inline int launch_fwd_bf16(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                            const CUtensorMap& tm, void* o, void* lse, int B, int Sq, int Skv,

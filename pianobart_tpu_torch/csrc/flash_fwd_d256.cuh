@@ -54,6 +54,33 @@
 // warp keeps whole, and O rescaled only when a row's max grows by more than
 // 2^8.  Rows past Sq are not stored.  PERF.md (section 6) has the variants
 // measured and dropped.
+//
+// Wide heads (D = 384 .. 1024): the instance <true>, clusters of
+// n = ceil(D / 256) of these CTAs along x (blockIdx.x / n the q tile, the
+// cluster rank r the columns 256 r .. 256 r + 255 of the head), each the
+// design above on its columns of Q, K and V, storing its columns of O.
+// S = Q K^T sums over all of D: once a warpgroup's S of a tile is in, it
+// releases K's slots and sums its 64 x 128 f32 S (32 KB) across the
+// cluster with the same warpgroup of every peer, through a 32 KB region of
+// its own: a pair (D = 384, 512) in one round, each CTA storing all its S
+// into the other's region (hopper.cuh:pair_sum2), four CTAs (896, 1024) in
+// two such rounds, with rank ^ 1 then rank ^ 2 (pair_sum4), three (640, 768)
+// as a reduce-scatter then an all-gather (cluster_sum); so every CTA holds
+// the same S, softmax, P, l and lse to the bit; rank 0 stores lse.  Clusters
+// of D / 128 CTAs of the D = 128 design move 1.5x S through
+// distributed shared memory for every 128 columns of products (n = 4 at
+// D = 512), in two rounds; here a CTA does the products of 256 columns for
+// each exchange, and at n = 2 an exchange moves 1.0x S in one round: a third
+// of the bytes a FLOP at D = 512, 1.75x / (1.5x / 2) = 2.3x fewer at
+// D = 1024.  Where D is not a multiple of 256 (384, 640, 896) the last
+// CTA's upper 128 columns lie past D: TMA fills its Q, K and V boxes there
+// with zeros, so every CTA runs the same code, those columns add nothing to
+// S, and their O is not stored (at D = 384, 4/3 of the products the function
+// needs).  The two 32 KB
+// regions take the room of one ring slot: the ring keeps 3 (K lo, K hi,
+// V lo; V hi lands in K lo's slot once both warpgroups' S of the tile is
+// in).  A cluster reads what ceil(D / 256) CTAs at D = 256 read at the same
+// H, and does their FLOPs: at H * D = 1024 the bound is the D = 256 one.
 #pragma once
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
@@ -63,11 +90,7 @@ namespace pbt {
 
 constexpr int K1W_D = 256;              // the head width of this design
 constexpr int K1W_BN = 128;             // kv rows a tile
-constexpr int K1W_SLOTS = 4;            // ring of half-D slots
 constexpr int K1W_SLOT = K1W_BN * 2 * 128;   // 128 kv rows x 128 d columns: 32 KB
-static_assert(K1W_SLOTS >= 4 && K1W_SLOTS <= 6,
-              "a tile's four slots fit the ring, and tile j+2's mask entries land "
-              "only after tile j's softmax has read them (slot of V lo j or later)");
 
 // This thread's keep bits of a tile's BN mask entries: bit 2*nt + e is
 // column 8*nt + 2*t + e, the columns of its accumulator entries.  Read while
@@ -142,27 +165,43 @@ __device__ __forceinline__ void softmax_d256(float (&sc)[K1W_BN / 2], uint32_t k
   for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * corr[r] + ls[r];
 }
 
-// Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
+// Shared memory, in bytes from a 1024-aligned base (the swizzle atom); WIDE,
+// a cluster's CTA.
+template <bool WIDE>
 struct K1D256Smem {
+  static constexpr int NS = WIDE ? 3 : 4;                     // ring of half-D slots
+  static_assert(NS >= 3 && NS <= 6,
+                "a tile's K fits the ring beside one more slot, and tile j+2's mask "
+                "entries land only after tile j's softmax has read them (with its K lo, "
+                "in the slot of K hi j+1, K lo j+1 or V lo j)");
   static constexpr int Q = 0;                                 // 4 boxes of K1_BM rows
   static constexpr int RING = Q + K1_BM * 2 * K1W_D;          // slots of 2 boxes of BN rows
-  static constexpr int MASK = RING + K1W_SLOTS * K1W_SLOT;    // two tiles' BN int32
-  static constexpr int BAR = MASK + 2 * K1W_BN * 4;           // Q, full[S], free[S]
-  static constexpr int ALLOC = BAR + (1 + 2 * K1W_SLOTS) * 8 + 1024;
+  static constexpr int MASK = RING + NS * K1W_SLOT;           // two tiles' BN int32
+  // a cluster's exchange: per consumer warpgroup a region of its S (64 x BN f32)
+  static constexpr int X_UNITS = K1W_BN / 8 * 128;
+  static constexpr int X = MASK + 2 * K1W_BN * 4;
+  static constexpr int X_REGION = X_UNITS * 16;      // all of S: pair_sum's, at n = 2
+  static_assert(X_UNITS >= cluster_region_units(X_UNITS), "cluster_sum's, at n = 3 and 4");
+  // Q, full[S], free[S]; a cluster's four a warpgroup (pair_sum_init, or
+  // cluster_sum_init at n = 3)
+  static constexpr int BAR = X + (WIDE ? K1_WG * X_REGION : 0);
+  static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? 4 * K1_WG : 0)) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "a CTA's shared memory");
 };
-static_assert(K1D256Smem::ALLOC <= 232448, "a CTA's shared memory");
 
 // The tensor maps: q in boxes of K1_BM rows, k and v of K1W_BN rows (each
-// box 64 d columns), the mask in boxes of K1W_BN keys.
+// box 64 d columns), the mask in boxes of K1W_BN keys.  WIDE: a cluster's
+// CTA (see the header), dw the head width (D = 256 reads none).
+template <bool WIDE>
 __global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
 flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap tm,
                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                            int Sq, int Skv, int H, int causal) {
-  using L = K1D256Smem;
-  constexpr int NWG = K1_WG, BM = K1_BM, BN = K1W_BN, D = K1W_D, NS = K1W_SLOTS;
+                            int Sq, int Skv, int H, int causal, int dw) {
+  using L = K1D256Smem<WIDE>;
+  constexpr int NWG = K1_WG, BM = K1_BM, BN = K1W_BN, D = K1W_D, NS = L::NS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -170,7 +209,11 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* bar_full = bar_q + 1;       // slot s landed
   uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  ClusterSum cs = {1, 0, 0, 0};
+  if constexpr (WIDE) cs = cluster_sum_shape(L::X_UNITS, 128, threadIdx.x % 128);
+  const int c0 = cs.rank * D;                       // a cluster's CTA: its first column
+  const int q0 = (WIDE ? blockIdx.x / cs.n : blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int wg = threadIdx.x / 128;
   int n_tiles = (Skv + BN - 1) / BN;
   if (causal) n_tiles = min(n_tiles, q0 / BN + 1);  // skip tiles above the diagonal
@@ -182,9 +225,15 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
+    if constexpr (WIDE)
+      for (int g = 0; g < NWG; ++g) {
+        if (cs.n == 3) cluster_sum_init(bar_free + NS + 4 * g, cs.n, 128);
+        else pair_sum_init(bar_free + NS + 4 * g);
+      }
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (WIDE) cluster_sync();    // every CTA's barriers ready
+  else __syncthreads();
 
   if (wg == NWG) {
     // ---- producer warpgroup: one thread keeps the ring full
@@ -193,16 +242,16 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive_expect_tx(bar_q, BM * 2 * D);
 #pragma unroll
       for (int x = 0; x < D / BOX; ++x)
-        tma_load_4d(sm + L::Q + x * BM * ROW, &tq, bar_q, x * BOX, h, q0, b);
+        tma_load_4d(sm + L::Q + x * BM * ROW, &tq, bar_q, c0 + x * BOX, h, q0, b);
       for (int it = 0; it < n_items; ++it) {
         const int s = it % NS, j = it / 4, kind = it % 4, kv0 = j * BN;
-        const int c0 = (kind & 1) * (D / 2);        // lo or hi half of the head
+        const int c = c0 + (kind & 1) * (D / 2);    // lo or hi half of the CTA's columns
         const void* map = kind < 2 ? &tk : &tv;
         mbar_wait(bar_free + s, ((it / NS) & 1) ^ 1);   // the first round passes
         unsigned char* dst = sm + L::RING + s * K1W_SLOT;
         mbar_arrive_expect_tx(bar_full + s, K1W_SLOT + (kind == 0 ? BN * 4 : 0));
-        tma_load_4d(dst, map, bar_full + s, c0, h, kv0, b);
-        tma_load_4d(dst + BN * ROW, map, bar_full + s, c0 + BOX, h, kv0, b);
+        tma_load_4d(dst, map, bar_full + s, c, h, kv0, b);
+        tma_load_4d(dst + BN * ROW, map, bar_full + s, c + BOX, h, kv0, b);
         if (kind == 0) tma_load_2d(sm + L::MASK + (j & 1) * BN * 4, &tm, bar_full + s, kv0, b);
       }
     }
@@ -255,6 +304,16 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
       release(it);
       release(it + 1);
+      if constexpr (WIDE) {   // S over all of D; j counts this warpgroup's exchanges
+        unsigned char* region = sm + L::X + wg * L::X_REGION;
+        uint64_t* xb = bar_free + NS + 4 * wg;
+        if (cs.n == 2)
+          pair_sum2(sc, region, xb, cs.rank, j, 128, tid);
+        else if (cs.n == 4)
+          pair_sum4(sc, region, xb, cs.rank, j, 128, tid);
+        else
+          cluster_sum(cs, region, xb, j & 1, 128, tid, true, sc);
+      }
       float corr[2];
       if (causal && kv0 + BN - 1 > wrow0)
         softmax_d256<true>(sc, keep, m_i, l_i, corr, row, kv0, Skv, t);
@@ -303,27 +362,38 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int rr = row + 8 * r;
       if (rr >= Sq) continue;
-      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * D;
+      __nv_bfloat16* orow = o + (((long long)b * Sq + rr) * H + h) * (WIDE ? dw : D) + c0;
       const float inv = 1.f / l_i[r];
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt)
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-            pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
-      if (t == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+        if (!WIDE || c0 + dt * 8 < dw)               // columns past D: TMA's zeros
+          *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
+              pack_bf16(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+      if (t == 0 && cs.rank == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
     }
   }
+  if constexpr (WIDE) cluster_sync();    // no CTA leaves while a peer may reach it
 }
 
 // One launch over the maps of q (boxes of K1_BM rows), k and v (K1W_BN
-// rows) and the mask (K1W_BN keys); returns cudaGetLastError().
+// rows) and the mask (K1W_BN keys) at head width D: D = 256 returns
+// cudaGetLastError(), D = 384 .. 1024 (clusters of ceil(D / 256) CTAs)
+// launch_cluster's code.
 inline int launch_fwd_d256(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                            const CUtensorMap& tm, void* o, void* lse, int B, int Sq, int Skv,
-                           int H, int causal, cudaStream_t st) {
-  cudaFuncSetAttribute(flash_fwd_d256_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       K1D256Smem::ALLOC);
+                           int H, int D, int causal, cudaStream_t st) {
   dim3 grid((Sq + K1_BM - 1) / K1_BM, H, B);
-  flash_fwd_d256_wgmma_kernel<<<grid, 128 * (K1_WG + 1), K1D256Smem::ALLOC, st>>>(
-      tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal);
+  if (D > K1W_D) {
+    const int n = (D + K1W_D - 1) / K1W_D;
+    grid.x *= n;
+    return launch_cluster(flash_fwd_d256_wgmma_kernel<true>, n, grid, 128 * (K1_WG + 1),
+                          K1D256Smem<true>::ALLOC, st, tq, tk, tv, tm, (__nv_bfloat16*)o,
+                          (float*)lse, Sq, Skv, H, causal, D);
+  }
+  cudaFuncSetAttribute(flash_fwd_d256_wgmma_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, K1D256Smem<false>::ALLOC);
+  flash_fwd_d256_wgmma_kernel<false><<<grid, 128 * (K1_WG + 1), K1D256Smem<false>::ALLOC, st>>>(
+      tq, tk, tv, tm, (__nv_bfloat16*)o, (float*)lse, Sq, Skv, H, causal, D);
   return (int)cudaGetLastError();
 }
 

@@ -408,6 +408,79 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
   if (own_region) cluster_arrive_peers(c, xb, lane);
 }
 
+// One round of a pairwise sum of parts that two CTAs of a cluster hold
+// (cluster_sum's contract): each CTA stores all its parts into the peer's
+// region (st.async, counted on the peer's `full` as transaction bytes),
+// waits for the peer's in its own, and adds them; both CTAs add the same two
+// numbers (a + b is b + a), so both hold the same sums to the bit.  The
+// region (U = C * T units, all of the parts) is the exchange's alone: before
+// writing, a CTA waits on its `ready` for the peer's word that the peer has
+// read its region (4 arrivals, one a warp); once it has read its own, it
+// gives it to `next`, the CTA that writes into it next, arriving on that
+// CTA's `next_ready` (the same offset in every CTA).  A pair sums in one
+// round (pair_sum2); four CTAs in two, rank r with r ^ 1 then with r ^ 2
+// (pair_sum4), each CTA adding (p0 + p1) and (p2 + p3) in some order, the
+// same sum; a round's ready barrier hears from that round's peer alone, so
+// no CTA's word is taken for another's.  cluster_sum at n = 2 sends the same
+// bytes in two rounds with a barrier between (reduce-scatter, all-gather):
+// bf16 K1 at D = 512 B = 32 ran at 0.95 ms so and 0.48 ms this way (H100;
+// plain remote stores, each warp releasing one arrival, 0.54).
+template <int N>
+__device__ __forceinline__ void pair_round(float (&v)[N], unsigned char* region,
+                                           uint64_t* ready, uint32_t ready_parity,
+                                           uint64_t* full, uint32_t full_parity, uint32_t peer,
+                                           uint32_t next, uint64_t* next_ready, int T,
+                                           int tid) {
+  constexpr int C = N / 4;
+  const int lane = tid & 31;
+  const uint32_t dst = mapa(smem_u32(region), peer);
+  if (tid == 0) mbar_arrive_expect_tx(full, C * T * 16);
+  mbar_wait_cluster(ready, ready_parity);   // the peer has read its region
+  const uint32_t bar = mapa(smem_u32(full), peer);
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    st_async_v4(dst + (k * T + tid) * 16, v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3],
+                bar);
+  mbar_wait_cluster(full, full_parity);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const float4 w = *reinterpret_cast<const float4*>(region + (k * T + tid) * 16);
+    v[4 * k] += w.x;
+    v[4 * k + 1] += w.y;
+    v[4 * k + 2] += w.z;
+    v[4 * k + 3] += w.w;
+  }
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n"
+                 :: "r"(mapa(smem_u32(next_ready), next)) : "memory");
+}
+
+// xb[0] the ready barrier (of the round with rank ^ 1), xb[1] full, xb[2]
+// the ready barrier of the round with rank ^ 2
+__device__ __forceinline__ void pair_sum_init(uint64_t* xb) {
+  mbar_init(xb, 4);
+  mbar_init(xb + 1, 1);                  // the receiver's expect_tx
+  mbar_init(xb + 2, 4);
+}
+
+// exchange x's sum over a pair: one phase of each barrier an exchange
+template <int N>
+__device__ __forceinline__ void pair_sum2(float (&v)[N], unsigned char* region, uint64_t* xb,
+                                          uint32_t rank, uint32_t x, int T, int tid) {
+  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, x & 1, rank ^ 1, rank ^ 1, xb, T, tid);
+}
+
+// exchange x's sum over four CTAs: full completes phases 2x and 2x + 1, each
+// ready barrier one a phase (xb[0] from rank ^ 1 at the end of exchange
+// x - 1, xb[2] from rank ^ 2 once it has read its round 0 of exchange x)
+template <int N>
+__device__ __forceinline__ void pair_sum4(float (&v)[N], unsigned char* region, uint64_t* xb,
+                                          uint32_t rank, uint32_t x, int T, int tid) {
+  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, 0, rank ^ 1, rank ^ 2, xb + 2, T, tid);
+  pair_round(v, region, xb + 2, x & 1, xb + 1, 1, rank ^ 2, rank ^ 1, xb, T, tid);
+}
+
 // ----------------------------------------------------------------------- TMA
 // A box of a 4-D tensor map at coordinates (c0 innermost .. c3) into shared
 // memory, completion counted in bytes on `bar`.
@@ -609,6 +682,20 @@ __device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 32] (+)= A[64 x 8] . B[8 x 32] in tf32; A and B from shared memory,
+// both K-major; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 128] += A[64 x 8] . B[8 x 128] in tf32; A from registers (per warp
 // of 16 rows, the m16n8k8 tf32 A fragment), B from shared memory K-major
 __device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -781,18 +868,41 @@ inline CUresult mask_map(EncodeTiled enc, CUtensorMap* m, const void* p, int B, 
 // the cluster's size
 constexpr int CLUSTER_ERROR = 2000;
 
-// cudaOccupancyMaxActiveClusters of `kernel` at `cfg`, asked once for each
-// kernel and cluster size (the answer depends on the kernel's resources
-// and the size only)
+// The launch configuration of `kernel` on `grid` (gridDim.x a multiple of
+// n) as clusters of n CTAs along x.  Not to be copied: cfg points at attr.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int n, dim3 grid, int threads, int smem, cudaStream_t st) : cfg() {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// cudaOccupancyMaxActiveClusters of `kernel` as clusters of n CTAs of
+// `threads` threads and `smem` bytes of shared memory, asked once for each
+// kernel and cluster size (the answer depends on the kernel's resources and
+// the size only); 0 where the card can hold no such cluster or refuses to
+// say.
 template <typename... Params>
-inline int max_active_clusters(void (*kernel)(Params...), int n,
-                               const cudaLaunchConfig_t& cfg) {
+inline int max_active_clusters(void (*kernel)(Params...), int n, int threads, int smem) {
   static struct { const void* kernel; int n, active; } seen[64];
   static int n_seen = 0;
   for (int i = 0; i < n_seen; ++i)
     if (seen[i].kernel == (const void*)kernel && seen[i].n == n) return seen[i].active;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const ClusterLaunch l(n, dim3(n), threads, smem, 0);
   int active = 0;
-  if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) != cudaSuccess) active = 0;
+  if (cudaOccupancyMaxActiveClusters(&active, kernel, &l.cfg) != cudaSuccess) active = 0;
   cudaGetLastError();
   if (n_seen < 64) seen[n_seen++] = {(const void*)kernel, n, active};
   return active;
@@ -806,21 +916,9 @@ inline int max_active_clusters(void (*kernel)(Params...), int n,
 template <typename... Params, typename... Args>
 inline int launch_cluster(void (*kernel)(Params...), int n, dim3 grid, int threads, int smem,
                           cudaStream_t st, Args&&... args) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (max_active_clusters(kernel, n, cfg) < 1) return CLUSTER_ERROR + n;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  if (max_active_clusters(kernel, n, threads, smem) < 1) return CLUSTER_ERROR + n;
+  const ClusterLaunch l(n, grid, threads, smem, st);
+  const cudaError_t e = cudaLaunchKernelEx(&l.cfg, kernel, std::forward<Args>(args)...);
   const cudaError_t last = cudaGetLastError();   // also clears e, reported here
   return (int)(e != cudaSuccess ? e : last);
 }

@@ -36,7 +36,9 @@ KERNELS = {
     "flash_fwd": ("flash_fwd.cu", ("flash_common.cuh", "flash_fwd_bf16.cuh",
                                    "flash_fwd_d256.cuh", "hopper.cuh"), {
         # q, k, v, mask, o, lse; B, Sq, Skv, H, D, dtype, causal; strides; stream
-        "pbt_flash_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P]}),
+        "pbt_flash_fwd": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P],
+        # D, dtype, which (unused), n out: clusters the card holds at once
+        "pbt_cluster_occupancy": [_I] * 3 + [_P]}),
     "flash_bwd": ("flash_bwd.cu", ("flash_common.cuh", "hopper.cuh"), {
         # q, k, v, dout, qt, kt, ot, mask, lse, delta, then the outputs
         "pbt_flash_bwd": [_P] * 13 + _FLASH_BWD_TAIL,
@@ -45,7 +47,9 @@ KERNELS = {
         # dout, out, delta; B, S, H, D, dtype; dout's and out's strides; stream
         "pbt_flash_delta": [_P] * 3 + [_I] * 5 + [_L] * 6 + [_P],
         # the operands (a SplitArgs); n, B, H, D; stream
-        "pbt_tf32_split": [_P] + [_I] * 4 + [_P]}),
+        "pbt_tf32_split": [_P] + [_I] * 4 + [_P],
+        # D, dtype, which (1 dK/dV, 0 dQ), n out: clusters the card holds at once
+        "pbt_cluster_occupancy": [_I] * 3 + [_P]}),
     "fused_ln": ("fused_ln.cu", (), {
         # h, res, gamma, beta, seed, out, mean, rstd; N, D, dtype; threshold,
         # keep scale, eps; stream

@@ -86,14 +86,17 @@ CTAs, one per 128-column half of every plane, that sum the score products
 (S, dP), which run over all of D, through each other's shared memory.
 Bound: three tf32 products per f32 product at 495 TFLOP/s.
 
-At D = 384 .. 1024 (D = 128 n) every kernel runs as clusters of n CTAs, one
-per 128 columns of the head, each the D = 128 design on its columns of every
-operand (bf16: K1's and the backward's D = 128 kernels with 2 ring stages
-where they keep 3 and 4; f32: the 3xTF32 kernels).  The products over all of
-D (S in the forward; S and dP in the backward) are summed across the
-cluster through distributed shared memory, a reduce-scatter then an
-all-gather, so every CTA holds the same sums to the bit and P, dS and lse
-agree across the cluster; O, dQ, dK and dV stay column-local.  The card
+At D = 384 .. 1024 (D = 128 n) every kernel runs as clusters of CTAs, each
+on its columns of every operand: bf16 K1 as ceil(D/256) CTAs of its D = 256
+design, 256 columns each (TMA's zeros past D in the last one at 384, 640,
+896); the bf16 backward as n CTAs of its D = 128 kernels with 2 ring stages
+where they keep 4; the f32 forward as n CTAs of its 3xTF32 kernel; the f32
+backward as n CTAs of 128 columns, each with two consumer warpgroups on
+alternate swept tiles of 32 rows over the fixed rows' planes.  The products
+over all of D (S in the forward; S and dP in the backward) are summed
+across the cluster through distributed shared memory, a reduce-scatter then
+an all-gather, so every CTA holds the same sums to the bit and P, dS and
+lse agree across the cluster; O, dQ, dK and dV stay column-local.  The card
 schedules a cluster of up to 8 CTAs portably, hence ``MAX_HEAD_DIM``; a
 kernel whose cluster the card cannot hold raises.  The delta kernel takes
 a warp a row there, the prep 8 rows a CTA.
@@ -120,7 +123,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 NEG_INF = -1e30
 # the head widths the kernels take: D = 128 and 256 have designs of their
-# own, D = 384 .. 1024 run as clusters of D/128 CTAs (csrc/hopper.cuh:
+# own, D = 384 .. 1024 run as clusters of at most D/128 CTAs (csrc/hopper.cuh:
 # launch_cluster; 8 CTAs is the card's largest portable cluster)
 MAX_HEAD_DIM = 1024
 HEAD_DIMS = tuple(range(128, MAX_HEAD_DIM + 1, 128))
@@ -285,14 +288,14 @@ def _tma_ready(x):
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _raise_for(entry, rc):
+def _raise_for(entry, rc, D=None):
     """The C entries' codes: 2000 + n where the card cannot hold a cluster
-    of n CTAs of the kernel (``hopper.cuh:launch_cluster``), 1000 + the
-    CUresult of a refused tensor map, else a CUDA error."""
+    of n CTAs of the kernel (``hopper.cuh:launch_cluster``) at head width D,
+    1000 + the CUresult of a refused tensor map, else a CUDA error."""
     if rc >= 2000:
         raise RuntimeError(f"{entry}: the card cannot schedule a cluster of {rc - 2000} "
                            f"CTAs of this kernel (cudaOccupancyMaxActiveClusters is 0), "
-                           f"which head width {128 * (rc - 2000)} needs")
+                           f"which head width {D} needs")
     if rc >= 1000:
         raise RuntimeError(f"{entry}: the driver refused a TMA tensor map "
                            f"(CUresult {rc - 1000}; 0 = no encoder)")
@@ -404,7 +407,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, D,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
-    _raise_for("flash_fwd", rc)
+    _raise_for("flash_fwd", rc, D)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -487,7 +490,7 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], stream)
-    _raise_for(entry, rc)
+    _raise_for(entry, rc, D)
 
 
 def flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout

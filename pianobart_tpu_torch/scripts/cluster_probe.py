@@ -1,7 +1,9 @@
 """The wide heads' cluster kernels on the card: their times at ``--heads 2``
-(D = 512, H = 2) beside the D = 128 kernels at the same H * D, and where a
-warp's time goes in the score exchange that the clusters add
-(``csrc/hopper.cuh:cluster_sum``).
+(D = 512, H = 2) and at D = 384 and 1024 beside the D = 128 kernels, and
+where a warp's time goes in the score exchange that the clusters add
+(``csrc/hopper.cuh:cluster_sum``): in bf16 K1's (clusters of ceil(D/256)
+CTAs of the D = 256 design) and the backward's, in f32 K1's and the
+backward's (two warpgroups a CTA, each exchanging on its own).
 
     python -m pianobart_tpu_torch.scripts.cluster_probe
 
@@ -9,21 +11,25 @@ Prints the card's name and power limit, then:
 
 * CUDA-event means of K1, K3a (the dQ kernel) and K3b (the dK/dV kernel) at
   B=32, S=1024 in bf16 and B=8 in f32, with the pad mask of ``chip_smoke.py``,
-  at D = 128 (H = 8), 512 (H = 2) and 1024 (H = 1), through the shipped
-  library;
-* for the same D = 512 calls, the cycles a warp spends in each phase of one
-  exchange (open, scatter, waiting for its units, reduce, waiting for the
-  peers' reads, gather, waiting for the sums, reading them), from a copy of
-  ``csrc`` built into ``build/cluster_probe`` whose ``cluster_sum`` adds
-  ``clock64()`` differences into a ``__device__`` array (read back by an
-  extra C entry, ``pbt_xprof_read``); the counters cost the kernel a few
-  percent and stay out of the shipped source.
+  at D = 128 (H = 8), 384 (H = 4), 512 (H = 2) and 1024 (H = 1), through
+  the shipped library;
+* for the D = 384 and 512 calls, the cycles a warp spends in each phase of
+  one exchange (open, scatter, waiting for its units, reduce, waiting for
+  the peers' reads, gather, waiting for the sums, reading them; a round of
+  ``pair_round`` (one an exchange in a pair, two in four CTAs): open,
+  sending its parts as "scatter", waiting for the peer's as "units wait",
+  adding them as "reduce"), from a copy of ``csrc`` built into
+  ``build/cluster_probe`` whose ``cluster_sum`` and ``pair_round`` add
+  ``clock64()`` differences into a ``__device__`` array
+  (read back by an extra C entry, ``pbt_xprof_read``); the counters cost the
+  kernel a few percent and stay out of the shipped source.
 
 Needs a card and the CUDA toolkit.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
@@ -57,24 +63,49 @@ _MARKS = (
      "    atomicAdd(&pbt_xprof[8], 1ull);\n  }\n}\n"))
 
 
+# the same for a round of pair_round: open, send, wait for the peer's
+# parts, add
+_PAIR_MARKS = (
+    ("  const int lane = tid & 31;\n",
+     "  const int lane = tid & 31;\n  long long t[5];\n  t[0] = clock64();\n"),
+    ("  mbar_wait_cluster(ready, ready_parity);   // the peer has read its region\n",
+     "  mbar_wait_cluster(ready, ready_parity);   // the peer has read its region\n"
+     "  t[1] = clock64();\n"),
+    ("  mbar_wait_cluster(full, full_parity);\n",
+     "  t[2] = clock64();\n  mbar_wait_cluster(full, full_parity);\n  t[3] = clock64();\n"),
+    ("                 :: \"r\"(mapa(smem_u32(next_ready), next)) : \"memory\");\n}\n",
+     "                 :: \"r\"(mapa(smem_u32(next_ready), next)) : \"memory\");\n"
+     "  t[4] = clock64();\n"
+     "  if (lane == 0) {\n    for (int i = 0; i < 4; ++i)\n"
+     "      atomicAdd(&pbt_xprof[i], (unsigned long long)(t[i + 1] - t[i]));\n"
+     "    atomicAdd(&pbt_xprof[8], 1ull);\n  }\n}\n"))
+
+
+def _count(text: str, head: str, marks) -> str:
+    """The function of ``text`` that starts at ``head`` with ``marks`` applied."""
+    start = text.index(head)
+    end = text.index("\n}\n", start) + 3
+    body = text[start:end]
+    for line, counted in marks:
+        if body.count(line) != 1:
+            raise RuntimeError(f"{head!r} has changed: {line!r} not found once")
+        body = body.replace(line, counted)
+    return text[:start] + body + text[end:]
+
+
 def _counted_copy() -> str:
-    """``csrc`` copied to OUT/csrc with cluster_sum's phases counted."""
+    """``csrc`` copied to OUT/csrc with the phases of cluster_sum and
+    pair_sum counted."""
     src = os.path.join(OUT, "csrc")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build._CSRC, src)
     path = os.path.join(src, "hopper.cuh")
     with open(path) as f:
         text = f.read()
-    start = text.index("__device__ __forceinline__ void cluster_sum(")
-    end = text.index("\n}\n", start) + 3
-    body = text[start:end]
-    for line, counted in _MARKS:
-        if body.count(line) != 1:
-            raise RuntimeError(f"cluster_sum has changed: {line!r} not found once")
-        body = body.replace(line, counted)
-    text = (text[:start].replace("struct ClusterSum {", "__device__ unsigned long long "
-                                 "pbt_xprof[16];\nstruct ClusterSum {", 1)
-            + body + text[end:])
+    text = _count(text, "__device__ __forceinline__ void cluster_sum(", _MARKS)
+    text = _count(text, "__device__ __forceinline__ void pair_round(", _PAIR_MARKS)
+    text = text.replace("struct ClusterSum {", "__device__ unsigned long long "
+                        "pbt_xprof[16];\nstruct ClusterSum {", 1)
     with open(path, "w") as f:
         f.write(text)
     read = ('\nextern "C" int pbt_xprof_read(void* out) {\n'
@@ -146,7 +177,7 @@ def main() -> None:
              "K3a (dQ)": lambda a: flash.flash_attention_dq(*a),
              "K3b (dK/dV)": lambda a: flash.flash_attention_dkv(*a)}
     for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
-        for H, D in ((8, 128), (2, 512), (1, 1024)):
+        for H, D in ((8, 128), (4, 384), (2, 512), (1, 1024)):
             args = _case(B, dtype, H, D)
             times = ", ".join(f"{name} {_ms(lambda: fn(args)):.4f} ms"
                               for name, fn in calls.items())
@@ -156,8 +187,9 @@ def main() -> None:
     flash.build_kernel = lambda name: libs.get(name) or real(name)
     buf = (ctypes.c_ulonglong * 16)()
     try:
-        for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
-            args = _case(B, dtype, 2, 512)
+        for (dtype, B), (H, D) in itertools.product(((torch.bfloat16, 32), (torch.float32, 8)),
+                                                    ((4, 384), (2, 512))):
+            args = _case(B, dtype, H, D)
             for name, fn in calls.items():
                 lib = libs["flash_fwd" if name == "K1" else "flash_bwd"]
                 fn(args)
@@ -168,7 +200,7 @@ def main() -> None:
                 lib.pbt_xprof_read(buf)
                 n = max(buf[8], 1)
                 total = sum(buf[i] for i in range(8)) / n
-                print(f"[cluster_probe] {name} B={B} H=2 D=512 {str(dtype)[6:]}: {buf[8]} "
+                print(f"[cluster_probe] {name} B={B} H={H} D={D} {str(dtype)[6:]}: {buf[8]} "
                       f"warp-exchanges, cycles each: "
                       + ", ".join(f"{p} {buf[i] / n:.0f}" for i, p in enumerate(PHASES))
                       + f"; total {total:.0f}", flush=True)

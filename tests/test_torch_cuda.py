@@ -1283,10 +1283,12 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# Head widths 384 .. 1024: every kernel as clusters of D/128 CTAs (one per
-# 128 columns of the head) that sum S and dP across the cluster
-# (hopper.cuh:cluster_sum); the same tolerances as at D = 128.
-WIDE_DS = [384, 512, 1024]
+# Head widths 384 .. 1024: every kernel as clusters that sum S and dP across
+# the cluster (hopper.cuh:cluster_sum), of D/128 CTAs (one per 128 columns
+# of the head) but bf16 K1's, of ceil(D/256) CTAs of the D=256 design (640:
+# three CTAs, the last one's upper half past D, and five in the others); the
+# same tolerances as at D = 128.
+WIDE_DS = [384, 512, 640, 1024]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1377,6 +1379,39 @@ def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
     for name, x in zip(("o", "dq", "dk", "dv"), (out, *got)):
         for r in range(1, n):
             assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (name, r)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [384, 640, 1024])
+@pytest.mark.parametrize("S,causal", [(320, False), (320, True), (1024, False)],
+                         ids=["320", "320-causal", "1024"])
+def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal, dtype):
+    """bf16 K1 (clusters of ceil(D/256) CTAs, the last one's upper half past
+    D at 384 and 640) and the f32 backward (two warpgroups a CTA on alternate
+    32-row swept tiles, flushing into dQ, dK and dV in one order): two runs
+    of K1, K2 and K3 give the same bits, and q, k, v and dO whose 128-column
+    blocks are equal give O, dQ, dK and dV whose blocks are equal to the bit,
+    which holds only if every CTA of a cluster holds the same P and dS, its
+    warpgroups' flushes land whole, and a partial CTA adds nothing past D."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, True, S=S, D=D)
+    o2, l2 = flash_attention_fwd(q, k, v, m, causal)
+    assert torch.equal(out, o2) and torch.equal(lse, l2)
+    for kernel in ("K2", "K3"):
+        a, _ = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+        b, _ = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), kernel
+    n = D // 128
+
+    def twin(x):
+        return torch.cat([x[..., :128]] * n, -1).contiguous()
+
+    q, k, v, dout = (twin(x) for x in (q, k, v, dout))
+    out, lse = flash_attention_fwd(q, k, v, m, causal)
+    for kernel in ("K2", "K3"):
+        got, _ = _bwd(kernel, q, k, v, m, causal, out, lse, dout)
+        for name, x in zip(("o", "dq", "dk", "dv"), (out, *got)):
+            for r in range(1, n):
+                assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (kernel, name, r)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

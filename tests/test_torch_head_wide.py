@@ -460,6 +460,6 @@ def test_a_cluster_the_card_cannot_hold_raises():
     """The C entries' code for a cluster the card cannot schedule (2000 + its
     size, ``hopper.cuh:launch_cluster``) raises with the size and width."""
     with pytest.raises(RuntimeError, match="cluster of 4 CTAs.*head width 512"):
-        port_flash._raise_for("flash_fwd", 2004)
+        port_flash._raise_for("flash_bwd", 2004, 512)
     with pytest.raises(RuntimeError, match="TMA tensor map"):
         port_flash._raise_for("flash_fwd", 1001)
