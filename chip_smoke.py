@@ -319,9 +319,12 @@ def _sass_label(name):
     if label.startswith("flash_bwd"):
         d = flags.group(3)
         dkv = flags.group(1) == "1"
-        if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 D=256 backward
-            return label + ("<true> (dK/dV, S^T once, P^T handed over)" if dkv
-                            else "<false> (dQ, 128 rows, K and V through 3 slots)")
+        if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 backward at D = 256 and past it
+            if flags.group(2) == "1":
+                return label + ("<true, true> (dK/dV" if dkv else "<false, true> (dQ") + (
+                    ", D = 384 .. 1024, clusters of ceil(D/256) CTAs of the D=256 design)")
+            return label + ("<true, false> (dK/dV, S^T once, P^T handed over)" if dkv
+                            else "<false, false> (dQ, 128 rows, K and V through 3 slots)")
         return label + (f"<true{', ' + d if d else ''}> (dK/dV" if dkv
                         else f"<false{', ' + d if d else ''}> (dQ") + (
                             cluster[d].replace(" (", ", ") if d in cluster else ")")
@@ -334,8 +337,8 @@ def _sass_label(name):
 # The SASS of every wgmma kernel this tree did not redesign, as the parent
 # tree compiled it with the card machine's toolkit (CUDA 12.8;
 # :func:`_sass_digest`): the D = 128 and D = 256 kernels, the lab's, and the
-# f32 forward's and bf16 backward's clusters.  A kernel redesigned on purpose
-# leaves this table with its parent's row.
+# f32 forward's clusters.  A kernel redesigned on purpose leaves this table
+# with its parent's row.
 PARENT_SASS = {
     "flash_fwd_tf32_kernel<128>": "15bc73290d4b8edf",
     "flash_fwd_tf32_kernel<256> (CTA pair)": "b8dfd789d8abda8c",
@@ -347,15 +350,12 @@ PARENT_SASS = {
     "flash_bwd_tf32_kernel<true, 128> (dK/dV)": "eced7122153a00ce",
     "flash_bwd_tf32_kernel<false, 256> (dQ, CTA pair)": "1e41d06a05c17859",
     "flash_bwd_tf32_kernel<true, 256> (dK/dV, CTA pair)": "8f20f3dba3c64edb",
-    "flash_bwd_d256_wgmma_kernel<false> (dQ, 128 rows, K and V through 3 slots)":
+    "flash_bwd_d256_wgmma_kernel<false, false> (dQ, 128 rows, K and V through 3 slots)":
         "54ab1bd849f85e34",
-    "flash_bwd_d256_wgmma_kernel<true> (dK/dV, S^T once, P^T handed over)": "a6af41efd301b88c",
+    "flash_bwd_d256_wgmma_kernel<true, false> (dK/dV, S^T once, P^T handed over)":
+        "a6af41efd301b88c",
     "flash_bwd_wgmma_kernel<false, 128> (dQ)": "be3f4a52b753c4b0",
     "flash_bwd_wgmma_kernel<true, 128> (dK/dV)": "da23dd626c6dd53e",
-    "flash_bwd_wgmma_kernel<false, 0> (dQ, clusters of D/128 CTAs, D = 384 .. 1024)":
-        "d86d74089bd4b171",
-    "flash_bwd_wgmma_kernel<true, 0> (dK/dV, clusters of D/128 CTAs, D = 384 .. 1024)":
-        "518b5747b0f848c5",
     "flash_fwd_wgmma_kernel<false, true, 128> (L2)": "e270d98249afc44e",
     "flash_fwd_wgmma_kernel<true, false, 128> (L1, P rounded)": "a8c8a6b545c191cc",
     "flash_fwd_wgmma_kernel<true, true, 128> (L1, P split)": "5576364b937ec2f3",
@@ -425,10 +425,10 @@ def phase_build(state):
     HMMA., or no HGMMA or no UTMALDG (the lab's mma.sync design, or any
     other, come back), and so do the f32 kernels' D=256 instances (CTA
     pairs, ``<256>`` and ``<*, 256>``).  Fails too if a bf16 D=256 kernel
-    (K1's ``flash_fwd_d256_wgmma_kernel`` and the backward's
-    ``flash_bwd_d256_wgmma_kernel``, 128 accumulators a thread) spills, or
-    if ptxas serializes its wgmma (its "Potential Performance Loss"
-    remark); and if a wgmma kernel of :data:`PARENT_SASS` compiles to other
+    (K1's ``flash_fwd_d256_wgmma_kernel<false>`` and the backward's
+    ``flash_bwd_d256_wgmma_kernel``, both instances, its clusters' too; 128
+    accumulators a thread) spills, or if ptxas serializes its wgmma (its
+    "Potential Performance Loss" remark); and if a wgmma kernel of :data:`PARENT_SASS` compiles to other
     code than its parent's.  Then prints how many clusters of each cluster
     kernel the card holds at once, at every size it launches."""
     from pianobart_tpu_torch.ops.build import build_kernels
@@ -449,7 +449,7 @@ def phase_build(state):
                 if "Compiling entry function" in line:
                     entry = line
                 elif ("spill stores" in line and "d256_wgmma_kernel" in entry
-                      and "fwd_d256_wgmma_kernelILb1E" not in entry   # D = 256 only
+                      and "fwd_d256_wgmma_kernelILb1E" not in entry   # not K1's clusters
                       and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
                     spilled.append(f"{_sass_label(entry)}: {line.strip()}")
                 elif "serialized" in line and "d256_wgmma_kernel" in line:
@@ -943,8 +943,8 @@ def phase_flash_bwd(state):
              ("K3", 2, 320, False, bf16, False, "h256"), ("K3", 2, 320, True, bf16, False, "h256"),
              ("K3", 2, 320, False, bf16, True, "h256"), ("K3", 2, 320, True, f32, False, "h256"),
              ("K3", 2, 320, False, f32, True, "h256"),
-             # the wide heads (clusters of D/128 CTAs; f32 two warpgroups a
-             # CTA): --heads 2 (D=512) at
+             # the wide heads (bf16 clusters of ceil(D/256) CTAs of the D=256
+             # design, f32 of D/128 CTAs, two warpgroups a CTA): --heads 2 (D=512) at
              # [train_h512]'s shapes (K2 B=32 bf16 and B=8 f32, K3 B=16 S=2048
              # bf16 and B=2 f32), its tp ranks' (1 of 2 heads), S=320 and a
              # wholly masked sample; 4 heads of 384; 1 head of 1024
@@ -1087,8 +1087,7 @@ def phase_flash_bwd(state):
                 flash_attention_dq(*args)
                 flash_attention_dkv(*args)
         call()
-        kern = ("d256_wgmma_kernel<{}>" if wname == "h256"
-                else "flash_bwd_wgmma_kernel<{}, 0>")
+        kern = "d256_wgmma_kernel<{}, " + ("false>" if wname == "h256" else "true>")
         _profile_window("flash_bwd", f"5 calls of {kid} B={B} S={S} H={q.shape[2]} "
                         f"D={q.shape[3]} bfloat16", lambda: [call() for _ in range(5)], 5,
                         groups={"delta": lambda n: "flash_delta" in n,

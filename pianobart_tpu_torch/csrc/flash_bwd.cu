@@ -99,14 +99,16 @@
 // (H*D = 1024 in both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b
 // 0.5474 ms at B=16, S=2048.
 //
-// At D = 384 .. 1024 (D = 128 n) both types run as clusters of n CTAs, one
-// per 128 columns of the head, summing S and dP across the cluster
-// (hopper.cuh:cluster_sum): bf16 flash_bwd_wgmma_kernel<DKV, CLUSTER_D>,
-// each CTA the D = 128 kernel on its columns, f32
-// flash_bwd_wide_tf32_kernel<DKV>, two consumer warpgroups on alternate
-// swept tiles of 32 rows over the fixed rows' planes (both described where
-// they are defined); the delta kernel a warp a row and the prep 8 rows a
-// CTA.  Bounds at --heads 2 (D = 512, H = 2) equal the D = 128 ones above.
+// At D = 384 .. 1024 (D = 128 n) both types run as clusters that sum S and
+// dP across the cluster through distributed shared memory: bf16
+// flash_bwd_d256_wgmma_kernel<DKV, true>, clusters of ceil(D / 256) CTAs of
+// the D = 256 design, 256 columns each; f32 flash_bwd_wide_tf32_kernel<DKV>,
+// clusters of D / 128 CTAs, two consumer warpgroups on alternate swept
+// tiles of 32 rows over the fixed rows' planes (both described where they
+// are defined); the delta kernel a warp a row and the prep 8 rows a CTA.
+// Bounds at --heads 2 (D = 512, H = 2) equal the D = 128 ones above.
+#include <type_traits>
+
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -123,28 +125,17 @@ constexpr int STAGES = 4;
 constexpr int OPND = 2 * BWD_D;         // bytes per row of a (rows, 128) bf16 operand
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory, in bytes from a 1024-aligned base (the swizzle atom), at
-// D = 128 or for a cluster's CTA (CLUSTER_D, below).
-template <int D>
+// Shared memory, in bytes from a 1024-aligned base (the swizzle atom).
 struct BwdSmem {
-  static constexpr bool WIDE = D == CLUSTER_D;
-  static constexpr int NS = WIDE ? 2 : STAGES;          // stages of the ring
   static constexpr int A1 = 0;                          // fixed: K (dK/dV) or Q (dQ)
   static constexpr int A2 = A1 + FIX * OPND;            // fixed: V or dO
   static constexpr int B = A2 + FIX * OPND;             // per stage: B1 (Q or K), B2 (dO or V)
   static constexpr int STAGE = 2 * TILE * OPND;
-  static constexpr int FIXV = B + NS * STAGE;           // fixed rows' mask, or lse and delta
+  static constexpr int FIXV = B + STAGES * STAGE;       // fixed rows' mask, or lse and delta
   static constexpr int STV = FIXV + 2 * FIX * 4;        // per stage: lse and delta, or mask
   static constexpr int STV_STAGE = 2 * TILE * 4;
-  // a cluster's exchange: per consumer warpgroup a region of its S and dP
-  // (2 x 64 x TILE f32)
-  static constexpr int X_UNITS = 2 * TILE / 8 * 128;
-  static constexpr int X = STV + NS * STV_STAGE;
-  static constexpr int X_REGION = cluster_region_units(X_UNITS) * 16;
-  // fix, full[S], free[S]; a cluster's four a warpgroup (cluster_sum_init)
-  static constexpr int BAR = X + (WIDE ? NWG * X_REGION : 0);
-  static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? 4 * NWG : 0)) * 8 + 1024;
-  static_assert(ALLOC <= 232448, "a CTA's shared memory");
+  static constexpr int BAR = STV + STAGES * STV_STAGE;  // fix, full[S], free[S]
+  static constexpr int ALLOC = BAR + (1 + 2 * STAGES) * 8 + 1024;
 };
 
 // acc = A B^T over the head dim D: A the warpgroup's 64 fixed rows (its
@@ -264,22 +255,7 @@ __device__ __forceinline__ void probs(float (&s)[N / 2], float (&dp)[N / 2],
 // DKV: dK (out1) and dV (out2) of 128 kv rows; else dQ (out1) of 128 q
 // rows.  Tensor maps: q and dO in boxes of TILE rows (DKV) or FIX, k and v
 // in FIX (DKV) or TILE, the mask in boxes of FIX (DKV) or TILE keys, lse and
-// delta in boxes of TILE (DKV) or FIX entries.  D: 128, or CLUSTER_D for
-// the wide heads (D = 128 n, n = 3..8) as clusters of n CTAs along x
-// (blockIdx.x / n the fixed tile, the cluster rank r the columns 128 r ..
-// 128 r + 127 of the head), each this kernel on its columns of every
-// operand, storing its columns of dK and dV (or dQ).  S and dP (S^T and
-// dP^T) sum over all of D: once both products of a tile are in, each
-// consumer warpgroup sums them across the cluster with the same warpgroup
-// of every peer (hopper.cuh:cluster_sum through a 32 KB region of its own,
-// 64 floats a thread; the dK/dV kernel sums S^T before it issues dP^T, so
-// that around that exchange it holds one score tile beside dK and dV, not
-// two, and spills less), so P and dS are the same in every CTA to the bit,
-// and the last products stay column-local.  The two regions take 64 KB,
-// so the ring keeps 2 stages of 64 rows where D = 128 keeps 4.  The dQ
-// kernel's exchange runs under dQ += dS K of the tile before, as its
-// elementwise work does.  A cluster reads what n CTAs of the D = 128
-// kernel read at the same H * D and does their FLOPs: the same bound.
+// delta in boxes of TILE (DKV) or FIX entries.  D: the head width, 128.
 template <bool DKV, int D>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -291,22 +267,16 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap td,
                        __nv_bfloat16* __restrict__ out1, __nv_bfloat16* __restrict__ out2,
                        int Sq, int Skv, int H, int causal) {
-  using L = BwdSmem<D>;
-  constexpr bool WIDE = L::WIDE;
-  constexpr int STAGES = L::NS;
+  static_assert(D == BWD_D, "the D = 128 design");
+  using L = BwdSmem;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
   uint64_t* bar_full = bar_fix + 1;     // stage s landed
   uint64_t* bar_free = bar_full + STAGES;  // stage s read by every consumer warp
-  uint64_t* bar_x = bar_free + STAGES;     // a cluster: four a consumer warpgroup
 
-  ClusterSum cs = {1, 0, 0, 0};
-  if constexpr (WIDE) cs = cluster_sum_shape(L::X_UNITS, 128, threadIdx.x % 128);
-  const int c0 = cs.rank * BWD_D;       // a cluster's CTA: its first column of the head
-  const int f0 = (WIDE ? blockIdx.x / cs.n : blockIdx.x) * FIX;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int f0 = blockIdx.x * FIX, h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
   const int s_fixed = DKV ? Skv : Sq;
@@ -324,12 +294,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
-    if constexpr (WIDE)
-      for (int g = 0; g < NWG; ++g) cluster_sum_init(bar_x + 4 * g, cs.n, 128);
     mbar_fence_init();
   }
-  if constexpr (WIDE) cluster_sync();   // every CTA's barriers ready
-  else __syncthreads();
+  __syncthreads();
 
   if (wg == NWG) {
     // ---- producer warpgroup: one thread keeps the ring full
@@ -340,10 +307,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const CUtensorMap* tb1 = DKV ? &tq : &tk;
       const CUtensorMap* tb2 = DKV ? &to : &tv;
       mbar_arrive_expect_tx(bar_fix, 2 * FIX * OPND + (DKV ? FIX * 4 : 2 * FIX * 4));
-      tma_load_4d(sm + L::A1, ta1, bar_fix, c0, h, f0, b);
-      tma_load_4d(sm + L::A1 + FIX * ROW, ta1, bar_fix, c0 + BOX, h, f0, b);
-      tma_load_4d(sm + L::A2, ta2, bar_fix, c0, h, f0, b);
-      tma_load_4d(sm + L::A2 + FIX * ROW, ta2, bar_fix, c0 + BOX, h, f0, b);
+      tma_load_4d(sm + L::A1, ta1, bar_fix, 0, h, f0, b);
+      tma_load_4d(sm + L::A1 + FIX * ROW, ta1, bar_fix, BOX, h, f0, b);
+      tma_load_4d(sm + L::A2, ta2, bar_fix, 0, h, f0, b);
+      tma_load_4d(sm + L::A2 + FIX * ROW, ta2, bar_fix, BOX, h, f0, b);
       if (DKV) {
         tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
       } else {
@@ -356,10 +323,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         unsigned char* st = sm + L::B + s * L::STAGE;
         unsigned char* sv = sm + L::STV + s * L::STV_STAGE;
         mbar_arrive_expect_tx(bar_full + s, L::STAGE + (DKV ? 2 * TILE * 4 : TILE * 4));
-        tma_load_4d(st, tb1, bar_full + s, c0, h, r0, b);
-        tma_load_4d(st + TILE * ROW, tb1, bar_full + s, c0 + BOX, h, r0, b);
-        tma_load_4d(st + TILE * OPND, tb2, bar_full + s, c0, h, r0, b);
-        tma_load_4d(st + TILE * OPND + TILE * ROW, tb2, bar_full + s, c0 + BOX, h, r0, b);
+        tma_load_4d(st, tb1, bar_full + s, 0, h, r0, b);
+        tma_load_4d(st + TILE * ROW, tb1, bar_full + s, BOX, h, r0, b);
+        tma_load_4d(st + TILE * OPND, tb2, bar_full + s, 0, h, r0, b);
+        tma_load_4d(st + TILE * OPND + TILE * ROW, tb2, bar_full + s, BOX, h, r0, b);
         if (DKV) {
           tma_load_2d(sv, &tl, bar_full + s, r0, bh);
           tma_load_2d(sv + TILE * 4, &td, bar_full + s, r0, bh);
@@ -451,15 +418,6 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);                                 // computed before any wait
       fence_regs(dp);
     };
-    // a cluster: S and dP (S^T and dP^T) over this CTA's columns become
-    // those over all of D (this warpgroup's region and barriers; x counts
-    // its exchanges)
-    uint32_t x = 0;
-    auto sum_over_d = [&](auto&... parts) {
-      if constexpr (WIDE)
-        cluster_sum(cs, sm + L::X + wg * L::X_REGION, bar_x + 4 * wg, x++ & 1, 128, tid,
-                    true, parts...);
-    };
 
     if constexpr (DKV) {
       // The dK/dV kernel runs its tiles one after the other: its warpgroup
@@ -470,28 +428,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         if (i >= ib && i < ie) {
           Scores sc, dp;
           Frags xs, xd;
-          if constexpr (WIDE) {
-            // S^T summed across the cluster before dP^T is issued, dP^T
-            // after: around the first exchange the warpgroup holds dK, dV
-            // and one score tile, not two
-            wgmma_fence();
-            issue_ss<BWD_D, FIX>(sc, a1, swept(i));
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(sc);
-            sum_over_d(sc);
-            wgmma_fence();
-            issue_ss<BWD_D, FIX>(dp, a2, swept(i) + TILE * OPND);
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(dp);
-            sum_over_d(dp);
-          } else {
-            issue_first(i, sc, dp);
-            wgmma_wait<0>();
-            fence_regs(sc);
-            fence_regs(dp);
-          }
+          issue_first(i, sc, dp);
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
           elementwise(i, sc, dp);
           pack_a(xs, sc);
           pack_a(xd, dp);
@@ -517,7 +457,6 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
-        sum_over_d(sc, dp);
         elementwise(ib, sc, dp);
         pack_a(xd, dp);
         for (int i = ib + 1; i < ie; ++i) {
@@ -527,7 +466,6 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_wait<1>();                            // S and dP of tile i are in
           fence_regs(sc);
           fence_regs(dp);
-          sum_over_d(sc, dp);
           elementwise(i, sc, dp);
           wgmma_wait<0>();                            // tile i-1's product is in
           fence_regs(acc1);
@@ -546,10 +484,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     if (active) {
-      const int dw = WIDE ? (int)cs.n * BWD_D : BWD_D;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const long long at = (((long long)b * s_fixed + row + 8 * r) * H + h) * dw + c0;
+        const long long at = (((long long)b * s_fixed + row + 8 * r) * H + h) * BWD_D;
 #pragma unroll
         for (int dt = 0; dt < BWD_D / 8; ++dt) {
           *reinterpret_cast<uint32_t*>(out1 + at + dt * 8 + 2 * t) =
@@ -561,7 +498,6 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-  if constexpr (WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
 }
 
 // ------------------------------------------------ bf16 / wgmma at D = 256
@@ -651,6 +587,69 @@ struct Dq256Smem {
 };
 static_assert(Dkv256Smem::ALLOC <= 232448 && Dq256Smem::ALLOC <= 232448,
               "a CTA's shared memory");
+
+// A cluster's CTA (WIDE, D = 384 .. 1024; see the kernel's comment).  Each
+// consumer warpgroup sums one 64 x 64 f32 score tile at a time across the
+// cluster, through a 16 KB region of its own.
+constexpr int W_SLOT = TILE * W_OPND;   // a 64-row tile of a 256-column operand: 32 KB
+constexpr int X_UNITS = TILE / 8 * 128; // a score tile over a warpgroup in 16-byte units
+constexpr int X_REGION = X_UNITS * 16;
+static_assert(X_UNITS >= cluster_region_units(X_UNITS), "cluster_sum's region, at n = 3");
+
+// dK/dV: Q and dO through a ring of three 32 KB slots, Q_i then dO_i, lse
+// beside Q and delta beside dO, where the D = 256 kernel keeps two 64 KB
+// stages; the 32 KB so freed holds the two regions.
+struct Dkv256WideSmem {
+  static constexpr int A1 = 0;                          // K, fixed
+  static constexpr int A2 = A1 + W_FIX * W_OPND;        // V, fixed
+  static constexpr int RING = A2 + W_FIX * W_OPND;      // slots of one 64-row Q or dO tile
+  static constexpr int HAND = RING + Q_SLOTS * W_SLOT;  // P^T, two buffers
+  static constexpr int FIXV = HAND + 2 * W_SCORES;      // the kv rows' mask
+  static constexpr int SIDE = FIXV + W_FIX * 4;         // per slot: lse (Q) or delta (dO)
+  static constexpr int X = SIDE + Q_SLOTS * TILE * 4;   // a region a consumer warpgroup
+  // fix, full[3], free[3]; four a warpgroup's exchange
+  static constexpr int BAR = X + NWG * X_REGION;
+  static constexpr int ALLOC = BAR + (1 + 2 * Q_SLOTS + 4 * NWG) * 8 + 1024;
+};
+
+// dQ: V and K through two slots, where the D = 256 kernel keeps three; the
+// 32 KB so freed holds the two regions, through which a warpgroup sums dP,
+// then S.
+struct Dq256WideSmem {
+  static constexpr int NS = 2;
+  static constexpr int A1 = 0;                          // Q, fixed: boxes of 128 rows
+  static constexpr int A2 = A1 + Q_FIX * W_OPND;        // dO, fixed
+  static constexpr int RING = A2 + Q_FIX * W_OPND;      // V_i in slot 0, K_i in slot 1
+  static constexpr int SIDE = RING + NS * W_SLOT;       // per slot: a K tile's mask entries
+  static constexpr int FIXV = SIDE + NS * TILE * 4;     // the q rows' lse, then delta
+  static constexpr int X = FIXV + 2 * Q_FIX * 4;        // a region a consumer warpgroup
+  static constexpr int BAR = X + NWG * X_REGION;        // fix, full[2], free[2]; 4 a warpgroup
+  static constexpr int ALLOC = BAR + (1 + 2 * NS + 4 * NWG) * 8 + 1024;
+};
+static_assert(Dkv256WideSmem::ALLOC <= 232448 && Dq256WideSmem::ALLOC <= 232448,
+              "a CTA's shared memory");
+
+// The barriers of one warpgroup's exchanges: pair_sum's at n = 2 and 4,
+// cluster_sum's at n = 3.
+__device__ __forceinline__ void sum_scores_init(uint64_t* xb, uint32_t n) {
+  if (n == 3) cluster_sum_init(xb, n, 128);
+  else pair_sum_init(xb);
+}
+
+// A warpgroup's 64 x 64 f32 score tile over its CTA's 256 columns becomes
+// the tile over all of D, the same in every CTA to the bit: a pair adds the
+// two in one round (hopper.cuh:pair_sum2), four CTAs (p0 + p1) + (p2 + p3)
+// in two (pair_sum4), three in rank order (cluster_sum).  x counts the
+// warpgroup's exchanges.  The cluster's shape is read anew at each
+// exchange, so that no register holds it across the products.
+__device__ __forceinline__ void sum_scores(float (&v)[TILE / 2], unsigned char* region,
+                                           uint64_t* xb, uint32_t x, int tid) {
+  const uint32_t n = cluster_nctarank();
+  if (n == 2) pair_sum2(v, region, xb, cluster_ctarank(), x, 128, tid);
+  else if (n == 4) pair_sum4(v, region, xb, cluster_ctarank(), x, 128, tid);
+  else cluster_sum<true>(cluster_sum_shape(X_UNITS, 128, tid), region, xb, x & 1, 128, tid, true,
+                         v);
+}
 
 // this thread's 32 scores (a 64 x 64 f32 accumulator) into a handoff buffer
 __device__ __forceinline__ void put_scores(float* buf, const float (&v)[TILE / 2], int tid) {
@@ -753,7 +752,37 @@ __device__ __forceinline__ void issue_rs_part(float (&acc)[D / 2],
 // Tensor maps: k, v in boxes of 64 rows; q, dO in boxes of 64 (DKV) or 128
 // rows; the mask in boxes of 64 keys; lse and delta in boxes of 64 (DKV) or
 // 128 entries.
-template <bool DKV>
+//
+// Wide heads (WIDE, D = 384 .. 1024; dw the head width, which D = 256 does
+// not read): clusters of n = ceil(D / 256) of these CTAs along x
+// (blockIdx.x / n the fixed tile, the cluster rank r the columns 256 r ..
+// 256 r + 255 of the head), each the design above on its columns of every
+// operand, storing its columns of dK and dV (or dQ); where D is not a
+// multiple of 256 (384, 640, 896) the last CTA's upper 128 columns lie past
+// D, TMA fills them with zeros and nothing is stored there.  S^T and dP^T
+// (S and dP) run over all of D: each warpgroup sums its one 64 x 64 f32 tile
+// across the cluster right after its product (sum_scores: one pair round
+// at n = 2, two at n = 4, cluster_sum at n = 3), 16 KB an exchange, so
+// every CTA holds the same P^T and dS^T (P and dS) to the bit and dK, dV and
+// dQ stay column-local, with no atomics.  In dK/dV the two warpgroups
+// exchange at once, S^T and dP^T; in dQ a warpgroup sums dP while its S
+// = Q K^T runs, then S.  Clusters of D / 128 CTAs of the D = 128 kernel,
+// the design this one replaced, summed both tiles at once by reduce-scatter
+// and all-gather, with no product in flight and 1.5x the partials a round
+// trip; here a CTA does the products of 256 columns for each exchange, and
+// a pair exchanges in one round.
+//
+// The exchanges' 2 x 16 KB regions do not fit beside the D = 256 layouts
+// (0.7 and 0.2 KB left): the dK/dV kernel streams Q and dO through a ring of
+// three 32 KB slots (Q_i, then dO_i) where it keeps two 64 KB stages, and
+// the dQ kernel V and K through two slots where it keeps three.  So in
+// dK/dV, Q_i+1 lands as soon as warpgroup 0 is done with tile i-1 (its S^T
+// leads), and only dO_i+1 waits for the end of tile i, under the other
+// warpgroup's products; in dQ, V_i+1 lands under tile i and K_i+1 under the
+// dP exchange of tile i+1.  The other candidates (64 fixed q rows a dQ CTA;
+// one region a CTA with S and dP summed in turn in dK/dV too) hold the same
+// bytes with fewer rows a load or more exchanges in series; not measured.
+template <bool DKV, bool WIDE>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -764,7 +793,7 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap td,
                             __nv_bfloat16* __restrict__ out1,
                             __nv_bfloat16* __restrict__ out2,
-                            int Sq, int Skv, int H, int causal) {
+                            int Sq, int Skv, int H, int causal, int dw) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -774,7 +803,247 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int t = lane % 4;
 
-  if constexpr (DKV) {
+  if constexpr (WIDE) {
+    // ---- a cluster's CTA: the D = 256 design (below) on its 256 columns
+    const uint32_t n_cta = cluster_nctarank();
+    using L = std::conditional_t<DKV, Dkv256WideSmem, Dq256WideSmem>;
+    constexpr int NS = DKV ? Q_SLOTS : Dq256WideSmem::NS;
+    uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
+    uint64_t* bar_full = bar_fix + 1;     // slot s landed
+    uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
+    uint64_t* bar_x = bar_free + NS;      // four a consumer warpgroup's exchange
+    const int f0 = (blockIdx.x / n_cta) * (DKV ? W_FIX : Q_FIX);
+    // swept tiles i0 .. n-1: under causal, dK/dV from the tile of row f0,
+    // dQ to the tile of key f0 + 127; tile i is items 2 (i - i0) and
+    // 2 (i - i0) + 1 of the ring: Q (with lse) then dO (with delta), or V
+    // then K (with the mask entries)
+    int i0 = 0, n = (DKV ? Sq : Skv) / TILE;
+    if (causal) {
+      if (DKV) i0 = min(f0 / TILE, n);
+      else n = min(n, (f0 + Q_FIX - 1) / TILE + 1);
+    }
+    if (threadIdx.x == 0) {
+      mbar_init(bar_fix, 1);
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(bar_full + s, 1);
+        mbar_init(bar_free + s, 4 * NWG);
+      }
+      for (int g = 0; g < NWG; ++g) sum_scores_init(bar_x + 4 * g, n_cta);
+      mbar_fence_init();
+    }
+    cluster_sync();                     // every CTA's barriers ready
+    auto slot = [&](int k) { return sm + L::RING + (k % NS) * W_SLOT; };
+    auto side = [&](int k) { return sm + L::SIDE + (k % NS) * (TILE * 4); };
+
+    if (wg == NWG) {
+      // ---- producer warpgroup: one thread keeps the ring full
+      setmaxnreg_dec<24>();
+      if (threadIdx.x == 128 * NWG) {
+        const int c0 = (int)cluster_ctarank() * W_D;   // the CTA's first column of the head
+        const int fix = DKV ? W_FIX : Q_FIX;
+        mbar_arrive_expect_tx(bar_fix, 2 * fix * W_OPND + (DKV ? 1 : 2) * fix * 4);
+#pragma unroll
+        for (int x = 0; x < W_D / BOX; ++x) {
+          tma_load_4d(sm + L::A1 + x * fix * ROW, DKV ? &tk : &tq, bar_fix, c0 + x * BOX, h, f0,
+                      b);
+          tma_load_4d(sm + L::A2 + x * fix * ROW, DKV ? &tv : &to, bar_fix, c0 + x * BOX, h, f0,
+                      b);
+        }
+        if (DKV) {
+          tma_load_2d(sm + L::FIXV, &tm, bar_fix, f0, b);
+        } else {
+          tma_load_2d(sm + L::FIXV, &tl, bar_fix, f0, bh);
+          tma_load_2d(sm + L::FIXV + Q_FIX * 4, &td, bar_fix, f0, bh);
+        }
+        for (int k = 0; k < 2 * (n - i0); ++k) {
+          const int s = k % NS, r0 = (i0 + k / 2) * TILE;
+          const bool second = (k & 1) == 1;   // dO or K
+          const CUtensorMap* map = DKV ? (second ? &to : &tq) : (second ? &tk : &tv);
+          mbar_wait(bar_free + s, ((k / NS) & 1) ^ 1);   // the first round passes
+          mbar_arrive_expect_tx(bar_full + s, W_SLOT + (DKV || second ? TILE * 4 : 0));
+#pragma unroll
+          for (int x = 0; x < W_D / BOX; ++x)
+            tma_load_4d(slot(k) + x * TILE * ROW, map, bar_full + s, c0 + x * BOX, h, r0, b);
+          if (DKV) tma_load_2d(side(k), second ? &td : &tl, bar_full + s, r0, bh);
+          else if (second) tma_load_2d(side(k), &tm, bar_full + s, r0, b);
+        }
+      }
+    } else {
+      // ---- consumer warpgroup wg
+      setmaxnreg_inc<240>();
+      unsigned char* region = sm + L::X + wg * X_REGION;
+      uint64_t* xb = bar_x + 4 * wg;
+      auto wait_item = [&](int k) { mbar_wait(bar_full + k % NS, (k / NS) & 1); };
+      auto release = [&](int k) {       // item k's slot may be refilled
+        if (lane == 0) mbar_arrive(bar_free + k % NS);
+      };
+      float acc[W_D / 2];               // dV (wg 0) or dK (wg 1); or dQ
+#pragma unroll
+      for (int i = 0; i < W_D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(bar_fix, 0);
+      int fr, s_fixed;                  // this thread's rows fr, fr + 8 of the CTA
+      bool active;                      // the warpgroup's rows lie below S
+      if constexpr (DKV) {
+        // the CTA's 64 kv rows f0 .. f0 + 63.  Warpgroup 0 reads Q_i first
+        // (S^T, with lse for P^T) and dO_i last (dV); warpgroup 1 dO_i first
+        // (dP^T, with delta for dS^T) and Q_i last (dK).  Each releases its
+        // first item once its elementwise work is done and its last once
+        // its last product is in, so Q_i+1 loads as soon as warpgroup 0 is
+        // done with tile i-1 and only dO_i+1 waits for the end of tile i.
+        fr = warp * 16 + lane / 4;
+        s_fixed = Skv;
+        active = true;
+        const int row = f0 + fr;
+        bool keep[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          keep[r] = reinterpret_cast<const int*>(sm + L::FIXV)[fr + 8 * r] != 0;
+        // P^T of the j-th tile in buffer j % 2; named barriers 1 + j % 2
+        // ("full") and 3 + j % 2 ("empty") over both warpgroups
+        float* hand = reinterpret_cast<float*>(sm + L::HAND);
+        const int count = n - i0;
+        for (int i = i0; i < n; ++i) {
+          const int j = i - i0, r0 = i * TILE;
+          const int k1 = 2 * j + wg, k2 = 2 * j + 1 - wg;   // the first and last items
+          float* pt = hand + (j & 1) * (TILE * TILE);
+          float sc[TILE / 2];
+          uint32_t x[TILE / 16][4];
+          wait_item(k1);
+          // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1), over the CTA's columns
+          wgmma_fence();
+          issue_ss<W_D, W_FIX>(sc, sm + (wg == 0 ? L::A1 : L::A2), slot(k1));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          sum_scores(sc, region, xb, j, tid);           // over all of D
+          const float* lv = reinterpret_cast<const float*>(side(k1));   // lse or delta
+          const unsigned char* bt = slot(k2);
+          auto last_part = [&](int h) {                  // part h of dV += P^T dO, or dK += dS^T Q
+            fence_regs(sc);
+            pack_a_part(x, sc, h);
+            fence_regs(acc);
+            fence_regs(x);
+            wgmma_fence();
+            issue_rs_part<W_D>(acc, x, bt, h);
+            wgmma_commit();
+          };
+          if (wg == 0) {                                 // P^T, handed over
+            const bool dg = causal && r0 < f0 + W_FIX - 1;
+            if (dg) probs_t_p_part<true>(sc, lv, keep, row, r0, t, 0);
+            else probs_t_p_part<false>(sc, lv, keep, row, r0, t, 0);
+            wait_item(k2);
+            last_part(0);
+            if (dg) probs_t_p_part<true>(sc, lv, keep, row, r0, t, 1);
+            else probs_t_p_part<false>(sc, lv, keep, row, r0, t, 1);
+            release(k1);
+            if (j >= 2) {
+              if (j & 1) named_barrier_sync<4>(128 * NWG);
+              else named_barrier_sync<3>(128 * NWG);
+            }
+            put_scores(pt, sc, tid);
+            if (j & 1) named_barrier_arrive<2>(128 * NWG);
+            else named_barrier_arrive<1>(128 * NWG);
+          } else {                                       // dS^T from the P^T handed over
+            if (j & 1) named_barrier_sync<2>(128 * NWG);
+            else named_barrier_sync<1>(128 * NWG);
+            ds_t_handed(sc, pt, lv, t, tid, 0);
+            wait_item(k2);
+            last_part(0);
+            ds_t_handed(sc, pt, lv, t, tid, 1);
+            release(k1);
+            if (j + 2 < count) {
+              if (j & 1) named_barrier_arrive<4>(128 * NWG);
+              else named_barrier_arrive<3>(128 * NWG);
+            }
+          }
+          last_part(1);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(x);
+          release(k2);
+        }
+      } else {
+        // q rows w0 .. w0 + 63.  dP is issued first (V_i lands under tile
+        // i-1, K_i only once tile i-1's dQ += dS K is in) and summed across
+        // the cluster while S = Q K^T runs; then S is summed.
+        const int w0 = f0 + wg * 64;
+        fr = wg * 64 + warp * 16 + lane / 4;
+        s_fixed = Sq;
+        active = w0 < Sq;
+        const int row = f0 + fr;
+        int ie = active ? n : 0;
+        if (causal && active) ie = min(n, w0 / TILE + 1);
+        float lse_r[2], dl_r[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          lse_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[fr + 8 * r];
+          dl_r[r] = reinterpret_cast<const float*>(sm + L::FIXV)[Q_FIX + fr + 8 * r];
+        }
+        const unsigned char* a1 = sm + L::A1 + wg * 64 * ROW;
+        const unsigned char* a2 = sm + L::A2 + wg * 64 * ROW;
+        for (int i = 0; i < n; ++i) {
+          const int kv = 2 * i, kk = 2 * i + 1, r0 = i * TILE;
+          if (i >= ie) {
+            wait_item(kv);
+            release(kv);
+            wait_item(kk);
+            release(kk);
+            continue;
+          }
+          float sc[TILE / 2], dp[TILE / 2];
+          uint32_t x[TILE / 16][4];
+          wait_item(kv);
+          wgmma_fence();
+          issue_ss<W_D, Q_FIX>(dp, a2, slot(kv));       // dP = dO V^T
+          wgmma_commit();
+          wait_item(kk);
+          wgmma_fence();
+          issue_ss<W_D, Q_FIX>(sc, a1, slot(kk));       // S = Q K^T
+          wgmma_commit();
+          wgmma_wait<1>();                              // dP is in
+          fence_regs(dp);
+          release(kv);
+          sum_scores(dp, region, xb, 2 * i, tid);
+          wgmma_wait<0>();
+          fence_regs(sc);
+          sum_scores(sc, region, xb, 2 * i + 1, tid);
+          const int* mk = reinterpret_cast<const int*>(side(kk));
+          const bool dg = causal && r0 + TILE - 1 > w0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {                  // dQ += dS K, part by part
+            if (dg) probs_part<true>(sc, dp, mk, lse_r, dl_r, row, r0, t, h);
+            else probs_part<false>(sc, dp, mk, lse_r, dl_r, row, r0, t, h);
+            fence_regs(dp);
+            pack_a_part(x, dp, h);
+            fence_regs(acc);
+            fence_regs(x);
+            wgmma_fence();
+            issue_rs_part<W_D>(acc, x, slot(kk), h);
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(x);
+          release(kk);
+        }
+      }
+      if (active) {                     // dV (wg 0) and dK (wg 1), or dQ
+        __nv_bfloat16* out = DKV && wg == 0 ? out2 : out1;
+        const int c0 = (int)cluster_ctarank() * W_D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const long long at =
+              (((long long)b * s_fixed + (f0 + fr) + 8 * r) * H + h) * dw + c0;
+#pragma unroll
+          for (int dt = 0; dt < W_D / 8; ++dt)
+            if (c0 + dt * 8 < dw)       // columns past D: TMA's zeros
+              *reinterpret_cast<uint32_t*>(out + at + dt * 8 + 2 * t) =
+                  pack_bf16(acc[4 * dt + 2 * r], acc[4 * dt + 2 * r + 1]);
+        }
+      }
+    }
+    cluster_sync();                     // no CTA leaves while a peer may reach it
+  } else if constexpr (DKV) {
     using L = Dkv256Smem;
     constexpr int NS = W_STAGES;
     uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -1978,8 +2247,8 @@ typedef long long ll;
 
 // The bf16 kernel of one pass at head width D (DKV: dK and dV into out1,
 // out2; else dQ into out1) on `st`; returns 1000 + the CUresult of a
-// refused tensor map, launch_cluster's code past D = 256, or
-// cudaGetLastError().
+// refused tensor map, launch_cluster's code past D = 256 (clusters of
+// ceil(D / 256) CTAs of the D = 256 design), or cudaGetLastError().
 template <bool DKV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  const void* mask, const void* lse, const void* delta, void* out1,
@@ -1987,9 +2256,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                  cudaStream_t st) {
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
-  // fixed rows a CTA (swept tiles are 64): D = 128 (and a cluster's CTA)
-  // 128; D = 256 64 kv rows (dK/dV) or 128 q rows (dQ)
-  const int fix = D != 256 ? FIX : DKV ? W_FIX : Q_FIX;
+  // fixed rows a CTA (swept tiles are 64): D = 128 128; D >= 256 (and a
+  // cluster's CTA) 64 kv rows (dK/dV) or 128 q rows (dQ)
+  const int fix = D == 128 ? FIX : DKV ? W_FIX : Q_FIX;
   const int q_rows = DKV ? TILE : fix, kv_rows = DKV ? fix : TILE;
   CUtensorMap tq, tk, tv, to, tm, tl, td;
   CUresult r = qkv_map(enc, &tq, q, B, Sq, H, qsb, qss, qsh, q_rows, D);
@@ -2003,26 +2272,27 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
     r = rows_map(enc, &td, delta, B * H, Sq, q_rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
   dim3 grid(((DKV ? Skv : Sq) + fix - 1) / fix, H, B);
-  if (D > 256) {
-    const int n = D / BWD_D;
+  if (D > W_D) {
+    const int n = (D + W_D - 1) / W_D;
     grid.x *= n;
-    return launch_cluster(flash_bwd_wgmma_kernel<DKV, CLUSTER_D>, n, grid, 128 * (NWG + 1),
-                          BwdSmem<CLUSTER_D>::ALLOC, st, tq, tk, tv, to, tm, tl, td,
-                          (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H, causal);
+    constexpr int smem = DKV ? Dkv256WideSmem::ALLOC : Dq256WideSmem::ALLOC;
+    return launch_cluster(flash_bwd_d256_wgmma_kernel<DKV, true>, n, grid, 128 * (NWG + 1),
+                          smem, st, tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1,
+                          (__nv_bfloat16*)out2, Sq, Skv, H, causal, D);
   }
   if (D == 128) {
     cudaFuncSetAttribute(flash_bwd_wgmma_kernel<DKV, 128>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem<128>::ALLOC);
-    flash_bwd_wgmma_kernel<DKV, 128><<<grid, 128 * (NWG + 1), BwdSmem<128>::ALLOC, st>>>(
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, BwdSmem::ALLOC);
+    flash_bwd_wgmma_kernel<DKV, 128><<<grid, 128 * (NWG + 1), BwdSmem::ALLOC, st>>>(
         tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H,
         causal);
   } else {
     constexpr int smem = DKV ? Dkv256Smem::ALLOC : Dq256Smem::ALLOC;
-    cudaFuncSetAttribute(flash_bwd_d256_wgmma_kernel<DKV>,
+    cudaFuncSetAttribute(flash_bwd_d256_wgmma_kernel<DKV, false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    flash_bwd_d256_wgmma_kernel<DKV><<<grid, 128 * (NWG + 1), smem, st>>>(
+    flash_bwd_d256_wgmma_kernel<DKV, false><<<grid, 128 * (NWG + 1), smem, st>>>(
         tq, tk, tv, to, tm, tl, td, (__nv_bfloat16*)out1, (__nv_bfloat16*)out2, Sq, Skv, H,
-        causal);
+        causal, D);
   }
   return (int)cudaGetLastError();
 }
@@ -2101,8 +2371,9 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
 // read.  Each entry launches on `stream` and returns the first nonzero of
 // its kernels' codes: cudaGetLastError(), 1000 + the CUresult of a tensor
 // map the driver refused (1000 alone where the driver offers no encoder),
-// CLUSTER_ERROR + n where the card cannot hold a cluster of n = D / 128
-// CTAs of a kernel (D >= 256), or cudaErrorInvalidValue for another D.
+// CLUSTER_ERROR + n where the card cannot hold a cluster of n CTAs of a
+// kernel (D >= 256: bf16 n = ceil(D / 256), f32 n = D / 128), or
+// cudaErrorInvalidValue for another D.
 
 // K2: the dK/dV kernel, then the dQ kernel.
 extern "C" int pbt_flash_bwd(const void* q, const void* k, const void* v,
@@ -2212,20 +2483,20 @@ extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void
 // kernel at head width D (256 .. 1024) and type `dtype` the card holds at
 // once (cudaOccupancyMaxActiveClusters, 0 where it holds none); the
 // cluster's size into *size (1 where the kernel runs no cluster, and the
-// answer is then 0).
+// answer is then 0): bf16 ceil(D / 256) CTAs past D = 256, f32 D / 128.
 extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
   int* n = static_cast<int*>(size);
   *n = 1;
   if (!head_dim_taken(D) || D < 256 || (dtype == 1 && D == 256)) return 0;
-  *n = D / T_D;
+  *n = dtype == 1 ? (D + W_D - 1) / W_D : D / T_D;
   auto ask = [&](auto kernel, int threads, int smem) {
     return max_active_clusters(kernel, *n, threads, smem);
   };
   if (dtype == 1)
-    return which ? ask(flash_bwd_wgmma_kernel<true, CLUSTER_D>, 128 * (NWG + 1),
-                       BwdSmem<CLUSTER_D>::ALLOC)
-                 : ask(flash_bwd_wgmma_kernel<false, CLUSTER_D>, 128 * (NWG + 1),
-                       BwdSmem<CLUSTER_D>::ALLOC);
+    return which ? ask(flash_bwd_d256_wgmma_kernel<true, true>, 128 * (NWG + 1),
+                       Dkv256WideSmem::ALLOC)
+                 : ask(flash_bwd_d256_wgmma_kernel<false, true>, 128 * (NWG + 1),
+                       Dq256WideSmem::ALLOC);
   if (D == 256)
     return which ? ask(flash_bwd_tf32_kernel<true, 256>, 256, BwdTf32Smem::ALLOC)
                  : ask(flash_bwd_tf32_kernel<false, 256>, 256, BwdTf32Smem::ALLOC);

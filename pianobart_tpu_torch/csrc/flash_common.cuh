@@ -6,9 +6,11 @@
 // kernel has its width as a template parameter or a constant of its own
 // design (the shared-memory layouts and accumulator sizes follow from it);
 // the C entries take D at run time and pick the instance.  D = 128 and 256
-// have instances of their own; D = 384 .. 1024 run the instances of width
-// CLUSTER_D, clusters of n = D / 128 CTAs, one per 128 columns of the head,
-// that sum the products over D across the cluster (hopper.cuh:cluster_sum).
+// have instances of their own; D = 384 .. 1024 run clusters that sum the
+// products over D across the cluster (hopper.cuh): the bf16 kernels as
+// ceil(D / 256) CTAs of their D = 256 designs (their WIDE instances), the
+// f32 forward as the instance of width CLUSTER_D, D / 128 CTAs of 128
+// columns, the f32 backward as its own wide kernel.
 //
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
@@ -25,7 +27,7 @@ namespace pbt {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_HEAD_DIM = 1024;   // 8 CTAs: the card's largest portable cluster
-constexpr int CLUSTER_D = 0;         // the template width of the cluster instances
+constexpr int CLUSTER_D = 0;         // the f32 forward's template width of its clusters
 
 // D = 128 n with n = 1 .. 8
 inline bool head_dim_taken(int D) { return D % 128 == 0 && D >= 128 && D <= MAX_HEAD_DIM; }

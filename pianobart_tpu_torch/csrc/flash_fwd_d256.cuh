@@ -312,7 +312,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         else if (cs.n == 4)
           pair_sum4(sc, region, xb, cs.rank, j, 128, tid);
         else
-          cluster_sum(cs, region, xb, j & 1, 128, tid, true, sc);
+          cluster_sum<true>(cs, region, xb, j & 1, 128, tid, true, sc);
       }
       float corr[2];
       if (causal && kv0 + BN - 1 > wrow0)

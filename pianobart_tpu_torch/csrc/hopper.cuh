@@ -121,6 +121,15 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
                :: "r"(addr) : "memory");
 }
 
+// this thread's earlier accesses to shared memory (its reads of an exchange
+// region) performed before its later ones: before the relaxed arrival that
+// lets a peer write that region again, since a read still in flight could
+// otherwise see the peer's next parts (bf16 dQ at D = 384 did, on an H100,
+// where one CTA of a pair runs ahead of the other)
+__device__ __forceinline__ void fence_cta() {
+  asm volatile("fence.acq_rel.cta;\n" ::: "memory");
+}
+
 // mbar_wait that acquires at cluster scope: what the other CTA wrote before
 // its arrival is visible after
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
@@ -372,8 +381,10 @@ __device__ __forceinline__ void cluster_gather_get(const ClusterSum& c,
 // The exchange above over `parts` (float arrays of this thread, in order),
 // region `region`, barriers xb[0..3]; T threads take part, tid this one's.
 // own_region: the region is the exchange's alone, given back to the peers
-// as soon as this CTA has read it.
-template <typename... Parts>
+// as soon as this CTA has read it.  FENCE: each thread's reads of the region
+// are performed before its warp's arrivals on rs_done and ready (fence_cta);
+// the f32 kernels, written before that hazard was seen, run without.
+template <bool FENCE = false, typename... Parts>
 __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* region,
                                             uint64_t* xb, uint32_t parity, int T, int tid,
                                             bool own_region, Parts&... parts) {
@@ -397,6 +408,7 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
   mbar_wait_cluster(xb + 1, parity);
   k0 = 0;
   ((cluster_reduce(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
+  if constexpr (FENCE) fence_cta();
   cluster_arrive_peers(c, xb + 2, lane);
   mbar_wait_cluster(xb + 2, parity);
   k0 = 0;
@@ -405,6 +417,7 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
   mbar_wait_cluster(xb + 3, parity);
   k0 = 0;
   ((cluster_gather_get(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
+  if constexpr (FENCE) fence_cta();
   if (own_region) cluster_arrive_peers(c, xb, lane);
 }
 
@@ -415,9 +428,10 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
 // numbers (a + b is b + a), so both hold the same sums to the bit.  The
 // region (U = C * T units, all of the parts) is the exchange's alone: before
 // writing, a CTA waits on its `ready` for the peer's word that the peer has
-// read its region (4 arrivals, one a warp); once it has read its own, it
-// gives it to `next`, the CTA that writes into it next, arriving on that
-// CTA's `next_ready` (the same offset in every CTA).  A pair sums in one
+// read its region (4 arrivals, one a warp); once it has read its own (the
+// reads performed: fence_cta), it gives it to `next`, the CTA that writes
+// into it next, arriving on that CTA's `next_ready` (the same offset in
+// every CTA).  A pair sums in one
 // round (pair_sum2); four CTAs in two, rank r with r ^ 1 then with r ^ 2
 // (pair_sum4), each CTA adding (p0 + p1) and (p2 + p3) in some order, the
 // same sum; a round's ready barrier hears from that round's peer alone, so
@@ -450,6 +464,7 @@ __device__ __forceinline__ void pair_round(float (&v)[N], unsigned char* region,
     v[4 * k + 2] += w.z;
     v[4 * k + 3] += w.w;
   }
+  fence_cta();                            // the reads are done before the region is given
   __syncwarp();
   if (lane == 0)
     asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n"

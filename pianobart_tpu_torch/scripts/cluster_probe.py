@@ -1,9 +1,13 @@
 """The wide heads' cluster kernels on the card: their times at ``--heads 2``
 (D = 512, H = 2) and at D = 384 and 1024 beside the D = 128 kernels, and
 where a warp's time goes in the score exchange that the clusters add
-(``csrc/hopper.cuh:cluster_sum``): in bf16 K1's (clusters of ceil(D/256)
-CTAs of the D = 256 design) and the backward's, in f32 K1's and the
-backward's (two warpgroups a CTA, each exchanging on its own).
+(``csrc/hopper.cuh``): in bf16 K1's and the bf16 backward's (clusters of
+ceil(D/256) CTAs of their D = 256 designs, so one ``pair_round`` an
+exchange at D = 384 and 512; the backward's two warpgroups a CTA each
+exchanging on its own), in f32 K1's and the f32 backward's
+(``cluster_sum``; two warpgroups a CTA in the backward).  Run from the root
+of any checkout, it counts that tree's exchanges: run it on two trees to
+compare them.
 
     python -m pianobart_tpu_torch.scripts.cluster_probe
 

@@ -1284,10 +1284,11 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
 
 
 # Head widths 384 .. 1024: every kernel as clusters that sum S and dP across
-# the cluster (hopper.cuh:cluster_sum), of D/128 CTAs (one per 128 columns
-# of the head) but bf16 K1's, of ceil(D/256) CTAs of the D=256 design (640:
-# three CTAs, the last one's upper half past D, and five in the others); the
-# same tolerances as at D = 128.
+# the cluster through each other's shared memory, of D/128 CTAs (one per 128
+# columns of the head) but the bf16 ones' (K1 and the backward), of
+# ceil(D/256) CTAs of their D=256 designs (640: three CTAs, the last one's
+# upper half past D; 1024: four, summed in two pair rounds); the same
+# tolerances as at D = 128.
 WIDE_DS = [384, 512, 640, 1024]
 
 
@@ -1382,17 +1383,19 @@ def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [384, 640, 1024])
+@pytest.mark.parametrize("D", [384, 512, 640, 768, 1024])
 @pytest.mark.parametrize("S,causal", [(320, False), (320, True), (1024, False)],
                          ids=["320", "320-causal", "1024"])
 def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal, dtype):
-    """bf16 K1 (clusters of ceil(D/256) CTAs, the last one's upper half past
-    D at 384 and 640) and the f32 backward (two warpgroups a CTA on alternate
-    32-row swept tiles, flushing into dQ, dK and dV in one order): two runs
-    of K1, K2 and K3 give the same bits, and q, k, v and dO whose 128-column
-    blocks are equal give O, dQ, dK and dV whose blocks are equal to the bit,
-    which holds only if every CTA of a cluster holds the same P and dS, its
-    warpgroups' flushes land whole, and a partial CTA adds nothing past D."""
+    """bf16 K1 and the bf16 backward (both clusters of ceil(D/256) CTAs of
+    their D=256 designs: a pair at 384 and 512, three CTAs at 640 and 768,
+    four at 1024, the last one's upper half past D at 384 and 640) and the
+    f32 backward (two warpgroups a CTA on alternate 32-row swept tiles,
+    flushing into dQ, dK and dV in one order): two runs of K1, K2 and K3 give
+    the same bits, and q, k, v and dO whose 128-column blocks are equal give
+    O, dQ, dK and dV whose blocks are equal to the bit, which holds only if
+    every CTA of a cluster holds the same P and dS, its warpgroups' flushes
+    land whole, and a partial CTA adds nothing past D."""
     q, k, v, m, out, lse, dout = _bwd_case(cuda, dtype, causal, True, S=S, D=D)
     o2, l2 = flash_attention_fwd(q, k, v, m, causal)
     assert torch.equal(out, o2) and torch.equal(lse, l2)
@@ -1412,6 +1415,25 @@ def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal,
         for name, x in zip(("o", "dq", "dk", "dv"), (out, *got)):
             for r in range(1, n):
                 assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (kernel, name, r)
+
+
+@pytest.mark.parametrize("D", [384, 640, 896])
+def test_wide_bf16_backward_repeats_its_bits_with_a_zero_filled_cta(cuda, D):
+    """The bf16 dQ and dK/dV kernels at a width whose last CTA's upper half
+    lies past D (that CTA loads half the bytes and runs ahead of its peers)
+    give the same bits over ten calls at a causal shape with many clusters
+    in flight: each exchange's region is read before the peer may write it
+    again (``hopper.cuh:fence_cta``; without it the D=384 dQ moved run to
+    run there)."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.bfloat16, True, True,
+                                           B=8, H=4, S=1024, D=D)
+    args = (q, k, v, m, True, lse, _delta(dout, out), dout)
+    dq0 = flash_attention_dq(*args)
+    dk0, dv0 = flash_attention_dkv(*args)
+    for _ in range(10):
+        assert torch.equal(flash_attention_dq(*args), dq0)
+        dk, dv = flash_attention_dkv(*args)
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -15,6 +15,15 @@ in interpret mode.
   running max moved only when a row's max grows past 2^8, p = 1 on a row
   with no kept key so far, P rounded to bf16 per tile, O column block by
   column block, O = acc / l, lse = m + ln l.
+* bf16 backward (``csrc/flash_bwd.cu:flash_bwd_d256_wgmma_kernel<DKV, true>``):
+  clusters of ceil(D/256) CTAs of the D=256 design on 256 columns each
+  (zeros past D), the partials of S^T and dP^T (S and dP) summed as K1's;
+  then the D=256 kernels' schedule (``tests/test_torch_bf16_d256_bwd.py``):
+  dK/dV over 64 fixed kv rows and swept q tiles of 64 from the diagonal's
+  (causal), P^T in f32 handed to dS^T = P^T (dP^T - delta), dV += P^T dO and
+  dK += dS^T Q tile by tile; dQ over 64 fixed q rows a warpgroup and swept
+  kv tiles to its diagonal's, dQ += dS K; P^T, dS^T and dS rounded to bf16
+  as product operands.
 * f32 backward (``csrc/flash_bwd.cu:flash_bwd_wide_tf32_kernel<DKV>``):
   clusters of D/128 CTAs, each CTA's products three tf32 passes on its 128
   columns of the prep's planes (``tests/test_torch_f32_d256.py``'s
@@ -37,7 +46,11 @@ summation order); with P rounded to bf16 as the kernel rounds it, within
 the card's bf16 tolerance (``tests/test_torch_cuda.py:TOL``: |dO| <=
 1e-2 + 1e-2 |O|, |dlse| <= 1e-3).  The backward's dQ, dK and dV within
 1.5e-6 of their norm (``tests/test_torch_f32_d256.py``'s 1.3e-6 at D=256,
-with room for sums over four times the columns).
+with room for sums over four times the columns).  The bf16 backward with
+f32 operands within ``tests/test_torch_bf16_d256_bwd.py``'s 2e-5 (summation
+order; the absolute part times the tensor's largest entry), with bf16 operands within the card's bf16 backward tolerance
+(``chip_smoke.py``'s ``[flash_bwd]``: |d| <= 1e-2 max|ref| + 1e-2 |ref| per
+element, ||d|| <= 1e-2 ||ref||).
 """
 import functools
 
@@ -63,6 +76,8 @@ FLUSH = 4             # a warpgroup's tiles a chain
 TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = (1e-2, 1e-2, 1e-3)
 BWD_TOL = 1.5e-6
+BF16_BWD_TOL = (1e-2, 1e-2, 1e-2)
+TILE = 64             # the bf16 backward's swept rows, and fixed rows a warpgroup
 
 
 def _inputs(D, seed, bf16=False):
@@ -87,6 +102,17 @@ def _jax_fwd(D, causal, bf16):
     return (q, k, v, mask), out, lse, flat
 
 
+def _cluster_sum(parts):
+    """The CTAs' partial products summed as the kernels sum them: a pair in
+    one round, four CTAs (p0 + p1) + (p2 + p3), three in rank order."""
+    if len(parts) == 4:
+        return (parts[0] + parts[1]) + (parts[2] + parts[3])
+    s = torch.zeros_like(parts[0])
+    for p in parts:
+        s = s + p
+    return s
+
+
 def _k1_model(inputs, causal, rounded):
     """bf16 K1's clusters: (out (B, S, H, D), lse (B, H, S)) in f32."""
     q, k, v, mask = inputs
@@ -103,15 +129,9 @@ def _k1_model(inputs, causal, rounded):
     op = (lambda x: x.bfloat16().float()) if rounded else (lambda x: x)
 
     def scores(rows, cols):
-        parts = [Q[:, :, rows, r * K1_COLS:(r + 1) * K1_COLS]
-                 @ K[:, :, cols, r * K1_COLS:(r + 1) * K1_COLS].transpose(-1, -2)
-                 for r in range(n)]
-        if n == 4:                               # two pairwise rounds
-            return (parts[0] + parts[1]) + (parts[2] + parts[3])
-        s = torch.zeros(B, H, len(rows), len(cols))
-        for p in parts:                          # rank order
-            s = s + p
-        return s
+        return _cluster_sum([Q[:, :, rows, r * K1_COLS:(r + 1) * K1_COLS]
+                             @ K[:, :, cols, r * K1_COLS:(r + 1) * K1_COLS].transpose(-1, -2)
+                             for r in range(n)])
 
     out = torch.zeros(B, H, S, n * K1_COLS)
     lse = torch.zeros(B, H, S)
@@ -159,6 +179,101 @@ def test_bf16_k1_clusters_of_256_columns_match_jax(D, causal, rounded):
     else:
         np.testing.assert_allclose(out, j_out, **TOL)
         np.testing.assert_allclose(lse, np.asarray(j_lse), **TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_bwd(D, causal, kernel):
+    """bf16 inputs (as f32), dO, JAX's lse and delta, and (dq, dk, dv) of
+    the Pallas ``_bwd_fused_call`` (K2) or ``_dq_call`` and ``_dkv_call``
+    (K3), each (B, S, H*D)."""
+    import jax.numpy as jnp
+    from pianobart_tpu.ops.flash import _bwd_fused_call, _delta, _dkv_call, _dq_call
+    inputs, out, lse, (qf, kf, vf, maskf) = _jax_fwd(D, causal, True)
+    dout = torch.from_numpy(np.random.default_rng(D).standard_normal(
+        (B, S, H, D)).astype(np.float32)).bfloat16().float().numpy()
+    dof = jnp.asarray(dout).reshape(B, S, H * D)
+    delta = _delta(dof, out, H)
+    args = (qf, kf, vf, maskf, dof, lse, delta, causal, None, None, H)
+    want = _bwd_fused_call(*args) if kernel == "K2" else (_dq_call(*args), *_dkv_call(*args))
+    return inputs, dout, np.array(lse), np.array(delta), tuple(np.asarray(x) for x in want)
+
+
+def _bf16_bwd_model(inputs, dout, lse, delta, causal, rounded):
+    """The bf16 dK/dV and dQ kernels' clusters past D=256: (dq, dk, dv), each
+    (B, S, H*D) f32."""
+    q, k, v, mask = inputs
+    D = q.shape[-1]
+    n = -(-D // K1_COLS)
+    pad = n * K1_COLS - D                        # columns past D: TMA's zeros
+    Q, K, V, dO = (torch.nn.functional.pad(torch.from_numpy(x), (0, pad)).permute(0, 2, 1, 3)
+                   for x in (q, k, v, dout))     # (B, H, S, n * 256)
+    lse, delta = torch.from_numpy(lse), torch.from_numpy(delta)
+    keep = (torch.from_numpy(mask) != 0)[:, None, None, :].expand(B, 1, S, S)
+    if causal:
+        keep = keep & torch.ones(S, S, dtype=torch.bool).tril()
+    op = (lambda x: x.bfloat16().float()) if rounded else (lambda x: x)
+
+    def over_d(a, b):                            # a b^T, each CTA on its 256 columns
+        return _cluster_sum([a[..., r * K1_COLS:(r + 1) * K1_COLS]
+                             @ b[..., r * K1_COLS:(r + 1) * K1_COLS].transpose(-1, -2)
+                             for r in range(n)])
+
+    def rows(i):
+        return slice(i * TILE, (i + 1) * TILE)
+
+    nt = S // TILE
+    dq, dk, dv = (torch.zeros(B, H, S, n * K1_COLS) for _ in range(3))
+    for f in range(nt):
+        fr = rows(f)
+        # dK/dV of kv rows fr over q tiles from the diagonal's on (causal)
+        acc_dk, acc_dv = (torch.zeros(B, H, TILE, n * K1_COLS) for _ in range(2))
+        for i in range(f if causal else 0, nt):
+            qr = rows(i)
+            kept = keep[:, :, qr, fr].transpose(-1, -2)
+            pt = torch.exp2((torch.where(kept, over_d(K[:, :, fr], Q[:, :, qr]), NEG_INF)
+                             - lse[:, :, None, qr]) * LOG2E)     # warpgroup 0, handed over
+            dst = pt * (over_d(V[:, :, fr], dO[:, :, qr]) - delta[:, :, None, qr])
+            acc_dv = acc_dv + op(pt) @ dO[:, :, qr]
+            acc_dk = acc_dk + op(dst) @ Q[:, :, qr]
+        dk[:, :, fr], dv[:, :, fr] = acc_dk, acc_dv
+        # dQ of q rows fr (one warpgroup's) over kv tiles to its diagonal's
+        acc_dq = torch.zeros(B, H, TILE, n * K1_COLS)
+        for i in range(f + 1 if causal else nt):
+            kr = rows(i)
+            p = torch.exp2((torch.where(keep[:, :, fr, kr], over_d(Q[:, :, fr], K[:, :, kr]),
+                                        NEG_INF) - lse[:, :, fr, None]) * LOG2E)
+            ds = op(p * (over_d(dO[:, :, fr], V[:, :, kr]) - delta[:, :, fr, None]))
+            acc_dq = acc_dq + ds @ K[:, :, kr]
+        dq[:, :, fr] = acc_dq
+    return tuple(x[..., :D].permute(0, 2, 1, 3).reshape(B, S, H * D).numpy()
+                 for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("rounded", [False, True], ids=["f32-operands", "bf16-operands"])
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("causal", [False, True], ids=["plain", "causal"])
+@pytest.mark.parametrize("D", WIDTHS)
+def test_bf16_backward_clusters_of_256_columns_match_jax(D, causal, kernel, rounded):
+    """The bf16 dK/dV and dQ kernels past D=256 (partial S^T and dP^T over
+    256-column CTAs, zeros past D, summed as the kernels sum them, then the
+    D=256 schedule) == the Pallas ``_bwd_fused_call`` (K2) or ``_dq_call``
+    and ``_dkv_call`` (K3) from the same lse and delta: within 2e-5 with f32
+    operands, within the card's bf16 tolerance with P^T, dS^T and dS
+    rounded to bf16 as the kernels round them."""
+    inputs, dout, lse, delta, want = _jax_bf16_bwd(D, causal, kernel)
+    got = _bf16_bwd_model(inputs, dout, lse, delta, causal, rounded)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert np.isfinite(a).all(), name
+        if not rounded:
+            # the absolute part scales with the tensor's largest entry: the
+            # first causal rows' dQ (tens, at D=1024) sums terms of that size
+            atol = TOL["atol"] * np.abs(b).max()
+            np.testing.assert_allclose(a, b, rtol=TOL["rtol"], atol=atol, err_msg=name)
+            continue
+        atol, rtol, ntol = BF16_BWD_TOL
+        d = np.abs(a - b)
+        assert (d <= atol * np.abs(b).max() + rtol * np.abs(b)).all(), (name, d.max())
+        assert np.linalg.norm(d) <= ntol * np.linalg.norm(b), name
 
 
 def _planes(x):
