@@ -309,7 +309,10 @@ def _sass_label(name):
     if label == "flash_bwd_wide_tf32_kernel":    # the f32 backward past D = 256
         return label + ("<true> (dK/dV" if tail.startswith("ILb1E") else "<false> (dQ") + (
             ", clusters of D/128 CTAs, two warpgroups on 32-row tiles)")
-    cluster = {"256": " (CTA pair)", "0": " (clusters of D/128 CTAs, D = 384 .. 1024)"}
+    if label == "flash_fwd_wide_tf32_kernel":    # the f32 forward past D = 256
+        return label + (" (K1, D = 384 .. 1024, clusters of D/128 CTAs, a score tile "
+                        "summed per warpgroup)")
+    cluster = {"256": " (CTA pair)"}
     width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
     if width:
         return f"{label}<{width.group(1)}>" + cluster.get(width.group(1), "")
@@ -336,13 +339,11 @@ def _sass_label(name):
 
 # The SASS of every wgmma kernel this tree did not redesign, as the parent
 # tree compiled it with the card machine's toolkit (CUDA 12.8;
-# :func:`_sass_digest`): the D = 128 and D = 256 kernels, the lab's, and the
-# f32 forward's clusters.  A kernel redesigned on purpose leaves this table
-# with its parent's row.
+# :func:`_sass_digest`): the D = 128 and D = 256 kernels and the lab's.  A
+# kernel redesigned on purpose leaves this table with its parent's row.
 PARENT_SASS = {
     "flash_fwd_tf32_kernel<128>": "15bc73290d4b8edf",
     "flash_fwd_tf32_kernel<256> (CTA pair)": "b8dfd789d8abda8c",
-    "flash_fwd_tf32_kernel<0> (clusters of D/128 CTAs, D = 384 .. 1024)": "6f3eed42aa8b0663",
     "flash_fwd_wgmma_kernel<false, false, 128> (K1)": "fef3bd7947d43eeb",
     "flash_fwd_d256_wgmma_kernel<false> (K1, D=256, 128-row kv tiles, ping-pong)":
         "f9a85d7f89bd862e",
@@ -427,9 +428,11 @@ def phase_build(state):
     pairs, ``<256>`` and ``<*, 256>``).  Fails too if a bf16 D=256 kernel
     (K1's ``flash_fwd_d256_wgmma_kernel<false>`` and the backward's
     ``flash_bwd_d256_wgmma_kernel``, both instances, its clusters' too; 128
-    accumulators a thread) spills, or if ptxas serializes its wgmma (its
-    "Potential Performance Loss" remark); and if a wgmma kernel of :data:`PARENT_SASS` compiles to other
-    code than its parent's.  Then prints how many clusters of each cluster
+    accumulators a thread) or the f32 K1's clusters
+    (``flash_fwd_wide_tf32_kernel``: O, S and Q hi's fragments, 160 registers
+    a thread) spill, or if ptxas serializes their wgmma (its "Potential
+    Performance Loss" remark); and if a wgmma kernel of :data:`PARENT_SASS`
+    compiles to other code than its parent's.  Then prints how many clusters of each cluster
     kernel the card holds at once, at every size it launches."""
     from pianobart_tpu_torch.ops.build import build_kernels
     t0 = time.perf_counter()
@@ -448,15 +451,18 @@ def phase_build(state):
                     print(f"[build]   {line.strip()}")
                 if "Compiling entry function" in line:
                     entry = line
-                elif ("spill stores" in line and "d256_wgmma_kernel" in entry
-                      and "fwd_d256_wgmma_kernelILb1E" not in entry   # not K1's clusters
+                elif ("spill stores" in line
+                      and ("d256_wgmma_kernel" in entry
+                           and "fwd_d256_wgmma_kernelILb1E" not in entry   # not K1's clusters
+                           or "flash_fwd_wide_tf32_kernel" in entry)
                       and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)):
                     spilled.append(f"{_sass_label(entry)}: {line.strip()}")
-                elif "serialized" in line and "d256_wgmma_kernel" in line:
+                elif "serialized" in line and ("d256_wgmma_kernel" in line
+                                               or "flash_fwd_wide_tf32_kernel" in line):
                     spilled.append(line.strip())
-    if spilled:   # 128 accumulators a thread; products that must overlap
-        raise AssertionError(f"a D=256 bf16 kernel spills or runs its wgmma "
-                             f"serialized: {spilled}")
+    if spilled:   # many accumulators a thread; products that must overlap
+        raise AssertionError(f"a D=256 bf16 kernel or the f32 K1's clusters spill or run "
+                             f"their wgmma serialized: {spilled}")
     _cluster_occupancy(libs)
     tool = _cuobjdump()
     if tool is None:

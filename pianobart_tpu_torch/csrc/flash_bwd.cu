@@ -647,8 +647,7 @@ __device__ __forceinline__ void sum_scores(float (&v)[TILE / 2], unsigned char* 
   const uint32_t n = cluster_nctarank();
   if (n == 2) pair_sum2(v, region, xb, cluster_ctarank(), x, 128, tid);
   else if (n == 4) pair_sum4(v, region, xb, cluster_ctarank(), x, 128, tid);
-  else cluster_sum<true>(cluster_sum_shape(X_UNITS, 128, tid), region, xb, x & 1, 128, tid, true,
-                         v);
+  else cluster_sum(cluster_sum_shape(X_UNITS, 128, tid), region, xb, x & 1, 128, tid, true, v);
 }
 
 // this thread's 32 scores (a 64 x 64 f32 accumulator) into a handoff buffer
@@ -2176,7 +2175,8 @@ flash_bwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     };
     // the `parts` over this CTA's columns become their sums over all of D,
     // through the slot of plane ps, which then goes back to the ring; x
-    // counts this warpgroup's exchanges
+    // counts this warpgroup's exchanges (cluster_sum fences each thread's
+    // reads of the slot before its warp's arrivals give the slot back)
     auto sum = [&](int ps, int x, auto&... parts) {
       cluster_sum(cs, plane(ps), xb, x & 1, 128, tid, false, parts...);
       fence_proxy_async();                           // read before the slot's next TMA write

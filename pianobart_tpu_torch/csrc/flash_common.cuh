@@ -9,8 +9,8 @@
 // have instances of their own; D = 384 .. 1024 run clusters that sum the
 // products over D across the cluster (hopper.cuh): the bf16 kernels as
 // ceil(D / 256) CTAs of their D = 256 designs (their WIDE instances), the
-// f32 forward as the instance of width CLUSTER_D, D / 128 CTAs of 128
-// columns, the f32 backward as its own wide kernel.
+// f32 forward and backward as wide kernels of their own, D / 128 CTAs of
+// 128 columns.
 //
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
@@ -27,7 +27,6 @@ namespace pbt {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_HEAD_DIM = 1024;   // 8 CTAs: the card's largest portable cluster
-constexpr int CLUSTER_D = 0;         // the f32 forward's template width of its clusters
 
 // D = 128 n with n = 1 .. 8
 inline bool head_dim_taken(int D) { return D % 128 == 0 && D >= 128 && D <= MAX_HEAD_DIM; }

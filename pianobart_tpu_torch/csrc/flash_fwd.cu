@@ -60,13 +60,13 @@
 // At D = 384 .. 1024 (D = 128 n) both types run as clusters: bf16 of
 // ceil(D / 256) CTAs of the D = 256 design, each on 256 columns of the head
 // (flash_fwd_d256.cuh, flash_fwd_d256_wgmma_kernel<true>), f32 of n CTAs,
-// one per 128 columns, flash_fwd_tf32_kernel<CLUSTER_D>, the pair's design
-// with its exchange generalised; both sum S across the cluster
-// (hopper.cuh:cluster_sum: a reduce-scatter then an all-gather).  A cluster
-// does the FLOPs and reads the bytes of the CTAs of the narrower design at
-// the same H * D: the bound is the D = 128 one (--heads 2, D = 512 H = 2,
-// has the flagship's H * D).  The card holds clusters of up to 8 CTAs
-// portably; launch_cluster refuses a cluster it cannot hold.
+// one per 128 columns (flash_fwd_wide_tf32_kernel below: each consumer
+// warpgroup sums its own score tile across the cluster, by pair rounds
+// where n is a power of two).  A cluster does the FLOPs and reads the bytes
+// of the CTAs of the narrower design at the same H * D: the bound is the
+// D = 128 one (--heads 2, D = 512 H = 2, has the flagship's H * D).  The
+// card holds clusters of up to 8 CTAs portably; launch_cluster refuses a
+// cluster it cannot hold.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
 #include "flash_fwd_d256.cuh"
@@ -91,10 +91,9 @@ struct K1F32Smem {
   static constexpr int QLO = QHI + K1_BM * 4 * F_D;
   static constexpr int SLOT = QLO + K1_BM * 4 * F_D;
   static constexpr int MASK = SLOT + F_SLOTS * F_PLANE;         // per slot F_BN int32
-  // Q, full[S], free[S], and for a pair the exchange's ready and full (for
-  // a wider cluster its four, hopper.cuh:cluster_sum_init)
+  // Q, full[S], free[S], and for a pair the exchange's ready and full
   static constexpr int BAR = MASK + F_SLOTS * F_BN * 4;
-  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS + 4) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * F_SLOTS + 2) * 8 + 1024;
 };
 
 // Masks (the causal one, DIAG, only where the diagonal crosses the
@@ -141,10 +140,7 @@ __device__ __forceinline__ void softmax_tile_f32(float (&sc)[BN / 2], const int*
 // V's transposed ones.  tq: Q planes in boxes of K1_BM rows; tk: K planes in
 // boxes of F_BN rows; tv: V^T planes in boxes of 128 d rows; tm: the mask in
 // boxes of F_BN keys.  DW, the head width: 128, or 256 as CTA pairs along x
-// (blockIdx.x / 2 the q tile, the cluster rank the half of D), or CLUSTER_D
-// as clusters of n = D / 128 CTAs (blockIdx.x / n the q tile, the rank the
-// 128 columns), whose S sums across the cluster through K lo's slot
-// (cluster_sum: 32 KB of S a CTA).
+// (blockIdx.x / 2 the q tile, the cluster rank the half of D).
 template <int DW>
 __global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
@@ -155,7 +151,6 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       int Sq, int Skv, int H, int causal) {
   using L = K1F32Smem;
   constexpr bool PAIR = DW == 2 * F_D;
-  constexpr bool WIDE = DW == CLUSTER_D;
   constexpr int NWG = K1_WG;
   constexpr int BM = K1_BM, BN = F_BN, NS = F_SLOTS;
   extern __shared__ unsigned char smem_raw[];
@@ -167,17 +162,11 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* x_ready = bar_free + NS;    // pair: the peer's slot takes this CTA's S
   uint64_t* x_full = x_ready + 1;       // pair: the peer's S landed in this CTA's slot
 
-  // the exchange of a wider cluster: S, 32 floats a consumer thread
-  constexpr int X_THREADS = 128 * NWG, X_UNITS = BN / 8 * X_THREADS;
-  static_assert(cluster_region_units(X_UNITS) * 16 <= F_PLANE, "S fits K lo's slot");
-  ClusterSum cs = {1, 0, 0, 0};
-  if constexpr (WIDE) cs = cluster_sum_shape(X_UNITS, X_THREADS, threadIdx.x);
   uint32_t rank = 0;                    // pair: which half of D
   if constexpr (PAIR) rank = cluster_ctarank();
-  if constexpr (WIDE) rank = cs.rank;   // which 128 columns
   const int c0 = rank * F_D;            // this CTA's first column of the head
-  const int dw = WIDE ? (int)cs.n * F_D : DW;
-  const int q0 = (PAIR ? blockIdx.x >> 1 : WIDE ? blockIdx.x / cs.n : blockIdx.x) * BM;
+  const int dw = DW;
+  const int q0 = (PAIR ? blockIdx.x >> 1 : blockIdx.x) * BM;
   const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h;
   const int wg = threadIdx.x / 128;
@@ -195,10 +184,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(x_ready, 4 * NWG);        // each of the peer's consumer warps
       mbar_init(x_full, 128 * NWG);       // each of the peer's consumer threads
     }
-    if constexpr (WIDE) cluster_sum_init(x_ready, cs.n, 128 * NWG);
     mbar_fence_init();
   }
-  if constexpr (PAIR || WIDE) cluster_sync();   // every CTA's barriers ready
+  if constexpr (PAIR) cluster_sync();   // both CTAs' barriers ready
   else __syncthreads();
 
   if (wg == NWG) {
@@ -288,22 +276,13 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         __syncwarp();
         release(p + 1);
       }
-      if constexpr (WIDE) {
-        // the same over n CTAs: K lo's slot takes the reduce-scatter and the
-        // all-gather of S over all of D
-        release(p);
-        cluster_sum(cs, plane(p + 1), x_ready, j & 1, 128 * NWG, threadIdx.x, false, sc);
-        fence_proxy_async();               // read before the slot's next TMA write
-        __syncwarp();
-        release(p + 1);
-      }
       const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);
       if (causal && kv0 + BN - 1 > wrow0)
         softmax_tile_f32<true, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       else
         softmax_tile_f32<false, BN>(sc, mk, m_i, l_i, corr, row, kv0, t);
       fence_regs(sc);                                // p computed before the release
-      if constexpr (!PAIR && !WIDE) {
+      if constexpr (!PAIR) {
         release(p);
         release(p + 1);
       }
@@ -357,7 +336,317 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       if (t == 0 && rank == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
     }
   }
-  if constexpr (PAIR || WIDE) cluster_sync();   // no CTA leaves while a peer may reach it
+  if constexpr (PAIR) cluster_sync();   // no CTA leaves while its peer may reach it
+}
+
+// ---------------------------------------- f32 / 3xTF32 at D = 384 .. 1024
+// K1 in f32 at D = 128 n, n = 3 .. 8: clusters of n CTAs along x
+// (blockIdx.x / n the q tile of K1_BM rows, the cluster rank r the columns
+// 128 r .. 128 r + 127 of the head), each the products of the D = 128
+// kernel above on its 128 columns of every plane, S = Q K^T summed over all
+// of D across the cluster, its columns of O stored, lse by rank 0.
+//
+// What held the first design here (the D = 128 kernel with S summed over
+// both consumer warpgroups at once by cluster_sum, through K lo's slot) at
+// a quarter of its bound, counted by scripts/cluster_probe.py at D = 512
+// (H100, cycles a consumer warp a kv tile of 21,480): 7,104 waiting for K's
+// planes, since K lo's slot was held through the exchange and the next
+// tile's K lo could land only once P V had freed a V^T slot; 6,763 in the
+// exchange (a reduce-scatter and an all-gather of both warpgroups' 32 KB of
+// S, four barrier waits); the products (3,087 S, 2,926 P V) ran at the tf32
+// peak and the tensor cores sat idle the rest of the time.  This design:
+//
+// * Q hi lives in registers, as the A fragments of the S products (64 a
+//   thread), loaded once from two ring slots; Q lo stays in shared memory
+//   (64 KB).  Two of S's three tf32 products (hi.lo' and hi.hi') then read
+//   only K from shared memory, and the 64 KB Q hi took makes room for a
+//   ring of four 32 KB slots, a whole tile (K hi, K lo, V^T hi, V^T lo in
+//   slots 2, 3, 0, 1), beside a 16 KB exchange region of each consumer
+//   warpgroup (K1F32WideSmem).  K's slots go back to the ring as soon as
+//   both warpgroups' S products are in, V^T's after their P V: each load
+//   has an exchange, a softmax and a product to land under.
+// * Each consumer warpgroup sums its own 64 x 64 f32 score tile across the
+//   cluster right after its S products, with barriers of its own, so the
+//   two warpgroups never wait on each other's exchange (sum_scores_f32):
+//   four CTAs in two pair rounds (hopper.cuh:pair_sum4), eight in three
+//   (pair_sum8), each round storing all of the tile into the round's peer
+//   (16 KB each way); n = 3, 5, 6, 7 by cluster_sum through the
+//   warpgroup's region.  Each CTA adds the partials in one fixed order of
+//   operands (a pair round's sum is its two operands' either way round), so
+//   every CTA holds the same S, P, l and lse to the bit.
+// * Warpgroup 1 starts its first tile once warpgroup 0 has summed its
+//   first S, so that the two run out of step and one's exchange and
+//   softmax fall under the other's products (9-10% off at D = 384, 640,
+//   768 and 1024, 1% at 512, H100).  A warpgroup cannot also issue the next
+//   tile's S under its own softmax or exchange: a second score tile beside
+//   O, Q hi and P does not fit 240 registers (ptxas spilled ~300 bytes and
+//   serialized the products, 1.35-1.6x slower).
+// * The softmax is the bf16 D = 256 kernel's (flash_fwd_d256.cuh:
+//   softmax_d256 at 64 keys): the mask as bits, no selects on a tile the
+//   whole warp keeps, and the running max moved only when a row's max grows
+//   by more than 2^8, so that most tiles leave O unscaled (5-9% off, H100).
+// * The rest is the D = 128 kernel's: kv tiles of 64 rows, three tf32
+//   products a product (the small terms first), P split into hi and lo in
+//   registers for O += P V.
+constexpr int FW_SLOTS = 4;                  // a tile: K hi, K lo, V^T hi, V^T lo
+constexpr int FW_UNITS = F_BN / 8 * 128;     // a warpgroup's S tile in 16-byte units
+
+struct K1F32WideSmem {
+  static constexpr int QLO = 0;                         // Q lo: 4 boxes of K1_BM rows
+  static constexpr int RING = QLO + K1_BM * 4 * F_D;    // slots of one plane
+  static constexpr int X = RING + FW_SLOTS * F_PLANE;   // a region a consumer warpgroup
+  static constexpr int X_REGION = FW_UNITS * 16;
+  static constexpr int MASK = X + K1_WG * X_REGION;     // two tiles' F_BN int32
+  // Q lo, full[S], free[S], then four a consumer warpgroup's exchange
+  static constexpr int BAR = MASK + 2 * F_BN * 4;
+  static constexpr int ALLOC = BAR + (1 + 2 * FW_SLOTS + 4 * K1_WG) * 8 + 1024;
+  static_assert(ALLOC <= 232448, "a CTA's shared memory");
+  static_assert(FW_UNITS >= cluster_region_units(FW_UNITS), "cluster_sum's region, n = 3 .. 7");
+};
+
+// The barriers of one warpgroup's exchanges: pair_sum's (and xb[3] for
+// pair_sum8's third round) at n = 4 and 8, cluster_sum's otherwise.
+__device__ __forceinline__ void sum_scores_f32_init(uint64_t* xb, uint32_t n) {
+  if (n == 4 || n == 8) {
+    pair_sum_init(xb);
+    mbar_init(xb + 3, 4);
+  } else {
+    cluster_sum_init(xb, n, 128);
+  }
+}
+
+// A warpgroup's 64 x 64 f32 score tile over this CTA's 128 columns becomes
+// the tile over all of D, the same in every CTA to the bit: four CTAs
+// (p0 + p1) + (p2 + p3), eight ((p0 + p1) + (p2 + p3)) + ((p4 + p5) +
+// (p6 + p7)), other n in rank order (cluster_sum).  x counts the
+// warpgroup's exchanges; the cluster's shape is read anew at each, so that
+// no register holds it across the products.
+__device__ __forceinline__ void sum_scores_f32(float (&v)[F_BN / 2], unsigned char* region,
+                                               uint64_t* xb, uint32_t x, int tid) {
+  const uint32_t n = cluster_nctarank();
+  if (n == 4) pair_sum4(v, region, xb, cluster_ctarank(), x, 128, tid);
+  else if (n == 8) pair_sum8(v, region, xb, cluster_ctarank(), x, 128, tid);
+  else cluster_sum(cluster_sum_shape(FW_UNITS, 128, tid), region, xb, x & 1, 128, tid, true, v);
+}
+
+// The maps as flash_fwd_tf32_kernel's (tq's boxes of K1_BM rows carry both
+// of Q's planes).
+__global__ void __launch_bounds__(128 * (K1_WG + 1), 1)
+flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tm,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int Sq, int Skv, int H, int causal) {
+  using L = K1F32WideSmem;
+  constexpr int NWG = K1_WG;
+  constexpr int BM = K1_BM, BN = F_BN, NS = FW_SLOTS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);   // Q lo landed
+  uint64_t* bar_full = bar_q + 1;       // slot s landed
+  uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
+  uint64_t* bar_x = bar_free + NS;      // warpgroup g's exchange: bar_x + 4 g
+
+  const uint32_t n = cluster_nctarank();
+  const int c0 = cluster_ctarank() * F_D;   // this CTA's first column of the head
+  const int q0 = blockIdx.x / n * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int wg = threadIdx.x / 128;
+  int n_tiles = Skv / BN;
+  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
+  // the ring's items: Q hi's columns 0-63 and 64-127 (slots 0, 1), then
+  // per kv tile K hi, K lo, V^T hi, V^T lo (slots 2, 3, 0, 1)
+  const int n_items = 2 + 4 * n_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(bar_full + s, 1);
+      mbar_init(bar_free + s, 4 * NWG);
+    }
+    for (int g = 0; g < NWG; ++g) sum_scores_f32_init(bar_x + 4 * g, n);
+    mbar_fence_init();
+  }
+  cluster_sync();                       // every CTA's barriers ready
+
+  if (wg == NWG) {
+    // ---- producer warpgroup: one thread loads Q lo, then keeps the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_arrive_expect_tx(bar_q, BM * 4 * F_D);
+      for (int x = 0; x < 4; ++x)
+        tma_load_4d(sm + L::QLO + x * BM * ROW, &tq, bar_q, c0 + FBOX * x, q0, bh, 1);
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % NS;
+        mbar_wait(bar_free + s, ((it / NS) & 1) ^ 1);   // the first round passes
+        unsigned char* dst = sm + L::RING + s * F_PLANE;
+        if (it < 2) {                                    // Q hi: 2 boxes of BM rows
+          mbar_arrive_expect_tx(bar_full + s, F_PLANE);
+          for (int x = 0; x < 2; ++x)
+            tma_load_4d(dst + x * BM * ROW, &tq, bar_full + s, c0 + FBOX * (2 * it + x), q0, bh,
+                        0);
+          continue;
+        }
+        const int j = (it - 2) / 4, kind = (it - 2) % 4, kv0 = j * BN;
+        if (kind < 2) {                                  // K hi or lo: 4 boxes of BN rows
+          mbar_arrive_expect_tx(bar_full + s, F_PLANE + (kind == 0 ? BN * 4 : 0));
+          for (int x = 0; x < 4; ++x)
+            tma_load_4d(dst + x * BN * ROW, &tk, bar_full + s, c0 + FBOX * x, kv0, bh, kind);
+          if (kind == 0)
+            tma_load_2d(sm + L::MASK + (j & 1) * BN * 4, &tm, bar_full + s, kv0, b);
+        } else {                                         // V^T hi or lo: 2 boxes of 128 rows
+          mbar_arrive_expect_tx(bar_full + s, F_PLANE);
+          for (int x = 0; x < 2; ++x)
+            tma_load_4d(dst + x * F_D * ROW, &tv, bar_full + s, kv0 + FBOX * x, c0, bh,
+                        kind - 2);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: q rows q0 + 64*wg .. +63.  Per kv tile:
+    // S = Q K^T (3 x 16 k8 steps, Q hi from registers), S summed across
+    // the cluster, softmax, P split in registers, O += P V (3 x 8 k8 steps).
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wrow0 = q0 + wg * 64;
+    const int row = wrow0 + warp * 16 + g;           // this thread's rows: row, row + 8
+    const uint64_t dql = smem_desc_sw128(sm + L::QLO + wg * 64 * ROW, 16);
+    auto slot = [&](int it) { return sm + L::RING + (it % NS) * F_PLANE; };
+    auto wait_item = [&](int it) { mbar_wait(bar_full + it % NS, (it / NS) & 1); };
+    auto release = [&](int it) { if (lane == 0) mbar_arrive(bar_free + it % NS); };
+
+    // Q hi's tf32 A fragments, k8 step kk: (g, 8kk + t), (g + 8, 8kk + t),
+    // (g, 8kk + t + 4), (g + 8, 8kk + t + 4) of the warp's 16 rows, read
+    // through the 128-byte swizzle (chunk c of a row at c ^ (row % 8), and
+    // row % 8 is g)
+    uint32_t qh[F_D / 8][4];
+    wait_item(0);
+    wait_item(1);
+#pragma unroll
+    for (int kk = 0; kk < F_D / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wg * 64 + warp * 16 + g + 8 * (e & 1);
+        qh[kk][e] = *reinterpret_cast<const uint32_t*>(
+            sm + L::RING + (kk / 8) * F_PLANE + (kk % 8) / 4 * BM * ROW + r * ROW +
+            ((2 * (kk % 4) + (e >> 1)) ^ g) * 16 + t * 4);
+      }
+    fence_proxy_async();                             // read before the slots' next TMA writes
+    __syncwarp();
+    release(0);
+    release(1);
+
+    float acc[F_D / 2];                              // O, 64 rows x 128 per warpgroup
+#pragma unroll
+    for (int i = 0; i < F_D / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {NEG_INF, NEG_INF};               // score domain
+    float l_i[2] = {0.f, 0.f};                       // this thread's partial row sums
+    float sc[BN / 2], corr[2];
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];           // P's hi and lo as A fragments
+
+    // warpgroup 1 starts once warpgroup 0 has summed its first S (named
+    // barrier 1), so that each one's exchange and softmax run under the
+    // other's products
+    static_assert(NWG == 2, "two consumer warpgroups, one offset from the other");
+    if (wg == 1) named_barrier_sync<1>(128 * NWG);
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int it = 2 + 4 * j, kv0 = j * BN;
+      wait_item(it);
+      wait_item(it + 1);
+      const uint64_t dkh = smem_desc_sw128(slot(it), 16);
+      const uint64_t dkl = smem_desc_sw128(slot(it + 1), 16);
+      wgmma_fence();
+      // the small terms first, while the accumulator is small: the tensor
+      // cores round each step toward zero, by up to an ulp of the sum
+#pragma unroll
+      for (int kk = 0; kk < F_D / 8; ++kk) {
+        const uint32_t qo = ((kk / 4) * BM * ROW + (kk % 4) * 32) / 16;
+        const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
+        wgmma_rs_tf32_n64(sc, qh[kk], dkl + ko, kk > 0);
+        wgmma_ss_tf32_n64(sc, dql + qo, dkh + ko, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < F_D / 8; ++kk) {
+        const uint32_t ko = ((kk / 4) * BN * ROW + (kk % 4) * 32) / 16;
+        wgmma_rs_tf32_n64(sc, qh[kk], dkh + ko, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(it);
+      release(it + 1);
+      // S over all of D, through this warpgroup's region
+      sum_scores_f32(sc, sm + L::X + wg * L::X_REGION, bar_x + 4 * wg, j, tid);
+      if (wg == 0 && j == 0) named_barrier_arrive<1>(128 * NWG);
+      // the softmax over the sums
+      const uint32_t keep = keep_bits<BN>(
+          reinterpret_cast<const int*>(sm + L::MASK + (j & 1) * BN * 4), t);
+      if (causal && kv0 + BN - 1 > wrow0)
+        softmax_d256<true, true, BN>(sc, keep, m_i, l_i, corr, row, kv0, Skv, t);
+      else if (__all_sync(0xffffffffu, keep == 0xffffu))
+        softmax_d256<false, false, BN>(sc, keep, m_i, l_i, corr, row, kv0, Skv, t);
+      else
+        softmax_d256<false, true, BN>(sc, keep, m_i, l_i, corr, row, kv0, Skv, t);
+      fence_regs(sc);
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {   // warp-uniform
+#pragma unroll
+        for (int dt = 0; dt < F_D / 8; ++dt) {
+          acc[4 * dt] *= corr[0]; acc[4 * dt + 1] *= corr[0];
+          acc[4 * dt + 2] *= corr[1]; acc[4 * dt + 3] *= corr[1];
+        }
+      }
+      split_acc_tf32(ph, pl, sc);
+      wait_item(it + 2);
+      wait_item(it + 3);
+      const uint64_t dvh = smem_desc_sw128(slot(it + 2), 16);
+      const uint64_t dvl = smem_desc_sw128(slot(it + 3), 16);
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t vo = ((kk / 4) * F_D * ROW + (kk % 4) * 32) / 16;
+        wgmma_rs_tf32_n128(acc, ph[kk], dvh + vo);
+        wgmma_rs_tf32_n128(acc, ph[kk], dvl + vo);
+        wgmma_rs_tf32_n128(acc, pl[kk], dvh + vo);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ph);
+      fence_regs(pl);
+      release(it + 2);
+      release(it + 3);
+    }
+
+    // epilogue: full row sums, normalise, store O and lse for rows < Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      if (l_i[r] == 0.f) l_i[r] = 1.f;  // l_safe
+    }
+    const int dw = (int)n * F_D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      if (rr >= Sq) continue;
+      float* orow = o + (((long long)b * Sq + rr) * H + h) * dw + c0;
+      const float inv = 1.f / l_i[r];
+#pragma unroll
+      for (int dt = 0; dt < F_D / 8; ++dt)
+        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
+            make_float2(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+      if (t == 0 && c0 == 0) lse[((long long)b * H + h) * Sq + rr] = m_i[r] + logf(l_i[r]);
+    }
+  }
+  cluster_sync();                       // no CTA leaves while a peer may reach it
 }
 
 }  // namespace
@@ -401,12 +690,14 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
     if (r == CUDA_SUCCESS) r = mask_map(enc, &tm, mask, B, Skv, F_BN);
     if (r != CUDA_SUCCESS) return TMAP_ERROR + (int)r;
     const int tiles = (Sq + K1_BM - 1) / K1_BM;
-    if (D > 128)    // a pair at D = 256, a cluster of D / 128 CTAs past it
-      return launch_cluster(D == 256 ? flash_fwd_tf32_kernel<256>
-                                     : flash_fwd_tf32_kernel<CLUSTER_D>,
-                            D / F_D, dim3(D / F_D * tiles, H, B), 128 * (K1_WG + 1),
-                            K1F32Smem::ALLOC, st, tq, tk, tv, tm, (float*)o, (float*)lse,
-                            Sq, Skv, H, causal);
+    if (D == 256)   // a pair
+      return launch_cluster(flash_fwd_tf32_kernel<256>, 2, dim3(2 * tiles, H, B),
+                            128 * (K1_WG + 1), K1F32Smem::ALLOC, st, tq, tk, tv, tm, (float*)o,
+                            (float*)lse, Sq, Skv, H, causal);
+    if (D > 256)    // a cluster of D / 128 CTAs
+      return launch_cluster(flash_fwd_wide_tf32_kernel, D / F_D, dim3(D / F_D * tiles, H, B),
+                            128 * (K1_WG + 1), K1F32WideSmem::ALLOC, st, tq, tk, tv, tm,
+                            (float*)o, (float*)lse, Sq, Skv, H, causal);
     cudaFuncSetAttribute(flash_fwd_tf32_kernel<128>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          K1F32Smem::ALLOC);
     dim3 grid(tiles, H, B);
@@ -432,7 +723,9 @@ extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
                                K1D256Smem<true>::ALLOC);
   }
   *n = D / F_D;
-  return max_active_clusters(D == 256 ? flash_fwd_tf32_kernel<256>
-                                      : flash_fwd_tf32_kernel<CLUSTER_D>,
-                             *n, 128 * (K1_WG + 1), K1F32Smem::ALLOC);
+  if (D == 256)
+    return max_active_clusters(flash_fwd_tf32_kernel<256>, 2, 128 * (K1_WG + 1),
+                               K1F32Smem::ALLOC);
+  return max_active_clusters(flash_fwd_wide_tf32_kernel, *n, 128 * (K1_WG + 1),
+                             K1F32WideSmem::ALLOC);
 }

@@ -95,11 +95,13 @@ constexpr int K1W_SLOT = K1W_BN * 2 * 128;   // 128 kv rows x 128 d columns: 32 
 // This thread's keep bits of a tile's BN mask entries: bit 2*nt + e is
 // column 8*nt + 2*t + e, the columns of its accumulator entries.  Read while
 // the warpgroup waits for its turn, so that no shared-memory load sits in
-// the softmax, which runs under the other warpgroup's products.
+// the softmax, which runs under the other warpgroup's products.  BN <= 128
+// (the f32 K1's clusters take it at 64).
+template <int BN = K1W_BN>
 __device__ __forceinline__ uint32_t keep_bits(const int* mk, int t) {
   uint32_t bits = 0;
 #pragma unroll
-  for (int nt = 0; nt < K1W_BN / 8; ++nt) {
+  for (int nt = 0; nt < BN / 8; ++nt) {
     const int2 keep = *reinterpret_cast<const int2*>(mk + nt * 8 + 2 * t);
     bits |= (keep.x != 0 ? 1u : 0u) << (2 * nt);
     bits |= (keep.y != 0 ? 1u : 0u) << (2 * nt + 1);
@@ -107,7 +109,7 @@ __device__ __forceinline__ uint32_t keep_bits(const int* mk, int t) {
   return bits;
 }
 
-// K1's softmax_tile (flash_fwd_bf16.cuh) over a tile of K1W_BN keys, sc
+// K1's softmax_tile (flash_fwd_bf16.cuh) over a tile of BN keys, sc
 // becoming p and corr the factor for the O accumulated so far, with three
 // changes that shorten it (it must fit under the other warpgroup's
 // products): the keep bits come in a register; MASK = false, for a tile
@@ -115,14 +117,15 @@ __device__ __forceinline__ uint32_t keep_bits(const int* mk, int t) {
 // selects; and the running max m_i, from which p = 2^((s - m_i) log2 e)
 // is taken, moves only when a row's max grows by more than 2^8, so that
 // most tiles leave O unscaled (corr 1; p < 2^8 then, and O, l and lse are
-// the same function of the scores: lse = m_i + ln l for any m_i).
-template <bool DIAG, bool MASK = true>
-__device__ __forceinline__ void softmax_d256(float (&sc)[K1W_BN / 2], uint32_t keep,
+// the same function of the scores: lse = m_i + ln l for any m_i).  The f32
+// K1's clusters take it at BN = 64 (flash_fwd.cu).
+template <bool DIAG, bool MASK = true, int BN = K1W_BN>
+__device__ __forceinline__ void softmax_d256(float (&sc)[BN / 2], uint32_t keep,
                                              float (&m_i)[2], float (&l_i)[2],
                                              float (&corr)[2], int row, int kv0, int Skv,
                                              int t) {
-  constexpr int NT = K1W_BN / 8;
-  const bool ragged = kv0 + K1W_BN > Skv;           // keys past Skv: TMA's zeros
+  constexpr int NT = BN / 8;
+  const bool ragged = kv0 + BN > Skv;               // keys past Skv: TMA's zeros
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -312,7 +315,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         else if (cs.n == 4)
           pair_sum4(sc, region, xb, cs.rank, j, 128, tid);
         else
-          cluster_sum<true>(cs, region, xb, j & 1, 128, tid, true, sc);
+          cluster_sum(cs, region, xb, j & 1, 128, tid, true, sc);
       }
       float corr[2];
       if (causal && kv0 + BN - 1 > wrow0)

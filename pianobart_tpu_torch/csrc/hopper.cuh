@@ -381,10 +381,10 @@ __device__ __forceinline__ void cluster_gather_get(const ClusterSum& c,
 // The exchange above over `parts` (float arrays of this thread, in order),
 // region `region`, barriers xb[0..3]; T threads take part, tid this one's.
 // own_region: the region is the exchange's alone, given back to the peers
-// as soon as this CTA has read it.  FENCE: each thread's reads of the region
-// are performed before its warp's arrivals on rs_done and ready (fence_cta);
-// the f32 kernels, written before that hazard was seen, run without.
-template <bool FENCE = false, typename... Parts>
+// as soon as this CTA has read it.  Each thread's reads of the region are
+// performed before its warp's arrivals on rs_done and ready (fence_cta), so
+// that no read still in flight sees a peer's next parts.
+template <typename... Parts>
 __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* region,
                                             uint64_t* xb, uint32_t parity, int T, int tid,
                                             bool own_region, Parts&... parts) {
@@ -408,7 +408,7 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
   mbar_wait_cluster(xb + 1, parity);
   k0 = 0;
   ((cluster_reduce(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
-  if constexpr (FENCE) fence_cta();
+  fence_cta();
   cluster_arrive_peers(c, xb + 2, lane);
   mbar_wait_cluster(xb + 2, parity);
   k0 = 0;
@@ -417,7 +417,7 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
   mbar_wait_cluster(xb + 3, parity);
   k0 = 0;
   ((cluster_gather_get(c, region, parts, k0, T, tid), k0 += (int)(sizeof(parts) / 16)), ...);
-  if constexpr (FENCE) fence_cta();
+  fence_cta();
   if (own_region) cluster_arrive_peers(c, xb, lane);
 }
 
@@ -434,8 +434,9 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
 // every CTA).  A pair sums in one
 // round (pair_sum2); four CTAs in two, rank r with r ^ 1 then with r ^ 2
 // (pair_sum4), each CTA adding (p0 + p1) and (p2 + p3) in some order, the
-// same sum; a round's ready barrier hears from that round's peer alone, so
-// no CTA's word is taken for another's.  cluster_sum at n = 2 sends the same
+// same sum; eight in three (pair_sum8, then r ^ 4); a round's ready barrier
+// hears from that round's peer alone, so no CTA's word is taken for
+// another's.  cluster_sum at n = 2 sends the same
 // bytes in two rounds with a barrier between (reduce-scatter, all-gather):
 // bf16 K1 at D = 512 B = 32 ran at 0.95 ms so and 0.48 ms this way (H100;
 // plain remote stores, each warp releasing one arrival, 0.54).
@@ -494,6 +495,21 @@ __device__ __forceinline__ void pair_sum4(float (&v)[N], unsigned char* region, 
                                           uint32_t rank, uint32_t x, int T, int tid) {
   pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, 0, rank ^ 1, rank ^ 2, xb + 2, T, tid);
   pair_round(v, region, xb + 2, x & 1, xb + 1, 1, rank ^ 2, rank ^ 1, xb, T, tid);
+}
+
+// exchange x's sum over eight CTAs: three rounds, with rank ^ 1, ^ 2 and
+// ^ 4, each CTA adding ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)) in
+// some order of each +, the same sum.  full completes phases 3x .. 3x + 2;
+// the ready barriers one a phase: xb[0] from rank ^ 1 at the end of exchange
+// x - 1, xb[2] from rank ^ 2 once it has read its round 0 of exchange x,
+// xb[3] from rank ^ 4 once it has read its round 1 (pair_sum_init, and xb[3]
+// as xb[2])
+template <int N>
+__device__ __forceinline__ void pair_sum8(float (&v)[N], unsigned char* region, uint64_t* xb,
+                                          uint32_t rank, uint32_t x, int T, int tid) {
+  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, x & 1, rank ^ 1, rank ^ 2, xb + 2, T, tid);
+  pair_round(v, region, xb + 2, x & 1, xb + 1, (x + 1) & 1, rank ^ 2, rank ^ 4, xb + 3, T, tid);
+  pair_round(v, region, xb + 3, x & 1, xb + 1, x & 1, rank ^ 4, rank ^ 1, xb, T, tid);
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -695,6 +711,24 @@ __device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, u
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[8 x 64] in tf32; A from registers (the
+// m16n8k8 tf32 A fragment of each warp's 16 rows), B from shared memory
+// K-major; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D[64 x 32] (+)= A[64 x 8] . B[8 x 32] in tf32; A and B from shared memory,

@@ -92,14 +92,16 @@ ceil(D/256) CTAs of their D = 256 designs, 256 columns each (TMA's zeros
 past D in the last one at 384, 640, 896; the dK/dV kernel streams Q and dO
 through three 32 KB slots where it keeps two 64 KB stages, the dQ kernel V
 and K through two slots where it keeps three, to make room for the
-exchanges); the f32 forward as n CTAs of its 3xTF32 kernel; the f32
-backward as n CTAs of 128 columns, each with two consumer warpgroups on
-alternate swept tiles of 32 rows over the fixed rows' planes.  The products
-over all of D (S in the forward; S and dP in the backward) are summed
-across the cluster through distributed shared memory (a pair in one round,
-four CTAs in two pairwise rounds, else a reduce-scatter then an
-all-gather), so every CTA holds the same sums to the bit and P, dS and lse
-agree across the cluster; O, dQ, dK and dV stay column-local.  The card
+exchanges); the f32 forward as n CTAs of 128 columns, Q hi in registers
+and a whole kv tile's planes in the ring, each consumer warpgroup summing
+its own score tile; the f32 backward as n CTAs of 128 columns, each with
+two consumer warpgroups on alternate swept tiles of 32 rows over the fixed
+rows' planes.  The products over all of D (S in the forward; S and dP in
+the backward) are summed across the cluster through distributed shared
+memory (a pair in one round, four CTAs in two pairwise rounds, eight in
+three, else a reduce-scatter then an all-gather), so every CTA holds the
+same sums to the bit and P, dS and lse agree across the cluster; O, dQ, dK
+and dV stay column-local.  The card
 schedules a cluster of up to 8 CTAs portably, hence ``MAX_HEAD_DIM``; a
 kernel whose cluster the card cannot hold raises.  The delta kernel takes
 a warp a row there, the prep 8 rows a CTA.

@@ -4,8 +4,9 @@ where a warp's time goes in the score exchange that the clusters add
 (``csrc/hopper.cuh``): in bf16 K1's and the bf16 backward's (clusters of
 ceil(D/256) CTAs of their D = 256 designs, so one ``pair_round`` an
 exchange at D = 384 and 512; the backward's two warpgroups a CTA each
-exchanging on its own), in f32 K1's and the f32 backward's
-(``cluster_sum``; two warpgroups a CTA in the backward).  Run from the root
+exchanging on its own), in f32 K1's (each consumer warpgroup on its own:
+two pair rounds at D = 512, three at 1024, ``cluster_sum`` at 384) and the
+f32 backward's (``cluster_sum``, two warpgroups a CTA).  Run from the root
 of any checkout, it counts that tree's exchanges: run it on two trees to
 compare them.
 
@@ -17,16 +18,27 @@ Prints the card's name and power limit, then:
   B=32, S=1024 in bf16 and B=8 in f32, with the pad mask of ``chip_smoke.py``,
   at D = 128 (H = 8), 384 (H = 4), 512 (H = 2) and 1024 (H = 1), through
   the shipped library;
-* for the D = 384 and 512 calls, the cycles a warp spends in each phase of
+* for the D = 384 and 512 calls (and f32 K1 at 1024), the counted
+  library's time and the cycles a warp spends in each phase of
   one exchange (open, scatter, waiting for its units, reduce, waiting for
   the peers' reads, gather, waiting for the sums, reading them; a round of
   ``pair_round`` (one an exchange in a pair, two in four CTAs): open,
   sending its parts as "scatter", waiting for the peer's as "units wait",
   adding them as "reduce"), from a copy of ``csrc`` built into
   ``build/cluster_probe`` whose ``cluster_sum`` and ``pair_round`` add
-  ``clock64()`` differences into a ``__device__`` array
-  (read back by an extra C entry, ``pbt_xprof_read``); the counters cost the
-  kernel a few percent and stay out of the shipped source.
+  ``clock64()`` differences into a ``__device__`` array, a copy per SM
+  (modulo 64) so that the atomics do not queue on one address (read back by
+  an extra C entry, ``pbt_xprof_read``); the counters cost the f32 K1 about
+  10% (the counted time beside the shipped one says how much) and stay out
+  of the shipped source;
+* for the f32 K1 at D = 384, 512 and 1024, where a consumer warpgroup's
+  kv tile goes, cycles a warp: waiting for K's planes, the S products,
+  the exchange, the softmax (with O's rescale and P's split), waiting for
+  V^T's planes, P V; counted in the same copy, in the f32 K1 of either
+  design (``TILE_MARKS``: the per-warpgroup exchange's, or the earlier
+  ``flash_fwd_tf32_kernel`` clusters that summed S over both warpgroups at
+  once), so that this script, copied into an older checkout, splits that
+  tree's kernel too.
 
 Needs a card and the CUDA toolkit.
 """
@@ -46,6 +58,7 @@ NVCC = "/usr/local/cuda/bin/nvcc"
 PHASES = ("open", "scatter", "units wait", "reduce", "reads wait", "gather",
           "sums wait", "read sums")
 OUT = os.path.join(os.path.dirname(build._BUILD_DIR), "cluster_probe")
+COPIES = 64     # copies of the 32 counters, one an SM modulo 64
 
 # (line of cluster_sum, the same with t[i] = clock64() at its phase's end)
 _MARKS = (
@@ -63,8 +76,8 @@ _MARKS = (
     ("  if (own_region) cluster_arrive_peers(c, xb, lane);\n}\n",
      "  if (own_region) cluster_arrive_peers(c, xb, lane);\n  t[8] = clock64();\n"
      "  if (lane == 0) {\n    for (int i = 0; i < 8; ++i)\n"
-     "      atomicAdd(&pbt_xprof[i], (unsigned long long)(t[i + 1] - t[i]));\n"
-     "    atomicAdd(&pbt_xprof[8], 1ull);\n  }\n}\n"))
+     "      atomicAdd(&pbt_xprof[pbt_xslot() + i], (unsigned long long)(t[i + 1] - t[i]));\n"
+     "    atomicAdd(&pbt_xprof[pbt_xslot() + 8], 1ull);\n  }\n}\n"))
 
 
 # the same for a round of pair_round: open, send, wait for the peer's
@@ -81,8 +94,51 @@ _PAIR_MARKS = (
      "                 :: \"r\"(mapa(smem_u32(next_ready), next)) : \"memory\");\n"
      "  t[4] = clock64();\n"
      "  if (lane == 0) {\n    for (int i = 0; i < 4; ++i)\n"
-     "      atomicAdd(&pbt_xprof[i], (unsigned long long)(t[i + 1] - t[i]));\n"
-     "    atomicAdd(&pbt_xprof[8], 1ull);\n  }\n}\n"))
+     "      atomicAdd(&pbt_xprof[pbt_xslot() + i], (unsigned long long)(t[i + 1] - t[i]));\n"
+     "    atomicAdd(&pbt_xprof[pbt_xslot() + 8], 1ull);\n  }\n}\n"))
+
+
+# The f32 K1's kv tile as a consumer warp sees it: t[0] before its wait for
+# K's planes, then t[i] at the end of TILE_PHASES[i - 1]; added into
+# pbt_xprof[16 + i], the warp-tiles counted in pbt_xprof[22].
+TILE_PHASES = ("K wait", "S products", "exchange", "softmax", "V wait", "P V")
+_TILE_SUM = ("      if (lane == 0) {\n        for (int i = 0; i < 6; ++i)\n"
+             "          atomicAdd(&pbt_xprof[pbt_xslot() + 16 + i], (unsigned long long)(tt[i + 1] - tt[i]));\n"
+             "        atomicAdd(&pbt_xprof[pbt_xslot() + 22], 1ull);\n      }\n")
+TILE_MARKS = {
+    # this design: flash_fwd_wide_tf32_kernel, one exchange a warpgroup-tile
+    "flash_fwd_wide_tf32_kernel(const": (
+        ("      wait_item(it);\n      wait_item(it + 1);\n",
+         "      long long tt[7];\n      tt[0] = clock64();\n      wait_item(it);\n"
+         "      wait_item(it + 1);\n      tt[1] = clock64();\n"),
+        ("      fence_regs(sc);\n      release(it);\n      release(it + 1);\n",
+         "      fence_regs(sc);\n      tt[2] = clock64();\n      release(it);\n"
+         "      release(it + 1);\n"),
+        ("      // the softmax over the sums\n", "      tt[3] = clock64();\n"),
+        ("      split_acc_tf32(ph, pl, sc);\n",
+         "      split_acc_tf32(ph, pl, sc);\n      tt[4] = clock64();\n"),
+        ("      wait_item(it + 3);\n", "      wait_item(it + 3);\n      tt[5] = clock64();\n"),
+        ("      release(it + 2);\n      release(it + 3);\n    }\n",
+         "      release(it + 2);\n      release(it + 3);\n      tt[6] = clock64();\n"
+         + _TILE_SUM + "    }\n")),
+    # the earlier flash_fwd_tf32_kernel<CLUSTER_D>: cluster_sum of both warpgroups'
+    # S through K lo's slot
+    "flash_fwd_tf32_kernel(const": (
+        ("      wait_plane(p);\n      wait_plane(p + 1);\n",
+         "      long long tt[7];\n      tt[0] = clock64();\n      wait_plane(p);\n"
+         "      wait_plane(p + 1);\n      tt[1] = clock64();\n"),
+        ("      wgmma_wait<0>();\n      fence_regs(sc);\n",
+         "      wgmma_wait<0>();\n      fence_regs(sc);\n      tt[2] = clock64();\n"),
+        ("      const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);\n",
+         "      tt[3] = clock64();\n"
+         "      const int* mk = reinterpret_cast<const int*>(sm + L::MASK + (p % NS) * BN * 4);\n"),
+        ("      split_acc_tf32(ph, pl, sc);\n",
+         "      split_acc_tf32(ph, pl, sc);\n      tt[4] = clock64();\n"),
+        ("      wait_plane(p + 3);\n", "      wait_plane(p + 3);\n      tt[5] = clock64();\n"),
+        ("      release(p + 2);\n      release(p + 3);\n    }\n",
+         "      release(p + 2);\n      release(p + 3);\n      tt[6] = clock64();\n"
+         + _TILE_SUM + "    }\n")),
+}
 
 
 def _count(text: str, head: str, marks) -> str:
@@ -108,13 +164,25 @@ def _counted_copy() -> str:
         text = f.read()
     text = _count(text, "__device__ __forceinline__ void cluster_sum(", _MARKS)
     text = _count(text, "__device__ __forceinline__ void pair_round(", _PAIR_MARKS)
-    text = text.replace("struct ClusterSum {", "__device__ unsigned long long "
-                        "pbt_xprof[16];\nstruct ClusterSum {", 1)
+    text = text.replace("struct ClusterSum {", (
+        f"__device__ unsigned long long pbt_xprof[{COPIES} * 32];\n"
+        "// this SM's copy of the counters: atomics of every SM on one address\n"
+        "// would queue behind each other and slow the kernel they count\n"
+        "__device__ __forceinline__ int pbt_xslot() {\n"
+        "  unsigned s;\n  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s));\n"
+        f"  return (int)(s % {COPIES}) * 32;\n}}\n"
+        "struct ClusterSum {"), 1)
     with open(path, "w") as f:
         f.write(text)
+    path = os.path.join(src, "flash_fwd.cu")
+    with open(path) as f:
+        text = f.read()
+    head = next(h for h in TILE_MARKS if h in text)   # the f32 K1 of this tree
+    with open(path, "w") as f:
+        f.write(_count(text, head, TILE_MARKS[head]))
     read = ('\nextern "C" int pbt_xprof_read(void* out) {\n'
-            "  cudaMemcpyFromSymbol(out, pbt::pbt_xprof, sizeof(unsigned long long) * 16);\n"
-            "  unsigned long long z[16] = {0};\n"
+            f"  static unsigned long long z[{COPIES} * 32];\n"
+            "  cudaMemcpyFromSymbol(out, pbt::pbt_xprof, sizeof(z));\n"
             "  cudaMemcpyToSymbol(pbt::pbt_xprof, z, sizeof(z));\n"
             "  return (int)cudaGetLastError();\n}\n")
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
@@ -189,25 +257,38 @@ def main() -> None:
     libs = _counted_libs()
     real = flash.build_kernel
     flash.build_kernel = lambda name: libs.get(name) or real(name)
-    buf = (ctypes.c_ulonglong * 16)()
+    raw = (ctypes.c_ulonglong * (COPIES * 32))()
+
+    def read(lib):
+        lib.pbt_xprof_read(raw)
+        return [sum(raw[c * 32 + i] for c in range(COPIES)) for i in range(32)]
     try:
-        for (dtype, B), (H, D) in itertools.product(((torch.bfloat16, 32), (torch.float32, 8)),
-                                                    ((4, 384), (2, 512))):
+        for (dtype, B), (H, D) in itertools.chain(
+                itertools.product(((torch.bfloat16, 32), (torch.float32, 8)),
+                                  ((4, 384), (2, 512))), (((torch.float32, 8), (1, 1024)),)):
             args = _case(B, dtype, H, D)
             for name, fn in calls.items():
                 lib = libs["flash_fwd" if name == "K1" else "flash_bwd"]
+                counted = _ms(lambda: fn(args))
+                torch.cuda.synchronize()
+                read(lib)
                 fn(args)
                 torch.cuda.synchronize()
-                lib.pbt_xprof_read(buf)
-                fn(args)
-                torch.cuda.synchronize()
-                lib.pbt_xprof_read(buf)
+                buf = read(lib)
                 n = max(buf[8], 1)
                 total = sum(buf[i] for i in range(8)) / n
-                print(f"[cluster_probe] {name} B={B} H={H} D={D} {str(dtype)[6:]}: {buf[8]} "
-                      f"warp-exchanges, cycles each: "
+                print(f"[cluster_probe] {name} B={B} H={H} D={D} {str(dtype)[6:]}, counted "
+                      f"{counted:.4f} ms: {buf[8]} warp-exchanges, cycles each: "
                       + ", ".join(f"{p} {buf[i] / n:.0f}" for i, p in enumerate(PHASES))
                       + f"; total {total:.0f}", flush=True)
+                tiles = buf[22]
+                if name == "K1" and dtype == torch.float32 and tiles:
+                    print(f"[cluster_probe] K1 B={B} H={H} D={D} float32: {tiles} "
+                          f"warp-tiles, cycles each: "
+                          + ", ".join(f"{p} {buf[16 + i] / tiles:.0f}"
+                                      for i, p in enumerate(TILE_PHASES))
+                          + f"; total {sum(buf[16 + i] for i in range(6)) / tiles:.0f}",
+                          flush=True)
     finally:
         flash.build_kernel = real
 

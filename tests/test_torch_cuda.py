@@ -1389,7 +1389,9 @@ def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
 def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal, dtype):
     """bf16 K1 and the bf16 backward (both clusters of ceil(D/256) CTAs of
     their D=256 designs: a pair at 384 and 512, three CTAs at 640 and 768,
-    four at 1024, the last one's upper half past D at 384 and 640) and the
+    four at 1024, the last one's upper half past D at 384 and 640), the f32
+    K1 (D/128 CTAs, each consumer warpgroup summing its own score tile: pair
+    rounds at 512 and 1024, ``cluster_sum`` at 384, 640 and 768) and the
     f32 backward (two warpgroups a CTA on alternate 32-row swept tiles,
     flushing into dQ, dK and dV in one order): two runs of K1, K2 and K3 give
     the same bits, and q, k, v and dO whose 128-column blocks are equal give
@@ -1431,6 +1433,26 @@ def test_wide_bf16_backward_repeats_its_bits_with_a_zero_filled_cta(cuda, D):
     dq0 = flash_attention_dq(*args)
     dk0, dv0 = flash_attention_dkv(*args)
     for _ in range(10):
+        assert torch.equal(flash_attention_dq(*args), dq0)
+        dk, dv = flash_attention_dkv(*args)
+        assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+
+
+@pytest.mark.parametrize("D", [384, 512, 640, 1024])
+def test_wide_f32_kernels_repeat_their_bits(cuda, D):
+    """The f32 K1 (each consumer warpgroup summing its own score tile across
+    the cluster: ``cluster_sum`` at 384 and 640, pair rounds at 512 and
+    1024) and the f32 dQ and dK/dV kernels (``cluster_sum`` of S and dP, each
+    thread's reads of a region fenced before it is given back) give the same
+    bits over ten calls at a causal shape with many clusters in flight."""
+    q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.float32, True, True,
+                                           B=8, H=2, S=1024, D=D)
+    args = (q, k, v, m, True, lse, _delta(dout, out), dout)
+    dq0 = flash_attention_dq(*args)
+    dk0, dv0 = flash_attention_dkv(*args)
+    for _ in range(10):
+        o, l = flash_attention_fwd(q, k, v, m, True)
+        assert torch.equal(o, out) and torch.equal(l, lse)
         assert torch.equal(flash_attention_dq(*args), dq0)
         dk, dv = flash_attention_dkv(*args)
         assert torch.equal(dk, dk0) and torch.equal(dv, dv0)

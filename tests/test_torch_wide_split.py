@@ -24,6 +24,17 @@ in interpret mode.
   dK += dS^T Q tile by tile; dQ over 64 fixed q rows a warpgroup and swept
   kv tiles to its diagonal's, dQ += dS K; P^T, dS^T and dS rounded to bf16
   as product operands.
+* f32 K1 (``csrc/flash_fwd.cu:flash_fwd_wide_tf32_kernel``): clusters of
+  D/128 CTAs, each CTA's partial S three tf32 passes on its 128 columns of
+  the prep's planes; each consumer warpgroup sums its score tile across the
+  cluster, by pair rounds at n = 4 and 8 (``hopper.cuh:pair_sum4``,
+  ``pair_sum8``: in round i each CTA adds the sum of rank ^ 2^i to its own,
+  so ((p0 + p1) + (p2 + p3)) + ...) and in rank order at n = 3, 5, 6, 7
+  (``cluster_sum``).  Then the D=128 kernel's schedule: q tiles of 128
+  rows, kv tiles of 64 up to the q tile's last row's (causal), p = 1 on a
+  row with no kept key so far, the running max moved only when a row's max
+  grows past 2^8 (the D=256 kernel's softmax), P split into hi and lo for
+  three tf32 passes of P V, O = acc / l, lse = m + ln l.
 * f32 backward (``csrc/flash_bwd.cu:flash_bwd_wide_tf32_kernel<DKV>``):
   clusters of D/128 CTAs, each CTA's products three tf32 passes on its 128
   columns of the prep's planes (``tests/test_torch_f32_d256.py``'s
@@ -39,10 +50,11 @@ in interpret mode.
 
 Inputs: (B, S, H) = (1, 320, 2) at D = 384, 512, 640 and 1024 (S=320: ten
 swept tiles of 32, so two flush windows, and two and a half kv tiles of
-128), with a pad tail, causal and not; bf16 inputs as their bf16 values in
-f32 to both sides.  Tolerances: K1 with P kept in f32 within
+128), and 768 for the f32 K1 (n = 6), with a pad tail, causal and not; bf16
+inputs as their bf16 values in f32 to both sides.  Tolerances: the f32 K1,
+and bf16 K1 with P kept in f32, within
 ``tests/test_torch_head_wide.py``'s f32 forward rows (rtol = atol = 2e-5,
-summation order); with P rounded to bf16 as the kernel rounds it, within
+summation order); bf16 K1 with P rounded to bf16 as the kernel rounds it, within
 the card's bf16 tolerance (``tests/test_torch_cuda.py:TOL``: |dO| <=
 1e-2 + 1e-2 |O|, |dlse| <= 1e-3).  The backward's dQ, dK and dV within
 1.5e-6 of their norm (``tests/test_torch_f32_d256.py``'s 1.3e-6 at D=256,
@@ -78,6 +90,8 @@ BF16_TOL = (1e-2, 1e-2, 1e-3)
 BWD_TOL = 1.5e-6
 BF16_BWD_TOL = (1e-2, 1e-2, 1e-2)
 TILE = 64             # the bf16 backward's swept rows, and fixed rows a warpgroup
+F_BN = 64             # the f32 K1's kv rows a tile
+F32_K1_WIDTHS = [384, 512, 640, 768, 1024]   # n = 3, 4, 5, 6, 8
 
 
 def _inputs(D, seed, bf16=False):
@@ -307,6 +321,106 @@ def _cluster_scores(a, b, n):
     for r in range(n):
         s = s + _x3(_cols(a, r), tuple(x.transpose(-1, -2) for x in _cols(b, r)))
     return s
+
+
+def _pair_rounds(parts):
+    """Each CTA's sum after the pair rounds (``hopper.cuh:pair_round``): in
+    round i CTA r adds the sum of rank r ^ 2^i to its own (``v += w``)."""
+    sums = list(parts)
+    step = 1
+    while step < len(sums):
+        sums = [sums[r] + sums[r ^ step] for r in range(len(sums))]
+        step *= 2
+    return sums
+
+
+def _rank_order(parts):
+    """``cluster_sum``'s sum: from zero, the parts in rank order."""
+    s = torch.zeros_like(parts[0])
+    for p in parts:
+        s = s + p
+    return s
+
+
+def _f32_k1_scores(qp, kp, n):
+    """S = Q K^T over D as the f32 K1's clusters hold it: each CTA's 3xTF32
+    partial on its 128 columns, summed by pair rounds at n = 4 and 8 (every
+    CTA's sum checked equal) and in rank order otherwise."""
+    parts = [_x3(_cols(qp, r), tuple(x.transpose(-1, -2) for x in _cols(kp, r)))
+             for r in range(n)]
+    if n not in (4, 8):
+        return _rank_order(parts)
+    sums = _pair_rounds(parts)
+    assert all(torch.equal(x, sums[0]) for x in sums)
+    return sums[0]
+
+
+def _f32_k1_model(q, k, v, mask, causal):
+    """The f32 K1's clusters past D=256: (out (B, S, H, D), lse (B, H, S))."""
+    D = q.shape[-1]
+    qp, kp, vp = _planes(q), _planes(k), _planes(v)        # (B, H, S, D) each
+    s_all = _f32_k1_scores(qp, kp, D // F_COLS)
+    keep_key = torch.from_numpy(mask) != 0
+    out, lse = torch.zeros(B, H, S, D), torch.zeros(B, H, S)
+    for q0 in range(0, S, BM):
+        rows = torch.arange(q0, min(q0 + BM, S))
+        tiles = min(S // F_BN, (q0 + BM - 1) // F_BN + 1) if causal else S // F_BN
+        m = torch.full((B, H, len(rows), 1), NEG_INF)
+        l = torch.zeros(B, H, len(rows), 1)
+        acc = torch.zeros(B, H, len(rows), D)
+        for j in range(tiles):
+            cols = torch.arange(j * F_BN, (j + 1) * F_BN)
+            keep = keep_key[:, None, None, cols]
+            if causal:
+                keep = keep & (rows[:, None] >= cols[None, :])
+            s = torch.where(keep, s_all[:, :, rows][..., cols], NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            move = (m_new - m) * LOG2E > 8.0                # the max moves past 2^8 only
+            corr = torch.where(move, torch.exp2((m - m_new) * LOG2E), 1.0)
+            m_new = torch.where(move, m_new, m)
+            c = torch.where(m_new == NEG_INF, 0.0, LOG2E)   # no kept key yet: p = 1
+            p = torch.exp2(s * c - m_new * c)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + _x3(_split(p), tuple(x[:, :, cols] for x in vp))
+            m = m_new
+        l_safe = torch.where(l == 0, 1.0, l)
+        out[:, :, rows] = acc / l_safe
+        lse[:, :, rows] = (m + torch.log(l_safe))[..., 0]
+    return out.permute(0, 2, 1, 3).numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["plain", "causal"])
+@pytest.mark.parametrize("D", F32_K1_WIDTHS)
+def test_f32_k1_clusters_of_128_columns_match_jax(D, causal):
+    """The f32 K1's arithmetic past D=256 (3xTF32 partials over 128-column
+    CTAs summed by pair rounds at n = 4 and 8 and in rank order at n = 3,
+    5, 6, then the D=128 schedule with the lazily moved max and P split for
+    three passes of P V) == the Pallas ``_fwd`` at width D."""
+    inputs, j_out, j_lse, _ = _jax_fwd(D, causal, False)
+    out, lse = _f32_k1_model(*inputs, causal)
+    np.testing.assert_allclose(out, np.asarray(j_out).reshape(B, S, H, D), **TOL)
+    np.testing.assert_allclose(lse, np.asarray(j_lse), **TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_pair_rounds_give_every_cta_the_same_bits(n):
+    """Each CTA adds its pair-round peer's sum to its own, so CTA r holds
+    its own order of the operands of every addition; all end with the bits
+    of ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), for 64 x 64
+    partial score tiles drawn from a seed, of magnitudes 1e-3 .. 1e3 (so
+    that the order of the additions shows: rank order gives other bits)."""
+    rng = np.random.default_rng(100 + n)
+    parts = [torch.from_numpy((rng.standard_normal((64, 64))
+                               * 10.0 ** rng.integers(-3, 4, (64, 64))).astype(np.float32))
+             for _ in range(n)]
+    sums = _pair_rounds(parts)
+    for x in sums[1:]:
+        assert torch.equal(x, sums[0])
+    tree = parts
+    while len(tree) > 1:
+        tree = [tree[2 * i] + tree[2 * i + 1] for i in range(len(tree) // 2)]
+    assert torch.equal(sums[0], tree[0])
+    assert torch.equal(sums[0], _rank_order(parts)) == (n == 2)
 
 
 def _windows(parts, first=0):
