@@ -27,7 +27,11 @@ result line:
    ceil(D/256) CTAs of its D=256 design, the other kernels of D/128; ``--heads
    2``, D=512: B=32 bf16 and B=8 f32, causal and not, B=8 and 16 at S=2048,
    the tp ranks' 1 of 2 heads, S=320, a wholly masked sample; 4 heads of 384;
-   1 head of 1024), then which kernels SDPA ran at D = 384, 512, 1024, with times
+   1 head of 1024; past 1024, bf16 clusters of 5, 6, 8 CTAs and f32 ones of
+   9, 12, 16, the card's non-portable sizes: ``--hs 2048 --heads 1``'s B=16
+   bf16 and B=4 f32, causal and not, B=8 at S=2048, its decode bucket B=2,
+   S=320, a wholly masked sample; 1 head of 1152 and of 1536, causal and
+   not), then which kernels SDPA ran at D = 384, 512, 1024, 2048, with times
    of the kernel, the plain version, the bound and
    ``scaled_dot_product_attention`` (a yardstick the port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
@@ -46,11 +50,14 @@ result line:
    at head width 256 (K2 B=32 bf16 and B=8 f32, K3a/K3b B=16 S=2048 bf16 and
    B=2 f32, the tp ranks', S=320, wholly masked samples) and at the wide
    heads (D=512 at [train_h512]'s shapes, its tp ranks', S=320, a wholly
-   masked sample; D=384; D=1024), with the same times (the yardstick is SDPA's backward); at each case the
+   masked sample; D=384; D=1024; D=2048 at [train_h2048]'s shapes, K2 B=16
+   bf16 and B=4 f32, K3 B=8 S=2048, S=320, a wholly masked sample; D=1152
+   and 1536), with the same times (the yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times, and in f32 the tf32 prep (D = 128 and 256);
-   last, [train_h256]'s and [train_h512]'s bf16 K2 calls and their S=2048
-   steps' K3a and K3b under the profiler, by kernel (delta, dK/dV, dQ), and
+   last, [train_h256]'s, [train_h512]'s and [train_h2048]'s bf16 K2 calls and
+   their S=2048 steps' K3a and K3b under the profiler, by kernel (delta,
+   dK/dV, dQ), and
    the kernels SDPA's backward ran at the wide heads;
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
    Philox bits, at the flagship's N=32768 rows of D=1024 in bf16, at a
@@ -101,6 +108,14 @@ result line:
    3 steps (its ms/step and peak), 2 at S=2048 B=16 (K1, delta, K3a, K3b 24
    each), 3 in f32 at B=8 (the prep 48), the encoder of a --heads 2 server
    via K1 against plain attention and a decode batch (K1 8);
+13c. ``[train_h2048]``: ``--hs 2048 --heads 1`` (d_model 2048, one head of
+   2048, 549 M parameters drawn once and cast for every model; bf16 clusters
+   of 8 CTAs, f32 of 16): gradients through the kernels against plain
+   attention (B=2 bf16, B=1 f32), 10 timed steps at B=16 (K1, delta, K2 24
+   each) beside the plain route's 3 (ms/step, peak, each step's peak), 2 at
+   S=2048 B=8 (K1, delta, K3a, K3b 24 each), 3 in f32 at B=4 (the prep 48),
+   the encoder of a bf16-parameter server via K1 against plain attention and
+   a decode batch of two requests (K1 8);
 14. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
    width (bf16 compute, f32 parameters), in a temporary directory outside
    the checkout: 64 two-track songs tokenized by the native codec
@@ -149,12 +164,13 @@ result line:
    --dist_backend nccl`` with more ranks than cards refused before any process
    group; four ranks spawned over gloo (all on cuda:0, ring blocks staged
    through pinned host memory): ``ring_attention`` at sp = 2 and 4 over (B=4,
-   S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, and at sp=2
-   over (B=4, S=2048, H=4, D=256) and (H=2, D=512) bf16, against the
+   S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, at sp=2
+   over (B=4, S=2048, H=4, D=256) and (H=2, D=512) bf16 and over (B=2,
+   S=2048, H=1, D=2048) bf16 and f32, against the
    plain ring and dense ``flash_attention`` (a 3S/8 pad tail covering the
    last shard at sp=4); the flagship mesh step (B=2, dropout 0, one step a
-   mesh) at 2x1x1, 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
-   with --heads 4 and with --heads 2 (S=2048) against the dense step on
+   mesh) at 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
+   with --heads 2 (S=2048) against the dense step on
    the same card (loss, clipped gradients per group, the same gradients on
    every rank), the parameters placed by ``shard_params`` (at 1x2x2 each rank
    holds its slices of the qkv, mlp and vocab leaves and their AdamW state;
@@ -170,8 +186,8 @@ result line:
    plain ring and dense attention; the composer, velocity and generation
    steps at flagship width (bf16 compute, f32 parameters, B=8, S=1024,
    dropout 0 and the heads' fixed 0.1 set to 0) on [pretrain_run]'s
-   ``best/``, at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, and velocity's in f32 at
-   2x1x1, 1x2x1 and 1x1x2, one eval step and one train step each, against the
+   ``best/``, at 2x1x1, 1x2x1 and 1x1x2, velocity's also at 2x1x2 and in f32
+   at 2x1x1, 1x2x1 and 1x1x2, one eval step and one train step each, against the
    dense steps on the same card (eval loss and the gathered predictions
    away from ties, train loss, clipped gradients per group, the same
    gradients on every rank), the parameters placed by ``shard_params`` as in
@@ -186,7 +202,8 @@ result line:
 
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
 train_h256, train_h256_long, train_h256_f32, serve_h256, train_h512, train_h512_long,
-train_h512_f32, serve_h512, pretrain_run, finetune,
+train_h512_f32, serve_h512, train_h2048, train_h2048_long, train_h2048_f32,
+serve_h2048, pretrain_run, finetune,
 serve_ckpt, merge, parallel, finetune_mesh) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
@@ -393,16 +410,18 @@ def _sass_by_label(tool, path):
 
 def _cluster_occupancy(libs):
     """[build]'s lines: cudaOccupancyMaxActiveClusters of every cluster
-    kernel at each cluster size it launches (D = 256 .. 1024), from the
+    kernel at each cluster size it launches (D = 256 .. 2048: the f32
+    kernels' 9 .. 16 CTAs past 1024 are non-portable sizes), from the
     libraries' ``pbt_cluster_occupancy``; fails where the card holds none."""
     import ctypes
+    from pianobart_tpu_torch.ops.flash import MAX_HEAD_DIM
     kernels = (("flash_fwd", 1, 0, "K1 bf16"), ("flash_fwd", 0, 0, "K1 f32"),
                ("flash_bwd", 1, 1, "dK/dV bf16"), ("flash_bwd", 1, 0, "dQ bf16"),
                ("flash_bwd", 0, 1, "dK/dV f32"), ("flash_bwd", 0, 0, "dQ f32"))
     rows = {}
     for lib, dtype, which, what in kernels:
         by_n = {}
-        for D in range(256, 1025, 128):
+        for D in range(256, MAX_HEAD_DIM + 1, 128):
             n = ctypes.c_int(0)
             active = libs[lib].pbt_cluster_occupancy(D, dtype, which, ctypes.byref(n))
             if n.value > 1:
@@ -493,12 +512,20 @@ def phase_build(state):
 
 # --heads 4: the flagship's width (H*D = 1024) at head width 256
 H256 = dict(H=4, D=256)
-# the wide heads, clusters (bf16 K1 of ceil(D/256) CTAs, the others of D/128):
+# the wide heads, clusters (bf16 of ceil(D/256) CTAs, f32 of D/128):
 # --heads 2 at the flagship's width (D=512, H*D = 1024), --hs 1536's width as
-# 4 heads of 384 (bf16 K1: a pair whose second CTA's upper half lies past D),
-# and 1 head of 1024 (n = 8, the card's largest portable cluster)
+# 4 heads of 384 (bf16: a pair whose second CTA's upper half lies past D),
+# 1 head of 1024 (f32 n = 8, the card's largest portable cluster), 1152
+# (bf16 5 CTAs, the last one's upper half past D; f32 9, a non-portable
+# size), 1536 (6 / 12) and --hs 2048 --heads 1 (8 / 16)
 WIDTHS = {"h256": H256, "h384": dict(H=4, D=384), "h512": dict(H=2, D=512),
-          "h1024": dict(H=1, D=1024)}
+          "h1024": dict(H=1, D=1024), "h1152": dict(H=1, D=1152),
+          "h1536": dict(H=1, D=1536), "h2048": dict(H=1, D=2048)}
+# the train shapes of a width: K1 and K2 in bf16 at S=1024, K3a and K3b in
+# bf16 at S=2048, K1 and K2 in f32 at S=1024 ([train]'s and its siblings';
+# --hs 2048 --heads 1 at half the batch, the same B*H*D)
+TRAIN_B = {"": (32, 16, 8), "h256": (32, 16, 8), "h512": (32, 16, 8),
+           "h2048": (16, 8, 4)}
 
 
 def _width(kind):
@@ -633,7 +660,18 @@ def phase_flash(state):
              (2, False, f32, 320, "h512 masked"),
              (8, False, bf16, 1024, "h384"), (8, True, bf16, 1024, "h384"),
              (8, False, f32, 1024, "h384"),
-             (4, True, bf16, 1024, "h1024"), (2, False, f32, 1024, "h1024")]
+             (4, True, bf16, 1024, "h1024"), (2, False, f32, 1024, "h1024"),
+             # past 1024 (bf16 clusters of 5, 6, 8 CTAs; f32 of 9, 12, 16):
+             # --hs 2048 --heads 1 at [train_h2048]'s shapes (B=16 bf16, B=4
+             # f32, B=8 at S=2048) and its decode bucket B=2; 1152 and 1536
+             (16, False, bf16, 1024, "h2048"), (16, True, bf16, 1024, "h2048"),
+             (4, False, f32, 1024, "h2048"), (4, True, f32, 1024, "h2048"),
+             (8, False, bf16, 2048, "h2048"), (2, False, bf16, 1024, "h2048"),
+             (2, False, bf16, 320, "h2048 masked"), (2, True, f32, 320, "h2048"),
+             (4, False, bf16, 1024, "h1152"), (4, True, bf16, 1024, "h1152"),
+             (2, False, f32, 1024, "h1152"), (2, True, f32, 1024, "h1152"),
+             (4, False, bf16, 1024, "h1536"), (4, True, bf16, 1024, "h1536"),
+             (2, False, f32, 1024, "h1536"), (2, True, f32, 1024, "h1536")]
     for B, causal, dtype, S, *kind in cases:
         kind = kind[0] if kind else ""
         tp = "tp" in kind
@@ -673,14 +711,15 @@ def phase_flash(state):
               f"sdpa {lib_ms:.4f} ms")
         if not (ok_o and err_l <= tol_l and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees with its plain version: {name}")
-        if kind in ("", "h256", "h512") and (B, causal, dtype, S) in (
-                (32, False, bf16, 1024), (8, False, f32, 1024)):
-            # the train shapes ([train], [train_f32]; [train_h256]'s, [train_h512]'s)
+        if kind in TRAIN_B and (B, causal, dtype, S) in (
+                (TRAIN_B[kind][0], False, bf16, 1024), (TRAIN_B[kind][2], False, f32, 1024)):
+            # the train shapes ([train], [train_f32]; [train_h256]'s,
+            # [train_h512]'s, [train_h2048]'s)
             key = "k1" + (f"_{wname}" if wname else "") + ("_f32" if dtype == f32 else "")
             state[key] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by.split(",")[0],
                               library_ms=lib_ms)
-    _sdpa_kernels("flash", ("h384", "h512", "h1024"))
+    _sdpa_kernels("flash", ("h384", "h512", "h1024", "h2048"))
 
 
 def _sdpa_kernels(tag, widths, backward=False):
@@ -965,7 +1004,20 @@ def phase_flash_bwd(state):
              ("K3", 2, 320, False, bf16, True, "h512"),
              ("K2", 8, 1024, False, bf16, False, "h384"), ("K2", 8, 1024, True, bf16, False, "h384"),
              ("K2", 8, 1024, False, f32, False, "h384"), ("K3", 2, 2048, True, bf16, False, "h384"),
-             ("K2", 4, 1024, True, bf16, False, "h1024"), ("K2", 2, 1024, False, f32, False, "h1024")]
+             ("K2", 4, 1024, True, bf16, False, "h1024"), ("K2", 2, 1024, False, f32, False, "h1024"),
+             # past 1024 (bf16 clusters of 5, 6, 8 CTAs; f32 of 9, 12, 16):
+             # --hs 2048 --heads 1 at [train_h2048]'s shapes (K2 B=16 bf16 and
+             # B=4 f32, K3 B=8 S=2048 bf16), S=320 and a wholly masked sample;
+             # 1152 (bf16: the last CTA's upper half past D) and 1536
+             ("K2", 16, 1024, False, bf16, False, "h2048"), ("K2", 16, 1024, True, bf16, False, "h2048"),
+             ("K2", 4, 1024, False, f32, False, "h2048"), ("K2", 4, 1024, True, f32, False, "h2048"),
+             ("K3", 8, 2048, False, bf16, False, "h2048"), ("K3", 8, 2048, True, bf16, False, "h2048"),
+             ("K2", 2, 320, False, bf16, True, "h2048"), ("K3", 2, 320, True, f32, False, "h2048"),
+             ("K2", 4, 1024, False, bf16, False, "h1152"), ("K2", 4, 1024, True, bf16, False, "h1152"),
+             ("K2", 2, 1024, False, f32, False, "h1152"), ("K2", 2, 1024, True, f32, False, "h1152"),
+             ("K3", 2, 2048, True, bf16, False, "h1152"),
+             ("K2", 4, 1024, False, bf16, False, "h1536"), ("K2", 4, 1024, True, bf16, False, "h1536"),
+             ("K2", 2, 1024, False, f32, False, "h1536"), ("K2", 2, 1024, True, f32, False, "h1536")]
     for kid, B, S, causal, dtype, masked, *kind in cases:
         kind = kind[0] if kind else ""
         tp = "tp" in kind
@@ -996,15 +1048,15 @@ def phase_flash_bwd(state):
               f"plain {d_plain:.4f} ms")
         if not ok_d:
             raise AssertionError(f"the delta kernel disagrees with its plain version: {name}")
-        if kind in ("", "h256", "h512") and (B, causal, dtype, masked) == (32, False, bf16,
-                                                                          False):
+        if kind in TRAIN_B and (kid, B, causal, dtype, masked) == (
+                "K2", TRAIN_B[kind][0], False, bf16, False):
             state["delta" + (f"_{wname}" if wname else "")] = dict(
                 max_abs_err=err_d, ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
                 bound_by=d_bound[1], library_ms=None)
         del got_d, want_d
         if dtype == f32 and not causal:
-            train = kind in ("", "h256", "h512") and (kid, B, S, masked) == ("K2", 8, 1024,
-                                                                             False)
+            train = kind in TRAIN_B and (kid, B, S, masked) == ("K2", TRAIN_B[kind][2],
+                                                                1024, False)
             _split_row(state, name, q, ("split" + (f"_{wname}" if wname else "")) if train
                        else None, flash_attention_split, flash_attention_split_reference)
         s0 = flash_attention_split.launches
@@ -1057,10 +1109,11 @@ def phase_flash_bwd(state):
               f"(tol {ntol:g}), {times}, sdpa bwd {lib_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{kid} disagrees with its plain version: {name}")
-        if kind in ("", "h256", "h512") and (B, causal, dtype, masked) in (
-                (32, False, bf16, False), (16, False, bf16, False), (8, False, f32, False)):
-            # the train shapes ([train], [train_long], [train_f32]; [train_h256]'s
-            # and [train_h512]'s)
+        if kind in TRAIN_B and (B, causal, dtype, masked) in (
+                (TRAIN_B[kind][0], False, bf16, False), (TRAIN_B[kind][1], False, bf16, False),
+                (TRAIN_B[kind][2], False, f32, False)):
+            # the train shapes ([train], [train_long], [train_f32]; [train_h256]'s,
+            # [train_h512]'s and [train_h2048]'s)
             keys = (["k2" if dtype == bf16 else "k2_f32"] if kid == "K2"
                     else ["k3a", "k3b"])
             if wname:
@@ -1077,7 +1130,8 @@ def phase_flash_bwd(state):
     # clusters).  Last, as the host launches more slowly after a profiler
     # window, and the small rows above are host bound.
     for kid, B, S, wname in (("K2", 32, 1024, "h256"), ("K3", 16, 2048, "h256"),
-                             ("K2", 32, 1024, "h512"), ("K3", 16, 2048, "h512")):
+                             ("K2", 32, 1024, "h512"), ("K3", 16, 2048, "h512"),
+                             ("K2", 16, 1024, "h2048"), ("K3", 8, 2048, "h2048")):
         q, k, v, mask = _flash_case(B, False, bf16, S=S, **WIDTHS[wname])
         mask[0, S - 300:] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, False)
@@ -1101,7 +1155,7 @@ def phase_flash_bwd(state):
                                 "dQ": lambda n: kern.format("false") in n})
         del q, k, v, mask, out, lse, dout
         torch.cuda.empty_cache()
-    _sdpa_kernels("flash_bwd", ("h384", "h512", "h1024"), backward=True)
+    _sdpa_kernels("flash_bwd", ("h384", "h512", "h1024", "h2048"), backward=True)
 
 
 def _split_row(state, name, x, key, split, reference):
@@ -1713,13 +1767,30 @@ def _grad_check(tag, models, batch, gen, expects, what):
         raise AssertionError(f"gradients {what} disagree")
 
 
-def _flash_vs_plain(tag, cfg, rng, gen, B, expect):
+def _model(cfg, weights=None, train=False):
+    """``init_lm(cfg, seed=SEED)`` on the card; or, given ``weights`` (the
+    state dict of a model of the same widths drawn once, at the longest
+    ``max_len``), a model built at ``cfg`` that loads them, cast to
+    ``cfg.param_dtype``, the position tables cut to its rows, so that a
+    phase with many models of one wide configuration draws its weights on
+    the host once."""
+    from pianobart_tpu_torch.compat.from_jax import init_lm
+    from pianobart_tpu_torch.models import PianoBartLM
+    if weights is None:
+        return init_lm(cfg, seed=SEED, device="cuda", train=train)
+    model = PianoBartLM(cfg, device="cuda")
+    own = model.state_dict()
+    model.load_state_dict({k: w if w.shape == own[k].shape else w[:own[k].shape[0]]
+                           for k, w in weights.items()})
+    return model.train(train)
+
+
+def _flash_vs_plain(tag, cfg, rng, gen, B, expect, weights=None):
     """The flagship model's gradients through the flash kernels against the
     same weights on the plain attention path, dropout off."""
     import torch
-    from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.models import PianoBartLM
-    model = init_lm(cfg, seed=SEED, device="cuda", train=True)
+    model = _model(cfg, weights, train=True)
     plain = PianoBartLM(cfg.replace(use_flash_attention=False), device="cuda")
     plain.load_state_dict(model.state_dict())
     plain.train()
@@ -1729,14 +1800,16 @@ def _flash_vs_plain(tag, cfg, rng, gen, B, expect):
                 f"via {kernels} vs plain attention, dropout off")
 
 
-def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True):
+def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True,
+                 weights=None, peaks=0):
     """``pretrain_step`` at batch B: warm-up, then timed steps with the
     launches of every kernel per step (each as ``expect`` says), ms/step,
-    tokens/s, model-FLOP MFU, peak device memory, and (``profile``) a
-    profiled window."""
+    tokens/s, model-FLOP MFU, peak device memory (``peak_gib``; with
+    ``peaks``, that many more steps' peaks each in ``step_peaks``), and
+    (``profile``) a profiled window; the model's weights ``weights`` where
+    given (:func:`_model`)."""
     import numpy as np
     import torch
-    from pianobart_tpu_torch.compat.from_jax import init_lm
     from pianobart_tpu_torch.ops.noise import corrupt_batch
     from pianobart_tpu_torch.train.pretrain import pretrain_step
     from pianobart_tpu_torch.train.state import create_train_state
@@ -1744,7 +1817,7 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True
 
     S = cfg.max_len
     t0 = time.perf_counter()
-    model = init_lm(cfg, seed=SEED, device="cuda", train=True)
+    model = _model(cfg, weights, train=True)
     st = create_train_state(model)
     batch = torch.as_tensor(_pretrain_batch(B, S, rng), device="cuda")
     print(f"[{tag}] flagship width ({cfg.num_heads} heads of {cfg.head_dim}) B={B} S={S} "
@@ -1772,6 +1845,14 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True
     wall = time.perf_counter() - t0
     state_launches = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # each step's peak, apart from the timed run (the peak's reset and read
+    # synchronize the host with the card)
+    step_peaks = []
+    for _ in range(peaks):
+        torch.cuda.reset_peak_memory_stats()
+        pretrain_step(st, batch, gen)
+        torch.cuda.synchronize()
+        step_peaks.append(torch.cuda.max_memory_allocated() / 2**30)
     losses = [l.item() for l, _ in metrics]
     norms = [g.item() for _, g in metrics]
     model_flops, hw_flops = pretrain_step_flops(model.state_dict(), cfg, B, S)
@@ -1782,6 +1863,9 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True
           f"({model_flops / 1e12:.2f} TFLOP/step; hardware FLOPs "
           f"{hw_flops / 1e12:.2f}) against {PEAK_BF16_H100 / 1e12:.0f} TFLOP/s; "
           f"peak device memory {peak:.2f} GiB")
+    if peaks:
+        print(f"[{tag}] peak device memory of each of {peaks} more steps "
+              f"{[round(x, 2) for x in step_peaks]} GiB")
     print(f"[{tag}] loss per step {[round(x, 5) for x in losses]}")
     print(f"[{tag}] grad_norm per step {[round(x, 5) for x in norms]}")
     print(f"[{tag}] launches per step ({COUNT_NAMES}) {per_step}")
@@ -1793,7 +1877,7 @@ def _train_steps(tag, cfg, B, rng, gen, expect, warmup=3, steps=10, profile=True
         _profile_window(tag, f"2 pretrain steps at B={B}",
                         lambda: [pretrain_step(st, batch, gen) for _ in range(2)], 2)
     return state_launches, dict(ms=1e3 * step_s, peak_gib=peak, mfu=mfu,
-                                tokens_s=B * S / step_s)
+                                tokens_s=B * S / step_s, step_peaks=step_peaks)
 
 
 def phase_train(state):
@@ -2163,6 +2247,107 @@ def phase_train_h512(state):
           f"{tuple(counts.values())}, expected {want}")
     if tuple(counts.values()) != want:
         raise AssertionError("K1 did not run 8 times a --heads 2 decode batch")
+
+
+def phase_train_h2048(state):
+    """``--hs 2048 --heads 1`` (d_model 2048, one head of 2048, 8+8 layers,
+    FFN 2048: 549 M parameters, at full width and depth; every attention
+    on clusters, bf16 of 8 CTAs, f32 of 16, a non-portable size): gradients
+    through K1 and K2 against the plain attention path at B=2 in bf16 and
+    B=1 in f32; the timed pretrain steps at B=16 (bf16 compute, f32
+    parameters, dropout 0.1: K1, delta, K2 24 each) beside the plain
+    route's (``use_flash_attention=False``, the path this width took before)
+    ms/step and peak; at ``max_len=2048``, B=8 (K1, delta, K3a, K3b 24
+    each); in f32 at B=4 (K1, delta, K2 24 each, the prep 48); then the
+    serving path with bf16 parameters: the encoder via K1 against plain
+    attention and one ``GenerationService`` decode batch of two concurrent
+    requests (K1 8).  The weights are drawn once and cast for every model
+    (:func:`_model`)."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.serve.app import GenerationService
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, d_model=2048, num_heads=1, ffn_dim=2048)
+    if cfg.head_dim != 2048:
+        raise AssertionError(f"--hs 2048 --heads 1 gives head width {cfg.head_dim}")
+    t0 = time.perf_counter()
+    # at S=2048's position tables, which the S=1024 models take the first rows of
+    weights = _model(cfg.replace(dtype=torch.float32, max_len=2048)).state_dict()
+    n_params = sum(w.numel() for w in weights.values())
+    print(f"[train_h2048] --hs 2048 --heads 1: {n_params / 1e6:.1f} M parameters drawn "
+          f"once in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k2=n_attn)
+    expect_f32 = _counts(k1=n_attn, k2=n_attn, f32=True)
+    f32_cfg = cfg.replace(dtype=torch.float32)
+    _flash_vs_plain("train_h2048", cfg.replace(dropout=0.0), rng, gen, 2, expect,
+                    weights=weights)
+    _flash_vs_plain("train_h2048", f32_cfg.replace(dropout=0.0), rng, gen, 1, expect_f32,
+                    weights=weights)
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_h2048", cfg, 16, rng, gen, expect, profile=False,
+                                 weights=weights, peaks=2)
+    state["launches"]["train_h2048"] = launches
+    state["train_h2048"] = res
+    torch.cuda.empty_cache()
+    _, plain = _train_steps("train_h2048_plain", cfg.replace(use_flash_attention=False), 16,
+                            rng, gen, _counts(), warmup=1, steps=3, profile=False,
+                            weights=weights, peaks=1)
+    print(f"[train_h2048] beside the plain route at D=2048: {res['ms']:.1f} vs "
+          f"{plain['ms']:.1f} ms/step ({100 * (res['ms'] / plain['ms'] - 1):+.1f}%), "
+          f"MFU {res['mfu']:.2f} vs {plain['mfu']:.2f}%, peak {res['peak_gib']:.2f} vs "
+          f"{plain['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h2048_long", cfg.replace(max_len=2048), 8, rng, gen,
+                               _counts(k1=n_attn, k3=n_attn), warmup=1, steps=2,
+                               profile=False, weights=weights, peaks=1)
+    state["launches"]["train_h2048_long"] = launches
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h2048_f32", f32_cfg, 4, rng, gen, expect_f32,
+                               warmup=2, steps=3, profile=False, weights=weights, peaks=1)
+    state["launches"]["train_h2048_f32"] = launches
+    torch.cuda.empty_cache()
+
+    # serving a --hs 2048 --heads 1 model (bf16 parameters, as GenerationService holds them)
+    scfg = cfg.replace(param_dtype=torch.bfloat16)
+    model = _model(scfg, weights)
+    del weights
+    torch.cuda.empty_cache()
+    _encoder_vs_plain("train_h2048", model, rng)
+    svc = GenerationService(model=model, device="cuda", max_batch=8)
+    intros = _intros(2, scfg.max_len, rng)
+    results = [None] * len(intros)
+
+    def client(i):
+        results[i] = svc.submit(intros[i], seed=i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(intros))]
+    _reset_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    counts = _read_counts()
+    state["launches"]["serve_h2048"] = counts
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise AssertionError("a --hs 2048 --heads 1 request was not served")
+    _check_outputs(results, scfg.max_len)
+    batches = svc.batch_sizes_served
+    want = _counts(k1=scfg.encoder_layers * len(batches))
+    print(f"[train_h2048] --hs 2048 --heads 1 GenerationService: {len(intros)} concurrent "
+          f"requests served as batches {batches} in {time.perf_counter() - t0:.1f} s; "
+          f"launches ({COUNT_NAMES}) {tuple(counts.values())}, expected {want}")
+    if tuple(counts.values()) != want:
+        raise AssertionError("K1 did not run 8 times a --hs 2048 decode batch")
+    del svc, model
+    torch.cuda.empty_cache()
+    print(f"[train_h2048] wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def _meta(save_dir):
@@ -3224,11 +3409,12 @@ def phase_merge(state):
 # ---------------------------------------------------------------------------
 
 # the flagship mesh steps of [parallel]: (dp, tp, sp), S; B=2
-# (mesh, S, heads): the flagship's 8 heads of 128, and --heads 4 (head
-# width 256) at 1x1x2
-PARALLEL_STEPS = (((2, 1, 1), 2048, 8), ((1, 1, 2), 2048, 8), ((2, 1, 2), 2048, 8),
-                  ((1, 2, 2), 2048, 8), ((1, 1, 2), 4096, 8), ((1, 1, 2), 2048, 4),
-                  ((1, 1, 2), 2048, 2))
+# (mesh, S, heads): the flagship's 8 heads of 128, and --heads 2 (head
+# width 512, clusters) at 1x1x2.  The CPU tests hold the 2x1x1 step and
+# --heads 4's 1x1x2 (tests/test_torch_sp_train.py, test_torch_head256.py),
+# and [finetune_mesh] runs dp meshes here; the ring at D=256 stays above.
+PARALLEL_STEPS = (((1, 1, 2), 2048, 8), ((2, 1, 2), 2048, 8),
+                  ((1, 2, 2), 2048, 8), ((1, 1, 2), 4096, 8), ((1, 1, 2), 2048, 2))
 
 
 def _mesh_cfg(cfg, shape):
@@ -3259,8 +3445,8 @@ def _ring_case(mesh, S, dtype, causal, B=4, H=8, D=128):
     """``ring_attention`` over the sp axis of ``mesh`` at (B, S, H, D)
     against the plain ring and against dense ``flash_attention`` on the
     card, output and q/k/v gradients; sample 1 ends in S/8 pad rows, sample
-    3 in 3S/8 (at sp=4 its whole last shard).  Returns this rank's errors
-    and times."""
+    3 (where B > 3) in 3S/8 (at sp=4 its whole last shard).  Returns this
+    rank's errors and times."""
     import torch
     from pianobart_tpu_torch.ops.flash import flash_attention
     from pianobart_tpu_torch.ops.ring import ring_attention, ring_attention_reference
@@ -3271,7 +3457,8 @@ def _ring_case(mesh, S, dtype, causal, B=4, H=8, D=128):
     q, k, v, dout = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), dout.to(dtype)
     mask = torch.ones(B, S, device="cuda")
     mask[1, S - S // 8:] = 0.0
-    mask[3, S - 3 * S // 8:] = 0.0
+    if B > 3:
+        mask[3, S - 3 * S // 8:] = 0.0
     out = {}
     for tag, fn in (("kernels", ring_attention), ("plain", ring_attention_reference)):
         ql, kl, vl = (mesh.cols(x).detach().clone().requires_grad_() for x in (q, k, v))
@@ -3389,6 +3576,11 @@ def _parallel_rank(rank, world, out_dir):
             for width in (H256, WIDTHS["h512"]):
                 for causal in (False, True):
                     res["ring"].append(_ring_case(mesh, 2048, torch.bfloat16, causal, **width))
+            # --hs 2048 --heads 1: the clusters of 8 (bf16) and 16 (f32) CTAs
+            for dtype in (torch.bfloat16, torch.float32):
+                for causal in (False, True):
+                    res["ring"].append(_ring_case(mesh, 2048, dtype, causal, B=2,
+                                                  **WIDTHS["h2048"]))
     torch.cuda.empty_cache()
     cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0, max_len=4096)
     sd = init_lm(cfg0, seed=SEED, device=dev, train=True).state_dict()
@@ -3646,16 +3838,19 @@ def phase_parallel(state):
 # ---------------------------------------------------------------------------
 
 FINETUNE_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 1, 2))
-# (finetune, compute dtype, meshes): the three finetunes in bf16 at every
-# mesh; velocity again in f32, where its bf16 decoder positions part from
+# (finetune, compute dtype, meshes): the three finetunes in bf16, velocity
+# (the label decoder's shard offsets) at every mesh, composer and
+# generation at all but 2x1x2, whose four ranks cost the most and which
+# tests/test_torch_finetune_mesh.py holds for every finetune on the CPU;
+# velocity again in f32, where its bf16 decoder positions part from
 # the dense step by 4e-2 (on the ring of one under tp, and under sp), so
 # that rounding, which shrinks with the compute type, and a fault of the
 # label decoder's mesh path, which does not, can be told apart; 2x1x1
 # (only the order of the sums changes) gives the f32 floor, and the dense
 # step on weights moved by one ulp the gradients' own sensitivity
-FINETUNE_RUNS = (("composer", "bf16", FINETUNE_MESHES),
+FINETUNE_RUNS = (("composer", "bf16", FINETUNE_MESHES[:3]),
                  ("velocity", "bf16", FINETUNE_MESHES),
-                 ("generation", "bf16", FINETUNE_MESHES),
+                 ("generation", "bf16", FINETUNE_MESHES[:3]),
                  ("velocity", "f32", ((2, 1, 1), (1, 2, 1), (1, 1, 2))))
 # Against the dense step: the train and eval losses (relative), and the
 # clipped gradients per group (||d||/||dense||): a bound for every group
@@ -3905,8 +4100,8 @@ def phase_finetune_mesh(state):
     """The finetunes over the mesh on this one card: four ranks spawned over
     gloo (all on cuda:0) for the ring at B=8 against the plain ring and
     dense attention, then the flagship composer, velocity and generation
-    eval and train steps at 2x1x1, 1x2x1, 1x1x2 and 2x1x2, and velocity's
-    in f32 at 2x1x1, 1x2x1 and 1x1x2, against the dense steps (the main path:
+    eval and train steps at 2x1x1, 1x2x1 and 1x1x2, velocity's also at 2x1x2
+    and in f32 at 2x1x1, 1x2x1 and 1x1x2, against the dense steps (the main path:
     every count set to 0 on each rank before each step, read after, summed
     over the ranks); then the CLI as a user starts it under
     torch.distributed.run on [finetune]'s corpora: ``finetune --task
@@ -4094,6 +4289,24 @@ KERNEL_RECORDS = (
      "flash_attention_bwd", "train_h512_f32"),
     ("tf32_split_h512", "split_h512", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
      "flash_attention_split", "train_h512_f32"),
+    # head widths 1152 .. 2048 (--hs 2048 --heads 1 is D=2048): the same
+    # cluster instances at bf16 8 CTAs and f32 16, on [train_h2048]'s paths
+    ("flash_fwd_h2048", "k1_h2048", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h2048"),
+    ("flash_bwd_h2048", "k2_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h2048"),
+    ("flash_dq_h2048", "k3a_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:276",
+     "flash_attention_dq", "train_h2048_long"),
+    ("flash_dkv_h2048", "k3b_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
+     "flash_attention_dkv", "train_h2048_long"),
+    ("flash_delta_h2048", "delta_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
+     "flash_attention_delta", "train_h2048"),
+    ("flash_fwd_h2048_f32", "k1_h2048_f32", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h2048_f32"),
+    ("flash_bwd_h2048_f32", "k2_h2048_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h2048_f32"),
+    ("tf32_split_h2048", "split_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:80",
+     "flash_attention_split", "train_h2048_f32"),
     ("fused_ln_fwd", "k4a", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:91",
      "dropout_add_ln_fwd", "train_fused"),
     ("fused_ln_bwd", "k4b", "fused_ln.cu", "pianobart_tpu/ops/fused_ln.py:112",
@@ -4124,6 +4337,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
           ("train_h256", phase_train_h256), ("train_h512", phase_train_h512),
+          ("train_h2048", phase_train_h2048),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
           ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
           ("parallel", phase_parallel), ("finetune_mesh", phase_finetune_mesh))

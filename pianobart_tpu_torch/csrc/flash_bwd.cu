@@ -7,7 +7,7 @@
 //   pbt_flash_dq   K3a, :276 _dq_kernel (launched by _dq_call where S > 1024
 //                  and by the ring backward): the dQ kernel;
 //   pbt_flash_dkv  K3b, :312 _dkv_kernel (_dkv_call): the dK/dV kernel.
-// Same contract as the Pallas calls, at head width D = 128 n up to 1024:
+// Same contract as the Pallas calls, at head width D = 128 n up to 2048:
 //   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides (f32
 //                at D = 128: by the prep); q is already scaled by D**-0.5 by
 //                the caller.
@@ -99,14 +99,17 @@
 // (H*D = 1024 in both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b
 // 0.5474 ms at B=16, S=2048.
 //
-// At D = 384 .. 1024 (D = 128 n) both types run as clusters that sum S and
+// At D = 384 .. 2048 (D = 128 n) both types run as clusters that sum S and
 // dP across the cluster through distributed shared memory: bf16
 // flash_bwd_d256_wgmma_kernel<DKV, true>, clusters of ceil(D / 256) CTAs of
-// the D = 256 design, 256 columns each; f32 flash_bwd_wide_tf32_kernel<DKV>,
-// clusters of D / 128 CTAs, two consumer warpgroups on alternate swept
-// tiles of 32 rows over the fixed rows' planes (both described where they
-// are defined); the delta kernel a warp a row and the prep 8 rows a CTA.
-// Bounds at --heads 2 (D = 512, H = 2) equal the D = 128 ones above.
+// the D = 256 design, 256 columns each (up to 8, the card's largest
+// portable cluster); f32 flash_bwd_wide_tf32_kernel<DKV>, clusters of D / 128
+// CTAs (9 .. 16 past D = 1024, the non-portable sizes H100 allows), two
+// consumer warpgroups on alternate swept tiles of 32 rows over the fixed
+// rows' planes (both described where they are defined); the delta kernel a
+// warp a row and the prep 8 rows and up to 1024 columns a CTA.  Bounds at
+// --heads 2 (D = 512, H = 2) equal the D = 128 ones above, and so do those
+// of --hs 2048 --heads 1 (D = 2048, H = 1) at half the batch.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -588,13 +591,13 @@ struct Dq256Smem {
 static_assert(Dkv256Smem::ALLOC <= 232448 && Dq256Smem::ALLOC <= 232448,
               "a CTA's shared memory");
 
-// A cluster's CTA (WIDE, D = 384 .. 1024; see the kernel's comment).  Each
+// A cluster's CTA (WIDE, D = 384 .. 2048; see the kernel's comment).  Each
 // consumer warpgroup sums one 64 x 64 f32 score tile at a time across the
 // cluster, through a 16 KB region of its own.
 constexpr int W_SLOT = TILE * W_OPND;   // a 64-row tile of a 256-column operand: 32 KB
 constexpr int X_UNITS = TILE / 8 * 128; // a score tile over a warpgroup in 16-byte units
 constexpr int X_REGION = X_UNITS * 16;
-static_assert(X_UNITS >= cluster_region_units(X_UNITS), "cluster_sum's region, at n = 3");
+static_assert(X_UNITS >= cluster_region_units(X_UNITS, 8), "cluster_sum's region, n = 3 .. 7");
 
 // dK/dV: Q and dO through a ring of three 32 KB slots, Q_i then dO_i, lse
 // beside Q and delta beside dO, where the D = 256 kernel keeps two 64 KB
@@ -629,24 +632,30 @@ struct Dq256WideSmem {
 static_assert(Dkv256WideSmem::ALLOC <= 232448 && Dq256WideSmem::ALLOC <= 232448,
               "a CTA's shared memory");
 
-// The barriers of one warpgroup's exchanges: pair_sum's at n = 2 and 4,
-// cluster_sum's at n = 3.
-__device__ __forceinline__ void sum_scores_init(uint64_t* xb, uint32_t n) {
-  if (n == 3) cluster_sum_init(xb, n, 128);
-  else pair_sum_init(xb);
-}
+// The cluster sizes at which a warpgroup sums by pair rounds
+// (hopper.cuh:pair_rounds), the others by cluster_sum: 2 and 4 in both
+// kernels, 8 in dQ alone.  At 8 (D = 1920, 2048) the dK/dV kernel took
+// 1.48-1.51 ms by cluster_sum and 1.59 by pair rounds, the dQ kernel
+// 1.41-1.45 either way (B=16, S=1024, H=1, D=2048; scripts/cluster_probe.py,
+// two calls, H100 at 700 W).
+// The barriers' setup and the exchange read one mask, so they agree at
+// every n.
+template <bool DKV>
+constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) : (1u << 2) | (1u << 4) | (1u << 8);
 
 // A warpgroup's 64 x 64 f32 score tile over its CTA's 256 columns becomes
 // the tile over all of D, the same in every CTA to the bit: a pair adds the
-// two in one round (hopper.cuh:pair_sum2), four CTAs (p0 + p1) + (p2 + p3)
-// in two (pair_sum4), three in rank order (cluster_sum).  x counts the
-// warpgroup's exchanges.  The cluster's shape is read anew at each
-// exchange, so that no register holds it across the products.
+// two in one round (hopper.cuh:pair_sum), four CTAs (p0 + p1) + (p2 + p3)
+// in two, eight in dQ in three, other n in rank order (cluster_sum).  x counts the warpgroup's exchanges.  The cluster's
+// shape is read anew at each exchange, so that no register holds it across
+// the products.
+template <bool DKV>
 __device__ __forceinline__ void sum_scores(float (&v)[TILE / 2], unsigned char* region,
                                            uint64_t* xb, uint32_t x, int tid) {
+  constexpr uint32_t PAIRS = BWD_PAIRS<DKV>;
   const uint32_t n = cluster_nctarank();
-  if (n == 2) pair_sum2(v, region, xb, cluster_ctarank(), x, 128, tid);
-  else if (n == 4) pair_sum4(v, region, xb, cluster_ctarank(), x, 128, tid);
+  const int rounds = pair_rounds<PAIRS>(n);
+  if (rounds) pair_sum(v, region, xb, cluster_ctarank(), x, rounds, 128, tid);
   else cluster_sum(cluster_sum_shape(X_UNITS, 128, tid), region, xb, x & 1, 128, tid, true, v);
 }
 
@@ -752,16 +761,17 @@ __device__ __forceinline__ void issue_rs_part(float (&acc)[D / 2],
 // rows; the mask in boxes of 64 keys; lse and delta in boxes of 64 (DKV) or
 // 128 entries.
 //
-// Wide heads (WIDE, D = 384 .. 1024; dw the head width, which D = 256 does
+// Wide heads (WIDE, D = 384 .. 2048; dw the head width, which D = 256 does
 // not read): clusters of n = ceil(D / 256) of these CTAs along x
 // (blockIdx.x / n the fixed tile, the cluster rank r the columns 256 r ..
 // 256 r + 255 of the head), each the design above on its columns of every
 // operand, storing its columns of dK and dV (or dQ); where D is not a
-// multiple of 256 (384, 640, 896) the last CTA's upper 128 columns lie past
-// D, TMA fills them with zeros and nothing is stored there.  S^T and dP^T
-// (S and dP) run over all of D: each warpgroup sums its one 64 x 64 f32 tile
-// across the cluster right after its product (sum_scores: one pair round
-// at n = 2, two at n = 4, cluster_sum at n = 3), 16 KB an exchange, so
+// multiple of 256 (384, 640, .., 1920) the last CTA's upper 128 columns lie
+// past D, TMA fills them with zeros and nothing is stored there.  S^T and
+// dP^T (S and dP) run over all of D: each warpgroup sums its one 64 x 64 f32
+// tile across the cluster right after its product (sum_scores: one pair
+// round at n = 2, two at n = 4, three at n = 8 in dQ, cluster_sum at the
+// other n), 16 KB an exchange, so
 // every CTA holds the same P^T and dS^T (P and dS) to the bit and dK, dV and
 // dQ stay column-local, with no atomics.  In dK/dV the two warpgroups
 // exchange at once, S^T and dP^T; in dQ a warpgroup sums dP while its S
@@ -827,7 +837,8 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(bar_full + s, 1);
         mbar_init(bar_free + s, 4 * NWG);
       }
-      for (int g = 0; g < NWG; ++g) sum_scores_init(bar_x + 4 * g, n_cta);
+      for (int g = 0; g < NWG; ++g)
+        score_sum_init(bar_x + 4 * g, n_cta, pair_rounds<BWD_PAIRS<DKV>>(n_cta));
       mbar_fence_init();
     }
     cluster_sync();                     // every CTA's barriers ready
@@ -914,7 +925,7 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(sc);
-          sum_scores(sc, region, xb, j, tid);           // over all of D
+          sum_scores<DKV>(sc, region, xb, j, tid);      // over all of D
           const float* lv = reinterpret_cast<const float*>(side(k1));   // lse or delta
           const unsigned char* bt = slot(k2);
           auto last_part = [&](int h) {                  // part h of dV += P^T dO, or dK += dS^T Q
@@ -1002,10 +1013,10 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_wait<1>();                              // dP is in
           fence_regs(dp);
           release(kv);
-          sum_scores(dp, region, xb, 2 * i, tid);
+          sum_scores<DKV>(dp, region, xb, 2 * i, tid);
           wgmma_wait<0>();
           fence_regs(sc);
-          sum_scores(sc, region, xb, 2 * i + 1, tid);
+          sum_scores<DKV>(sc, region, xb, 2 * i + 1, tid);
           const int* mk = reinterpret_cast<const int*>(side(kk));
           const bool dg = causal && r0 + TILE - 1 > w0;
 #pragma unroll
@@ -1350,7 +1361,7 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (r < rows && l == 0) delta[(b * H + h) * S + s] = acc;
 }
 
-// The same at D = 384 .. 1024: a warp a row, each lane 8 elements of every
+// The same at D = 384 .. 2048: a warp a row, each lane 8 elements of every
 // 256 columns.
 template <typename T>
 __global__ void __launch_bounds__(DELTA_THREADS)
@@ -1388,12 +1399,14 @@ flash_delta_wide_kernel(const T* __restrict__ dout, const T* __restrict__ out,
 // per 32 rows of one (b, h) of one operand; bound by bytes (x read once,
 // each plane written once).  D = 128 or 256 (a CTA pair of the f32
 // kernels reads its 128-column half of each plane); the transposing tile is
-// static shared memory, 33 KB at D = 256.  D = 384 .. 1024 (a cluster's
+// static shared memory, 33 KB at D = 256.  D = 384 .. 2048 (a cluster's
 // CTA reads its 128 columns): tf32_split_wide_kernel, D at run time and 8
-// rows a CTA (one k group of the transposed order), a tile of 32 KB at
-// D = 1024 under the 48 KB of static shared memory.
+// rows a CTA (one k group of the transposed order) of W = D / ceil(D /
+// 1024) columns (all of D up to 1024, half past it), a tile of at most 32 KB
+// under the 48 KB of static shared memory.
 constexpr int SPLIT_ROWS = 32;
 constexpr int SPLIT_WIDE_ROWS = 8;
+constexpr int SPLIT_WIDE_COLS = 1024;
 constexpr int SPLIT_MAX = 4;
 
 // The operands of one launch: null nat or tr where not asked for.  The
@@ -1451,12 +1464,14 @@ tf32_split_kernel(const SplitArgs a, int B, int H) {
   }
 }
 
+// W columns from cw = (blockIdx.x % (D / W)) W of rows s0 .. s0 + 7
 __global__ void __launch_bounds__(256)
-tf32_split_wide_kernel(const SplitArgs a, int B, int H, int D) {
+tf32_split_wide_kernel(const SplitArgs a, int B, int H, int D, int W) {
   constexpr int R = SPLIT_WIDE_ROWS;
-  __shared__ float tile[R][MAX_HEAD_DIM + 1];
+  __shared__ float tile[R][SPLIT_WIDE_COLS + 1];
+  const int chunks = D / W;
   const int op = blockIdx.z / B, b = blockIdx.z % B, h = blockIdx.y;
-  const int s0 = blockIdx.x * R, S = a.S[op];
+  const int s0 = blockIdx.x / chunks * R, S = a.S[op], cw = blockIdx.x % chunks * W;
   if (s0 >= S) return;
   const float* __restrict__ x = a.x[op];
   float* __restrict__ nat = a.nat[op];
@@ -1464,16 +1479,17 @@ tf32_split_wide_kernel(const SplitArgs a, int B, int H, int D) {
   const long long sb = a.sb[op], ss = a.ss[op], sh = a.sh[op];
   const long long plane = (long long)B * H * S * D;
   const long long bh = (long long)b * H + h;
-  for (int i = threadIdx.x; i < R * D / 4; i += 256) {
-    const int r = i / (D / 4), c = 4 * (i % (D / 4));
-    const float4 v = *reinterpret_cast<const float4*>(x + b * sb + (s0 + r) * ss + h * sh + c);
+  for (int i = threadIdx.x; i < R * W / 4; i += 256) {
+    const int r = i / (W / 4), c = 4 * (i % (W / 4));
+    const float4 v =
+        *reinterpret_cast<const float4*>(x + b * sb + (s0 + r) * ss + h * sh + cw + c);
     if (nat) {
       uint32_t hi[4], lo[4];
       tf32_split(v.x, hi[0], lo[0]);
       tf32_split(v.y, hi[1], lo[1]);
       tf32_split(v.z, hi[2], lo[2]);
       tf32_split(v.w, hi[3], lo[3]);
-      const long long at = (bh * S + s0 + r) * D + c;
+      const long long at = (bh * S + s0 + r) * D + cw + c;
       *reinterpret_cast<uint4*>(nat + at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       *reinterpret_cast<uint4*>(nat + plane + at) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
@@ -1486,11 +1502,11 @@ tf32_split_wide_kernel(const SplitArgs a, int B, int H, int D) {
   }
   if (!tr) return;
   __syncthreads();
-  for (int i = threadIdx.x; i < D * R; i += 256) {
+  for (int i = threadIdx.x; i < W * R; i += 256) {
     const int d = i / R, k = i % R;
     uint32_t hi, lo;
     tf32_split(tile[k < 4 ? 2 * k : 2 * k - 7][d], hi, lo);
-    const long long at = (bh * D + d) * S + s0 + k;
+    const long long at = (bh * D + cw + d) * S + s0 + k;
     tr[at] = __uint_as_float(hi);
     tr[plane + at] = __uint_as_float(lo);
   }
@@ -1861,8 +1877,8 @@ flash_bwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   if constexpr (PAIR) cluster_sync();     // no CTA leaves while its peer may reach it
 }
 
-// ------------------------------------------- f32 / 3xTF32 at D = 384 .. 1024
-// The f32 dK/dV (DKV) and dQ kernels at D = 128 n, n = 3..8, as clusters of
+// ------------------------------------------- f32 / 3xTF32 at D = 384 .. 2048
+// The f32 dK/dV (DKV) and dQ kernels at D = 128 n, n = 3..16, as clusters of
 // n CTAs along x (blockIdx.x / n the fixed tile of 64 rows, the cluster
 // rank r the columns 128 r .. 128 r + 127 of the head), each CTA the
 // products of the kernel above on its 128 columns of every plane, S^T and
@@ -1985,7 +2001,8 @@ flash_bwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   // a warpgroup's exchange: S and dP, or S^T and dP^T (32 floats a thread),
   // through a slot of its ring
   constexpr int X_UNITS = 2 * TR / 8 * 128;
-  static_assert(cluster_region_units(X_UNITS) * 16 <= TW_PLANE, "the exchange fits a slot");
+  static_assert(cluster_region_units(X_UNITS, 16) * 16 <= TW_PLANE,
+                "the exchange fits a slot, n = 3 .. 16");
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   const ClusterSum cs = cluster_sum_shape(X_UNITS, 128, tid);
   const int c0 = cs.rank * T_D, dw = cs.n * T_D;   // this CTA's columns, the head's
@@ -2362,7 +2379,7 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..8.  bf16: q, k, v, dO (B,
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..16.  bf16: q, k, v, dO (B,
 // S, H, D) at element strides for their (B, S, H) axes (the D axis
 // contiguous); qt, kt, ot are not read.  f32: q, k, v, dO are the natural
 // split planes of pbt_tf32_split and qt, kt, ot
@@ -2415,7 +2432,7 @@ extern "C" int pbt_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // delta = rowsum(dO * O) into (B, H, S) f32; dO's and O's strides in
-// elements for the (B, S, H) axes; D 128 n, n = 1..8.
+// elements for the (B, S, H) axes; D 128 n, n = 1..16.
 extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, int B,
                                int S, int H, int D, int dtype, long long osb, long long oss,
                                long long osh, long long tsb, long long tss,
@@ -2460,7 +2477,7 @@ extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, i
 // for its (B, S, H) axes (the D axis contiguous, 16-byte aligned rows) into
 // natural planes nat (2, B, H, S, D) and transposed planes tr (2, B, H, D,
 // S), either of which may be null.  Each S a multiple of 32; D 128 n, n =
-// 1..8.
+// 1..16.
 extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void* stream) {
   if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
   const SplitArgs a = *reinterpret_cast<const SplitArgs*>(args);
@@ -2468,7 +2485,9 @@ extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void
   for (int i = 0; i < n; ++i) s_max = max(s_max, a.S[i]);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (D > 256) {
-    tf32_split_wide_kernel<<<dim3(s_max / SPLIT_WIDE_ROWS, H, B * n), 256, 0, st>>>(a, B, H, D);
+    const int chunks = (D + SPLIT_WIDE_COLS - 1) / SPLIT_WIDE_COLS;
+    tf32_split_wide_kernel<<<dim3(s_max / SPLIT_WIDE_ROWS * chunks, H, B * n), 256, 0, st>>>(
+        a, B, H, D, D / chunks);
     return (int)cudaGetLastError();
   }
   const dim3 grid(s_max / SPLIT_ROWS, H, B * n);
@@ -2480,7 +2499,7 @@ extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void
 }
 
 // How many clusters of the backward's dK/dV (which = 1) or dQ (which = 0)
-// kernel at head width D (256 .. 1024) and type `dtype` the card holds at
+// kernel at head width D (256 .. 2048) and type `dtype` the card holds at
 // once (cudaOccupancyMaxActiveClusters, 0 where it holds none); the
 // cluster's size into *size (1 where the kernel runs no cluster, and the
 // answer is then 0): bf16 ceil(D / 256) CTAs past D = 256, f32 D / 128.

@@ -6,11 +6,12 @@
 // kernel has its width as a template parameter or a constant of its own
 // design (the shared-memory layouts and accumulator sizes follow from it);
 // the C entries take D at run time and pick the instance.  D = 128 and 256
-// have instances of their own; D = 384 .. 1024 run clusters that sum the
+// have instances of their own; D = 384 .. 2048 run clusters that sum the
 // products over D across the cluster (hopper.cuh): the bf16 kernels as
-// ceil(D / 256) CTAs of their D = 256 designs (their WIDE instances), the
-// f32 forward and backward as wide kernels of their own, D / 128 CTAs of
-// 128 columns.
+// ceil(D / 256) CTAs of their D = 256 designs (their WIDE instances, up to
+// 8 CTAs, the card's largest portable cluster), the f32 forward and
+// backward as wide kernels of their own, D / 128 CTAs of 128 columns (up to
+// 16, H100's largest non-portable cluster, hence MAX_HEAD_DIM).
 //
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
@@ -26,9 +27,9 @@
 namespace pbt {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int MAX_HEAD_DIM = 1024;   // 8 CTAs: the card's largest portable cluster
+constexpr int MAX_HEAD_DIM = 2048;   // f32: 16 CTAs of 128 columns
 
-// D = 128 n with n = 1 .. 8
+// D = 128 n with n = 1 .. 16
 inline bool head_dim_taken(int D) { return D % 128 == 0 && D >= 128 && D <= MAX_HEAD_DIM; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

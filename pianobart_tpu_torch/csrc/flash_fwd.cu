@@ -1,7 +1,7 @@
 // Flash attention forward for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
 // Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:_fwd_kernel
-// (launched by _fwd). Same contract, at head width D = 128 n up to 1024:
+// (launched by _fwd). Same contract, at head width D = 128 n up to 2048:
 //   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32 at
 //             D = 128: by the prep); q is already scaled by D**-0.5 by the
 //             caller.
@@ -57,7 +57,7 @@
 // reads what one D = 128 CTA reads, so the L2 traffic and the FLOPs a CTA
 // equal the D = 128 kernel's at the same B, and so does the bound.
 //
-// At D = 384 .. 1024 (D = 128 n) both types run as clusters: bf16 of
+// At D = 384 .. 2048 (D = 128 n) both types run as clusters: bf16 of
 // ceil(D / 256) CTAs of the D = 256 design, each on 256 columns of the head
 // (flash_fwd_d256.cuh, flash_fwd_d256_wgmma_kernel<true>), f32 of n CTAs,
 // one per 128 columns (flash_fwd_wide_tf32_kernel below: each consumer
@@ -65,8 +65,11 @@
 // where n is a power of two).  A cluster does the FLOPs and reads the bytes
 // of the CTAs of the narrower design at the same H * D: the bound is the
 // D = 128 one (--heads 2, D = 512 H = 2, has the flagship's H * D).  The
-// card holds clusters of up to 8 CTAs portably; launch_cluster refuses a
-// cluster it cannot hold.
+// card holds clusters of up to 8 CTAs portably, which the bf16 clusters
+// stay within up to D = 2048; the f32 clusters of 9 .. 16 CTAs past
+// D = 1024 are H100's non-portable sizes, which launch_cluster allows
+// (hopper.cuh:max_active_clusters).  launch_cluster refuses a cluster the
+// card cannot hold.
 #include "flash_common.cuh"
 #include "flash_fwd_bf16.cuh"
 #include "flash_fwd_d256.cuh"
@@ -339,8 +342,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   if constexpr (PAIR) cluster_sync();   // no CTA leaves while its peer may reach it
 }
 
-// ---------------------------------------- f32 / 3xTF32 at D = 384 .. 1024
-// K1 in f32 at D = 128 n, n = 3 .. 8: clusters of n CTAs along x
+// ---------------------------------------- f32 / 3xTF32 at D = 384 .. 2048
+// K1 in f32 at D = 128 n, n = 3 .. 16: clusters of n CTAs along x
 // (blockIdx.x / n the q tile of K1_BM rows, the cluster rank r the columns
 // 128 r .. 128 r + 127 of the head), each the products of the D = 128
 // kernel above on its 128 columns of every plane, S = Q K^T summed over all
@@ -368,10 +371,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 // * Each consumer warpgroup sums its own 64 x 64 f32 score tile across the
 //   cluster right after its S products, with barriers of its own, so the
 //   two warpgroups never wait on each other's exchange (sum_scores_f32):
-//   four CTAs in two pair rounds (hopper.cuh:pair_sum4), eight in three
-//   (pair_sum8), each round storing all of the tile into the round's peer
-//   (16 KB each way); n = 3, 5, 6, 7 by cluster_sum through the
-//   warpgroup's region.  Each CTA adds the partials in one fixed order of
+//   four CTAs in two pair rounds (hopper.cuh:pair_sum), eight in three,
+//   each round storing all of the tile into the round's peer
+//   (16 KB each way); the other n (sixteen too: FW_PAIRS) by cluster_sum
+//   through the warpgroup's region.  Each CTA adds the partials in one fixed order of
 //   operands (a pair round's sum is its two operands' either way round), so
 //   every CTA holds the same S, P, l and lse to the bit.
 // * Warpgroup 1 starts its first tile once warpgroup 0 has summed its
@@ -397,35 +400,35 @@ struct K1F32WideSmem {
   static constexpr int X = RING + FW_SLOTS * F_PLANE;   // a region a consumer warpgroup
   static constexpr int X_REGION = FW_UNITS * 16;
   static constexpr int MASK = X + K1_WG * X_REGION;     // two tiles' F_BN int32
-  // Q lo, full[S], free[S], then four a consumer warpgroup's exchange
+  // Q lo, full[S], free[S], then five a consumer warpgroup's exchange
+  // (room for four pair rounds', the other choice at n = 16 that
+  // scripts/cluster_probe.py times; cluster_sum takes four)
+  static constexpr int XB = 5;
   static constexpr int BAR = MASK + 2 * F_BN * 4;
-  static constexpr int ALLOC = BAR + (1 + 2 * FW_SLOTS + 4 * K1_WG) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * FW_SLOTS + XB * K1_WG) * 8 + 1024;
   static_assert(ALLOC <= 232448, "a CTA's shared memory");
-  static_assert(FW_UNITS >= cluster_region_units(FW_UNITS), "cluster_sum's region, n = 3 .. 7");
+  static_assert(FW_UNITS >= cluster_region_units(FW_UNITS, 16),
+                "cluster_sum's region, n = 3 .. 15");
 };
 
-// The barriers of one warpgroup's exchanges: pair_sum's (and xb[3] for
-// pair_sum8's third round) at n = 4 and 8, cluster_sum's otherwise.
-__device__ __forceinline__ void sum_scores_f32_init(uint64_t* xb, uint32_t n) {
-  if (n == 4 || n == 8) {
-    pair_sum_init(xb);
-    mbar_init(xb + 3, 4);
-  } else {
-    cluster_sum_init(xb, n, 128);
-  }
-}
+// The cluster sizes at which a warpgroup sums by pair rounds (4 and 8:
+// hopper.cuh:pair_rounds); the others by cluster_sum.  At 16 (D = 2048)
+// cluster_sum took 0.721-0.737 ms and four pair rounds 0.774-0.779 (B=4,
+// S=1024, H=1; scripts/cluster_probe.py, two calls, H100 at 700 W).  The barriers'
+// setup and the exchange read this one mask, so they agree at every n.
+constexpr uint32_t FW_PAIRS = (1u << 4) | (1u << 8);
 
 // A warpgroup's 64 x 64 f32 score tile over this CTA's 128 columns becomes
 // the tile over all of D, the same in every CTA to the bit: four CTAs
 // (p0 + p1) + (p2 + p3), eight ((p0 + p1) + (p2 + p3)) + ((p4 + p5) +
-// (p6 + p7)), other n in rank order (cluster_sum).  x counts the
-// warpgroup's exchanges; the cluster's shape is read anew at each, so that
-// no register holds it across the products.
+// (p6 + p7)), other n in rank order (cluster_sum).  x counts the warpgroup's exchanges; the cluster's
+// shape is read anew at each, so that no register holds it across the
+// products.
 __device__ __forceinline__ void sum_scores_f32(float (&v)[F_BN / 2], unsigned char* region,
                                                uint64_t* xb, uint32_t x, int tid) {
   const uint32_t n = cluster_nctarank();
-  if (n == 4) pair_sum4(v, region, xb, cluster_ctarank(), x, 128, tid);
-  else if (n == 8) pair_sum8(v, region, xb, cluster_ctarank(), x, 128, tid);
+  const int rounds = pair_rounds<FW_PAIRS>(n);
+  if (rounds) pair_sum(v, region, xb, cluster_ctarank(), x, rounds, 128, tid);
   else cluster_sum(cluster_sum_shape(FW_UNITS, 128, tid), region, xb, x & 1, 128, tid, true, v);
 }
 
@@ -447,7 +450,7 @@ flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);   // Q lo landed
   uint64_t* bar_full = bar_q + 1;       // slot s landed
   uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
-  uint64_t* bar_x = bar_free + NS;      // warpgroup g's exchange: bar_x + 4 g
+  uint64_t* bar_x = bar_free + NS;      // warpgroup g's exchange: bar_x + XB g
 
   const uint32_t n = cluster_nctarank();
   const int c0 = cluster_ctarank() * F_D;   // this CTA's first column of the head
@@ -467,7 +470,8 @@ flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_full + s, 1);
       mbar_init(bar_free + s, 4 * NWG);
     }
-    for (int g = 0; g < NWG; ++g) sum_scores_f32_init(bar_x + 4 * g, n);
+    for (int g = 0; g < NWG; ++g)
+      score_sum_init(bar_x + L::XB * g, n, pair_rounds<FW_PAIRS>(n));
     mbar_fence_init();
   }
   cluster_sync();                       // every CTA's barriers ready
@@ -581,7 +585,7 @@ flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       release(it);
       release(it + 1);
       // S over all of D, through this warpgroup's region
-      sum_scores_f32(sc, sm + L::X + wg * L::X_REGION, bar_x + 4 * wg, j, tid);
+      sum_scores_f32(sc, sm + L::X + wg * L::X_REGION, bar_x + L::XB * wg, j, tid);
       if (wg == 0 && j == 0) named_barrier_arrive<1>(128 * NWG);
       // the softmax over the sums
       const uint32_t keep = keep_bits<BN>(
@@ -651,7 +655,7 @@ flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..8.  bf16: q, k, v (B, S,
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..16.  bf16: q, k, v (B, S,
 // H, D) at element strides for the (B, S, H) axes (the D axis contiguous).
 // f32: q and k are the natural split planes of pbt_tf32_split (flash_bwd.cu)
 // and v its transposed planes; the strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
@@ -707,7 +711,7 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// How many clusters of K1's kernel at head width D (D = 256 .. 1024) and
+// How many clusters of K1's kernel at head width D (D = 256 .. 2048) and
 // type `dtype` the card holds at once (cudaOccupancyMaxActiveClusters, 0
 // where it holds none); the cluster's size into *size (1 where the kernel runs
 // no cluster, and the answer is then 0).

@@ -55,7 +55,7 @@
 // 2^8.  Rows past Sq are not stored.  PERF.md (section 6) has the variants
 // measured and dropped.
 //
-// Wide heads (D = 384 .. 1024): the instance <true>, clusters of
+// Wide heads (D = 384 .. 2048): the instance <true>, clusters of
 // n = ceil(D / 256) of these CTAs along x (blockIdx.x / n the q tile, the
 // cluster rank r the columns 256 r .. 256 r + 255 of the head), each the
 // design above on its columns of Q, K and V, storing its columns of O.
@@ -63,20 +63,21 @@
 // releases K's slots and sums its 64 x 128 f32 S (32 KB) across the
 // cluster with the same warpgroup of every peer, through a 32 KB region of
 // its own: a pair (D = 384, 512) in one round, each CTA storing all its S
-// into the other's region (hopper.cuh:pair_sum2), four CTAs (896, 1024) in
-// two such rounds, with rank ^ 1 then rank ^ 2 (pair_sum4), three (640, 768)
-// as a reduce-scatter then an all-gather (cluster_sum); so every CTA holds
+// into the other's region (hopper.cuh:pair_sum), four CTAs (896, 1024) in
+// two such rounds, with rank ^ 1 then rank ^ 2, eight (1920, 2048) in
+// three, three and five to seven (640 .. 768, 1152 ..
+// 1792) as a reduce-scatter then an all-gather (cluster_sum); so every CTA holds
 // the same S, softmax, P, l and lse to the bit; rank 0 stores lse.  Clusters
 // of D / 128 CTAs of the D = 128 design move 1.5x S through
 // distributed shared memory for every 128 columns of products (n = 4 at
 // D = 512), in two rounds; here a CTA does the products of 256 columns for
 // each exchange, and at n = 2 an exchange moves 1.0x S in one round: a third
 // of the bytes a FLOP at D = 512, 1.75x / (1.5x / 2) = 2.3x fewer at
-// D = 1024.  Where D is not a multiple of 256 (384, 640, 896) the last
+// D = 1024.  Where D is not a multiple of 256 (384, 640, .., 1920) the last
 // CTA's upper 128 columns lie past D: TMA fills its Q, K and V boxes there
 // with zeros, so every CTA runs the same code, those columns add nothing to
 // S, and their O is not stored (at D = 384, 4/3 of the products the function
-// needs).  The two 32 KB
+// needs; 1152, 1664 and 1920 likewise).  The two 32 KB
 // regions take the room of one ring slot: the ring keeps 3 (K lo, K hi,
 // V lo; V hi lands in K lo's slot once both warpgroups' S of the tile is
 // in).  A cluster reads what ceil(D / 256) CTAs at D = 256 read at the same
@@ -91,6 +92,14 @@ namespace pbt {
 constexpr int K1W_D = 256;              // the head width of this design
 constexpr int K1W_BN = 128;             // kv rows a tile
 constexpr int K1W_SLOT = K1W_BN * 2 * 128;   // 128 kv rows x 128 d columns: 32 KB
+// The cluster sizes at which a warpgroup sums S by pair rounds (2, 4 and 8:
+// hopper.cuh:pair_rounds); the others (3, 5, 6, 7) by cluster_sum.  At 8
+// (D = 1920, 2048) three pair rounds took 0.827-0.875 ms and cluster_sum
+// 1.248-1.251 (B=16, S=1024, H=1; scripts/cluster_probe.py, two calls, H100
+// at 700 W).  The
+// barriers' setup and the exchange read this one mask, so they agree at
+// every n.
+constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4) | (1u << 8);
 
 // This thread's keep bits of a tile's BN mask entries: bit 2*nt + e is
 // column 8*nt + 2*t + e, the columns of its accumulator entries.  Read while
@@ -183,10 +192,10 @@ struct K1D256Smem {
   // a cluster's exchange: per consumer warpgroup a region of its S (64 x BN f32)
   static constexpr int X_UNITS = K1W_BN / 8 * 128;
   static constexpr int X = MASK + 2 * K1W_BN * 4;
-  static constexpr int X_REGION = X_UNITS * 16;      // all of S: pair_sum's, at n = 2
-  static_assert(X_UNITS >= cluster_region_units(X_UNITS), "cluster_sum's, at n = 3 and 4");
+  static constexpr int X_REGION = X_UNITS * 16;      // all of S: pair_sum's
+  static_assert(X_UNITS >= cluster_region_units(X_UNITS, 8), "cluster_sum's, n = 3 .. 7");
   // Q, full[S], free[S]; a cluster's four a warpgroup (pair_sum_init, or
-  // cluster_sum_init at n = 3)
+  // cluster_sum_init)
   static constexpr int BAR = X + (WIDE ? K1_WG * X_REGION : 0);
   static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? 4 * K1_WG : 0)) * 8 + 1024;
   static_assert(ALLOC <= 232448, "a CTA's shared memory");
@@ -229,10 +238,8 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(bar_free + s, 4 * NWG);
     }
     if constexpr (WIDE)
-      for (int g = 0; g < NWG; ++g) {
-        if (cs.n == 3) cluster_sum_init(bar_free + NS + 4 * g, cs.n, 128);
-        else pair_sum_init(bar_free + NS + 4 * g);
-      }
+      for (int g = 0; g < NWG; ++g)
+        score_sum_init(bar_free + NS + 4 * g, cs.n, pair_rounds<K1W_PAIRS>(cs.n));
     mbar_fence_init();
   }
   if constexpr (WIDE) cluster_sync();    // every CTA's barriers ready
@@ -310,10 +317,9 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if constexpr (WIDE) {   // S over all of D; j counts this warpgroup's exchanges
         unsigned char* region = sm + L::X + wg * L::X_REGION;
         uint64_t* xb = bar_free + NS + 4 * wg;
-        if (cs.n == 2)
-          pair_sum2(sc, region, xb, cs.rank, j, 128, tid);
-        else if (cs.n == 4)
-          pair_sum4(sc, region, xb, cs.rank, j, 128, tid);
+        const int rounds = pair_rounds<K1W_PAIRS>(cs.n);
+        if (rounds)
+          pair_sum(sc, region, xb, cs.rank, j, rounds, 128, tid);
         else
           cluster_sum(cs, region, xb, j & 1, 128, tid, true, sc);
       }
@@ -380,7 +386,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // One launch over the maps of q (boxes of K1_BM rows), k and v (K1W_BN
 // rows) and the mask (K1W_BN keys) at head width D: D = 256 returns
-// cudaGetLastError(), D = 384 .. 1024 (clusters of ceil(D / 256) CTAs)
+// cudaGetLastError(), D = 384 .. 2048 (clusters of ceil(D / 256) CTAs)
 // launch_cluster's code.
 inline int launch_fwd_d256(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                            const CUtensorMap& tm, void* o, void* lse, int B, int Sq, int Skv,

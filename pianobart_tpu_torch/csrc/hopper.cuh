@@ -190,15 +190,17 @@ __device__ __forceinline__ void pair_add(float (&v)[N], const unsigned char* slo
   }
 }
 
-// The sum across a cluster of n CTAs (2..8, %cluster_nctarank: the wide
-// heads, one CTA per 128 columns of D) of accumulator parts that every CTA
+// The sum across a cluster of n CTAs (2..16, %cluster_nctarank: the wide
+// heads, one CTA per 128 or 256 columns of D) of accumulator parts that every CTA
 // holds for the same elements, through one region of each CTA's shared
 // memory (at the same offset in all), as a reduce-scatter then an
 // all-gather.  The parts are U = C * T 16-byte units (C chunks of 4 floats
 // a thread, T threads of the exchange group, tid its thread): unit
 // u = k * T + tid, pair_put's layout.  Rank q owns the units [q R, (q + 1) R),
-// R = ceil(U / n) rounded up to 32, so that a warp's 32 units of a chunk have
-// one owner and no warp diverges:
+// R = ceil(U / n), rounded up to 32 at n <= 8 so that a warp's 32 units of a
+// chunk have one owner and no warp diverges (cluster_range; past 8 CTAs not
+// rounded, so that the region stays within U units, and a warp whose chunk
+// spans two owners runs its owners' reduce alone):
 //   1. open: every warp tells every peer that this CTA's region is free and
 //      waits until every peer's is (barrier `ready`);
 //   2. scatter: each thread stores its units that a peer owns into that
@@ -211,7 +213,9 @@ __device__ __forceinline__ void pair_add(float (&v)[N], const unsigned char* slo
 //      does not own once they have landed (`ag_full`).
 // Every CTA so holds the same sums to the bit.  A CTA sends (n - 1) / n of
 // its parts twice, under 2 U * 16 bytes whatever n is.  The region holds
-// max((n - 1) R, U) units (cluster_region_units).  The four barriers are
+// max((n - 1) R, U) units (cluster_region_units).  Each CTA's chunk owners
+// take 4 bits a chunk of ClusterSum::owners: ranks 0 .. 15, 16 chunks a
+// thread at most.  The four barriers are
 // consecutive (cluster_sum_init); `parity` is that of the exchange's index.
 //
 // The data goes by st.async, each 16-byte store counted on the receiver's
@@ -240,15 +244,16 @@ __device__ __forceinline__ uint32_t cluster_nctarank() {
 }
 
 __host__ __device__ constexpr int cluster_range(int units, int n) {
-  return ((units + n - 1) / n + 31) / 32 * 32;
+  return n <= 8 ? ((units + n - 1) / n + 31) / 32 * 32 : (units + n - 1) / n;
 }
 
-// units a region must hold for an exchange of `units` at every n = 2..8
-__host__ __device__ constexpr int cluster_region_units(int units, int n = 2) {
-  return n > 8 ? units
-               : (n - 1) * cluster_range(units, n) > cluster_region_units(units, n + 1)
-                     ? (n - 1) * cluster_range(units, n)
-                     : cluster_region_units(units, n + 1);
+// units a region must hold for an exchange of `units` at every n = 2 ..
+// n_max (at most 16: the owners' 4 bits)
+__host__ __device__ constexpr int cluster_region_units(int units, int n_max, int n = 2) {
+  return n > n_max ? units
+                   : (n - 1) * cluster_range(units, n) > cluster_region_units(units, n_max, n + 1)
+                         ? (n - 1) * cluster_range(units, n)
+                         : cluster_region_units(units, n_max, n + 1);
 }
 
 // The cluster's shape for an exchange of `units` over T threads, as thread
@@ -432,11 +437,11 @@ __device__ __forceinline__ void cluster_sum(const ClusterSum& c, unsigned char* 
 // reads performed: fence_cta), it gives it to `next`, the CTA that writes
 // into it next, arriving on that CTA's `next_ready` (the same offset in
 // every CTA).  A pair sums in one
-// round (pair_sum2); four CTAs in two, rank r with r ^ 1 then with r ^ 2
-// (pair_sum4), each CTA adding (p0 + p1) and (p2 + p3) in some order, the
-// same sum; eight in three (pair_sum8, then r ^ 4); a round's ready barrier
-// hears from that round's peer alone, so no CTA's word is taken for
-// another's.  cluster_sum at n = 2 sends the same
+// round; four CTAs in two, rank r with r ^ 1 then with r ^ 2, each CTA
+// adding (p0 + p1) and (p2 + p3) in some order, the same sum; eight in
+// three (then r ^ 4), sixteen in four (then r ^ 8): pair_sum.  A round's
+// ready barrier hears from that round's peer alone, so no CTA's word is
+// taken for another's.  cluster_sum at n = 2 sends the same
 // bytes in two rounds with a barrier between (reduce-scatter, all-gather):
 // bf16 K1 at D = 512 B = 32 ran at 0.95 ms so and 0.48 ms this way (H100;
 // plain remote stores, each warp releasing one arrival, 0.54).
@@ -472,44 +477,49 @@ __device__ __forceinline__ void pair_round(float (&v)[N], unsigned char* region,
                  :: "r"(mapa(smem_u32(next_ready), next)) : "memory");
 }
 
-// xb[0] the ready barrier (of the round with rank ^ 1), xb[1] full, xb[2]
-// the ready barrier of the round with rank ^ 2
-__device__ __forceinline__ void pair_sum_init(uint64_t* xb) {
+// The barriers of an exchange of `rounds` pair rounds: xb[0] the ready
+// barrier of the round with rank ^ 1, xb[1] full, xb[1 + r] the ready
+// barrier of round r > 0 (with rank ^ 2^r), one arrival a warp of the
+// writer's 128 threads
+__device__ __forceinline__ void pair_sum_init(uint64_t* xb, int rounds) {
   mbar_init(xb, 4);
   mbar_init(xb + 1, 1);                  // the receiver's expect_tx
-  mbar_init(xb + 2, 4);
+  for (int r = 1; r < rounds; ++r) mbar_init(xb + 1 + r, 4);
 }
 
-// exchange x's sum over a pair: one phase of each barrier an exchange
+// Exchange x's sum over 2^rounds CTAs by `rounds` pair rounds, round r
+// with rank ^ 2^r: each CTA adds the parts as a tree of pairs, ((p0 + p1) +
+// (p2 + p3)) + ... in some order of each +, the same sum in every CTA.
+// full completes `rounds` phases an exchange (rounds x + r for round r);
+// the ready barriers one a phase: xb[0] from rank ^ 1 at the end of
+// exchange x - 1, xb[1 + r] from rank ^ 2^r once that CTA has read its
+// round r - 1 of exchange x (pair_sum_init(xb, rounds)).  The rounds are a
+// loop, not unrolled: one copy of pair_round serves every cluster size, in
+// kernels short of registers.
 template <int N>
-__device__ __forceinline__ void pair_sum2(float (&v)[N], unsigned char* region, uint64_t* xb,
-                                          uint32_t rank, uint32_t x, int T, int tid) {
-  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, x & 1, rank ^ 1, rank ^ 1, xb, T, tid);
+__device__ __forceinline__ void pair_sum(float (&v)[N], unsigned char* region, uint64_t* xb,
+                                         uint32_t rank, uint32_t x, int rounds, int T, int tid) {
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    const bool last = r + 1 == rounds;
+    pair_round(v, region, r ? xb + 1 + r : xb, r ? x & 1 : (x & 1) ^ 1, xb + 1,
+               (rounds * x + r) & 1, rank ^ (1u << r), last ? rank ^ 1 : rank ^ (2u << r),
+               last ? xb : xb + 2 + r, T, tid);
+  }
 }
 
-// exchange x's sum over four CTAs: full completes phases 2x and 2x + 1, each
-// ready barrier one a phase (xb[0] from rank ^ 1 at the end of exchange
-// x - 1, xb[2] from rank ^ 2 once it has read its round 0 of exchange x)
-template <int N>
-__device__ __forceinline__ void pair_sum4(float (&v)[N], unsigned char* region, uint64_t* xb,
-                                          uint32_t rank, uint32_t x, int T, int tid) {
-  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, 0, rank ^ 1, rank ^ 2, xb + 2, T, tid);
-  pair_round(v, region, xb + 2, x & 1, xb + 1, 1, rank ^ 2, rank ^ 1, xb, T, tid);
+// A kernel's choice of exchange at cluster size n: pair rounds where n is a
+// power of two whose bit PAIRS has (log2 n rounds), else cluster_sum (0).
+template <uint32_t PAIRS>
+__device__ __forceinline__ int pair_rounds(uint32_t n) {
+  return (PAIRS >> n) & 1u ? 31 - __clz((int)n) : 0;
 }
 
-// exchange x's sum over eight CTAs: three rounds, with rank ^ 1, ^ 2 and
-// ^ 4, each CTA adding ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)) in
-// some order of each +, the same sum.  full completes phases 3x .. 3x + 2;
-// the ready barriers one a phase: xb[0] from rank ^ 1 at the end of exchange
-// x - 1, xb[2] from rank ^ 2 once it has read its round 0 of exchange x,
-// xb[3] from rank ^ 4 once it has read its round 1 (pair_sum_init, and xb[3]
-// as xb[2])
-template <int N>
-__device__ __forceinline__ void pair_sum8(float (&v)[N], unsigned char* region, uint64_t* xb,
-                                          uint32_t rank, uint32_t x, int T, int tid) {
-  pair_round(v, region, xb, (x & 1) ^ 1, xb + 1, x & 1, rank ^ 1, rank ^ 2, xb + 2, T, tid);
-  pair_round(v, region, xb + 2, x & 1, xb + 1, (x + 1) & 1, rank ^ 2, rank ^ 4, xb + 3, T, tid);
-  pair_round(v, region, xb + 3, x & 1, xb + 1, x & 1, rank ^ 4, rank ^ 1, xb, T, tid);
+// The barriers of one exchange group of 128 threads as pair_rounds chose:
+// `rounds` pair rounds' or cluster_sum's four.
+__device__ __forceinline__ void score_sum_init(uint64_t* xb, uint32_t n, int rounds) {
+  if (rounds) pair_sum_init(xb, rounds);
+  else cluster_sum_init(xb, n, 128);
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -941,7 +951,11 @@ struct ClusterLaunch {
 // `threads` threads and `smem` bytes of shared memory, asked once for each
 // kernel and cluster size (the answer depends on the kernel's resources and
 // the size only); 0 where the card can hold no such cluster or refuses to
-// say.
+// say.  Past 8 CTAs, the card's largest portable cluster, the kernel is
+// first allowed non-portable sizes (H100: up to 16), which its launches
+// then keep.  seen[] is one kernel signature's; a whole library asks at
+// most 44 pairs (the backward's: bf16 at n = 2 .. 8, the f32 pair, f32 at
+// n = 3 .. 16, two kernels each).
 template <typename... Params>
 inline int max_active_clusters(void (*kernel)(Params...), int n, int threads, int smem) {
   static struct { const void* kernel; int n, active; } seen[64];
@@ -949,6 +963,7 @@ inline int max_active_clusters(void (*kernel)(Params...), int n, int threads, in
   for (int i = 0; i < n_seen; ++i)
     if (seen[i].kernel == (const void*)kernel && seen[i].n == n) return seen[i].active;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (n > 8) cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   const ClusterLaunch l(n, dim3(n), threads, smem, 0);
   int active = 0;
   if (cudaOccupancyMaxActiveClusters(&active, kernel, &l.cfg) != cudaSuccess) active = 0;
@@ -961,7 +976,8 @@ inline int max_active_clusters(void (*kernel)(Params...), int n, int threads, in
 // along x, so that CTAs n i .. n i + n - 1 run at once, on SMs of one GPC,
 // with each other's shared memory in reach; returns the launch's error, or
 // CLUSTER_ERROR + n where the card can hold no such cluster at all (its
-// first launch asks cudaOccupancyMaxActiveClusters).
+// first launch asks cudaOccupancyMaxActiveClusters, and allows a size
+// past 8).
 template <typename... Params, typename... Args>
 inline int launch_cluster(void (*kernel)(Params...), int n, dim3 grid, int threads, int smem,
                           cudaStream_t st, Args&&... args) {

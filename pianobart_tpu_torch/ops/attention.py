@@ -64,7 +64,7 @@ def _plain_attention(q, k, v, kv_mask, causal, bias, dropout_rate=0.0,
 def _flash_eligible(q, k, bias) -> bool:
     # what the kernels take: 128-row multiples of at least 256 (the
     # reference's tiling rule) and the head widths they have (the
-    # reference's any multiple of 128; past MAX_HEAD_DIM = 1024 not ported
+    # reference's any multiple of 128; past MAX_HEAD_DIM = 2048 not ported
     # yet, and such a width takes the plain path)
     return (bias is None
             and q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0

@@ -29,7 +29,7 @@ block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
 the start.  K2 and K3 differ in entry point and contract, not in algorithm.
 
 The kernels take every head width D that is a multiple of 128 up to
-:data:`MAX_HEAD_DIM` = 1024 (:data:`HEAD_DIMS`), as the reference's take any
+:data:`MAX_HEAD_DIM` = 2048 (:data:`HEAD_DIMS`), as the reference's take any
 multiple of 128 (``_flash_eligible``); wider heads are not ported yet.
 
 Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
@@ -40,7 +40,9 @@ about half causal (its two kernels do seven products, not five: 0.49 ms at
 best); K3a (3 products) and K3b (4) at the long-context shape
 (16, 2048, 8, 128), 0.417 and 0.556 ms unmasked.  At ``--heads 4``
 (D = 256, H = 4) and ``--heads 2`` (D = 512, H = 2) H*D is the same 1024,
-and so is every bound.
+and so is every bound; ``--hs 2048 --heads 1`` (D = 2048, H = 1) has the
+same B*H*D at half the batch (B=16 for K1 and K2, B=8 for K3a and K3b), and
+the same bounds there.
 
 The bf16 kernels of K1, K2 and K3 are designed for Hopper (the sources
 have the details), with the primitives of ``csrc/hopper.cuh``: a producer
@@ -86,10 +88,10 @@ CTAs, one per 128-column half of every plane, that sum the score products
 (S, dP), which run over all of D, through each other's shared memory.
 Bound: three tf32 products per f32 product at 495 TFLOP/s.
 
-At D = 384 .. 1024 (D = 128 n) every kernel runs as clusters of CTAs, each
+At D = 384 .. 2048 (D = 128 n) every kernel runs as clusters of CTAs, each
 on its columns of every operand: bf16 K1 and the bf16 backward as
 ceil(D/256) CTAs of their D = 256 designs, 256 columns each (TMA's zeros
-past D in the last one at 384, 640, 896; the dK/dV kernel streams Q and dO
+past D in the last one at 384, 640, .., 1920; the dK/dV kernel streams Q and dO
 through three 32 KB slots where it keeps two 64 KB stages, the dQ kernel V
 and K through two slots where it keeps three, to make room for the
 exchanges); the f32 forward as n CTAs of 128 columns, Q hi in registers
@@ -99,12 +101,15 @@ two consumer warpgroups on alternate swept tiles of 32 rows over the fixed
 rows' planes.  The products over all of D (S in the forward; S and dP in
 the backward) are summed across the cluster through distributed shared
 memory (a pair in one round, four CTAs in two pairwise rounds, eight in
-three, else a reduce-scatter then an all-gather), so every CTA holds the
-same sums to the bit and P, dS and lse agree across the cluster; O, dQ, dK
-and dV stay column-local.  The card
-schedules a cluster of up to 8 CTAs portably, hence ``MAX_HEAD_DIM``; a
-kernel whose cluster the card cannot hold raises.  The delta kernel takes
-a warp a row there, the prep 8 rows a CTA.
+three, sixteen in four, else a reduce-scatter then an all-gather), so every
+CTA holds the same sums to the bit and P, dS and lse agree across the
+cluster; O, dQ, dK and dV stay column-local.  The card schedules a cluster
+of up to 8 CTAs portably, which the bf16 clusters stay within; the f32
+clusters past D = 1024 take 9 .. 16 CTAs, H100's non-portable sizes, which
+the launches allow (``csrc/hopper.cuh:max_active_clusters``), hence
+``MAX_HEAD_DIM``; a kernel whose cluster the card cannot hold raises.  The
+delta kernel takes a warp a row there, the prep 8 rows a CTA (of half the
+columns past D = 1024).
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -128,9 +133,10 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 NEG_INF = -1e30
 # the head widths the kernels take: D = 128 and 256 have designs of their
-# own, D = 384 .. 1024 run as clusters of at most D/128 CTAs (csrc/hopper.cuh:
-# launch_cluster; 8 CTAs is the card's largest portable cluster)
-MAX_HEAD_DIM = 1024
+# own, D = 384 .. 2048 run as clusters of at most D/128 CTAs (csrc/hopper.cuh:
+# launch_cluster; 16 CTAs, the f32 kernels' at D = 2048, is H100's largest
+# cluster, a non-portable size)
+MAX_HEAD_DIM = 2048
 HEAD_DIMS = tuple(range(128, MAX_HEAD_DIM + 1, 128))
 HEAD_DIM = 128     # the flagship's head width, the one the kernel lab takes
 TILE = 64          # the kernels' q/kv tile rows: Sq and Skv must divide by it

@@ -29,7 +29,7 @@ block is staged through pinned host buffers (the transport ``rotate``
 reports); the kernels and all the arithmetic stay on the device.
 
 On CUDA the local shard must be a shape the kernels take (128-row multiples
-of at least 256, head width a multiple of 128 up to 1024): another raises, it
+of at least 256, head width a multiple of 128 up to 2048): another raises, it
 never drops to plain attention.  On the CPU the wrappers run their plain versions, and
 :func:`ring_attention_reference` runs the plain versions on any device.
 

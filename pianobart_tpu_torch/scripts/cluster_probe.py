@@ -1,5 +1,6 @@
 """The wide heads' cluster kernels on the card: their times at ``--heads 2``
-(D = 512, H = 2) and at D = 384 and 1024 beside the D = 128 kernels, and
+(D = 512, H = 2), at D = 384 and 1024 and at ``--hs 2048 --heads 1``'s
+widths (D = 1152, 1536, 2048) beside the D = 128 kernels, and
 where a warp's time goes in the score exchange that the clusters add
 (``csrc/hopper.cuh``): in bf16 K1's and the bf16 backward's (clusters of
 ceil(D/256) CTAs of their D = 256 designs, so one ``pair_round`` an
@@ -16,10 +17,18 @@ Prints the card's name and power limit, then:
 
 * CUDA-event means of K1, K3a (the dQ kernel) and K3b (the dK/dV kernel) at
   B=32, S=1024 in bf16 and B=8 in f32, with the pad mask of ``chip_smoke.py``,
-  at D = 128 (H = 8), 384 (H = 4), 512 (H = 2) and 1024 (H = 1), through
-  the shipped library;
-* for the D = 384 and 512 calls (and f32 K1 at 1024), the counted
-  library's time and the cycles a warp spends in each phase of
+  at D = 128 (H = 8), 384 (H = 4), 512 (H = 2), 1024 (H = 1), and at B=16
+  bf16 and B=4 f32 at D = 1152, 1536 and 2048 (H = 1: clusters of 5, 6, 8
+  bf16 CTAs and 9, 12, 16 f32 ones), through the shipped library;
+* the exchange's choice at the largest clusters: the same kernels at
+  D = 2048 through the shipped library and through a copy of ``csrc``
+  built into ``build/cluster_probe/flip`` whose pair-round masks
+  (``K1W_PAIRS``, ``BWD_PAIRS``, ``FW_PAIRS``) take the other exchange at
+  8 CTAs (bf16) and 16 (f32): pair rounds where the shipped kernel runs
+  ``cluster_sum`` and the other way round, timed in turns (shipped, other,
+  other, shipped);
+* for the D = 384, 512, 1152, 1536 and 2048 calls (and f32 K1 at 1024),
+  the counted library's time and the cycles a warp spends in each phase of
   one exchange (open, scatter, waiting for its units, reduce, waiting for
   the peers' reads, gather, waiting for the sums, reading them; a round of
   ``pair_round`` (one an exchange in a pair, two in four CTAs): open,
@@ -58,6 +67,20 @@ NVCC = "/usr/local/cuda/bin/nvcc"
 PHASES = ("open", "scatter", "units wait", "reduce", "reads wait", "gather",
           "sums wait", "read sums")
 OUT = os.path.join(os.path.dirname(build._BUILD_DIR), "cluster_probe")
+# (file, a pair-round mask's line, the same with the other exchange at the
+# largest cluster: bf16 8 CTAs, f32 16)
+_FLIPS = (
+    ("flash_fwd_d256.cuh",
+     "constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4) | (1u << 8);",
+     "constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4);"),
+    ("flash_bwd.cu",
+     "constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) : "
+     "(1u << 2) | (1u << 4) | (1u << 8);",
+     "constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) | (1u << 8) : "
+     "(1u << 2) | (1u << 4);"),
+    ("flash_fwd.cu",
+     "constexpr uint32_t FW_PAIRS = (1u << 4) | (1u << 8);",
+     "constexpr uint32_t FW_PAIRS = (1u << 4) | (1u << 8) | (1u << 16);"))
 COPIES = 64     # copies of the 32 counters, one an SM modulo 64
 
 # (line of cluster_sum, the same with t[i] = clock64() at its phase's end)
@@ -191,11 +214,34 @@ def _counted_copy() -> str:
     return src
 
 
-def _counted_libs():
-    src = _counted_copy()
+# whether the shipped kernel sums by pair rounds at D = 2048 (bf16 8 CTAs,
+# f32 16), as the masks of _FLIPS' first lines say
+# f32 K1 (the f32 backward sums by cluster_sum at every n: nothing to flip)
+_PAIRS_SHIPPED = {(torch.bfloat16, "K1"): True, (torch.bfloat16, "K3a (dQ)"): True,
+                  (torch.bfloat16, "K3b (dK/dV)"): False, (torch.float32, "K1"): False}
+
+
+def _flipped_copy() -> str:
+    """``csrc`` copied to OUT/flip/csrc with :data:`_FLIPS` applied."""
+    src = os.path.join(OUT, "flip", "csrc")
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build._CSRC, src)
+    for name, line, flipped in _FLIPS:
+        path = os.path.join(src, name)
+        with open(path) as f:
+            text = f.read()
+        if text.count(line) != 1:
+            raise RuntimeError(f"{name} has changed: {line!r} not found once")
+        with open(path, "w") as f:
+            f.write(text.replace(line, flipped))
+    return src
+
+
+def _counted_libs(src=None, tag="counted", counted=True):
+    src = src or _counted_copy()
     procs = {}
     for name in ("flash_fwd", "flash_bwd"):
-        so = os.path.join(OUT, f"{name}_counted.so")
+        so = os.path.join(OUT, f"{name}_{tag}.so")
         procs[name] = (so, subprocess.Popen(
             [NVCC, *build._NVCC_FLAGS, "-o", so, os.path.join(src, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -203,12 +249,13 @@ def _counted_libs():
     for name, (so, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the counted {name}:\n{err[-4000:]}")
+            raise RuntimeError(f"nvcc failed on the {tag} {name}:\n{err[-4000:]}")
         lib = ctypes.CDLL(so)
         for fn, argtypes in build.KERNELS[name][2].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib.pbt_xprof_read.argtypes = [ctypes.c_void_p]
+        if counted:
+            lib.pbt_xprof_read.argtypes = [ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -249,13 +296,33 @@ def main() -> None:
              "K3a (dQ)": lambda a: flash.flash_attention_dq(*a),
              "K3b (dK/dV)": lambda a: flash.flash_attention_dkv(*a)}
     for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
-        for H, D in ((8, 128), (4, 384), (2, 512), (1, 1024)):
-            args = _case(B, dtype, H, D)
+        for H, D in ((8, 128), (4, 384), (2, 512), (1, 1024), (1, 1152), (1, 1536),
+                     (1, 2048)):
+            b = B if D <= 1024 else B // 2
+            args = _case(b, dtype, H, D)
             times = ", ".join(f"{name} {_ms(lambda: fn(args)):.4f} ms"
                               for name, fn in calls.items())
-            print(f"[cluster_probe] B={B} H={H} D={D} {str(dtype)[6:]}: {times}", flush=True)
-    libs = _counted_libs()
+            print(f"[cluster_probe] B={b} H={H} D={D} {str(dtype)[6:]}: {times}", flush=True)
     real = flash.build_kernel
+    flipped = _counted_libs(_flipped_copy(), "flipped", counted=False)
+    for dtype, B in ((torch.bfloat16, 16), (torch.float32, 4)):
+        args = _case(B, dtype, 1, 2048)
+        for name, fn in calls.items():
+            if (dtype, name) not in _PAIRS_SHIPPED:
+                continue
+            turns = []
+            for who in ("shipped", "flipped", "flipped", "shipped"):
+                flash.build_kernel = (real if who == "shipped"
+                                      else lambda n: flipped.get(n) or real(n))
+                turns.append(_ms(lambda: fn(args)))
+            flash.build_kernel = real
+            shipped = "pair rounds" if _PAIRS_SHIPPED[dtype, name] else "cluster_sum"
+            other = "cluster_sum" if _PAIRS_SHIPPED[dtype, name] else "pair rounds"
+            print(f"[cluster_probe] {name} B={B} H=1 D=2048 {str(dtype)[6:]}: {shipped} "
+                  f"(shipped) {(turns[0] + turns[3]) / 2:.4f} ms ({turns[0]:.4f}, "
+                  f"{turns[3]:.4f}), {other} {(turns[1] + turns[2]) / 2:.4f} ms "
+                  f"({turns[1]:.4f}, {turns[2]:.4f})", flush=True)
+    libs = _counted_libs()
     flash.build_kernel = lambda name: libs.get(name) or real(name)
     raw = (ctypes.c_ulonglong * (COPIES * 32))()
 
@@ -265,7 +332,9 @@ def main() -> None:
     try:
         for (dtype, B), (H, D) in itertools.chain(
                 itertools.product(((torch.bfloat16, 32), (torch.float32, 8)),
-                                  ((4, 384), (2, 512))), (((torch.float32, 8), (1, 1024)),)):
+                                  ((4, 384), (2, 512))), (((torch.float32, 8), (1, 1024)),),
+                itertools.product(((torch.bfloat16, 16), (torch.float32, 4)),
+                                  ((1, 1152), (1, 1536), (1, 2048)))):
             args = _case(B, dtype, H, D)
             for name, fn in calls.items():
                 lib = libs["flash_fwd" if name == "K1" else "flash_bwd"]

@@ -721,9 +721,9 @@ def test_flash_kernels_refuse_head_width_384(cuda):
     flash_attention_delta(q, q)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 1
-    for d in (1152, 320):
+    for d in (2176, 320):
         q, k, v, _ = _inputs(cuda, torch.bfloat16, D=d)
-        with pytest.raises(ValueError, match="head_dim a multiple of 128 up to 1024"):
+        with pytest.raises(ValueError, match="head_dim a multiple of 128 up to 2048"):
             flash_attention_fwd(q, k, v)
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention_delta(q, q)
@@ -1283,13 +1283,14 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-# Head widths 384 .. 1024: every kernel as clusters that sum S and dP across
+# Head widths 384 .. 2048: every kernel as clusters that sum S and dP across
 # the cluster through each other's shared memory, of D/128 CTAs (one per 128
-# columns of the head) but the bf16 ones' (K1 and the backward), of
-# ceil(D/256) CTAs of their D=256 designs (640: three CTAs, the last one's
-# upper half past D; 1024: four, summed in two pair rounds); the same
-# tolerances as at D = 128.
-WIDE_DS = [384, 512, 640, 1024]
+# columns of the head; 9 .. 16 past 1024, the card's non-portable sizes) but
+# the bf16 ones' (K1 and the backward), of ceil(D/256) CTAs of their D=256
+# designs (640: three CTAs, the last one's upper half past D; 1024: four,
+# summed in two pair rounds; 1152: five, the last one's upper half past D;
+# 2048: eight, in three pair rounds); the same tolerances as at D = 128.
+WIDE_DS = [384, 512, 640, 1024, 1152, 1536, 2048]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1383,15 +1384,17 @@ def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [384, 512, 640, 768, 1024])
+@pytest.mark.parametrize("D", [384, 512, 640, 768, 1024, 1152, 2048])
 @pytest.mark.parametrize("S,causal", [(320, False), (320, True), (1024, False)],
                          ids=["320", "320-causal", "1024"])
 def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal, dtype):
     """bf16 K1 and the bf16 backward (both clusters of ceil(D/256) CTAs of
     their D=256 designs: a pair at 384 and 512, three CTAs at 640 and 768,
-    four at 1024, the last one's upper half past D at 384 and 640), the f32
+    four at 1024, five at 1152 (``cluster_sum``), eight at 2048 (three pair
+    rounds), the last one's upper half past D at 384, 640 and 1152), the f32
     K1 (D/128 CTAs, each consumer warpgroup summing its own score tile: pair
-    rounds at 512 and 1024, ``cluster_sum`` at 384, 640 and 768) and the
+    rounds at 512, 1024 and 2048 (16 CTAs, a non-portable cluster),
+    ``cluster_sum`` at 384, 640, 768 and 1152 (9 CTAs)) and the
     f32 backward (two warpgroups a CTA on alternate 32-row swept tiles,
     flushing into dQ, dK and dV in one order): two runs of K1, K2 and K3 give
     the same bits, and q, k, v and dO whose 128-column blocks are equal give
@@ -1419,7 +1422,7 @@ def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal,
                 assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (kernel, name, r)
 
 
-@pytest.mark.parametrize("D", [384, 640, 896])
+@pytest.mark.parametrize("D", [384, 640, 896, 1152])
 def test_wide_bf16_backward_repeats_its_bits_with_a_zero_filled_cta(cuda, D):
     """The bf16 dQ and dK/dV kernels at a width whose last CTA's upper half
     lies past D (that CTA loads half the bytes and runs ahead of its peers)
@@ -1438,13 +1441,15 @@ def test_wide_bf16_backward_repeats_its_bits_with_a_zero_filled_cta(cuda, D):
         assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
-@pytest.mark.parametrize("D", [384, 512, 640, 1024])
+@pytest.mark.parametrize("D", [384, 512, 640, 1024, 1152, 1920, 2048])
 def test_wide_f32_kernels_repeat_their_bits(cuda, D):
     """The f32 K1 (each consumer warpgroup summing its own score tile across
-    the cluster: ``cluster_sum`` at 384 and 640, pair rounds at 512 and
-    1024) and the f32 dQ and dK/dV kernels (``cluster_sum`` of S and dP, each
-    thread's reads of a region fenced before it is given back) give the same
-    bits over ten calls at a causal shape with many clusters in flight."""
+    the cluster: ``cluster_sum`` at 384, 640, 1152 and 1920, pair rounds at
+    512, 1024 and 2048) and the f32 dQ and dK/dV kernels (``cluster_sum`` of
+    S and dP at every n, its owners packed 4 bits a chunk up to rank 15 at
+    2048, each thread's reads of a region fenced before it is given back)
+    give the same bits over ten calls at a causal shape with many clusters in
+    flight."""
     q, k, v, m, out, lse, dout = _bwd_case(cuda, torch.float32, True, True,
                                            B=8, H=2, S=1024, D=D)
     args = (q, k, v, m, True, lse, _delta(dout, out), dout)
@@ -1458,11 +1463,27 @@ def test_wide_f32_kernels_repeat_their_bits(cuda, D):
         assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
+def test_f32_clusters_of_16_are_held(cuda):
+    """Every f32 cluster kernel at D = 2048 runs as 16 CTAs, a size past the
+    card's portable 8 that it must be allowed (``hopper.cuh:
+    max_active_clusters``): the card holds at least one such cluster of each
+    (``cudaOccupancyMaxActiveClusters`` > 0), and of the bf16 ones at 8."""
+    import ctypes
+    from pianobart_tpu_torch.ops.build import build_kernel
+    for lib, which in (("flash_fwd", 0), ("flash_bwd", 1), ("flash_bwd", 0)):
+        for dtype, want in ((0, 16), (1, 8)):
+            n = ctypes.c_int(0)
+            active = build_kernel(lib).pbt_cluster_occupancy(2048, dtype, which,
+                                                             ctypes.byref(n))
+            assert n.value == want and active > 0, (lib, which, dtype, n.value, active)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", WIDE_DS)
 def test_delta_and_split_kernels_wide_match_reference(cuda, D, dtype):
     """delta (a warp a row past D = 256) against its plain version on views
-    of a wider tensor, and in f32 the prep (8 rows a CTA) bit for bit."""
+    of a wider tensor, and in f32 the prep (8 rows a CTA, of half the columns
+    past D = 1024) bit for bit."""
     B, S, H = 2, 320, 2
     g = torch.Generator(device=cuda).manual_seed(3)
     both = torch.randn(B, S, 2, H, D, device=cuda, generator=g).to(dtype)

@@ -8,8 +8,8 @@ in interpret mode.
   the head; where D is not a multiple of 256 the last CTA's upper 128
   columns lie past D and arrive as zeros (TMA's fill).  Each CTA's partial
   S = Q K^T over its columns is an f32 sum of bf16 products; a pair adds
-  the two (``hopper.cuh:pair_sum2``: in either order, the same sum), four
-  CTAs (p0 + p1) + (p2 + p3) (``pair_sum4``), three in rank order
+  the two (``hopper.cuh:pair_sum``: in either order, the same sum), four
+  CTAs (p0 + p1) + (p2 + p3) (two pair rounds), three in rank order
   (``cluster_sum``), so every CTA holds the same S.  Then the D=256 kernel's schedule:
   kv tiles of 128 rows, tiles above a q tile's diagonal skipped, the
   running max moved only when a row's max grows past 2^8, p = 1 on a row
@@ -27,8 +27,8 @@ in interpret mode.
 * f32 K1 (``csrc/flash_fwd.cu:flash_fwd_wide_tf32_kernel``): clusters of
   D/128 CTAs, each CTA's partial S three tf32 passes on its 128 columns of
   the prep's planes; each consumer warpgroup sums its score tile across the
-  cluster, by pair rounds at n = 4 and 8 (``hopper.cuh:pair_sum4``,
-  ``pair_sum8``: in round i each CTA adds the sum of rank ^ 2^i to its own,
+  cluster, by pair rounds at n = 4 and 8 (``hopper.cuh:pair_sum``: in
+  round i each CTA adds the sum of rank ^ 2^i to its own,
   so ((p0 + p1) + (p2 + p3)) + ...) and in rank order at n = 3, 5, 6, 7
   (``cluster_sum``).  Then the D=128 kernel's schedule: q tiles of 128
   rows, kv tiles of 64 up to the q tile's last row's (causal), p = 1 on a
