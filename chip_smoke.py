@@ -30,10 +30,15 @@ result line:
    1 head of 1024; past 1024, bf16 clusters of 5, 6, 8 CTAs and f32 ones of
    9, 12, 16, the card's non-portable sizes: ``--hs 2048 --heads 1``'s B=16
    bf16 and B=4 f32, causal and not, B=8 at S=2048, its decode bucket B=2,
-   S=320, a wholly masked sample; 1 head of 1152 and of 1536, causal and
-   not), then which kernels SDPA ran at D = 384, 512, 1024, 2048, with times
-   of the kernel, the plain version, the bound and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   S=320, a wholly masked sample; 1 head of 1152, causal and not; past 2048
+   bf16 alone, clusters of 9, 12, 16 CTAs: ``--hs 4096 --heads 1``'s B=8,
+   causal and not, B=4 at S=2048, its decode bucket B=2, S=320, a wholly
+   masked sample; 1 head of 2176 and of 3072, causal and not), the
+   refusals past each type's widest head (f32 2176 and 4096, bf16 4224:
+   ValueError with the type's range), then which kernels SDPA ran at
+   D = 384, 512, 1024, 2048, 4096, with times of the kernel, the plain
+   version, the bound and ``scaled_dot_product_attention`` (a yardstick the
+   port never calls);
 4. ``[lab]``: every variant of L1 (``upcast`` x ``exp2`` x ``causal``) and
    of L2 (``exp2`` x ``causal``) against its plain version at the lab shape
    (B=32, S=1024, bf16), with the same times, every variant on rows with
@@ -51,12 +56,15 @@ result line:
    B=2 f32, the tp ranks', S=320, wholly masked samples) and at the wide
    heads (D=512 at [train_h512]'s shapes, its tp ranks', S=320, a wholly
    masked sample; D=384; D=1024; D=2048 at [train_h2048]'s shapes, K2 B=16
-   bf16 and B=4 f32, K3 B=8 S=2048, S=320, a wholly masked sample; D=1152
-   and 1536), with the same times (the yardstick is SDPA's backward); at each case the
+   bf16 and B=4 f32, K3 B=8 S=2048, S=320, a wholly masked sample; D=1152;
+   bf16 D=4096 at [train_h4096]'s shapes, K2 B=8, K3 B=4 S=2048, S=320, a
+   wholly masked sample; bf16 D=2176 and 3072), with the same times (the
+   yardstick is SDPA's backward); at each case the
    delta kernel (rowsum(dO * O), which both run after) against its plain
    version, with its times, and in f32 the tf32 prep (D = 128 and 256);
-   last, [train_h256]'s, [train_h512]'s and [train_h2048]'s bf16 K2 calls and
-   their S=2048 steps' K3a and K3b under the profiler, by kernel (delta,
+   last, [train_h256]'s, [train_h512]'s, [train_h2048]'s and [train_h4096]'s
+   bf16 K2 calls and their S=2048 steps' K3a and K3b under the profiler, by
+   kernel (delta,
    dK/dV, dQ), and
    the kernels SDPA's backward ran at the wide heads;
 6. ``[fused_ln]``: K4a and K4b against their plain versions fed the same
@@ -116,6 +124,14 @@ result line:
    S=2048 B=8 (K1, delta, K3a, K3b 24 each), 3 in f32 at B=4 (the prep 48),
    the encoder of a bf16-parameter server via K1 against plain attention and
    a decode batch of two requests (K1 8);
+13d. ``[train_h4096]``: ``--hs 4096 --heads 1`` (d_model 4096, one head of
+   4096, about 1.9 B parameters drawn once, kept on the host and cast for
+   every model; bf16 clusters of 16 CTAs): f32 at this width takes the plain
+   dense path and the ring raises; gradients through the kernels against
+   plain attention (B=2 bf16), 10 timed steps at B=8 (K1, delta, K2 24 each)
+   beside the plain route's 3 (ms/step, tokens/s, MFU, peak), 2 at S=2048
+   B=4 (K1, delta, K3a, K3b 24 each), the encoder of a bf16-parameter server
+   via K1 against plain attention and a decode batch of two requests (K1 8);
 14. ``[pretrain_run]``: the pretraining run as a user starts it, at flagship
    width (bf16 compute, f32 parameters), in a temporary directory outside
    the checkout: 64 two-track songs tokenized by the native codec
@@ -165,8 +181,9 @@ result line:
    group; four ranks spawned over gloo (all on cuda:0, ring blocks staged
    through pinned host memory): ``ring_attention`` at sp = 2 and 4 over (B=4,
    S=2048 and 4096, H=8, D=128), bf16 and f32, causal and not, at sp=2
-   over (B=4, S=2048, H=4, D=256) and (H=2, D=512) bf16 and over (B=2,
-   S=2048, H=1, D=2048) bf16 and f32, against the
+   over (B=4, S=2048, H=4, D=256) and (H=2, D=512) bf16, over (B=2,
+   S=2048, H=1, D=2048) bf16 and f32 and over (B=2, S=2048, H=1, D=4096)
+   bf16, against the
    plain ring and dense ``flash_attention`` (a 3S/8 pad tail covering the
    last shard at sp=4); the flagship mesh step (B=2, dropout 0, one step a
    mesh) at 1x1x2, 2x1x2, 1x2x2 (S=2048), 1x1x2 (S=4096) and 1x1x2
@@ -203,7 +220,7 @@ result line:
 Each main path (lab, serve, serve_http, train, train_long, train_fused, train_f32,
 train_h256, train_h256_long, train_h256_f32, serve_h256, train_h512, train_h512_long,
 train_h512_f32, serve_h512, train_h2048, train_h2048_long, train_h2048_f32,
-serve_h2048, pretrain_run, finetune,
+serve_h2048, train_h4096, train_h4096_long, serve_h4096, pretrain_run, finetune,
 serve_ckpt, merge, parallel, finetune_mesh) is driven with every
 kernel's launch count set to 0 just before it and read just after.  The
 second-to-last line is the kernels' JSON record; the last line is
@@ -320,14 +337,14 @@ def _sass_label(name):
     tail = name[name.index(label) + len(label):]
     if label == "flash_fwd_d256_wgmma_kernel":   # the bf16 forward at D = 256 and past it
         if tail.startswith("ILb1E"):
-            return label + ("<true> (K1, D = 384 .. 1024, clusters of ceil(D/256) "
+            return label + ("<true> (K1, D = 384 .. 4096, clusters of ceil(D/256) "
                             "CTAs of the D=256 design)")
         return label + "<false> (K1, D=256, 128-row kv tiles, ping-pong)"
     if label == "flash_bwd_wide_tf32_kernel":    # the f32 backward past D = 256
         return label + ("<true> (dK/dV" if tail.startswith("ILb1E") else "<false> (dQ") + (
             ", clusters of D/128 CTAs, two warpgroups on 32-row tiles)")
     if label == "flash_fwd_wide_tf32_kernel":    # the f32 forward past D = 256
-        return label + (" (K1, D = 384 .. 1024, clusters of D/128 CTAs, a score tile "
+        return label + (" (K1, D = 384 .. 2048, clusters of D/128 CTAs, a score tile "
                         "summed per warpgroup)")
     cluster = {"256": " (CTA pair)"}
     width = re.match(r"ILi(\d+)E", tail)   # the f32 forward's <DW>
@@ -342,7 +359,7 @@ def _sass_label(name):
         if label == "flash_bwd_d256_wgmma_kernel":   # the bf16 backward at D = 256 and past it
             if flags.group(2) == "1":
                 return label + ("<true, true> (dK/dV" if dkv else "<false, true> (dQ") + (
-                    ", D = 384 .. 1024, clusters of ceil(D/256) CTAs of the D=256 design)")
+                    ", D = 384 .. 4096, clusters of ceil(D/256) CTAs of the D=256 design)")
             return label + ("<true, false> (dK/dV, S^T once, P^T handed over)" if dkv
                             else "<false, false> (dQ, 128 rows, K and V through 3 slots)")
         return label + (f"<true{', ' + d if d else ''}> (dK/dV" if dkv
@@ -410,10 +427,13 @@ def _sass_by_label(tool, path):
 
 def _cluster_occupancy(libs):
     """[build]'s lines: cudaOccupancyMaxActiveClusters of every cluster
-    kernel at each cluster size it launches (D = 256 .. 2048: the f32
-    kernels' 9 .. 16 CTAs past 1024 are non-portable sizes), from the
-    libraries' ``pbt_cluster_occupancy``; fails where the card holds none."""
+    kernel at each cluster size it launches (D = 256 .. 4096 in bf16, 2048 in
+    f32: the bf16 kernels' 9 .. 16 CTAs past 2048 and the f32 ones' past
+    1024 are non-portable sizes), from the libraries'
+    ``pbt_cluster_occupancy``; fails where the card holds none."""
     import ctypes
+
+    import torch
     from pianobart_tpu_torch.ops.flash import MAX_HEAD_DIM
     kernels = (("flash_fwd", 1, 0, "K1 bf16"), ("flash_fwd", 0, 0, "K1 f32"),
                ("flash_bwd", 1, 1, "dK/dV bf16"), ("flash_bwd", 1, 0, "dQ bf16"),
@@ -421,7 +441,8 @@ def _cluster_occupancy(libs):
     rows = {}
     for lib, dtype, which, what in kernels:
         by_n = {}
-        for D in range(256, MAX_HEAD_DIM + 1, 128):
+        top = MAX_HEAD_DIM[torch.bfloat16 if dtype == 1 else torch.float32]
+        for D in range(256, top + 1, 128):
             n = ctypes.c_int(0)
             active = libs[lib].pbt_cluster_occupancy(D, dtype, which, ctypes.byref(n))
             if n.value > 1:
@@ -517,15 +538,20 @@ H256 = dict(H=4, D=256)
 # 4 heads of 384 (bf16: a pair whose second CTA's upper half lies past D),
 # 1 head of 1024 (f32 n = 8, the card's largest portable cluster), 1152
 # (bf16 5 CTAs, the last one's upper half past D; f32 9, a non-portable
-# size), 1536 (6 / 12) and --hs 2048 --heads 1 (8 / 16)
+# size), 1536 (6 / 12) and --hs 2048 --heads 1 (8 / 16); past 2048 bf16
+# alone: 2176 (9 CTAs, the last one's upper half past D), 3072 (12) and
+# --hs 4096 --heads 1 (16, the card's largest cluster)
 WIDTHS = {"h256": H256, "h384": dict(H=4, D=384), "h512": dict(H=2, D=512),
           "h1024": dict(H=1, D=1024), "h1152": dict(H=1, D=1152),
-          "h1536": dict(H=1, D=1536), "h2048": dict(H=1, D=2048)}
+          "h1536": dict(H=1, D=1536), "h2048": dict(H=1, D=2048),
+          "h2176": dict(H=1, D=2176), "h3072": dict(H=1, D=3072),
+          "h4096": dict(H=1, D=4096)}
 # the train shapes of a width: K1 and K2 in bf16 at S=1024, K3a and K3b in
 # bf16 at S=2048, K1 and K2 in f32 at S=1024 ([train]'s and its siblings';
-# --hs 2048 --heads 1 at half the batch, the same B*H*D)
+# --hs 2048 --heads 1 at half the batch, the same B*H*D; --hs 4096 --heads 1
+# at a quarter, in bf16 alone)
 TRAIN_B = {"": (32, 16, 8), "h256": (32, 16, 8), "h512": (32, 16, 8),
-           "h2048": (16, 8, 4)}
+           "h2048": (16, 8, 4), "h4096": (8, 4, None)}
 
 
 def _width(kind):
@@ -670,8 +696,15 @@ def phase_flash(state):
              (2, False, bf16, 320, "h2048 masked"), (2, True, f32, 320, "h2048"),
              (4, False, bf16, 1024, "h1152"), (4, True, bf16, 1024, "h1152"),
              (2, False, f32, 1024, "h1152"), (2, True, f32, 1024, "h1152"),
-             (4, False, bf16, 1024, "h1536"), (4, True, bf16, 1024, "h1536"),
-             (2, False, f32, 1024, "h1536"), (2, True, f32, 1024, "h1536")]
+             # past 2048, bf16 alone (clusters of 9, 12, 16 CTAs, non-portable):
+             # --hs 4096 --heads 1 at [train_h4096]'s shapes (B=8, B=4 at
+             # S=2048) and its decode bucket B=2, S=320 and a wholly masked
+             # sample; 2176 (the last CTA's upper half past D) and 3072
+             (8, False, bf16, 1024, "h4096"), (8, True, bf16, 1024, "h4096"),
+             (4, False, bf16, 2048, "h4096"), (2, False, bf16, 1024, "h4096"),
+             (2, True, bf16, 320, "h4096"), (2, False, bf16, 320, "h4096 masked"),
+             (4, False, bf16, 1024, "h2176"), (4, True, bf16, 1024, "h2176"),
+             (4, False, bf16, 1024, "h3072"), (4, True, bf16, 1024, "h3072")]
     for B, causal, dtype, S, *kind in cases:
         kind = kind[0] if kind else ""
         tp = "tp" in kind
@@ -719,7 +752,35 @@ def phase_flash(state):
             state[key] = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by.split(",")[0],
                               library_ms=lib_ms)
-    _sdpa_kernels("flash", ("h384", "h512", "h1024", "h2048"))
+    _refusals()
+    _sdpa_kernels("flash", ("h384", "h512", "h1024", "h2048", "h4096"))
+
+
+def _refusals():
+    """On CUDA tensors the kernels refuse a width past their type's
+    MAX_HEAD_DIM with the type's range, and raise (no fallback): f32 past
+    2048 (at 2176 and 4096), bf16 past 4096 (at 4224); K1, delta and K2's
+    entry (its checks come before any launch)."""
+    import torch
+    from pianobart_tpu_torch.ops.flash import (flash_attention_bwd, flash_attention_delta,
+                                               flash_attention_fwd)
+    for dtype, D, top in ((torch.float32, 2176, 2048), (torch.float32, 4096, 2048),
+                          (torch.bfloat16, 4224, 4096)):
+        q, k, v, mask = _flash_case(1, False, dtype, S=256, H=1, D=D)
+        lse = torch.zeros(1, 1, 256, device="cuda")
+        for what, call in (("K1", lambda: flash_attention_fwd(q, k, v, mask)),
+                           ("delta", lambda: flash_attention_delta(q, q)),
+                           ("K2", lambda: flash_attention_bwd(q, k, v, mask, False, None, lse,
+                                                              q, delta=lse))):
+            try:
+                call()
+            except ValueError as e:
+                if f"multiple of 128 up to {top}" not in str(e):
+                    raise AssertionError(f"{what} refused D={D} {dtype} with {e}") from e
+            else:
+                raise AssertionError(f"{what} took D={D} in {dtype}")
+        print(f"[flash] {str(dtype)[6:]} D={D}: K1, delta and K2 raise ValueError "
+              f"(\"up to {top}\")")
 
 
 def _sdpa_kernels(tag, widths, backward=False):
@@ -1016,8 +1077,15 @@ def phase_flash_bwd(state):
              ("K2", 4, 1024, False, bf16, False, "h1152"), ("K2", 4, 1024, True, bf16, False, "h1152"),
              ("K2", 2, 1024, False, f32, False, "h1152"), ("K2", 2, 1024, True, f32, False, "h1152"),
              ("K3", 2, 2048, True, bf16, False, "h1152"),
-             ("K2", 4, 1024, False, bf16, False, "h1536"), ("K2", 4, 1024, True, bf16, False, "h1536"),
-             ("K2", 2, 1024, False, f32, False, "h1536"), ("K2", 2, 1024, True, f32, False, "h1536")]
+             # past 2048, bf16 alone (clusters of 9, 12, 16 CTAs):
+             # --hs 4096 --heads 1 at [train_h4096]'s shapes (K2 B=8, K3 B=4
+             # S=2048), S=320 and a wholly masked sample; 2176 and 3072
+             ("K2", 8, 1024, False, bf16, False, "h4096"), ("K2", 8, 1024, True, bf16, False, "h4096"),
+             ("K3", 4, 2048, False, bf16, False, "h4096"), ("K3", 4, 2048, True, bf16, False, "h4096"),
+             ("K2", 2, 320, False, bf16, True, "h4096"), ("K3", 2, 320, True, bf16, False, "h4096"),
+             ("K2", 4, 1024, False, bf16, False, "h2176"), ("K2", 4, 1024, True, bf16, False, "h2176"),
+             ("K3", 2, 2048, True, bf16, False, "h2176"),
+             ("K2", 4, 1024, False, bf16, False, "h3072"), ("K2", 4, 1024, True, bf16, False, "h3072")]
     for kid, B, S, causal, dtype, masked, *kind in cases:
         kind = kind[0] if kind else ""
         tp = "tp" in kind
@@ -1131,7 +1199,8 @@ def phase_flash_bwd(state):
     # window, and the small rows above are host bound.
     for kid, B, S, wname in (("K2", 32, 1024, "h256"), ("K3", 16, 2048, "h256"),
                              ("K2", 32, 1024, "h512"), ("K3", 16, 2048, "h512"),
-                             ("K2", 16, 1024, "h2048"), ("K3", 8, 2048, "h2048")):
+                             ("K2", 16, 1024, "h2048"), ("K3", 8, 2048, "h2048"),
+                             ("K2", 8, 1024, "h4096"), ("K3", 4, 2048, "h4096")):
         q, k, v, mask = _flash_case(B, False, bf16, S=S, **WIDTHS[wname])
         mask[0, S - 300:] = 0.0
         out, lse = flash_attention_fwd(q, k, v, mask, False)
@@ -1155,7 +1224,7 @@ def phase_flash_bwd(state):
                                 "dQ": lambda n: kern.format("false") in n})
         del q, k, v, mask, out, lse, dout
         torch.cuda.empty_cache()
-    _sdpa_kernels("flash_bwd", ("h384", "h512", "h1024", "h2048"), backward=True)
+    _sdpa_kernels("flash_bwd", ("h384", "h512", "h1024", "h2048", "h4096"), backward=True)
 
 
 def _split_row(state, name, x, key, split, reference):
@@ -2348,6 +2417,122 @@ def phase_train_h2048(state):
     del svc, model
     torch.cuda.empty_cache()
     print(f"[train_h2048] wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_train_h4096(state):
+    """``--hs 4096 --heads 1`` (d_model 4096, one head of 4096, 8+8 layers,
+    FFN 2048: about 1.9 B parameters, at full width and depth; every bf16
+    attention on clusters of 16 CTAs, the card's largest): gradients through
+    K1 and K2 against the plain attention path at B=2 (bf16, dropout off);
+    10 timed pretrain steps at B=8 (bf16 compute, f32 parameters, dropout
+    0.1: K1, delta, K2 24 each; B*H*D the flagship's) beside the plain
+    route's 3 (ms/step, MFU, peak); at ``max_len=2048``, B=4, 2 steps (K1,
+    delta, K3a, K3b 24 each); the serving path with bf16 parameters: the
+    encoder via K1 against plain attention and one ``GenerationService``
+    decode batch of two concurrent requests (K1 8).  In f32 this width is
+    past the kernels (2048): the dense attention takes the plain path and
+    the ring raises.  The weights are drawn once on the card, kept on the
+    host and cast for every model (:func:`_model`)."""
+    import numpy as np
+    import torch
+    from pianobart_tpu_torch.models import PianoBartConfig
+    from pianobart_tpu_torch.ops import attention
+    from pianobart_tpu_torch.ops.ring import ring_attention
+    from pianobart_tpu_torch.serve.app import GenerationService
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = PianoBartConfig(dtype=torch.bfloat16, d_model=4096, num_heads=1, ffn_dim=2048)
+    if cfg.head_dim != 4096:
+        raise AssertionError(f"--hs 4096 --heads 1 gives head width {cfg.head_dim}")
+    # f32: past the kernels' 2048, the dense step's attention is plain and the
+    # ring refuses a CUDA shard (before any device work)
+    q = torch.randn(1, 256, 1, 4096, device="cuda")
+    _reset_counts()
+    out = attention.dot_product_attention(q * 4096 ** -0.5, q, q)
+    if any(_read_counts().values()) or not torch.isfinite(out).all():
+        raise AssertionError(f"f32 attention at D=4096 launched {_read_counts()}")
+    try:
+        ring_attention(q, q, q, None, False, None)
+    except ValueError as e:
+        if "up to 2048" not in str(e):
+            raise AssertionError(f"the f32 ring at D=4096 refused with {e}") from e
+        print(f"[train_h4096] f32 at D=4096: dense attention on the plain path (no launch); "
+              f"the ring raises ValueError: {e}")
+    else:
+        raise AssertionError("the f32 ring took D=4096")
+    del q, out
+    t0 = time.perf_counter()
+    # at S=2048's position tables, which the S=1024 models take the first rows
+    # of; kept on the host, so that the card holds only the model at work
+    model = _model(cfg.replace(dtype=torch.float32, max_len=2048))
+    weights = {k: w.cpu() for k, w in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    n_params = sum(w.numel() for w in weights.values())
+    print(f"[train_h4096] --hs 4096 --heads 1: {n_params / 1e6:.1f} M parameters drawn "
+          f"once in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n_attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+    expect = _counts(k1=n_attn, k2=n_attn)
+    _flash_vs_plain("train_h4096", cfg.replace(dropout=0.0), rng, gen, 2, expect,
+                    weights=weights)
+    torch.cuda.empty_cache()
+    launches, res = _train_steps("train_h4096", cfg, 8, rng, gen, expect, profile=False,
+                                 weights=weights, peaks=1)
+    state["launches"]["train_h4096"] = launches
+    state["train_h4096"] = res
+    torch.cuda.empty_cache()
+    _, plain = _train_steps("train_h4096_plain", cfg.replace(use_flash_attention=False), 8,
+                            rng, gen, _counts(), warmup=1, steps=3, profile=False,
+                            weights=weights)
+    print(f"[train_h4096] beside the plain route at D=4096: {res['ms']:.1f} vs "
+          f"{plain['ms']:.1f} ms/step ({100 * (res['ms'] / plain['ms'] - 1):+.1f}%), "
+          f"{res['tokens_s']:.0f} vs {plain['tokens_s']:.0f} tokens/s, "
+          f"MFU {res['mfu']:.2f} vs {plain['mfu']:.2f}%, peak {res['peak_gib']:.2f} vs "
+          f"{plain['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    launches, _ = _train_steps("train_h4096_long", cfg.replace(max_len=2048), 4, rng, gen,
+                               _counts(k1=n_attn, k3=n_attn), warmup=1, steps=2,
+                               profile=False, weights=weights)
+    state["launches"]["train_h4096_long"] = launches
+    torch.cuda.empty_cache()
+
+    # serving a --hs 4096 --heads 1 model (bf16 parameters, as GenerationService holds them)
+    scfg = cfg.replace(param_dtype=torch.bfloat16)
+    model = _model(scfg, weights)
+    del weights
+    _encoder_vs_plain("train_h4096", model, rng)
+    svc = GenerationService(model=model, device="cuda", max_batch=8)
+    intros = _intros(2, scfg.max_len, rng)
+    results = [None] * len(intros)
+
+    def client(i):
+        results[i] = svc.submit(intros[i], seed=i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(intros))]
+    _reset_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    counts = _read_counts()
+    state["launches"]["serve_h4096"] = counts
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise AssertionError("a --hs 4096 --heads 1 request was not served")
+    _check_outputs(results, scfg.max_len)
+    batches = svc.batch_sizes_served
+    want = _counts(k1=scfg.encoder_layers * len(batches))
+    print(f"[train_h4096] --hs 4096 --heads 1 GenerationService: {len(intros)} concurrent "
+          f"requests served as batches {batches} in {time.perf_counter() - t0:.1f} s; "
+          f"launches ({COUNT_NAMES}) {tuple(counts.values())}, expected {want}")
+    if tuple(counts.values()) != want:
+        raise AssertionError("K1 did not run 8 times a --hs 4096 decode batch")
+    del svc, model
+    torch.cuda.empty_cache()
+    print(f"[train_h4096] wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def _meta(save_dir):
@@ -3581,6 +3766,11 @@ def _parallel_rank(rank, world, out_dir):
                 for causal in (False, True):
                     res["ring"].append(_ring_case(mesh, 2048, dtype, causal, B=2,
                                                   **WIDTHS["h2048"]))
+            # --hs 4096 --heads 1: bf16 clusters of 16 CTAs (f32 past 2048
+            # raises: [train_h4096])
+            for causal in (False, True):
+                res["ring"].append(_ring_case(mesh, 2048, torch.bfloat16, causal, B=2,
+                                              **WIDTHS["h4096"]))
     torch.cuda.empty_cache()
     cfg0 = PianoBartConfig(dtype=torch.bfloat16, dropout=0.0, max_len=4096)
     sd = init_lm(cfg0, seed=SEED, device=dev, train=True).state_dict()
@@ -4301,6 +4491,18 @@ KERNEL_RECORDS = (
      "flash_attention_dkv", "train_h2048_long"),
     ("flash_delta_h2048", "delta_h2048", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
      "flash_attention_delta", "train_h2048"),
+    # head widths 2176 .. 4096, bf16 alone (--hs 4096 --heads 1 is D=4096): the
+    # same bf16 cluster instances at 16 CTAs, on [train_h4096]'s paths
+    ("flash_fwd_h4096", "k1_h4096", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
+     "flash_attention_fwd", "train_h4096"),
+    ("flash_bwd_h4096", "k2_h4096", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
+     "flash_attention_bwd", "train_h4096"),
+    ("flash_dq_h4096", "k3a_h4096", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:276",
+     "flash_attention_dq", "train_h4096_long"),
+    ("flash_dkv_h4096", "k3b_h4096", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:312",
+     "flash_attention_dkv", "train_h4096_long"),
+    ("flash_delta_h4096", "delta_h4096", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:499",
+     "flash_attention_delta", "train_h4096"),
     ("flash_fwd_h2048_f32", "k1_h2048_f32", "flash_fwd.cu", "pianobart_tpu/ops/flash.py:173",
      "flash_attention_fwd", "train_h2048_f32"),
     ("flash_bwd_h2048_f32", "k2_h2048_f32", "flash_bwd.cu", "pianobart_tpu/ops/flash.py:351",
@@ -4337,7 +4539,7 @@ PHASES = (("device", phase_device), ("build", phase_build),
           ("train", phase_train), ("train_long", phase_train_long),
           ("train_fused", phase_train_fused), ("train_f32", phase_train_f32),
           ("train_h256", phase_train_h256), ("train_h512", phase_train_h512),
-          ("train_h2048", phase_train_h2048),
+          ("train_h2048", phase_train_h2048), ("train_h4096", phase_train_h4096),
           ("pretrain_run", phase_pretrain_run), ("finetune", phase_finetune),
           ("serve_ckpt", phase_serve_ckpt), ("merge", phase_merge),
           ("parallel", phase_parallel), ("finetune_mesh", phase_finetune_mesh))

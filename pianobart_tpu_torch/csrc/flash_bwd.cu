@@ -7,7 +7,8 @@
 //   pbt_flash_dq   K3a, :276 _dq_kernel (launched by _dq_call where S > 1024
 //                  and by the ring backward): the dQ kernel;
 //   pbt_flash_dkv  K3b, :312 _dkv_kernel (_dkv_call): the dK/dV kernel.
-// Same contract as the Pallas calls, at head width D = 128 n up to 2048:
+// Same contract as the Pallas calls, at head width D = 128 n up to 4096 in
+// bf16 and 2048 in f32:
 //   q, k, v, dO  (B, S, H, D) bf16 or f32, read through their strides (f32
 //                at D = 128: by the prep); q is already scaled by D**-0.5 by
 //                the caller.
@@ -99,17 +100,19 @@
 // (H*D = 1024 in both): K2 0.3421 ms at B=32, S=1024; K3a 0.4105 and K3b
 // 0.5474 ms at B=16, S=2048.
 //
-// At D = 384 .. 2048 (D = 128 n) both types run as clusters that sum S and
-// dP across the cluster through distributed shared memory: bf16
-// flash_bwd_d256_wgmma_kernel<DKV, true>, clusters of ceil(D / 256) CTAs of
-// the D = 256 design, 256 columns each (up to 8, the card's largest
-// portable cluster); f32 flash_bwd_wide_tf32_kernel<DKV>, clusters of D / 128
+// At D = 384 .. 4096 (bf16) and 384 .. 2048 (f32) both types run as
+// clusters that sum S and dP across the cluster through distributed shared
+// memory: bf16 flash_bwd_d256_wgmma_kernel<DKV, true>, clusters of
+// ceil(D / 256) CTAs of the D = 256 design, 256 columns each (up to 8, the
+// card's largest portable cluster, to D = 2048; 9 .. 16, non-portable, to
+// D = 4096); f32 flash_bwd_wide_tf32_kernel<DKV>, clusters of D / 128
 // CTAs (9 .. 16 past D = 1024, the non-portable sizes H100 allows), two
 // consumer warpgroups on alternate swept tiles of 32 rows over the fixed
 // rows' planes (both described where they are defined); the delta kernel a
 // warp a row and the prep 8 rows and up to 1024 columns a CTA.  Bounds at
 // --heads 2 (D = 512, H = 2) equal the D = 128 ones above, and so do those
-// of --hs 2048 --heads 1 (D = 2048, H = 1) at half the batch.
+// of --hs 2048 --heads 1 (D = 2048, H = 1) at half the batch and of
+// --hs 4096 --heads 1 (D = 4096) at a quarter.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -591,13 +594,17 @@ struct Dq256Smem {
 static_assert(Dkv256Smem::ALLOC <= 232448 && Dq256Smem::ALLOC <= 232448,
               "a CTA's shared memory");
 
-// A cluster's CTA (WIDE, D = 384 .. 2048; see the kernel's comment).  Each
+// A cluster's CTA (WIDE, D = 384 .. 4096; see the kernel's comment).  Each
 // consumer warpgroup sums one 64 x 64 f32 score tile at a time across the
 // cluster, through a 16 KB region of its own.
 constexpr int W_SLOT = TILE * W_OPND;   // a 64-row tile of a 256-column operand: 32 KB
 constexpr int X_UNITS = TILE / 8 * 128; // a score tile over a warpgroup in 16-byte units
 constexpr int X_REGION = X_UNITS * 16;
-static_assert(X_UNITS >= cluster_region_units(X_UNITS, 8), "cluster_sum's region, n = 3 .. 7");
+static_assert(X_UNITS >= cluster_region_units(X_UNITS, 16), "cluster_sum's region, n = 3 .. 15");
+// barriers of a consumer warpgroup's exchange: cluster_sum_init's four, or
+// pair_sum_init's for up to four rounds (16 CTAs: the other choice there,
+// which scripts/cluster_probe.py times)
+constexpr int XB = 5;
 
 // dK/dV: Q and dO through a ring of three 32 KB slots, Q_i then dO_i, lse
 // beside Q and delta beside dO, where the D = 256 kernel keeps two 64 KB
@@ -610,9 +617,9 @@ struct Dkv256WideSmem {
   static constexpr int FIXV = HAND + 2 * W_SCORES;      // the kv rows' mask
   static constexpr int SIDE = FIXV + W_FIX * 4;         // per slot: lse (Q) or delta (dO)
   static constexpr int X = SIDE + Q_SLOTS * TILE * 4;   // a region a consumer warpgroup
-  // fix, full[3], free[3]; four a warpgroup's exchange
+  // fix, full[3], free[3]; XB a warpgroup's exchange
   static constexpr int BAR = X + NWG * X_REGION;
-  static constexpr int ALLOC = BAR + (1 + 2 * Q_SLOTS + 4 * NWG) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * Q_SLOTS + XB * NWG) * 8 + 1024;
 };
 
 // dQ: V and K through two slots, where the D = 256 kernel keeps three; the
@@ -626,8 +633,8 @@ struct Dq256WideSmem {
   static constexpr int SIDE = RING + NS * W_SLOT;       // per slot: a K tile's mask entries
   static constexpr int FIXV = SIDE + NS * TILE * 4;     // the q rows' lse, then delta
   static constexpr int X = FIXV + 2 * Q_FIX * 4;        // a region a consumer warpgroup
-  static constexpr int BAR = X + NWG * X_REGION;        // fix, full[2], free[2]; 4 a warpgroup
-  static constexpr int ALLOC = BAR + (1 + 2 * NS + 4 * NWG) * 8 + 1024;
+  static constexpr int BAR = X + NWG * X_REGION;        // fix, full[2], free[2]; XB a warpgroup
+  static constexpr int ALLOC = BAR + (1 + 2 * NS + XB * NWG) * 8 + 1024;
 };
 static_assert(Dkv256WideSmem::ALLOC <= 232448 && Dq256WideSmem::ALLOC <= 232448,
               "a CTA's shared memory");
@@ -635,9 +642,11 @@ static_assert(Dkv256WideSmem::ALLOC <= 232448 && Dq256WideSmem::ALLOC <= 232448,
 // The cluster sizes at which a warpgroup sums by pair rounds
 // (hopper.cuh:pair_rounds), the others by cluster_sum: 2 and 4 in both
 // kernels, 8 in dQ alone.  At 8 (D = 1920, 2048) the dK/dV kernel took
-// 1.48-1.51 ms by cluster_sum and 1.59 by pair rounds, the dQ kernel
+// 1.48-1.51 ms by cluster_sum and 1.58-1.59 by pair rounds, the dQ kernel
 // 1.41-1.45 either way (B=16, S=1024, H=1, D=2048; scripts/cluster_probe.py,
-// two calls, H100 at 700 W).
+// three calls, H100 at 700 W); at 16 (D = 4096) cluster_sum took 1.819-1.823
+// ms in dQ and 1.985-1.993 in dK/dV, four pair rounds 1.951-1.952 and
+// 2.158-2.172 (B=8, S=1024, H=1; the same script, H100 at 700 W).
 // The barriers' setup and the exchange read one mask, so they agree at
 // every n.
 template <bool DKV>
@@ -646,7 +655,8 @@ constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) : (1u << 2) | (1u << 
 // A warpgroup's 64 x 64 f32 score tile over its CTA's 256 columns becomes
 // the tile over all of D, the same in every CTA to the bit: a pair adds the
 // two in one round (hopper.cuh:pair_sum), four CTAs (p0 + p1) + (p2 + p3)
-// in two, eight in dQ in three, other n in rank order (cluster_sum).  x counts the warpgroup's exchanges.  The cluster's
+// in two, eight in dQ in three, other n in rank order (cluster_sum).  x
+// counts the warpgroup's exchanges.  The cluster's
 // shape is read anew at each exchange, so that no register holds it across
 // the products.
 template <bool DKV>
@@ -761,17 +771,18 @@ __device__ __forceinline__ void issue_rs_part(float (&acc)[D / 2],
 // rows; the mask in boxes of 64 keys; lse and delta in boxes of 64 (DKV) or
 // 128 entries.
 //
-// Wide heads (WIDE, D = 384 .. 2048; dw the head width, which D = 256 does
+// Wide heads (WIDE, D = 384 .. 4096; dw the head width, which D = 256 does
 // not read): clusters of n = ceil(D / 256) of these CTAs along x
 // (blockIdx.x / n the fixed tile, the cluster rank r the columns 256 r ..
 // 256 r + 255 of the head), each the design above on its columns of every
 // operand, storing its columns of dK and dV (or dQ); where D is not a
-// multiple of 256 (384, 640, .., 1920) the last CTA's upper 128 columns lie
-// past D, TMA fills them with zeros and nothing is stored there.  S^T and
+// multiple of 256 (384, 640, .., 3968) the last CTA's upper 128 columns lie
+// past D, TMA fills them with zeros and nothing is stored there; past 8 CTAs
+// (D = 2176 .. 4096) the clusters are H100's non-portable sizes.  S^T and
 // dP^T (S and dP) run over all of D: each warpgroup sums its one 64 x 64 f32
 // tile across the cluster right after its product (sum_scores: one pair
 // round at n = 2, two at n = 4, three at n = 8 in dQ, cluster_sum at the
-// other n), 16 KB an exchange, so
+// other n, 16 too), 16 KB an exchange, so
 // every CTA holds the same P^T and dS^T (P and dS) to the bit and dK, dV and
 // dQ stay column-local, with no atomics.  In dK/dV the two warpgroups
 // exchange at once, S^T and dP^T; in dQ a warpgroup sums dP while its S
@@ -820,7 +831,7 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     uint64_t* bar_fix = reinterpret_cast<uint64_t*>(sm + L::BAR);
     uint64_t* bar_full = bar_fix + 1;     // slot s landed
     uint64_t* bar_free = bar_full + NS;   // slot s read by every consumer warp
-    uint64_t* bar_x = bar_free + NS;      // four a consumer warpgroup's exchange
+    uint64_t* bar_x = bar_free + NS;      // XB a consumer warpgroup's exchange
     const int f0 = (blockIdx.x / n_cta) * (DKV ? W_FIX : Q_FIX);
     // swept tiles i0 .. n-1: under causal, dK/dV from the tile of row f0,
     // dQ to the tile of key f0 + 127; tile i is items 2 (i - i0) and
@@ -838,7 +849,7 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(bar_free + s, 4 * NWG);
       }
       for (int g = 0; g < NWG; ++g)
-        score_sum_init(bar_x + 4 * g, n_cta, pair_rounds<BWD_PAIRS<DKV>>(n_cta));
+        score_sum_init(bar_x + XB * g, n_cta, pair_rounds<BWD_PAIRS<DKV>>(n_cta));
       mbar_fence_init();
     }
     cluster_sync();                     // every CTA's barriers ready
@@ -882,7 +893,7 @@ flash_bwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // ---- consumer warpgroup wg
       setmaxnreg_inc<240>();
       unsigned char* region = sm + L::X + wg * X_REGION;
-      uint64_t* xb = bar_x + 4 * wg;
+      uint64_t* xb = bar_x + XB * wg;
       auto wait_item = [&](int k) { mbar_wait(bar_full + k % NS, (k / NS) & 1); };
       auto release = [&](int k) {       // item k's slot may be refilled
         if (lane == 0) mbar_arrive(bar_free + k % NS);
@@ -1361,8 +1372,8 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (r < rows && l == 0) delta[(b * H + h) * S + s] = acc;
 }
 
-// The same at D = 384 .. 2048: a warp a row, each lane 8 elements of every
-// 256 columns.
+// The same at D = 384 .. 4096 (f32 to 2048): a warp a row, each lane 8
+// elements of every 256 columns.
 template <typename T>
 __global__ void __launch_bounds__(DELTA_THREADS)
 flash_delta_wide_kernel(const T* __restrict__ dout, const T* __restrict__ out,
@@ -2368,7 +2379,7 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
                 const void* qt, const void* kt, const void* ot, const void* mask,
                 const void* lse, const void* delta, void* out1, void* out2, int B, int Sq,
                 int Skv, int H, int D, int dtype, int causal, PBT_STRIDES, cudaStream_t st) {
-  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D, dtype)) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch_wgmma<DKV>(q, k, v, dout, mask, lse, delta, out1, out2, B, Sq, Skv, H, D,
                              causal, PBT_STRIDE_ARGS, st);
@@ -2379,7 +2390,8 @@ int launch_pass(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..16.  bf16: q, k, v, dO (B,
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..32 (bf16) or 1..16
+// (f32).  bf16: q, k, v, dO (B,
 // S, H, D) at element strides for their (B, S, H) axes (the D axis
 // contiguous); qt, kt, ot are not read.  f32: q, k, v, dO are the natural
 // split planes of pbt_tf32_split and qt, kt, ot
@@ -2432,13 +2444,13 @@ extern "C" int pbt_flash_dkv(const void* q, const void* k, const void* v,
 }
 
 // delta = rowsum(dO * O) into (B, H, S) f32; dO's and O's strides in
-// elements for the (B, S, H) axes; D 128 n, n = 1..16.
+// elements for the (B, S, H) axes; D 128 n, n = 1..32 (bf16) or 1..16 (f32).
 extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, int B,
                                int S, int H, int D, int dtype, long long osb, long long oss,
                                long long osh, long long tsb, long long tss,
                                long long tsh, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D, dtype)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * S * H;
   if (D > 256) {
     const dim3 grid((unsigned)((rows + DELTA_THREADS / 32 - 1) / (DELTA_THREADS / 32)));
@@ -2479,7 +2491,7 @@ extern "C" int pbt_flash_delta(const void* dout, const void* out, void* delta, i
 // S), either of which may be null.  Each S a multiple of 32; D 128 n, n =
 // 1..16.
 extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void* stream) {
-  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D, 0)) return (int)cudaErrorInvalidValue;
   const SplitArgs a = *reinterpret_cast<const SplitArgs*>(args);
   int s_max = 0;
   for (int i = 0; i < n; ++i) s_max = max(s_max, a.S[i]);
@@ -2499,14 +2511,14 @@ extern "C" int pbt_tf32_split(const void* args, int n, int B, int H, int D, void
 }
 
 // How many clusters of the backward's dK/dV (which = 1) or dQ (which = 0)
-// kernel at head width D (256 .. 2048) and type `dtype` the card holds at
-// once (cudaOccupancyMaxActiveClusters, 0 where it holds none); the
+// kernel at head width D (256 .. 4096 bf16, .. 2048 f32) and type `dtype`
+// the card holds at once (cudaOccupancyMaxActiveClusters, 0 where it holds none); the
 // cluster's size into *size (1 where the kernel runs no cluster, and the
 // answer is then 0): bf16 ceil(D / 256) CTAs past D = 256, f32 D / 128.
 extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
   int* n = static_cast<int*>(size);
   *n = 1;
-  if (!head_dim_taken(D) || D < 256 || (dtype == 1 && D == 256)) return 0;
+  if (!head_dim_taken(D, dtype) || D < 256 || (dtype == 1 && D == 256)) return 0;
   *n = dtype == 1 ? (D + W_D - 1) / W_D : D / T_D;
   auto ask = [&](auto kernel, int threads, int smem) {
     return max_active_clusters(kernel, *n, threads, smem);

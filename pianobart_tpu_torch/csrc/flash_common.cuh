@@ -2,16 +2,17 @@
 // backward (flash_bwd.cu) and lab (flash_lab.cu) kernels: constants, bf16
 // packing, accumulators as A fragments, exp2.
 //
-// Head widths: the kernels take every D = 128 n up to MAX_HEAD_DIM.  Each
+// Head widths: the kernels take every D = 128 n up to the type's
+// MAX_HEAD_DIM.  Each
 // kernel has its width as a template parameter or a constant of its own
 // design (the shared-memory layouts and accumulator sizes follow from it);
 // the C entries take D at run time and pick the instance.  D = 128 and 256
-// have instances of their own; D = 384 .. 2048 run clusters that sum the
+// have instances of their own; wider heads run clusters that sum the
 // products over D across the cluster (hopper.cuh): the bf16 kernels as
 // ceil(D / 256) CTAs of their D = 256 designs (their WIDE instances, up to
-// 8 CTAs, the card's largest portable cluster), the f32 forward and
-// backward as wide kernels of their own, D / 128 CTAs of 128 columns (up to
-// 16, H100's largest non-portable cluster, hence MAX_HEAD_DIM).
+// 16 CTAs at D = 4096), the f32 forward and backward as wide kernels of
+// their own, D / 128 CTAs of 128 columns (up to 16 at D = 2048).  16 CTAs
+// is H100's largest cluster (a non-portable size), hence the limits.
 //
 // Fragment layout of a warp's 16 rows (g = lane / 4, t = lane % 4), the
 // mma.sync m16n8k16 one, which wgmma keeps for its accumulators and for A
@@ -27,10 +28,15 @@
 namespace pbt {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int MAX_HEAD_DIM = 2048;   // f32: 16 CTAs of 128 columns
+// the widest head of each type, 16 CTAs a cluster: bf16 of 256 columns,
+// f32 of 128
+constexpr int MAX_HEAD_DIM_BF16 = 4096;
+constexpr int MAX_HEAD_DIM_F32 = 2048;
 
-// D = 128 n with n = 1 .. 16
-inline bool head_dim_taken(int D) { return D % 128 == 0 && D >= 128 && D <= MAX_HEAD_DIM; }
+// D = 128 n with n = 1 .. 32 (bf16, dtype 1) or 1 .. 16 (f32, dtype 0)
+inline bool head_dim_taken(int D, int dtype) {
+  return D % 128 == 0 && D >= 128 && D <= (dtype == 1 ? MAX_HEAD_DIM_BF16 : MAX_HEAD_DIM_F32);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -1,7 +1,8 @@
 // Flash attention forward for Hopper (sm_90a), bound to PyTorch through ctypes.
 //
 // Replaces the Pallas TPU kernel pianobart_tpu/ops/flash.py:_fwd_kernel
-// (launched by _fwd). Same contract, at head width D = 128 n up to 2048:
+// (launched by _fwd). Same contract, at head width D = 128 n up to 4096 in
+// bf16 and 2048 in f32:
 //   q, k, v   (B, S, H, D) bf16 or f32, read through their strides (f32 at
 //             D = 128: by the prep); q is already scaled by D**-0.5 by the
 //             caller.
@@ -57,7 +58,8 @@
 // reads what one D = 128 CTA reads, so the L2 traffic and the FLOPs a CTA
 // equal the D = 128 kernel's at the same B, and so does the bound.
 //
-// At D = 384 .. 2048 (D = 128 n) both types run as clusters: bf16 of
+// At D = 384 .. 4096 (bf16) and 384 .. 2048 (f32) both types run as
+// clusters: bf16 of
 // ceil(D / 256) CTAs of the D = 256 design, each on 256 columns of the head
 // (flash_fwd_d256.cuh, flash_fwd_d256_wgmma_kernel<true>), f32 of n CTAs,
 // one per 128 columns (flash_fwd_wide_tf32_kernel below: each consumer
@@ -66,8 +68,9 @@
 // of the CTAs of the narrower design at the same H * D: the bound is the
 // D = 128 one (--heads 2, D = 512 H = 2, has the flagship's H * D).  The
 // card holds clusters of up to 8 CTAs portably, which the bf16 clusters
-// stay within up to D = 2048; the f32 clusters of 9 .. 16 CTAs past
-// D = 1024 are H100's non-portable sizes, which launch_cluster allows
+// stay within up to D = 2048; past it the bf16 clusters of 9 .. 16 CTAs
+// (D = 2176 .. 4096), like the f32 ones past D = 1024, are H100's
+// non-portable sizes, which launch_cluster allows
 // (hopper.cuh:max_active_clusters).  launch_cluster refuses a cluster the
 // card cannot hold.
 #include "flash_common.cuh"
@@ -655,8 +658,8 @@ flash_fwd_wide_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..16.  bf16: q, k, v (B, S,
-// H, D) at element strides for the (B, S, H) axes (the D axis contiguous).
+// dtype: 0 = float32, 1 = bfloat16; D: 128 n, n = 1..32 (bf16) or 1..16
+// (f32).  bf16: q, k, v (B, S, H, D) at element strides for the (B, S, H) axes (the D axis contiguous).
 // f32: q and k are the natural split planes of pbt_tf32_split (flash_bwd.cu)
 // and v its transposed planes; the strides are not read.  Returns cudaGetLastError(), 1000 + the CUresult of
 // a tensor map the driver refused (1000 alone where the driver offers no
@@ -671,7 +674,7 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
                              long long vsb, long long vss, long long vsh,
                              void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (!head_dim_taken(D)) return (int)cudaErrorInvalidValue;
+  if (!head_dim_taken(D, dtype)) return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = tensor_map_encoder();
   if (!enc) return TMAP_ERROR;
   CUtensorMap tq, tk, tv, tm;
@@ -711,7 +714,8 @@ extern "C" int pbt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// How many clusters of K1's kernel at head width D (D = 256 .. 2048) and
+// How many clusters of K1's kernel at head width D (D = 256 .. 4096 bf16,
+// .. 2048 f32) and
 // type `dtype` the card holds at once (cudaOccupancyMaxActiveClusters, 0
 // where it holds none); the cluster's size into *size (1 where the kernel runs
 // no cluster, and the answer is then 0).
@@ -719,7 +723,7 @@ extern "C" int pbt_cluster_occupancy(int D, int dtype, int which, void* size) {
   int* n = static_cast<int*>(size);
   (void)which;
   *n = 1;
-  if (!head_dim_taken(D) || D < 256) return 0;
+  if (!head_dim_taken(D, dtype) || D < 256) return 0;
   if (dtype == 1) {
     if (D == 256) return 0;
     *n = (D + K1W_D - 1) / K1W_D;

@@ -55,7 +55,7 @@
 // 2^8.  Rows past Sq are not stored.  PERF.md (section 6) has the variants
 // measured and dropped.
 //
-// Wide heads (D = 384 .. 2048): the instance <true>, clusters of
+// Wide heads (D = 384 .. 4096): the instance <true>, clusters of
 // n = ceil(D / 256) of these CTAs along x (blockIdx.x / n the q tile, the
 // cluster rank r the columns 256 r .. 256 r + 255 of the head), each the
 // design above on its columns of Q, K and V, storing its columns of O.
@@ -65,19 +65,22 @@
 // its own: a pair (D = 384, 512) in one round, each CTA storing all its S
 // into the other's region (hopper.cuh:pair_sum), four CTAs (896, 1024) in
 // two such rounds, with rank ^ 1 then rank ^ 2, eight (1920, 2048) in
-// three, three and five to seven (640 .. 768, 1152 ..
-// 1792) as a reduce-scatter then an all-gather (cluster_sum); so every CTA holds
+// three, sixteen (3968, 4096) in four, the other n (3, 5 .. 7, 9 .. 15:
+// 640 .. 768, 1152 .. 1792, 2176 .. 3840) as a reduce-scatter then an
+// all-gather (cluster_sum); so every CTA holds
 // the same S, softmax, P, l and lse to the bit; rank 0 stores lse.  Clusters
 // of D / 128 CTAs of the D = 128 design move 1.5x S through
 // distributed shared memory for every 128 columns of products (n = 4 at
 // D = 512), in two rounds; here a CTA does the products of 256 columns for
 // each exchange, and at n = 2 an exchange moves 1.0x S in one round: a third
 // of the bytes a FLOP at D = 512, 1.75x / (1.5x / 2) = 2.3x fewer at
-// D = 1024.  Where D is not a multiple of 256 (384, 640, .., 1920) the last
+// D = 1024.  Where D is not a multiple of 256 (384, 640, .., 3968) the last
 // CTA's upper 128 columns lie past D: TMA fills its Q, K and V boxes there
 // with zeros, so every CTA runs the same code, those columns add nothing to
 // S, and their O is not stored (at D = 384, 4/3 of the products the function
-// needs; 1152, 1664 and 1920 likewise).  The two 32 KB
+// needs; 1152, 2176 and 3968 likewise).  Past 8 CTAs (D = 2176 .. 4096) the
+// clusters are H100's non-portable sizes (hopper.cuh:max_active_clusters).
+// The two 32 KB
 // regions take the room of one ring slot: the ring keeps 3 (K lo, K hi,
 // V lo; V hi lands in K lo's slot once both warpgroups' S of the tile is
 // in).  A cluster reads what ceil(D / 256) CTAs at D = 256 read at the same
@@ -92,14 +95,15 @@ namespace pbt {
 constexpr int K1W_D = 256;              // the head width of this design
 constexpr int K1W_BN = 128;             // kv rows a tile
 constexpr int K1W_SLOT = K1W_BN * 2 * 128;   // 128 kv rows x 128 d columns: 32 KB
-// The cluster sizes at which a warpgroup sums S by pair rounds (2, 4 and 8:
-// hopper.cuh:pair_rounds); the others (3, 5, 6, 7) by cluster_sum.  At 8
-// (D = 1920, 2048) three pair rounds took 0.827-0.875 ms and cluster_sum
-// 1.248-1.251 (B=16, S=1024, H=1; scripts/cluster_probe.py, two calls, H100
-// at 700 W).  The
+// The cluster sizes at which a warpgroup sums S by pair rounds (2, 4, 8
+// and 16: hopper.cuh:pair_rounds); the others (3, 5 .. 7, 9 .. 15) by
+// cluster_sum.  At 8 (D = 1920, 2048) three pair rounds took 0.823-0.875 ms
+// and cluster_sum 1.232-1.251 (B=16, S=1024, H=1; scripts/cluster_probe.py,
+// three calls, H100 at 700 W); at 16 (D = 4096) four pair rounds 1.088-1.090
+// and cluster_sum 1.414-1.420 (B=8; the same script, H100 at 700 W).  The
 // barriers' setup and the exchange read this one mask, so they agree at
 // every n.
-constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4) | (1u << 8);
+constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4) | (1u << 8) | (1u << 16);
 
 // This thread's keep bits of a tile's BN mask entries: bit 2*nt + e is
 // column 8*nt + 2*t + e, the columns of its accumulator entries.  Read while
@@ -193,11 +197,12 @@ struct K1D256Smem {
   static constexpr int X_UNITS = K1W_BN / 8 * 128;
   static constexpr int X = MASK + 2 * K1W_BN * 4;
   static constexpr int X_REGION = X_UNITS * 16;      // all of S: pair_sum's
-  static_assert(X_UNITS >= cluster_region_units(X_UNITS, 8), "cluster_sum's, n = 3 .. 7");
-  // Q, full[S], free[S]; a cluster's four a warpgroup (pair_sum_init, or
-  // cluster_sum_init)
+  static_assert(X_UNITS >= cluster_region_units(X_UNITS, 16), "cluster_sum's, n = 3 .. 15");
+  // Q, full[S], free[S]; a cluster's five a warpgroup (pair_sum_init's for
+  // up to four rounds, or cluster_sum_init's four)
+  static constexpr int XB = 5;
   static constexpr int BAR = X + (WIDE ? K1_WG * X_REGION : 0);
-  static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? 4 * K1_WG : 0)) * 8 + 1024;
+  static constexpr int ALLOC = BAR + (1 + 2 * NS + (WIDE ? XB * K1_WG : 0)) * 8 + 1024;
   static_assert(ALLOC <= 232448, "a CTA's shared memory");
 };
 
@@ -239,7 +244,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     if constexpr (WIDE)
       for (int g = 0; g < NWG; ++g)
-        score_sum_init(bar_free + NS + 4 * g, cs.n, pair_rounds<K1W_PAIRS>(cs.n));
+        score_sum_init(bar_free + NS + L::XB * g, cs.n, pair_rounds<K1W_PAIRS>(cs.n));
     mbar_fence_init();
   }
   if constexpr (WIDE) cluster_sync();    // every CTA's barriers ready
@@ -316,7 +321,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       release(it + 1);
       if constexpr (WIDE) {   // S over all of D; j counts this warpgroup's exchanges
         unsigned char* region = sm + L::X + wg * L::X_REGION;
-        uint64_t* xb = bar_free + NS + 4 * wg;
+        uint64_t* xb = bar_free + NS + L::XB * wg;
         const int rounds = pair_rounds<K1W_PAIRS>(cs.n);
         if (rounds)
           pair_sum(sc, region, xb, cs.rank, j, rounds, 128, tid);
@@ -386,7 +391,7 @@ flash_fwd_d256_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // One launch over the maps of q (boxes of K1_BM rows), k and v (K1W_BN
 // rows) and the mask (K1W_BN keys) at head width D: D = 256 returns
-// cudaGetLastError(), D = 384 .. 2048 (clusters of ceil(D / 256) CTAs)
+// cudaGetLastError(), D = 384 .. 4096 (clusters of ceil(D / 256) CTAs)
 // launch_cluster's code.
 inline int launch_fwd_d256(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                            const CUtensorMap& tm, void* o, void* lse, int B, int Sq, int Skv,

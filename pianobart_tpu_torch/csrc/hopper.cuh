@@ -953,9 +953,11 @@ struct ClusterLaunch {
 // the size only); 0 where the card can hold no such cluster or refuses to
 // say.  Past 8 CTAs, the card's largest portable cluster, the kernel is
 // first allowed non-portable sizes (H100: up to 16), which its launches
-// then keep.  seen[] is one kernel signature's; a whole library asks at
-// most 44 pairs (the backward's: bf16 at n = 2 .. 8, the f32 pair, f32 at
-// n = 3 .. 16, two kernels each).
+// then keep.  seen[] is one kernel signature's, and a miss asks again at
+// every launch: the most pairs one signature asks is 30 (the bf16
+// backward's two kernels at n = 2 .. 16; the f32 backward's pair and its two
+// wide kernels at n = 3 .. 16), 60 in the backward's library, under the 64
+// each array holds.
 template <typename... Params>
 inline int max_active_clusters(void (*kernel)(Params...), int n, int threads, int smem) {
   static struct { const void* kernel; int n, active; } seen[64];

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from .flash import HEAD_DIMS, flash_attention
+from .flash import flash_attention, head_dims
 
 __all__ = ["dot_product_attention"]
 
@@ -63,13 +63,13 @@ def _plain_attention(q, k, v, kv_mask, causal, bias, dropout_rate=0.0,
 
 def _flash_eligible(q, k, bias) -> bool:
     # what the kernels take: 128-row multiples of at least 256 (the
-    # reference's tiling rule) and the head widths they have (the
-    # reference's any multiple of 128; past MAX_HEAD_DIM = 2048 not ported
-    # yet, and such a width takes the plain path)
+    # reference's tiling rule) and the head widths they have in q's type (the
+    # reference's any multiple of 128; past MAX_HEAD_DIM, 4096 in bf16 and
+    # 2048 in f32, not ported yet, and such a width takes the plain path)
     return (bias is None
             and q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
             and q.shape[1] >= 256 and k.shape[1] >= 256
-            and q.shape[3] in HEAD_DIMS)
+            and q.shape[3] in head_dims(q.dtype))
 
 
 def dot_product_attention(

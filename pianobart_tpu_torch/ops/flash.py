@@ -28,9 +28,10 @@ K2's entry runs the same two CUDA kernels as K3b then K3a: a 1024 x 1024
 block does not fit a CTA, so the port's K2 was tiled into K3's schedule from
 the start.  K2 and K3 differ in entry point and contract, not in algorithm.
 
-The kernels take every head width D that is a multiple of 128 up to
-:data:`MAX_HEAD_DIM` = 2048 (:data:`HEAD_DIMS`), as the reference's take any
-multiple of 128 (``_flash_eligible``); wider heads are not ported yet.
+The kernels take every head width D that is a multiple of 128 up to their
+type's :data:`MAX_HEAD_DIM` (:func:`head_dims`): 4096 in bf16, 2048 in f32,
+as the reference's take any multiple of 128 (``_flash_eligible``); wider
+heads are not ported yet.
 
 Bounds (H100, 989 TFLOP/s bf16, 3.35 TB/s), all by operations: K1 at
 (B, 1024, 8, 128) bf16 ``4*B*H*S^2*D`` FLOPs over the kept pairs, 0.1381 ms
@@ -42,7 +43,8 @@ best); K3a (3 products) and K3b (4) at the long-context shape
 (D = 256, H = 4) and ``--heads 2`` (D = 512, H = 2) H*D is the same 1024,
 and so is every bound; ``--hs 2048 --heads 1`` (D = 2048, H = 1) has the
 same B*H*D at half the batch (B=16 for K1 and K2, B=8 for K3a and K3b), and
-the same bounds there.
+the same bounds there; ``--hs 4096 --heads 1`` (D = 4096) at a quarter (B=8
+for K1 and K2, B=4 for K3a and K3b).
 
 The bf16 kernels of K1, K2 and K3 are designed for Hopper (the sources
 have the details), with the primitives of ``csrc/hopper.cuh``: a producer
@@ -88,10 +90,11 @@ CTAs, one per 128-column half of every plane, that sum the score products
 (S, dP), which run over all of D, through each other's shared memory.
 Bound: three tf32 products per f32 product at 495 TFLOP/s.
 
-At D = 384 .. 2048 (D = 128 n) every kernel runs as clusters of CTAs, each
-on its columns of every operand: bf16 K1 and the bf16 backward as
-ceil(D/256) CTAs of their D = 256 designs, 256 columns each (TMA's zeros
-past D in the last one at 384, 640, .., 1920; the dK/dV kernel streams Q and dO
+At D = 384 .. 4096 in bf16 and 384 .. 2048 in f32 (D = 128 n) every kernel
+runs as clusters of CTAs, each on its columns of every operand: bf16 K1 and
+the bf16 backward as ceil(D/256) CTAs of their D = 256 designs, 256 columns
+each (TMA's zeros past D in the last one at 384, 640, .., 3968; the dK/dV
+kernel streams Q and dO
 through three 32 KB slots where it keeps two 64 KB stages, the dQ kernel V
 and K through two slots where it keeps three, to make room for the
 exchanges); the f32 forward as n CTAs of 128 columns, Q hi in registers
@@ -104,12 +107,13 @@ memory (a pair in one round, four CTAs in two pairwise rounds, eight in
 three, sixteen in four, else a reduce-scatter then an all-gather), so every
 CTA holds the same sums to the bit and P, dS and lse agree across the
 cluster; O, dQ, dK and dV stay column-local.  The card schedules a cluster
-of up to 8 CTAs portably, which the bf16 clusters stay within; the f32
-clusters past D = 1024 take 9 .. 16 CTAs, H100's non-portable sizes, which
-the launches allow (``csrc/hopper.cuh:max_active_clusters``), hence
-``MAX_HEAD_DIM``; a kernel whose cluster the card cannot hold raises.  The
-delta kernel takes a warp a row there, the prep 8 rows a CTA (of half the
-columns past D = 1024).
+of up to 8 CTAs portably, which the bf16 clusters stay within to D = 2048;
+the bf16 clusters past 2048 and the f32 ones past 1024 take 9 .. 16 CTAs,
+H100's non-portable sizes, which the launches allow
+(``csrc/hopper.cuh:max_active_clusters``).  16 CTAs is the card's largest
+cluster, hence ``MAX_HEAD_DIM``; a kernel whose cluster the card cannot hold
+raises.  The delta kernel takes a warp a row there, the prep 8 rows a CTA
+(of half the columns past D = 1024).
 
 The wrappers take the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  The kernels are built by
@@ -129,18 +133,31 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_split", "flash_attention_reference",
            "flash_attention_bwd_reference", "flash_attention_dq_reference",
            "flash_attention_dkv_reference", "flash_attention_split_reference",
-           "HEAD_DIM", "HEAD_DIMS", "MAX_HEAD_DIM"]
+           "HEAD_DIM", "HEAD_DIMS", "MAX_HEAD_DIM", "head_dims"]
 
 NEG_INF = -1e30
-# the head widths the kernels take: D = 128 and 256 have designs of their
-# own, D = 384 .. 2048 run as clusters of at most D/128 CTAs (csrc/hopper.cuh:
-# launch_cluster; 16 CTAs, the f32 kernels' at D = 2048, is H100's largest
-# cluster, a non-portable size)
-MAX_HEAD_DIM = 2048
-HEAD_DIMS = tuple(range(128, MAX_HEAD_DIM + 1, 128))
+# the head widths the kernels take, by type: D = 128 and 256 have designs of
+# their own, wider heads run as clusters (csrc/hopper.cuh:launch_cluster) of
+# ceil(D/256) CTAs in bf16 and D/128 in f32; 16 CTAs, H100's largest cluster
+# (a non-portable size), reach D = 4096 in bf16 and 2048 in f32
+MAX_HEAD_DIM = {torch.bfloat16: 4096, torch.float32: 2048}
+HEAD_DIMS = {dtype: tuple(range(128, top + 1, 128)) for dtype, top in MAX_HEAD_DIM.items()}
 HEAD_DIM = 128     # the flagship's head width, the one the kernel lab takes
 TILE = 64          # the kernels' q/kv tile rows: Sq and Skv must divide by it
 FUSED_BWD_MAX = 1024   # the reference's single-block backward cap (_BWD_BLOCK)
+
+
+def head_dims(dtype) -> Tuple[int, ...]:
+    """The head widths the kernels take in ``dtype`` (another type: f32's,
+    and the kernels refuse the type itself)."""
+    return HEAD_DIMS.get(dtype, HEAD_DIMS[torch.float32])
+
+
+def _width_error(what, dtype, D):
+    """The ValueError of a head width the kernels do not take in ``dtype``."""
+    top = head_dims(dtype)[-1]
+    return ValueError(f"{what} takes {str(dtype)[6:]} head_dim a multiple of 128 up to "
+                      f"{top}, got {D}")
 
 
 def _mask_and_scores(q, k, kv_mask, causal):
@@ -273,9 +290,8 @@ def _check_cuda_inputs(q, k, v, kv_mask, dout=None):
             raise ValueError(f"{name} must match q's device and dtype")
         if x.shape != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim a multiple of 128 up to "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    if D not in head_dims(q.dtype):
+        raise _width_error("flash kernel", q.dtype, D)
     if Sq % TILE or Skv % TILE:
         raise ValueError(f"flash kernel needs Sq, Skv multiples of {TILE}, "
                          f"got {Sq}, {Skv}")
@@ -299,14 +315,18 @@ def _tma_ready(x):
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _raise_for(entry, rc, D=None):
+def _raise_for(entry, rc, D=None, dtype=None):
     """The C entries' codes: 2000 + n where the card cannot hold a cluster
-    of n CTAs of the kernel (``hopper.cuh:launch_cluster``) at head width D,
-    1000 + the CUresult of a refused tensor map, else a CUDA error."""
+    of n CTAs of the kernel (``hopper.cuh:launch_cluster``) at head width D
+    in ``dtype``, 1000 + the CUresult of a refused tensor map, else a CUDA
+    error."""
     if rc >= 2000:
+        kind = "" if dtype is None else (
+            f" in {str(dtype)[6:]} (whose kernels take head widths up to "
+            f"{head_dims(dtype)[-1]})")
         raise RuntimeError(f"{entry}: the card cannot schedule a cluster of {rc - 2000} "
                            f"CTAs of this kernel (cudaOccupancyMaxActiveClusters is 0), "
-                           f"which head width {D} needs")
+                           f"which head width {D} needs{kind}")
     if rc >= 1000:
         raise RuntimeError(f"{entry}: the driver refused a TMA tensor map "
                            f"(CUresult {rc - 1000}; 0 = no encoder)")
@@ -328,11 +348,10 @@ class _SplitArgs(ctypes.Structure):
 def _split_launch(specs: Sequence[Tuple[torch.Tensor, bool, bool]]):
     """One launch of the prep kernel for the ``(x, natural, transposed)``
     operands of one call (CUDA tensors of one (B, *, H, D) family, D in
-    :data:`HEAD_DIMS`); returns their ``(nat, tr)`` pairs."""
+    ``head_dims(torch.float32)``); returns their ``(nat, tr)`` pairs."""
     B, _, H, D = specs[0][0].shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"tf32 split takes head_dim a multiple of 128 up to "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    if D not in head_dims(torch.float32):
+        raise _width_error("tf32 split", torch.float32, D)
     args, outs = _SplitArgs(), []
     for i, (x, natural, transposed) in enumerate(specs):
         S = x.shape[1]
@@ -366,7 +385,7 @@ def flash_attention_split(x, natural: bool = True, transposed: bool = False):
     hi = x rounded to tf32 and lo = x - hi (exact in f32), so the tensor
     cores take its products as hi.hi' + hi.lo' + lo.hi' at f32 accuracy
     (3xTF32).  From ``x (B, S, H, D)`` f32 (read through its strides, D in
-    :data:`HEAD_DIMS`) returns ``(nat, tr)``: ``nat (2, B, H, S, D)`` the
+    ``head_dims(torch.float32)``) returns ``(nat, tr)``: ``nat (2, B, H, S, D)`` the
     natural hi and lo planes, ``tr (2, B, H, D, S)`` the transposed ones
     (the operand of a product that contracts over S, which tf32 ``wgmma``
     reads from shared memory only with S along the rows), whose S runs in
@@ -418,7 +437,7 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None,
             out.data_ptr(), lse.data_ptr(), B, Sq, Skv, H, D,
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
-    _raise_for("flash_fwd", rc, D)
+    _raise_for("flash_fwd", rc, D, q.dtype)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -441,9 +460,8 @@ def flash_attention_delta(dout, out) -> torch.Tensor:
         raise TypeError(f"delta kernel takes bf16 or f32, got {dout.dtype}")
     if out.shape != dout.shape or out.dtype != dout.dtype or out.device != dout.device:
         raise ValueError("out must match dout's shape, dtype and device")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"delta kernel takes head_dim a multiple of 128 up to "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    if D not in head_dims(dout.dtype):
+        raise _width_error("delta kernel", dout.dtype, D)
     _check_rows_layout("dout", dout)
     _check_rows_layout("out", out)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dout.device)
@@ -501,7 +519,7 @@ def _launch_bwd(entry, q, k, v, kv_mask, causal, lse, delta, dout, outs):
             1 if q.dtype == torch.bfloat16 else 0, int(bool(causal)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3], stream)
-    _raise_for(entry, rc, D)
+    _raise_for(entry, rc, D, q.dtype)
 
 
 def flash_attention_dq(q, k, v, kv_mask, causal, lse, delta, dout

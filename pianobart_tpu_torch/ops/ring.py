@@ -29,8 +29,8 @@ block is staged through pinned host buffers (the transport ``rotate``
 reports); the kernels and all the arithmetic stay on the device.
 
 On CUDA the local shard must be a shape the kernels take (128-row multiples
-of at least 256, head width a multiple of 128 up to 2048): another raises, it
-never drops to plain attention.  On the CPU the wrappers run their plain versions, and
+of at least 256, head width a multiple of 128 up to 4096 in bf16 and 2048 in
+f32): another raises, it never drops to plain attention.  On the CPU the wrappers run their plain versions, and
 :func:`ring_attention_reference` runs the plain versions on any device.
 
 ``replicated_in``, ``psum_out`` and ``tp_slice`` are the explicit
@@ -46,11 +46,11 @@ import torch.distributed as dist
 
 from ..parallel.mesh import Axis, all_reduce_
 from .attention import _flash_eligible
-from .flash import (MAX_HEAD_DIM, _delta, _fused_eligible, flash_attention_bwd,
+from .flash import (_delta, _fused_eligible, flash_attention_bwd,
                     flash_attention_bwd_reference, flash_attention_delta,
                     flash_attention_dkv, flash_attention_dkv_reference,
                     flash_attention_dq, flash_attention_dq_reference,
-                    flash_attention_fwd, flash_attention_reference)
+                    flash_attention_fwd, flash_attention_reference, head_dims)
 
 __all__ = ["ring_attention", "ring_attention_reference", "rotate", "transport",
            "replicated_in", "psum_out", "tp_slice"]
@@ -200,8 +200,8 @@ def ring_attention(q, k, v, kv_mask: Optional[torch.Tensor], causal: bool,
     if q.is_cuda and not _flash_eligible(q, k, None):
         raise ValueError(
             f"ring attention on CUDA needs local shards the flash kernels take "
-            f"(128-row multiples of at least 256, head width a multiple of 128 "
-            f"up to {MAX_HEAD_DIM}); got q "
+            f"(128-row multiples of at least 256, {str(q.dtype)[6:]} head width a "
+            f"multiple of 128 up to {head_dims(q.dtype)[-1]}); got q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}")
     return _ring(q, k, v, kv_mask, causal, ax, _KERNELS)
 

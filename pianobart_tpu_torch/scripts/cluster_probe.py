@@ -1,6 +1,8 @@
 """The wide heads' cluster kernels on the card: their times at ``--heads 2``
-(D = 512, H = 2), at D = 384 and 1024 and at ``--hs 2048 --heads 1``'s
-widths (D = 1152, 1536, 2048) beside the D = 128 kernels, and
+(D = 512, H = 2), at D = 384 and 1024, at ``--hs 2048 --heads 1``'s
+widths (D = 1152, 1536, 2048) and, in bf16, at ``--hs 4096 --heads 1``'s
+(D = 2176, 3072, 4096: clusters of 9, 12 and 16 CTAs) beside the D = 128
+kernels, and
 where a warp's time goes in the score exchange that the clusters add
 (``csrc/hopper.cuh``): in bf16 K1's and the bf16 backward's (clusters of
 ceil(D/256) CTAs of their D = 256 designs, so one ``pair_round`` an
@@ -17,17 +19,20 @@ Prints the card's name and power limit, then:
 
 * CUDA-event means of K1, K3a (the dQ kernel) and K3b (the dK/dV kernel) at
   B=32, S=1024 in bf16 and B=8 in f32, with the pad mask of ``chip_smoke.py``,
-  at D = 128 (H = 8), 384 (H = 4), 512 (H = 2), 1024 (H = 1), and at B=16
+  at D = 128 (H = 8), 384 (H = 4), 512 (H = 2), 1024 (H = 1), at B=16
   bf16 and B=4 f32 at D = 1152, 1536 and 2048 (H = 1: clusters of 5, 6, 8
-  bf16 CTAs and 9, 12, 16 f32 ones), through the shipped library;
+  bf16 CTAs and 9, 12, 16 f32 ones), and at B=8 bf16 at D = 2176, 3072 and
+  4096 (9, 12, 16 CTAs), through the shipped library;
 * the exchange's choice at the largest clusters: the same kernels at
-  D = 2048 through the shipped library and through a copy of ``csrc``
-  built into ``build/cluster_probe/flip`` whose pair-round masks
-  (``K1W_PAIRS``, ``BWD_PAIRS``, ``FW_PAIRS``) take the other exchange at
-  8 CTAs (bf16) and 16 (f32): pair rounds where the shipped kernel runs
+  D = 2048 (bf16 8 CTAs, f32 16) and 4096 (bf16 16) through the shipped
+  library and through a copy of ``csrc`` built into
+  ``build/cluster_probe/flip`` whose pair-round masks (``K1W_PAIRS``,
+  ``BWD_PAIRS``, ``FW_PAIRS``) take the other exchange at 8 and 16 CTAs
+  (bf16) and 16 (f32): pair rounds where the shipped kernel runs
   ``cluster_sum`` and the other way round, timed in turns (shipped, other,
   other, shipped);
-* for the D = 384, 512, 1152, 1536 and 2048 calls (and f32 K1 at 1024),
+* for the D = 384, 512, 1152, 1536 and 2048 calls (and f32 K1 at 1024;
+  bf16 at 2176, 3072 and 4096),
   the counted library's time and the cycles a warp spends in each phase of
   one exchange (open, scatter, waiting for its units, reduce, waiting for
   the peers' reads, gather, waiting for the sums, reading them; a round of
@@ -67,20 +72,18 @@ NVCC = "/usr/local/cuda/bin/nvcc"
 PHASES = ("open", "scatter", "units wait", "reduce", "reads wait", "gather",
           "sums wait", "read sums")
 OUT = os.path.join(os.path.dirname(build._BUILD_DIR), "cluster_probe")
-# (file, a pair-round mask's line, the same with the other exchange at the
-# largest cluster: bf16 8 CTAs, f32 16)
-_FLIPS = (
-    ("flash_fwd_d256.cuh",
-     "constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4) | (1u << 8);",
-     "constexpr uint32_t K1W_PAIRS = (1u << 2) | (1u << 4);"),
-    ("flash_bwd.cu",
-     "constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) : "
-     "(1u << 2) | (1u << 4) | (1u << 8);",
-     "constexpr uint32_t BWD_PAIRS = DKV ? (1u << 2) | (1u << 4) | (1u << 8) : "
-     "(1u << 2) | (1u << 4);"),
-    ("flash_fwd.cu",
-     "constexpr uint32_t FW_PAIRS = (1u << 4) | (1u << 8);",
-     "constexpr uint32_t FW_PAIRS = (1u << 4) | (1u << 8) | (1u << 16);"))
+# (file, the start of a pair-round mask's definition, the cluster sizes at
+# which the flipped copy takes the other exchange: bf16 8 and 16 CTAs, f32 16)
+_FLIPS = (("flash_fwd_d256.cuh", "constexpr uint32_t K1W_PAIRS =", (8, 16)),
+          ("flash_bwd.cu", "constexpr uint32_t BWD_PAIRS =", (8, 16)),
+          ("flash_fwd.cu", "constexpr uint32_t FW_PAIRS =", (16,)))
+# the kernels whose exchange is flipped: (type, kernel, the file of its mask,
+# whether it is BWD_PAIRS<true>), at D = 2048 and (bf16) 4096; the f32
+# backward sums by cluster_sum at every n: nothing to flip
+_FLIPPED = ((torch.bfloat16, "K1", "flash_fwd_d256.cuh", False),
+            (torch.bfloat16, "K3a (dQ)", "flash_bwd.cu", False),
+            (torch.bfloat16, "K3b (dK/dV)", "flash_bwd.cu", True),
+            (torch.float32, "K1", "flash_fwd.cu", False))
 COPIES = 64     # copies of the 32 counters, one an SM modulo 64
 
 # (line of cluster_sum, the same with t[i] = clock64() at its phase's end)
@@ -214,26 +217,38 @@ def _counted_copy() -> str:
     return src
 
 
-# whether the shipped kernel sums by pair rounds at D = 2048 (bf16 8 CTAs,
-# f32 16), as the masks of _FLIPS' first lines say
-# f32 K1 (the f32 backward sums by cluster_sum at every n: nothing to flip)
-_PAIRS_SHIPPED = {(torch.bfloat16, "K1"): True, (torch.bfloat16, "K3a (dQ)"): True,
-                  (torch.bfloat16, "K3b (dK/dV)"): False, (torch.float32, "K1"): False}
+def _mask_expr(text, anchor):
+    """The C++ expression that defines the mask starting at ``anchor``."""
+    if text.count(anchor) != 1:
+        raise RuntimeError(f"{anchor!r} not found once")
+    return text[text.index(anchor) + len(anchor):].split(";", 1)[0]
+
+
+def _shipped_pairs(name, dkv, n) -> bool:
+    """Whether the shipped kernel whose mask is in ``name`` (the dK/dV one
+    where ``dkv``) sums by pair rounds at cluster size n."""
+    anchor = next(a for f, a, _ in _FLIPS if f == name)
+    with open(os.path.join(build._CSRC, name)) as f:
+        expr = _mask_expr(f.read(), anchor).replace("1u", "1")
+    if "?" in expr:             # DKV ? dK/dV's : dQ's
+        expr = expr.split("?", 1)[1].split(":", 1)[0 if dkv else 1]
+    return bool((eval(expr, {}) >> n) & 1)
 
 
 def _flipped_copy() -> str:
-    """``csrc`` copied to OUT/flip/csrc with :data:`_FLIPS` applied."""
+    """``csrc`` copied to OUT/flip/csrc with every mask of :data:`_FLIPS`
+    taking the other exchange at its sizes."""
     src = os.path.join(OUT, "flip", "csrc")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build._CSRC, src)
-    for name, line, flipped in _FLIPS:
+    for name, anchor, sizes in _FLIPS:
         path = os.path.join(src, name)
         with open(path) as f:
             text = f.read()
-        if text.count(line) != 1:
-            raise RuntimeError(f"{name} has changed: {line!r} not found once")
+        expr = _mask_expr(text, anchor)
+        flip = " | ".join(f"(1u << {n})" for n in sizes)
         with open(path, "w") as f:
-            f.write(text.replace(line, flipped))
+            f.write(text.replace(anchor + expr, f"{anchor} ({expr}) ^ ({flip})"))
     return src
 
 
@@ -297,29 +312,35 @@ def main() -> None:
              "K3b (dK/dV)": lambda a: flash.flash_attention_dkv(*a)}
     for dtype, B in ((torch.bfloat16, 32), (torch.float32, 8)):
         for H, D in ((8, 128), (4, 384), (2, 512), (1, 1024), (1, 1152), (1, 1536),
-                     (1, 2048)):
-            b = B if D <= 1024 else B // 2
+                     (1, 2048), (1, 2176), (1, 3072), (1, 4096)):
+            if D > flash.head_dims(dtype)[-1]:
+                continue
+            b = B if D <= 1024 else B // 2 if D <= 2048 else B // 4
             args = _case(b, dtype, H, D)
             times = ", ".join(f"{name} {_ms(lambda: fn(args)):.4f} ms"
                               for name, fn in calls.items())
             print(f"[cluster_probe] B={b} H={H} D={D} {str(dtype)[6:]}: {times}", flush=True)
     real = flash.build_kernel
     flipped = _counted_libs(_flipped_copy(), "flipped", counted=False)
-    for dtype, B in ((torch.bfloat16, 16), (torch.float32, 4)):
-        args = _case(B, dtype, 1, 2048)
-        for name, fn in calls.items():
-            if (dtype, name) not in _PAIRS_SHIPPED:
+    for dtype, B, D in ((torch.bfloat16, 16, 2048), (torch.bfloat16, 8, 4096),
+                        (torch.float32, 4, 2048)):
+        args = _case(B, dtype, 1, D)
+        n = (D + 255) // 256 if dtype == torch.bfloat16 else D // 128
+        for kind, name, source, dkv in _FLIPPED:
+            if kind != dtype:
                 continue
+            fn = calls[name]
             turns = []
             for who in ("shipped", "flipped", "flipped", "shipped"):
                 flash.build_kernel = (real if who == "shipped"
                                       else lambda n: flipped.get(n) or real(n))
                 turns.append(_ms(lambda: fn(args)))
             flash.build_kernel = real
-            shipped = "pair rounds" if _PAIRS_SHIPPED[dtype, name] else "cluster_sum"
-            other = "cluster_sum" if _PAIRS_SHIPPED[dtype, name] else "pair rounds"
-            print(f"[cluster_probe] {name} B={B} H=1 D=2048 {str(dtype)[6:]}: {shipped} "
-                  f"(shipped) {(turns[0] + turns[3]) / 2:.4f} ms ({turns[0]:.4f}, "
+            pairs = _shipped_pairs(source, dkv, n)
+            shipped = "pair rounds" if pairs else "cluster_sum"
+            other = "cluster_sum" if pairs else "pair rounds"
+            print(f"[cluster_probe] {name} B={B} H=1 D={D} ({n} CTAs) {str(dtype)[6:]}: "
+                  f"{shipped} (shipped) {(turns[0] + turns[3]) / 2:.4f} ms ({turns[0]:.4f}, "
                   f"{turns[3]:.4f}), {other} {(turns[1] + turns[2]) / 2:.4f} ms "
                   f"({turns[1]:.4f}, {turns[2]:.4f})", flush=True)
     libs = _counted_libs()
@@ -334,7 +355,8 @@ def main() -> None:
                 itertools.product(((torch.bfloat16, 32), (torch.float32, 8)),
                                   ((4, 384), (2, 512))), (((torch.float32, 8), (1, 1024)),),
                 itertools.product(((torch.bfloat16, 16), (torch.float32, 4)),
-                                  ((1, 1152), (1, 1536), (1, 2048)))):
+                                  ((1, 1152), (1, 1536), (1, 2048))),
+                itertools.product(((torch.bfloat16, 8),), ((1, 2176), (1, 3072), (1, 4096)))):
             args = _case(B, dtype, H, D)
             for name, fn in calls.items():
                 lib = libs["flash_fwd" if name == "K1" else "flash_bwd"]

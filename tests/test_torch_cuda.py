@@ -712,20 +712,23 @@ def test_flash_autograd_d256_runs_the_kernels(cuda):
 
 
 def test_flash_kernels_refuse_head_width_384(cuda):
-    """D=384 is taken now (a cluster of three CTAs: one launch, no refusal);
-    the kernels refuse the widths they still lack, past MAX_HEAD_DIM (the
-    message states the range) and off the 128 grid."""
-    q, k, v, _ = _inputs(cuda, torch.bfloat16, D=384)
-    before = flash_attention_fwd.launches
-    flash_attention_fwd(q, k, v)
-    flash_attention_delta(q, q)
-    torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
-    for d in (2176, 320):
-        q, k, v, _ = _inputs(cuda, torch.bfloat16, D=d)
-        with pytest.raises(ValueError, match="head_dim a multiple of 128 up to 2048"):
+    """D=384 is taken now (a cluster of three CTAs: one launch, no refusal),
+    and so is 2176 in bf16 (nine CTAs); the kernels refuse the widths they
+    still lack, past their type's MAX_HEAD_DIM (f32 2176, bf16 4224: the
+    message states the type's range) and off the 128 grid."""
+    for d, dtype in ((384, torch.bfloat16), (2176, torch.bfloat16)):
+        q, k, v, _ = _inputs(cuda, dtype, D=d)
+        before = flash_attention_fwd.launches
+        flash_attention_fwd(q, k, v)
+        flash_attention_delta(q, q)
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches == before + 1
+    for d, dtype, top in ((2176, torch.float32, 2048), (4224, torch.bfloat16, 4096),
+                          (320, torch.bfloat16, 4096)):
+        q, k, v, _ = _inputs(cuda, dtype, D=d)
+        with pytest.raises(ValueError, match=f"head_dim a multiple of 128 up to {top}"):
             flash_attention_fwd(q, k, v)
-        with pytest.raises(ValueError, match="head_dim"):
+        with pytest.raises(ValueError, match=f"up to {top}"):
             flash_attention_delta(q, q)
 
 
@@ -1289,12 +1292,16 @@ def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
 # the bf16 ones' (K1 and the backward), of ceil(D/256) CTAs of their D=256
 # designs (640: three CTAs, the last one's upper half past D; 1024: four,
 # summed in two pair rounds; 1152: five, the last one's upper half past D;
-# 2048: eight, in three pair rounds); the same tolerances as at D = 128.
+# 2048: eight, in three pair rounds); past 2048 bf16 alone (f32 stops there):
+# 2176, nine CTAs, the last one's upper half past D; 3072, twelve; 4096,
+# sixteen, the card's largest cluster; the same tolerances as at D = 128.
 WIDE_DS = [384, 512, 640, 1024, 1152, 1536, 2048]
+WIDE_BF16_DS = [2176, 3072, 4096]
+WIDE_CASES = ([(D, dtype) for D in WIDE_DS for dtype in DTYPES]
+              + [(D, torch.bfloat16) for D in WIDE_BF16_DS])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", WIDE_DS)
+@pytest.mark.parametrize("D,dtype", WIDE_CASES)
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, False),
     (3, 2, 320, 320, True), (1, 1, 64, 64, False)],
@@ -1313,8 +1320,7 @@ def test_flash_kernel_wide_matches_reference(cuda, B, H, Sq, Skv, causal, D, dty
     torch.testing.assert_close(lse, ref_lse, atol=ltol, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", WIDE_DS)
+@pytest.mark.parametrize("D,dtype", WIDE_CASES)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 @pytest.mark.parametrize("B,H,Sq,Skv,causal", [
     (2, 2, 256, 256, False), (2, 2, 256, 256, True), (2, 2, 192, 320, True),
@@ -1356,8 +1362,8 @@ def test_flash_kernels_wide_fully_masked_sample_and_strides(cuda, kernel, dtype)
     assert_bwd_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [384, 512])
+@pytest.mark.parametrize("D,dtype", [(D, dtype) for D in (384, 512) for dtype in DTYPES]
+                         + [(D, torch.bfloat16) for D in WIDE_BF16_DS])
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
     """Two runs give the same bits, and every CTA of a cluster holds the
@@ -1383,15 +1389,17 @@ def test_flash_kernels_wide_are_deterministic(cuda, kernel, D, dtype):
             assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (name, r)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", [384, 512, 640, 768, 1024, 1152, 2048])
+@pytest.mark.parametrize("D,dtype", [(D, dtype) for D in (384, 512, 640, 768, 1024, 1152, 2048)
+                                     for dtype in DTYPES]
+                         + [(D, torch.bfloat16) for D in WIDE_BF16_DS])
 @pytest.mark.parametrize("S,causal", [(320, False), (320, True), (1024, False)],
                          ids=["320", "320-causal", "1024"])
 def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal, dtype):
     """bf16 K1 and the bf16 backward (both clusters of ceil(D/256) CTAs of
     their D=256 designs: a pair at 384 and 512, three CTAs at 640 and 768,
     four at 1024, five at 1152 (``cluster_sum``), eight at 2048 (three pair
-    rounds), the last one's upper half past D at 384, 640 and 1152), the f32
+    rounds), nine at 2176, twelve at 3072 and sixteen at 4096, the last
+    one's upper half past D at 384, 640, 1152 and 2176), the f32
     K1 (D/128 CTAs, each consumer warpgroup summing its own score tile: pair
     rounds at 512, 1024 and 2048 (16 CTAs, a non-portable cluster),
     ``cluster_sum`` at 384, 640, 768 and 1152 (9 CTAs)) and the
@@ -1422,7 +1430,7 @@ def test_redesigned_wide_kernels_twin_blocks_and_determinism(cuda, D, S, causal,
                 assert torch.equal(x[..., :128], x[..., 128 * r:128 * (r + 1)]), (kernel, name, r)
 
 
-@pytest.mark.parametrize("D", [384, 640, 896, 1152])
+@pytest.mark.parametrize("D", [384, 640, 896, 1152, 2176, 3968])
 def test_wide_bf16_backward_repeats_its_bits_with_a_zero_filled_cta(cuda, D):
     """The bf16 dQ and dK/dV kernels at a width whose last CTA's upper half
     lies past D (that CTA loads half the bytes and runs ahead of its peers)
@@ -1463,6 +1471,22 @@ def test_wide_f32_kernels_repeat_their_bits(cuda, D):
         assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
+def test_bf16_clusters_of_9_to_16_are_held(cuda):
+    """Every bf16 cluster kernel at D = 2176 .. 4096 runs as ceil(D/256) =
+    9 .. 16 CTAs, sizes past the card's portable 8 that it must be allowed
+    (``hopper.cuh:max_active_clusters``): the card holds at least one such
+    cluster of each at every size."""
+    import ctypes
+    from pianobart_tpu_torch.ops.build import build_kernel
+    for lib, which in (("flash_fwd", 0), ("flash_bwd", 1), ("flash_bwd", 0)):
+        for D in range(2176, 4097, 256):
+            n = ctypes.c_int(0)
+            active = build_kernel(lib).pbt_cluster_occupancy(D, 1, which, ctypes.byref(n))
+            assert n.value == (D + 255) // 256 and active > 0, (lib, which, D, n.value, active)
+        n = ctypes.c_int(0)
+        assert build_kernel(lib).pbt_cluster_occupancy(2176, 0, which, ctypes.byref(n)) == 0
+
+
 def test_f32_clusters_of_16_are_held(cuda):
     """Every f32 cluster kernel at D = 2048 runs as 16 CTAs, a size past the
     card's portable 8 that it must be allowed (``hopper.cuh:
@@ -1478,8 +1502,7 @@ def test_f32_clusters_of_16_are_held(cuda):
             assert n.value == want and active > 0, (lib, which, dtype, n.value, active)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("D", WIDE_DS)
+@pytest.mark.parametrize("D,dtype", WIDE_CASES)
 def test_delta_and_split_kernels_wide_match_reference(cuda, D, dtype):
     """delta (a warp a row past D = 256) against its plain version on views
     of a wider tensor, and in f32 the prep (8 rows a CTA, of half the columns

@@ -53,9 +53,10 @@ def _t(*xs):
 
 def test_kernels_take_head_width_256():
     """D=256 is a width the kernels take, and so is the reference's 384 (a
-    cluster of three CTAs); past MAX_HEAD_DIM = 2048 is not yet."""
-    assert port_flash.HEAD_DIMS[:2] == (128, 256)
-    for d, ok in ((256, True), (384, True), (2176, False)):
+    cluster of three CTAs); past MAX_HEAD_DIM (2048 in f32, 4096 in bf16)
+    is not yet."""
+    assert port_flash.HEAD_DIMS[torch.float32][:2] == (128, 256)
+    for d, ok in ((256, True), (384, True), (4224, False)):
         q = torch.zeros(1, 256, 1, d)
         assert port_attention._flash_eligible(q, q, None) is ok
 

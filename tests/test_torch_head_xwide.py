@@ -239,16 +239,16 @@ def test_dot_product_attention_matches_jax_flash(causal):
 
 def test_ring_takes_2048_on_cuda_shards():
     """The ring's width check takes D=2048 on a CUDA shard (it raised before
-    this width was ported) and refuses 2176 with the range in its message;
-    the check comes before any device work, so stand-ins that say they are
-    on CUDA show it here."""
+    this width was ported) and refuses 2176 in f32 with the f32 range in its
+    message; the check comes before any device work, so stand-ins that say
+    they are on CUDA show it here."""
     from types import SimpleNamespace
     from pianobart_tpu_torch.ops import ring as port_ring
-    taken = SimpleNamespace(is_cuda=True, shape=(B, S, H, 2048))
+    taken = SimpleNamespace(is_cuda=True, shape=(B, S, H, 2048), dtype=torch.float32)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_ring, "_ring", lambda *a: "ring")
         assert port_ring.ring_attention(taken, taken, taken, None, False, None) == "ring"
-    wider = SimpleNamespace(is_cuda=True, shape=(B, S, H, 2176))
+    wider = SimpleNamespace(is_cuda=True, shape=(B, S, H, 2176), dtype=torch.float32)
     with pytest.raises(ValueError, match="multiple of 128 up to 2048"):
         port_ring.ring_attention(wider, wider, wider, None, False, None)
 
